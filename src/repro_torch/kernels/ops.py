@@ -1,0 +1,141 @@
+"""Public quantized-matmul and paged-attention ops, dispatched through
+``runtime.registry``: a CUDA tensor launches the hand-written kernel, a CPU
+tensor takes the plain PyTorch version (``kernels/ref.py``).
+
+Shapes and layouts are those of ``repro.kernels.ops``. Eager PyTorch has
+no trace, so ``op_calls()`` counts kernel **launches** (not call sites, as
+in the JAX package); ``ref_calls()`` counts calls of the plain versions.
+"""
+from __future__ import annotations
+
+import collections
+import functools
+
+import torch
+
+from repro_torch.core import spx
+from repro_torch.core.quantized import QuantizedTensor
+from repro_torch.runtime import registry
+
+from . import cuda_lib, ref
+from .paged_attention import paged_attention_cuda, paged_decode_ragged_cuda
+from .spx_matmul import spx_matmul_cuda
+
+__all__ = ["spx_matmul", "paged_attention", "paged_decode_ragged",
+           "op_calls", "ref_calls", "reset_op_calls"]
+
+_REF_CALLS: collections.Counter = collections.Counter()
+
+
+def op_calls() -> dict[str, int]:
+    """Kernel launches per op since the last ``reset_op_calls()``."""
+    return dict(cuda_lib.LAUNCHES)
+
+
+def ref_calls() -> dict[str, int]:
+    """Plain-version calls per op since the last ``reset_op_calls()``."""
+    return dict(_REF_CALLS)
+
+
+def reset_op_calls() -> None:
+    cuda_lib.LAUNCHES.clear()
+    _REF_CALLS.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def _lut(scheme: str, device: str) -> torch.Tensor:
+    return spx.codebook(spx.scheme_levels(scheme), device=device)
+
+
+# -- spx_matmul ---------------------------------------------------------------
+
+@registry.register("spx_matmul", "ref")
+def _spx_matmul_ref(x2, codes, scale, lut, *, packed):
+    _REF_CALLS["spx_matmul"] += 1
+    return ref.spx_matmul_ref(x2, codes, scale, lut, packed=packed)
+
+
+registry.register("spx_matmul", "cuda")(spx_matmul_cuda)
+
+
+def spx_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
+               impl: str = "auto") -> torch.Tensor:
+    """x: (..., K) @ dequant(qt: (K, N)) -> (..., N)."""
+    k_dim, n_dim = qt.logical_shape
+    _, fn = registry.resolve("spx_matmul", impl, x.device)
+    scale = qt.scale.reshape(1, n_dim).to(torch.float32)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k_dim).contiguous()
+    out = fn(x2, qt.codes, scale, _lut(qt.scheme, str(x.device)),
+             packed=qt.packed)
+    return out.reshape(*lead, n_dim)
+
+
+# -- paged_attention: single-token decode over the paged KV cache -------------
+
+@registry.register("paged_attention", "ref")
+def _paged_attention_ref(q4, k_pages, v_pages, block_table, ctx_len):
+    _REF_CALLS["paged_attention"] += 1
+    return ref.paged_attention_ref(q4, k_pages, v_pages, block_table, ctx_len)
+
+
+registry.register("paged_attention", "cuda")(paged_attention_cuda)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    ctx_len: torch.Tensor, *, impl: str = "auto"):
+    """Decode attention of one query token per sequence against its paged
+    KV context. q: (B, Hq, dh); pools (n_pages, Hkv, page_size, dh);
+    block_table (B, max_pages); ctx_len (B,) — positions < ctx_len are
+    attended, 0 = inactive row (zeros). Returns (B, Hq, dh)."""
+    b, hq, dh = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    _, fn = registry.resolve("paged_attention", impl, q.device)
+    q4 = q.reshape(b, hkv, hq // hkv, dh).contiguous()
+    out = fn(q4, k_pages, v_pages, block_table.to(torch.int32),
+             ctx_len.to(torch.int32))
+    return out.reshape(b, hq, dh)
+
+
+# -- paged_decode_ragged: one launch per layer per decode tick ----------------
+
+@registry.register("paged_decode_ragged", "ref")
+def _paged_decode_ragged_ref(q4, k_pages, v_pages, block_table, ctx_len,
+                             q_len, *, w):
+    _REF_CALLS["paged_decode_ragged"] += 1
+    return ref.paged_decode_ragged_ref(q4, k_pages, v_pages, block_table,
+                                       ctx_len, q_len, w=w)
+
+
+registry.register("paged_decode_ragged", "cuda")(paged_decode_ragged_cuda)
+
+
+def paged_decode_ragged(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_table: torch.Tensor,
+                        ctx_len: torch.Tensor, q_len: torch.Tensor, *,
+                        impl: str = "auto") -> torch.Tensor:
+    """Ragged decode-window attention, one launch for the whole batch.
+
+    q: (B, W, Hq, dh) — W window positions per slot; q_len: (B,) valid
+    window rows per slot (rows at positions >= q_len return exact zeros);
+    ctx_len: (B,) tokens already in the pages before the window (window
+    position i attends positions <= ctx_len + i). Pools: the dense
+    (n_pages, Hkv, page_size, dh) arrays. Returns (B, W, Hq, dh)."""
+    b, w, hq, dh = q.shape
+    hkv = k_pages.shape[1]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    rep = hq // hkv
+    _, fn = registry.resolve("paged_decode_ragged", impl, q.device)
+    # (B, W, Hq, dh) -> (B, Hkv, rep * w, dh), rep-major: row r * w + i is
+    # window position i of query head r under this KV head
+    q4 = q.reshape(b, w, hkv, rep, dh).permute(0, 2, 3, 1, 4) \
+          .reshape(b, hkv, rep * w, dh).contiguous()
+    out = fn(q4, k_pages, v_pages, block_table.to(torch.int32),
+             ctx_len.to(torch.int32), q_len.to(torch.int32), w=w)
+    # inverse of the rep-major packing
+    return out.reshape(b, hkv, rep, w, dh).permute(0, 3, 1, 2, 4) \
+              .reshape(b, w, hq, dh)

@@ -1,0 +1,118 @@
+"""Decoder-only language model over the paged state cache: init, the paged
+prefill/decode step, the fused decode tick, and the page copies the
+serving engine's preemption uses. Dense (``attn+dense``) patterns only.
+
+The page pools are updated in place; the step functions still return
+``(logits, caches)`` so callers read like the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.layers import (dense_init, embedding_apply,
+                                   embedding_init, norm_apply, norm_init)
+from repro_torch.nn.transformer import (slot_init_paged_cache, stack_init,
+                                        stack_paged)
+from repro_torch.runtime import Runtime, resolve_device
+
+__all__ = ["lm_init", "paged_init_caches", "lm_paged_step",
+           "lm_paged_fused_step", "paged_copy_page", "paged_gather_pages",
+           "paged_scatter_pages"]
+
+_PAGE_KEYS = ("kp", "vp")
+
+
+def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+            device=None) -> dict:
+    """Random params drawn from ``gen``, on ``device`` (``cuda`` unless
+    the caller asks for another; raises without a card). ``gen`` must
+    live on that device."""
+    device = resolve_device(device)
+    p = {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                dtype=dtype, device=device),
+        "stack": stack_init(gen, cfg, dtype=dtype, device=device),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
+                               device=device)
+    return p
+
+
+def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """Vocabulary logits: the tied ``h @ table.T`` (or the untied head) —
+    a plain product outside any kernel."""
+    if cfg.tie_embeddings:
+        return torch.matmul(h, params["embed"]["table"].to(h.dtype).T)
+    return torch.matmul(h, params["head"]["w"].to(h.dtype))
+
+
+def paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
+                      dtype=torch.float32, device="cpu") -> list:
+    """K/V page pools for every slot in the pattern."""
+    return [slot_init_paged_cache(slot, cfg, n_pages, page_size, dtype,
+                                  device)
+            for slot in cfg.pattern]
+
+
+def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, caches,
+                  cfg: ArchConfig, rt: Runtime):
+    """One paged engine step: the next C tokens of each sequence — a
+    prefill chunk (C > 1) or a decode step (C == 1).
+
+    tokens: (B, C) int (rows may be padded past ``n_valid``); ctx_len:
+    (B,) tokens already in the pages; block_table: (B, max_pages);
+    n_valid: (B,) valid tokens in this chunk (0 = inactive row). Returns
+    (logits (B, V) at each row's last valid position, caches)."""
+    x = embedding_apply(params["embed"], tokens)
+    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
+                            n_valid, cfg, rt, caches)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    last = torch.clamp(n_valid.long() - 1, 0, tokens.shape[1] - 1)
+    h_last = h[torch.arange(h.shape[0], device=h.device), last]
+    return _head(params, cfg, h_last), caches
+
+
+def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
+                        caches, cfg: ArchConfig, rt: Runtime):
+    """One fused decode tick: every layer's attention is ONE
+    ``paged_decode_ragged`` launch over the batch's ragged (slot,
+    attend_len) grid. tokens (B, W) is each row's window, padded past
+    ``n_valid``; logits come back at every window position, (B, W, V).
+    Rows past ``n_valid`` carry garbage logits — never read."""
+    x = embedding_apply(params["embed"], tokens)
+    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
+                            n_valid, cfg, rt, caches, fused=True)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _head(params, cfg, h), caches
+
+
+def paged_copy_page(caches, src: int, dst: int):
+    """Copy physical page ``src`` -> ``dst`` across every layer and head,
+    in place."""
+    for slot_cache in caches:
+        for k in _PAGE_KEYS:
+            slot_cache[k][:, dst] = slot_cache[k][:, src]
+    return caches
+
+
+def paged_gather_pages(caches, pages: torch.Tensor) -> list:
+    """Whole physical pages across every pool leaf: the preemption
+    snapshot. Each (P, n_pages, Hkv, ps, dh) pool yields
+    (P, n, Hkv, ps, dh)."""
+    idx = pages.long()
+    return [{k: slot_cache[k][:, idx] for k in _PAGE_KEYS}
+            for slot_cache in caches]
+
+
+def paged_scatter_pages(caches, pages: torch.Tensor, payload):
+    """Write snapshotted pages back into the pools, in place — the inverse
+    of ``paged_gather_pages``."""
+    idx = pages.long()
+    for slot_cache, pay in zip(caches, payload):
+        for k in _PAGE_KEYS:
+            leaf = slot_cache[k]
+            leaf[:, idx] = torch.as_tensor(pay[k]).to(leaf.device, leaf.dtype)
+    return caches

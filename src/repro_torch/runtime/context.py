@@ -1,0 +1,40 @@
+"""The frozen execution context threaded through every layer.
+
+  impl       kernel impl: auto | cuda | ref (``runtime.registry``)
+  q_chunk    query chunk of the attention paths that have one
+  kv_quant   quantized KV cache (not in this port yet: serving rejects it)
+  kv_scheme  core/spx scheme of the quantized KV cache
+  device     where params, caches and activations live. ``"cuda"`` by
+             default; the CPU is taken only when asked for
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["Runtime", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller asks
+    for another. Raises when it would need a card and none is visible —
+    an entry point never carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    impl: str = "auto"
+    q_chunk: int = 1024
+    kv_quant: bool = False
+    kv_scheme: str = "uniform8"
+    device: str = "cuda"
+
+    def replace(self, **kw) -> "Runtime":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,100 @@
+"""What the serving engine plans: the KV page size and the per-sequence
+page reservations.
+
+The page size follows a Hopper rule in place of the TPU's sublane and VMEM
+model. The paged-decode kernel (``kernels/csrc/paged_decode.cu``) runs one
+block per (slot, KV head) and stages one K page and one V page of that
+head in shared memory per step of its page loop. The rule: the largest
+power-of-two page, from 8 to 256 tokens, whose K+V pair for one (slot, KV
+head) fits ``PAGE_PAIR_SMEM_BYTES`` (32 KiB). With the query rows, the
+accumulator and the scores beside it a block then stays near 48 KiB, so
+four blocks share one SM's 228 KB. Larger pages mean fewer trips of the
+page loop (each trip synchronises the block four times); the waste is at
+most one partly filled page per sequence. For gemma-2b (head_dim 256, f32
+pages) the rule gives 16 tokens per page; for head_dim 128, 32.
+
+``plan_seq_pages``, ``plan_resume_pages`` and ``plan_seq_state`` are the
+reference's integer page math, verbatim.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+
+__all__ = ["KVPagePlan", "plan_kv_pages", "plan_seq_pages",
+           "plan_resume_pages", "StateReservation", "plan_seq_state",
+           "PAGE_PAIR_SMEM_BYTES"]
+
+#: shared-memory budget of one K page + one V page of one (slot, KV head)
+PAGE_PAIR_SMEM_BYTES = 32 * 1024
+
+#: tokens-per-page candidates, ascending
+_PAGE_CANDIDATES = (8, 16, 32, 64, 128, 256)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVPagePlan:
+    """page_size   tokens per page: the unit the paged-decode kernel stages
+                   per step AND the allocator's granularity
+    smem_bytes  bytes of the K+V page pair one block stages"""
+    page_size: int
+    smem_bytes: int
+
+
+def plan_kv_pages(dh: int, *, act_bytes: int = 4) -> KVPagePlan:
+    """Tokens per page for a KV head of ``dh`` elements of ``act_bytes``
+    each. ``REPRO_PAGE_SIZE=N`` pins the page size."""
+    pinned = os.environ.get("REPRO_PAGE_SIZE")
+    if pinned:
+        ps = int(pinned)
+        return KVPagePlan(ps, 2 * ps * dh * act_bytes)
+    fits = [ps for ps in _PAGE_CANDIDATES
+            if 2 * ps * dh * act_bytes <= PAGE_PAIR_SMEM_BYTES]
+    ps = fits[-1] if fits else _PAGE_CANDIDATES[0]
+    return KVPagePlan(ps, 2 * ps * dh * act_bytes)
+
+
+def plan_seq_pages(n_tokens: int, page_size: int, *,
+                   shared_tokens: int = 0) -> int:
+    """Fresh pages a sequence must reserve at admission:
+    ``ceil(n_tokens / page_size)`` less the ``shared_tokens // page_size``
+    pages a matched shared prefix maps in (a partly reused last page is
+    billed as fresh: it is the copy-on-write destination)."""
+    if page_size < 1 or n_tokens < 0 or not 0 <= shared_tokens <= n_tokens:
+        raise ValueError((n_tokens, page_size, shared_tokens))
+    return -(-n_tokens // page_size) - shared_tokens // page_size
+
+
+def plan_resume_pages(n_written: int, n_total: int,
+                      page_size: int) -> tuple[int, int]:
+    """Page plan for resuming a preempted sequence:
+    ``(pages_total, pages_restored)`` — the full worst-case reservation,
+    and its leading slice that covers the ``n_written`` tokens in the
+    cache at preemption (the rest restores as blank pages)."""
+    if not 0 <= n_written <= n_total:
+        raise ValueError((n_written, n_total, page_size))
+    return (plan_seq_pages(n_total, page_size),
+            plan_seq_pages(n_written, page_size))
+
+
+@dataclasses.dataclass(frozen=True)
+class StateReservation:
+    """Per-sequence admission footprint across the StateCache regions:
+    ``pages`` of token-paged KV, ``slabs`` of recurrent state (0 or 1),
+    ``cross`` read-only encoder-output entries (0 or 1)."""
+    pages: int
+    slabs: int
+    cross: int
+
+
+def plan_seq_state(n_tokens: int, page_size: int, *,
+                   shared_tokens: int = 0, needs_pages: bool = True,
+                   needs_slab: bool = False,
+                   needs_cross: bool = False) -> StateReservation:
+    """Admission reservation for one sequence under the unified state
+    cache (pages, plus one slab and one cross entry where needed)."""
+    pages = plan_seq_pages(n_tokens, page_size,
+                           shared_tokens=shared_tokens) if needs_pages \
+        else 0
+    return StateReservation(pages=pages, slabs=int(bool(needs_slab)),
+                            cross=int(bool(needs_cross)))

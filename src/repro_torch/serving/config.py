@@ -1,0 +1,154 @@
+"""One frozen config object for every serving knob.
+
+``ServeConfig.resolve(cfg)`` is the only place env fallbacks are read and
+cross-knob checks run, as in ``repro.serving.config``; it returns a fully
+resolved copy. Same fields, env knobs and defaults as the reference.
+
+This port serves one path: paged KV in f32, the fused decode tick,
+``cb`` or ``fifo`` scheduling, one device, ``attn+dense`` patterns. A knob
+that asks **explicitly** for something else raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it. An env-enabled default degrades
+silently to the served path, as an env default degrades in the reference
+where the layout cannot support it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+__all__ = ["ServeConfig", "DEFAULT_PREFILL_CHUNK"]
+
+#: chunk length for chunked prefill when the caller doesn't pass one;
+#: REPRO_PREFILL_CHUNK=N overrides. Ragged final chunks pad up to the next
+#: power of two.
+DEFAULT_PREFILL_CHUNK = 32
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md: {item})")
+
+
+def _torch_dtype(d) -> torch.dtype:
+    if isinstance(d, torch.dtype):
+        return d
+    dt = getattr(torch, str(d), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown kv_cache_dtype {d!r}")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Every ServeEngine knob, in one frozen object (the reference's
+    fields). Construct with any subset and let ``resolve()`` fill the
+    rest."""
+    batch_slots: int = 4
+    max_seq: int = 256
+    quantize: Optional[str] = "sp2_4"
+    seed: int = 0
+    kv_layout: str = "auto"
+    page_size: Optional[int] = None
+    pool_pages: Optional[int] = None
+    prefill_chunk: Optional[int] = None
+    kv_cache_dtype: Any = "float32"
+    prefix_cache: Optional[bool] = None
+    spec_decode: Optional[bool] = None
+    spec_k: Optional[int] = None
+    fused_decode: Optional[bool] = None
+    scheduler: Optional[str] = None
+    host_pages: Optional[int] = None
+    prefix_cache_pages: Optional[int] = None
+    shards: Optional[int] = None
+    replicas: Optional[int] = None
+    resolved: bool = False
+
+    def replace(self, **kw) -> "ServeConfig":
+        """Keyword field replacement; the copy must be resolved again."""
+        kw.setdefault("resolved", False)
+        return dataclasses.replace(self, **kw)
+
+    def resolve(self, cfg: ArchConfig) -> "ServeConfig":
+        """A fully resolved copy for ``cfg``. Idempotent."""
+        if self.resolved:
+            return self
+        if cfg.enc_dec or any(s != "attn+dense" for s in cfg.pattern):
+            raise _not_ported(
+                f"serving pattern {cfg.pattern} (enc_dec={cfg.enc_dec})",
+                "the other architecture families")
+        if self.batch_slots < 1:
+            raise ValueError(
+                f"batch_slots must be >= 1, got {self.batch_slots}")
+        if self.max_seq < 1:
+            raise ValueError(f"max_seq must be >= 1, got {self.max_seq}")
+
+        kv_layout = "paged" if self.kv_layout == "auto" else self.kv_layout
+        if kv_layout == "dense":
+            raise _not_ported("kv_layout='dense'", "the dense KV layout")
+        if kv_layout != "paged":
+            raise ValueError(
+                f"kv_layout must be 'paged', 'dense' or 'auto', "
+                f"got {kv_layout!r}")
+
+        if self.prefix_cache:
+            raise _not_ported("prefix_cache=True", "prefix cache")
+        # REPRO_PREFIX_CACHE=1 degrades silently: nothing to read
+
+        explicit_off = self.spec_decode is False and self.spec_k in (None, 0)
+        if not explicit_off and (self.spec_decode is not None
+                                 or self.spec_k is not None):
+            raise _not_ported("speculative decoding (spec_decode / spec_k)",
+                              "speculative decoding")
+        # REPRO_SPEC_K=N degrades silently to no speculation
+
+        if self.fused_decode is False:
+            raise _not_ported("fused_decode=False (the unfused decode tick)",
+                              "the unfused decode path")
+        # REPRO_FUSED_DECODE=0 degrades silently to the fused tick
+
+        scheduler = (self.scheduler
+                     or os.environ.get("REPRO_SCHEDULER", "") or "cb")
+        if scheduler not in ("fifo", "cb"):
+            raise ValueError(
+                f"scheduler must be 'fifo' or 'cb', got {scheduler!r} "
+                "(check REPRO_SCHEDULER)")
+
+        env_host = os.environ.get("REPRO_HOST_PAGES", "")
+        host_pages = self.host_pages
+        if host_pages is None and env_host:
+            host_pages = int(env_host)
+        if self.prefix_cache_pages is not None:
+            raise _not_ported("prefix_cache_pages", "prefix cache")
+
+        prefill_chunk = (self.prefill_chunk
+                         or int(os.environ.get("REPRO_PREFILL_CHUNK", 0))
+                         or DEFAULT_PREFILL_CHUNK)
+        if prefill_chunk < 1:
+            raise ValueError(
+                f"prefill_chunk must be >= 1, got {prefill_chunk} "
+                "(check REPRO_PREFILL_CHUNK)")
+
+        for knob in ("shards", "replicas"):
+            val = getattr(self, knob)
+            if val is not None and val < 1:
+                raise ValueError(f"{knob} must be >= 1, got {val}")
+            if val is not None and val > 1:
+                raise _not_ported(f"{knob}={val}", "multi-device and drivers")
+        # REPRO_SHARDS / REPRO_REPLICAS degrade silently to one device
+
+        kv_cache_dtype = _torch_dtype(self.kv_cache_dtype)
+        if kv_cache_dtype != torch.float32:
+            raise _not_ported(f"kv_cache_dtype={kv_cache_dtype}",
+                              "the other KV cache dtypes")
+
+        return dataclasses.replace(
+            self, kv_layout=kv_layout, kv_cache_dtype=kv_cache_dtype,
+            prefix_cache=False, spec_decode=False, spec_k=0,
+            fused_decode=True, scheduler=scheduler, host_pages=host_pages,
+            prefix_cache_pages=None, prefill_chunk=prefill_chunk, shards=1,
+            replicas=1, resolved=True)

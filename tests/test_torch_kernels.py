@@ -1,0 +1,202 @@
+"""The port's kernel ops against the JAX reference on the CPU, where they
+take their plain PyTorch versions; the JAX side runs the Pallas kernel
+bodies in interpret mode. One test, marked ``gpu``, holds each CUDA
+kernel against its plain version on the card and skips without one:
+
+    python -m pytest -m gpu tests/test_torch_kernels.py
+
+JAX is imported inside a fixture, so the file also collects where JAX is
+not installed (the card's machine)."""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import quantized as tq
+from repro_torch.kernels import ops, ref
+from repro_torch.runtime import registry
+
+
+@pytest.fixture(scope="module")
+def jx():
+    import jax.numpy as jnp
+    from repro.core import quantized as jq
+    from repro.kernels import ops as jops
+    return types.SimpleNamespace(jnp=jnp, jq=jq, ops=jops)
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("scheme,lead", [("sp2_4", (5,)), ("sp2_4", (2, 3)),
+                                         ("sp2_8", (5,)), ("sp2_8", (1,))])
+def test_spx_matmul_matches_interpret_kernel(jx, scheme, lead):
+    rng = np.random.default_rng(len(lead) + len(scheme))
+    k, n = 256, 384
+    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
+    x = rng.standard_normal(lead + (k,)).astype(np.float32)
+    jqt = jx.jq.quantize_weight(jx.jnp.asarray(w), scheme)
+    want = np.asarray(jx.ops.spx_matmul(jx.jnp.asarray(x), jqt,
+                                        impl="interpret"))
+    tqt = tq.QuantizedTensor(_t(jqt.codes), _t(jqt.scale), scheme,
+                             bool(jqt.packed))
+    assert tqt.packed == (scheme == "sp2_4")
+    ops.reset_op_calls()
+    got = ops.spx_matmul(torch.from_numpy(x), tqt).numpy()
+    assert got.shape == lead + (n,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # a CPU tensor takes the plain version; nothing launched
+    assert ops.ref_calls() == {"spx_matmul": 1}
+    assert ops.op_calls() == {}
+
+
+def _pools(rng, b, hkv, ps, max_pages, dh):
+    n_pages = 1 + b * max_pages
+    kp = rng.standard_normal((n_pages, hkv, ps, dh)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, hkv, ps, dh)).astype(np.float32)
+    bt = rng.integers(0, n_pages, (b, max_pages)).astype(np.int32)
+    return kp, vp, bt
+
+
+@pytest.mark.parametrize("w,ctx,qlen", [
+    (4, [0, 7, 8, 9], [0, 1, 3, 4]),          # q_len 0..w, page straddles
+    (1, [0, 7, 8, 25], [0, 1, 1, 1]),         # plain decode window
+    (3, [16, 3, 15, 0], [2, 3, 0, 1]),
+])
+def test_paged_decode_ragged_matches_interpret_kernel(jx, w, ctx, qlen):
+    rng = np.random.default_rng(11 + w)
+    b, hq, hkv, dh, ps, mp = 4, 4, 2, 32, 8, 4
+    kp, vp, bt = _pools(rng, b, hkv, ps, mp, dh)
+    q = rng.standard_normal((b, w, hq, dh)).astype(np.float32)
+    args = (q, kp, vp, bt, np.asarray(ctx, np.int32),
+            np.asarray(qlen, np.int32))
+    want = np.asarray(jx.ops.paged_decode_ragged(
+        *(jx.jnp.asarray(a) for a in args), impl="interpret"))
+    got = ops.paged_decode_ragged(*(torch.from_numpy(a) for a in args)).numpy()
+    assert got.shape == (b, w, hq, dh)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    for row, n in enumerate(qlen):
+        assert (got[row, n:] == 0).all()       # exact zeros past q_len
+        if n:
+            assert (got[row, :n] != 0).any()
+
+
+def test_paged_attention_matches_interpret_kernel(jx):
+    rng = np.random.default_rng(5)
+    b, hq, hkv, dh, ps, mp = 4, 4, 2, 32, 8, 3
+    kp, vp, bt = _pools(rng, b, hkv, ps, mp, dh)
+    q = rng.standard_normal((b, hq, dh)).astype(np.float32)
+    ctx = np.asarray([0, 1, ps, 2 * ps + 3], np.int32)
+    args = (q, kp, vp, bt, ctx)
+    want = np.asarray(jx.ops.paged_attention(
+        *(jx.jnp.asarray(a) for a in args), impl="interpret"))
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got[0] == 0).all()                 # ctx_len == 0 -> zeros
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never run a plain version themselves: given CPU
+    tensors they raise before touching nvcc or the card."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    x = torch.zeros((2, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        spx_matmul_cuda(x, torch.zeros((8, 2), dtype=torch.uint8),
+                        torch.ones((1, 4)), torch.zeros(16), packed=True)
+    q = torch.zeros((1, 1, 2, 32))
+    pool = torch.zeros((2, 1, 8, 32))
+    bt = torch.zeros((1, 2), dtype=torch.int32)
+    one = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_decode_ragged_cuda(q, pool, pool, bt, one, one, w=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_cuda(q, pool, pool, bt, one)
+
+
+def test_page_size_rule(monkeypatch):
+    """K+V pages of one (slot, KV head) fit 32 KiB of shared memory."""
+    from repro_torch.runtime import planner
+    monkeypatch.delenv("REPRO_PAGE_SIZE", raising=False)
+    assert planner.plan_kv_pages(256).page_size == 16        # gemma-2b
+    assert planner.plan_kv_pages(128).page_size == 32
+    assert planner.plan_kv_pages(32).page_size == 128
+    for dh in (32, 64, 128, 256):
+        plan = planner.plan_kv_pages(dh)
+        assert plan.smem_bytes == 2 * plan.page_size * dh * 4 \
+            <= planner.PAGE_PAIR_SMEM_BYTES
+    monkeypatch.setenv("REPRO_PAGE_SIZE", "8")
+    assert planner.plan_kv_pages(256).page_size == 8
+
+
+def test_cuda_impl_on_cpu_tensors_raises():
+    with pytest.raises(registry.KernelUnavailable, match="CUDA"):
+        registry.resolve("spx_matmul", "cuda", torch.device("cpu"))
+    assert registry.resolve("spx_matmul", "auto", torch.device("cpu"))[0] \
+        == "ref"
+    assert set(registry.registered_ops()) >= {
+        "spx_matmul", "paged_attention", "paged_decode_ragged"}
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions(cuda):
+    from repro_torch.core import spx
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+        lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
+        for m, k, n in ((1, 64, 96), (37, 300, 130), (130, 1024, 512)):
+            codes = torch.randint(0, 16 if packed else 256,
+                                  (k, n // 2 if packed else n),
+                                  generator=gen, device=cuda,
+                                  dtype=torch.int32).to(torch.uint8)
+            scale = torch.rand((1, n), generator=gen, device=cuda)
+            x = torch.randn((m, k), generator=gen, device=cuda)
+            got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+            want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for dh, rep, w in ((128, 4, 8), (256, 8, 1), (64, 2, 5), (32, 1, 3)):
+        b, hkv, ps, mp = 3, 2, 16, 4
+        kp = torch.randn((1 + b * mp, hkv, ps, dh), generator=gen,
+                         device=cuda)
+        vp = torch.randn_like(kp)
+        bt = torch.randint(0, 1 + b * mp, (b, mp), generator=gen,
+                           device=cuda, dtype=torch.int32)
+        ctx = torch.tensor([0, ps - 1, 2 * ps + 1], dtype=torch.int32,
+                           device=cuda)
+        qn = torch.tensor([0, 1, w], dtype=torch.int32, device=cuda)
+        q = torch.randn((b, hkv, rep * w, dh), generator=gen, device=cuda)
+        got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+        want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=w)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+        assert (got[0] == 0).all()
+        q1 = q[:, :, :rep].contiguous()
+        got = paged_attention_cuda(q1, kp, vp, bt, ctx)
+        want = ref.paged_attention_ref(q1, kp, vp, bt, ctx)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_ragged_cuda(torch.zeros((1, 1, 1, 48), device=cuda),
+                                 torch.zeros((2, 1, 8, 48), device=cuda),
+                                 torch.zeros((2, 1, 8, 48), device=cuda),
+                                 torch.zeros((1, 2), dtype=torch.int32,
+                                             device=cuda),
+                                 torch.ones(1, dtype=torch.int32, device=cuda),
+                                 torch.ones(1, dtype=torch.int32, device=cuda),
+                                 w=1)

@@ -1,0 +1,196 @@
+"""The port's serving engine against ``repro.serving.ServeEngine`` on the
+pinned workload (reduced gemma-2b, vocab 32, head_dim 128, seed 3; page
+size pinned in both engines): greedy outputs are identical under the cb
+and fifo schedulers, with preemption and host offload, and with weights
+the port quantizes itself or that JAX quantized and the port carried over.
+Also: knobs this port lacks raise, entry points never fall back quietly
+to the CPU, and importing the port loads neither JAX nor ``repro``."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.models import lm as jlm
+from repro.nn.layers import quantize_params as jquantize
+from repro.runtime import Runtime as JRuntime
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServeConfig as JServeConfig
+from repro.serving.engine import ServeEngine as JServeEngine
+from repro_torch.configs import get_config as tget_config
+from repro_torch.configs import reduced as treduced
+from repro_torch.interop import params_from_reference
+from repro_torch.kernels import ops
+from repro_torch.models.lm import lm_init
+from repro_torch.runtime import Runtime
+from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+CPU = Runtime(device="cpu")
+KNOBS = dict(batch_slots=2, max_seq=64, page_size=8)
+NEW = 8
+LENS = (33, 1, 12, 20, 5)           # 33 and 1 end in a one-token chunk
+
+
+def _cfg(pkg_get, pkg_reduced):
+    return dataclasses.replace(pkg_reduced(pkg_get("gemma-2b"), vocab=32),
+                               head_dim=128)
+
+
+@pytest.fixture(scope="module")
+def workload():
+    """The reference's greedy outputs, computed once."""
+    cfg = _cfg(get_config, reduced)
+    params = jlm.lm_init(jax.random.PRNGKey(3), cfg)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LENS]
+    eng = JServeEngine(params, cfg, JServeConfig(**KNOBS),
+                       rt=JRuntime(impl="ref", q_chunk=16))
+    for i, p in enumerate(prompts):
+        eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
+    want = {r.rid: list(r.output) for r in eng.run()}
+    return dict(cfg=_cfg(tget_config, treduced), params=params,
+                prompts=prompts, want=want)
+
+
+def _serve(params, cfg, prompts, config, *, priority_at=None):
+    eng = ServeEngine(params, cfg, config, rt=CPU)
+    for i, p in enumerate(prompts):
+        if i != priority_at:
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW))
+    if priority_at is not None:
+        for _ in range(3):
+            eng.step()
+        eng.submit(Request(rid=priority_at, prompt=prompts[priority_at],
+                           max_new_tokens=NEW, priority=1))
+    out = {r.rid: list(r.output) for r in eng.run()}
+    return out, eng.metrics()
+
+
+@pytest.mark.parametrize("scheduler", ["cb", "fifo"])
+def test_greedy_matches_reference(workload, scheduler):
+    ops.reset_op_calls()
+    out, m = _serve(params_from_reference(workload["params"]),
+                    workload["cfg"], workload["prompts"],
+                    ServeConfig(scheduler=scheduler, **KNOBS))
+    assert out == workload["want"]
+    assert m["scheduler"] == scheduler and m["fused_decode"]
+    # CPU tensors: every op took its plain version, one-token chunks too
+    assert set(ops.ref_calls()) == {"spx_matmul", "paged_attention",
+                                    "paged_decode_ragged"}
+    assert ops.op_calls() == {}
+
+
+def test_greedy_matches_reference_with_jax_quantized_weights(workload):
+    qparams = params_from_reference(jquantize(workload["params"], "sp2_4"))
+    out, _ = _serve(qparams, workload["cfg"], workload["prompts"],
+                    ServeConfig(quantize=None, **KNOBS))
+    assert out == workload["want"]
+
+
+def test_preemption_with_host_offload_keeps_greedy(workload):
+    # a pool of 13 pages holds two residents at most; a late priority-1
+    # request must preempt one (its written pages go to the host tier)
+    out, m = _serve(params_from_reference(workload["params"]),
+                    workload["cfg"], workload["prompts"],
+                    ServeConfig(pool_pages=13, **KNOBS), priority_at=3)
+    assert m["preemptions"] >= 1 and m["resumes"] == m["preemptions"]
+    assert m["offload_bytes"] > 0 and m["onload_bytes"] == m["offload_bytes"]
+    assert out == workload["want"]
+
+
+def test_sampling_is_per_request(workload):
+    """Sampled outputs depend on the request alone (its seed), not on
+    submit order or batch-mates."""
+    params = params_from_reference(workload["params"])
+    prompts = workload["prompts"][:3]
+
+    def run(order):
+        eng = ServeEngine(params, workload["cfg"], ServeConfig(**KNOBS),
+                          rt=CPU)
+        for i in order:
+            eng.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=6,
+                               temperature=0.9))
+        return {r.rid: list(r.output) for r in eng.run()}
+
+    assert run([0, 1, 2]) == run([2, 0, 1])
+
+
+def test_stream_and_cancel(workload):
+    params = params_from_reference(workload["params"])
+    eng = ServeEngine(params, workload["cfg"], ServeConfig(**KNOBS), rt=CPU)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=workload["prompts"][i],
+                           max_new_tokens=NEW))
+    eng.step()                                  # rids 0 and 1 resident
+    assert eng.cancel(1) is True and eng.cancel(2) is True
+    assert list(eng.stream(0)) == workload["want"][0]
+    eng.run()
+    assert eng.cancel(1) is False
+    assert [r.rid for r in eng.finished] == [0]
+    assert eng.pool.stats.pages_in_use == 0
+
+
+@pytest.mark.parametrize("config,rt", [
+    (ServeConfig(kv_layout="dense"), None),
+    (ServeConfig(prefix_cache=True), None),
+    (ServeConfig(spec_decode=True), None),
+    (ServeConfig(spec_k=3), None),
+    (ServeConfig(fused_decode=False), None),
+    (ServeConfig(shards=2), None),
+    (ServeConfig(replicas=2), None),
+    (ServeConfig(kv_cache_dtype="bfloat16"), None),
+    (ServeConfig(), Runtime(device="cpu", kv_quant=True)),
+])
+def test_knobs_this_port_lacks_raise(workload, config, rt):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServeEngine(params_from_reference(workload["params"]),
+                    workload["cfg"], config, rt=rt or CPU)
+
+
+def test_other_patterns_raise():
+    cfg = treduced(tget_config("xlstm-350m"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ServeConfig().resolve(cfg)
+
+
+def test_env_defaults_degrade_silently(workload, monkeypatch):
+    for var, val in (("REPRO_PREFIX_CACHE", "1"), ("REPRO_SPEC_K", "3"),
+                     ("REPRO_FUSED_DECODE", "0"), ("REPRO_SHARDS", "2"),
+                     ("REPRO_REPLICAS", "2")):
+        monkeypatch.setenv(var, val)
+    sc = ServeConfig(**KNOBS).resolve(workload["cfg"])
+    assert (sc.prefix_cache, sc.spec_decode, sc.spec_k) == (False, False, 0)
+    assert sc.fused_decode is True and (sc.shards, sc.replicas) == (1, 1)
+
+
+def test_default_device_without_card_raises(workload):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default device works")
+    params = params_from_reference(workload["params"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(params, workload["cfg"], ServeConfig(**KNOBS))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_init(torch.Generator(), workload["cfg"])
+
+
+def test_import_loads_neither_jax_nor_repro():
+    code = (
+        "import sys, pkgutil, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

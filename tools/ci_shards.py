@@ -40,6 +40,9 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_runtime.py",
         "tests/test_spx_quant.py",
         "tests/test_ssm.py",
+        "tests/test_torch_interop.py",
+        "tests/test_torch_kernels.py",
+        "tests/test_torch_spx.py",
     ],
     # serving engine + model-level serving paths
     "serving-models": [
@@ -52,6 +55,8 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_spec_decode.py",
         "tests/test_state_cache.py",
         "tests/test_streaming.py",
+        "tests/test_torch_lm.py",
+        "tests/test_torch_serving.py",
     ],
     # multi-device dry-runs + training loops — few long tests
     "system-training": [
