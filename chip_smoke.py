@@ -8,22 +8,33 @@ Phases, each printing JSON lines:
   1. device   the card, ``nvidia-smi``'s name and power limit, TF32 off;
   2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
   3. kernels  each hand-written kernel against its plain PyTorch version on
-              the card, at the shapes the serving path gives it;
+              the card, at the shapes the serving path gives it and on edge
+              rows (empty slots, ragged windows, ragged lengths);
   4. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
-              random weights from a seed, quantized to sp2_4) served by
-              ``ServeEngine(params, cfg, ServeConfig())``: 8 greedy requests
-              of 16 new tokens, one prompt of 33 tokens so that a one-token
-              prefill chunk reaches ``paged_attention``. Every kernel must
-              launch, and no plain version may run;
-  5. e2e      logits of one prefill chunk and one fused tick, kernels against
-              plain versions at full width; greedy tokens identical on the
-              pinned config (reduced gemma-2b, vocab 32, head_dim 128, seed 3);
+              random weights from a seed, quantized to sp2_4) served three
+              ways, each engine answering the same 8 greedy requests of 16
+              new tokens, one prompt of 33 tokens so that a one-token
+              prefill chunk reaches the single-token kernel:
+                paged   ``ServeEngine(params, cfg, ServeConfig())``;
+                quant   the same weights (``ServeConfig(quantize=None)``)
+                        with ``Runtime(kv_quant=True, kv_scheme="spx_8_x3")``:
+                        an SPx-coded KV cache;
+                dense   ``ServeConfig(kv_layout="dense", quantize=None)``:
+                        whole-prompt prefill through the flash kernel.
+              Every kernel of each path must launch, as often per tick or
+              per request as the path says, and no plain version may run;
+  5. e2e      full-width logits, kernels against plain versions: a prefill
+              chunk and a fused tick (f32 and coded pages), a one-token
+              chunk over coded pages, a dense prefill; greedy tokens
+              identical on the pinned config (reduced gemma-2b, vocab 32,
+              head_dim 128, seed 3) for each of the three paths;
   6. trace    torch.profiler over a serving run of 4 requests: the device's
               busy time and idle share, and device time by kernel name;
-  7. timing   each kernel per serving tick at the decode shapes (4 slots),
-              with CUDA events (``ms``) and the profiler's device time
-              (``device_ms``), beside its bound, its plain version and one
-              PyTorch library call that computes the same function.
+  7. timing   each kernel per serving tick (or per admitted request) at the
+              main path's shapes, with CUDA events (``ms``) and the
+              profiler's device time (``device_ms``), beside its bound, its
+              plain version and one PyTorch library call that computes the
+              same function.
 
 Exits non-zero on any failure, and when no CUDA device is visible or the
 package is missing. The last line is the device record.
@@ -181,7 +192,115 @@ def kernel_phase(torch, np) -> dict:
           "ctx0_rows_exact_zero": zeros, "ok": ok})
     require(ok, "paged_attention")
     worst["paged_attention"] = max(worst["paged_attention"], err)
+    worst.update(_quant_kernel_checks(torch, gen))
+    worst["flash_attention"] = _flash_kernel_checks(torch, gen)
     ops.reset_op_calls()
+    return worst
+
+
+def _attn_ok(torch, got, want) -> bool:
+    return bool(torch.isfinite(got).all()) and bool(
+        ((got - want).abs() <= ATTN_TOL * (1 + want.abs())).all())
+
+
+def _quant_kernel_checks(torch, gen) -> dict:
+    """Kernels 3 and 6 (code + scale pages) at gemma-2b's head shapes with
+    the quantized cache's page size, on edge rows, for two codebooks."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_quant_cuda, paged_decode_ragged_quant_cuda)
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    from repro_torch.runtime import planner
+
+    b, hkv, rep, dh, mp = 4, 1, 8, 256, 8
+    worst = {"paged_decode_ragged_quant": 0.0, "paged_attention_quant": 0.0}
+    for scheme in ("spx_8_x3", "uniform8"):
+        ps = planner.plan_kv_pages(dh, kv_scheme=scheme).page_size
+        n_pages = 1 + b * mp
+        lut = kv_lut(scheme, "cuda")
+        kc, ks = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                         generator=gen, device="cuda"),
+                             scheme)
+        vc, vs = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                         generator=gen, device="cuda"),
+                             scheme)
+        bt = torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+            :b * mp].reshape(b, mp).to(torch.int32) + 1
+        pools = (kc, ks, vc, vs, bt)
+        for w, ctx_l, qlens in (
+                (1, [0, ps - 1, ps, 3 * ps + 7], [0, 1, 1, 1]),
+                (4, [0, ps - 2, ps + 1, 5 * ps], [0, 1, 3, 4])):
+            q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                            device="cuda")
+            ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+            qn = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+            got = paged_decode_ragged_quant_cuda(q, *pools, ctx, qn, lut, w=w)
+            want = ref.paged_decode_ragged_quant_ref(q, *pools, ctx, qn, lut,
+                                                     w=w)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            rows_off = torch.arange(rep * w, device="cuda") % w >= qn[:, None]
+            zeros = bool((got.permute(0, 2, 1, 3)[rows_off] == 0).all())
+            ok = zeros and _attn_ok(torch, got, want)
+            emit({"phase": "kernel", "kernel": "paged_decode_ragged_quant",
+                  "scheme": scheme, "w": w, "page_size": ps, "ctx_len": ctx_l,
+                  "q_len": qlens, "max_abs_err": err,
+                  "max_rel_err": err / want.abs().max().item(),
+                  "tol": f"{ATTN_TOL} * (1 + |plain|)",
+                  "masked_rows_exact_zero": zeros, "ok": ok})
+            require(ok, f"paged_decode_ragged_quant {scheme} w={w}")
+            worst["paged_decode_ragged_quant"] = max(
+                worst["paged_decode_ragged_quant"], err)
+        q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
+        ctx_l = [0, 1, ps, 2 * ps + 3]
+        ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+        got = paged_attention_quant_cuda(q, *pools, ctx, lut)
+        want = ref.paged_attention_quant_ref(q, *pools, ctx, lut)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        zeros = bool((got[0] == 0).all())
+        ok = zeros and _attn_ok(torch, got, want)
+        emit({"phase": "kernel", "kernel": "paged_attention_quant",
+              "scheme": scheme, "page_size": ps, "ctx_len": ctx_l,
+              "max_abs_err": err,
+              "max_rel_err": err / want.abs().max().item(),
+              "tol": f"{ATTN_TOL} * (1 + |plain|)",
+              "ctx0_rows_exact_zero": zeros, "ok": ok})
+        require(ok, f"paged_attention_quant {scheme}")
+        worst["paged_attention_quant"] = max(worst["paged_attention_quant"],
+                                             err)
+    return worst
+
+
+def _flash_kernel_checks(torch, gen) -> float:
+    """Kernel 4 at the dense prefill's lengths (ragged ones included),
+    causal and not, at two head dims and two GQA groupings."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    worst = 0.0
+    for dh in (128, 256):
+        for rep in (1, 8):
+            for causal in (True, False):
+                errs = {}
+                for s in (1, 33, 128, 256):
+                    q = torch.randn((2, rep, s, dh), generator=gen,
+                                    device="cuda")
+                    k, v = (torch.randn((2, 1, s, dh), generator=gen,
+                                        device="cuda") for _ in range(2))
+                    got = flash_attention_cuda(q, k, v, causal=causal)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   q_chunk=s)
+                    torch.cuda.synchronize()
+                    errs[s] = (got - want).abs().max().item()
+                    require(_attn_ok(torch, got, want),
+                            f"flash_attention dh={dh} rep={rep} "
+                            f"causal={causal} S={s}")
+                emit({"phase": "kernel", "kernel": "flash_attention",
+                      "dh": dh, "rep": rep, "causal": causal,
+                      "max_abs_err_by_len": errs,
+                      "tol": f"{ATTN_TOL} * (1 + |plain|)", "ok": True})
+                worst = max(worst, *errs.values())
     return worst
 
 
@@ -201,10 +320,7 @@ def serve_phase(torch, np):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     peak_setup = torch.cuda.max_memory_allocated()
-    rng = np.random.default_rng(0)
-    lens = [33] + [int(n) for n in rng.integers(8, 33, N_REQUESTS - 1)]
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
+    lens, prompts = _prompts(np, cfg)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_op_calls()
     for i, p in enumerate(prompts):
@@ -241,6 +357,121 @@ def serve_phase(torch, np):
     return eng, launches, m
 
 
+def _prompts(np, cfg):
+    """The serve phase's 8 prompts: one of 33 tokens (its second chunk is
+    a one-token chunk), seven of 8 to 32."""
+    rng = np.random.default_rng(0)
+    lens = [33] + [int(n) for n in rng.integers(8, 33, N_REQUESTS - 1)]
+    return lens, [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                  for n in lens]
+
+
+def _serve_ticks(torch, eng, prompts, watch):
+    """Serve ``prompts`` through ``eng.step()`` until drained. The counts
+    are set to 0 just before and read just after. Returns (finished,
+    launches, plain calls, {op: launches of each tick that launched it})."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_op_calls()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    per_tick = {op: [] for op in watch}
+    prev = {}
+    while eng.has_work():
+        eng.step()
+        now = ops.op_calls()
+        for op in watch:
+            if now.get(op, 0) != prev.get(op, 0):
+                per_tick[op].append(now.get(op, 0) - prev.get(op, 0))
+        prev = now
+    torch.cuda.synchronize()
+    return eng.finished, ops.op_calls(), ops.ref_calls(), per_tick
+
+
+#: the quantized-KV path's codebook
+KV_SCHEME = "spx_8_x3"
+
+
+def serve_new_paths_phase(torch, np, params) -> dict:
+    """The SPx-coded KV cache (paged) and the dense layout, at full width,
+    on the quantized weights of the paged engine. Each engine is freed
+    before the next. Returns each path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config("gemma-2b")
+    lens, prompts = _prompts(np, cfg)
+    paths = {
+        "quant": (ServeConfig(quantize=None),
+                  Runtime(kv_quant=True, kv_scheme=KV_SCHEME),
+                  ("paged_decode_ragged_quant", "paged_attention_quant")),
+        "dense": (ServeConfig(kv_layout="dense", quantize=None), Runtime(),
+                  ("flash_attention",)),
+    }
+    out = {}
+    for path, (sc, rt, watch) in paths.items():
+        eng = ServeEngine(params, cfg, sc, rt=rt)
+        done, launches, plain, per_tick = _serve_ticks(torch, eng, prompts,
+                                                       watch)
+        m = eng.metrics()
+        require(len(done) == N_REQUESTS,
+                f"{path}: {len(done)} of {N_REQUESTS} finished")
+        for r in done:
+            require(len(r.output) == NEW_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in r.output),
+                    f"{path}: request {r.rid}: bad output {r.output}")
+        for op in ("spx_matmul",) + watch:
+            require(launches.get(op, 0) > 0, f"{path}: {op} never launched")
+        require(not plain, f"{path}: plain versions ran on the card: {plain}")
+        # one launch per layer in every tick that runs the op; the dense
+        # prefill runs once per admitted request
+        for op in watch:
+            require(all(n % cfg.n_layers == 0 for n in per_tick[op]),
+                    f"{path}: {op} launches per tick {per_tick[op]}")
+        if path == "quant":
+            require(set(per_tick["paged_decode_ragged_quant"])
+                    == {cfg.n_layers}, "quant: decode ticks")
+            require(set(per_tick["paged_attention_quant"])
+                    == {cfg.n_layers}, "quant: one-token prefill ticks")
+            unwanted = {"paged_decode_ragged", "paged_attention",
+                        "flash_attention"}
+        else:
+            require(launches["flash_attention"]
+                    == cfg.n_layers * N_REQUESTS, "dense: flash per request")
+            unwanted = {"paged_decode_ragged", "paged_attention",
+                        "paged_decode_ragged_quant", "paged_attention_quant"}
+        require(not unwanted & set(launches),
+                f"{path}: launched another path's kernels: {launches}")
+        emit({"phase": "serve", "path": path, "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size,
+              "config": {"quant": f"ServeConfig(quantize=None), Runtime("
+                                  f"kv_quant=True, kv_scheme='{KV_SCHEME}')",
+                         "dense": "ServeConfig(kv_layout='dense', "
+                                  "quantize=None)"}[path],
+              "kv_scheme": m["kv_scheme"],
+              "kv_cache_dtype": m["kv_cache_dtype"],
+              "page_size": m.get("page_size"),
+              "batch_slots": eng.batch_slots, "prompt_lens": lens,
+              "requests_finished": len(done),
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+              "model_calls": m["model_calls"],
+              "peak_kv_bytes": m["peak_kv_bytes"], "launches": launches,
+              "plain_calls": plain,
+              "launches_per_tick": {op: sorted(set(v))
+                                    for op, v in per_tick.items()},
+              "ticks_launching": {op: len(v) for op, v in per_tick.items()},
+              "max_memory_allocated_serve": torch.cuda.max_memory_allocated()})
+        out[path] = launches
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 #: logits: |cuda - plain| <= E2E_RTOL * max|plain logits|. 18 layers of f32
@@ -248,11 +479,23 @@ def serve_phase(torch, np):
 E2E_RTOL = 1e-3
 
 
+def _close(torch, name, got, want) -> None:
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= E2E_RTOL * peak
+    emit({"phase": "e2e", "what": f"gemma-2b full width {name} logits",
+          "shape": list(got.shape), "max_abs_err": err,
+          "max_rel_err": err / peak, "tol_rel": E2E_RTOL, "ok": ok})
+    require(ok, f"full-width {name} logits")
+
+
 def e2e_phase(torch, np, eng) -> None:
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core.quantized import QuantizedTensor
+    from repro_torch.nn.layers import tree_map
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.lm import lm_init
-    from repro_torch.runtime import Runtime
+    from repro_torch.runtime import Runtime, planner
     from repro_torch.serving import Request, ServeConfig, ServeEngine
 
     cfg = eng.cfg
@@ -265,28 +508,54 @@ def e2e_phase(torch, np, eng) -> None:
                       device="cuda").reshape(b, 4)
     ctx0 = torch.zeros(b, dtype=torch.int32, device="cuda")
     nv = torch.tensor([32, 20, 1, 0][:b], dtype=torch.int32, device="cuda")
+    act = (nv > 0).to(torch.int32)
+    # f32 pages: a prefill chunk, then a fused tick; coded pages: the same
+    # and then a one-token chunk (the single-token quantized kernel). The
+    # coded pages run on the dequantized weights: both arms then project
+    # through the same torch.matmul and quantize identical K/V, where the
+    # two spx_matmul arms' last-bit differences would flip codes at level
+    # midpoints; what differs is the attention kernels alone
+    dense_w = tree_map(lambda _, leaf: leaf.dequantize()
+                       if isinstance(leaf, QuantizedTensor) else leaf,
+                       eng.params)
+    for pools, params, kv_quant, page_size in (
+            ("", eng.params, False, eng.page_size),
+            ("coded-page (dequantized weights) ", dense_w, True,
+             planner.plan_kv_pages(cfg.dh, kv_scheme=KV_SCHEME).page_size)):
+        out = {}
+        for impl in ("cuda", "ref"):
+            rt = Runtime(impl=impl, kv_quant=kv_quant, kv_scheme=KV_SCHEME)
+            caches = lm_mod.paged_init_caches(cfg, n_pages, page_size,
+                                              kv_quant=kv_quant,
+                                              device="cuda")
+            pre, caches = lm_mod.lm_paged_step(params, tokens, ctx0, bt,
+                                               nv, caches, cfg, rt)
+            nxt = pre.argmax(-1)[:, None]
+            fused, caches = lm_mod.lm_paged_fused_step(
+                params, nxt, nv, bt, act, caches, cfg, rt)
+            out[impl] = [pre, fused]
+            if kv_quant:
+                one, _ = lm_mod.lm_paged_step(
+                    params, fused.argmax(-1), nv + act, bt, act, caches,
+                    cfg, rt)
+                out[impl].append(one)
+        torch.cuda.synchronize()
+        for i, name in enumerate(("prefill_chunk", "fused_tick",
+                                  "one_token_chunk")[:len(out["cuda"])]):
+            _close(torch, pools + name, out["cuda"][i], out["ref"][i])
+    del dense_w, out
+    torch.cuda.empty_cache()
+
+    # the dense layout: one whole-prompt prefill through the flash kernel
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 33)),
+                             device="cuda")
     out = {}
     for impl in ("cuda", "ref"):
-        rt = Runtime(impl=impl)
-        caches = lm_mod.paged_init_caches(cfg, n_pages, eng.page_size,
-                                          device="cuda")
-        pre, caches = lm_mod.lm_paged_step(eng.params, tokens, ctx0, bt, nv,
-                                           caches, cfg, rt)
-        nxt = pre.argmax(-1)[:, None]
-        fused, _ = lm_mod.lm_paged_fused_step(
-            eng.params, nxt, nv, bt, (nv > 0).to(torch.int32), caches, cfg,
-            rt)
-        out[impl] = (pre, fused)
+        caches = lm_mod.init_caches(cfg, 1, 64, device="cuda")
+        out[impl], _ = lm_mod.lm_prefill(eng.params, prompt, caches, cfg,
+                                         Runtime(impl=impl))
     torch.cuda.synchronize()
-    for name, i in (("prefill_chunk", 0), ("fused_tick", 1)):
-        got, want = out["cuda"][i], out["ref"][i]
-        err = (got - want).abs().max().item()
-        peak = want.abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= E2E_RTOL * peak
-        emit({"phase": "e2e", "what": f"gemma-2b full width {name} logits",
-              "shape": list(got.shape), "max_abs_err": err,
-              "max_rel_err": err / peak, "tol_rel": E2E_RTOL, "ok": ok})
-        require(ok, f"full-width {name} logits")
+    _close(torch, "dense prefill (33 tokens)", out["cuda"], out["ref"])
 
     pinned = dataclasses.replace(reduced(get_config("gemma-2b"), vocab=32),
                                  head_dim=128)
@@ -295,18 +564,24 @@ def e2e_phase(torch, np, eng) -> None:
     prng = np.random.default_rng(3)
     prompts = [prng.integers(0, pinned.vocab_size, n).astype(np.int32)
                for n in (33, 1, 12, 20, 5)]
-    tokens_by_impl = {}
-    for impl in ("cuda", "ref"):
-        e = ServeEngine(params, pinned, ServeConfig(batch_slots=2, max_seq=64),
-                        rt=Runtime(impl=impl))
-        for i, p in enumerate(prompts):
-            e.submit(Request(rid=i, prompt=p, max_new_tokens=8))
-        tokens_by_impl[impl] = {r.rid: r.output for r in e.run()}
-    same = tokens_by_impl["cuda"] == tokens_by_impl["ref"]
-    emit({"phase": "e2e", "what": "pinned config greedy tokens, kernels vs "
-          "plain versions", "tokens": tokens_by_impl["cuda"],
-          "identical": same})
-    require(same, f"pinned greedy tokens differ: {tokens_by_impl}")
+    for path, layout, kv_quant in (("paged", "paged", False),
+                                   ("quant", "paged", True),
+                                   ("dense", "dense", False)):
+        tokens_by_impl = {}
+        for impl in ("cuda", "ref"):
+            e = ServeEngine(params, pinned,
+                            ServeConfig(batch_slots=2, max_seq=64,
+                                        kv_layout=layout),
+                            rt=Runtime(impl=impl, kv_quant=kv_quant,
+                                       kv_scheme=KV_SCHEME))
+            for i, p in enumerate(prompts):
+                e.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+            tokens_by_impl[impl] = {r.rid: r.output for r in e.run()}
+        same = tokens_by_impl["cuda"] == tokens_by_impl["ref"]
+        emit({"phase": "e2e", "what": f"pinned config greedy tokens, {path} "
+              "path, kernels vs plain versions",
+              "tokens": tokens_by_impl["cuda"], "identical": same})
+        require(same, f"pinned {path} greedy tokens differ: {tokens_by_impl}")
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -399,7 +674,7 @@ def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing_phase(torch, np, eng, launches, worst) -> list:
+def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -531,6 +806,8 @@ def timing_phase(torch, np, eng, launches, worst) -> list:
              "library_call": "scaled_dot_product_attention over "
                              "pre-gathered K/V",
              "bound_ms": a_bound, "bound_by": a_by}
+    quant, quant_one = _quant_timing(torch, gen, cfg, m, ctx_tokens, q)
+    flash = _flash_timing(torch, gen, cfg)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
         "spx_matmul": (src + "spx_matmul.cu",
@@ -539,15 +816,160 @@ def timing_phase(torch, np, eng, launches, worst) -> list:
                                 "src/repro/kernels/paged_attention.py:247"),
         "paged_attention": (src + "paged_decode.cu",
                             "src/repro/kernels/paged_attention.py:354"),
+        "paged_decode_ragged_quant": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:298"),
+        "flash_attention": (src + "flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
+        "paged_attention_quant": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:396"),
     }
+    path_launches = {"paged_decode_ragged_quant": new_launches["quant"],
+                     "paged_attention_quant": new_launches["quant"],
+                     "flash_attention": new_launches["dense"]}
     rows = []
-    for entry in (spx, ragged, paged):
-        source, replaces = meta[entry["name"]]
+    for entry in (spx, ragged, paged, quant, flash, quant_one):
+        name = entry["name"]
+        source, replaces = meta[name]
         entry.update(route="cuda", source=source, replaces=replaces,
-                     launches=launches.get(entry["name"], 0),
-                     max_abs_err=worst[entry["name"]])
+                     launches=path_launches.get(name, launches).get(name, 0),
+                     max_abs_err=worst[name])
         rows.append(entry)
     return rows
+
+
+def _quant_timing(torch, gen, cfg, m, ctx_tokens, q):
+    """Kernels 3 and 6 per tick at the decode shapes of the coded-page
+    path: ``m`` slots, every layer's code + scale pools, each slot
+    ``ctx_tokens`` into its sequence. The library call is SDPA over the
+    same K/V, pre-dequantized and pre-gathered."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_quant_cuda, paged_decode_ragged_quant_cuda)
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    from repro_torch.runtime import planner
+
+    hkv, rep, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
+    ps = planner.plan_kv_pages(dh, kv_scheme=KV_SCHEME).page_size
+    mp = -(-256 // ps)                           # ServeConfig().max_seq
+    n_pages = m * mp
+    lut = kv_lut(KV_SCHEME, "cuda")
+    pools = []
+    for _ in range(cfg.n_layers):
+        kc, ks = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                         generator=gen, device="cuda"),
+                             KV_SCHEME)
+        vc, vs = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                         generator=gen, device="cuda"),
+                             KV_SCHEME)
+        pools.append((kc, ks, vc, vs))
+    bt = torch.arange(n_pages, dtype=torch.int32,
+                      device="cuda").reshape(m, mp)
+    ctx = torch.full((m,), ctx_tokens, dtype=torch.int32, device="cuda")
+    one = torch.ones((m,), dtype=torch.int32, device="cuda")
+    ctx1 = ctx + 1
+    attend = ctx_tokens + 1
+    # codes 1 byte and one f32 scale per attended token and side, q in,
+    # out, tables and the LUT
+    nbytes = cfg.n_layers * (m * hkv * attend * 2 * (dh + 4)
+                             + 2 * m * hkv * rep * dh * 4
+                             + m * (mp + 2) * 4 + lut.numel() * 4)
+    flops = cfg.n_layers * 4 * m * hkv * rep * dh * attend
+    bound, by = _bound_ms(nbytes, flops)
+
+    def ragged(impl):
+        for kc, ks, vc, vs in pools:
+            if impl == "cuda":
+                paged_decode_ragged_quant_cuda(q, kc, ks, vc, vs, bt, ctx,
+                                               one, lut, w=1)
+            else:
+                ref.paged_decode_ragged_quant_ref(q, kc, ks, vc, vs, bt, ctx,
+                                                  one, lut, w=1)
+
+    def single(impl):
+        for kc, ks, vc, vs in pools:
+            if impl == "cuda":
+                paged_attention_quant_cuda(q, kc, ks, vc, vs, bt, ctx1, lut)
+            else:
+                ref.paged_attention_quant_ref(q, kc, ks, vc, vs, bt, ctx1,
+                                              lut)
+
+    gathered = [
+        tuple(ref._gather_dequant(c, sc, bt, lut)[:, :, :attend]
+              .repeat_interleave(rep, 1) for c, sc in ((kc, ks), (vc, vs)))
+        for kc, ks, vc, vs in pools]
+    q_sdpa = q.reshape(m, hkv * rep, 1, dh)
+
+    def sdpa_tick():
+        for k, v in gathered:
+            F.scaled_dot_product_attention(q_sdpa, k, v)
+
+    lib = {"library_ms": _time_ms(torch, sdpa_tick),
+           "library_call": "scaled_dot_product_attention over "
+                           "pre-dequantized, pre-gathered K/V",
+           "bound_ms": bound, "bound_by": by}
+    rows = []
+    for name, fn, per in (
+            ("paged_decode_ragged_quant", ragged, "decode tick"),
+            ("paged_attention_quant", single, "one-token prefill tick")):
+        rows.append({"name": name,
+                     "per": f"{per}: {cfg.n_layers} launches, {m} slots, "
+                            f"{attend} tokens attended each, {KV_SCHEME} "
+                            f"codes, page size {ps}",
+                     "ms": _time_ms(torch, lambda fn=fn: fn("cuda")),
+                     "device_ms": _device_ms(torch, lambda fn=fn: fn("cuda"),
+                                             ("paged_decode_kernel",)),
+                     "plain_ms": _time_ms(torch, lambda fn=fn: fn("ref")),
+                     **lib})
+    return rows
+
+
+def _flash_timing(torch, gen, cfg, s: int = 33):
+    """Kernel 4 per admitted request of the dense path: one launch per
+    layer over the prompt (the 33-token prompt of the serve phase)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    hkv, hq, dh = cfg.n_kv_heads, cfg.n_heads, cfg.dh
+    qkv = [(torch.randn((1, hq, s, dh), generator=gen, device="cuda"),
+            torch.randn((1, hkv, s, dh), generator=gen, device="cuda"),
+            torch.randn((1, hkv, s, dh), generator=gen, device="cuda"))
+           for _ in range(cfg.n_layers)]
+    expanded = [(q, k.repeat_interleave(hq // hkv, 1),
+                 v.repeat_interleave(hq // hkv, 1)) for q, k, v in qkv]
+
+    def kernel():
+        for q, k, v in qkv:
+            flash_attention_cuda(q, k, v, causal=True)
+
+    def plain():
+        for q, k, v in qkv:
+            ref.flash_attention_ref(q, k, v, causal=True, q_chunk=1024)
+
+    def library():
+        for q, k, v in expanded:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    # q, k, v read once and out written once; the causal half of the
+    # (query, key) pairs, 4 * dh flops each (QK^T and PV)
+    nbytes = cfg.n_layers * 4 * dh * (2 * hq * s + 2 * hkv * s)
+    flops = cfg.n_layers * 4 * hq * dh * (s * (s + 1) // 2)
+    bound, by = _bound_ms(nbytes, flops)
+    return {"name": "flash_attention",
+            "per": f"admitted request: {cfg.n_layers} launches, causal "
+                   f"prefill of {s} tokens, {hq} query heads over {hkv} KV "
+                   f"head(s) of {dh}",
+            "ms": _time_ms(torch, kernel),
+            "device_ms": _device_ms(torch, kernel,
+                                    ("flash_attention_kernel",)),
+            "plain_ms": _time_ms(torch, plain),
+            "library_ms": _time_ms(torch, library),
+            "library_call": "scaled_dot_product_attention(is_causal=True), "
+                            "K/V pre-repeated over the query heads",
+            "bound_ms": bound, "bound_by": by}
 
 
 def _layer_weights(params, i):
@@ -583,9 +1005,10 @@ def main() -> int:
               "dir": str(cuda_lib.build_dir())})
         worst = kernel_phase(torch, np)
         eng, launches, _ = serve_phase(torch, np)
+        new_launches = serve_new_paths_phase(torch, np, eng.params)
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
-        rows = timing_phase(torch, np, eng, launches, worst)
+        rows = timing_phase(torch, np, eng, launches, new_launches, worst)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

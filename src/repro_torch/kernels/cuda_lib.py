@@ -36,9 +36,16 @@ _SIGNATURES = {
         "spx_matmul_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "paged_decode": {
-        "paged_decode_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+        "paged_decode_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "paged_decode_ragged_f32":
             ([_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I),
+        "paged_decode_ragged_quant_f32":
+            ([_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+             _I),
+    },
+    "flash_attention": {
+        "flash_attention_f32":
+            ([_P] * 4 + [_I] * 7 + [ctypes.c_float, _P], _I),
     },
 }
 

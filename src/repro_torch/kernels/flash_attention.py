@@ -1,0 +1,59 @@
+"""Wrapper of the hand-written flash-attention kernel
+(``csrc/flash_attention.cu``), the Hopper counterpart of
+``repro/kernels/flash_attention.py``.
+
+The kernel takes the GQA layout as it is: q (B, Hq, Sq, dh), k/v
+(B, Hkv, Skv, dh), and indexes KV head ``hq // rep`` itself, so the
+wrapper repeats nothing. Every Sq and Skv runs: the kernel masks the tail
+tiles. The wrapper checks what the kernel takes, allocates the output,
+launches on the current stream, raises on a launch error and counts the
+launch. It never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+
+__all__ = ["flash_attention_cuda", "HEAD_DIMS"]
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool) -> torch.Tensor:
+    """q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) f32, Hq % Hkv == 0.
+    Returns (B, Hq, Sq, dh) f32."""
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"flash_attention needs CUDA tensors, got {device}")
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, hq, sq, dh = q.shape
+    bk, hkv, skv, dhk = k.shape
+    if bk != b or dhk != dh or hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} disagree")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {dh} not in "
+                         f"{HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, "
+                             f"expected {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, the "
+                            "kernel takes torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    lib = cuda_lib.library("flash_attention")
+    out = torch.empty_like(q)
+    err = lib.flash_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        hq // hkv, sq, skv, dh, int(causal), dh ** -0.5,
+        torch.cuda.current_stream(device).cuda_stream)
+    cuda_lib.check(lib, err, "flash_attention launch")
+    cuda_lib.LAUNCHES["flash_attention"] += 1
+    return out

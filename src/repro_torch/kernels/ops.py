@@ -1,4 +1,4 @@
-"""Public quantized-matmul and paged-attention ops, dispatched through
+"""Public quantized-matmul and attention ops, dispatched through
 ``runtime.registry``: a CUDA tensor launches the hand-written kernel, a CPU
 tensor takes the plain PyTorch version (``kernels/ref.py``).
 
@@ -18,11 +18,16 @@ from repro_torch.core.quantized import QuantizedTensor
 from repro_torch.runtime import registry
 
 from . import cuda_lib, ref
-from .paged_attention import paged_attention_cuda, paged_decode_ragged_cuda
+from .flash_attention import flash_attention_cuda
+from .paged_attention import (paged_attention_cuda,
+                              paged_attention_quant_cuda,
+                              paged_decode_ragged_cuda,
+                              paged_decode_ragged_quant_cuda)
 from .spx_matmul import spx_matmul_cuda
 
-__all__ = ["spx_matmul", "paged_attention", "paged_decode_ragged",
-           "op_calls", "ref_calls", "reset_op_calls"]
+__all__ = ["spx_matmul", "flash_attention", "paged_attention",
+           "paged_attention_quant", "paged_decode_ragged", "op_calls",
+           "ref_calls", "reset_op_calls"]
 
 _REF_CALLS: collections.Counter = collections.Counter()
 
@@ -71,6 +76,34 @@ def spx_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
     return out.reshape(*lead, n_dim)
 
 
+# -- flash_attention: the dense prefill ---------------------------------------
+
+@registry.register("flash_attention", "ref")
+def _flash_attention_ref(q, k, v, *, causal, q_chunk):
+    _REF_CALLS["flash_attention"] += 1
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk)
+
+
+@registry.register("flash_attention", "cuda")
+def _flash_attention_cuda(q, k, v, *, causal, q_chunk):
+    del q_chunk                 # the kernel tiles queries itself
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_chunk: int = 1024,
+                    impl: str = "auto") -> torch.Tensor:
+    """GQA attention. q: (B, Hq, Sq, dh); k, v: (B, Hkv, Skv, dh);
+    Hq % Hkv == 0. Returns (B, Hq, Sq, dh). Every length runs through the
+    kernel on the card; ``q_chunk`` is the plain version's query chunk."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    _, fn = registry.resolve("flash_attention", impl, q.device)
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+              q_chunk=q_chunk)
+
+
 # -- paged_attention: single-token decode over the paged KV cache -------------
 
 @registry.register("paged_attention", "ref")
@@ -100,6 +133,40 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(b, hq, dh)
 
 
+# -- paged_attention_quant: single-token decode over code + scale pools -------
+
+@registry.register("paged_attention_quant", "ref")
+def _paged_attention_quant_ref(q4, k_codes, k_scale, v_codes, v_scale,
+                               block_table, ctx_len, lut):
+    _REF_CALLS["paged_attention_quant"] += 1
+    return ref.paged_attention_quant_ref(q4, k_codes, k_scale, v_codes,
+                                         v_scale, block_table, ctx_len, lut)
+
+
+registry.register("paged_attention_quant", "cuda")(paged_attention_quant_cuda)
+
+
+def paged_attention_quant(q: torch.Tensor, k_pages: dict, v_pages: dict,
+                          block_table: torch.Tensor, ctx_len: torch.Tensor,
+                          *, kv_scheme: str = "uniform8",
+                          impl: str = "auto") -> torch.Tensor:
+    """``paged_attention`` over quantized pools with the codebook
+    dequantization inside the kernel. k_pages/v_pages: {"codes":
+    (n_pages, Hkv, page_size, dh) uint8, "scale": (n_pages, Hkv,
+    page_size, 1) f32}; ``kv_scheme`` names the codebook. Returns
+    (B, Hq, dh)."""
+    b, hq, dh = q.shape
+    hkv = k_pages["codes"].shape[1]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
+    _, fn = registry.resolve("paged_attention_quant", impl, q.device)
+    q4 = q.reshape(b, hkv, hq // hkv, dh).contiguous()
+    out = fn(q4, k_pages["codes"], k_pages["scale"], v_pages["codes"],
+             v_pages["scale"], block_table.to(torch.int32),
+             ctx_len.to(torch.int32), _lut(kv_scheme, str(q.device)))
+    return out.reshape(b, hq, dh)
+
+
 # -- paged_decode_ragged: one launch per layer per decode tick ----------------
 
 @registry.register("paged_decode_ragged", "ref")
@@ -113,9 +180,22 @@ def _paged_decode_ragged_ref(q4, k_pages, v_pages, block_table, ctx_len,
 registry.register("paged_decode_ragged", "cuda")(paged_decode_ragged_cuda)
 
 
-def paged_decode_ragged(q: torch.Tensor, k_pages: torch.Tensor,
-                        v_pages: torch.Tensor, block_table: torch.Tensor,
-                        ctx_len: torch.Tensor, q_len: torch.Tensor, *,
+@registry.register("paged_decode_ragged_quant", "ref")
+def _paged_decode_ragged_quant_ref(q4, k_codes, k_scale, v_codes, v_scale,
+                                   block_table, ctx_len, q_len, lut, *, w):
+    _REF_CALLS["paged_decode_ragged_quant"] += 1
+    return ref.paged_decode_ragged_quant_ref(
+        q4, k_codes, k_scale, v_codes, v_scale, block_table, ctx_len, q_len,
+        lut, w=w)
+
+
+registry.register("paged_decode_ragged_quant", "cuda")(
+    paged_decode_ragged_quant_cuda)
+
+
+def paged_decode_ragged(q: torch.Tensor, k_pages, v_pages,
+                        block_table: torch.Tensor, ctx_len: torch.Tensor,
+                        q_len: torch.Tensor, *, kv_scheme: str | None = None,
                         impl: str = "auto") -> torch.Tensor:
     """Ragged decode-window attention, one launch for the whole batch.
 
@@ -123,19 +203,33 @@ def paged_decode_ragged(q: torch.Tensor, k_pages: torch.Tensor,
     window rows per slot (rows at positions >= q_len return exact zeros);
     ctx_len: (B,) tokens already in the pages before the window (window
     position i attends positions <= ctx_len + i). Pools: the dense
-    (n_pages, Hkv, page_size, dh) arrays. Returns (B, W, Hq, dh)."""
+    (n_pages, Hkv, page_size, dh) arrays, or the quantized {"codes",
+    "scale"} dicts of ``nn.attention.paged_kv_write``, which route to the
+    quantized kernel and need ``kv_scheme`` for its codebook. Returns
+    (B, W, Hq, dh)."""
+    quant = isinstance(k_pages, dict)
     b, w, hq, dh = q.shape
-    hkv = k_pages.shape[1]
+    hkv = (k_pages["codes"] if quant else k_pages).shape[1]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
     rep = hq // hkv
-    _, fn = registry.resolve("paged_decode_ragged", impl, q.device)
     # (B, W, Hq, dh) -> (B, Hkv, rep * w, dh), rep-major: row r * w + i is
     # window position i of query head r under this KV head
     q4 = q.reshape(b, w, hkv, rep, dh).permute(0, 2, 3, 1, 4) \
           .reshape(b, hkv, rep * w, dh).contiguous()
-    out = fn(q4, k_pages, v_pages, block_table.to(torch.int32),
-             ctx_len.to(torch.int32), q_len.to(torch.int32), w=w)
+    tables = (block_table.to(torch.int32), ctx_len.to(torch.int32),
+              q_len.to(torch.int32))
+    if quant:
+        if kv_scheme is None:
+            raise ValueError("quantized KV pools need kv_scheme for the "
+                             "in-kernel codebook")
+        _, fn = registry.resolve("paged_decode_ragged_quant", impl, q.device)
+        out = fn(q4, k_pages["codes"], k_pages["scale"], v_pages["codes"],
+                 v_pages["scale"], *tables, _lut(kv_scheme, str(q.device)),
+                 w=w)
+    else:
+        _, fn = registry.resolve("paged_decode_ragged", impl, q.device)
+        out = fn(q4, k_pages, v_pages, *tables, w=w)
     # inverse of the rep-major packing
     return out.reshape(b, hkv, rep, w, dh).permute(0, 3, 1, 2, 4) \
               .reshape(b, w, hq, dh)

@@ -1,14 +1,16 @@
 """Wrappers of the hand-written paged-decode kernel
 (``csrc/paged_decode.cu``), the Hopper counterpart of
-``repro/kernels/paged_attention.py``.
+``repro/kernels/paged_attention.py``, over f32 pools and over SPx-quantized
+(uint8 codes + f32 per-token scale) pools.
 
-``paged_decode_ragged_cuda`` launches the ragged decode-window kernel.
-``paged_attention_cuda`` (single-token decode over ``ctx_len`` positions)
-launches the same kernel with ``w = 1``, ``ctx = max(ctx_len - 1, 0)`` and
-``q_len = (ctx_len > 0)``: row 0 then attends positions ``< ctx_len`` and a
-row with ``ctx_len == 0`` comes back zero, which is the single-token
-semantics exactly. Each wrapper keeps its own launch count. Neither falls
-back to the plain version.
+``paged_decode_ragged_cuda`` and ``paged_decode_ragged_quant_cuda`` launch
+the ragged decode-window kernel. ``paged_attention_cuda`` and
+``paged_attention_quant_cuda`` (single-token decode over ``ctx_len``
+positions) launch the same kernel with ``w = 1``,
+``ctx = max(ctx_len - 1, 0)`` and ``q_len = (ctx_len > 0)``: row 0 then
+attends positions ``< ctx_len`` and a row with ``ctx_len == 0`` comes back
+zero, which is the single-token semantics exactly. Each wrapper keeps its
+own launch count. None falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["paged_decode_ragged_cuda", "paged_attention_cuda", "HEAD_DIMS",
-           "SMEM_LIMIT"]
+__all__ = ["paged_decode_ragged_cuda", "paged_attention_cuda",
+           "paged_decode_ragged_quant_cuda", "paged_attention_quant_cuda",
+           "HEAD_DIMS", "SMEM_LIMIT"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
@@ -38,7 +41,10 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
         raise ValueError(f"paged_decode: {name} must be 16-byte aligned")
 
 
-def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int):
+def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
+            quant=None):
+    """``quant``: None for f32 pools, else (k_scale, v_scale, lut) with
+    ``k_pages``/``v_pages`` the uint8 code pools."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"paged_decode needs CUDA tensors, got {device}")
@@ -57,27 +63,56 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int):
             or tuple(ctx_len.shape) != (b,) or tuple(q_len.shape) != (b,):
         raise ValueError("paged_decode: block_table (B, max_pages), ctx_len "
                          "(B,) and q_len (B,) must match q's batch")
-    for name, t, dt in (("q", q, torch.float32),
-                        ("k_pages", k_pages, torch.float32),
-                        ("v_pages", v_pages, torch.float32),
-                        ("block_table", block_table, torch.int32),
-                        ("ctx_len", ctx_len, torch.int32),
-                        ("q_len", q_len, torch.int32)):
+    pool_dtype = torch.float32 if quant is None else torch.uint8
+    tensors = [("q", q, torch.float32), ("k_pages", k_pages, pool_dtype),
+               ("v_pages", v_pages, pool_dtype),
+               ("block_table", block_table, torch.int32),
+               ("ctx_len", ctx_len, torch.int32),
+               ("q_len", q_len, torch.int32)]
+    if quant is not None:
+        k_scale, v_scale, lut = quant
+        scale_shape = (n_pages, hkv, ps, 1)
+        if tuple(k_scale.shape) != scale_shape \
+                or tuple(v_scale.shape) != scale_shape:
+            raise ValueError(f"paged_decode: scales {tuple(k_scale.shape)}/"
+                             f"{tuple(v_scale.shape)}, expected "
+                             f"{scale_shape}")
+        if lut.ndim != 1 or not 1 <= lut.numel() <= 256:
+            raise ValueError(f"paged_decode: lut of {lut.numel()} entries, "
+                             "the kernel takes 1 to 256")
+        tensors += [("k_scale", k_scale, torch.float32),
+                    ("v_scale", v_scale, torch.float32),
+                    ("lut", lut, torch.float32)]
+    for name, t, dt in tensors:
         _check(name, t, dt, device)
     lib = cuda_lib.library("paged_decode")
-    smem = lib.paged_decode_smem_bytes(rows, dh, ps)
+    smem = lib.paged_decode_smem_bytes(rows, dh, ps, int(quant is not None))
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged_decode: {rows} rows x head_dim {dh} with "
                          f"{ps}-token pages need {smem} bytes of shared "
                          f"memory, more than {SMEM_LIMIT}")
     out = torch.empty_like(q)
-    err = lib.paged_decode_ragged_f32(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), ctx_len.data_ptr(), q_len.data_ptr(),
-        out.data_ptr(), b, hkv, rows, dh, w, ps, block_table.shape[1],
-        dh ** -0.5, torch.cuda.current_stream(device).cuda_stream)
+    tail = (out.data_ptr(), b, hkv, rows, dh, w, ps, block_table.shape[1],
+            dh ** -0.5, torch.cuda.current_stream(device).cuda_stream)
+    if quant is None:
+        err = lib.paged_decode_ragged_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), ctx_len.data_ptr(), q_len.data_ptr(),
+            *tail)
+    else:
+        err = lib.paged_decode_ragged_quant_f32(
+            q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
+            v_pages.data_ptr(), v_scale.data_ptr(), lut.data_ptr(),
+            lut.numel(), block_table.data_ptr(), ctx_len.data_ptr(),
+            q_len.data_ptr(), *tail)
     cuda_lib.check(lib, err, "paged_decode launch")
     return out
+
+
+def _single_token(ctx_len):
+    """The w = 1 mapping of single-token decode onto the ragged kernel."""
+    ctx = torch.clamp(ctx_len - 1, min=0).to(torch.int32)
+    return ctx, (ctx_len > 0).to(torch.int32)
 
 
 def paged_decode_ragged_cuda(q, k_pages, v_pages, block_table, ctx_len,
@@ -94,8 +129,30 @@ def paged_attention_cuda(q, k_pages, v_pages, block_table,
                          ctx_len) -> torch.Tensor:
     """q (B, Hkv, rep, dh); positions < ctx_len attended, ctx_len == 0
     gives zeros. Returns (B, Hkv, rep, dh)."""
-    ctx = torch.clamp(ctx_len - 1, min=0).to(torch.int32)
-    qn = (ctx_len > 0).to(torch.int32)
+    ctx, qn = _single_token(ctx_len)
     out = _launch(q, k_pages, v_pages, block_table, ctx, qn, 1)
     cuda_lib.LAUNCHES["paged_attention"] += 1
+    return out
+
+
+def paged_decode_ragged_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
+                                   block_table, ctx_len, q_len, lut, *,
+                                   w: int) -> torch.Tensor:
+    """``paged_decode_ragged_cuda`` over quantized pools: k/v codes
+    (n_pages, Hkv, page_size, dh) uint8, k/v scales (n_pages, Hkv,
+    page_size, 1) f32, lut (<= 256,) f32 codebook."""
+    out = _launch(q, k_codes, v_codes, block_table, ctx_len, q_len, w,
+                  quant=(k_scale, v_scale, lut))
+    cuda_lib.LAUNCHES["paged_decode_ragged_quant"] += 1
+    return out
+
+
+def paged_attention_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
+                               block_table, ctx_len, lut) -> torch.Tensor:
+    """``paged_attention_cuda`` over quantized pools (arguments as
+    ``paged_decode_ragged_quant_cuda``)."""
+    ctx, qn = _single_token(ctx_len)
+    out = _launch(q, k_codes, v_codes, block_table, ctx, qn, 1,
+                  quant=(k_scale, v_scale, lut))
+    cuda_lib.LAUNCHES["paged_attention_quant"] += 1
     return out

@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the ported kernels: the CPU path, and what
 each CUDA kernel is held against on the card. Same semantics as
-``repro.kernels.ref``."""
+``repro.kernels.ref`` (and, for ``flash_attention_ref``, as the chunked
+attention of ``repro.nn.attention``)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import spx
 
-__all__ = ["spx_matmul_ref", "paged_attention_ref", "paged_decode_ragged_ref"]
+__all__ = ["spx_matmul_ref", "paged_attention_ref", "paged_decode_ragged_ref",
+           "paged_attention_quant_ref", "paged_decode_ragged_quant_ref",
+           "flash_attention_ref"]
 
 _NEG = -1e30
 
@@ -24,27 +27,27 @@ def spx_matmul_ref(x, codes, scale, lut, *, packed: bool, out_dtype=None):
 
 
 def _gather(pages, block_table):
-    """(n_pages, Hkv, ps, dh) pool -> (B, Hkv, max_pages * ps, dh) view of
+    """(n_pages, Hkv, ps, w) pool -> (B, Hkv, max_pages * ps, w) view of
     each row's pages in logical order."""
     b, max_pages = block_table.shape
-    _, hkv, ps, dh = pages.shape
-    g = pages[block_table.long()]                  # (B, max_pages, Hkv, ps, dh)
-    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, max_pages * ps, dh)
+    _, hkv, ps, width = pages.shape
+    g = pages[block_table.long()]              # (B, max_pages, Hkv, ps, w)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, max_pages * ps, width)
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
-                        out_dtype=None):
-    """Single-token decode attention over a paged KV cache.
+def _gather_dequant(codes, scale, block_table, lut):
+    """Code + scale pools -> the gathered f32 values lut[codes] * scale."""
+    return lut[_gather(codes, block_table).long()] \
+        * _gather(scale, block_table)
 
-    q: (B, Hkv, rep, dh); k_pages/v_pages: (n_pages, Hkv, page_size, dh);
-    block_table: (B, max_pages) int32; ctx_len: (B,) int32 — positions
-    < ctx_len are attended; ctx_len == 0 gives zeros. Returns
-    (B, Hkv, rep, dh)."""
-    out_dtype = out_dtype or q.dtype
-    k = _gather(k_pages, block_table).to(torch.float32)
-    v = _gather(v_pages, block_table).to(torch.float32)
+
+def _paged_softmax(q, k, v, ctx_len, out_dtype):
+    """Masked-softmax core of the single-token oracles. q: (B,Hkv,rep,dh);
+    k/v: (B,Hkv,S,dh) gathered views; positions < ctx_len attended,
+    ctx_len == 0 rows come back zero."""
     dh = q.shape[-1]
-    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32), k) * (dh ** -0.5)
+    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32),
+                     k.to(torch.float32)) * (dh ** -0.5)
     pos = torch.arange(k.shape[2], device=q.device)
     ctx = ctx_len.to(q.device).long()
     s = torch.where(pos[None, None, None, :] < ctx[:, None, None, None],
@@ -52,24 +55,21 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrk,bhkd->bhrd", p, v) / torch.clamp(l, min=1e-30)
+    o = torch.einsum("bhrk,bhkd->bhrd", p, v.to(torch.float32)) \
+        / torch.clamp(l, min=1e-30)
     o = torch.where(ctx[:, None, None, None] > 0, o, torch.zeros_like(o))
     return o.to(out_dtype)
 
 
-def paged_decode_ragged_ref(q, k_pages, v_pages, block_table, ctx_len,
-                            q_len, *, w: int, out_dtype=None):
-    """Ragged decode-window attention over a paged KV cache.
-
-    q: (B, Hkv, R, dh), R = rep * w rows, rep-major (row ``r * w + i`` is
+def _ragged_softmax(q, k, v, ctx_len, q_len, w: int, out_dtype):
+    """Masked-softmax core of the ragged decode-window oracles. q:
+    (B, Hkv, R, dh), R = rep * w rows, rep-major (row ``r * w + i`` is
     window position i of query head r). Window position i attends
-    positions <= ctx_len + i; rows with i >= q_len come back exactly zero.
-    Returns (B, Hkv, R, dh)."""
-    out_dtype = out_dtype or q.dtype
-    k = _gather(k_pages, block_table).to(torch.float32)
-    v = _gather(v_pages, block_table).to(torch.float32)
+    positions <= ctx_len + i; rows with i >= q_len come back exactly
+    zero."""
     r_rows, dh = q.shape[2], q.shape[3]
-    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32), k) * (dh ** -0.5)
+    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32),
+                     k.to(torch.float32)) * (dh ** -0.5)
     win = torch.arange(r_rows, device=q.device) % w
     pos = torch.arange(k.shape[2], device=q.device)
     ctx = ctx_len.to(q.device).long()
@@ -81,6 +81,86 @@ def paged_decode_ragged_ref(q, k_pages, v_pages, block_table, ctx_len,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrk,bhkd->bhrd", p, v) / torch.clamp(l, min=1e-30)
+    o = torch.einsum("bhrk,bhkd->bhrd", p, v.to(torch.float32)) \
+        / torch.clamp(l, min=1e-30)
     o = torch.where(row_ok, o, torch.zeros_like(o))
     return o.to(out_dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
+                        out_dtype=None):
+    """Single-token decode attention over a paged KV cache.
+
+    q: (B, Hkv, rep, dh); k_pages/v_pages: (n_pages, Hkv, page_size, dh);
+    block_table: (B, max_pages) int32; ctx_len: (B,) int32 — positions
+    < ctx_len are attended; ctx_len == 0 gives zeros. Returns
+    (B, Hkv, rep, dh)."""
+    return _paged_softmax(q, _gather(k_pages, block_table),
+                          _gather(v_pages, block_table), ctx_len,
+                          out_dtype or q.dtype)
+
+
+def paged_decode_ragged_ref(q, k_pages, v_pages, block_table, ctx_len,
+                            q_len, *, w: int, out_dtype=None):
+    """Ragged decode-window attention over a paged KV cache.
+
+    q: (B, Hkv, R, dh), R = rep * w rows, rep-major. Window position i
+    attends positions <= ctx_len + i; rows with i >= q_len come back
+    exactly zero. Returns (B, Hkv, R, dh)."""
+    return _ragged_softmax(q, _gather(k_pages, block_table),
+                           _gather(v_pages, block_table), ctx_len, q_len, w,
+                           out_dtype or q.dtype)
+
+
+def paged_attention_quant_ref(q, k_codes, k_scale, v_codes, v_scale,
+                              block_table, ctx_len, lut, *, out_dtype=None):
+    """``paged_attention_ref`` over quantized pools: k/v codes (n_pages,
+    Hkv, page_size, dh) uint8, k/v scales (n_pages, Hkv, page_size, 1) f32,
+    dequantized after the gather (``lut[codes] * scale``)."""
+    return _paged_softmax(q, _gather_dequant(k_codes, k_scale, block_table,
+                                             lut),
+                          _gather_dequant(v_codes, v_scale, block_table,
+                                          lut),
+                          ctx_len, out_dtype or q.dtype)
+
+
+def paged_decode_ragged_quant_ref(q, k_codes, k_scale, v_codes, v_scale,
+                                  block_table, ctx_len, q_len, lut, *,
+                                  w: int, out_dtype=None):
+    """``paged_decode_ragged_ref`` over quantized pools (arguments as
+    ``paged_attention_quant_ref`` plus q_len and w)."""
+    return _ragged_softmax(q, _gather_dequant(k_codes, k_scale, block_table,
+                                              lut),
+                           _gather_dequant(v_codes, v_scale, block_table,
+                                           lut),
+                           ctx_len, q_len, w, out_dtype or q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int):
+    """The flash kernel's function in plain PyTorch: the reference's
+    chunked attention (``repro.nn.attention._chunked_attention``), which
+    is ``repro.kernels.ref.attention_ref`` computed ``q_chunk`` query rows
+    at a time (one chunk when Sq is not a multiple). q: (B, Hq, Sq, dh); k/v:
+    (B, Hkv, Skv, dh), GQA repeated here. Returns (B, Hq, Sq, dh)."""
+    b, hq, sq, dh = q.shape
+    rep = hq // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    cq = min(q_chunk, sq)
+    if sq % cq:
+        cq = sq
+    kv_pos = torch.arange(k.shape[2], device=q.device)
+    outs = []
+    for i in range(sq // cq):
+        q_i = q[:, :, i * cq:(i + 1) * cq].to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", q_i,
+                         k.to(torch.float32)) * (dh ** -0.5)
+        if causal:
+            q_pos = i * cq + torch.arange(cq, device=q.device)
+            s = torch.where(q_pos[:, None] >= kv_pos[None, :], s,
+                            torch.full_like(s, _NEG))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p,
+                                 v.to(torch.float32)).to(q.dtype))
+    return torch.cat(outs, dim=2)

@@ -1,9 +1,12 @@
-"""Decoder-only language model over the paged state cache: init, the paged
-prefill/decode step, the fused decode tick, and the page copies the
-serving engine's preemption uses. Dense (``attn+dense``) patterns only.
+"""Decoder-only language model: init, the full-sequence forward
+(``lm_logits``), the dense serving path (``lm_prefill`` of a whole prompt
+into per-slot caches, ``lm_decode_step``), the paged prefill/decode step,
+the fused decode tick, and the page copies the serving engine's
+preemption uses. Dense (``attn+dense``) patterns only.
 
-The page pools are updated in place; the step functions still return
-``(logits, caches)`` so callers read like the reference.
+Caches and page pools (f32, or SPx codes + f32 scales when quantized) are
+updated in place; the step functions still return ``(logits, caches)`` so
+callers read like the reference.
 """
 from __future__ import annotations
 
@@ -11,12 +14,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
-                                   embedding_init, norm_apply, norm_init)
-from repro_torch.nn.transformer import (slot_init_paged_cache, stack_init,
-                                        stack_paged)
+                                   embedding_init, norm_apply, norm_init,
+                                   tree_leaves, tree_map)
+from repro_torch.nn.transformer import (slot_init_cache,
+                                        slot_init_paged_cache, stack_apply,
+                                        stack_decode, stack_init,
+                                        stack_paged, stack_prefill)
 from repro_torch.runtime import Runtime, resolve_device
 
-__all__ = ["lm_init", "paged_init_caches", "lm_paged_step",
+__all__ = ["lm_init", "lm_logits", "init_caches", "lm_prefill",
+           "lm_decode_step", "paged_init_caches", "lm_paged_step",
            "lm_paged_fused_step", "paged_copy_page", "paged_gather_pages",
            "paged_scatter_pages"]
 
@@ -49,11 +56,75 @@ def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["head"]["w"].to(h.dtype))
 
 
+def _default_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device).expand(b, s)
+
+
+def _backbone(params, cfg: ArchConfig, tokens, positions, rt: Runtime):
+    x = embedding_apply(params["embed"], tokens)
+    h, aux = stack_apply(params["stack"], x, positions, cfg, rt)
+    return norm_apply(cfg.norm, params["final_norm"], h), aux
+
+
+def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):
+    """Full-sequence logits (B, S, V) of tokens (B, S) (small-model and
+    test use)."""
+    if positions is None:
+        positions = _default_positions(*tokens.shape, tokens.device)
+    h, _ = _backbone(params, cfg, tokens, positions, rt)
+    return _head(params, cfg, h)
+
+
+# -- dense serving ------------------------------------------------------------
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                dtype=torch.float32, kv_quant: bool = False,
+                device=None) -> list:
+    """Dense per-slot K/V caches for every slot in the pattern, on
+    ``device`` (``cuda`` unless the caller asks for another)."""
+    device = resolve_device(device)
+    return [slot_init_cache(slot, cfg, batch, max_seq, dtype,
+                            kv_quant=kv_quant, device=device)
+            for slot in cfg.pattern]
+
+
+def lm_prefill(params, tokens, caches, cfg: ArchConfig, rt: Runtime,
+               positions=None):
+    """Run the prompt tokens (B, S) through the stack, write its K/V into
+    positions [0, S) of ``caches`` (in place), and return the last
+    position's logits (B, V) and the caches."""
+    if positions is None:
+        positions = _default_positions(*tokens.shape[:2], tokens.device)
+    x = embedding_apply(params["embed"], tokens)
+    h, caches, _ = stack_prefill(params["stack"], x, positions, cfg, rt,
+                                 caches)
+    h = norm_apply(cfg.norm, params["final_norm"], h[:, -1:])
+    return _head(params, cfg, h[:, 0]), caches
+
+
+def lm_decode_step(params, token, pos, caches, cfg: ArchConfig,
+                   rt: Runtime):
+    """One decode step. token: (B,) int; pos: scalar or (B,) write position
+    (tokens already in each row's cache). Returns (logits (B, V),
+    caches)."""
+    x = embedding_apply(params["embed"], token[:, None])
+    h, caches = stack_decode(params["stack"], x, pos, cfg, rt, caches)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _head(params, cfg, h[:, 0]), caches
+
+
+# -- paged serving ------------------------------------------------------------
+
 def paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
-                      dtype=torch.float32, device="cpu") -> list:
-    """K/V page pools for every slot in the pattern."""
+                      dtype=torch.float32, kv_quant: bool = False,
+                      device=None) -> list:
+    """K/V page pools for every slot in the pattern, on ``device``
+    (``cuda`` unless the caller asks for another): f32, or codes + scale
+    dicts when ``kv_quant`` (scheme from ``Runtime.kv_scheme`` at step
+    time)."""
+    device = resolve_device(device)
     return [slot_init_paged_cache(slot, cfg, n_pages, page_size, dtype,
-                                  device)
+                                  kv_quant=kv_quant, device=device)
             for slot in cfg.pattern]
 
 
@@ -90,20 +161,22 @@ def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
 
 
 def paged_copy_page(caches, src: int, dst: int):
-    """Copy physical page ``src`` -> ``dst`` across every layer and head,
-    in place."""
+    """Copy physical page ``src`` -> ``dst`` across every layer, head and
+    pool leaf (codes and scales of a quantized pool), in place."""
     for slot_cache in caches:
         for k in _PAGE_KEYS:
-            slot_cache[k][:, dst] = slot_cache[k][:, src]
+            for leaf in tree_leaves(slot_cache[k]):
+                leaf[:, dst] = leaf[:, src]
     return caches
 
 
 def paged_gather_pages(caches, pages: torch.Tensor) -> list:
     """Whole physical pages across every pool leaf: the preemption
-    snapshot. Each (P, n_pages, Hkv, ps, dh) pool yields
-    (P, n, Hkv, ps, dh)."""
+    snapshot. Each (P, n_pages, Hkv, ps, w) leaf yields (P, n, Hkv, ps,
+    w); quantized pools keep their codes + scale structure."""
     idx = pages.long()
-    return [{k: slot_cache[k][:, idx] for k in _PAGE_KEYS}
+    return [{k: tree_map(lambda _, leaf: leaf[:, idx], slot_cache[k])
+             for k in _PAGE_KEYS}
             for slot_cache in caches]
 
 
@@ -113,6 +186,8 @@ def paged_scatter_pages(caches, pages: torch.Tensor, payload):
     idx = pages.long()
     for slot_cache, pay in zip(caches, payload):
         for k in _PAGE_KEYS:
-            leaf = slot_cache[k]
-            leaf[:, idx] = torch.as_tensor(pay[k]).to(leaf.device, leaf.dtype)
+            for leaf, val in zip(tree_leaves(slot_cache[k]),
+                                 tree_leaves(pay[k])):
+                leaf[:, idx] = torch.as_tensor(val).to(leaf.device,
+                                                       leaf.dtype)
     return caches

@@ -1,22 +1,32 @@
-"""GQA attention over the paged KV cache (serving): chunked prefill and the
-fused decode tick. The dense-cache, training and context-parallel paths of
-``repro.nn.attention`` are not in this port yet.
+"""GQA attention: the dense forward (training-mode apply and whole-prompt
+prefill, through ``ops.flash_attention``), the one-token decode against a
+dense per-slot cache, and the paged KV cache of serving (chunked prefill
+and the fused decode tick). K/V caches and page pools hold f32 values, or
+SPx codebook codes (uint8) with one f32 scale per token when quantized
+(``Runtime.kv_quant``; ``Runtime.kv_scheme`` picks the level set).
+Context-parallel attention, mesh hints and cross-attention of
+``repro.nn.attention`` are not in this port.
 
-The page pools are updated **in place** (indexed assignment) where the
-reference rebuilds them functionally; the functions still return them so
-callers read like the reference.
+Caches and page pools are updated **in place** (indexed assignment) where
+the reference rebuilds them functionally; the functions still return them
+so callers read like the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.core import spx
 from repro_torch.kernels import ops
 from repro_torch.runtime import Runtime
 
 from .layers import dense_apply, dense_init
 from .rotary import apply_rope
 
-__all__ = ["attn_init", "paged_kv_write", "attn_paged_step"]
+__all__ = ["attn_init", "attn_apply_dense", "attention_core",
+           "decode_attention", "attn_decode_step", "paged_kv_write",
+           "attn_paged_step", "quantize_kv", "dequantize_kv", "kv_lut"]
 
 _NEG = -1e30
 
@@ -53,35 +63,225 @@ def _apply_positional(q, k, positions, rope_theta, mrope_sections):
             apply_rope(k, positions, theta=rope_theta))
 
 
+# -- dense forward (train / prefill) ------------------------------------------
+
+def attention_core(q, k, v, *, causal: bool, rt: Runtime):
+    """q: (B, Hq, Sq, dh); k, v: (B, Hkv, Skv, dh) -> (B, Hq, Sq, dh),
+    through the flash kernel on the card (its plain version, the chunked
+    attention of ``rt.q_chunk`` query rows, on the CPU)."""
+    return ops.flash_attention(q, k, v, causal=causal, q_chunk=rt.q_chunk,
+                               impl=rt.impl)
+
+
+def attn_apply_dense(p: dict, x: torch.Tensor, positions, *, n_heads: int,
+                     n_kv_heads: int, head_dim: int, causal: bool = True,
+                     rope_theta: float = 10000.0, mrope_sections=None,
+                     rt: Runtime, kv_out: bool = False):
+    """Full attention sublayer (projections, rope, core, output
+    projection). Returns y, or (y, (k, v)) with k/v (B, S, Hkv, dh) roped
+    when ``kv_out``."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
+    if positions is not None:
+        q, k = _apply_positional(q, k, positions, rope_theta, mrope_sections)
+    o = attention_core(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=causal, rt=rt)
+    y = dense_apply(p["wo"], o.transpose(1, 2).reshape(b, s,
+                                                       n_heads * head_dim),
+                    rt)
+    if kv_out:
+        return y, (k, v)
+    return y
+
+
+# -- SPx KV quantization ------------------------------------------------------
+
+def kv_lut(scheme: str, device="cpu") -> torch.Tensor:
+    """f32 codebook LUT of a KV-cache scheme (pow2-padded; codes index it),
+    on ``device``. Only 8-bit-code schemes are legal for the KV cache: it
+    stores one uint8 code per element."""
+    return _kv_lut(scheme, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_lut(scheme: str, device: str) -> torch.Tensor:
+    levels = spx.scheme_levels(scheme)
+    if spx.code_width(levels) > 8:
+        raise ValueError(f"KV scheme {scheme!r} needs >8-bit codes")
+    return spx.codebook(levels, device=device)
+
+
+def quantize_kv(x: torch.Tensor, scheme: str = "uniform8", axis: int = -1):
+    """Per-position quantization of K/V over a ``core/spx`` codebook:
+    ``uniform8`` is the symmetric-int8 baseline (255 uniform levels, not
+    SPx); ``sp2_8`` / ``spx_8_x3`` are the paper's non-uniform level sets
+    at the same 1-byte code width. x: (..., dh) -> (codes uint8, scale f32
+    (..., 1))."""
+    scale = torch.amax(torch.abs(x.to(torch.float32)), dim=axis,
+                       keepdim=True)
+    scale = torch.clamp(scale, min=1e-8)
+    return spx.quantize_to_codes(x, spx.scheme_levels(scheme), scale), scale
+
+
+def dequantize_kv(codes, scale, scheme: str = "uniform8",
+                  dtype=torch.float32) -> torch.Tensor:
+    """codes (uint8) + per-position scale -> values: lut[codes] * scale."""
+    return spx.dequantize_codes(codes, kv_lut(scheme, codes.device), scale,
+                                dtype=dtype)
+
+
+# -- decode against the dense per-slot cache ----------------------------------
+
+def _local_flash_decode(q, k_cache, v_cache, k_new, v_new, pos, *,
+                        kv_scheme: str = "uniform8"):
+    """One-token decode against one device's whole cache (the reference's
+    ``_local_flash_decode`` with ``axis=None``). Plain tensor code, as in
+    the reference. q: (B, Hq, dh); caches: (B, Hkv, S, dh) tensors, or
+    {"codes" uint8 (B, Hkv, S, dh), "scale" f32 (B, Hkv, S, 1)} dicts for
+    the quantized cache; k_new/v_new: (B, Hkv, dh); pos: (B,) write and
+    attend position per row. Writes the new token in place and returns
+    (out (B, Hq, dh), k_cache, v_cache)."""
+    quantized = isinstance(k_cache, dict)
+    b, hq, dh = q.shape
+    hkv, s_loc = (k_cache["codes"] if quantized else k_cache).shape[1:3]
+    rep = hq // hkv
+    in_range = (pos >= 0) & (pos < s_loc)
+    idx = torch.clamp(pos, 0, s_loc - 1).long()
+    rows = torch.arange(b, device=q.device)
+
+    def upd(cache, new):
+        # single-slot write per row; out-of-range rows keep the old slot
+        old = cache[rows, :, idx, :]
+        cache[rows, :, idx, :] = torch.where(in_range[:, None, None],
+                                             new.to(cache.dtype), old)
+
+    if quantized:
+        lut = kv_lut(kv_scheme, q.device)
+        kc_new, ks_new = quantize_kv(k_new, kv_scheme)
+        vc_new, vs_new = quantize_kv(v_new, kv_scheme)
+        upd(k_cache["codes"], kc_new)
+        upd(k_cache["scale"], ks_new)
+        upd(v_cache["codes"], vc_new)
+        upd(v_cache["scale"], vs_new)
+        # q . (lut[codes] * scale) == (q . lut[codes]) * scale: the scale
+        # folds out of the dh sum, as in the reference
+        kd = lut[k_cache["codes"].repeat_interleave(rep, dim=1).long()]
+        ksc = k_cache["scale"].repeat_interleave(rep, dim=1)
+        s = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32), kd)
+        s = s * ksc[..., 0] * (dh ** -0.5)
+    else:
+        upd(k_cache, k_new)
+        upd(v_cache, v_new)
+        kr = k_cache.repeat_interleave(rep, dim=1)
+        s = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32),
+                         kr.to(torch.float32)) * (dh ** -0.5)
+
+    gpos = torch.arange(s_loc, device=q.device)
+    s = torch.where(gpos[None, None, :] <= pos[:, None, None], s,
+                    torch.full_like(s, _NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    if quantized:
+        vd = lut[v_cache["codes"].repeat_interleave(rep, dim=1).long()]
+        vsc = v_cache["scale"].repeat_interleave(rep, dim=1)
+        o = torch.einsum("bhk,bhkd->bhd", p * vsc[..., 0], vd)
+    else:
+        vr = v_cache.repeat_interleave(rep, dim=1)
+        o = torch.einsum("bhk,bhkd->bhd", p, vr.to(torch.float32))
+    out = o / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype), k_cache, v_cache
+
+
+def decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *, rt: Runtime):
+    """One-token attention against the dense cache, updating it in place.
+    q: (B, Hq, dh); caches (B, Hkv, S, dh) or quantized dicts; k_new/v_new:
+    (B, Hkv, dh); pos: scalar or (B,) per-row position. Returns (out,
+    k_cache, v_cache)."""
+    pos = torch.broadcast_to(torch.as_tensor(pos, device=q.device),
+                             (q.shape[0],)).long()
+    return _local_flash_decode(q, k_cache, v_cache, k_new, v_new, pos,
+                               kv_scheme=rt.kv_scheme)
+
+
+def attn_decode_step(p: dict, x: torch.Tensor, pos, kv_cache: tuple, *,
+                     n_heads: int, n_kv_heads: int, head_dim: int,
+                     rope_theta: float = 10000.0, mrope_sections=None,
+                     rt: Runtime):
+    """One-token attention sublayer. x: (B, 1, D); kv_cache: (k, v) each
+    (B, Hkv, S, dh) or quantized dicts. Returns (y (B, 1, D), cache)."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
+                               (b,)).long()
+    q, k = _apply_positional(q, k, pos_b[:, None], rope_theta,
+                             mrope_sections)
+    k_cache, v_cache = kv_cache
+    out, k_cache, v_cache = decode_attention(
+        q[:, 0], k_cache, v_cache, k[:, 0], v[:, 0], pos_b, rt=rt)
+    y = dense_apply(p["wo"], out.reshape(b, 1, n_heads * head_dim), rt)
+    return y, (k_cache, v_cache)
+
+
+# -- paged KV cache: chunked prefill and the fused decode tick ----------------
+
 def paged_kv_write(k_pages, v_pages, k_new, v_new, block_table, positions,
-                   valid):
+                   valid, kv_scheme: str = "uniform8"):
     """Scatter a chunk of new K/V rows into the physical page pools, in
-    place. k_pages/v_pages: (n_pages, Hkv, page_size, dh); k_new/v_new:
-    (B, C, Hkv, dh); block_table: (B, max_pages); positions: (B, C)
-    absolute token positions; valid: (B, C) bool — False rows (chunk
-    padding, inactive slots) are not written."""
-    _, hkv, ps, dh = k_pages.shape
+    place. k_pages/v_pages: (n_pages, Hkv, page_size, dh) tensors, or
+    {"codes" uint8 (n_pages, Hkv, page_size, dh), "scale" f32 (n_pages,
+    Hkv, page_size, 1)} dicts for the quantized pool (codes under
+    ``kv_scheme``); k_new/v_new: (B, C, Hkv, dh); block_table:
+    (B, max_pages); positions: (B, C) absolute token positions; valid:
+    (B, C) bool — False rows (chunk padding, inactive slots) are not
+    written."""
+    quantized = isinstance(k_pages, dict)
+    ps = (k_pages["codes"] if quantized else k_pages).shape[2]
     logical = torch.clamp(positions // ps, 0, block_table.shape[1] - 1)
     phys = torch.gather(block_table.long(), 1, logical.long())
     sel = valid.reshape(-1)
     pg = phys.reshape(-1)[sel]
     off = (positions % ps).reshape(-1)[sel].long()
-    k_pages[pg, :, off, :] = k_new.reshape(-1, hkv, dh)[sel].to(k_pages.dtype)
-    v_pages[pg, :, off, :] = v_new.reshape(-1, hkv, dh)[sel].to(v_pages.dtype)
+
+    def scatter(pages, new):
+        flat = new.reshape(-1, *new.shape[2:])[sel]
+        pages[pg, :, off, :] = flat.to(pages.dtype)
+
+    if quantized:
+        kc, ks = quantize_kv(k_new, kv_scheme)   # (B,C,Hkv,dh), (B,C,Hkv,1)
+        vc, vs = quantize_kv(v_new, kv_scheme)
+        scatter(k_pages["codes"], kc)
+        scatter(k_pages["scale"], ks)
+        scatter(v_pages["codes"], vc)
+        scatter(v_pages["scale"], vs)
+    else:
+        scatter(k_pages, k_new)
+        scatter(v_pages, v_new)
     return k_pages, v_pages
 
 
-def _gather_pages(pages, block_table):
-    """One sequence's pages as a contiguous (B, Hkv, S, dh) view,
-    S = max_pages * page_size."""
+def _gather_rows(pages, block_table):
+    """(n_pages, Hkv, ps, w) pool -> (B, Hkv, max_pages * ps, w): each
+    row's pages in logical order."""
     b, max_pages = block_table.shape
-    _, hkv, ps, dh = pages.shape
-    g = pages[block_table.long()]                  # (B, max_pages, Hkv, ps, dh)
-    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, max_pages * ps, dh)
+    _, hkv, ps, width = pages.shape
+    g = pages[block_table.long()]              # (B, max_pages, Hkv, ps, w)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, max_pages * ps, width)
+
+
+def _gather_pages(pages, block_table, kv_scheme: str):
+    """Each row's pages as a contiguous (B, Hkv, S, dh) tensor, S =
+    max_pages * page_size. Quantized pools are dequantized after the
+    gather, so only the context a chunk attends is expanded to f32."""
+    if isinstance(pages, dict):
+        return dequantize_kv(_gather_rows(pages["codes"], block_table),
+                             _gather_rows(pages["scale"], block_table),
+                             kv_scheme)
+    return _gather_rows(pages, block_table)
 
 
 def _paged_chunk_attention(q, k_pages, v_pages, block_table, positions,
-                           attend_len):
+                           attend_len, kv_scheme: str = "uniform8"):
     """Attention of a C-token chunk against the full paged context
     (including the chunk itself, already written to the pages). Plain
     tensor code, as in the reference: prefill gathers the pages.
@@ -89,10 +289,9 @@ def _paged_chunk_attention(q, k_pages, v_pages, block_table, positions,
     q: (B, Hq, C, dh); positions: (B, C) absolute query positions;
     attend_len: (B,) total attendable tokens. Returns (B, Hq, C, dh)."""
     b, hq, c, dh = q.shape
-    hkv = k_pages.shape[1]
-    rep = hq // hkv
-    k = _gather_pages(k_pages, block_table).to(torch.float32)
-    v = _gather_pages(v_pages, block_table).to(torch.float32)
+    k = _gather_pages(k_pages, block_table, kv_scheme).to(torch.float32)
+    v = _gather_pages(v_pages, block_table, kv_scheme).to(torch.float32)
+    rep = hq // k.shape[1]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
@@ -118,37 +317,43 @@ def attn_paged_step(p: dict, x: torch.Tensor, ctx_len: torch.Tensor,
 
     x: (B, C, D) — the next C tokens of each sequence; ctx_len: (B,) tokens
     already in the pages; n_valid: (B,) valid tokens in this chunk (0 =
-    inactive row); cache: {"kp", "vp"} pools of this layer. ``fused``
+    inactive row); cache: {"kp", "vp"} pools of this layer, tensors or
+    quantized {"codes", "scale"} dicts (``rt.kv_scheme``). ``fused``
     routes the attention through the ragged decode kernel
     (``ops.paged_decode_ragged``, n_valid as the per-slot ``q_len``); else
-    a one-token chunk goes to ``ops.paged_attention`` and a wider chunk
-    gathers the pages. Returns (y (B, C, D), cache)."""
-    if isinstance(cache["kp"], dict):
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP.md: SPx KV "
-            "cache)")
+    a one-token chunk goes to ``ops.paged_attention`` (or
+    ``ops.paged_attention_quant``) and a wider chunk gathers the pages.
+    Returns (y (B, C, D), cache)."""
     b, c, _ = x.shape
+    quantized = isinstance(cache["kp"], dict)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     positions = ctx_len[:, None] + torch.arange(c, dtype=ctx_len.dtype,
                                                 device=x.device)
     q, k = _apply_positional(q, k, positions, rope_theta, mrope_sections)
     valid = torch.arange(c, device=x.device)[None, :] < n_valid[:, None]
     kp, vp = paged_kv_write(cache["kp"], cache["vp"], k, v, block_table,
-                            positions, valid)
+                            positions, valid, kv_scheme=rt.kv_scheme)
     attend_len = ctx_len + n_valid
     if fused:
-        out = ops.paged_decode_ragged(q, kp, vp, block_table, ctx_len,
-                                      n_valid, impl=rt.impl)
+        out = ops.paged_decode_ragged(
+            q, kp, vp, block_table, ctx_len, n_valid,
+            kv_scheme=rt.kv_scheme if quantized else None, impl=rt.impl)
         o = out.reshape(b, c, n_heads * head_dim)
     elif c == 1:
         q1 = q[:, 0].reshape(b, n_heads, head_dim)
-        out = ops.paged_attention(q1, kp, vp, block_table, attend_len,
-                                  impl=rt.impl)
+        if quantized:
+            out = ops.paged_attention_quant(q1, kp, vp, block_table,
+                                            attend_len,
+                                            kv_scheme=rt.kv_scheme,
+                                            impl=rt.impl)
+        else:
+            out = ops.paged_attention(q1, kp, vp, block_table, attend_len,
+                                      impl=rt.impl)
         o = out.reshape(b, 1, n_heads * head_dim)
     else:
         qh = q.transpose(1, 2)                           # (B, Hq, C, dh)
         o = _paged_chunk_attention(qh, kp, vp, block_table, positions,
-                                   attend_len)
+                                   attend_len, kv_scheme=rt.kv_scheme)
         o = o.transpose(1, 2).reshape(b, c, n_heads * head_dim)
     y = dense_apply(p["wo"], o, rt)
     return y, dict(cache, kp=kp, vp=vp)

@@ -106,6 +106,13 @@ def tree_map(fn, tree, path: tuple = ()):
     return fn(path, tree)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of dicts and lists, in ``tree_map`` order."""
+    out = []
+    tree_map(lambda _, leaf: out.append(leaf), tree)
+    return out
+
+
 def tree_index(tree, i: int):
     """Slice the leading (period) dim of every leaf: the Python loop over
     periods that replaces the reference's ``lax.scan``."""

@@ -2,7 +2,8 @@
 
   impl       kernel impl: auto | cuda | ref (``runtime.registry``)
   q_chunk    query chunk of the attention paths that have one
-  kv_quant   quantized KV cache (not in this port yet: serving rejects it)
+  kv_quant   quantized KV cache: uint8 codebook codes + one f32 scale
+             per token, in the dense caches and the page pools
   kv_scheme  core/spx scheme of the quantized KV cache
   device     where params, caches and activations live. ``"cuda"`` by
              default; the CPU is taken only when asked for

@@ -11,7 +11,10 @@ accumulator and the scores beside it a block then stays near 48 KiB, so
 four blocks share one SM's 228 KB. Larger pages mean fewer trips of the
 page loop (each trip synchronises the block four times); the waste is at
 most one partly filled page per sequence. For gemma-2b (head_dim 256, f32
-pages) the rule gives 16 tokens per page; for head_dim 128, 32.
+pages) the rule gives 16 tokens per page; for head_dim 128, 32. Quantized
+pools (``kv_scheme``) stage a page as codes, 1 byte per element, plus one
+f32 scale per token, so the same budget holds larger pages: 32 tokens at
+head_dim 256, 64 at 128.
 
 ``plan_seq_pages``, ``plan_resume_pages`` and ``plan_seq_state`` are the
 reference's integer page math, verbatim.
@@ -20,6 +23,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+
+from repro_torch.core import spx
 
 __all__ = ["KVPagePlan", "plan_kv_pages", "plan_seq_pages",
            "plan_resume_pages", "StateReservation", "plan_seq_state",
@@ -41,17 +46,21 @@ class KVPagePlan:
     smem_bytes: int
 
 
-def plan_kv_pages(dh: int, *, act_bytes: int = 4) -> KVPagePlan:
+def plan_kv_pages(dh: int, *, act_bytes: int = 4,
+                  kv_scheme: str | None = None) -> KVPagePlan:
     """Tokens per page for a KV head of ``dh`` elements of ``act_bytes``
-    each. ``REPRO_PAGE_SIZE=N`` pins the page size."""
+    each, or of ``dh`` one-byte codes and one f32 scale when ``kv_scheme``
+    names a quantized cache. ``REPRO_PAGE_SIZE=N`` pins the page size."""
+    token_bytes = (spx.kv_token_side_bytes(dh) if kv_scheme is not None
+                   else dh * act_bytes)
     pinned = os.environ.get("REPRO_PAGE_SIZE")
     if pinned:
         ps = int(pinned)
-        return KVPagePlan(ps, 2 * ps * dh * act_bytes)
+        return KVPagePlan(ps, 2 * ps * token_bytes)
     fits = [ps for ps in _PAGE_CANDIDATES
-            if 2 * ps * dh * act_bytes <= PAGE_PAIR_SMEM_BYTES]
+            if 2 * ps * token_bytes <= PAGE_PAIR_SMEM_BYTES]
     ps = fits[-1] if fits else _PAGE_CANDIDATES[0]
-    return KVPagePlan(ps, 2 * ps * dh * act_bytes)
+    return KVPagePlan(ps, 2 * ps * token_bytes)
 
 
 def plan_seq_pages(n_tokens: int, page_size: int, *,

@@ -4,12 +4,15 @@
 cross-knob checks run, as in ``repro.serving.config``; it returns a fully
 resolved copy. Same fields, env knobs and defaults as the reference.
 
-This port serves one path: paged KV in f32, the fused decode tick,
-``cb`` or ``fifo`` scheduling, one device, ``attn+dense`` patterns. A knob
-that asks **explicitly** for something else raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it. An env-enabled default degrades
-silently to the served path, as an env default degrades in the reference
-where the layout cannot support it.
+This port serves two layouts on one device, for ``attn+dense`` patterns:
+paged KV with the fused decode tick under ``cb`` or ``fifo`` scheduling,
+and the dense per-slot layout under ``fifo``; either in f32 or, with
+``Runtime.kv_quant``, as SPx codes. A knob the dense layout cannot have
+raises the reference's ``ValueError``. A knob that asks **explicitly** for
+something this port lacks raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it. An env-enabled default degrades silently to
+the served path, as an env default degrades in the reference where the
+layout cannot support it.
 """
 from __future__ import annotations
 
@@ -88,55 +91,93 @@ class ServeConfig:
             raise ValueError(f"max_seq must be >= 1, got {self.max_seq}")
 
         kv_layout = "paged" if self.kv_layout == "auto" else self.kv_layout
-        if kv_layout == "dense":
-            raise _not_ported("kv_layout='dense'", "the dense KV layout")
-        if kv_layout != "paged":
+        if kv_layout not in ("paged", "dense"):
             raise ValueError(
                 f"kv_layout must be 'paged', 'dense' or 'auto', "
                 f"got {kv_layout!r}")
+        paged = kv_layout == "paged"
 
+        # prefix cache, speculation, the fused tick, the cb scheduler, the
+        # host tier and shards need the paged layout: on a dense engine an
+        # explicit request is a caller error and an env default degrades
+        # silently, as in the reference
         if self.prefix_cache:
+            if not paged:
+                raise ValueError(
+                    "prefix_cache=True is unsupported here: kv_layout="
+                    "'dense' — per-slot rows, nothing to share")
             raise _not_ported("prefix_cache=True", "prefix cache")
         # REPRO_PREFIX_CACHE=1 degrades silently: nothing to read
 
         explicit_off = self.spec_decode is False and self.spec_k in (None, 0)
         if not explicit_off and (self.spec_decode is not None
                                  or self.spec_k is not None):
+            if not paged and self.spec_decode is not False:
+                raise ValueError(
+                    "spec_decode is unsupported here: kv_layout='dense' — "
+                    "the verify step scores the draft window through the "
+                    "paged chunk path")
             raise _not_ported("speculative decoding (spec_decode / spec_k)",
                               "speculative decoding")
         # REPRO_SPEC_K=N degrades silently to no speculation
 
-        if self.fused_decode is False:
+        if paged and self.fused_decode is False:
             raise _not_ported("fused_decode=False (the unfused decode tick)",
                               "the unfused decode path")
-        # REPRO_FUSED_DECODE=0 degrades silently to the fused tick
+        if not paged and self.fused_decode:
+            raise ValueError(
+                "fused_decode=True needs kv_layout='paged' — the megakernel "
+                "decodes through the paged page pools")
+        # REPRO_FUSED_DECODE degrades silently to the layout's only tick
 
-        scheduler = (self.scheduler
-                     or os.environ.get("REPRO_SCHEDULER", "") or "cb")
+        scheduler = self.scheduler
+        if scheduler is None:
+            scheduler = (os.environ.get("REPRO_SCHEDULER", "")
+                         or ("cb" if paged else "fifo"))
         if scheduler not in ("fifo", "cb"):
             raise ValueError(
                 f"scheduler must be 'fifo' or 'cb', got {scheduler!r} "
                 "(check REPRO_SCHEDULER)")
+        if scheduler == "cb" and not paged:
+            if self.scheduler is not None:
+                raise ValueError(
+                    "scheduler='cb' needs kv_layout='paged' — preemption "
+                    "offloads KV pages and the dense layout has none")
+            scheduler = "fifo"
 
         env_host = os.environ.get("REPRO_HOST_PAGES", "")
         host_pages = self.host_pages
-        if host_pages is None and env_host:
-            host_pages = int(env_host)
+        if not paged and (host_pages is not None
+                          or self.prefix_cache_pages is not None):
+            raise ValueError(
+                "host_pages / prefix_cache_pages need kv_layout='paged' — "
+                "the dense layout has no page pool")
         if self.prefix_cache_pages is not None:
             raise _not_ported("prefix_cache_pages", "prefix cache")
+        if host_pages is None and env_host and paged:
+            host_pages = int(env_host)
 
-        prefill_chunk = (self.prefill_chunk
-                         or int(os.environ.get("REPRO_PREFILL_CHUNK", 0))
-                         or DEFAULT_PREFILL_CHUNK)
-        if prefill_chunk < 1:
-            raise ValueError(
-                f"prefill_chunk must be >= 1, got {prefill_chunk} "
-                "(check REPRO_PREFILL_CHUNK)")
+        # chunked prefill is paged only: the dense layout prefills whole
+        # prompts and keeps the knob as given
+        prefill_chunk = self.prefill_chunk
+        if paged:
+            prefill_chunk = (prefill_chunk
+                             or int(os.environ.get("REPRO_PREFILL_CHUNK", 0))
+                             or DEFAULT_PREFILL_CHUNK)
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk} "
+                    "(check REPRO_PREFILL_CHUNK)")
 
         for knob in ("shards", "replicas"):
             val = getattr(self, knob)
             if val is not None and val < 1:
                 raise ValueError(f"{knob} must be >= 1, got {val}")
+            if knob == "shards" and not paged and val is not None and val > 1:
+                raise ValueError(
+                    f"shards={val} needs kv_layout='paged' — the sharded "
+                    "engine head-shards the paged KV/state pools over the "
+                    "model axis")
             if val is not None and val > 1:
                 raise _not_ported(f"{knob}={val}", "multi-device and drivers")
         # REPRO_SHARDS / REPRO_REPLICAS degrade silently to one device
@@ -149,6 +190,6 @@ class ServeConfig:
         return dataclasses.replace(
             self, kv_layout=kv_layout, kv_cache_dtype=kv_cache_dtype,
             prefix_cache=False, spec_decode=False, spec_k=0,
-            fused_decode=True, scheduler=scheduler, host_pages=host_pages,
+            fused_decode=paged, scheduler=scheduler, host_pages=host_pages,
             prefix_cache_pages=None, prefill_chunk=prefill_chunk, shards=1,
             replicas=1, resolved=True)

@@ -1,19 +1,28 @@
 """Batched serving engine with SPx-quantized weights (the paper's
-deployment mode), on the paged KV layout.
+deployment mode), on two KV layouts:
 
-Serving state lives in a ``StateCache`` (serving/kv_cache.py, a copy of
-the reference's host-side allocator) over page pools on the device.
-Admission is all-or-nothing: a request enters a slot when the pool covers
-its worst-case footprint (prompt + max_new_tokens). Prompts stream through
-chunked prefill, one chunk per engine tick per slot, interleaved with the
-decode tick of the running sequences. Every decode tick is one fused step
-(``models.lm.lm_paged_fused_step``): one ``paged_decode_ragged`` launch per
-layer for the whole batch.
+* **paged** (the default): serving state lives in a ``StateCache``
+  (serving/kv_cache.py, a copy of the reference's host-side allocator)
+  over page pools on the device. Admission is all-or-nothing: a request
+  enters a slot when the pool covers its worst-case footprint (prompt +
+  max_new_tokens). Prompts stream through chunked prefill, one chunk per
+  engine tick per slot, interleaved with the decode tick of the running
+  sequences. Every decode tick is one fused step
+  (``models.lm.lm_paged_fused_step``): one ``paged_decode_ragged`` launch
+  per layer for the whole batch. Two schedulers, as in the reference:
+  ``fifo`` (strict submit order, a blocked head blocks the queue) and
+  ``cb`` (continuous batching: priority admission with skip-ahead, and
+  preemption of strictly lower-priority residents whose written pages go
+  to a host tier and come back on resume).
+* **dense** (``ServeConfig(kv_layout="dense")``, the reference's
+  differential-test baseline): one ``(Hkv, max_seq, dh)`` cache row per
+  slot. An admitted request is prefilled whole through ``lm_prefill``
+  (the flash kernel) straight into its slot's row; every tick then
+  decodes all slots with ``lm_decode_step``. ``fifo`` only.
 
-Two schedulers, as in the reference: ``fifo`` (strict submit order, a
-blocked head blocks the queue) and ``cb`` (continuous batching: priority
-admission with skip-ahead, and preemption of strictly lower-priority
-residents whose written pages go to a host tier and come back on resume).
+Either layout stores K/V in f32 or, with ``Runtime(kv_quant=True,
+kv_scheme=...)``, as SPx codebook codes (uint8) plus one f32 scale per
+token; the paged decode then runs the quantized kernels.
 
 Greedy decoding is ``argmax`` and equals the reference's tokens. Sampling
 (``temperature > 0``) draws from a per-request ``torch.Generator`` seeded
@@ -21,10 +30,9 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
-Not in this port yet (``ServeConfig.resolve`` raises): the dense layout,
-the prefix cache, speculative decoding, the unfused decode tick, the
-quantized KV cache, sharding and replicas, and every pattern but
-``attn+dense``.
+Not in this port yet (``ServeConfig.resolve`` raises): the prefix cache,
+speculative decoding, the unfused decode tick, bf16 KV caches, sharding
+and replicas, and every pattern but ``attn+dense``.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm as lm_mod
-from repro_torch.nn.layers import quantize_params, tree_map
+from repro_torch.nn.layers import quantize_params, tree_leaves, tree_map
 from repro_torch.runtime import Runtime, planner, resolve_device
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.kv_cache import StateCache, kv_bytes_per_token
@@ -94,10 +102,9 @@ class ServeEngine:
         self.cfg = cfg
         self.rt = rt or Runtime(q_chunk=256)
         self.device = resolve_device(self.rt.device)
-        if self.rt.kv_quant:
-            raise NotImplementedError(
-                "Runtime.kv_quant is not ported to repro_torch yet "
-                "(ROADMAP.md: SPx KV cache)")
+        # with rt.kv_quant the caches hold uint8 codes + f32 scales under
+        # rt.kv_scheme, and kv_cache_dtype is ignored by the allocators
+        self.kv_scheme = self.rt.kv_scheme if self.rt.kv_quant else None
         sc = (config or ServeConfig()).resolve(cfg)
         self.config = sc
         self.batch_slots = sc.batch_slots
@@ -131,12 +138,22 @@ class ServeEngine:
         self._undrained_runs = 0
         self._submit_seq = 0
         self.drained = True
-        self._init_paged()
+        if self.kv_layout == "paged":
+            self._init_paged()
+        else:
+            self._init_dense()
+
+    def _init_dense(self):
+        self.caches = lm_mod.init_caches(
+            self.cfg, self.batch_slots, self.max_seq,
+            dtype=self.kv_cache_dtype, kv_quant=self.rt.kv_quant,
+            device=self.device)
 
     def _init_paged(self):
         cfg, sc = self.cfg, self.config
         plan = planner.plan_kv_pages(cfg.dh,
-                                     act_bytes=self.kv_cache_dtype.itemsize)
+                                     act_bytes=self.kv_cache_dtype.itemsize,
+                                     kv_scheme=self.kv_scheme)
         self.page_size = min(sc.page_size or plan.page_size, self.max_seq)
         self.pages_per_seq = -(-self.max_seq // self.page_size)
         n_pages = sc.pool_pages or self.batch_slots * self.pages_per_seq
@@ -145,7 +162,7 @@ class ServeEngine:
         self.prefill_chunk = sc.prefill_chunk
         self.caches = lm_mod.paged_init_caches(
             cfg, self.pool.n_pages, self.page_size, dtype=self.kv_cache_dtype,
-            device=self.device)
+            kv_quant=self.rt.kv_quant, device=self.device)
         self.block_tables = np.zeros((self.batch_slots, self.pages_per_seq),
                                      np.int32)
         # per-slot prefill progress: prompt tokens already fed; -1 = decoding
@@ -189,12 +206,13 @@ class ServeEngine:
                 f"request id {req.rid} already finished this measurement "
                 "window — reuse a rid only after reset_metrics(), and "
                 "always with a fresh Request object")
-        need = planner.plan_seq_pages(self._worst_case_tokens(req),
-                                      self.page_size)
-        if need > self.pool.n_pages:
-            raise ValueError(
-                f"request {req.rid}: needs {need} pages but the pool "
-                f"only has {self.pool.n_pages} in total")
+        if self.kv_layout == "paged":
+            need = planner.plan_seq_pages(self._worst_case_tokens(req),
+                                          self.page_size)
+            if need > self.pool.n_pages:
+                raise ValueError(
+                    f"request {req.rid}: needs {need} pages but the pool "
+                    f"only has {self.pool.n_pages} in total")
         if req.generator is None:
             seed = (req.seed if req.seed is not None
                     else _request_seed(self.seed, req.rid))
@@ -206,8 +224,10 @@ class ServeEngine:
         self.queue.append(req)
 
     def step(self):
-        """One scheduling tick: admission (with preemption under cb), a
-        prefill chunk per prefilling slot, one fused decode tick."""
+        """One scheduling tick. Paged: admission (with preemption under
+        cb), a prefill chunk per prefilling slot, one fused decode tick.
+        Dense: whole-prompt prefill of each admitted request, one decode
+        tick."""
         t0 = _now()
         self._tick()
         self._wall += _now() - t0
@@ -217,13 +237,19 @@ class ServeEngine:
 
     def _tick(self):
         self._steps += 1
-        if self.scheduler == "cb":
-            self._admit_cb()
+        if self.kv_layout == "dense":
+            self._admit_dense()
+            self._decode_step_dense()
+            self._occ_samples.append(
+                sum(r is not None for r in self.slot_req) / self.batch_slots)
         else:
-            self._admit_fifo()
-        self._prefill_tick()
-        self._decode_step_fused()
-        self._occ_samples.append(self.pool.stats.occupancy)
+            if self.scheduler == "cb":
+                self._admit_cb()
+            else:
+                self._admit_fifo()
+            self._prefill_tick()
+            self._decode_step_fused()
+            self._occ_samples.append(self.pool.stats.occupancy)
         for st in self._streams.values():
             st.notify()
 
@@ -267,8 +293,7 @@ class ServeEngine:
         st = self._streams.get(rid)
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.rid == rid:
-                self._clear_slot(slot)
-                self.pool.release(rid)
+                self._release_slot(slot)
                 self._drop_request(r, st)
                 return True
         for r in list(self.queue):
@@ -308,6 +333,8 @@ class ServeEngine:
         self.drained = True
         self._streams = {rid: st for rid, st in self._streams.items()
                          if st.status == "live"}
+        if self.kv_layout == "dense":
+            return
         st = self.pool.stats
         st.peak_pages_in_use = st.pages_in_use
         st.admission_denials = 0
@@ -319,17 +346,48 @@ class ServeEngine:
         """Throughput/latency/occupancy counters for the work so far."""
         lat = [r.t_done - r.t_enqueue for r in self.finished]
         ttft = [r.t_first_token - r.t_enqueue for r in self.finished]
+        # bytes follow the layout allocated: the cache dtype, or codes +
+        # scale when rt.kv_quant is set
         per_tok = kv_bytes_per_token(
-            self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize)
-        st = self.pool.stats
-        page_bytes = self.page_size * per_tok
+            self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize,
+            kv_scheme=self.kv_scheme)
+        if self.kv_layout == "paged":
+            st = self.pool.stats
+            peak_kv = st.peak_pages_in_use * self.page_size * per_tok
+            page_bytes = self.page_size * per_tok
+            paged = {
+                "page_size": self.page_size,
+                "n_pages": self.pool.n_pages,
+                "pages_per_seq": self.pages_per_seq,
+                "peak_kv_pages": st.peak_pages_in_use,
+                "admission_denials": st.admission_denials,
+                "prefill_chunk": self.prefill_chunk,
+                "preemptions": self._preemptions,
+                "resumes": self._resumes,
+                "offload_bytes": self._offload_bytes,
+                "onload_bytes": self._onload_bytes,
+                "host_pages": self.pool.host_pages,
+                "host_pages_in_use": st.host_pages_in_use,
+                "peak_host_pages": st.peak_host_pages,
+                "peak_host_bytes": st.peak_host_pages * page_bytes,
+                "fused_decode": self.fused_decode,
+            }
+        else:
+            # dense bills every slot its worst case up front
+            peak_kv = self.batch_slots * self.max_seq * per_tok
+            paged = {}
         return {
             "kv_layout": self.kv_layout,
             "scheduler": self.scheduler,
             "device": str(self.device),
             "undrained_runs": self._undrained_runs,
             "drained": self.drained,
-            "kv_cache_dtype": str(self.kv_cache_dtype).replace("torch.", ""),
+            "kv_scheme": self.kv_scheme or "none",
+            # what the cache tensors hold: the quantized layout ignores
+            # kv_cache_dtype (codes uint8, scales f32)
+            "kv_cache_dtype": ("uint8+f32scale" if self.kv_scheme else
+                               str(self.kv_cache_dtype).replace("torch.",
+                                                                "")),
             "requests_finished": len(self.finished),
             "requests_cancelled": self._cancelled,
             "tokens_generated": self._tokens_out,
@@ -348,22 +406,8 @@ class ServeEngine:
             if self._occ_samples else 0.0,
             "occupancy_peak": float(np.max(self._occ_samples))
             if self._occ_samples else 0.0,
-            "peak_kv_bytes": int(st.peak_pages_in_use * page_bytes),
-            "page_size": self.page_size,
-            "n_pages": self.pool.n_pages,
-            "pages_per_seq": self.pages_per_seq,
-            "peak_kv_pages": st.peak_pages_in_use,
-            "admission_denials": st.admission_denials,
-            "prefill_chunk": self.prefill_chunk,
-            "preemptions": self._preemptions,
-            "resumes": self._resumes,
-            "offload_bytes": self._offload_bytes,
-            "onload_bytes": self._onload_bytes,
-            "host_pages": self.pool.host_pages,
-            "host_pages_in_use": st.host_pages_in_use,
-            "peak_host_pages": st.peak_host_pages,
-            "peak_host_bytes": st.peak_host_pages * page_bytes,
-            "fused_decode": self.fused_decode,
+            "peak_kv_bytes": int(peak_kv),
+            **paged,
         }
 
     # -- admission -----------------------------------------------------------
@@ -417,25 +461,34 @@ class ServeEngine:
     # -- preemption + resume (cb scheduler) ----------------------------------
 
     def _snapshot_pages(self, pages) -> list:
-        """The written pages' bytes, copied to host numpy arrays."""
+        """The written pages' bytes (codes and scales of a quantized pool),
+        copied to host numpy arrays."""
         idx = self._tensor(np.asarray(pages, np.int32))
         snap = lm_mod.paged_gather_pages(self.caches, idx)
-        return [{k: v.cpu().numpy() for k, v in s.items()} for s in snap]
+        return tree_map(lambda _, leaf: leaf.cpu().numpy(), snap)
 
     def _restore_pages(self, pages: list[int], payload):
-        n = payload[0]["kp"].shape[1]
+        n = tree_leaves(payload)[0].shape[1]
         idx = self._tensor(np.asarray(pages[:n], np.int32))
         lm_mod.paged_scatter_pages(self.caches, idx, payload)
 
     @staticmethod
     def _payload_bytes(payload) -> int:
-        return sum(a.nbytes for s in payload for a in s.values())
+        return sum(a.nbytes for a in tree_leaves(payload))
 
     def _clear_slot(self, slot: int):
         self.slot_req[slot] = None
-        self.block_tables[slot] = 0
         self.slot_pos[slot] = 0
-        self._fed[slot] = -1
+        if self.kv_layout == "paged":
+            self.block_tables[slot] = 0
+            self._fed[slot] = -1
+
+    def _release_slot(self, slot: int):
+        """Clear the slot and give its pages back to the pool."""
+        rid = self.slot_req[slot].rid
+        self._clear_slot(slot)
+        if self.kv_layout == "paged":
+            self.pool.release(rid)
 
     def _preempt_slot(self, slot: int) -> bool:
         """Evict the resident request: snapshot the pages covering its
@@ -517,6 +570,8 @@ class ServeEngine:
 
     def preempt(self, rid: int):
         """Force-preempt a resident request (fault injection / tests)."""
+        if self.kv_layout != "paged":
+            raise ValueError("preempt() needs kv_layout='paged'")
         for slot, r in enumerate(self.slot_req):
             if r is not None and r.rid == rid:
                 if not self._preempt_slot(slot):
@@ -605,8 +660,51 @@ class ServeEngine:
         st = self._streams.get(req.rid)
         if st is not None:
             st.finish()
-        self._clear_slot(slot)
-        self.pool.release(req.rid)
+        self._release_slot(slot)
+
+    # -- dense layout ---------------------------------------------------------
+
+    def _admit_dense(self):
+        """FIFO: prefill each admitted prompt whole, straight into its
+        slot's cache row (the reference prefills a one-row cache and
+        splices it in; positions past the prompt are never attended)."""
+        for slot in range(self.batch_slots):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            self.slot_req[slot] = req
+            row = tree_map(lambda _, leaf: leaf[:, slot:slot + 1],
+                           self.caches)
+            tok = self._tensor(np.asarray(req.prompt, np.int32)[None, :])
+            logits, _ = lm_mod.lm_prefill(self.params, tok, row, self.cfg,
+                                          self.rt)
+            self._model_calls += 1
+            self.slot_pos[slot] = len(req.prompt)
+            req.output.append(self._pick_token(logits[0].cpu().numpy(), req))
+            self._tokens_out += 1
+            req.t_first_token = _now()
+            self._maybe_finish(slot)        # max_new_tokens == 1
+
+    def _decode_step_dense(self):
+        """One decode tick of every slot, each at its own position."""
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return
+        tokens = np.zeros(self.batch_slots, np.int32)
+        for i in active:
+            tokens[i] = self.slot_req[i].output[-1]
+        logits, self.caches = lm_mod.lm_decode_step(
+            self.params, self._tensor(tokens),
+            self._tensor(self.slot_pos.astype(np.int32)), self.caches,
+            self.cfg, self.rt)
+        self._model_calls += 1
+        logits = logits.cpu().numpy()
+        for i in active:
+            req = self.slot_req[i]
+            req.output.append(self._pick_token(logits[i], req))
+            self._tokens_out += 1
+            self.slot_pos[i] += 1
+            self._maybe_finish(i)
 
     def _pick_token(self, row: np.ndarray, req: Request) -> int:
         if req.temperature <= 0:
@@ -615,3 +713,4 @@ class ServeEngine:
         logits = torch.as_tensor(row, dtype=torch.float64) / req.temperature
         probs = torch.softmax(logits, dim=-1)
         return int(torch.multinomial(probs, 1, generator=req.generator))
+

@@ -6,7 +6,9 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import torch
+import pytest
+
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_config, reduced
 from repro.core.quantized import QuantizedTensor as JQT

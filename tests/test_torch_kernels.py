@@ -1,7 +1,9 @@
 """The port's kernel ops against the JAX reference on the CPU, where they
 take their plain PyTorch versions; the JAX side runs the Pallas kernel
-bodies in interpret mode. One test, marked ``gpu``, holds each CUDA
-kernel against its plain version on the card and skips without one:
+bodies in interpret mode (the quantized paged kernels and the flash
+kernel: ``test_torch_kv_quant.py``, ``test_torch_dense.py``). The tests
+marked ``gpu`` hold each CUDA kernel against its plain version on the
+card and skip without one:
 
     python -m pytest -m gpu tests/test_torch_kernels.py
 
@@ -11,7 +13,8 @@ import types
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import quantized as tq
 from repro_torch.kernels import ops, ref
@@ -200,3 +203,55 @@ def test_cuda_kernels_match_plain_versions(cuda):
                                  torch.ones(1, dtype=torch.int32, device=cuda),
                                  torch.ones(1, dtype=torch.int32, device=cuda),
                                  w=1)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_kernels_match_plain_versions(cuda):
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_quant_cuda, paged_decode_ragged_quant_cuda)
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for scheme in ("uniform8", "spx_8_x3"):
+        lut = kv_lut(scheme, cuda)
+        for dh, rep, w in ((128, 4, 8), (256, 8, 1), (64, 2, 5), (32, 1, 3)):
+            b, hkv, ps, mp = 3, 2, 32, 4
+            n_pages = 1 + b * mp
+            kc, ks = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                             generator=gen, device=cuda),
+                                 scheme)
+            vc, vs = quantize_kv(torch.randn((n_pages, hkv, ps, dh),
+                                             generator=gen, device=cuda),
+                                 scheme)
+            bt = torch.randint(0, n_pages, (b, mp), generator=gen,
+                               device=cuda, dtype=torch.int32)
+            ctx = torch.tensor([0, ps - 1, 2 * ps + 1], dtype=torch.int32,
+                               device=cuda)
+            qn = torch.tensor([0, 1, w], dtype=torch.int32, device=cuda)
+            q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                            device=cuda)
+            pools = (kc, ks, vc, vs, bt, ctx)
+            got = paged_decode_ragged_quant_cuda(q, *pools, qn, lut, w=w)
+            want = ref.paged_decode_ragged_quant_ref(q, *pools, qn, lut, w=w)
+            assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+            assert (got[0] == 0).all()
+            q1 = q[:, :, :rep].contiguous()
+            got = paged_attention_quant_cuda(q1, *pools, lut)
+            want = ref.paged_attention_quant_ref(q1, *pools, lut)
+            assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+
+
+@pytest.mark.gpu
+def test_cuda_flash_kernel_matches_plain_version(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for s in (1, 33, 128):
+        for dh, hkv, rep in ((128, 2, 1), (256, 1, 8), (64, 2, 2)):
+            q = torch.randn((2, hkv * rep, s, dh), generator=gen,
+                            device=cuda)
+            k, v = (torch.randn((2, hkv, s, dh), generator=gen, device=cuda)
+                    for _ in range(2))
+            for causal in (True, False):
+                got = flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               q_chunk=s)
+                assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()

@@ -9,7 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.configs import get_config, reduced
 from repro.models import lm as jlm
@@ -45,7 +46,7 @@ def test_paged_steps_match_reference(quantized):
     jrt, trt = JRuntime(impl="ref", q_chunk=16), Runtime(device="cpu")
     n_pages, ps = 8, 8
     jc = jlm.paged_init_caches(jcfg, n_pages, ps, dtype=jnp.float32)
-    tc = tlm.paged_init_caches(tcfg, n_pages, ps)
+    tc = tlm.paged_init_caches(tcfg, n_pages, ps, device="cpu")
     bt = np.array([[3, 0, 5, 1], [2, 7, 4, 6]], np.int32)
     sidx = jnp.zeros((2, 2), jnp.int32)
     rng = np.random.default_rng(0)

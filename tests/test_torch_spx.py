@@ -5,7 +5,8 @@ calibrate_mse, quantize_weight and the int4 packing."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.core import quantized as jq
 from repro.core import spx as jspx

@@ -40,6 +40,7 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_runtime.py",
         "tests/test_spx_quant.py",
         "tests/test_ssm.py",
+        "tests/test_torch_dense.py",
         "tests/test_torch_interop.py",
         "tests/test_torch_kernels.py",
         "tests/test_torch_spx.py",
@@ -55,6 +56,7 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_spec_decode.py",
         "tests/test_state_cache.py",
         "tests/test_streaming.py",
+        "tests/test_torch_kv_quant.py",
         "tests/test_torch_lm.py",
         "tests/test_torch_serving.py",
     ],
