@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,7 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "build_all", "library", "check", "build_dir"]
+__all__ = ["LAUNCHES", "build_all", "library", "check", "build_dir",
+           "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -36,11 +38,10 @@ _SIGNATURES = {
         "spx_matmul_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
     },
     "paged_decode": {
-        "paged_decode_smem_bytes": ([_I] * 4, ctypes.c_size_t),
         "paged_decode_ragged_f32":
-            ([_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I),
+            ([_P] * 8 + [_I] * 9 + [ctypes.c_float, _P], _I),
         "paged_decode_ragged_quant_f32":
-            ([_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+            ([_P] * 6 + [_I] + [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P],
              _I),
     },
     "flash_attention": {
@@ -127,3 +128,10 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

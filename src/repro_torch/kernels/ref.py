@@ -8,9 +8,11 @@ import torch
 
 from repro_torch.core import spx
 
+from .paged_attention import split_tokens
+
 __all__ = ["spx_matmul_ref", "paged_attention_ref", "paged_decode_ragged_ref",
            "paged_attention_quant_ref", "paged_decode_ragged_quant_ref",
-           "flash_attention_ref"]
+           "paged_decode_split_ref", "flash_attention_ref"]
 
 _NEG = -1e30
 
@@ -134,6 +136,65 @@ def paged_decode_ragged_quant_ref(q, k_codes, k_scale, v_codes, v_scale,
                            _gather_dequant(v_codes, v_scale, block_table,
                                            lut),
                            ctx_len, q_len, w, out_dtype or q.dtype)
+
+
+def paged_decode_split_ref(q, k_pages, v_pages, block_table, ctx_len,
+                           q_len=None, *, w: int = 1, splits: int,
+                           quant=None):
+    """The CUDA paged-decode kernel's split arithmetic in plain PyTorch:
+    ``paged_decode_ragged_ref`` computed per split of the block table and
+    merged as the kernel merges, so the formula can be held against the
+    reference on the CPU.
+
+    Split z covers positions ``[z * t, (z + 1) * t)``, ``t =
+    split_tokens(max_pages * page_size, splits)`` (the kernel's rule:
+    ``ceil`` of the even share, rounded up to 16 tokens). Each split keeps
+    its running max ``m`` (-1e30 where every position is masked), ``l =
+    sum(exp(s - m))`` over its unmasked positions and ``acc = P @ V``; the
+    merge takes ``M = max(m)``, ``c = exp(m - M)`` and returns ``sum(c *
+    acc) / max(sum(c * l), 1e-30)``. ``q_len`` None is the kernel's single-token
+    mode: ``w = 1``, ``ctx = max(ctx_len - 1, 0)``, ``q_len = (ctx_len >
+    0)``. ``quant``: None for f32 pools, else (k_scale, v_scale, lut) with
+    code pools. Returns (B, Hkv, R, dh) f32."""
+    if q_len is None:
+        w = 1
+        q_len = (ctx_len > 0).to(torch.int32)
+        ctx_len = torch.clamp(ctx_len - 1, min=0)
+    if quant is None:
+        k, v = _gather(k_pages, block_table), _gather(v_pages, block_table)
+    else:
+        k_scale, v_scale, lut = quant
+        k = _gather_dequant(k_pages, k_scale, block_table, lut)
+        v = _gather_dequant(v_pages, v_scale, block_table, lut)
+    r_rows, dh = q.shape[2], q.shape[3]
+    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32),
+                     k.to(torch.float32)) * (dh ** -0.5)
+    win = torch.arange(r_rows, device=q.device) % w
+    pos = torch.arange(k.shape[2], device=q.device)
+    ctx = ctx_len.to(q.device).long()
+    row_ok = win[None, None, :, None] < q_len.to(q.device).long()[
+        :, None, None, None]
+    mask = (pos[None, None, None, :]
+            <= ctx[:, None, None, None] + win[None, None, :, None]) & row_ok
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    max_tokens = block_table.shape[1] * k_pages.shape[2]
+    span = split_tokens(max_tokens, splits)
+    parts = []
+    for t0 in range(0, max_tokens, span):
+        s_z, mask_z = s[..., t0:t0 + span], mask[..., t0:t0 + span]
+        m_z = s_z.amax(dim=-1, keepdim=True)
+        p = torch.where(mask_z, torch.exp(s_z - m_z), torch.zeros_like(s_z))
+        parts.append((m_z, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bhrk,bhkd->bhrd", p,
+                                   v[:, :, t0:t0 + span].to(torch.float32))))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_sum = torch.zeros_like(m_all)
+    acc = torch.zeros_like(q, dtype=torch.float32)
+    for m_z, l_z, a_z in parts:
+        c = torch.exp(m_z - m_all)
+        l_sum = l_sum + l_z * c
+        acc = acc + a_z * c
+    return acc / torch.clamp(l_sum, min=1e-30)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int):

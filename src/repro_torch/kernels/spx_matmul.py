@@ -1,10 +1,11 @@
 """Wrapper of the hand-written SPx matmul kernel (``csrc/spx_matmul.cu``),
 the Hopper counterpart of ``repro/kernels/spx_matmul.py``.
 
-The wrapper checks what the kernel takes, allocates the output (and the
-split-K partial buffer) with ``torch.empty``, launches on the current
-stream, raises on a launch error and counts the launch. It never falls
-back to the plain version.
+The wrapper checks what the kernel takes, allocates the output (and, when
+the prefill tile splits K over blocks, the partial buffer) with
+``torch.empty``, launches on the current stream, raises on a launch error
+and counts the launch. The split count is cached per (M, K, N, SMs). It
+never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -16,10 +17,13 @@ from . import cuda_lib
 
 __all__ = ["spx_matmul_cuda"]
 
+#: rows up to which the decode kernel runs (the kernel's kSkinnyMaxM)
+_SKINNY_MAX_M = 8
+
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+def _splits(m: int, k: int, n: int, sms: int) -> int:
+    return cuda_lib.library("spx_matmul").spx_matmul_splits(m, k, n, sms)
 
 
 def _check(name: str, t: torch.Tensor, dtype, device) -> None:
@@ -57,10 +61,12 @@ def spx_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _check("scale", scale, torch.float32, device)
     _check("lut", lut, torch.float32, device)
     lib = cuda_lib.library("spx_matmul")
-    splits = lib.spx_matmul_splits(m, k, n, _sm_count(device.index or 0))
+    splits = _splits(m, k, n, cuda_lib.sm_count(device.index or 0))
     out = torch.empty((m, n), dtype=torch.float32, device=device)
+    # decode (M <= 8) adds its K splits inside a cluster; prefill's K
+    # splits go through a partial buffer
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
-               if splits > 1 else out)
+               if m > _SKINNY_MAX_M and splits > 1 else out)
     err = lib.spx_matmul_f32(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), lut.data_ptr(),
         out.data_ptr(), partial.data_ptr(), m, k, n, int(packed),

@@ -2,19 +2,16 @@
 page reservations.
 
 The page size follows a Hopper rule in place of the TPU's sublane and VMEM
-model. The paged-decode kernel (``kernels/csrc/paged_decode.cu``) runs one
-block per (slot, KV head) and stages one K page and one V page of that
-head in shared memory per step of its page loop. The rule: the largest
-power-of-two page, from 8 to 256 tokens, whose K+V pair for one (slot, KV
-head) fits ``PAGE_PAIR_SMEM_BYTES`` (32 KiB). With the query rows, the
-accumulator and the scores beside it a block then stays near 48 KiB, so
-four blocks share one SM's 228 KB. Larger pages mean fewer trips of the
-page loop (each trip synchronises the block four times); the waste is at
-most one partly filled page per sequence. For gemma-2b (head_dim 256, f32
-pages) the rule gives 16 tokens per page; for head_dim 128, 32. Quantized
-pools (``kv_scheme``) stage a page as codes, 1 byte per element, plus one
-f32 scale per token, so the same budget holds larger pages: 32 tokens at
-head_dim 256, 64 at 128.
+model: the largest power-of-two page, from 8 to 256 tokens, whose K+V pair
+for one (slot, KV head) fits ``PAGE_PAIR_SMEM_BYTES`` (32 KiB). The
+paged-decode kernel (``kernels/csrc/paged_decode.cu``) loads page rows
+straight into registers and splits a sequence over blocks in whole pages,
+so the page size is the allocator's granularity and the unit of the
+kernel's split; the waste is at most one partly filled page per sequence.
+For gemma-2b (head_dim 256, f32 pages) the rule gives 16 tokens per page;
+for head_dim 128, 32. Quantized pools (``kv_scheme``) hold a page as codes,
+1 byte per element, plus one f32 scale per token, so the same budget holds
+larger pages: 32 tokens at head_dim 256, 64 at 128.
 
 ``plan_seq_pages``, ``plan_resume_pages`` and ``plan_seq_state`` are the
 reference's integer page math, verbatim.
@@ -39,9 +36,9 @@ _PAGE_CANDIDATES = (8, 16, 32, 64, 128, 256)
 
 @dataclasses.dataclass(frozen=True)
 class KVPagePlan:
-    """page_size   tokens per page: the unit the paged-decode kernel stages
-                   per step AND the allocator's granularity
-    smem_bytes  bytes of the K+V page pair one block stages"""
+    """page_size   tokens per page: the allocator's granularity AND the
+                   unit the paged-decode kernel splits a sequence in
+    smem_bytes  bytes of one K+V page pair of one (slot, KV head)"""
     page_size: int
     smem_bytes: int
 

@@ -26,7 +26,8 @@ def jx():
     import jax.numpy as jnp
     from repro.core import quantized as jq
     from repro.kernels import ops as jops
-    return types.SimpleNamespace(jnp=jnp, jq=jq, ops=jops)
+    from repro.kernels import ref as jref
+    return types.SimpleNamespace(jnp=jnp, jq=jq, ops=jops, ref=jref)
 
 
 def _t(a) -> torch.Tensor:
@@ -98,6 +99,93 @@ def test_paged_attention_matches_interpret_kernel(jx):
     got = ops.paged_attention(*(torch.from_numpy(a) for a in args)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert (got[0] == 0).all()                 # ctx_len == 0 -> zeros
+
+
+def _split_case(rng, quant: bool):
+    """Pools, block table and rows of a multi-page ragged case: 4 slots,
+    2 KV heads of 32 under rep 2, 8-token pages (f32) or 16-token code
+    pages (spx_8_x3), 6 pages per slot."""
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    b, hkv, rep, dh, mp = 4, 2, 2, 32, 6
+    ps = 16 if quant else 8
+    n_pages = 1 + b * mp
+    k = rng.standard_normal((n_pages, hkv, ps, dh)).astype(np.float32)
+    v = rng.standard_normal((n_pages, hkv, ps, dh)).astype(np.float32)
+    bt = rng.permutation(n_pages)[:b * mp].reshape(b, mp).astype(np.int32)
+    if not quant:
+        return (k, v, bt), None, rep, ps
+    kc, ks = quantize_kv(torch.from_numpy(k), "spx_8_x3")
+    vc, vs = quantize_kv(torch.from_numpy(v), "spx_8_x3")
+    lut = kv_lut("spx_8_x3")
+    return ((kc.numpy(), vc.numpy(), bt),
+            (ks.numpy(), vs.numpy(), lut.numpy()), rep, ps)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "spx_8_x3"])
+def test_paged_decode_split_merge_matches_reference(jx, splits, quant):
+    """The kernel's split-and-merge formula (``ref.paged_decode_split_ref``)
+    against the JAX reference: ragged windows (w = 3, q_len 0..3, a context
+    ending one token into a page, an empty slot) and the single-token
+    mode against ``paged_attention_ref``."""
+    rng = np.random.default_rng(17 + splits + 10 * quant)
+    (kp, vp, bt), qz, rep, ps = _split_case(rng, quant)
+    b, hkv, dh, w = 4, kp.shape[1], kp.shape[3], 3
+    ctx = np.asarray([0, 2 * ps + 1 - 2, ps - 1, 6 * ps - 3], np.int32)
+    qlen = np.asarray([0, 2, 1, 3], np.int32)
+    q = rng.standard_normal((b, hkv, rep * w, dh)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, bt, ctx, qlen)]
+    quant_t = None if qz is None else tuple(torch.from_numpy(a) for a in qz)
+    got = ref.paged_decode_split_ref(*t, w=w, splits=splits,
+                                     quant=quant_t).numpy()
+    j = [jx.jnp.asarray(a) for a in (q, kp, vp, bt, ctx, qlen)]
+    if qz is None:
+        want = jx.ref.paged_decode_ragged_ref(*j, w=w)
+    else:
+        jks, jvs, jlut = (jx.jnp.asarray(a) for a in qz)
+        want = jx.ref.paged_decode_ragged_quant_ref(
+            j[0], j[1], jks, j[2], jvs, j[3], j[4], j[5], jlut, w=w)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    rows_off = np.arange(rep * w) % w >= qlen[:, None]       # (B, R)
+    assert (got.transpose(0, 2, 1, 3)[rows_off] == 0).all()
+
+    ctx1 = np.asarray([0, 1, ps + 1, 6 * ps], np.int32)
+    q1 = np.ascontiguousarray(q[:, :, :rep])
+    got = ref.paged_decode_split_ref(
+        torch.from_numpy(q1), t[1], t[2], t[3], torch.from_numpy(ctx1),
+        splits=splits, quant=quant_t).numpy()
+    j1 = [jx.jnp.asarray(a) for a in (q1, kp, vp, bt, ctx1)]
+    if qz is None:
+        want = jx.ref.paged_attention_ref(*j1)
+    else:
+        want = jx.ref.paged_attention_quant_ref(
+            j1[0], j1[1], jks, j1[2], jvs, j1[3], j1[4], jlut)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert (got[0] == 0).all()
+
+
+def test_decode_split_rule():
+    """The wrapper's split count: about two blocks per SM, no split under
+    16 tokens, and normalised to the kernel's split_tokens: ceil(tokens /
+    splits) rounded up to 16."""
+    from repro_torch.kernels.paged_attention import (decode_splits,
+                                                     split_tokens)
+    # gemma-2b decode tick: 4 slots x 1 KV head x 8 rows, 256 tokens
+    assert decode_splits(4, 1, 8, 16, 16, 132) == 16
+    assert decode_splits(4, 1, 8, 8, 32, 132) == 16       # code pages
+    assert decode_splits(4, 1, 8, 128, 16, 132) == 64     # 2048 tokens
+    assert split_tokens(2048, 66) == 32
+    assert decode_splits(1, 1, 8, 10, 8, 132) == 5        # 80 tokens
+    # enough blocks already: one split
+    assert decode_splits(64, 8, 64, 16, 16, 132) == 1
+    assert decode_splits(4, 1, 8, 0, 16, 132) == 1
+    for args in ((3, 2, 40, 7, 16, 132), (4, 1, 8, 100, 16, 132),
+                 (2, 1, 8, 33, 32, 114)):
+        splits = decode_splits(*args)
+        tokens = args[3] * args[4]
+        per = split_tokens(tokens, splits)
+        assert per % 16 == 0 and -(-tokens // per) == splits
+        assert 1 <= splits <= -(-tokens // 16)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -255,3 +343,94 @@ def test_cuda_flash_kernel_matches_plain_version(cuda):
                 want = ref.flash_attention_ref(q, k, v, causal=causal,
                                                q_chunk=s)
                 assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+
+
+def _attn_close(got, want) -> bool:
+    return bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+
+
+@pytest.mark.gpu
+def test_cuda_paged_decode_splits_modes_deterministic(cuda):
+    """Contexts that take several splits (up to 2048 tokens, one ending
+    one token into a page), ragged q_len at w in {1, 5, 8}, an empty slot,
+    and the in-kernel single-token mode, on f32 and code pages; two
+    launches on the same inputs are bit-identical."""
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_quant_cuda,
+        paged_decode_ragged_cuda, paged_decode_ragged_quant_cuda)
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, hkv, rep, dh, tokens = 4, 1, 8, 256, 2048
+    lut = kv_lut("spx_8_x3", cuda)
+    for quant, ps in ((False, 16), (True, 32)):
+        mp = tokens // ps
+        n_pages = 1 + b * mp
+        k = torch.randn((n_pages, hkv, ps, dh), generator=gen, device=cuda)
+        v = torch.randn((n_pages, hkv, ps, dh), generator=gen, device=cuda)
+        bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[
+            :b * mp].reshape(b, mp) + 1).to(torch.int32)
+        if quant:
+            (kc, ks), (vc, vs) = quantize_kv(k, "spx_8_x3"), \
+                quantize_kv(v, "spx_8_x3")
+            pools = (kc, ks, vc, vs, bt)
+            ragged, single = (paged_decode_ragged_quant_cuda,
+                              paged_attention_quant_cuda)
+            ragged_ref, single_ref = (ref.paged_decode_ragged_quant_ref,
+                                      ref.paged_attention_quant_ref)
+            extra = (lut,)
+        else:
+            pools = (k, v, bt)
+            ragged, single = paged_decode_ragged_cuda, paged_attention_cuda
+            ragged_ref, single_ref = (ref.paged_decode_ragged_ref,
+                                      ref.paged_attention_ref)
+            extra = ()
+        for w in (1, 5, 8):
+            qlens = [0, 1, max(1, w - 2), w]
+            ctx = [0, 3 * ps + 1 - qlens[1], 37 * 16 - qlens[2],
+                   tokens - w]
+            ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+            qn = torch.tensor(qlens, dtype=torch.int32, device=cuda)
+            q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                            device=cuda)
+            got = ragged(q, *pools, ctx_t, qn, *extra, w=w)
+            again = ragged(q, *pools, ctx_t, qn, *extra, w=w)
+            want = ragged_ref(q, *pools, ctx_t, qn, *extra, w=w)
+            assert _attn_close(got, want), (quant, w)
+            assert torch.equal(got, again), (quant, w)
+            rows_off = torch.arange(rep * w, device=cuda) % w >= qn[:, None]
+            assert (got.permute(0, 2, 1, 3)[rows_off] == 0).all()
+        ctx1 = torch.tensor([0, 1, 3 * ps + 1, tokens], dtype=torch.int32,
+                            device=cuda)
+        q = torch.randn((b, hkv, rep, dh), generator=gen, device=cuda)
+        got = single(q, *pools, ctx1, *extra)
+        again = single(q, *pools, ctx1, *extra)
+        want = single_ref(q, *pools, ctx1, *extra)
+        assert _attn_close(got, want) and torch.equal(got, again), quant
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.gpu
+def test_cuda_spx_matmul_ragged_shapes_deterministic(cuda):
+    """spx_matmul at M in {1, 3, 4, 8, 9, 37, 128} (both kernels), with K
+    and N that no tile divides and one gemma-2b shape; two launches are
+    bit-identical."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+        lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
+        for k, n in ((1000, 2050), (333, 130), (16384, 2048)):
+            codes = torch.randint(0, 16 if packed else 256,
+                                  (k, n // 2 if packed else n),
+                                  generator=gen, device=cuda,
+                                  dtype=torch.int32).to(torch.uint8)
+            scale = torch.rand((1, n), generator=gen, device=cuda)
+            for m in (1, 3, 4, 8, 9, 37, 128):
+                x = torch.randn((m, k), generator=gen, device=cuda)
+                got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                want = ref.spx_matmul_ref(x, codes, scale, lut,
+                                          packed=packed)
+                assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
+                    (scheme, k, n, m)
+                assert torch.equal(got, again), (scheme, k, n, m)
