@@ -7,9 +7,13 @@ Phases, each printing JSON lines:
 
   1. device   the card, ``nvidia-smi``'s name and power limit, TF32 off;
   2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+              cuobjdump counts each library's tensor-core instructions;
   3. kernels  each hand-written kernel against its plain PyTorch version on
               the card, at the shapes the serving path gives it and on edge
-              rows (empty slots, ragged windows, ragged lengths);
+              rows (empty slots, ragged windows, ragged lengths):
+              spx_matmul at M in {1, 3, 4, 8} (decode kernel) and {9, 37,
+              64, 65, 128, 256} (the tensor-core prefill kernel), flash
+              attention up to 2048 tokens; second launches bit-identical;
   4. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
               random weights from a seed, quantized to sp2_4) served three
               ways, each engine answering the same 8 greedy requests of 16
@@ -32,14 +36,16 @@ Phases, each printing JSON lines:
               busy time and idle share, and device time by kernel name;
   7. timing   each kernel per serving tick (or per admitted request) at the
               main path's shapes, with CUDA events (``ms``) and the
-              profiler's device time (``device_ms``), beside its bound, its
-              plain version and one PyTorch library call that computes the
-              same function, timed both ways (``library_ms``,
-              ``library_device_ms``); ``spx_matmul`` also at the prefill
-              tick (M = 128, ``prefill_device_ms``), the ragged paged
-              kernels also at 4 slots x 2048 tokens
-              (``long_ctx_device_ms``), and the split counts the wrappers
-              chose (a ``splits`` line).
+              profiler's device time (``device_ms``), beside two bounds (one
+              bf16 tensor-core pass, ``bound_ms``, the least the card could
+              take; the f32 FMA rate, ``f32_bound_ms``), its plain version
+              and one PyTorch library call that computes the same function,
+              timed both ways (``library_ms``, ``library_device_ms``);
+              ``spx_matmul`` also at prefill ticks of M = 128, 256 and 2048
+              rows (``prefill_by_M``), flash attention also at a 2048-token
+              prompt (``long_prompt``), the ragged paged kernels also at 4
+              slots x 2048 tokens (``long_ctx_device_ms``), and the split
+              counts the wrappers chose (a ``splits`` line).
 
 Exits non-zero on any failure, and when no CUDA device is visible or the
 package is missing. The last line is the device record.
@@ -55,6 +61,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 NEW_TOKENS = 16
 N_REQUESTS = 8
 
@@ -96,9 +103,9 @@ def device_phase(torch) -> dict:
 # -- phase 3 -------------------------------------------------------------------
 
 #: spx_matmul: |kernel - plain| <= SPX_RTOL * max|plain|. Both sum f32
-#: products over K, in another order (split-K partials and tile order
-#: against cuBLAS's blocking); at K = 16384 the rounding of the two orders
-#: differs by ~1e-6 of the largest output.
+#: products over K, in another order (the kernels' K splits and tiles, the
+#: prefill kernel's exact bf16 planes on the tensor cores, against cuBLAS's
+#: blocking); at K = 16384 the two differ by ~1e-5 of the largest output.
 SPX_RTOL = 1e-4
 #: paged attention: |kernel - plain| <= ATTN_TOL * (1 + |plain|). The
 #: kernel's online softmax rescales per page and sums P @ V page by page;
@@ -137,7 +144,7 @@ def kernel_phase(torch, np) -> dict:
                                   device="cuda", dtype=torch.int32)
             codes = codes.to(torch.uint8)
             scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
-            for m in (1, 3, 4, 8, 9, 37, 128):
+            for m in (1, 3, 4, 8, 9, 37, 64, 65, 128, 256):
                 x = torch.randn((m, k), generator=gen, device="cuda")
                 got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
                 again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
@@ -373,7 +380,9 @@ def _split_kernel_checks(torch, gen) -> dict:
 
 def _flash_kernel_checks(torch, gen) -> float:
     """Kernel 4 at the dense prefill's lengths (ragged ones included),
-    causal and not, at two head dims and two GQA groupings."""
+    causal and not, at two head dims and two GQA groupings, and at a long
+    prompt (2048 tokens, gemma-2b's heads, causal); a second launch must be
+    bit-identical."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
@@ -382,23 +391,27 @@ def _flash_kernel_checks(torch, gen) -> float:
         for rep in (1, 8):
             for causal in (True, False):
                 errs = {}
-                for s in (1, 33, 128, 256):
+                long = dh == 256 and rep == 8 and causal
+                for s in (1, 33, 128, 256) + ((2048,) if long else ()):
                     q = torch.randn((2, rep, s, dh), generator=gen,
                                     device="cuda")
                     k, v = (torch.randn((2, 1, s, dh), generator=gen,
                                         device="cuda") for _ in range(2))
                     got = flash_attention_cuda(q, k, v, causal=causal)
+                    again = flash_attention_cuda(q, k, v, causal=causal)
                     want = ref.flash_attention_ref(q, k, v, causal=causal,
                                                    q_chunk=s)
                     torch.cuda.synchronize()
                     errs[s] = (got - want).abs().max().item()
-                    require(_attn_ok(torch, got, want),
+                    require(_attn_ok(torch, got, want)
+                            and bool(torch.equal(got, again)),
                             f"flash_attention dh={dh} rep={rep} "
                             f"causal={causal} S={s}")
                 emit({"phase": "kernel", "kernel": "flash_attention",
                       "dh": dh, "rep": rep, "causal": causal,
                       "max_abs_err_by_len": errs,
-                      "tol": f"{ATTN_TOL} * (1 + |plain|)", "ok": True})
+                      "tol": f"{ATTN_TOL} * (1 + |plain|)",
+                      "bit_identical_rerun": True, "ok": True})
                 worst = max(worst, *errs.values())
     return worst
 
@@ -777,9 +790,16 @@ def trace_phase(torch, np, eng) -> dict:
 
 
 def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take for the work: the bytes over the
+    HBM rate or the flops over one bf16 tensor-core pass, the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / BF16_TC_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _f32_bound_ms(nbytes: float, flops: float) -> float:
+    """The same work's bound at the f32 FMA rate outside the tensor cores."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
 def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
@@ -829,44 +849,51 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
            "library_ms": _time_ms(torch, spx_library),
            "library_call": "torch.matmul on pre-dequantized f32 weights"}
     spx["bound_ms"], spx["bound_by"] = _bound_ms(nbytes, flops)
+    spx["f32_bound_ms"] = _f32_bound_ms(nbytes, flops)
     spx["device_ms"] = _device_ms(torch, lambda: spx_tick("cuda"),
-                                  ("spx_matmul_kernel", "split_k_reduce"))
-    spx["reduce_device_ms"] = _device_ms(torch, lambda: spx_tick("cuda"),
-                                         ("split_k_reduce",))
+                                  ("spx_matmul_kernel",))
     spx["library_device_ms"] = _device_ms(torch, spx_library, ("",))
-    # the prefill tick: M = slots x chunk = 128 rows through the square tile
-    m_pre = 128
-    xs_pre = {k: torch.randn((m_pre, k), generator=gen, device="cuda")
-              for k in xs}
-    pre_bytes = pre_flops = 0
-    for lw in layers:
-        for qt in lw.values():
-            k, n = qt.logical_shape
-            pre_bytes += m_pre * k * 4 + k * n // 2 + n * 4 + 16 * 4 \
-                + m_pre * n * 4
-            pre_flops += 2 * m_pre * k * n
-
-    def spx_prefill():
+    # the prefill kernel (M > 8, tensor cores) per prefill tick: M = slots x
+    # chunk = 128 rows (the default engine), 256 (8 slots), 2048 (one long
+    # dense prompt)
+    spx["prefill_by_M"] = {}
+    for m_pre in (128, 256, 2048):
+        xs_pre = {k: torch.randn((m_pre, k), generator=gen, device="cuda")
+                  for k in xs}
+        pre_bytes = pre_flops = 0
         for lw in layers:
             for qt in lw.values():
                 k, n = qt.logical_shape
-                spx_matmul_cuda(xs_pre[k], qt.codes, qt.scale.reshape(1, n),
-                                lut, packed=True)
+                pre_bytes += m_pre * k * 4 + k * n // 2 + n * 4 + 16 * 4 \
+                    + m_pre * n * 4
+                pre_flops += 2 * m_pre * k * n
 
-    def spx_prefill_library():
-        for lw in dense:
-            for w in lw.values():
-                torch.matmul(xs_pre[w.shape[0]], w)
+        def spx_prefill():
+            for lw in layers:
+                for qt in lw.values():
+                    k, n = qt.logical_shape
+                    spx_matmul_cuda(xs_pre[k], qt.codes,
+                                    qt.scale.reshape(1, n), lut, packed=True)
 
-    spx["prefill_per"] = f"prefill tick: {7 * cfg.n_layers} launches, " \
-                         f"M={m_pre}"
-    spx["prefill_device_ms"] = _device_ms(
-        torch, spx_prefill, ("spx_matmul_kernel", "split_k_reduce"))
-    spx["prefill_bound_ms"], spx["prefill_bound_by"] = _bound_ms(pre_bytes,
-                                                                 pre_flops)
-    spx["prefill_library_device_ms"] = _device_ms(torch, spx_prefill_library,
-                                                  ("",))
-    del xs_pre
+        def spx_prefill_library():
+            for lw in dense:
+                for w in lw.values():
+                    torch.matmul(xs_pre[w.shape[0]], w)
+
+        pre = {"per": f"prefill tick: {7 * cfg.n_layers} launches, "
+                      f"M={m_pre}",
+               "ms": _time_ms(torch, spx_prefill, reps=3),
+               "device_ms": _device_ms(torch, spx_prefill,
+                                       ("spx_matmul_kernel",), reps=3),
+               "library_ms": _time_ms(torch, spx_prefill_library, reps=3),
+               "library_device_ms": _device_ms(torch, spx_prefill_library,
+                                               ("",), reps=3),
+               "f32_bound_ms": _f32_bound_ms(pre_bytes, pre_flops)}
+        pre["bound_ms"], pre["bound_by"] = _bound_ms(pre_bytes, pre_flops)
+        pre["share_of_bound"] = pre["bound_ms"] / pre["device_ms"] \
+            if pre["device_ms"] else None
+        spx["prefill_by_M"][f"M={m_pre}"] = pre
+        del xs_pre
 
     def one_projection(name):
         for lw in layers:
@@ -878,7 +905,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
     spx["device_ms_by_projection"] = {
         f"{name} {qt.logical_shape[0]}x{qt.logical_shape[1]}": _device_ms(
             torch, lambda name=name: one_projection(name),
-            ("spx_matmul_kernel", "split_k_reduce"))
+            ("spx_matmul_kernel",))
         for name, qt in layers[0].items()}
     del dense
 
@@ -913,6 +940,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
                               + m * (mp + 2) * 4)
     a_flops = cfg.n_layers * 4 * m * hkv * rep * dh * attend
     a_bound, a_by = _bound_ms(a_bytes, a_flops)
+    a_f32 = _f32_bound_ms(a_bytes, a_flops)
     lib_ms = _time_ms(torch, sdpa_tick)
     def ragged_tick():
         for kp, vp in pools:
@@ -935,7 +963,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
               "library_ms": lib_ms, "library_device_ms": lib_device_ms,
               "library_call": "scaled_dot_product_attention over "
                               "pre-gathered K/V",
-              "bound_ms": a_bound, "bound_by": a_by}
+              "bound_ms": a_bound, "bound_by": a_by, "f32_bound_ms": a_f32}
     paged = {"name": "paged_attention",
              "per": f"one-token prefill tick: {cfg.n_layers} launches, {m} "
                     f"slots, {attend} tokens attended each",
@@ -946,12 +974,13 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
              "library_ms": lib_ms, "library_device_ms": lib_device_ms,
              "library_call": "scaled_dot_product_attention over "
                              "pre-gathered K/V",
-             "bound_ms": a_bound, "bound_by": a_by}
+             "bound_ms": a_bound, "bound_by": a_by, "f32_bound_ms": a_f32}
     del pools, gathered
     quant, quant_one = _quant_timing(torch, gen, cfg, m, ctx_tokens, q)
     ragged.update(_long_ctx_timing(torch, gen, cfg, m, quant=False))
     quant.update(_long_ctx_timing(torch, gen, cfg, m, quant=True))
     flash = _flash_timing(torch, gen, cfg)
+    flash["long_prompt"] = _flash_timing(torch, gen, cfg, s=LONG_CTX)
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -979,7 +1008,9 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
         source, replaces = meta[name]
         entry.update(route="cuda", source=source, replaces=replaces,
                      launches=path_launches.get(name, launches).get(name, 0),
-                     max_abs_err=worst[name])
+                     max_abs_err=worst[name],
+                     share_of_bound=entry["bound_ms"] / entry["device_ms"]
+                     if entry["device_ms"] else None)
         rows.append(entry)
     return rows
 
@@ -1055,7 +1086,8 @@ def _quant_timing(torch, gen, cfg, m, ctx_tokens, q):
            "library_device_ms": _device_ms(torch, sdpa_tick, ("",)),
            "library_call": "scaled_dot_product_attention over "
                            "pre-dequantized, pre-gathered K/V",
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
     rows = []
     for name, fn, per in (
             ("paged_decode_ragged_quant", ragged, "decode tick"),
@@ -1123,7 +1155,8 @@ def _long_ctx_timing(torch, gen, cfg, m, *, quant: bool) -> dict:
                            f"slots, {LONG_CTX} tokens attended each, page "
                            f"size {ps}",
            "long_ctx_device_ms": _device_ms(torch, tick, PAGED_KERNELS),
-           "long_ctx_bound_ms": bound, "long_ctx_bound_by": by}
+           "long_ctx_bound_ms": bound, "long_ctx_bound_by": by,
+           "long_ctx_f32_bound_ms": _f32_bound_ms(nbytes, flops)}
     q_sdpa = q.reshape(m, hkv * rep, 1, dh)
     gathered = []
     for p in pools:
@@ -1167,7 +1200,7 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
     spx_splits = {}
     for name, qt in layers[0].items():
         k, n = qt.logical_shape
-        for rows in (m, 128):
+        for rows in (m, 128, 256, 2048):
             spx_splits[f"{name} {k}x{n} M={rows}"] = spx_mod._splits(
                 rows, k, n, sms)
     emit({"phase": "splits", "sms": sms, "slots": m,
@@ -1176,7 +1209,8 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
 
 def _flash_timing(torch, gen, cfg, s: int = 33):
     """Kernel 4 per admitted request of the dense path: one launch per
-    layer over the prompt (the 33-token prompt of the serve phase)."""
+    layer over the prompt (the 33-token prompt of the serve phase, or a
+    long one)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1206,19 +1240,21 @@ def _flash_timing(torch, gen, cfg, s: int = 33):
     nbytes = cfg.n_layers * 4 * dh * (2 * hq * s + 2 * hkv * s)
     flops = cfg.n_layers * 4 * hq * dh * (s * (s + 1) // 2)
     bound, by = _bound_ms(nbytes, flops)
+    device_ms = _device_ms(torch, kernel, ("flash_attention_kernel",))
     return {"name": "flash_attention",
             "per": f"admitted request: {cfg.n_layers} launches, causal "
                    f"prefill of {s} tokens, {hq} query heads over {hkv} KV "
                    f"head(s) of {dh}",
             "ms": _time_ms(torch, kernel),
-            "device_ms": _device_ms(torch, kernel,
-                                    ("flash_attention_kernel",)),
-            "plain_ms": _time_ms(torch, plain),
+            "device_ms": device_ms,
+            "plain_ms": _time_ms(torch, plain, reps=3),
             "library_ms": _time_ms(torch, library),
             "library_device_ms": _device_ms(torch, library, ("",)),
             "library_call": "scaled_dot_product_attention(is_causal=True), "
                             "K/V pre-repeated over the query heads",
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by,
+            "f32_bound_ms": _f32_bound_ms(nbytes, flops),
+            "share_of_bound": bound / device_ms if device_ms else None}
 
 
 def _layer_weights(params, i):
@@ -1230,6 +1266,28 @@ def _layer_weights(params, i):
                     ("up", sp["mlp"]["up"]["w"]),
                     ("down", sp["mlp"]["down"]["w"])):
         yield name, w[i]
+
+
+def _sass_counts(cuda_lib) -> dict:
+    """Warpgroup (HGMMA) and warp (HMMA) tensor-core instructions in each
+    built library's SASS, by cuobjdump; the two tensor-core kernels must
+    have them."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    counts = {}
+    for name in ("spx_matmul", "flash_attention", "paged_decode"):
+        if not tool.exists():
+            counts[name] = "cuobjdump not found"
+            continue
+        sass = subprocess.run(
+            [str(tool), "-sass", str(cuda_lib._lib_path(name))],
+            capture_output=True, text=True, timeout=300).stdout
+        counts[name] = {"HGMMA": sass.count("HGMMA"),
+                        "HMMA": sass.count("HMMA")}
+    if tool.exists():
+        require(counts["spx_matmul"]["HGMMA"] > 0, "spx_matmul has no HGMMA")
+        require(counts["flash_attention"]["HMMA"] > 0,
+                "flash_attention has no HMMA")
+    return counts
 
 
 # -- driver --------------------------------------------------------------------
@@ -1251,7 +1309,8 @@ def main() -> int:
         info = device_phase(torch)
         from repro_torch.kernels import cuda_lib
         emit({"phase": "build", "seconds": cuda_lib.build_all(),
-              "dir": str(cuda_lib.build_dir())})
+              "dir": str(cuda_lib.build_dir()),
+              "tensor_core_instructions": _sass_counts(cuda_lib)})
         worst = kernel_phase(torch, np)
         eng, launches, _ = serve_phase(torch, np)
         new_launches = serve_new_paths_phase(torch, np, eng.params)

@@ -5,15 +5,16 @@
 // Computes x (M, K) f32 @ W (K, N), where W[k, n] = lut[code(k, n)] *
 // scale[n]. Codes are uint8, either one per weight or two 4-bit codes per
 // byte with the low nibble holding the even column. The sum over K is f32
-// fused multiply-add on the CUDA cores (no TF32: the serving path's
-// activations are f32 and the reference contracts them at full precision),
-// and the per-column scale is applied once, after the sum.
+// fused multiply-add on the CUDA cores at decode, and f32-exact sums of
+// bf16 tensor-core products at prefill (below); TF32 is never used. The
+// per-column scale is applied once, after the sum.
 //
 // Bound on the H100: at the decode shapes (M = one row per batch slot) the
 // kernel must read every code once — K*N/2 bytes for packed 4-bit codes —
-// and does 2*M*K*N flops, far below the 67 TFLOP/s f32 rate, so it is
-// bound by the bytes it reads (3.35 TB/s). At the prefill shapes (M in
-// the hundreds) the f32 flops bound it.
+// and does 2*M*K*N flops, so it is bound by the bytes it reads (3.35
+// TB/s). At the prefill shapes (M in the tens to thousands) the flops
+// bound it: 67 TFLOP/s in f32 FMA, 989 TFLOP/s for one bf16 tensor-core
+// pass, which the exact split below runs three times.
 //
 // Design:
 //  * Decode (M <= 8), spx_matmul_kernel_skinny: a block is 8 warps over
@@ -37,15 +38,57 @@
 //    Rows whose stride is not a multiple of 16 bytes are staged with
 //    plain loads; a stage may run past a block's last K row, and those
 //    rows are zero.
-//  * Prefill (M > 8), spx_matmul_kernel: one block per (64 x 64) output
-//    tile with the K loop inside the block, in place of the TPU's
-//    sequential K grid axis and VMEM accumulator. Each K step loads the
-//    code tile, unpacks the nibbles and decodes through the LUT into a
-//    shared f32 tile, so the codes cross device memory once, as codes.
-//    When the tiles cannot fill 132 SMs, K is split over blockIdx.z and
-//    split_k_reduce adds the partials in a fixed order and scales.
+//  * Prefill (M > 8), spx_matmul_kernel_mma: one block per (64 or 128
+//    rows) x 256 output columns and K range, one warpgroup per 64 rows,
+//    each issuing wgmma.m64n256k16 with f32 accumulators in registers.
+//    The wide tile halves the f32 x that every column tile stages and
+//    splits again (faster per prefill tick than 128 columns).
+//  * Loads. Thread 0 asks the TMA unit for each K step of 64 rows: x as
+//    two 32-column boxes of 128-byte rows with the 128-byte swizzle, and
+//    the codes' rows, into a 3-stage ring on mbarriers, two steps ahead;
+//    elements past M, K or N arrive as zeros. The codes cross device
+//    memory as codes, once per row tile. Rows that are not 16-byte
+//    aligned take plain loads instead.
+//  * Decode. The stage's codes go through the LUT into a bf16 plane of W
+//    in shared memory, K-major with the 128-byte swizzle (wgmma's layout
+//    without a transpose; a thread writes 8 K values of one column as one
+//    16-byte store). 4-bit codes are looked up by byte permutes in
+//    registers, with no memory access; 8-bit codes in a shared table. Two
+//    plane buffers: the next sub-step's plane is decoded a quarter at a
+//    time between this sub-step's MMA instructions. Issuing a wgmma holds
+//    the warp until the tensor pipe takes it, so work placed between them
+//    runs while the queued MMAs execute; work after them would not.
+//  * Exact split. Each f32 value of x is cut into three bf16 planes, x1 =
+//    bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2), whose sum is x
+//    exactly (24 significand bits in three 8-bit pieces; each difference
+//    is exact in f32) while the pieces stay normal floats, |x| above about
+//    2^-100; below that x3 loses subnormal bits, under 2^-126 each. The
+//    planes are made in registers, as wgmma's A fragments, from the
+//    staged x. A bf16 x bf16 product is exact in f32, so x @ W = x1 @ W +
+//    x2 @ W + x3 @ W up to the order of the f32 sums when every W value is
+//    exact in bf16: the case of sp2_4, pot3 and pot4, whose levels are
+//    sums of two powers of two a few binades apart. Error: that of an f32
+//    sum of 3K exact products in another order, |err| <= ~3K * 2^-24 *
+//    sum|x||w| (the tensor cores' f32 accumulation included).
+//  * LUTs not exact in bf16 (sp2_8, uniform8 and the other 5- and 8-bit
+//    schemes): each K step runs a second sub-step on the plane w_lo =
+//    bf16(lut - bf16(lut)). Dropped: lut - w_hi - w_lo, below 2^-16 of
+//    |lut|, so |err| <= 2^-16 * sum|x||w| beyond the f32 sum's own. Each
+//    block votes once over the LUT it loads (__syncthreads_or) whether any
+//    w_lo is nonzero; exact LUTs run one sub-step a step. The MMA code
+//    has no branch on the vote, so ptxas keeps the wgmmas asynchronous.
+//  * The K range is split over a thread-block cluster when the tiles alone
+//    cannot fill the card: the size (at most 16) that puts the most blocks
+//    on it in one wave, asked of cudaOccupancyMaxActiveClusters (with one
+//    block per SM, clusters must fit within the card's GPCs). Each rank
+//    adds its share of the tile over the cluster's blocks in rank order
+//    through distributed shared memory, so the result is bit-identical
+//    from launch to launch, and no partial sum goes through device memory.
+//    Unsplit blocks store straight from their accumulators.
 //  * Both kernels mask the M, N and K edges themselves: every shape runs.
 #include <cooperative_groups.h>
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,111 +98,6 @@ namespace {
 
 constexpr int kLutMax = 256;
 
-template <int BM, int BN, int BK, int TM, int TN, bool PACKED>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-spx_matmul_kernel(const float* __restrict__ x,
-                  const uint8_t* __restrict__ codes,
-                  const float* __restrict__ scale,
-                  const float* __restrict__ lut, float* __restrict__ out,
-                  int M, int K, int N, int lut_size, int k_per_split) {
-  constexpr int TX = BN / TN;  // threads along N
-  constexpr int TY = BM / TM;  // threads along M
-  constexpr int NT = TX * TY;
-  __shared__ float s_lut[kLutMax];
-  __shared__ float s_x[BK][BM + 1];  // x tile, K-major; +1 spreads banks
-  __shared__ __align__(16) float s_w[BK][BN];  // decoded weight tile
-
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-
-  for (int i = tid; i < kLutMax; i += NT)
-    s_lut[i] = i < lut_size ? lut[i] : 0.f;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  __syncthreads();
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    // x tile: consecutive threads walk K, so the global reads coalesce
-    for (int i = tid; i < BM * BK; i += NT) {
-      const int mm = i / BK, kk = i % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      s_x[kk][mm] = (gm < M && gk < k_end) ? x[(size_t)gm * K + gk] : 0.f;
-    }
-    if (PACKED) {
-      constexpr int BNB = BN / 2;  // code bytes per tile row
-      const int nb = N / 2;
-      for (int i = tid; i < BK * BNB; i += NT) {
-        const int kk = i / BNB, jb = i % BNB;
-        const int gk = k0 + kk, gb = n0 / 2 + jb;
-        float2 wv = make_float2(0.f, 0.f);
-        if (gk < k_end && gb < nb) {
-          const uint8_t c = codes[(size_t)gk * nb + gb];
-          wv = make_float2(s_lut[c & 0xF], s_lut[c >> 4]);  // low = even
-        }
-        *reinterpret_cast<float2*>(&s_w[kk][2 * jb]) = wv;
-      }
-    } else {
-      for (int i = tid; i < BK * BN; i += NT) {
-        const int kk = i / BN, j = i % BN;
-        const int gk = k0 + kk, gn = n0 + j;
-        s_w[kk][j] = (gk < k_end && gn < N)
-                         ? s_lut[codes[(size_t)gk * N + gn]] : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = s_x[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = s_w[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // one split: scaled result; several: unscaled partial for the reduce
-  const bool final_pass = gridDim.z == 1;
-  float* dst = out + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + i * TY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + j * TX;
-      if (gm < M && gn < N)
-        dst[(size_t)gm * N + gn] = final_pass ? acc[i][j] * scale[gn]
-                                              : acc[i][j];
-    }
-  }
-}
-
-__global__ void split_k_reduce(const float* __restrict__ partial,
-                               const float* __restrict__ scale,
-                               float* __restrict__ out, int M, int N,
-                               int splits) {
-  const size_t mn = (size_t)M * N;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < mn;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += partial[(size_t)z * mn + idx];
-    out[idx] = s * scale[idx % N];
-  }
-}
-
-// The prefill tile: (BM, BN, BK, TM, TN), 256 threads.
-struct Square { static constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4; };
 constexpr int kThreads = 256;
 
 // The decode kernel's shape: 8 warps over 256 output columns; a thread
@@ -416,15 +354,515 @@ spx_matmul_kernel_skinny(const float* __restrict__ x,
   cluster.sync();             // no block leaves while rank 0 reads it
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+// -- prefill (M > 8): warpgroup MMA on an exact bf16 split of x ---------------
 
-int square_splits(int M, int K, int N, int sms) {
-  const int blocks = ceil_div(N, Square::BN) * ceil_div(M, Square::BM);
-  const int want = ceil_div(4 * sms, blocks);        // about four waves
-  const int most = ceil_div(K, 4 * Square::BK);      // >= 4 K steps each
-  const int s = want < most ? want : most;
-  return s < 1 ? 1 : s;
+constexpr int kPreBN = 256;             // output columns per block
+constexpr int kPreBK = 64;              // K rows per step: one 128-byte row
+constexpr int kPreStages = 3;           // ring depth, in K steps
+constexpr int kRedStride = kPreBN + 8;  // padded f32 row of the block's sums
+constexpr int kBTile = kPreBN * kPreBK * 2;  // one bf16 plane of W, 32 KB
+constexpr int kDecodeParts = kPreBK / 16;  // a plane's decode, in K16 slices
+
+template <int WGS, bool PACKED>
+struct Pre {
+  static constexpr int kThreads = 128 * WGS;   // one warpgroup per 64 rows
+  static constexpr int kBM = 64 * WGS;
+  static constexpr int kRowBytes = PACKED ? kPreBN / 2 : kPreBN;
+  static constexpr int kCodeBytes = kPreBK * kRowBytes;
+  // a stage: x as two 32-column halves of 128-byte rows, 128-byte swizzle
+  // (TMA's layout), then the codes' rows
+  static constexpr int kXHalf = kBM * 128;
+  static constexpr int kStageBytes = 2 * kXHalf + kCodeBytes;
+  // 1 KB to align the planes for the swizzle, two W plane buffers, the ring
+  static constexpr int kSmem = 1024 + 2 * kBTile + kPreStages * kStageBytes;
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1024-aligned");
+  static_assert(kBM * kRedStride * 4 <= 2 * kBTile + kPreStages * kStageBytes,
+                "the block's sums reuse the planes and the ring");
+};
+
+// byte offset of x's (row, k) in a stage (k < 64): the 16-byte chunks of
+// each 128-byte row XOR the row's index mod 8
+__device__ __forceinline__ int x_off(int half_bytes, int row, int k) {
+  return (k >> 5) * half_bytes + row * 128 +
+         ((((k >> 2) & 7) ^ (row & 7)) << 4) + (k & 3) * 4;
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma descriptor of a K-major bf16 tile with the 128-byte swizzle: rows
+// of 64 values (128 bytes), 8-row groups 1024 bytes apart (SBO); the
+// leading offset is unused for this layout and set to 1
+__device__ __forceinline__ uint64_t desc_b128(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// generic-proxy stores to shared memory, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// wait until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// a 2-D box of a tensor map into shared memory by the TMA unit; out of
+// bounds elements are zeros; the bytes complete on the mbarrier
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// acc += a (64 x 16, bf16 fragment in registers) @ B (16 x 256, bf16,
+// K-major, 128-byte swizzle, read through desc_b)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x = hi + mid + lo exactly, for both values of a pair: each plane is the
+// bf16 rounding of what the planes before it leave (the differences are
+// exact in f32), packed low value first as the MMA's A fragment wants
+__device__ __forceinline__ void split3(float2 v, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float2 r = make_float2(v.x - hf.x, v.y - hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r.x, r.y);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(r.x - mf.x, r.y - mf.y));
+}
+
+// Stage K rows k0 .. k0 + kPreBK - 1 of the code tile and of x's rows
+// m0 .. m0 + kBM - 1. With tensor maps, thread 0 asks the TMA unit for
+// three boxes (x's two halves, the codes), completing on the stage's
+// mbarrier; elements past M, K or N come back zero, and a block's K range
+// is whole steps except at K's end. Else every thread loads, zero-filling
+// rows past kn or M and columns past N.
+template <int WGS, bool PACKED>
+__device__ __forceinline__ void load_pre_stage(
+    uint8_t* __restrict__ dst, uint64_t* bar, const CUtensorMap* tm_x,
+    const CUtensorMap* tm_c, bool tma, const uint8_t* __restrict__ codes,
+    const float* __restrict__ x, int k0, int kn, int k_base, int m0, int M,
+    int K, int col_byte0, int row_bytes) {
+  using P = Pre<WGS, PACKED>;
+  uint8_t* cs = dst + 2 * P::kXHalf;
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar, P::kStageBytes);
+      tma_load(dst, tm_x, k_base + k0, m0, bar);
+      tma_load(dst + P::kXHalf, tm_x, k_base + k0 + 32, m0, bar);
+      tma_load(cs, tm_c, col_byte0, k_base + k0, bar);
+    }
+    return;
+  }
+  for (int c = threadIdx.x; c < P::kCodeBytes; c += P::kThreads) {
+    const int r = c / P::kRowBytes, off = c % P::kRowBytes;
+    cs[c] = (k0 + r < kn && col_byte0 + off < row_bytes)
+                ? codes[(size_t)(k_base + k0 + r) * row_bytes + col_byte0 +
+                        off]
+                : (uint8_t)0;
+  }
+  for (int c = threadIdx.x; c < P::kBM * kPreBK; c += P::kThreads) {
+    const int m = c / kPreBK, k = c % kPreBK;
+    *reinterpret_cast<float*>(dst + x_off(P::kXHalf, m, k)) =
+        (m0 + m < M && k0 + k < kn)
+            ? x[(size_t)(m0 + m) * K + k_base + k0 + k] : 0.f;
+  }
+}
+
+// A 16-entry bf16 LUT in registers: byte b of lo[j] / hi[j] is the low /
+// high byte of entry 4 j + b.
+struct Lut16 {
+  uint32_t lo[4], hi[4];
+};
+
+__device__ __forceinline__ Lut16 lut16(const uint16_t* t) {
+  Lut16 r;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    r.lo[j] = r.hi[j] = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      r.lo[j] |= (uint32_t)(t[4 * j + b] & 0xFF) << (8 * b);
+      r.hi[j] |= (uint32_t)(t[4 * j + b] >> 8) << (8 * b);
+    }
+  }
+  return r;
+}
+
+// The nibbles h (0 low, 1 high) of a word's four bytes as one selector
+// q0 | q1 << 4 | q2 << 8 | q3 << 12
+__device__ __forceinline__ uint32_t nibbles(uint32_t w, int h) {
+  uint32_t t = (w >> (4 * h)) & 0x0F0F0F0Fu;
+  t = (t | (t >> 4)) & 0x00FF00FFu;
+  return (t & 0xFFu) | ((t >> 8) & 0xFF00u);
+}
+
+// Four LUT entries by byte permutes, no memory access: (e(q0) | e(q1) <<
+// 16, e(q2) | e(q3) << 16) for the four codes of selector s
+__device__ __forceinline__ uint2 lookup4(const Lut16& t, uint32_t s) {
+  const uint32_t s7 = s & 0x7777u;               // index within 8 entries
+  const uint32_t sel = 0x3210u | ((s >> 1) & 0x4444u);   // which 8
+  const uint32_t lo = __byte_perm(__byte_perm(t.lo[0], t.lo[1], s7),
+                                  __byte_perm(t.lo[2], t.lo[3], s7), sel);
+  const uint32_t hi = __byte_perm(__byte_perm(t.hi[0], t.hi[1], s7),
+                                  __byte_perm(t.hi[2], t.hi[3], s7), sel);
+  return make_uint2(__byte_perm(lo, hi, 0x5140u), __byte_perm(lo, hi, 0x7362u));
+}
+
+// Decode a stage's codes into one bf16 plane of W (hi or lo, by the
+// tables given): W[k][n] of this step goes to byte n * 128 + ((k / 8) ^
+// (n % 8)) * 16 + (k % 8) * 2 (K-major, 128-byte swizzle). A thread takes
+// one code byte column over 8 K rows and writes 16 bytes per output
+// column. 4-bit codes are looked up in registers, 8-bit ones in the shared
+// table.
+template <int WGS, bool PACKED>
+__device__ __forceinline__ void decode_b(const uint8_t* __restrict__ st,
+                                         uint8_t* plane, const uint16_t* tab,
+                                         const Lut16& t, int part) {
+  using P = Pre<WGS, PACKED>;
+  constexpr int kCols = PACKED ? 2 : 1;        // output columns per byte
+  constexpr int kUnits = P::kRowBytes * (kPreBK / 8);
+  constexpr int kPart = kUnits / kDecodeParts;
+  static_assert(kPart % P::kThreads == 0, "whole units per thread and part");
+#pragma unroll
+  for (int u = part * kPart + threadIdx.x; u < (part + 1) * kPart;
+       u += P::kThreads) {
+    const int jb = u % P::kRowBytes, kc = u / P::kRowBytes;
+    uint32_t c[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c[i] = st[(kc * 8 + i) * P::kRowBytes + jb];
+#pragma unroll
+    for (int hh = 0; hh < kCols; ++hh) {
+      // odd byte columns of each 8 start with their high nibble, so one
+      // store instruction's 32 columns cover all 8 swizzle slots
+      const int h = PACKED ? hh ^ ((jb >> 2) & 1) : hh;
+      const int n = jb * kCols + h;
+      uint4 w;
+      if (PACKED) {
+        const uint2 w0 = lookup4(
+            t, nibbles(c[0] | c[1] << 8 | c[2] << 16 | c[3] << 24, h));
+        const uint2 w1 = lookup4(
+            t, nibbles(c[4] | c[5] << 8 | c[6] << 16 | c[7] << 24, h));
+        w = make_uint4(w0.x, w0.y, w1.x, w1.y);
+      } else {
+        w = make_uint4((uint32_t)tab[c[0]] | ((uint32_t)tab[c[1]] << 16),
+                       (uint32_t)tab[c[2]] | ((uint32_t)tab[c[3]] << 16),
+                       (uint32_t)tab[c[4]] | ((uint32_t)tab[c[5]] << 16),
+                       (uint32_t)tab[c[6]] | ((uint32_t)tab[c[7]] << 16));
+      }
+      *reinterpret_cast<uint4*>(plane + n * 128 + ((kc ^ (n & 7)) << 4)) = w;
+    }
+  }
+}
+
+template <int WGS, bool PACKED>
+__global__ void __launch_bounds__(Pre<WGS, PACKED>::kThreads)
+spx_matmul_kernel_mma(const float* __restrict__ x,
+                      const uint8_t* __restrict__ codes,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ lut, float* __restrict__ out,
+                      int M, int K, int N, int lut_size, int kps,
+                      const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_c, int tma) {
+  using P = Pre<WGS, PACKED>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ uint16_t s_hi[kLutMax], s_lo[kLutMax];   // bf16 bits
+  __shared__ float s_scale[kPreBN];                    // the tile's scales
+  cg::cluster_group cluster = cg::this_cluster();
+  // two buffers of W's planes, 1024-aligned for the swizzle, then the ring
+  uint8_t* b_pl = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = b_pl + 2 * kBTile;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kPreBN, m0 = blockIdx.y * P::kBM;
+  const int k_begin = blockIdx.z * kps;
+  const int kn = max(0, min(K, k_begin + kps) - k_begin);
+  const int row_bytes = PACKED ? N / 2 : N;
+  const int col_byte0 = blockIdx.x * P::kRowBytes;
+  const int n_steps = (kn + kPreBK - 1) / kPreBK;
+
+  // the LUT entries and scales of this thread, read before the loads queue
+  constexpr int kLutPer = (kLutMax + P::kThreads - 1) / P::kThreads;
+  float lut_v[kLutPer];
+#pragma unroll
+  for (int j = 0; j < kLutPer; ++j) {
+    const int i = tid + j * P::kThreads;
+    lut_v[j] = i < lut_size ? lut[i] : 0.f;
+  }
+  for (int i = tid; i < kPreBN; i += P::kThreads)
+    s_scale[i] = n0 + i < N ? scale[n0 + i] : 0.f;
+  __shared__ __align__(8) uint64_t full[kPreStages];   // stage landed
+  if (tid == 0) {
+    for (int i = 0; i < kPreStages; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+#pragma unroll
+  for (int st = 0; st < kPreStages - 1; ++st)
+    if (st < n_steps)
+      load_pre_stage<WGS, PACKED>(ring + st * P::kStageBytes, &full[st],
+                                  &tm_x, &tm_c, tma, codes, x, st * kPreBK,
+                                  kn, k_begin, m0, M, K, col_byte0,
+                                  row_bytes);
+  // the LUT as bf16 hi + lo planes; one vote: does any entry need lo?
+  int need_lo = 0;
+#pragma unroll
+  for (int j = 0; j < kLutPer; ++j) {
+    const int i = tid + j * P::kThreads;
+    if (i < kLutMax) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(lut_v[j]);
+      const __nv_bfloat16 l =
+          __float2bfloat16_rn(lut_v[j] - __bfloat162float(h));
+      s_hi[i] = *reinterpret_cast<const uint16_t*>(&h);
+      s_lo[i] = *reinterpret_cast<const uint16_t*>(&l);
+      need_lo |= (s_lo[i] & 0x7FFF) != 0;
+    }
+  }
+  const bool lo = __syncthreads_or(need_lo) != 0;
+  // 4-bit codes: the first 16 entries of both planes' tables in registers
+  const Lut16 t_hi = lut16(s_hi), t_lo = lut16(s_lo);
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  // this thread's rows of the warpgroup's 64 and its column pair in each
+  // group of 8 (the MMA fragment layout)
+  const int arow = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int acol = (lane & 3) * 2;
+
+  // Sub-steps: each K step once with W's hi plane, and with a LUT that is
+  // not exact in bf16 once more with its lo plane (x3 @ w_lo, below 2^-16
+  // of the rest, comes along). A sub-step's plane is decoded into one of
+  // two buffers between the MMAs of the sub-step before, which read the
+  // other; x's planes for a step are split once, in registers.
+  const int subs = lo ? 2 : 1;
+  const int n_sub = n_steps * subs;
+  uint32_t a[3][kPreBK / 16][4];        // plane, K16 slice, fragment register
+  auto stage_of = [&](int st) {
+    return ring + (st % kPreStages) * P::kStageBytes;
+  };
+  auto split_x = [&](int st) {
+    const uint8_t* stage = stage_of(st);
+#pragma unroll
+    for (int j = 0; j < kPreBK / 16; ++j) {
+      const int k = 16 * j + acol;
+      auto xv = [&](int row, int kk) {
+        return *reinterpret_cast<const float2*>(stage +
+                                                x_off(P::kXHalf, row, kk));
+      };
+      split3(xv(arow, k), a[0][j][0], a[1][j][0], a[2][j][0]);
+      split3(xv(arow + 8, k), a[0][j][1], a[1][j][1], a[2][j][1]);
+      split3(xv(arow, k + 8), a[0][j][2], a[1][j][2], a[2][j][2]);
+      split3(xv(arow + 8, k + 8), a[0][j][3], a[1][j][3], a[2][j][3]);
+    }
+  };
+  // wait for step st's stage (loads without tensor maps landed before the
+  // last barrier) and refill the slot of the step before it, which every
+  // thread has read before that barrier
+  auto open_step = [&](int st) {
+    if (tma) mbar_wait(&full[st % kPreStages], (st / kPreStages) & 1);
+    const int nxt = st + kPreStages - 1;
+    if (nxt < n_steps)
+      load_pre_stage<WGS, PACKED>(stage_of(nxt), &full[nxt % kPreStages],
+                                  &tm_x, &tm_c, tma, codes, x, nxt * kPreBK,
+                                  kn, k_begin, m0, M, K, col_byte0,
+                                  row_bytes);
+  };
+  auto decode = [&](int u, int part) {
+    const int p = u % subs;
+    decode_b<WGS, PACKED>(stage_of(u / subs) + 2 * P::kXHalf,
+                          b_pl + (u & 1) * kBTile, p ? s_lo : s_hi,
+                          p ? t_lo : t_hi, part);
+  };
+  if (n_sub > 0) {
+    open_step(0);
+    for (int part = 0; part < kDecodeParts; ++part) decode(0, part);
+    split_x(0);
+    fence_proxy_async();
+    __syncthreads();
+  }
+  for (int u = 0; u < n_sub; ++u) {
+    const uint64_t d_b = desc_b128(b_pl + (u & 1) * kBTile);
+    const bool more = u + 1 < n_sub, new_step = (u + 1) % subs == 0;
+    // the next sub-step's plane is decoded a quarter at a time between
+    // this one's MMAs, which queue while it runs (the MMAs of u - 1 read
+    // its buffer, and are done: each warpgroup waited for them before the
+    // last barrier)
+    if (more && new_step) open_step((u + 1) / subs);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPreBK / 16; ++j) {
+      // the K16 slice j starts 32 bytes into each 128-byte row
+#pragma unroll
+      for (int p = 0; p < 3; ++p) wgmma_m64n256k16(acc, a[p][j], d_b + 2 * j);
+      if (more) decode(u + 1, j);
+    }
+    wgmma_commit();
+    if (more) {
+      wgmma_wait_all();         // this sub-step's MMAs: x's registers free
+      if (new_step) split_x((u + 1) / subs);
+      fence_proxy_async();
+      __syncthreads();          // the plane is written
+    }
+  }
+  wgmma_wait_all();
+  __syncthreads();              // the planes and the ring are free
+
+  const int ranks = (int)cluster.num_blocks();
+  if (ranks == 1) {             // no K split: scale and store from registers
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int gn = n0 + 8 * i + acol;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + arow + 8 * h;
+        if (gm >= M) continue;
+        float* dst = out + (size_t)gm * N + gn;
+        const float* sc = s_scale + 8 * i + acol;
+        if (gn < N) dst[0] = acc[4 * i + 2 * h] * sc[0];
+        if (gn + 1 < N) dst[1] = acc[4 * i + 2 * h + 1] * sc[1];
+      }
+    }
+    return;
+  }
+  float* red = reinterpret_cast<float*>(b_pl);        // [kBM][kRedStride]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = 8 * i + acol;
+    *reinterpret_cast<float2*>(&red[arow * kRedStride + col]) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(&red[(arow + 8) * kRedStride + col]) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  // each rank adds its share of the tile over the cluster's blocks in rank
+  // order, through distributed shared memory (4 columns a read, all reads
+  // of an output issued before its sum), and applies the scale
+  cluster.sync();
+  const float* part[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    part[r] = r < ranks ? cluster.map_shared_rank(red, r) : red;
+  constexpr int kQuads = P::kBM * kPreBN / 4;
+  const int share = (kQuads + ranks - 1) / ranks;
+  const int o0 = (int)cluster.block_rank() * share;
+  const int o1 = min(o0 + share, kQuads);
+#pragma unroll 2
+  for (int o = o0 + tid; o < o1; o += P::kThreads) {
+    const int row = o / (kPreBN / 4), col = (o % (kPreBN / 4)) * 4;
+    const int gm = m0 + row, gn = n0 + col;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < ranks) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            part[r] + row * kRedStride + col);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    if (gm >= M) continue;
+    float* dst = out + (size_t)gm * N + gn;
+    const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (gn + c < N) dst[c] = vals[c] * s_scale[col + c];
+  }
+  cluster.sync();               // no block leaves while another reads it
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 int skinny_kps(int K, int splits) {
   return ceil_div(ceil_div(K, splits), kMinKps) * kMinKps;
@@ -488,51 +926,188 @@ cudaError_t launch_skinny(const float* x, const uint8_t* codes,
                                               stream);
 }
 
-cudaError_t launch_square(const float* x, const uint8_t* codes,
+template <int WGS, bool PACKED>
+cudaError_t mma_attributes() {
+  // clusters above 8 blocks and the shared memory need the kernel's
+  // attributes; set once per instance
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        spx_matmul_kernel_mma<WGS, PACKED>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(spx_matmul_kernel_mma<WGS, PACKED>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Pre<WGS, PACKED>::kSmem);
+  }();
+  return err;
+}
+
+// How many clusters of s prefill blocks the card holds at once (0 when the
+// query fails), asked once per size: with one block per SM, clusters must
+// fit within the card's GPCs, so large clusters leave SMs idle.
+template <int WGS>
+int mma_resident_clusters(int s) {
+  static int cache[kMaxCluster + 1] = {};
+  if (cache[s] == 0) {
+    int n = 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, 1, s);
+    cfg.blockDim = dim3(Pre<WGS, false>::kThreads);
+    cfg.dynamicSmemBytes = Pre<WGS, false>::kSmem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if (mma_attributes<WGS, false>() != cudaSuccess ||
+        cudaOccupancyMaxActiveClusters(
+            &n, spx_matmul_kernel_mma<WGS, false>, &cfg) != cudaSuccess)
+      n = 0;
+    cache[s] = n > 0 ? n : -1;
+  }
+  return cache[s] > 0 ? cache[s] : 0;
+}
+
+// K rows per prefill block: an even share, in whole K steps
+int mma_kps(int K, int splits) {
+  return ceil_div(ceil_div(K, splits), kPreBK) * kPreBK;
+}
+
+// Blocks per cluster along K for the prefill kernel: the size (<=
+// kMaxCluster, at least one K step per block) that puts the most blocks on
+// the card in one wave of resident clusters.
+int mma_splits(int M, int K, int N, int sms) {
+  const bool wide = M > 64;
+  const int tiles = ceil_div(N, kPreBN) * ceil_div(M, wide ? 128 : 64);
+  int best = 1, best_blocks = tiles < sms ? tiles : sms;
+  for (int s = 2; s <= kMaxCluster && ceil_div(K, s) >= kPreBK; ++s) {
+    if (ceil_div(K, mma_kps(K, s)) != s) continue;     // no empty blocks
+    const int fit = wide ? mma_resident_clusters<2>(s)
+                         : mma_resident_clusters<1>(s);
+    if (tiles <= fit && tiles * s > best_blocks) {
+      best = s;
+      best_blocks = tiles * s;
+    }
+  }
+  return best;
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda); null when the driver does not offer it
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// Tensor maps of x (M, K) f32, boxes of 32 x kBM with the 128-byte
+// swizzle, and of the codes (K, row_bytes) u8, boxes of kRowBytes x
+// kPreBK; false where the rows are not 16-byte aligned or encoding fails
+template <int WGS, bool PACKED>
+bool tensor_maps(const float* x, const uint8_t* codes, int M, int K,
+                 int row_bytes, CUtensorMap* tm_x, CUtensorMap* tm_c) {
+  using P = Pre<WGS, PACKED>;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || K % 4 || row_bytes % 16 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes)) &
+       15))
+    return false;
+  const cuuint32_t ones[2] = {1, 1};
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_stride[1] = {(cuuint64_t)K * 4};
+  const cuuint32_t x_box[2] = {32, (cuuint32_t)P::kBM};
+  const cuuint64_t c_dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)K};
+  const cuuint64_t c_stride[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t c_box[2] = {(cuuint32_t)P::kRowBytes, (cuuint32_t)kPreBK};
+  return encode(tm_x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(x), x_dims, x_stride, x_box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS &&
+         encode(tm_c, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<uint8_t*>(codes), c_dims, c_stride, c_box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int WGS, bool PACKED>
+cudaError_t launch_mma_as(const float* x, const uint8_t* codes,
                           const float* scale, const float* lut, float* out,
-                          float* partial, int M, int K, int N, int packed,
-                          int lut_size, int splits, cudaStream_t stream) {
-  using T = Square;
-  const int kps = ceil_div(ceil_div(K, splits), T::BK) * T::BK;
-  const int z = ceil_div(K, kps);
-  dim3 grid(ceil_div(N, T::BN), ceil_div(M, T::BM), z);
-  float* dst = z == 1 ? out : partial;
-  if (packed)
-    spx_matmul_kernel<T::BM, T::BN, T::BK, T::TM, T::TN, true>
-        <<<grid, kThreads, 0, stream>>>(x, codes, scale, lut, dst, M, K, N,
-                                        lut_size, kps);
-  else
-    spx_matmul_kernel<T::BM, T::BN, T::BK, T::TM, T::TN, false>
-        <<<grid, kThreads, 0, stream>>>(x, codes, scale, lut, dst, M, K, N,
-                                        lut_size, kps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || z == 1) return err;
-  const size_t mn = (size_t)M * N;
-  const int rblocks = (int)((mn + kThreads - 1) / kThreads);
-  split_k_reduce<<<rblocks < 4096 ? rblocks : 4096, kThreads, 0, stream>>>(
-      partial, scale, out, M, N, z);
-  return cudaGetLastError();
+                          int M, int K, int N, int lut_size, int splits,
+                          cudaStream_t stream) {
+  using P = Pre<WGS, PACKED>;
+  if (splits < 1 || splits > kMaxCluster) return cudaErrorInvalidValue;
+  const cudaError_t attr_err = mma_attributes<WGS, PACKED>();
+  if (attr_err != cudaSuccess) return attr_err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(N, kPreBN), ceil_div(M, P::kBM), splits);
+  cfg.blockDim = dim3(P::kThreads);
+  cfg.dynamicSmemBytes = P::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  CUtensorMap tm_x = {}, tm_c = {};
+  const int tma = tensor_maps<WGS, PACKED>(x, codes, M, K, PACKED ? N / 2 : N,
+                                           &tm_x, &tm_c);
+  return cudaLaunchKernelEx(&cfg, spx_matmul_kernel_mma<WGS, PACKED>, x,
+                            codes, scale, lut, out, M, K, N, lut_size,
+                            mma_kps(K, splits), tm_x, tm_c, tma);
+}
+
+cudaError_t launch_mma(const float* x, const uint8_t* codes,
+                       const float* scale, const float* lut, float* out,
+                       int M, int K, int N, int packed, int lut_size,
+                       int splits, cudaStream_t stream) {
+  if (M <= 64)
+    return packed ? launch_mma_as<1, true>(x, codes, scale, lut, out, M, K,
+                                           N, lut_size, splits, stream)
+                  : launch_mma_as<1, false>(x, codes, scale, lut, out, M, K,
+                                            N, lut_size, splits, stream);
+  return packed ? launch_mma_as<2, true>(x, codes, scale, lut, out, M, K, N,
+                                         lut_size, splits, stream)
+                : launch_mma_as<2, false>(x, codes, scale, lut, out, M, K, N,
+                                          lut_size, splits, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Split count the launch will use: for M <= 8 the blocks of a cluster
-// along K (no partial buffer), else the square tile's K splits; the
-// caller then sizes the partial buffer as splits * M * N floats (unused
-// when it returns 1).
+// Blocks per thread-block cluster along K that the launch will use, for
+// either kernel (M <= 8: the decode kernel, else the prefill kernel); the
+// cluster adds its K splits itself, so no buffer depends on it.
 int spx_matmul_splits(int M, int K, int N, int sms) {
   return M <= kSkinnyMaxM ? skinny_splits(K, N, sms)
-                          : square_splits(M, K, N, sms);
+                          : mma_splits(M, K, N, sms);
 }
 
 // x (M, K) f32, codes (K, N/2) packed or (K, N) uint8, scale (N,) f32,
 // lut (lut_size,) f32, out (M, N) f32; all contiguous, on the device.
 // Returns cudaGetLastError() after the launch.
 int spx_matmul_f32(const float* x, const uint8_t* codes, const float* scale,
-                   const float* lut, float* out, float* partial, int M, int K,
-                   int N, int packed, int lut_size, int splits,
+                   const float* lut, float* out, int M, int K, int N,
+                   int packed, int lut_size, int splits,
                    cudaStream_t stream) {
   cudaError_t err;
 #define REPRO_SKINNY(MT)                                                    \
@@ -542,8 +1117,8 @@ int spx_matmul_f32(const float* x, const uint8_t* codes, const float* scale,
   else if (M <= 2) err = REPRO_SKINNY(2);
   else if (M <= 4) err = REPRO_SKINNY(4);
   else if (M <= kSkinnyMaxM) err = REPRO_SKINNY(8);
-  else err = launch_square(x, codes, scale, lut, out, partial, M, K, N,
-                           packed, lut_size, splits, stream);
+  else err = launch_mma(x, codes, scale, lut, out, M, K, N, packed, lut_size,
+                        splits, stream);
 #undef REPRO_SKINNY
   return (int)err;
 }

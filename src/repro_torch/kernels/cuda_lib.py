@@ -35,7 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spx_matmul": {
         "spx_matmul_splits": ([_I] * 4, _I),
-        "spx_matmul_f32": ([_P] * 6 + [_I] * 6 + [_P], _I),
+        "spx_matmul_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
     },
     "paged_decode": {
         "paged_decode_ragged_f32":

@@ -3,10 +3,11 @@
 ``repro/kernels/flash_attention.py``.
 
 The kernel takes the GQA layout as it is: q (B, Hq, Sq, dh), k/v
-(B, Hkv, Skv, dh), and indexes KV head ``hq // rep`` itself, so the
-wrapper repeats nothing. Every Sq and Skv runs: the kernel masks the tail
-tiles. The wrapper checks what the kernel takes, allocates the output,
-launches on the current stream, raises on a launch error and counts the
+(B, Hkv, Skv, dh); a block packs the rows of all ``rep`` query heads of
+one KV head and loads each K/V tile once for them, so the wrapper repeats
+nothing. Every Sq and Skv runs: the kernel masks the tail tiles. The
+wrapper checks what the kernel takes, allocates the output, launches on
+the current stream, raises on a launch error and counts the
 launch. It never falls back to the plain version.
 """
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Wrapper of the hand-written SPx matmul kernel (``csrc/spx_matmul.cu``),
 the Hopper counterpart of ``repro/kernels/spx_matmul.py``.
 
-The wrapper checks what the kernel takes, allocates the output (and, when
-the prefill tile splits K over blocks, the partial buffer) with
+The wrapper checks what the kernel takes, allocates the output with
 ``torch.empty``, launches on the current stream, raises on a launch error
-and counts the launch. The split count is cached per (M, K, N, SMs). It
-never falls back to the plain version.
+and counts the launch. Both kernels (decode, M <= 8; prefill on the
+tensor cores, M > 8) add their K splits inside a thread-block cluster;
+the cluster size is cached per (M, K, N, SMs). It never falls back to the
+plain version.
 """
 from __future__ import annotations
 
@@ -16,10 +17,6 @@ import torch
 from . import cuda_lib
 
 __all__ = ["spx_matmul_cuda"]
-
-#: rows up to which the decode kernel runs (the kernel's kSkinnyMaxM)
-_SKINNY_MAX_M = 8
-
 
 @functools.lru_cache(maxsize=None)
 def _splits(m: int, k: int, n: int, sms: int) -> int:
@@ -63,13 +60,9 @@ def spx_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     lib = cuda_lib.library("spx_matmul")
     splits = _splits(m, k, n, cuda_lib.sm_count(device.index or 0))
     out = torch.empty((m, n), dtype=torch.float32, device=device)
-    # decode (M <= 8) adds its K splits inside a cluster; prefill's K
-    # splits go through a partial buffer
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=device)
-               if m > _SKINNY_MAX_M and splits > 1 else out)
     err = lib.spx_matmul_f32(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), lut.data_ptr(),
-        out.data_ptr(), partial.data_ptr(), m, k, n, int(packed),
+        out.data_ptr(), m, k, n, int(packed),
         lut.numel(), splits, torch.cuda.current_stream(device).cuda_stream)
     cuda_lib.check(lib, err, "spx_matmul launch")
     cuda_lib.LAUNCHES["spx_matmul"] += 1

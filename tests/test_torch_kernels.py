@@ -434,3 +434,165 @@ def test_cuda_spx_matmul_ragged_shapes_deterministic(cuda):
                 assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
                     (scheme, k, n, m)
                 assert torch.equal(got, again), (scheme, k, n, m)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core kernels' exact bf16 splits, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    """Round f32 to bf16 (nearest even) and back, as the kernels'
+    ``__float2bfloat16_rn`` does."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _split3(x):
+    """The prefill kernel's planes of x: x1 = bf16(x), x2 = bf16(x - x1),
+    x3 = bf16(x - x1 - x2)."""
+    x1 = _bf16(x)
+    r = x - x1
+    x2 = _bf16(r)
+    return x1, x2, _bf16(r - x2)
+
+
+def _split2(x):
+    """hi = bf16(x), lo = bf16(x - hi): the LUT's planes and the flash
+    kernel's operands."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-20, 1e30])
+def test_three_bf16_planes_rebuild_f32_exactly(scale):
+    """Exact while the residuals stay normal floats (|x| above about
+    2^-100); below that x3 loses subnormal bits, under 2^-126."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (64, 4096)).astype(np.float32)) * scale
+    x1, x2, x3 = _split3(x)
+    for plane in (x1, x2, x3):
+        assert torch.equal(plane, _bf16(plane))       # each plane is bf16
+    assert torch.equal(x1 + x2 + x3, x)
+
+
+@pytest.mark.parametrize("scheme", ["sp2_4", "pot3", "pot4", "sp2_8",
+                                    "spx_5_x3", "spx_8_x3", "uniform4",
+                                    "uniform8"])
+def test_which_codebooks_are_exact_in_bf16(scheme):
+    """The prefill kernel skips the w_lo products when every LUT entry is
+    exact in bf16 (one vote per block): true of sp2_4, pot3 and pot4."""
+    from repro_torch.core import spx
+    lut = spx.codebook(spx.scheme_levels(scheme))
+    _, lo = _split2(lut)
+    assert bool((lo == 0).all()) == (scheme in ("sp2_4", "pot3", "pot4"))
+
+
+@pytest.mark.parametrize("scheme,packed", [("sp2_4", True),
+                                           ("sp2_8", False)])
+def test_split_products_match_f32_product(scheme, packed):
+    """x @ W as the prefill kernel sums it: three products x_p @ w_hi, and
+    for a LUT not exact in bf16 two more, x1 @ w_lo + x2 @ w_lo; within
+    1e-4 of the largest output of the f32 product at K = 16384."""
+    from repro_torch.core import spx
+    rng = np.random.default_rng(7)
+    k, n, m = 16384, 64, 8
+    lut = spx.codebook(spx.scheme_levels(scheme))
+    codes = torch.from_numpy(rng.integers(0, 16 if packed else 256,
+                                          (k, n // 2 if packed else n))
+                             .astype(np.uint8))
+    scale = torch.from_numpy(rng.random((1, n)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
+    w_hi, w_lo = _split2(lut)
+    ids = (spx.unpack_int4(codes) if packed else codes).long()
+    planes = _split3(x)
+    acc = sum(p @ w_hi[ids] for p in planes)
+    if scheme == "sp2_8":
+        assert bool((w_lo != 0).any())
+        acc = acc + planes[0] @ w_lo[ids] + planes[1] @ w_lo[ids]
+    got = acc * scale
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def _flash_split_emulation(q, k, v, *, causal):
+    """The flash kernel's arithmetic in plain PyTorch: S = Q K^T and
+    O = P V each as hi.hi + hi.lo + lo.hi of bf16 planes, online softmax
+    statistics in f32 (one KV tile here: the statistics are exact)."""
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    dh = q.shape[-1]
+
+    def mm3(a, b):
+        ah, al = _split2(a)
+        bh, bl = _split2(b)
+        return ah @ bh + ah @ bl + al @ bh
+
+    s = mm3(q, k.transpose(-1, -2)) * dh ** -0.5
+    if causal:
+        keep = torch.arange(q.shape[2])[:, None] >= torch.arange(k.shape[2])
+        s = torch.where(keep, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if causal:
+        p = torch.where(keep, p, torch.zeros_like(p))
+    return mm3(p, v) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+
+
+@pytest.mark.parametrize("rep", [1, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_hi_lo_split_within_attention_tolerance(rep, causal):
+    rng = np.random.default_rng(11 + rep + 2 * causal)
+    s, dh = 129, 256
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((1, rep, s, dh), (1, 1, s, dh), (1, 1, s, dh)))
+    got = _flash_split_emulation(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=s)
+    assert bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
+
+
+@pytest.mark.gpu
+def test_cuda_spx_prefill_kernel_matches_plain_version(cuda):
+    """The tensor-core prefill kernel (M > 8) at gemma-2b's projection
+    shapes and M in {9, 64, 65, 128, 256}, for sp2_4 packed (three
+    passes) and sp2_8 unpacked (five); a second launch is bit-identical."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+        lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
+        for k, n in ((2048, 2048), (2048, 256), (2048, 16384),
+                     (16384, 2048)):
+            codes = torch.randint(0, 16 if packed else 256,
+                                  (k, n // 2 if packed else n),
+                                  generator=gen, device=cuda,
+                                  dtype=torch.int32).to(torch.uint8)
+            scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+            for m in (9, 64, 65, 128, 256):
+                x = torch.randn((m, k), generator=gen, device=cuda)
+                got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                want = ref.spx_matmul_ref(x, codes, scale, lut,
+                                          packed=packed)
+                assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
+                    (scheme, k, n, m)
+                assert torch.equal(got, again), (scheme, k, n, m)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_kernel_long_and_ragged_deterministic(cuda):
+    """Flash attention at S in {1, 33, 129, 2048}, rep in {1, 8}, causal
+    and not, head_dim 256; a second launch is bit-identical."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for s in (1, 33, 129, 2048):
+        for rep in (1, 8):
+            q = torch.randn((1, rep, s, 256), generator=gen, device=cuda)
+            k, v = (torch.randn((1, 1, s, 256), generator=gen, device=cuda)
+                    for _ in range(2))
+            for causal in (True, False):
+                got = flash_attention_cuda(q, k, v, causal=causal)
+                again = flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               q_chunk=s)
+                assert _attn_close(got, want), (s, rep, causal)
+                assert torch.equal(got, again), (s, rep, causal)

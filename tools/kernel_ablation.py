@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Where the time of the port's tensor-core kernels goes, by ablation.
+
+    python3 tools/kernel_ablation.py
+
+Runs on one CUDA card. Builds copies of ``spx_matmul.cu`` and
+``flash_attention.cu`` with one stage of the kernel removed (the results
+of those copies are wrong by design), times each beside the full kernel
+with the profiler's device time at the serving path's shapes, and prints
+one JSON line per variant after the card's ``nvidia-smi`` name and power
+limit:
+
+  * ``spx_matmul`` prefill tick: gemma-2b's seven projections of 18
+    layers, sp2_4 codes (random, from a seed), M = 128 rows; variants
+    without the MMAs, without the code decode of every step after the
+    first, without the split of x into bf16 planes;
+  * ``flash_attention`` per admitted request: 18 launches, causal, 33
+    tokens, 8 query heads over one KV head of 256; variants without the
+    Q K^T MMAs, without the P V MMAs, without the split of each K/V tile.
+
+Each variant is timed twice, in the order full, variants, variants
+reversed, full, so drift between the first and last rounds shows.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+SPX_CUTS = {
+    "no_mma": ("      for (int p = 0; p < 3; ++p) "
+               "wgmma_m64n256k16(acc, a[p][j], d_b + 2 * j);", ""),
+    "no_decode": ("      if (more) decode(u + 1, j);\n", ""),
+    "no_x_split": ("  hi = bf16x2_bits(h);\n  mid = bf16x2_bits(m);\n"
+                   "  lo = bf16x2_bits(__floats2bfloat162_rn(r.x - mf.x, "
+                   "r.y - mf.y));",
+                   "  hi = __float_as_uint(v.x);\n  mid = hi;\n  lo = hi;"),
+}
+FLASH_CUTS = {
+    "no_qk_mma": ("        mma3(s[2 * jp], ah, al, kh[0], kh[1], kl[0], "
+                  "kl[1]);\n        mma3(s[2 * jp + 1], ah, al, kh[2], "
+                  "kh[3], kl[2], kl[3]);\n", ""),
+    "no_pv_mma": ("        mma3(o[2 * dp], ph, pl, vh[0], vh[1], vl[0], "
+                  "vl[1]);\n        mma3(o[2 * dp + 1], ph, pl, vh[2], "
+                  "vh[3], vl[2], vl[3]);\n", ""),
+    "no_kv_split": ("    split_rows<DH>(stage, kv_pl, kPlane, kBkv);\n"
+                    "    split_rows<DH>(stage + kBkv * DH, kv_pl + 2 * kPlane, "
+                    "kPlane, kBkv);\n", ""),
+}
+
+
+def build(name: str, cuts: dict, out_dir: Path) -> dict:
+    """Compile the full source and each cut of it in parallel; returns
+    {variant: loaded library}."""
+    from repro_torch.kernels import cuda_lib
+    src = (CSRC / f"{name}.cu").read_text()
+    texts = {"full": src}
+    for tag, (old, new) in cuts.items():
+        if old not in src:
+            raise SystemExit(f"{name}.cu: the {tag} cut no longer matches")
+        texts[tag] = src.replace(old, new)
+    procs = {}
+    for tag, text in texts.items():
+        cu = out_dir / f"{name}_{tag}.cu"
+        cu.write_text(text)
+        so = cu.with_suffix(".so")
+        procs[tag] = (subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for tag, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on {name} {tag}:\n{log}")
+        libs[tag] = ctypes.CDLL(str(so))
+    return libs
+
+
+def device_ms(torch, fn, key: str, reps: int = 3) -> float:
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and key in e.name)
+    return us / 1e3 / reps
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ablation: no CUDA device visible", file=sys.stderr)
+        return 2
+    from repro_torch.core import spx
+    from repro_torch.kernels import cuda_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = cuda_lib.build_dir() / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    spx_libs = build("spx_matmul", SPX_CUTS, out_dir)
+    flash_libs = build("flash_attention", FLASH_CUTS, out_dir)
+
+    # spx_matmul: the prefill tick of gemma-2b, M = 128
+    m = 128
+    shapes = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
+              (2048, 16384), (2048, 16384), (16384, 2048)]
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device="cuda")
+    layers = [[(torch.randint(0, 16, (k, n // 2), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                .to(torch.uint8),
+                torch.rand((1, n), generator=gen, device="cuda"))
+               for k, n in shapes] for _ in range(18)]
+    xs = {k: torch.randn((m, k), generator=gen, device="cuda")
+          for k in (2048, 16384)}
+    outs = {n: torch.empty((m, n), device="cuda") for n in (256, 2048, 16384)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def spx_tick(lib):
+        lib.spx_matmul_splits.argtypes = [I] * 4
+        lib.spx_matmul_f32.argtypes = [P] * 5 + [I] * 6 + [P]
+        splits = {s: lib.spx_matmul_splits(m, *s, sms) for s in shapes}
+
+        def run():
+            for lw in layers:
+                for (k, n), (codes, scale) in zip(shapes, lw):
+                    lib.spx_matmul_f32(xs[k].data_ptr(), codes.data_ptr(),
+                                       scale.data_ptr(), lut.data_ptr(),
+                                       outs[n].data_ptr(), m, k, n, 1,
+                                       lut.numel(), splits[(k, n)], stream)
+        return run
+
+    # flash_attention: one admitted request of the dense path
+    s, hq, dh = 33, 8, 256
+    qkv = [(torch.randn((1, hq, s, dh), generator=gen, device="cuda"),
+            torch.randn((1, 1, s, dh), generator=gen, device="cuda"),
+            torch.randn((1, 1, s, dh), generator=gen, device="cuda"))
+           for _ in range(18)]
+    o = torch.empty((1, hq, s, dh), device="cuda")
+
+    def flash_request(lib):
+        lib.flash_attention_f32.argtypes = [P] * 4 + [I] * 7 + [
+            ctypes.c_float, P]
+
+        def run():
+            for q, k, v in qkv:
+                lib.flash_attention_f32(q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), o.data_ptr(), 1, hq,
+                                        hq, s, s, dh, 1, dh ** -0.5, stream)
+        return run
+
+    for kernel, libs, per, make, key in (
+            ("spx_matmul", spx_libs, "prefill tick: 126 launches, M=128",
+             spx_tick, "spx_matmul_kernel"),
+            ("flash_attention", flash_libs,
+             "admitted request: 18 launches, causal 33 tokens", flash_request,
+             "flash_attention_kernel")):
+        order = list(libs) + list(libs)[::-1]
+        times: dict[str, list] = {tag: [] for tag in libs}
+        for tag in order:
+            times[tag].append(device_ms(torch, make(libs[tag]), key))
+        for tag, t in times.items():
+            print(json.dumps({"kernel": kernel, "per": per, "variant": tag,
+                              "device_ms": t}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
