@@ -12,9 +12,17 @@ Phases, each printing JSON lines:
               the card, at the shapes the serving path gives it and on edge
               rows (empty slots, ragged windows, ragged lengths):
               spx_matmul at M in {1, 3, 4, 8} (decode kernel) and {9, 37,
-              64, 65, 128, 256} (the tensor-core prefill kernel), flash
-              attention up to 2048 tokens; second launches bit-identical;
-  4. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
+              64, 65, 128, 256} (the tensor-core prefill kernel), also at
+              the paper MLP's layers (784, 128) and (128, 10) and M = 1024,
+              the ragged decode kernel at a w = 5 verify window that
+              crosses a page boundary, flash attention up to 2048 tokens;
+              second launches bit-identical;
+  4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
+              from a seed quantized to sp2_4, on 1024 procedural digits:
+              two spx_matmul launches per forward, outputs against the
+              plain version, time per sample at batch 1, 64 and 1024 for
+              the sp2_4 and the f32 torch.matmul arm;
+  5. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
               random weights from a seed, quantized to sp2_4) served three
               ways, each engine answering the same 8 greedy requests of 16
               new tokens, one prompt of 33 tokens so that a one-token
@@ -24,17 +32,30 @@ Phases, each printing JSON lines:
                         with ``Runtime(kv_quant=True, kv_scheme="spx_8_x3")``:
                         an SPx-coded KV cache;
                 dense   ``ServeConfig(kv_layout="dense", quantize=None)``:
-                        whole-prompt prefill through the flash kernel.
+                        whole-prompt prefill through the flash kernel;
+                unfused ``ServeConfig(fused_decode=False)``: paged_attention
+                        in every layer of every one-token step;
+                spec    ``ServeConfig(spec_decode=True, spec_k=4)``: W = 5
+                        verify windows through the fused tick, with a
+                        drafter replaying the paged engine's tokens, then
+                        the prompt-lookup drafter on repetitive prompts;
+                prefix  ``ServeConfig(prefix_cache=True)``: requests that
+                        share a 64-token prefix, and a whole repeat (the
+                        copy-on-write copy).
               Every kernel of each path must launch, as often per tick or
               per request as the path says, and no plain version may run;
-  5. e2e      full-width logits, kernels against plain versions: a prefill
+              the last three give the paged engine's greedy tokens, or
+              differ first where its top-2 logit gap is a near-tie;
+  6. e2e      full-width logits, kernels against plain versions: a prefill
               chunk and a fused tick (f32 and coded pages), a one-token
               chunk over coded pages, a dense prefill; greedy tokens
               identical on the pinned config (reduced gemma-2b, vocab 32,
-              head_dim 128, seed 3) for each of the three paths;
-  6. trace    torch.profiler over a serving run of 4 requests: the device's
+              head_dim 128, seed 3) for each path, kernels against plain
+              versions and, for the unfused, spec and prefix engines,
+              against the paged engine;
+  7. trace    torch.profiler over a serving run of 4 requests: the device's
               busy time and idle share, and device time by kernel name;
-  7. timing   each kernel per serving tick (or per admitted request) at the
+  8. timing   each kernel per serving tick (or per admitted request) at the
               main path's shapes, with CUDA events (``ms``) and the
               profiler's device time (``device_ms``), beside two bounds (one
               bf16 tensor-core pass, ``bound_ms``, the least the card could
@@ -44,8 +65,10 @@ Phases, each printing JSON lines:
               ``spx_matmul`` also at prefill ticks of M = 128, 256 and 2048
               rows (``prefill_by_M``), flash attention also at a 2048-token
               prompt (``long_prompt``), the ragged paged kernels also at 4
-              slots x 2048 tokens (``long_ctx_device_ms``), and the split
-              counts the wrappers chose (a ``splits`` line).
+              slots x 2048 tokens (``long_ctx_device_ms``), ``spx_matmul``
+              at the paper MLP's two layers (``paper_mlp_by_M``), the ragged
+              kernel at a verify tick of W = 5 (``verify_tick``), and the
+              split counts the wrappers chose (a ``splits`` line).
 
 Exits non-zero on any failure, and when no CUDA device is visible or the
 package is missing. The last line is the device record.
@@ -133,18 +156,24 @@ def kernel_phase(torch, np) -> dict:
     # spx_matmul at the serving shapes: q/o (2048, 2048), k/v (2048, 256),
     # gate/up (2048, 16384), down (16384, 2048); decode M = slots, prefill
     # M = slots x chunk
-    # and K, N that no tile divides; M over both kernels (decode M <= 8)
+    # and K, N that no tile divides; M over both kernels (decode M <= 8);
+    # the paper MLP's layers (784, 128) and (128, 10) also at its batch of
+    # 1024 (K = 784 ends in a ragged K step, N = 10 packs 5-byte rows)
+    serve_m = (1, 3, 4, 8, 9, 37, 64, 65, 128, 256)
     for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
         lut = spx.codebook(spx.scheme_levels(scheme), device="cuda")
-        for k, n in ((2048, 2048), (2048, 256), (2048, 16384),
-                     (16384, 2048), (1000, 2050), (333, 130)):
+        for k, n, ms in ((2048, 2048, serve_m), (2048, 256, serve_m),
+                         (2048, 16384, serve_m), (16384, 2048, serve_m),
+                         (1000, 2050, serve_m), (333, 130, serve_m),
+                         (784, 128, serve_m + (1024,)),
+                         (128, 10, serve_m + (1024,))):
             ncode = n // 2 if packed else n
             top = 16 if packed else 256
             codes = torch.randint(0, top, (k, ncode), generator=gen,
                                   device="cuda", dtype=torch.int32)
             codes = codes.to(torch.uint8)
             scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
-            for m in (1, 3, 4, 8, 9, 37, 64, 65, 128, 256):
+            for m in ms:
                 x = torch.randn((m, k), generator=gen, device="cuda")
                 got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
                 again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
@@ -170,10 +199,14 @@ def kernel_phase(torch, np) -> dict:
     kp, vp = _rand_pools(torch, gen, n_pages, hkv, ps, dh)
     bt = torch.randperm(n_pages - 1, generator=gen, device="cuda")[
         :b * mp].reshape(b, mp).to(torch.int32) + 1
-    for w, qlens in ((1, [0, 1, 1, 1]), (5, [0, 1, 3, 5])):
+    # the last case is a speculative verify tick: w = 5 windows that cross
+    # a page boundary (ctx = ps - 2), beside one-token and empty rows
+    for w, qlens, ctx_l in (
+            (1, [0, 1, 1, 1], [ps - 1, ps, ps + 1, 3 * ps + 7]),
+            (5, [0, 1, 3, 5], [ps - 1, ps, ps + 1, 3 * ps + 7]),
+            (5, [5, 5, 1, 0], [ps - 2, 2 * ps - 3, ps - 2, 0])):
         q = torch.randn((b, hkv, rep * w, dh), generator=gen, device="cuda")
-        ctx = torch.tensor([ps - 1, ps, ps + 1, 3 * ps + 7],
-                           dtype=torch.int32, device="cuda")
+        ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
         qn = torch.tensor(qlens, dtype=torch.int32, device="cuda")
         got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
         want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=w)
@@ -189,7 +222,7 @@ def kernel_phase(torch, np) -> dict:
               "max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
               "tol": f"{ATTN_TOL} * (1 + |plain|)", "min_tol": bound,
               "masked_rows_exact_zero": zeros, "ok": ok})
-        require(ok, f"paged_decode_ragged w={w}")
+        require(ok, f"paged_decode_ragged w={w} ctx={ctx_l}")
         worst["paged_decode_ragged"] = max(worst["paged_decode_ragged"], err)
 
     q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
@@ -416,7 +449,7 @@ def _flash_kernel_checks(torch, gen) -> float:
     return worst
 
 
-# -- phase 4 -------------------------------------------------------------------
+# -- phase 5 -------------------------------------------------------------------
 
 def serve_phase(torch, np):
     from repro_torch.configs import get_config
@@ -466,7 +499,7 @@ def serve_phase(torch, np):
           "paged_attention_launches_per_one_token_prefill": cfg.n_layers,
           "max_memory_allocated_setup": peak_setup,
           "max_memory_allocated_serve": torch.cuda.max_memory_allocated()})
-    return eng, launches, m
+    return eng, launches, m, {r.rid: list(r.output) for r in done}
 
 
 def _prompts(np, cfg):
@@ -478,16 +511,21 @@ def _prompts(np, cfg):
                   for n in lens]
 
 
-def _serve_ticks(torch, eng, prompts, watch):
+def _serve_ticks(torch, eng, prompts, watch=(), staged: int = 0):
     """Serve ``prompts`` through ``eng.step()`` until drained. The counts
-    are set to 0 just before and read just after. Returns (finished,
-    launches, plain calls, {op: launches of each tick that launched it})."""
+    are set to 0 just before and read just after. ``staged``: submit the
+    first prompt alone and step that many ticks before the others arrive.
+    Returns (finished, launches, plain calls, {op: launches of each tick
+    that launched it})."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Request
     torch.cuda.reset_peak_memory_stats()
     ops.reset_op_calls()
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        if i == 0:
+            for _ in range(staged):
+                eng.step()
     per_tick = {op: [] for op in watch}
     prev = {}
     while eng.has_work():
@@ -584,7 +622,390 @@ def serve_new_paths_phase(torch, np, params) -> dict:
     return out
 
 
-# -- phase 5 -------------------------------------------------------------------
+# -- phase 4: the paper's own MLP ----------------------------------------------
+
+def paper_mlp_phase(torch, np, card: str) -> dict:
+    """The paper's 784-128-10 sigmoid MLP (§4.1) from ``mlp_net_init`` on a
+    seeded generator, both layers quantized to sp2_4 as
+    ``benchmarks/table1.py`` does, on the port's procedural digits: the
+    quantized forward launches ``spx_matmul`` exactly twice and runs no
+    plain version; its outputs agree with the plain version's. Time per
+    sample at batch 1, 64 and 1024 for the sp2_4 arm and the f32
+    ``torch.matmul`` arm, by CUDA events and by the profiler's device
+    time of every kernel of the forward."""
+    from repro_torch.core.quantized import QuantizedTensor
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.mlp_mnist import (PAPER_LAYERS, mlp_net_init,
+                                              paper_mlp_apply)
+    from repro_torch.nn.layers import quantize_params
+    from repro_torch.runtime import Runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = mlp_net_init(gen, PAPER_LAYERS, device="cuda")
+    qparams = quantize_params(params, "sp2_4", min_size=1024)
+    require(all(isinstance(qparams[f"l{i}"]["w"], QuantizedTensor)
+                for i in range(len(PAPER_LAYERS) - 1)),
+            "paper_mlp: a layer stayed dense")
+    x_np, _ = make_dataset(1024, seed=7)
+    x = torch.as_tensor(x_np, device="cuda")
+    rt = Runtime()
+    torch.cuda.synchronize()
+    ops.reset_op_calls()
+    out = paper_mlp_apply(qparams, x, rt)
+    torch.cuda.synchronize()
+    launches, plain = ops.op_calls(), ops.ref_calls()
+    require(launches == {"spx_matmul": 2},
+            f"paper_mlp: launches per forward {launches}")
+    require(not plain, f"paper_mlp: plain versions ran on the card: {plain}")
+    want = paper_mlp_apply(qparams, x, Runtime(impl="ref"))
+    dense = paper_mlp_apply(params, x, rt)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    peak = want.abs().max().item()
+    same_argmax = bool(torch.equal(out.argmax(-1), want.argmax(-1)))
+    ok = (tuple(out.shape) == (1024, 10) and bool(torch.isfinite(out).all())
+          and err <= SPX_RTOL * peak and same_argmax)
+    timing = {}
+    for batch in (1, 64, 1024):
+        xb = x[:batch].contiguous()
+        for arm, p in (("sp2_4 spx_matmul", qparams),
+                       ("f32 torch.matmul", params)):
+            fn = (lambda p=p, xb=xb: paper_mlp_apply(p, xb, rt))
+            ms = _time_ms(torch, fn, reps=50, warmup=5)
+            dev = _device_ms(torch, fn, ("",), reps=20)
+            timing[f"{arm}, batch {batch}"] = {
+                "us_per_sample": ms * 1e3 / batch,
+                "device_us_per_sample": dev * 1e3 / batch if dev else None,
+                "ms_per_forward": ms, "device_ms_per_forward": dev}
+    emit({"phase": "paper_mlp", "card": card, "layers": list(PAPER_LAYERS),
+          "weights": "mlp_net_init, torch.Generator seed 0, quantize_params"
+                     "(sp2_4, min_size=1024)",
+          "inputs": "make_dataset(1024, seed=7)",
+          "launches_per_forward": launches, "plain_calls": plain,
+          "max_abs_err": err, "max_rel_err": err / peak, "tol_rel": SPX_RTOL,
+          "argmax_identical": same_argmax,
+          "argmax_agreement_with_f32_weights": float(
+              (out.argmax(-1) == dense.argmax(-1)).float().mean()),
+          "timing": timing, "ok": ok})
+    require(ok, "paper_mlp: quantized forward disagrees with its plain "
+                "version")
+    ops.reset_op_calls()
+    return {"params": qparams, "launches": launches["spx_matmul"],
+            "max_abs_err": err}
+
+
+# -- phase 5: the unfused tick, speculative decoding, the prefix cache --------
+
+class _ReplayDrafter:
+    """The engine's drafter protocol (start, extend, drop, propose),
+    proposing the tokens a reference run emitted: every window is full
+    until the reference's tokens run out."""
+
+    def __init__(self, tokens: dict):
+        self.tokens = tokens
+        self.emitted: dict[int, int] = {}
+
+    def start(self, rid, prompt):
+        self.emitted[rid] = 0
+
+    def extend(self, rid, tok):
+        self.emitted[rid] += 1
+
+    def drop(self, rid):
+        self.emitted.pop(rid, None)
+
+    def propose(self, rid, k):
+        n = self.emitted[rid]
+        return list(self.tokens[rid][n:n + k])
+
+
+def _record_steps(torch, names):
+    """Wrap the model-step functions ``names`` of ``repro_torch.models.lm``
+    (the engine looks them up at each call): each call appends [name,
+    window width, n_valid (its largest value once ``restore`` ran),
+    launches by op during the call]. Returns (records, restore)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as lm_mod
+    records, saved = [], {}
+    for name in names:
+        fn = saved[name] = getattr(lm_mod, name)
+
+        def wrapped(params, tokens, ctx, bt, n_valid, *rest, fn=fn,
+                    name=name):
+            before = ops.op_calls()
+            out = fn(params, tokens, ctx, bt, n_valid, *rest)
+            after = ops.op_calls()
+            records.append([name, int(tokens.shape[1]), n_valid,
+                            {op: after[op] - before.get(op, 0)
+                             for op in after
+                             if after[op] != before.get(op, 0)}])
+            return out
+        setattr(lm_mod, name, wrapped)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(lm_mod, name, fn)
+        for r in records:
+            r[2] = int(r[2].max())
+    return records, restore
+
+
+def _run_engine(torch, eng, prompts, staged: int = 0):
+    """``_serve_ticks`` without a watch: (tokens by rid, launches, plain
+    calls, metrics)."""
+    done, launches, plain, _ = _serve_ticks(torch, eng, prompts,
+                                            staged=staged)
+    return ({r.rid: list(r.output) for r in done}, launches, plain,
+            eng.metrics())
+
+
+def _reference_gaps(torch, np, params, cfg, prompts) -> tuple:
+    """Serve ``prompts`` on the paged engine (``ServeConfig(quantize=None)``)
+    and record, for every emitted token, the top-2 logit gap of the row
+    it was picked from and the logit tolerance of that row (E2E_RTOL of
+    its largest magnitude). Returns (tokens, {rid: [(gap, tol), ...]})."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    eng = ServeEngine(params, cfg, ServeConfig(quantize=None))
+    gaps: dict[int, list] = {}
+    pick, accept = eng._pick_token, eng._accept_tokens
+
+    def note(req, row):
+        top2 = np.partition(np.asarray(row, np.float64), -2)[-2:]
+        gaps.setdefault(req.rid, []).append(
+            (float(top2[1] - top2[0]),
+             E2E_RTOL * float(np.abs(row).max())))
+
+    def pick_noted(row, req):
+        note(req, row)
+        return pick(row, req)
+
+    def accept_noted(req, drafts, logits):
+        out = accept(req, drafts, logits)
+        for j in range(len(out)):
+            note(req, logits[j])
+        return out
+    eng._pick_token, eng._accept_tokens = pick_noted, accept_noted
+    tokens, _, _, _ = _run_engine(torch, eng, prompts)
+    del eng
+    return tokens, gaps
+
+
+def _check_tokens(torch, np, path, got, want, params, cfg, prompts) -> dict:
+    """Greedy tokens of ``path`` against the paged engine's on the same
+    requests. A difference is allowed only where the paged run's top-2
+    logit gap at the first differing position is within the logit
+    tolerance (two correct paths that sum in another order may round a
+    near-tie apart); otherwise the phase fails."""
+    if got == want:
+        return {"identical": True}
+    ref_tokens, gaps = _reference_gaps(torch, np, params, cfg, prompts)
+    require(ref_tokens == want, f"{path}: the paged engine is not "
+                                "deterministic across runs")
+    diffs = {}
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        j = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+        gap, tol = gaps[rid][j]
+        diffs[rid] = {"first_diff": j, "top2_gap": gap, "logit_tol": tol,
+                      "near_tie": gap <= tol}
+    emit({"phase": "serve", "path": path, "token_differences": diffs})
+    require(all(d["near_tie"] for d in diffs.values()),
+            f"{path}: greedy tokens differ from the paged engine's away "
+            f"from a near-tie: {diffs}")
+    return {"identical": False, "near_ties": diffs}
+
+
+def _tiled_prompts(np, vocab, n=4, reps=3, motif=8):
+    """Repetition-heavy prompts (tiled motifs), as the reference's spec
+    tests build them: the n-gram drafter has something to find."""
+    rng = np.random.default_rng(4)
+    return [np.tile(rng.integers(0, vocab, motif).astype(np.int32), reps)
+            for _ in range(n)]
+
+
+def _shared_prompts(np, vocab, prefix=64, tails=(5, 9, 12, 20)):
+    """Prompts sharing a page-aligned prefix with distinct tails, then the
+    bare prefix again: a served page-aligned prompt repeated whole."""
+    rng = np.random.default_rng(6)
+    system = rng.integers(0, vocab, prefix).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, vocab, n)
+                            .astype(np.int32)]) for n in tails] + [system]
+
+
+def serve_modes_phase(torch, np, params, paged_tokens, paged_m) -> dict:
+    """The paged engine's other decode modes at full width, on the
+    quantized weights of the paged engine, each engine freed before the
+    next:
+
+      unfused  ``ServeConfig(fused_decode=False)`` on the 8 requests:
+               every one-token step launches ``paged_attention`` once per
+               layer, ``paged_decode_ragged`` never;
+      spec     ``ServeConfig(spec_decode=True, spec_k=4)``, fused: with a
+               drafter replaying the paged engine's tokens (full W = 5
+               windows), then with the prompt-lookup drafter on
+               repetition-heavy prompts;
+      prefix   ``ServeConfig(prefix_cache=True)``: 4 requests sharing a
+               64-token prefix, the first served alone for 2 ticks so the
+               rest match its pages, and the bare prefix again (the
+               copy-on-write copy).
+
+    Greedy tokens must equal the paged engine's on the same requests, or
+    differ first at a near-tie. Returns each path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config("gemma-2b")
+    layers = cfg.n_layers
+    _, prompts = _prompts(np, cfg)
+    out = {}
+
+    def paged_run(ps):
+        tokens, _, _, m = _run_engine(
+            torch, ServeEngine(params, cfg, ServeConfig(quantize=None)), ps)
+        return tokens, m
+
+    def report(path, sc, eng, m, launches, plain, records, tokens_check,
+               **extra):
+        emit({"phase": "serve", "path": path, "arch": cfg.name,
+              "layers": layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "config": sc,
+              "page_size": eng.page_size, "batch_slots": eng.batch_slots,
+              "requests_finished": m["requests_finished"],
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+              "model_calls": m["model_calls"],
+              "engine_steps": m["engine_steps"],
+              "spec_k": m["spec_k"],
+              "draft_acceptance_rate": m["draft_acceptance_rate"],
+              "accepted_per_step": m["accepted_per_step"],
+              "prefix_hits": m["prefix_hits"],
+              "prefill_tokens_skipped": m["prefill_tokens_skipped"],
+              "cow_copies": m["cow_copies"],
+              "launches": launches, "plain_calls": plain,
+              "model_steps": len(records), "tokens": tokens_check,
+              **extra})
+
+    def checks(path, tokens, launches, plain, n_req):
+        require(len(tokens) == n_req, f"{path}: {len(tokens)} of {n_req} "
+                                      "finished")
+        for rid, toks in tokens.items():
+            require(len(toks) == NEW_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in toks),
+                    f"{path}: request {rid}: bad output {toks}")
+        require(launches.get("spx_matmul", 0) > 0,
+                f"{path}: spx_matmul never launched")
+        require(not plain, f"{path}: plain versions ran on the card: {plain}")
+
+    # -- unfused: the one-token step in every decode tick
+    sc = "ServeConfig(fused_decode=False, quantize=None)"
+    eng = ServeEngine(params, cfg, ServeConfig(fused_decode=False,
+                                               quantize=None))
+    records, restore = _record_steps(torch, ("lm_paged_step",
+                                             "lm_paged_verify",
+                                             "lm_paged_fused_step"))
+    try:
+        tokens, launches, plain, m = _run_engine(torch, eng, prompts)
+    finally:
+        restore()
+    checks("unfused", tokens, launches, plain, N_REQUESTS)
+    one_token = [r for r in records if r[1] == 1]
+    require(not any(r[0] == "lm_paged_fused_step" for r in records),
+            "unfused: a fused tick ran")
+    require(len(one_token) >= NEW_TOKENS - 1
+            and all(r[3].get("paged_attention") == layers
+                    and "paged_decode_ragged" not in r[3]
+                    for r in one_token),
+            f"unfused: paged_attention launches per one-token step "
+            f"{sorted({r[3].get('paged_attention', 0) for r in one_token})}")
+    require("paged_decode_ragged" not in launches,
+            f"unfused: paged_decode_ragged launched: {launches}")
+    report("unfused", sc, eng, m, launches, plain, records,
+           _check_tokens(torch, np, "unfused", tokens, paged_tokens, params,
+                         cfg, prompts),
+           one_token_steps=len(one_token),
+           paged_attention_launches_per_one_token_step=layers)
+    out["unfused"] = launches
+    del eng
+
+    # -- spec, replay drafter: full W = 5 windows
+    sc = ("ServeConfig(spec_decode=True, spec_k=4, quantize=None), drafter "
+          "replaying the paged engine's tokens")
+    eng = ServeEngine(params, cfg, ServeConfig(spec_decode=True, spec_k=4,
+                                               quantize=None))
+    eng.drafter = _ReplayDrafter(paged_tokens)
+    records, restore = _record_steps(torch, ("lm_paged_step",
+                                             "lm_paged_fused_step"))
+    try:
+        tokens, launches, plain, m = _run_engine(torch, eng, prompts)
+    finally:
+        restore()
+    checks("spec", tokens, launches, plain, N_REQUESTS)
+    ticks = [r for r in records if r[0] == "lm_paged_fused_step"]
+    require(ticks and all(r[1] == 5 and r[3].get("paged_decode_ragged")
+                          == layers for r in ticks),
+            "spec: a fused tick ran at another window or launch count: "
+            + str(sorted({(r[1], r[3].get("paged_decode_ragged", 0))
+                          for r in ticks})))
+    require(any(r[2] == 5 for r in ticks), "spec: no window of 5 valid rows")
+    require(m["model_calls"] < paged_m["model_calls"],
+            f"spec: {m['model_calls']} model calls, paged "
+            f"{paged_m['model_calls']}")
+    report("spec", sc, eng, m, launches, plain, records,
+           _check_tokens(torch, np, "spec", tokens, paged_tokens, params,
+                         cfg, prompts),
+           paged_model_calls=paged_m["model_calls"],
+           fused_ticks=len(ticks),
+           windows_of_5_valid_rows=sum(r[2] == 5 for r in ticks))
+    out["spec"] = launches
+    del eng
+
+    # -- spec, prompt-lookup drafter on repetition-heavy prompts
+    tiled = _tiled_prompts(np, cfg.vocab_size)
+    want, m_ref = paged_run(tiled)
+    sc = ("ServeConfig(spec_decode=True, spec_k=4, quantize=None), "
+          "PromptLookupDrafter, 4 tiled prompts of 24 tokens")
+    eng = ServeEngine(params, cfg, ServeConfig(spec_decode=True, spec_k=4,
+                                               quantize=None))
+    tokens, launches, plain, m = _run_engine(torch, eng, tiled)
+    checks("spec (prompt lookup)", tokens, launches, plain, len(tiled))
+    report("spec (prompt lookup)", sc, eng, m, launches, plain, [],
+           _check_tokens(torch, np, "spec (prompt lookup)", tokens, want,
+                         params, cfg, tiled),
+           paged_model_calls=m_ref["model_calls"])
+    del eng
+
+    # -- prefix cache
+    shared = _shared_prompts(np, cfg.vocab_size)
+    want, _ = paged_run(shared)
+    sc = ("ServeConfig(prefix_cache=True, quantize=None), 4 prompts sharing "
+          "a 64-token prefix (the first served alone for 2 ticks) and the "
+          "bare prefix")
+    eng = ServeEngine(params, cfg, ServeConfig(prefix_cache=True,
+                                               quantize=None))
+    tokens, launches, plain, m = _run_engine(torch, eng, shared, staged=2)
+    checks("prefix", tokens, launches, plain, len(shared))
+    require(m["prefix_hits"] >= 1 and m["cow_copies"] >= 1
+            and m["prefill_tokens_skipped"] > 0,
+            f"prefix: hits {m['prefix_hits']}, copies {m['cow_copies']}, "
+            f"skipped {m['prefill_tokens_skipped']}")
+    require(launches.get("paged_decode_ragged", 0) > 0,
+            "prefix: paged_decode_ragged never launched")
+    eng.pool.validate()
+    report("prefix", sc, eng, m, launches, plain, [],
+           _check_tokens(torch, np, "prefix", tokens, want, params, cfg,
+                         shared),
+           prefix_lookups=m["prefix_lookups"])
+    out["prefix"] = launches
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 6 -------------------------------------------------------------------
 
 #: logits: |cuda - plain| <= E2E_RTOL * max|plain logits|. 18 layers of f32
 #: sums taken in other orders (see SPX_RTOL, ATTN_TOL) compound.
@@ -694,9 +1115,68 @@ def e2e_phase(torch, np, eng) -> None:
               "path, kernels vs plain versions",
               "tokens": tokens_by_impl["cuda"], "identical": same})
         require(same, f"pinned {path} greedy tokens differ: {tokens_by_impl}")
+    _pinned_modes(np, pinned, params, prompts)
 
 
-# -- phase 6 -------------------------------------------------------------------
+def _pinned_modes(np, pinned, params, prompts) -> None:
+    """The unfused tick, speculative decoding (fused and unfused) and the
+    prefix cache on the pinned config: kernels against plain versions give
+    identical greedy tokens, and each mode gives the plain paged engine's
+    tokens on the same requests; speculation takes fewer model calls with
+    some drafts accepted, the prefix cache hits and copies on write."""
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import Request, ServeConfig, ServeEngine
+
+    def serve(sc, ps, impl):
+        e = ServeEngine(params, pinned, sc, rt=Runtime(impl=impl))
+        for i, p in enumerate(ps):
+            e.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        tokens = {r.rid: list(r.output) for r in e.run()}
+        return tokens, e.metrics()
+
+    tiled = _tiled_prompts(np, pinned.vocab_size, motif=4)
+    shared = _shared_prompts(np, pinned.vocab_size)
+    base = dict(batch_slots=2, max_seq=128)
+    plain_paged = {"mixed": serve(ServeConfig(**base), prompts, "cuda"),
+                   "tiled": serve(ServeConfig(**base), tiled, "cuda"),
+                   "shared": serve(ServeConfig(**base), shared, "cuda")}
+    for path, knobs, which, ps in (
+            ("unfused", dict(fused_decode=False), "mixed", prompts),
+            ("spec", dict(spec_k=4), "tiled", tiled),
+            ("spec unfused", dict(spec_k=4, fused_decode=False), "tiled",
+             tiled),
+            ("prefix", dict(prefix_cache=True), "shared", shared)):
+        sc = ServeConfig(**base, **knobs)
+        (got, m), (plain, _) = serve(sc, ps, "cuda"), serve(sc, ps, "ref")
+        want, m_paged = plain_paged[which]
+        same = got == plain
+        same_as_paged = got == want
+        extra = {}
+        if path.startswith("spec"):
+            extra = {"draft_acceptance_rate": m["draft_acceptance_rate"],
+                     "model_calls": m["model_calls"],
+                     "paged_model_calls": m_paged["model_calls"]}
+        if path == "prefix":
+            extra = {"prefix_hits": m["prefix_hits"],
+                     "cow_copies": m["cow_copies"],
+                     "prefill_tokens_skipped": m["prefill_tokens_skipped"]}
+        emit({"phase": "e2e", "what": f"pinned config greedy tokens, {path} "
+              "path, kernels vs plain versions and vs the paged engine",
+              "config": repr(knobs), "tokens": got, "identical": same,
+              "identical_to_paged": same_as_paged, **extra})
+        require(same, f"pinned {path} greedy tokens differ: {got} {plain}")
+        require(same_as_paged, f"pinned {path} tokens differ from the paged "
+                               f"engine's: {got} {want}")
+        if path.startswith("spec"):
+            require(m["draft_acceptance_rate"] > 0
+                    and m["model_calls"] < m_paged["model_calls"],
+                    f"pinned {path}: {extra}")
+        if path == "prefix":
+            require(m["prefix_hits"] >= 1 and m["cow_copies"] >= 1,
+                    f"pinned prefix: {extra}")
+
+
+# -- phases 7 and 8 ------------------------------------------------------------
 
 def _time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
@@ -802,7 +1282,8 @@ def _f32_bound_ms(nbytes: float, flops: float) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S) * 1e3
 
 
-def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
+def timing_phase(torch, np, eng, launches, new_launches, worst,
+                 mlp) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -908,6 +1389,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
             ("spx_matmul_kernel",))
         for name, qt in layers[0].items()}
     del dense
+    spx["paper_mlp_by_M"] = _paper_mlp_timing(torch, gen, mlp["params"])
 
     # attention at the decode shapes: 4 slots, gemma-2b heads, pools of
     # every layer, each slot 48 tokens into its sequence
@@ -978,6 +1460,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
     del pools, gathered
     quant, quant_one = _quant_timing(torch, gen, cfg, m, ctx_tokens, q)
     ragged.update(_long_ctx_timing(torch, gen, cfg, m, quant=False))
+    ragged["verify_tick"] = _verify_timing(torch, gen, cfg, eng, m)
     quant.update(_long_ctx_timing(torch, gen, cfg, m, quant=True))
     flash = _flash_timing(torch, gen, cfg)
     flash["long_prompt"] = _flash_timing(torch, gen, cfg, s=LONG_CTX)
@@ -1002,17 +1485,133 @@ def timing_phase(torch, np, eng, launches, new_launches, worst) -> list:
     path_launches = {"paged_decode_ragged_quant": new_launches["quant"],
                      "paged_attention_quant": new_launches["quant"],
                      "flash_attention": new_launches["dense"]}
+    # every serving path's run, and the paper MLP's forward (counts set to
+    # 0 before each and read after it)
+    by_path = {"paged": launches, **new_launches,
+               "paper_mlp": {"spx_matmul": mlp["launches"]}}
     rows = []
     for entry in (spx, ragged, paged, quant, flash, quant_one):
         name = entry["name"]
         source, replaces = meta[name]
         entry.update(route="cuda", source=source, replaces=replaces,
                      launches=path_launches.get(name, launches).get(name, 0),
+                     launches_by_path={p: n[name] for p, n in by_path.items()
+                                       if n.get(name)},
                      max_abs_err=worst[name],
                      share_of_bound=entry["bound_ms"] / entry["device_ms"]
                      if entry["device_ms"] else None)
         rows.append(entry)
     return rows
+
+
+def _paper_mlp_timing(torch, gen, qparams) -> dict:
+    """``spx_matmul`` over the paper MLP's two quantized layers, (784, 128)
+    then (128, 10), at M = 64 and 1024 rows, beside ``torch.matmul`` on the
+    dequantized weights and the two bounds."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    qts = [qparams[f"l{i}"]["w"] for i in range(2)]
+    dense = [qt.dequantize() for qt in qts]
+    lut = qts[0].lut()
+    out = {}
+    for m in (64, 1024):
+        xs = [torch.rand((m, qt.logical_shape[0]), generator=gen,
+                         device="cuda") for qt in qts]
+
+        def kernel(fn=spx_matmul_cuda):
+            for x, qt in zip(xs, qts):
+                fn(x, qt.codes, qt.scale.reshape(1, qt.logical_shape[1]),
+                   lut, packed=qt.packed)
+
+        def library():
+            for x, w in zip(xs, dense):
+                torch.matmul(x, w)
+
+        nbytes = flops = 0
+        for qt in qts:
+            k, n = qt.logical_shape
+            nbytes += m * k * 4 + qt.codes.numel() + n * 4 + 16 * 4 \
+                + m * n * 4
+            flops += 2 * m * k * n
+        row = {"per": f"forward: 2 launches, M={m}, (K, N) = (784, 128) "
+                      "and (128, 10)",
+               "ms": _time_ms(torch, kernel, reps=50, warmup=5),
+               "device_ms": _device_ms(torch, kernel, ("spx_matmul_kernel",),
+                                       reps=20),
+               "plain_ms": _time_ms(torch, lambda: kernel(ref.spx_matmul_ref),
+                                    reps=10),
+               "library_ms": _time_ms(torch, library, reps=50, warmup=5),
+               "library_device_ms": _device_ms(torch, library, ("",),
+                                               reps=20),
+               "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
+        row["share_of_bound"] = row["bound_ms"] / row["device_ms"] \
+            if row["device_ms"] else None
+        out[f"M={m}"] = row
+    return out
+
+
+def _verify_timing(torch, gen, cfg, eng, m) -> dict:
+    """Kernel 2 per speculative verify tick: ``m`` slots, a window of W = 5
+    rows each, 44 tokens in the pages before it (49 attended by the last
+    row), every layer's f32 pools; SDPA over the same K/V, pre-gathered,
+    with the window's causal mask as the library call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_ragged_cuda
+
+    hkv, rep, dh, ps = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.dh, eng.page_size
+    w, ctx_tokens = 5, 44
+    mp = eng.pages_per_seq
+    n_pages = m * mp
+    attend = ctx_tokens + w
+    pools = [_rand_pools(torch, gen, n_pages, hkv, ps, dh)
+             for _ in range(cfg.n_layers)]
+    bt = torch.arange(n_pages, dtype=torch.int32,
+                      device="cuda").reshape(m, mp)
+    q = torch.randn((m, hkv, rep * w, dh), generator=gen, device="cuda")
+    ctx = torch.full((m,), ctx_tokens, dtype=torch.int32, device="cuda")
+    qn = torch.full((m,), w, dtype=torch.int32, device="cuda")
+
+    def tick():
+        for kp, vp in pools:
+            paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+
+    # SDPA: (B, Hq, W, dh) queries, row i of each head attends <= ctx + i
+    q_sdpa = q.reshape(m, hkv, rep, w, dh).reshape(m, hkv * rep, w, dh)
+    gathered = [(ref._gather(kp, bt)[:, :, :attend].repeat_interleave(rep, 1),
+                 ref._gather(vp, bt)[:, :, :attend].repeat_interleave(rep, 1))
+                for kp, vp in pools]
+    mask = (torch.arange(attend, device="cuda")[None, :]
+            <= ctx_tokens + torch.arange(w, device="cuda")[:, None])
+
+    def library():
+        for k, v in gathered:
+            F.scaled_dot_product_attention(q_sdpa, k, v, attn_mask=mask)
+
+    nbytes = cfg.n_layers * (m * hkv * attend * dh * 4 * 2
+                             + 2 * m * hkv * rep * w * dh * 4
+                             + m * (mp + 2) * 4)
+    flops = cfg.n_layers * 4 * m * hkv * rep * dh * sum(
+        ctx_tokens + i + 1 for i in range(w))
+    bound, by = _bound_ms(nbytes, flops)
+    device_ms = _device_ms(torch, tick, PAGED_KERNELS)
+    out = {"per": f"verify tick: {cfg.n_layers} launches, {m} slots, W = {w}, "
+                  f"{attend} tokens attended by the last row",
+           "ms": _time_ms(torch, tick),
+           "device_ms": device_ms,
+           "plain_ms": _time_ms(torch, lambda: [ref.paged_decode_ragged_ref(
+               q, kp, vp, bt, ctx, qn, w=w) for kp, vp in pools]),
+           "library_ms": _time_ms(torch, library),
+           "library_device_ms": _device_ms(torch, library, ("",)),
+           "library_call": "scaled_dot_product_attention over pre-gathered "
+                           "K/V with the window's causal mask",
+           "bound_ms": bound, "bound_by": by,
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops),
+           "share_of_bound": bound / device_ms if device_ms else None}
+    del pools, gathered
+    return out
 
 
 def _quant_timing(torch, gen, cfg, m, ctx_tokens, q):
@@ -1312,11 +1911,16 @@ def main() -> int:
               "dir": str(cuda_lib.build_dir()),
               "tensor_core_instructions": _sass_counts(cuda_lib)})
         worst = kernel_phase(torch, np)
-        eng, launches, _ = serve_phase(torch, np)
+        mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
+        worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
+        eng, launches, paged_m, paged_tokens = serve_phase(torch, np)
         new_launches = serve_new_paths_phase(torch, np, eng.params)
+        new_launches.update(serve_modes_phase(torch, np, eng.params,
+                                              paged_tokens, paged_m))
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
-        rows = timing_phase(torch, np, eng, launches, new_launches, worst)
+        rows = timing_phase(torch, np, eng, launches, new_launches, worst,
+                            mlp)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

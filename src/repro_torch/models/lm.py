@@ -1,8 +1,9 @@
 """Decoder-only language model: init, the full-sequence forward
 (``lm_logits``), the dense serving path (``lm_prefill`` of a whole prompt
 into per-slot caches, ``lm_decode_step``), the paged prefill/decode step,
-the fused decode tick, and the page copies the serving engine's
-preemption uses. Dense (``attn+dense``) patterns only.
+the speculative verify window, the fused decode tick, and the page copies
+the serving engine's copy-on-write and preemption use. Dense
+(``attn+dense``) patterns only.
 
 Caches and page pools (f32, or SPx codes + f32 scales when quantized) are
 updated in place; the step functions still return ``(logits, caches)`` so
@@ -24,8 +25,8 @@ from repro_torch.runtime import Runtime, resolve_device
 
 __all__ = ["lm_init", "lm_logits", "init_caches", "lm_prefill",
            "lm_decode_step", "paged_init_caches", "lm_paged_step",
-           "lm_paged_fused_step", "paged_copy_page", "paged_gather_pages",
-           "paged_scatter_pages"]
+           "lm_paged_verify", "lm_paged_fused_step", "paged_copy_page",
+           "paged_gather_pages", "paged_scatter_pages"]
 
 _PAGE_KEYS = ("kp", "vp")
 
@@ -146,13 +147,33 @@ def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, caches,
     return _head(params, cfg, h_last), caches
 
 
+def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid, caches,
+                    cfg: ArchConfig, rt: Runtime):
+    """Score a speculation window in one paged forward pass (the unfused
+    verify step; serving/spec.py has the drafter). Same contract as
+    ``lm_paged_step`` — tokens (B, C) is the pending token plus up to C-1
+    drafts, padded past ``n_valid``, written to the pages and attended
+    causally through the chunked page-gather path (or, at C == 1, through
+    ``ops.paged_attention``: the unfused decode tick) — but logits come
+    back at every window position, (B, C, V): position j scores the token
+    after window token j. Rows past ``n_valid`` carry garbage logits —
+    never read."""
+    x = embedding_apply(params["embed"], tokens)
+    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
+                            n_valid, cfg, rt, caches)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _head(params, cfg, h), caches
+
+
 def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
                         caches, cfg: ArchConfig, rt: Runtime):
-    """One fused decode tick: every layer's attention is ONE
+    """One fused decode tick, plain decode (W == 1) and the speculative
+    verify window (W == spec_k + 1) alike: every layer's attention is ONE
     ``paged_decode_ragged`` launch over the batch's ragged (slot,
     attend_len) grid. tokens (B, W) is each row's window, padded past
-    ``n_valid``; logits come back at every window position, (B, W, V).
-    Rows past ``n_valid`` carry garbage logits — never read."""
+    ``n_valid``; logits come back at every window position, (B, W, V), as
+    from ``lm_paged_verify``. Rows past ``n_valid`` carry garbage logits —
+    never read."""
     x = embedding_apply(params["embed"], tokens)
     h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
                             n_valid, cfg, rt, caches, fused=True)

@@ -5,14 +5,15 @@ cross-knob checks run, as in ``repro.serving.config``; it returns a fully
 resolved copy. Same fields, env knobs and defaults as the reference.
 
 This port serves two layouts on one device, for ``attn+dense`` patterns:
-paged KV with the fused decode tick under ``cb`` or ``fifo`` scheduling,
-and the dense per-slot layout under ``fifo``; either in f32 or, with
+paged KV under ``cb`` or ``fifo`` scheduling — the fused or the unfused
+decode tick, speculative decoding and the prefix cache included — and the
+dense per-slot layout under ``fifo``; either in f32 or, with
 ``Runtime.kv_quant``, as SPx codes. A knob the dense layout cannot have
-raises the reference's ``ValueError``. A knob that asks **explicitly** for
-something this port lacks raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it. An env-enabled default degrades silently to
-the served path, as an env default degrades in the reference where the
-layout cannot support it.
+raises the reference's ``ValueError``, and its env default degrades
+silently, as in the reference. A knob that asks **explicitly** for
+something this port lacks (bf16 caches, shards, replicas) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it; its env
+default degrades silently to one device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.serving.spec import DEFAULT_SPEC_K
 
 __all__ = ["ServeConfig", "DEFAULT_PREFILL_CHUNK"]
 
@@ -97,38 +99,64 @@ class ServeConfig:
                 f"got {kv_layout!r}")
         paged = kv_layout == "paged"
 
-        # prefix cache, speculation, the fused tick, the cb scheduler, the
-        # host tier and shards need the paged layout: on a dense engine an
-        # explicit request is a caller error and an env default degrades
-        # silently, as in the reference
-        if self.prefix_cache:
-            if not paged:
+        # shared-prefix KV page reuse (paged only). None = read the env
+        # default; an env-enabled cache degrades silently on a dense
+        # engine, an explicit True there is a caller error
+        prefix_cache = self.prefix_cache
+        if prefix_cache is None:
+            prefix_cache = os.environ.get(
+                "REPRO_PREFIX_CACHE", "").lower() in ("1", "true")
+        if prefix_cache and not paged:
+            if self.prefix_cache is not None:
                 raise ValueError(
                     "prefix_cache=True is unsupported here: kv_layout="
                     "'dense' — per-slot rows, nothing to share")
-            raise _not_ported("prefix_cache=True", "prefix cache")
-        # REPRO_PREFIX_CACHE=1 degrades silently: nothing to read
+            prefix_cache = False
 
-        explicit_off = self.spec_decode is False and self.spec_k in (None, 0)
-        if not explicit_off and (self.spec_decode is not None
-                                 or self.spec_k is not None):
-            if not paged and self.spec_decode is not False:
+        # speculative decoding (paged only — the verify window rides the
+        # paged chunk path). REPRO_SPEC_K=N enables with window N; spec_k
+        # alone also enables. Same explicit-raise / env-degrade contract.
+        env_k = int(os.environ.get("REPRO_SPEC_K", "0") or 0)
+        raw_k = self.spec_k
+        if raw_k == 0 and self.spec_decode is False:
+            # a resolved "off" config that was replace()d and re-resolved
+            raw_k = None
+        if raw_k is not None and raw_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {raw_k}")
+        if self.spec_decode is False and raw_k is not None:
+            raise ValueError(
+                f"spec_k={raw_k} with spec_decode=False — drop one")
+        explicit_spec = self.spec_decode is not None or raw_k is not None
+        spec_decode = self.spec_decode
+        if spec_decode is None:
+            spec_decode = env_k > 0 or raw_k is not None
+        if spec_decode and not paged:
+            if explicit_spec:
                 raise ValueError(
                     "spec_decode is unsupported here: kv_layout='dense' — "
                     "the verify step scores the draft window through the "
                     "paged chunk path")
-            raise _not_ported("speculative decoding (spec_decode / spec_k)",
-                              "speculative decoding")
-        # REPRO_SPEC_K=N degrades silently to no speculation
+            spec_decode = False
+        if spec_decode:
+            spec_k = raw_k if raw_k is not None else (env_k or DEFAULT_SPEC_K)
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k} "
+                                 "(check REPRO_SPEC_K)")
+        else:
+            spec_k = 0
 
-        if paged and self.fused_decode is False:
-            raise _not_ported("fused_decode=False (the unfused decode tick)",
-                              "the unfused decode path")
-        if not paged and self.fused_decode:
-            raise ValueError(
-                "fused_decode=True needs kv_layout='paged' — the megakernel "
-                "decodes through the paged page pools")
-        # REPRO_FUSED_DECODE degrades silently to the layout's only tick
+        # the fused ragged-decode tick (paged only), on by default;
+        # REPRO_FUSED_DECODE=0 opts out
+        fused_decode = self.fused_decode
+        if fused_decode is None:
+            fused_decode = os.environ.get(
+                "REPRO_FUSED_DECODE", "1").lower() not in ("0", "false")
+        if fused_decode and not paged:
+            if self.fused_decode is not None:
+                raise ValueError(
+                    "fused_decode=True needs kv_layout='paged' — the "
+                    "megakernel decodes through the paged page pools")
+            fused_decode = False
 
         scheduler = self.scheduler
         if scheduler is None:
@@ -145,17 +173,21 @@ class ServeConfig:
                     "offloads KV pages and the dense layout has none")
             scheduler = "fifo"
 
+        # two-tier pool knobs (paged only): host_pages bounds the host
+        # offload tier, prefix_cache_pages the cached-free prefix index
         env_host = os.environ.get("REPRO_HOST_PAGES", "")
+        env_cache = os.environ.get("REPRO_PREFIX_CACHE_PAGES", "")
         host_pages = self.host_pages
+        prefix_cache_pages = self.prefix_cache_pages
         if not paged and (host_pages is not None
-                          or self.prefix_cache_pages is not None):
+                          or prefix_cache_pages is not None):
             raise ValueError(
                 "host_pages / prefix_cache_pages need kv_layout='paged' — "
                 "the dense layout has no page pool")
-        if self.prefix_cache_pages is not None:
-            raise _not_ported("prefix_cache_pages", "prefix cache")
         if host_pages is None and env_host and paged:
             host_pages = int(env_host)
+        if prefix_cache_pages is None and env_cache and paged:
+            prefix_cache_pages = int(env_cache)
 
         # chunked prefill is paged only: the dense layout prefills whole
         # prompts and keeps the knob as given
@@ -189,7 +221,8 @@ class ServeConfig:
 
         return dataclasses.replace(
             self, kv_layout=kv_layout, kv_cache_dtype=kv_cache_dtype,
-            prefix_cache=False, spec_decode=False, spec_k=0,
-            fused_decode=paged, scheduler=scheduler, host_pages=host_pages,
-            prefix_cache_pages=None, prefill_chunk=prefill_chunk, shards=1,
-            replicas=1, resolved=True)
+            prefix_cache=bool(prefix_cache), spec_decode=bool(spec_decode),
+            spec_k=spec_k, fused_decode=bool(fused_decode),
+            scheduler=scheduler, host_pages=host_pages,
+            prefix_cache_pages=prefix_cache_pages,
+            prefill_chunk=prefill_chunk, shards=1, replicas=1, resolved=True)

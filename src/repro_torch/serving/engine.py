@@ -7,9 +7,12 @@ deployment mode), on two KV layouts:
   enters a slot when the pool covers its worst-case footprint (prompt +
   max_new_tokens). Prompts stream through chunked prefill, one chunk per
   engine tick per slot, interleaved with the decode tick of the running
-  sequences. Every decode tick is one fused step
+  sequences. A decode tick is one fused step by default
   (``models.lm.lm_paged_fused_step``): one ``paged_decode_ragged`` launch
-  per layer for the whole batch. Two schedulers, as in the reference:
+  per layer for the whole batch. With ``fused_decode=False`` it is the
+  one-token step instead (``lm_paged_verify`` at W = 1), through
+  ``paged_attention`` (or ``paged_attention_quant``) in every layer. Two
+  schedulers, as in the reference:
   ``fifo`` (strict submit order, a blocked head blocks the queue) and
   ``cb`` (continuous batching: priority admission with skip-ahead, and
   preemption of strictly lower-priority residents whose written pages go
@@ -19,6 +22,22 @@ deployment mode), on two KV layouts:
   slot. An admitted request is prefilled whole through ``lm_prefill``
   (the flash kernel) straight into its slot's row; every tick then
   decodes all slots with ``lm_decode_step``. ``fifo`` only.
+
+The paged layout optionally shares KV pages across requests
+(``prefix_cache=True`` / ``REPRO_PREFIX_CACHE=1``): admission maps the
+matched full prompt pages into the sequence's block table (a refcount
+bump, no prefill work), prefills only the unmatched tail, and copies the
+last matched page to a private one (copy-on-write) when the whole prompt
+is page-aligned identical, since its last token must be run again for
+its logits and would write into the shared page.
+
+It also decodes speculatively (``spec_decode=True`` / ``spec_k=K`` /
+``REPRO_SPEC_K=K``): a prompt-lookup drafter (serving/spec.py) proposes
+up to K tokens per decoding slot, one pass scores each K+1 window
+(``lm_paged_fused_step`` at W = K+1, or ``lm_paged_verify`` on the
+unfused tick), and the engine keeps the longest accepted prefix plus one
+correction or bonus token, moving the write cursor back past a rejected
+tail. A tick where no slot has a draft runs a plain decode.
 
 Either layout stores K/V in f32 or, with ``Runtime(kv_quant=True,
 kv_scheme=...)``, as SPx codebook codes (uint8) plus one f32 scale per
@@ -30,9 +49,8 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
-Not in this port yet (``ServeConfig.resolve`` raises): the prefix cache,
-speculative decoding, the unfused decode tick, bf16 KV caches, sharding
-and replicas, and every pattern but ``attn+dense``.
+Not in this port yet (``ServeConfig.resolve`` raises): bf16 KV caches,
+sharding and replicas, and every pattern but ``attn+dense``.
 """
 from __future__ import annotations
 
@@ -50,6 +68,7 @@ from repro_torch.nn.layers import quantize_params, tree_leaves, tree_map
 from repro_torch.runtime import Runtime, planner, resolve_device
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.kv_cache import StateCache, kv_bytes_per_token
+from repro_torch.serving.spec import PromptLookupDrafter
 from repro_torch.serving.stream import StreamState, TokenStream
 
 __all__ = ["Request", "ServeConfig", "ServeEngine"]
@@ -111,9 +130,12 @@ class ServeEngine:
         self.max_seq = sc.max_seq
         self.kv_cache_dtype = sc.kv_cache_dtype
         self.kv_layout = sc.kv_layout
+        self.prefix_cache = sc.prefix_cache
+        self.spec_k = sc.spec_k
         self.fused_decode = sc.fused_decode
         self.scheduler = sc.scheduler
         self.host_pages = sc.host_pages
+        self.prefix_cache_pages = sc.prefix_cache_pages
         params = tree_map(lambda _, leaf: leaf.to(self.device), params)
         if sc.quantize:
             params = quantize_params(params, sc.quantize)
@@ -131,6 +153,11 @@ class ServeEngine:
         self._steps = 0
         self._wall = 0.0
         self._model_calls = 0
+        # speculation: windows that carried >= 1 draft, and drafts
+        # proposed / accepted across them
+        self._spec_windows = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._preemptions = 0
         self._resumes = 0
         self._offload_bytes = 0
@@ -158,7 +185,8 @@ class ServeEngine:
         self.pages_per_seq = -(-self.max_seq // self.page_size)
         n_pages = sc.pool_pages or self.batch_slots * self.pages_per_seq
         self.pool = StateCache(n_pages, self.page_size,
-                               host_pages=self.host_pages)
+                               host_pages=self.host_pages,
+                               cache_pages=self.prefix_cache_pages)
         self.prefill_chunk = sc.prefill_chunk
         self.caches = lm_mod.paged_init_caches(
             cfg, self.pool.n_pages, self.page_size, dtype=self.kv_cache_dtype,
@@ -167,6 +195,15 @@ class ServeEngine:
                                      np.int32)
         # per-slot prefill progress: prompt tokens already fed; -1 = decoding
         self._fed = np.full(self.batch_slots, -1, np.int64)
+        if self.spec_k:
+            self.drafter = PromptLookupDrafter()
+        # prefix-cache work counters, and each in-flight prompt's page
+        # chain keys (hashed once, reused by admission retries and by the
+        # registration after every prefill chunk)
+        self._prefix_hits = 0
+        self._prefill_skipped = 0
+        self._cow_copies = 0
+        self._prompt_keys: dict[int, list[bytes]] = {}
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -248,7 +285,7 @@ class ServeEngine:
             else:
                 self._admit_fifo()
             self._prefill_tick()
-            self._decode_step_fused()
+            self._decode_step_paged()
             self._occ_samples.append(self.pool.stats.occupancy)
         for st in self._streams.values():
             st.notify()
@@ -309,6 +346,8 @@ class ServeEngine:
         raise KeyError(f"request {rid}: unknown rid (never submitted)")
 
     def _drop_request(self, req: Request, st: StreamState | None):
+        if self.kv_layout == "paged":
+            self._prompt_keys.pop(req.rid, None)
         req.done = True
         req.t_done = _now()
         self._cancelled += 1
@@ -324,6 +363,9 @@ class ServeEngine:
         self._steps = 0
         self._wall = 0.0
         self._model_calls = 0
+        self._spec_windows = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
         self._preemptions = 0
         self._resumes = 0
         self._offload_bytes = 0
@@ -341,6 +383,12 @@ class ServeEngine:
         st.offload_calls = 0
         st.onload_calls = 0
         st.peak_host_pages = st.host_pages_in_use
+        st.prefix_lookups = 0
+        st.prefix_hits = 0
+        st.prefix_evictions = 0
+        self._prefix_hits = 0
+        self._prefill_skipped = 0
+        self._cow_copies = 0
 
     def metrics(self) -> dict:
         """Throughput/latency/occupancy counters for the work so far."""
@@ -370,7 +418,25 @@ class ServeEngine:
                 "host_pages_in_use": st.host_pages_in_use,
                 "peak_host_pages": st.peak_host_pages,
                 "peak_host_bytes": st.peak_host_pages * page_bytes,
+                # prefix-cache economics (pool-side counters)
+                "prefix_cache_pages": self.pool.cache_pages,
+                "prefix_lookups": st.prefix_lookups,
+                "prefix_evictions": st.prefix_evictions,
+                "prefix_hit_rate": st.prefix_hits / st.prefix_lookups
+                if st.prefix_lookups else 0.0,
+                "prefix_cache": self.prefix_cache,
+                "prefix_hits": self._prefix_hits,
+                "prefill_tokens_skipped": self._prefill_skipped,
+                "cow_copies": self._cow_copies,
+                "spec_decode": bool(self.spec_k),
+                "spec_k": self.spec_k,
                 "fused_decode": self.fused_decode,
+                # drafts accepted per drafted window / per proposed draft
+                "accepted_per_step": self._spec_accepted / self._spec_windows
+                if self._spec_windows else 0.0,
+                "draft_acceptance_rate":
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else 0.0,
             }
         else:
             # dense bills every slot its worst case up front
@@ -443,19 +509,53 @@ class ServeEngine:
             if not self._try_admit(order[0], slot):
                 return
 
+    def _match_prefix(self, req: Request):
+        """-> (shared full pages, copy-on-write source page or None,
+        matched tokens). When the whole prompt is covered, its last token
+        must run again for the first token's logits and would write into
+        the last matched page: that page becomes a copy-on-write source
+        instead, so matched tokens stay < len(prompt)."""
+        keys = self._prompt_keys.get(req.rid)
+        if keys is None:
+            keys = self._prompt_keys[req.rid] = \
+                self.pool.prompt_keys(req.prompt)
+        cand = self.pool.match_prefix(req.prompt, keys=keys)
+        if not cand:
+            return [], None, 0
+        matched = len(cand) * self.page_size
+        if matched < len(req.prompt):
+            return cand, None, matched
+        return cand[:-1], cand[-1], len(req.prompt) - 1
+
     def _try_admit(self, req: Request, slot: int) -> bool:
-        """Place ``req`` into the free ``slot`` (fresh, or resumed from the
-        host tier). False leaves queue, pool and slot untouched."""
+        """Place ``req`` into the free ``slot``: fresh, with its matched
+        prefix pages shared, or resumed from the host tier. False leaves
+        queue, pool and slot untouched."""
         if req._resume is not None:
             return self._try_resume(req, slot)
-        pages = self.pool.allocate(req.rid, self._worst_case_tokens(req))
+        shared, cow_src, matched = [], None, 0
+        if self.prefix_cache:
+            shared, cow_src, matched = self._match_prefix(req)
+        pages = self.pool.allocate(req.rid, self._worst_case_tokens(req),
+                                   shared_prefix=shared)
         if pages is None:
             return False
+        if cow_src is not None:
+            # a private copy of the last matched page, before the re-run
+            # final token writes its (identical) K/V into it
+            lm_mod.paged_copy_page(self.caches, cow_src, pages[len(shared)])
+            self._cow_copies += 1
+        if matched:
+            self._prefix_hits += 1
+            self._prefill_skipped += matched
         self.queue.remove(req)
         self.slot_req[slot] = req
-        self.slot_pos[slot] = 0
-        self._fed[slot] = 0
+        self.slot_pos[slot] = matched
+        self._fed[slot] = matched
         self._set_block_row(slot, req.rid)
+        if self.spec_k:
+            # the drafter indexes the whole prompt, shared prefix included
+            self.drafter.start(req.rid, req.prompt)
         return True
 
     # -- preemption + resume (cb scheduler) ----------------------------------
@@ -477,11 +577,15 @@ class ServeEngine:
         return sum(a.nbytes for a in tree_leaves(payload))
 
     def _clear_slot(self, slot: int):
+        rid = self.slot_req[slot].rid
         self.slot_req[slot] = None
         self.slot_pos[slot] = 0
         if self.kv_layout == "paged":
             self.block_tables[slot] = 0
             self._fed[slot] = -1
+            if self.spec_k:
+                # rebuilt from prompt + output on resume
+                self.drafter.drop(rid)
 
     def _release_slot(self, slot: int):
         """Clear the slot and give its pages back to the pool."""
@@ -531,6 +635,10 @@ class ServeEngine:
         self.slot_pos[slot] = n_written
         self._fed[slot] = fed
         self._set_block_row(slot, req.rid)
+        if self.spec_k:
+            self.drafter.start(req.rid, req.prompt)
+            for tok in req.output:
+                self.drafter.extend(req.rid, int(tok))
         return True
 
     def _preempt_for(self, cand: Request) -> bool:
@@ -613,38 +721,126 @@ class ServeEngine:
             req = self.slot_req[i]
             self._fed[i] += chunk[i]
             self.slot_pos[i] = self._fed[i]
+            if self.prefix_cache:
+                # index every prompt page this chunk completed: queued
+                # requests with the same prefix share them from the next
+                # admission on (before _maybe_finish: a released page
+                # stays indexed)
+                self.pool.register_prefix(
+                    req.rid, req.prompt, int(self._fed[i]),
+                    keys=self._prompt_keys.get(req.rid))
             if self._fed[i] == len(req.prompt):
                 self._fed[i] = -1           # -> decoding
-                req.output.append(self._pick_token(logits[i], req))
+                first = self._pick_token(logits[i], req)
+                req.output.append(first)
                 self._tokens_out += 1
+                if self.spec_k:
+                    self.drafter.extend(req.rid, first)
                 req.t_first_token = _now()
                 self._maybe_finish(i)       # max_new_tokens == 1
 
-    def _decode_step_fused(self):
-        """One fused decode tick for every decoding slot (window W = 1)."""
+    def _decode_step_paged(self):
+        """One decode tick for every decoding slot, over a window of W
+        tokens per row: the pending token plus up to spec_k drafts, padded
+        past each row's ``n_valid``. Fused, W = spec_k + 1 (1 without
+        speculation) and every layer's attention is one
+        ``paged_decode_ragged`` launch for drafted and undrafted rows
+        alike. Unfused, ``lm_paged_verify`` scores the K+1 windows, or, when
+        no slot has a draft, runs the one-token step (``paged_attention``
+        in every layer)."""
         active = [i for i, r in enumerate(self.slot_req)
                   if r is not None and self._fed[i] < 0]
         if not active:
             return
-        tokens = np.zeros((self.batch_slots, 1), np.int32)
+        drafts = {i: self._propose(i) for i in active}
+        if self.fused_decode:
+            w, step_fn = self.spec_k + 1, lm_mod.lm_paged_fused_step
+        else:
+            w = self.spec_k + 1 if any(drafts.values()) else 1
+            step_fn = lm_mod.lm_paged_verify
+        tokens = np.zeros((self.batch_slots, w), np.int32)
         n_valid = np.zeros(self.batch_slots, np.int32)
         ctx = np.zeros(self.batch_slots, np.int32)
         for i in active:
+            d = drafts[i]
             tokens[i, 0] = self.slot_req[i].output[-1]
-            n_valid[i] = 1
+            tokens[i, 1:1 + len(d)] = d
+            n_valid[i] = 1 + len(d)
             ctx[i] = self.slot_pos[i]
-        logits, self.caches = lm_mod.lm_paged_fused_step(
+        logits, self.caches = step_fn(
             self.params, self._tensor(tokens), self._tensor(ctx),
             self._tensor(self.block_tables), self._tensor(n_valid),
             self.caches, self.cfg, self.rt)
         self._model_calls += 1
-        logits = logits.cpu().numpy()                # (B, 1, V)
+        logits = logits.cpu().numpy()                # (B, W, V)
         for i in active:
             req = self.slot_req[i]
-            req.output.append(self._pick_token(logits[i, 0], req))
-            self._tokens_out += 1
-            self.slot_pos[i] += 1
+            emitted = self._accept_tokens(req, drafts[i], logits[i])
+            accepted = len(emitted) - 1
+            for tok in emitted:
+                req.output.append(tok)
+                if self.spec_k:
+                    self.drafter.extend(req.rid, tok)
+            self._tokens_out += len(emitted)
+            if drafts[i]:
+                self._spec_windows += 1
+            self._spec_proposed += len(drafts[i])
+            self._spec_accepted += accepted
+            # the pending token and the accepted drafts stay; a rejected
+            # tail's positions are overwritten by the next window and
+            # never attended
+            self.slot_pos[i] = int(ctx[i]) + 1 + accepted
             self._maybe_finish(i)
+
+    # -- speculative decoding (serving/spec.py has the drafter) --------------
+
+    def _propose(self, slot: int) -> list[int]:
+        """The drafts of this slot's next window. At most spec_k, and fewer
+        near the end: the window emits up to d+1 tokens (never past
+        max_new_tokens) and writes positions pos..pos+d (never past what a
+        plain decode could reach, so the worst-case page reservation
+        covers every write)."""
+        if not self.spec_k:
+            return []
+        req = self.slot_req[slot]
+        room = min(req.max_new_tokens - len(req.output),
+                   self.max_seq - 1 - int(self.slot_pos[slot])) - 1
+        return (self.drafter.propose(req.rid, min(self.spec_k, room))
+                if room > 0 else [])
+
+    def _accept_tokens(self, req: Request, drafts: list[int],
+                       logits: np.ndarray) -> list[int]:
+        """Tokens to emit for one scored window; ``logits`` (W, V), row j
+        scored after window token j. Greedy: the longest prefix of drafts
+        that matches argmax, then the correction (first mismatch) or the
+        bonus token, exactly what plain greedy decode emits. Sampled: each
+        draft is kept with probability p[t] (the drafter is a point mass)
+        and a rejection draws from p with t removed, all from the
+        request's own generator."""
+        if req.temperature <= 0:
+            out = []
+            for j, t in enumerate(drafts):
+                top = int(np.argmax(logits[j]))
+                if top != t:
+                    return out + [top]               # correction
+                out.append(int(t))
+            return out + [int(np.argmax(logits[len(drafts)]))]   # bonus
+        out = []
+        for j, t in enumerate(drafts):
+            p = _softmax_np(logits[j], req.temperature)
+            u = float(torch.rand((), dtype=torch.float64,
+                                 generator=req.generator))
+            if u < p[t]:
+                out.append(int(t))
+                continue
+            res = p.copy()
+            res[t] = 0.0
+            z = res.sum()
+            if z <= 0.0:                             # p was ~all at t
+                return out + [int(np.argmax(logits[j]))]
+            return out + [int(torch.multinomial(torch.as_tensor(res / z), 1,
+                                                generator=req.generator))]
+        return out + [self._pick_token(logits[len(drafts)], req)]
 
     def _maybe_finish(self, slot: int):
         req = self.slot_req[slot]
@@ -661,6 +857,8 @@ class ServeEngine:
         if st is not None:
             st.finish()
         self._release_slot(slot)
+        if self.kv_layout == "paged":
+            self._prompt_keys.pop(req.rid, None)
 
     # -- dense layout ---------------------------------------------------------
 
@@ -714,3 +912,10 @@ class ServeEngine:
         probs = torch.softmax(logits, dim=-1)
         return int(torch.multinomial(probs, 1, generator=req.generator))
 
+
+def _softmax_np(row: np.ndarray, temperature: float) -> np.ndarray:
+    """Stable f64 softmax of a logits row: the acceptance probabilities of
+    speculative rejection sampling."""
+    x = np.asarray(row, np.float64) / temperature
+    p = np.exp(x - x.max())
+    return p / p.sum()

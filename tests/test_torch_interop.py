@@ -18,6 +18,15 @@ from repro_torch.core.quantized import QuantizedTensor, dequantize
 from repro_torch.interop import params_from_reference
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_caches():
+    """Drop this module's compiled JAX steps when it ends: a later module
+    on the same worker (tests/test_fused_decode.py) counts the compiles
+    of the reference's fused step."""
+    yield
+    jax.clear_caches()
+
+
 def _cfg():
     return dataclasses.replace(
         reduced(get_config("gemma-2b"), n_layers=3, vocab=32), head_dim=128)

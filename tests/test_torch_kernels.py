@@ -579,6 +579,56 @@ def test_cuda_spx_prefill_kernel_matches_plain_version(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_spx_matmul_paper_mlp_shapes(cuda):
+    """The paper MLP's two layers, (K, N) = (784, 128) and (128, 10): K not
+    a multiple of the prefill kernel's K step, packed rows of 5 bytes, one
+    column tile; M over both kernels up to 1024; bit-identical reruns."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+        lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
+        for k, n in ((784, 128), (128, 10)):
+            codes = torch.randint(0, 16 if packed else 256,
+                                  (k, n // 2 if packed else n),
+                                  generator=gen, device=cuda,
+                                  dtype=torch.int32).to(torch.uint8)
+            scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+            for m in (1, 8, 9, 64, 1024):
+                x = torch.rand((m, k), generator=gen, device=cuda)
+                got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+                want = ref.spx_matmul_ref(x, codes, scale, lut,
+                                          packed=packed)
+                assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
+                    (scheme, k, n, m)
+                assert torch.equal(got, again), (scheme, k, n, m)
+
+
+@pytest.mark.gpu
+def test_cuda_verify_window_crosses_page_boundary(cuda):
+    """The speculative verify window (w = 5) whose rows straddle a page
+    boundary (ctx = page_size - 2), beside the one-token rows of the same
+    tick."""
+    from repro_torch.kernels.paged_attention import paged_decode_ragged_cuda
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, hkv, rep, dh, ps, mp, w = 4, 1, 8, 256, 16, 4, 5
+    kp = torch.randn((1 + b * mp, hkv, ps, dh), generator=gen, device=cuda)
+    vp = torch.randn_like(kp)
+    bt = (torch.randperm(b * mp, generator=gen, device=cuda).reshape(b, mp)
+          + 1).to(torch.int32)
+    ctx = torch.tensor([ps - 2, ps - 2, 2 * ps - 1, 0], dtype=torch.int32,
+                       device=cuda)
+    qn = torch.tensor([5, 1, 3, 0], dtype=torch.int32, device=cuda)
+    q = torch.randn((b, hkv, rep * w, dh), generator=gen, device=cuda)
+    got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+    want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=w)
+    assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+    assert torch.equal(got, paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn,
+                                                     w=w))
+
+
+@pytest.mark.gpu
 def test_cuda_flash_kernel_long_and_ragged_deterministic(cuda):
     """Flash attention at S in {1, 33, 129, 2048}, rep in {1, 8}, causal
     and not, head_dim 256; a second launch is bit-identical."""

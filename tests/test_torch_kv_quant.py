@@ -46,6 +46,15 @@ LENS = (33, 1, 12, 20, 5)           # 33 and 1 end in a one-token chunk
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_caches():
+    """Drop this module's compiled JAX steps when it ends: a later module
+    on the same worker (tests/test_fused_decode.py) counts the compiles
+    of the reference's fused step."""
+    yield
+    jax.clear_caches()
+
+
 def _cfg(pkg_get, pkg_reduced):
     return dataclasses.replace(pkg_reduced(pkg_get("gemma-2b"), vocab=32),
                                head_dim=128)

@@ -26,6 +26,15 @@ from repro_torch.runtime import Runtime
 TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_caches():
+    """Drop this module's compiled JAX steps when it ends: a later module
+    on the same worker (tests/test_fused_decode.py) counts the compiles
+    of the reference's fused step."""
+    yield
+    jax.clear_caches()
+
+
 def _cfgs():
     j = dataclasses.replace(
         reduced(get_config("gemma-2b"), n_layers=2, vocab=32), head_dim=128)

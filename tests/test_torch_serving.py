@@ -1,10 +1,12 @@
 """The port's serving engine against ``repro.serving.ServeEngine`` on the
 pinned workload (reduced gemma-2b, vocab 32, head_dim 128, seed 3; page
 size pinned in both engines): greedy outputs are identical under the cb
-and fifo schedulers, with preemption and host offload, and with weights
-the port quantizes itself or that JAX quantized and the port carried over.
-Also: knobs this port lacks raise, entry points never fall back quietly
-to the CPU, and importing the port loads neither JAX nor ``repro``."""
+and fifo schedulers, with preemption and host offload, with weights the
+port quantizes itself or that JAX quantized and the port carried over, and
+with the prefix cache, speculative decoding and the unfused tick. Also:
+knobs this port lacks raise, env knobs resolve as in the reference,
+entry points never fall back quietly to the CPU, and importing the port
+loads neither JAX nor ``repro``."""
 import dataclasses
 import os
 import subprocess
@@ -35,6 +37,15 @@ CPU = Runtime(device="cpu")
 KNOBS = dict(batch_slots=2, max_seq=64, page_size=8)
 NEW = 8
 LENS = (33, 1, 12, 20, 5)           # 33 and 1 end in a one-token chunk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_caches():
+    """Drop this module's compiled JAX steps when it ends: a later module
+    on the same worker (tests/test_fused_decode.py) counts the compiles
+    of the reference's fused step."""
+    yield
+    jax.clear_caches()
 
 
 def _cfg(pkg_get, pkg_reduced):
@@ -137,11 +148,32 @@ def test_stream_and_cancel(workload):
     assert eng.pool.stats.pages_in_use == 0
 
 
+@pytest.mark.parametrize("knobs", [
+    dict(prefix_cache=True),
+    dict(spec_decode=True),
+    dict(spec_k=3),
+    dict(fused_decode=False),
+], ids=["prefix_cache", "spec_decode", "spec_k=3", "unfused"])
+def test_serving_modes_match_reference(workload, knobs):
+    """The knobs earlier slices refused now serve, with the JAX engine's
+    greedy tokens under the same knobs (which equal its default's)."""
+    jeng = JServeEngine(workload["params"], _cfg(get_config, reduced),
+                        JServeConfig(**KNOBS, **knobs),
+                        rt=JRuntime(impl="ref", q_chunk=16))
+    for i, p in enumerate(workload["prompts"]):
+        jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
+    want = {r.rid: list(r.output) for r in jeng.run()}
+    out, m = _serve(params_from_reference(workload["params"]),
+                    workload["cfg"], workload["prompts"],
+                    ServeConfig(**KNOBS, **knobs))
+    assert out == want == workload["want"]
+    jm = jeng.metrics()
+    for key in ("prefix_cache", "spec_decode", "spec_k", "fused_decode",
+                "model_calls", "prefix_hits", "draft_acceptance_rate"):
+        assert m[key] == jm[key], key
+
+
 @pytest.mark.parametrize("config", [
-    ServeConfig(prefix_cache=True),
-    ServeConfig(spec_decode=True),
-    ServeConfig(spec_k=3),
-    ServeConfig(fused_decode=False),
     ServeConfig(shards=2),
     ServeConfig(replicas=2),
     ServeConfig(kv_cache_dtype="bfloat16"),
@@ -161,13 +193,43 @@ def test_other_patterns_raise():
 
 
 def test_env_defaults_degrade_silently(workload, monkeypatch):
+    """As in the reference: the prefix-cache, speculation and fused-tick
+    env knobs take effect on the paged layout and degrade silently on the
+    dense one; shards and replicas degrade to one device."""
     for var, val in (("REPRO_PREFIX_CACHE", "1"), ("REPRO_SPEC_K", "3"),
                      ("REPRO_FUSED_DECODE", "0"), ("REPRO_SHARDS", "2"),
-                     ("REPRO_REPLICAS", "2")):
+                     ("REPRO_REPLICAS", "2"),
+                     ("REPRO_PREFIX_CACHE_PAGES", "5")):
         monkeypatch.setenv(var, val)
     sc = ServeConfig(**KNOBS).resolve(workload["cfg"])
-    assert (sc.prefix_cache, sc.spec_decode, sc.spec_k) == (False, False, 0)
-    assert sc.fused_decode is True and (sc.shards, sc.replicas) == (1, 1)
+    assert (sc.prefix_cache, sc.spec_decode, sc.spec_k) == (True, True, 3)
+    assert sc.fused_decode is False and sc.prefix_cache_pages == 5
+    assert (sc.shards, sc.replicas) == (1, 1)
+    want = JServeConfig(**KNOBS).resolve(_cfg(get_config, reduced))
+    for knob in ("prefix_cache", "spec_decode", "spec_k", "fused_decode",
+                 "prefix_cache_pages"):
+        assert getattr(sc, knob) == getattr(want, knob), knob
+    dense = ServeConfig(kv_layout="dense").resolve(workload["cfg"])
+    assert (dense.prefix_cache, dense.spec_decode, dense.spec_k,
+            dense.fused_decode) == (False, False, 0, False)
+
+
+@pytest.mark.parametrize("knobs,match", [
+    (dict(prefix_cache=True), "prefix_cache"),
+    (dict(spec_decode=True), "spec_decode"),
+    (dict(spec_k=2), "spec_decode"),
+    (dict(fused_decode=True), "fused_decode"),
+])
+def test_dense_layout_refuses_paged_modes(workload, knobs, match):
+    with pytest.raises(ValueError, match=match):
+        ServeConfig(kv_layout="dense", **knobs).resolve(workload["cfg"])
+
+
+@pytest.mark.parametrize("knobs", [dict(spec_k=0), dict(spec_k=-1),
+                                   dict(spec_decode=False, spec_k=2)])
+def test_bad_spec_windows_raise(workload, knobs):
+    with pytest.raises(ValueError, match="spec_k"):
+        ServeConfig(**knobs).resolve(workload["cfg"])
 
 
 def test_default_device_without_card_raises(workload):

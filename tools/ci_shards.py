@@ -43,6 +43,7 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_torch_dense.py",
         "tests/test_torch_interop.py",
         "tests/test_torch_kernels.py",
+        "tests/test_torch_mlp.py",
         "tests/test_torch_spx.py",
     ],
     # serving engine + model-level serving paths
@@ -58,7 +59,9 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_streaming.py",
         "tests/test_torch_kv_quant.py",
         "tests/test_torch_lm.py",
+        "tests/test_torch_prefix.py",
         "tests/test_torch_serving.py",
+        "tests/test_torch_spec.py",
     ],
     # multi-device dry-runs + training loops — few long tests
     "system-training": [
