@@ -13,15 +13,27 @@ Phases, each printing JSON lines:
               rows (empty slots, ragged windows, ragged lengths):
               spx_matmul at M in {1, 3, 4, 8} (decode kernel) and {9, 37,
               64, 65, 128, 256} (the tensor-core prefill kernel), also at
-              the paper MLP's layers (784, 128) and (128, 10) and M = 1024,
-              the ragged decode kernel at a w = 5 verify window that
-              crosses a page boundary, flash attention up to 2048 tokens;
-              second launches bit-identical;
+              the paper MLP's layers (784, 128) and (128, 10) and M = 1024
+              and 2048, and the Q-network's (4, 64) and (64, 64) at M = 1
+              and 64, the ragged decode kernel at a w = 5 verify window
+              that crosses a page boundary, kernels 2 and 5 over bf16 pages
+              (page sizes 32 and 16, up to 2048 tokens, each slot within
+              BF16_ATTN_RTOL of its own peak), flash attention up to 2048
+              tokens; second launches bit-identical;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, outputs against the
               plain version, time per sample at batch 1, 64 and 1024 for
               the sp2_4 and the f32 torch.matmul arm;
+     paper_experiments  the paper's §4 through the port's entry points:
+              ``examples.quickstart`` (4 epochs of SGD, then test accuracy
+              per scheme, held to tests/test_system.py's bars),
+              ``benchmarks.table1`` (time and energy per sample, power
+              from nvidia-smi), ``benchmarks.fig5`` (time per sample
+              against batch, §3.1 margins on H100_SXM),
+              ``benchmarks.quant_quality`` and ``examples.rl_qlearning``
+              (120 episodes, returns per scheme); every quantized arm
+              through spx_matmul, at shapes the kernel phase checked;
   5. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
               random weights from a seed, quantized to sp2_4) served three
               ways, each engine answering the same 8 greedy requests of 16
@@ -41,7 +53,13 @@ Phases, each printing JSON lines:
                         the prompt-lookup drafter on repetitive prompts;
                 prefix  ``ServeConfig(prefix_cache=True)``: requests that
                         share a 64-token prefix, and a whole repeat (the
-                        copy-on-write copy).
+                        copy-on-write copy);
+                paged-bf16, unfused-bf16, dense-bf16
+                        ``ServeConfig(kv_cache_dtype="bfloat16")`` on the
+                        fused tick, the unfused tick and the dense layout,
+                        each held to the same engine on the plain versions
+                        (``Runtime(impl="ref")``), a difference allowed
+                        only at a near-tie (BF16_E2E_RTOL).
               Every kernel of each path must launch, as often per tick or
               per request as the path says, and no plain version may run;
               the last three give the paged engine's greedy tokens, or
@@ -52,7 +70,8 @@ Phases, each printing JSON lines:
               identical on the pinned config (reduced gemma-2b, vocab 32,
               head_dim 128, seed 3) for each path, kernels against plain
               versions and, for the unfused, spec and prefix engines,
-              against the paged engine;
+              against the paged engine; on bf16 caches kernels against
+              plain versions up to a near-tie;
   7. trace    torch.profiler over a serving run of 4 requests: the device's
               busy time and idle share, and device time by kernel name;
   8. timing   each kernel per serving tick (or per admitted request) at the
@@ -67,8 +86,10 @@ Phases, each printing JSON lines:
               prompt (``long_prompt``), the ragged paged kernels also at 4
               slots x 2048 tokens (``long_ctx_device_ms``), ``spx_matmul``
               at the paper MLP's two layers (``paper_mlp_by_M``), the ragged
-              kernel at a verify tick of W = 5 (``verify_tick``), and the
-              split counts the wrappers chose (a ``splits`` line).
+              kernel at a verify tick of W = 5 (``verify_tick``), kernels 2
+              and 5 over bf16 pages (a decode tick and 4 slots x 2048
+              tokens; SDPA over the bf16 K/V), and the split counts the
+              wrappers chose (a ``splits`` line).
 
 Exits non-zero on any failure, and when no CUDA device is visible or the
 package is missing. The last line is the device record.
@@ -142,7 +163,7 @@ def _rand_pools(torch, gen, n_pages, hkv, ps, dh):
     return kp, vp
 
 
-def kernel_phase(torch, np) -> dict:
+def kernel_phase(torch, np) -> tuple[dict, set]:
     from repro_torch.core import spx
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -157,19 +178,29 @@ def kernel_phase(torch, np) -> dict:
     # gate/up (2048, 16384), down (16384, 2048); decode M = slots, prefill
     # M = slots x chunk
     # and K, N that no tile divides; M over both kernels (decode M <= 8);
-    # the paper MLP's layers (784, 128) and (128, 10) also at its batch of
-    # 1024 (K = 784 ends in a ragged K step, N = 10 packs 5-byte rows)
+    # the paper MLP's layers (784, 128) and (128, 10) also at the batches
+    # of its experiments, up to quickstart's 2048 test digits (K = 784 ends
+    # in a ragged K step, N = 10 packs 5-byte rows); the Q-network's
+    # quantized layers (4, 64) and (64, 64) at one state and at 64, also
+    # under pot4's 5-bit codebook (32 LUT entries, unpacked). Every
+    # (packed, LUT size, M, K, N) checked here is returned: the
+    # paper_experiments phase launches no other
     serve_m = (1, 3, 4, 8, 9, 37, 64, 65, 128, 256)
-    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+    mlp_m = serve_m + (1024, 2048)
+    serve_shapes = ((2048, 2048, serve_m), (2048, 256, serve_m),
+                    (2048, 16384, serve_m), (16384, 2048, serve_m),
+                    (1000, 2050, serve_m), (333, 130, serve_m))
+    paper_shapes = ((784, 128, mlp_m), (128, 10, mlp_m), (4, 64, (1, 64)),
+                    (64, 64, (1, 64)))
+    checked = set()
+    for scheme, packed, shapes in (
+            ("sp2_4", True, serve_shapes + paper_shapes),
+            ("sp2_8", False, serve_shapes + paper_shapes),
+            ("pot4", False, paper_shapes)):
         lut = spx.codebook(spx.scheme_levels(scheme), device="cuda")
-        for k, n, ms in ((2048, 2048, serve_m), (2048, 256, serve_m),
-                         (2048, 16384, serve_m), (16384, 2048, serve_m),
-                         (1000, 2050, serve_m), (333, 130, serve_m),
-                         (784, 128, serve_m + (1024,)),
-                         (128, 10, serve_m + (1024,))):
+        for k, n, ms in shapes:
             ncode = n // 2 if packed else n
-            top = 16 if packed else 256
-            codes = torch.randint(0, top, (k, ncode), generator=gen,
+            codes = torch.randint(0, lut.numel(), (k, ncode), generator=gen,
                                   device="cuda", dtype=torch.int32)
             codes = codes.to(torch.uint8)
             scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
@@ -191,6 +222,7 @@ def kernel_phase(torch, np) -> dict:
                       "ok": ok})
                 require(ok, f"spx_matmul {scheme} M={m} K={k} N={n}")
                 worst["spx_matmul"] = max(worst["spx_matmul"], err)
+                checked.add((packed, lut.numel(), m, k, n))
 
     # ragged decode at gemma-2b's head shapes: B=4, Hkv=1, rep=8, dh=256
     ps = planner.plan_kv_pages(256).page_size
@@ -245,9 +277,10 @@ def kernel_phase(torch, np) -> dict:
     worst.update(_quant_kernel_checks(torch, gen))
     for name, err in _split_kernel_checks(torch, gen).items():
         worst[name] = max(worst[name], err)
+    worst.update(_bf16_kernel_checks(torch, gen))
     worst["flash_attention"] = _flash_kernel_checks(torch, gen)
     ops.reset_op_calls()
-    return worst
+    return worst, checked
 
 
 def _attn_ok(torch, got, want) -> bool:
@@ -408,6 +441,112 @@ def _split_kernel_checks(torch, gen) -> dict:
               "ok": ok})
         require(ok, f"{names[1]} split case")
         worst[names[1]] = max(worst.get(names[1], 0.0), err)
+    return worst
+
+
+#: bf16 pages: in each slot, |kernel - plain| <= BF16_ATTN_RTOL * that
+#: slot's max|plain|. The kernel rounds each probability to bf16 before
+#: P @ V (relative error up to 2^-9 per term), as the TPU kernel does; the
+#: plain version keeps them in f32, as the reference oracle does. Each slot
+#: is held to its own largest output: at 2048 tokens a slot's outputs are
+#: ~20x smaller than a one-token slot's, and a dropped page or split there
+#: moves them by more than 1e-2 of their own peak.
+BF16_ATTN_RTOL = 1e-2
+
+
+def _slot_rel_err(torch, got, want) -> float:
+    """The largest over slots (dim 0) of max|got - want| / max|want| in
+    that slot; a slot whose plain output is all zeros (no query rows or no
+    context) counts as inf unless the kernel's is all zeros too."""
+    err = (got - want).abs().flatten(1).amax(1)
+    peak = want.abs().flatten(1).amax(1)
+    rel = torch.where(peak > 0, err / peak.clamp_min(1e-30),
+                      torch.where(err > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
+def _bf16_kernel_checks(torch, gen) -> dict:
+    """Kernels 2 and 5 over bf16 pages (the ``Bf16Page`` instance) at
+    gemma-2b's heads (4 slots, 1 KV head of 256, rep 8), at the bf16
+    engine's page size (32 tokens) and at 16: W = 1 and a W = 5 verify
+    window that crosses a page boundary, an empty slot, and block tables
+    of 256 and 2048 tokens (several splits). Each launch twice: the
+    second must be bit-identical."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        decode_splits, paged_attention_cuda, paged_decode_ragged_cuda)
+    from repro_torch.runtime import planner
+
+    b, hkv, rep, dh = 4, 1, 8, 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = {"paged_decode_ragged_bf16": 0.0, "paged_attention_bf16": 0.0}
+    bf16_ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
+    for ps in (bf16_ps, 16):
+        for tokens in (256, 2048):
+            mp = tokens // ps
+            n_pages = 1 + b * mp
+            kp, vp = (t.bfloat16() for t in
+                      _rand_pools(torch, gen, n_pages, hkv, ps, dh))
+            bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+                :b * mp].reshape(b, mp) + 1).to(torch.int32)
+            for w, qlens, ctx_l in (
+                    (1, [0, 1, 1, 1], [0, ps - 1, ps + 1, tokens - 1]),
+                    (5, [0, 5, 3, 5], [0, ps - 2, 2 * ps - 3, tokens - 5])):
+                q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                                device="cuda")
+                ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+                qn = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+                got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+                again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+                want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn,
+                                                   w=w)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                peak = want.abs().max().item()
+                rows_off = torch.arange(rep * w, device="cuda") % w \
+                    >= qn[:, None]
+                zeros = bool((got.permute(0, 2, 1, 3)[rows_off] == 0).all())
+                same = bool(torch.equal(got, again))
+                rel = _slot_rel_err(torch, got, want)
+                ok = (bool(torch.isfinite(got).all()) and zeros and same
+                      and rel <= BF16_ATTN_RTOL)
+                emit({"phase": "kernel", "kernel": "paged_decode_ragged_bf16",
+                      "w": w, "page_size": ps, "ctx_len": ctx_l,
+                      "q_len": qlens,
+                      "splits": decode_splits(b, hkv, rep * w, mp, ps, sms),
+                      "max_abs_err": err, "max_rel_err": err / peak,
+                      "max_slot_rel_err": rel,
+                      "tol_slot_rel": BF16_ATTN_RTOL,
+                      "masked_rows_exact_zero": zeros,
+                      "bit_identical_rerun": same, "ok": ok})
+                require(ok, f"paged_decode_ragged_bf16 ps={ps} "
+                            f"tokens={tokens} w={w}")
+                worst["paged_decode_ragged_bf16"] = max(
+                    worst["paged_decode_ragged_bf16"], err)
+            ctx_l = [0, 1, ps + 1, tokens]
+            ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
+            q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
+            got = paged_attention_cuda(q, kp, vp, bt, ctx)
+            again = paged_attention_cuda(q, kp, vp, bt, ctx)
+            want = ref.paged_attention_ref(q, kp, vp, bt, ctx)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            peak = want.abs().max().item()
+            zeros = bool((got[0] == 0).all())
+            same = bool(torch.equal(got, again))
+            rel = _slot_rel_err(torch, got, want)
+            ok = (bool(torch.isfinite(got).all()) and zeros and same
+                  and rel <= BF16_ATTN_RTOL)
+            emit({"phase": "kernel", "kernel": "paged_attention_bf16",
+                  "mode": "single-token", "page_size": ps, "ctx_len": ctx_l,
+                  "splits": decode_splits(b, hkv, rep, mp, ps, sms),
+                  "max_abs_err": err, "max_rel_err": err / peak,
+                  "max_slot_rel_err": rel, "tol_slot_rel": BF16_ATTN_RTOL,
+                  "ctx0_rows_exact_zero": zeros,
+                  "bit_identical_rerun": same, "ok": ok})
+            require(ok, f"paged_attention_bf16 ps={ps} tokens={tokens}")
+            worst["paged_attention_bf16"] = max(
+                worst["paged_attention_bf16"], err)
     return worst
 
 
@@ -695,6 +834,121 @@ def paper_mlp_phase(torch, np, card: str) -> dict:
             "max_abs_err": err}
 
 
+#: the reference's defaults for the §4 experiments
+PAPER_EPOCHS = 4
+RL_EPISODES = 120
+#: test_system.py's accuracy bars: f32 above 0.9, each scheme within its
+#: tolerance of f32
+ACC_FLOOR = 0.9
+ACC_TOL = {"sp2_8": 0.01, "spx_8_x3": 0.01, "sp2_4": 0.02, "pot4": 0.03}
+
+
+def paper_experiments_phase(torch, np, card: str, spx_checked: set) -> dict:
+    """The paper's §4 experiments through the port's entry points, on the
+    card: ``examples.quickstart`` (train the MLP for 4 epochs, then test
+    accuracy per scheme), ``benchmarks.table1`` (time and energy per
+    sample at batch 1 and 1024), ``benchmarks.fig5`` (time per sample
+    against batch, and the §3.1 margins on H100_SXM),
+    ``benchmarks.quant_quality`` and ``examples.rl_qlearning`` (120
+    episodes, then the returns per scheme). Each is one run with the
+    counts set to 0 just before and read just after: every quantized arm
+    must launch ``spx_matmul`` and no plain version may run. Each launch's
+    (packed, LUT size, M, K, N) is recorded, and each must be one that
+    the kernel phase held against the plain version (``spx_checked``).
+    Returns the launches of all five."""
+    from repro_torch.benchmarks import fig5, quant_quality, table1
+    from repro_torch.examples import quickstart, rl_qlearning
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import registry
+
+    total: dict[str, int] = {}
+    _, kernel = registry.resolve("spx_matmul", "cuda", torch.device("cuda"))
+    shapes = set()
+
+    def recorded(x, codes, scale, lut, *, packed):
+        shapes.add((packed, lut.numel(), *x.shape, scale.numel()))
+        return kernel(x, codes, scale, lut, packed=packed)
+
+    def run(name, fn):
+        ops.reset_op_calls()
+        shapes.clear()
+        t0 = time.perf_counter()
+        registry.register("spx_matmul", "cuda")(recorded)
+        try:
+            result = fn()
+        finally:
+            registry.register("spx_matmul", "cuda")(kernel)
+        torch.cuda.synchronize()
+        launches, plain = ops.op_calls(), ops.ref_calls()
+        require(launches.get("spx_matmul", 0) > 0,
+                f"{name}: spx_matmul never launched")
+        require(not plain, f"{name}: plain versions ran on the card: "
+                           f"{plain}")
+        unchecked = sorted(shapes - spx_checked)
+        require(not unchecked, f"{name}: spx_matmul launched at (packed, "
+                               f"LUT size, M, K, N) {unchecked}, which the "
+                               "kernel phase never held to the plain version")
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+        return result, {"launches": launches,
+                        "spx_matmul_shapes": sorted(shapes),
+                        "seconds": time.perf_counter() - t0}
+
+    acc, info = run("quickstart", lambda: quickstart.main(
+        ["--epochs", str(PAPER_EPOCHS)]))
+    ok = acc["float32"] > ACC_FLOOR and all(
+        acc[s] > acc["float32"] - tol for s, tol in ACC_TOL.items())
+    emit({"phase": "paper_experiments", "experiment": "quickstart (§4.1)",
+          "card": card, "epochs": PAPER_EPOCHS,
+          "train": "SynthDigits(8192, 2048, batch 64), SGD lr 0.5, "
+                   "torch.Generator seed 0",
+          "test_accuracy": acc, "floor": ACC_FLOOR, "tol": ACC_TOL,
+          "ok": ok, **info})
+    require(ok, f"quickstart: accuracy {acc}")
+
+    rows, info = run("table1", lambda: table1.run([]))
+    measured = [r for r in rows if r["name"] in
+                {f"{a}_b{b}" for a in ("fp32", "sp2_4")
+                 for b in table1.BATCHES}]
+    ok = len(measured) == 4 and all(
+        r["s_per_sample"] > 0 and r["j_per_sample"] is not None
+        for r in measured)
+    emit({"phase": "paper_experiments", "experiment": "Table 1",
+          "card": card, "rows": rows, "ok": ok, **info})
+    require(ok, f"table1: rows {measured}")
+
+    csv, info = run("fig5", lambda: fig5.run([]))
+    curve = {name.split("/")[1]: us for name, us, _ in csv
+             if not name.startswith("fig5/pipe_")}
+    margins = {name.split("/")[1]: {"margin": v, "pipelined": bool(flag)}
+               for name, v, flag in csv if name.startswith("fig5/pipe_")}
+    ok = len(curve) == 2 * len(fig5.BATCHES) and all(
+        v > 0 for v in curve.values())
+    emit({"phase": "paper_experiments", "experiment": "Fig. 5",
+          "card": card, "us_per_sample": curve,
+          "pipeline_margins_h100_sxm": margins, "ok": ok, **info})
+    require(ok, f"fig5: {curve}")
+
+    csv, info = run("quant_quality", lambda: quant_quality.run([]))
+    table = {name.split("/")[1]: [v, extra] for name, v, extra in csv}
+    emit({"phase": "paper_experiments", "experiment": "quant_quality",
+          "card": card, "rows": table,
+          "columns": "snr rows: [dB, tail density]; acc rows: [accuracy, "
+                     "difference from float32]", **info})
+
+    res, info = run("rl_qlearning", lambda: rl_qlearning.main(
+        ["--episodes", str(RL_EPISODES)]))
+    ok = (len(res["returns"]) == RL_EPISODES
+          and set(res["eval"]) == {"float32", "sp2_8", "sp2_4"})
+    emit({"phase": "paper_experiments", "experiment": "Q-learning (§4.2)",
+          "card": card, "episodes": RL_EPISODES,
+          "avg_return_last_20_episodes": float(np.mean(res["returns"][-20:])),
+          "eval_avg_return_by_scheme": res["eval"], "ok": ok, **info})
+    require(ok, f"rl_qlearning: {res['eval']}")
+    ops.reset_op_calls()
+    return total
+
+
 # -- phase 5: the unfused tick, speculative decoding, the prefix cache --------
 
 class _ReplayDrafter:
@@ -760,21 +1014,18 @@ def _run_engine(torch, eng, prompts, staged: int = 0):
             eng.metrics())
 
 
-def _reference_gaps(torch, np, params, cfg, prompts) -> tuple:
-    """Serve ``prompts`` on the paged engine (``ServeConfig(quantize=None)``)
-    and record, for every emitted token, the top-2 logit gap of the row
-    it was picked from and the logit tolerance of that row (E2E_RTOL of
-    its largest magnitude). Returns (tokens, {rid: [(gap, tol), ...]})."""
-    from repro_torch.serving import ServeConfig, ServeEngine
-    eng = ServeEngine(params, cfg, ServeConfig(quantize=None))
+def _record_gaps(np, eng, rtol: float) -> dict:
+    """Make ``eng`` record, for every token it emits, the top-2 logit gap
+    of the row it was picked from and the logit tolerance of that row
+    (``rtol`` of its largest magnitude). Returns the {rid: [(gap, tol),
+    ...]} it fills."""
     gaps: dict[int, list] = {}
     pick, accept = eng._pick_token, eng._accept_tokens
 
     def note(req, row):
         top2 = np.partition(np.asarray(row, np.float64), -2)[-2:]
         gaps.setdefault(req.rid, []).append(
-            (float(top2[1] - top2[0]),
-             E2E_RTOL * float(np.abs(row).max())))
+            (float(top2[1] - top2[0]), rtol * float(np.abs(row).max())))
 
     def pick_noted(row, req):
         note(req, row)
@@ -786,6 +1037,16 @@ def _reference_gaps(torch, np, params, cfg, prompts) -> tuple:
             note(req, logits[j])
         return out
     eng._pick_token, eng._accept_tokens = pick_noted, accept_noted
+    return gaps
+
+
+def _reference_gaps(torch, np, params, cfg, prompts) -> tuple:
+    """Serve ``prompts`` on the paged engine (``ServeConfig(quantize=None)``)
+    recording every token's top-2 gap and E2E_RTOL tolerance. Returns
+    (tokens, {rid: [(gap, tol), ...]})."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    eng = ServeEngine(params, cfg, ServeConfig(quantize=None))
+    gaps = _record_gaps(np, eng, E2E_RTOL)
     tokens, _, _, _ = _run_engine(torch, eng, prompts)
     del eng
     return tokens, gaps
@@ -802,6 +1063,15 @@ def _check_tokens(torch, np, path, got, want, params, cfg, prompts) -> dict:
     ref_tokens, gaps = _reference_gaps(torch, np, params, cfg, prompts)
     require(ref_tokens == want, f"{path}: the paged engine is not "
                                 "deterministic across runs")
+    return _near_tie_check(path, got, want, gaps)
+
+
+def _near_tie_check(path, got, want, gaps) -> dict:
+    """Tokens ``got`` against ``want``, whose run recorded ``gaps``
+    (``_record_gaps``): each request may differ only first where that
+    run's top-2 gap is within its tolerance."""
+    if got == want:
+        return {"identical": True}
     diffs = {}
     for rid in sorted(want):
         a, b = got[rid], want[rid]
@@ -813,7 +1083,7 @@ def _check_tokens(torch, np, path, got, want, params, cfg, prompts) -> dict:
                       "near_tie": gap <= tol}
     emit({"phase": "serve", "path": path, "token_differences": diffs})
     require(all(d["near_tie"] for d in diffs.values()),
-            f"{path}: greedy tokens differ from the paged engine's away "
+            f"{path}: greedy tokens differ from the reference run's away "
             f"from a near-tie: {diffs}")
     return {"identical": False, "near_ties": diffs}
 
@@ -1005,6 +1275,132 @@ def serve_modes_phase(torch, np, params, paged_tokens, paged_m) -> dict:
     return out
 
 
+# -- phase 5: bf16 KV pages ----------------------------------------------------
+
+#: greedy tokens of a bf16-cache engine against the same engine on the
+#: plain versions may differ only first where the plain run's top-2 logit
+#: gap is within BF16_E2E_RTOL of its largest |logit|: the bf16 kernel
+#: rounds every probability to bf16 (see BF16_ATTN_RTOL) in each of the 18
+#: layers, where the plain version keeps them in f32.
+BF16_E2E_RTOL = 1e-2
+
+
+def _token_agreement(got: dict, want: dict) -> dict:
+    """Share of positions and of whole requests where ``got`` == ``want``."""
+    pos = [a == b for rid in want for a, b in zip(got[rid], want[rid])]
+    return {"positions": sum(pos) / len(pos),
+            "requests_identical": sum(got[r] == want[r] for r in want)}
+
+
+def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
+    """Full-width gemma-2b on bf16 KV caches (``ServeConfig(kv_cache_dtype=
+    "bfloat16")``), on the quantized weights of the paged engine and the
+    serve phase's 8 requests, each engine freed before the next:
+
+      paged-bf16    the fused tick: kernel 2's bf16 instance in every
+                    decode tick, kernel 5's in the one-token prefill chunk;
+      unfused-bf16  ``fused_decode=False``: kernel 5's bf16 instance in
+                    every layer of every one-token step;
+      dense-bf16    the dense layout: flash attention at prefill (f32
+                    q/k/v), the bf16 cache read through f32 math.
+
+    Each path's greedy tokens are held against the same engine with
+    ``Runtime(impl="ref")`` (the plain versions, on the same bf16 pages),
+    a difference allowed only at a near-tie (BF16_E2E_RTOL); the agreement
+    with the f32 paged engine is printed, not gated. Returns each path's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config("gemma-2b")
+    layers = cfg.n_layers
+    lens, prompts = _prompts(np, cfg)
+    f32_kernels = {"paged_decode_ragged", "paged_attention",
+                   "paged_decode_ragged_quant", "paged_attention_quant"}
+    paths = {
+        "paged-bf16": (dict(kv_cache_dtype="bfloat16"),
+                       ("paged_decode_ragged_bf16", "paged_attention_bf16"),
+                       f32_kernels | {"flash_attention"}),
+        "unfused-bf16": (dict(kv_cache_dtype="bfloat16", fused_decode=False),
+                         ("paged_attention_bf16",),
+                         f32_kernels | {"flash_attention",
+                                        "paged_decode_ragged_bf16"}),
+        "dense-bf16": (dict(kv_cache_dtype="bfloat16", kv_layout="dense"),
+                       ("flash_attention",),
+                       f32_kernels | {"paged_decode_ragged_bf16",
+                                      "paged_attention_bf16"}),
+    }
+    out = {}
+    for path, (knobs, watch, unwanted) in paths.items():
+        sc = ServeConfig(quantize=None, **knobs)
+        eng = ServeEngine(params, cfg, sc)
+        require(all(leaf.dtype == torch.bfloat16 for c in eng.caches
+                    for leaf in c.values()),
+                f"{path}: the caches are not bf16")
+        done, launches, plain, per_tick = _serve_ticks(torch, eng, prompts,
+                                                       watch)
+        m = eng.metrics()
+        tokens = {r.rid: list(r.output) for r in done}
+        require(len(done) == N_REQUESTS,
+                f"{path}: {len(done)} of {N_REQUESTS} finished")
+        for rid, toks in tokens.items():
+            require(len(toks) == NEW_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in toks),
+                    f"{path}: request {rid}: bad output {toks}")
+        for op in ("spx_matmul",) + watch:
+            require(launches.get(op, 0) > 0, f"{path}: {op} never launched")
+        require(not plain, f"{path}: plain versions ran on the card: {plain}")
+        require(not unwanted & set(launches),
+                f"{path}: launched another path's kernels: {launches}")
+        for op in watch:
+            require(all(n % layers == 0 for n in per_tick[op]),
+                    f"{path}: {op} launches per tick {per_tick[op]}")
+        if path == "dense-bf16":
+            require(launches["flash_attention"] == layers * N_REQUESTS,
+                    "dense-bf16: flash per request")
+        require(m["kv_cache_dtype"] == "bfloat16",
+                f"{path}: metrics say {m['kv_cache_dtype']}")
+        del eng
+        torch.cuda.empty_cache()
+
+        ref_eng = ServeEngine(params, cfg, sc, rt=Runtime(impl="ref"))
+        gaps = _record_gaps(np, ref_eng, BF16_E2E_RTOL)
+        want, ref_launches, ref_plain, _ = _run_engine(torch, ref_eng,
+                                                       prompts)
+        del ref_eng
+        torch.cuda.empty_cache()
+        require(not ref_launches and ref_plain,
+                f"{path}: the plain run launched {ref_launches}")
+        check = _near_tie_check(path, tokens, want, gaps)
+        emit({"phase": "serve", "path": path, "arch": cfg.name,
+              "layers": layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size,
+              "config": f"ServeConfig(quantize=None, "
+                        + ", ".join(f"{k}={v!r}" for k, v in knobs.items())
+                        + ")",
+              "kv_cache_dtype": m["kv_cache_dtype"],
+              "page_size": m.get("page_size"),
+              "batch_slots": sc.batch_slots, "prompt_lens": lens,
+              "requests_finished": len(done),
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+              "model_calls": m["model_calls"],
+              "peak_kv_bytes": m["peak_kv_bytes"], "launches": launches,
+              "bf16_route_launches": {op: n for op, n in launches.items()
+                                      if op.endswith("_bf16")},
+              "plain_calls": plain,
+              "launches_per_tick": {op: sorted(set(v))
+                                    for op, v in per_tick.items()},
+              "tokens_vs_plain_versions": check,
+              "near_tie_tol_rel": BF16_E2E_RTOL,
+              "agreement_with_f32_paged_engine": _token_agreement(
+                  tokens, paged_tokens)})
+        out[path] = launches
+    return out
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 #: logits: |cuda - plain| <= E2E_RTOL * max|plain logits|. 18 layers of f32
@@ -1059,6 +1455,7 @@ def e2e_phase(torch, np, eng) -> None:
         for impl in ("cuda", "ref"):
             rt = Runtime(impl=impl, kv_quant=kv_quant, kv_scheme=KV_SCHEME)
             caches = lm_mod.paged_init_caches(cfg, n_pages, page_size,
+                                              dtype=torch.float32,
                                               kv_quant=kv_quant,
                                               device="cuda")
             pre, caches = lm_mod.lm_paged_step(params, tokens, ctx0, bt,
@@ -1084,7 +1481,8 @@ def e2e_phase(torch, np, eng) -> None:
                              device="cuda")
     out = {}
     for impl in ("cuda", "ref"):
-        caches = lm_mod.init_caches(cfg, 1, 64, device="cuda")
+        caches = lm_mod.init_caches(cfg, 1, 64, dtype=torch.float32,
+                                    device="cuda")
         out[impl], _ = lm_mod.lm_prefill(eng.params, prompt, caches, cfg,
                                          Runtime(impl=impl))
     torch.cuda.synchronize()
@@ -1115,6 +1513,27 @@ def e2e_phase(torch, np, eng) -> None:
               "path, kernels vs plain versions",
               "tokens": tokens_by_impl["cuda"], "identical": same})
         require(same, f"pinned {path} greedy tokens differ: {tokens_by_impl}")
+    # bf16 caches: the kernels round probabilities to bf16, the plain
+    # versions do not, so a difference is allowed at a near-tie
+    for path, knobs in (("paged-bf16", {}),
+                        ("unfused-bf16", dict(fused_decode=False)),
+                        ("dense-bf16", dict(kv_layout="dense"))):
+        tokens_by_impl, gaps = {}, None
+        for impl in ("cuda", "ref"):
+            e = ServeEngine(params, pinned,
+                            ServeConfig(batch_slots=2, max_seq=64,
+                                        kv_cache_dtype="bfloat16", **knobs),
+                            rt=Runtime(impl=impl))
+            if impl == "ref":
+                gaps = _record_gaps(np, e, BF16_E2E_RTOL)
+            for i, p in enumerate(prompts):
+                e.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+            tokens_by_impl[impl] = {r.rid: list(r.output) for r in e.run()}
+        check = _near_tie_check(f"pinned {path}", tokens_by_impl["cuda"],
+                                tokens_by_impl["ref"], gaps)
+        emit({"phase": "e2e", "what": f"pinned config greedy tokens, {path} "
+              "path, kernels vs plain versions",
+              "tokens": tokens_by_impl["cuda"], **check})
     _pinned_modes(np, pinned, params, prompts)
 
 
@@ -1361,9 +1780,19 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                 for w in lw.values():
                     torch.matmul(xs_pre[w.shape[0]], w)
 
+        def spx_prefill_plain():
+            for lw in layers:
+                for qt in lw.values():
+                    k, n = qt.logical_shape
+                    ref.spx_matmul_ref(xs_pre[k], qt.codes,
+                                       qt.scale.reshape(1, n), lut,
+                                       packed=True)
+
         pre = {"per": f"prefill tick: {7 * cfg.n_layers} launches, "
                       f"M={m_pre}",
                "ms": _time_ms(torch, spx_prefill, reps=3),
+               "plain_ms": _time_ms(torch, spx_prefill_plain, reps=1,
+                                    warmup=1),
                "device_ms": _device_ms(torch, spx_prefill,
                                        ("spx_matmul_kernel",), reps=3),
                "library_ms": _time_ms(torch, spx_prefill_library, reps=3),
@@ -1459,6 +1888,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
              "bound_ms": a_bound, "bound_by": a_by, "f32_bound_ms": a_f32}
     del pools, gathered
     quant, quant_one = _quant_timing(torch, gen, cfg, m, ctx_tokens, q)
+    bf16, bf16_one = _bf16_timing(torch, gen, cfg, m, ctx_tokens, q)
     ragged.update(_long_ctx_timing(torch, gen, cfg, m, quant=False))
     ragged["verify_tick"] = _verify_timing(torch, gen, cfg, eng, m)
     quant.update(_long_ctx_timing(torch, gen, cfg, m, quant=True))
@@ -1481,16 +1911,26 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
         "paged_attention_quant": (
             src + "paged_decode.cu",
             "src/repro/kernels/paged_attention.py:396"),
+        "paged_decode_ragged_bf16": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:247"),
+        "paged_attention_bf16": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:354"),
     }
     path_launches = {"paged_decode_ragged_quant": new_launches["quant"],
                      "paged_attention_quant": new_launches["quant"],
-                     "flash_attention": new_launches["dense"]}
-    # every serving path's run, and the paper MLP's forward (counts set to
-    # 0 before each and read after it)
+                     "flash_attention": new_launches["dense"],
+                     "paged_decode_ragged_bf16": new_launches["paged-bf16"],
+                     "paged_attention_bf16": new_launches["paged-bf16"]}
+    # every serving path's run, the paper MLP's forward and the §4
+    # experiments (counts set to 0 before each and read after it)
     by_path = {"paged": launches, **new_launches,
-               "paper_mlp": {"spx_matmul": mlp["launches"]}}
+               "paper_mlp": {"spx_matmul": mlp["launches"]},
+               "paper_experiments": mlp["experiments"]}
     rows = []
-    for entry in (spx, ragged, paged, quant, flash, quant_one):
+    for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
+                  bf16_one):
         name = entry["name"]
         source, replaces = meta[name]
         entry.update(route="cuda", source=source, replaces=replaces,
@@ -1703,6 +2143,106 @@ def _quant_timing(torch, gen, cfg, m, ctx_tokens, q):
     return rows
 
 
+def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
+    """Kernels 2 and 5 over bf16 pages per tick at the decode shapes of the
+    bf16 path: ``m`` slots, every layer's bf16 pools at the bf16 page size,
+    each slot ``ctx_tokens`` into its sequence; kernel 2 also at ``m``
+    slots x ``LONG_CTX`` tokens. The library call is SDPA over the same
+    bf16 K/V, pre-gathered, with q cast to bf16. The byte bound counts
+    half the f32 rows' K/V bytes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.runtime import planner
+
+    hkv, rep, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
+    ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
+    rows = []
+    for tokens in (ctx_tokens + 1, LONG_CTX):
+        mp = -(-max(tokens, 256) // ps)          # ServeConfig().max_seq
+        n_pages = m * mp
+        pools = [tuple(t.bfloat16() for t in
+                       _rand_pools(torch, gen, n_pages, hkv, ps, dh))
+                 for _ in range(cfg.n_layers)]
+        bt = torch.arange(n_pages, dtype=torch.int32,
+                          device="cuda").reshape(m, mp)
+        ctx = torch.full((m,), tokens - 1, dtype=torch.int32, device="cuda")
+        one = torch.ones((m,), dtype=torch.int32, device="cuda")
+        ctx1 = ctx + 1
+
+        def ragged(impl):
+            for kp, vp in pools:
+                if impl == "cuda":
+                    paged_decode_ragged_cuda(q, kp, vp, bt, ctx, one, w=1)
+                else:
+                    ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, one, w=1)
+
+        def single(impl):
+            for kp, vp in pools:
+                if impl == "cuda":
+                    paged_attention_cuda(q, kp, vp, bt, ctx1)
+                else:
+                    ref.paged_attention_ref(q, kp, vp, bt, ctx1)
+
+        gathered = [tuple(ref._gather(p, bt)[:, :, :tokens]
+                          .repeat_interleave(rep, 1) for p in pair)
+                    for pair in pools]
+        q_sdpa = q.reshape(m, hkv * rep, 1, dh).bfloat16()
+
+        def sdpa_tick():
+            for k, v in gathered:
+                F.scaled_dot_product_attention(q_sdpa, k, v)
+
+        # bf16 K and V of every attended token, q in and out f32, tables
+        nbytes = cfg.n_layers * (m * hkv * tokens * dh * 2 * 2
+                                 + 2 * m * hkv * rep * dh * 4
+                                 + m * (mp + 2) * 4)
+        flops = cfg.n_layers * 4 * m * hkv * rep * dh * tokens
+        bound, by = _bound_ms(nbytes, flops)
+        if tokens == LONG_CTX:
+            dev = _device_ms(torch, lambda: ragged("cuda"), PAGED_KERNELS)
+            rows[0].update({
+                "long_ctx_per": f"decode tick: {cfg.n_layers} launches, "
+                                f"{m} slots, {LONG_CTX} tokens attended "
+                                f"each, bf16 pages of {ps}",
+                "long_ctx_device_ms": dev,
+                "long_ctx_ms": _time_ms(torch, lambda: ragged("cuda")),
+                "long_ctx_plain_ms": _time_ms(torch, lambda: ragged("ref"),
+                                              reps=3),
+                "long_ctx_library_ms": _time_ms(torch, sdpa_tick),
+                "long_ctx_bound_ms": bound,
+                "long_ctx_bound_by": by,
+                "long_ctx_f32_bound_ms": _f32_bound_ms(nbytes, flops),
+                "long_ctx_library_device_ms": _device_ms(torch, sdpa_tick,
+                                                         ("",)),
+                "long_ctx_share_of_bound": bound / dev if dev else None})
+        else:
+            lib = {"library_ms": _time_ms(torch, sdpa_tick),
+                   "library_device_ms": _device_ms(torch, sdpa_tick, ("",)),
+                   "library_call": "scaled_dot_product_attention over "
+                                   "pre-gathered bf16 K/V (q cast to bf16)",
+                   "bound_ms": bound, "bound_by": by,
+                   "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+            for name, fn, per in (
+                    ("paged_decode_ragged_bf16", ragged, "decode tick"),
+                    ("paged_attention_bf16", single,
+                     "one-token prefill tick")):
+                rows.append({
+                    "name": name,
+                    "per": f"{per}: {cfg.n_layers} launches, {m} slots, "
+                           f"{tokens} tokens attended each, bf16 pages of "
+                           f"{ps}",
+                    "ms": _time_ms(torch, lambda fn=fn: fn("cuda")),
+                    "device_ms": _device_ms(torch, lambda fn=fn: fn("cuda"),
+                                            PAGED_KERNELS),
+                    "plain_ms": _time_ms(torch, lambda fn=fn: fn("ref")),
+                    **lib})
+        del pools, gathered
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: kernel names of one paged-decode launch: the split kernel and, with
 #: several splits, its merge
 PAGED_KERNELS = ("paged_decode_kernel", "paged_decode_merge_kernel")
@@ -1737,12 +2277,15 @@ def _long_ctx_timing(torch, gen, cfg, m, *, quant: bool) -> dict:
         pools.append((*quantize_kv(k, KV_SCHEME), *quantize_kv(v, KV_SCHEME))
                      if quant else (k, v))
 
-    def tick():
+    kernel, plain = ((paged_decode_ragged_quant_cuda,
+                      ref.paged_decode_ragged_quant_ref) if quant
+                     else (paged_decode_ragged_cuda,
+                           ref.paged_decode_ragged_ref))
+    extra = (lut,) if quant else ()
+
+    def tick(fn=kernel):
         for p in pools:
-            if quant:
-                paged_decode_ragged_quant_cuda(q, *p, bt, ctx, one, lut, w=1)
-            else:
-                paged_decode_ragged_cuda(q, *p, bt, ctx, one, w=1)
+            fn(q, *p, bt, ctx, one, *extra, w=1)
 
     token_bytes = 2 * (dh + 4) if quant else 2 * dh * 4
     nbytes = cfg.n_layers * (m * hkv * LONG_CTX * token_bytes
@@ -1754,6 +2297,8 @@ def _long_ctx_timing(torch, gen, cfg, m, *, quant: bool) -> dict:
                            f"slots, {LONG_CTX} tokens attended each, page "
                            f"size {ps}",
            "long_ctx_device_ms": _device_ms(torch, tick, PAGED_KERNELS),
+           "long_ctx_ms": _time_ms(torch, tick),
+           "long_ctx_plain_ms": _time_ms(torch, lambda: tick(plain), reps=3),
            "long_ctx_bound_ms": bound, "long_ctx_bound_by": by,
            "long_ctx_f32_bound_ms": _f32_bound_ms(nbytes, flops)}
     q_sdpa = q.reshape(m, hkv * rep, 1, dh)
@@ -1770,6 +2315,9 @@ def _long_ctx_timing(torch, gen, cfg, m, *, quant: bool) -> dict:
     out["long_ctx_library_device_ms"] = _device_ms(
         torch, lambda: [F.scaled_dot_product_attention(q_sdpa, k, v)
                         for k, v in gathered], ("",))
+    out["long_ctx_library_ms"] = _time_ms(
+        torch, lambda: [F.scaled_dot_product_attention(q_sdpa, k, v)
+                        for k, v in gathered])
     out["long_ctx_share_of_bound"] = bound / out["long_ctx_device_ms"] \
         if out["long_ctx_device_ms"] else None
     del gathered
@@ -1910,13 +2458,17 @@ def main() -> int:
         emit({"phase": "build", "seconds": cuda_lib.build_all(),
               "dir": str(cuda_lib.build_dir()),
               "tensor_core_instructions": _sass_counts(cuda_lib)})
-        worst = kernel_phase(torch, np)
+        worst, spx_checked = kernel_phase(torch, np)
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
+        mlp["experiments"] = paper_experiments_phase(
+            torch, np, info["nvidia_smi"], spx_checked)
         eng, launches, paged_m, paged_tokens = serve_phase(torch, np)
         new_launches = serve_new_paths_phase(torch, np, eng.params)
         new_launches.update(serve_modes_phase(torch, np, eng.params,
                                               paged_tokens, paged_m))
+        new_launches.update(serve_bf16_phase(torch, np, eng.params,
+                                             paged_tokens))
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,

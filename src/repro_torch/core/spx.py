@@ -26,6 +26,7 @@ __all__ = [
     "quantize_to_codes", "dequantize_codes", "calibrate_minmax",
     "calibrate_mse", "pack_int4", "unpack_int4", "SCHEMES", "scheme_levels",
     "code_width", "KV_CODE_BYTES", "KV_SCALE_BYTES", "kv_token_side_bytes",
+    "quantize", "fake_quantize",
 ]
 
 #: Quantized KV-cache storage layout: one uint8 code per element plus one
@@ -160,6 +161,24 @@ def dequantize_codes(codes: torch.Tensor, lut: torch.Tensor,
                      scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """codes -> lut[codes] * scale. ``lut`` from ``codebook()``."""
     return (lut[codes.long()] * scale).to(dtype)
+
+
+def quantize(x: torch.Tensor, scheme: str,
+             scale: torch.Tensor) -> torch.Tensor:
+    """uint8 codes of ``x`` under ``scheme``'s level set and ``scale``."""
+    return quantize_to_codes(x, scheme_levels(scheme), scale)
+
+
+def fake_quantize(x: torch.Tensor, scheme: str, scale: torch.Tensor,
+                  dtype=None) -> torch.Tensor:
+    """Quantize-dequantize round trip (QAT / error-feedback building
+    block), in ``dtype`` (``x``'s by default). No custom gradient, as in
+    the reference."""
+    levels = scheme_levels(scheme)
+    codes = quantize_to_codes(x, levels, scale)
+    out = dequantize_codes(codes, codebook(levels, device=x.device), scale,
+                           dtype=torch.float32)
+    return out.to(dtype or x.dtype)
 
 
 # ---------------------------------------------------------------------------

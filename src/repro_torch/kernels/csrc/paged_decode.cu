@@ -1,5 +1,6 @@
 // Ragged decode-window attention over a paged KV cache, for Hopper (sm_90a),
-// over f32 pages or over SPx-quantized (uint8 codes + f32 scale) pages.
+// over f32 pages, bf16 pages or SPx-quantized (uint8 codes + f32 scale)
+// pages.
 //
 // Replaces: src/repro/kernels/paged_attention.py::paged_decode_ragged_pallas
 // and ::paged_decode_ragged_quant_pallas (TPU), and, through the in-kernel
@@ -12,7 +13,7 @@
 // i >= q_len[b] are exact zeros. Online softmax with a -1e30 mask, masked
 // probabilities forced to 0, a 1e-30 clamp on the denominator, and scores
 // scaled by 1/sqrt(dh). block_table (B, max_pages) int32. Pools are
-// (n_pages, Hkv, page_size, dh): f32, or uint8 codebook codes beside
+// (n_pages, Hkv, page_size, dh): f32, bf16, or uint8 codebook codes beside
 // (n_pages, Hkv, page_size, 1) f32 per-token scales and a LUT of <= 256 f32
 // levels. For code pages k = lut[code] * k_scale and v = lut[code] *
 // v_scale; the scales fold out of the dh sums, as the reference folds them:
@@ -20,14 +21,21 @@
 // probability before P @ V. In single-token mode (w = 1) the kernel reads
 // ctx_len as "positions < ctx_len attended": ctx = max(ctx_len - 1, 0) and
 // q_len = (ctx_len > 0), so the caller runs no op before the launch.
+// bf16 pages compute what the TPU kernel computes for them: q stays f32,
+// K and V widen to f32, and each probability is rounded to bf16 before
+// P @ V (``pv.astype(v.dtype)``), while the denominator sums the f32
+// probabilities.
 //
 // Bound on the H100: each (slot, KV head) must read its ctx + q_len cached
-// tokens of K and V once (2 * dh * 4 bytes per token in f32, 2 * (dh + 4)
-// in codes + scale) and does 4 * R * dh flops per token; at R <= 64 that is
-// under 16 flops per byte, so the kernel is bound by the bytes it reads
-// (3.35 TB/s). At serving batch sizes a launch reads a few hundred KB, so
-// what it costs is latency: how many dependent memory round trips and
-// barriers lie on its longest path.
+// tokens of K and V once (2 * dh * 4 bytes per token in f32, 2 * dh * 2 in
+// bf16, 2 * (dh + 4) in codes + scale) and does 4 * R * dh flops per
+// token; at R <= 64 that is under 16 flops per byte (32 on bf16 pages), so
+// the kernel is bound by the bytes it reads (3.35 TB/s). At serving batch
+// sizes a launch reads a few hundred KB, so what it costs is latency: how
+// many dependent memory round trips and barriers lie on its longest path.
+// bf16 pages halve the bytes but not the instructions per token (the
+// same FMAs and shuffles, plus the widening), so they shorten a launch
+// only where the bytes, not that path, set its time.
 //
 // Design (flash-decoding):
 //  * Grid (B, Hkv * row groups, splits). A row group is 8 query rows; a
@@ -45,7 +53,8 @@
 //    8 query rows in registers and loads the same slice of the group's
 //    4 K rows and 4 V rows straight into registers (16-byte loads for f32
 //    at dh >= 128, 8 for codes at dh 256): all 8 loads of a group are in
-//    flight at once, coalesced across the warp, and no page is staged in
+//    flight at once, coalesced across the warp (bf16 rows: 16-byte loads
+//    at dh 256, 8 at 128, 4 at 64, 2 at 32), and no page is staged in
 //    shared memory, so there is no block-wide barrier in the token loop.
 //  * Scores: each lane has 8 x 4 partial dot products; one transposed
 //    butterfly (16 + 8 + 4 + 2 + 1 shuffles) leaves lane L with the full
@@ -63,6 +72,7 @@
 //  * All shared memory is static (at most 33 KB), so no launch sets an
 //    attribute. dh is a template parameter (32, 64, 128, 256); others are
 //    refused.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,10 +111,13 @@ __device__ __forceinline__ void load_f32(const float* __restrict__ p,
 }
 
 // How a lane loads its dh/32 elements of one page row, and how the raw
-// load becomes floats. F32 rows are the floats; code rows are E bytes,
-// decoded through the block's LUT.
+// load becomes floats. F32 rows are the floats; bf16 rows are E halves of
+// 32-bit words, widened exactly; code rows are E bytes, decoded through
+// the block's LUT. ``round_p`` is what P @ V multiplies V by: the f32
+// probability, or for bf16 pages that probability rounded to bf16.
 struct F32Page {
   using T = float;
+  __device__ __forceinline__ static float round_p(float p) { return p; }
   template <int E> struct Raw { float v[E]; };
   template <int E>
   __device__ __forceinline__ static Raw<E> load(const float* p) {
@@ -128,8 +141,55 @@ struct F32Page {
   }
 };
 
+struct Bf16Page {
+  using T = uint16_t;           // bf16 bits
+  __device__ __forceinline__ static float round_p(float p) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  }
+  template <int E> struct Raw { uint32_t w[(E + 1) / 2]; };
+  template <int E>
+  __device__ __forceinline__ static Raw<E> load(const uint16_t* p) {
+    Raw<E> r;
+    if constexpr (E == 8) {
+      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+      r.w[0] = t.x;
+      r.w[1] = t.y;
+      r.w[2] = t.z;
+      r.w[3] = t.w;
+    } else if constexpr (E == 4) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+      r.w[0] = t.x;
+      r.w[1] = t.y;
+    } else if constexpr (E == 2) {
+      r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+    return r;
+  }
+  template <int E>
+  __device__ __forceinline__ static Raw<E> zero() {
+    Raw<E> r;
+#pragma unroll
+    for (int i = 0; i < (E + 1) / 2; ++i) r.w[i] = 0u;
+    return r;
+  }
+  // element e is the low (even e) or high (odd e) half of word e / 2; a
+  // bf16 is the top 16 bits of the f32 of the same value
+  template <int E>
+  __device__ __forceinline__ static void decode(const Raw<E>& r,
+                                                float (&v)[E],
+                                                const float*) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      v[e] = __uint_as_float(e % 2 ? r.w[e / 2] & 0xFFFF0000u
+                                   : r.w[e / 2] << 16);
+  }
+};
+
 struct CodePage {
   using T = uint8_t;
+  __device__ __forceinline__ static float round_p(float p) { return p; }
   template <int E> struct Raw { uint32_t w[(E + 3) / 4]; };
   template <int E>
   __device__ __forceinline__ static Raw<E> load(const uint8_t* p) {
@@ -331,9 +391,9 @@ paged_decode_kernel(const float* __restrict__ q,
     const float corr = expf(m_run - m_new);
     l_run = l_run * corr + sum;
     m_run = m_new;
-    const float pw = kQuant ? p * my_vs : p;
+    const float pw = Page::round_p(kQuant ? p * my_vs : p);
 
-    // acc = acc * corr + (P [* v_scale]) @ V
+    // acc = acc * corr + (P [* v_scale], rounded as the page type says) @ V
 #pragma unroll
     for (int j = 0; j < kTok; ++j) {
       float vf[E];
@@ -518,6 +578,19 @@ int paged_decode_ragged_f32(const float* q, const float* kp, const float* vp,
                            block_table, ctx_len, q_len, out, scratch, B, hkv,
                            rows, dh, w, single, page_size, max_pages, splits,
                            scale, stream);
+}
+
+// bf16 pools: ``kp``/``vp`` hold bf16 bits; q, out and scratch are f32.
+int paged_decode_ragged_bf16(const float* q, const uint16_t* kp,
+                             const uint16_t* vp, const int* block_table,
+                             const int* ctx_len, const int* q_len, float* out,
+                             float* scratch, int B, int hkv, int rows, int dh,
+                             int w, int single, int page_size, int max_pages,
+                             int splits, float scale, cudaStream_t stream) {
+  return dispatch<Bf16Page>(q, kp, vp, nullptr, nullptr, nullptr, 0,
+                            block_table, ctx_len, q_len, out, scratch, B,
+                            hkv, rows, dh, w, single, page_size, max_pages,
+                            splits, scale, stream);
 }
 
 int paged_decode_ragged_quant_f32(const float* q, const uint8_t* k_codes,

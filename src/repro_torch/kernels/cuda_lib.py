@@ -40,6 +40,8 @@ _SIGNATURES = {
     "paged_decode": {
         "paged_decode_ragged_f32":
             ([_P] * 8 + [_I] * 9 + [ctypes.c_float, _P], _I),
+        "paged_decode_ragged_bf16":
+            ([_P] * 8 + [_I] * 9 + [ctypes.c_float, _P], _I),
         "paged_decode_ragged_quant_f32":
             ([_P] * 6 + [_I] + [_P] * 5 + [_I] * 9 + [ctypes.c_float, _P],
              _I),

@@ -1,7 +1,9 @@
 """Wrappers of the hand-written paged-decode kernel
 (``csrc/paged_decode.cu``), the Hopper counterpart of
-``repro/kernels/paged_attention.py``, over f32 pools and over SPx-quantized
-(uint8 codes + f32 per-token scale) pools.
+``repro/kernels/paged_attention.py``, over f32 pools, bf16 pools and
+SPx-quantized (uint8 codes + f32 per-token scale) pools. q and the output
+are f32 whatever the pool holds; over bf16 pools the kernel rounds each
+probability to bf16 before P @ V, as the TPU kernel does.
 
 ``paged_decode_ragged_cuda`` and ``paged_decode_ragged_quant_cuda`` launch
 the ragged decode-window kernel. ``paged_attention_cuda`` and
@@ -17,8 +19,9 @@ picks the split count from the block table's width and the SM count, and
 is cached per shape; a split is a multiple of ``SPLIT_GRANULE`` tokens
 (``split_tokens``). With several splits the wrapper allocates one scratch
 buffer for the partials and the kernel's merge pass combines them in a
-fixed order. Each wrapper keeps its own launch count. None falls back to
-the plain version.
+fixed order. Each wrapper keeps its own launch count, and counts a launch
+over bf16 pools under its own name with ``_bf16`` added (the kernel's bf16
+instance). None falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -85,8 +88,9 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
 def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             quant=None):
     """``q_len`` None selects the single-token mode (``w`` must be 1).
-    ``quant``: None for f32 pools, else (k_scale, v_scale, lut) with
-    ``k_pages``/``v_pages`` the uint8 code pools."""
+    ``quant``: None for f32 or bf16 pools, else (k_scale, v_scale, lut)
+    with ``k_pages``/``v_pages`` the uint8 code pools. Returns the output
+    and the pool dtype the kernel ran on."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"paged_decode needs CUDA tensors, got {device}")
@@ -106,7 +110,12 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             or (q_len is not None and tuple(q_len.shape) != (b,)):
         raise ValueError("paged_decode: block_table (B, max_pages), ctx_len "
                          "(B,) and q_len (B,) must match q's batch")
-    pool_dtype = torch.float32 if quant is None else torch.uint8
+    if quant is not None:
+        pool_dtype = torch.uint8
+    elif k_pages.dtype == torch.bfloat16:
+        pool_dtype = torch.bfloat16
+    else:
+        pool_dtype = torch.float32
     tensors = [("q", q, torch.float32), ("k_pages", k_pages, pool_dtype),
                ("v_pages", v_pages, pool_dtype),
                ("block_table", block_table, torch.int32),
@@ -143,10 +152,12 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             int(single), ps, max_pages, splits, dh ** -0.5,
             torch.cuda.current_stream(device).cuda_stream)
     if quant is None:
-        err = lib.paged_decode_ragged_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), ctx_len.data_ptr(), qn.data_ptr(),
-            *tail)
+        entry = (lib.paged_decode_ragged_bf16
+                 if pool_dtype == torch.bfloat16
+                 else lib.paged_decode_ragged_f32)
+        err = entry(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                    block_table.data_ptr(), ctx_len.data_ptr(),
+                    qn.data_ptr(), *tail)
     else:
         err = lib.paged_decode_ragged_quant_f32(
             q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
@@ -154,25 +165,32 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             lut.numel(), block_table.data_ptr(), ctx_len.data_ptr(),
             qn.data_ptr(), *tail)
     cuda_lib.check(lib, err, "paged_decode launch")
-    return out
+    return out, pool_dtype
+
+
+def _count(name: str, pool_dtype) -> None:
+    suffix = "_bf16" if pool_dtype == torch.bfloat16 else ""
+    cuda_lib.LAUNCHES[name + suffix] += 1
 
 
 def paged_decode_ragged_cuda(q, k_pages, v_pages, block_table, ctx_len,
                              q_len, *, w: int) -> torch.Tensor:
     """q (B, Hkv, rep * w, dh) rep-major rows; pools (n_pages, Hkv,
-    page_size, dh) f32; block_table (B, max_pages), ctx_len (B,), q_len
-    (B,) int32. Returns (B, Hkv, rep * w, dh)."""
-    out = _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w)
-    cuda_lib.LAUNCHES["paged_decode_ragged"] += 1
+    page_size, dh) f32 or bf16; block_table (B, max_pages), ctx_len (B,),
+    q_len (B,) int32. Returns (B, Hkv, rep * w, dh) f32."""
+    out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
+                              q_len, w)
+    _count("paged_decode_ragged", pool_dtype)
     return out
 
 
 def paged_attention_cuda(q, k_pages, v_pages, block_table,
                          ctx_len) -> torch.Tensor:
     """q (B, Hkv, rep, dh); positions < ctx_len attended, ctx_len == 0
-    gives zeros. Returns (B, Hkv, rep, dh)."""
-    out = _launch(q, k_pages, v_pages, block_table, ctx_len, None, 1)
-    cuda_lib.LAUNCHES["paged_attention"] += 1
+    gives zeros; pools f32 or bf16. Returns (B, Hkv, rep, dh) f32."""
+    out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
+                              None, 1)
+    _count("paged_attention", pool_dtype)
     return out
 
 
@@ -182,8 +200,8 @@ def paged_decode_ragged_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
     """``paged_decode_ragged_cuda`` over quantized pools: k/v codes
     (n_pages, Hkv, page_size, dh) uint8, k/v scales (n_pages, Hkv,
     page_size, 1) f32, lut (<= 256,) f32 codebook."""
-    out = _launch(q, k_codes, v_codes, block_table, ctx_len, q_len, w,
-                  quant=(k_scale, v_scale, lut))
+    out, _ = _launch(q, k_codes, v_codes, block_table, ctx_len, q_len, w,
+                     quant=(k_scale, v_scale, lut))
     cuda_lib.LAUNCHES["paged_decode_ragged_quant"] += 1
     return out
 
@@ -192,7 +210,7 @@ def paged_attention_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
                                block_table, ctx_len, lut) -> torch.Tensor:
     """``paged_attention_cuda`` over quantized pools (arguments as
     ``paged_decode_ragged_quant_cuda``)."""
-    out = _launch(q, k_codes, v_codes, block_table, ctx_len, None, 1,
-                  quant=(k_scale, v_scale, lut))
+    out, _ = _launch(q, k_codes, v_codes, block_table, ctx_len, None, 1,
+                     quant=(k_scale, v_scale, lut))
     cuda_lib.LAUNCHES["paged_attention_quant"] += 1
     return out

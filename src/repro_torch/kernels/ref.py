@@ -93,10 +93,11 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
                         out_dtype=None):
     """Single-token decode attention over a paged KV cache.
 
-    q: (B, Hkv, rep, dh); k_pages/v_pages: (n_pages, Hkv, page_size, dh);
-    block_table: (B, max_pages) int32; ctx_len: (B,) int32 — positions
-    < ctx_len are attended; ctx_len == 0 gives zeros. Returns
-    (B, Hkv, rep, dh)."""
+    q: (B, Hkv, rep, dh); k_pages/v_pages: (n_pages, Hkv, page_size, dh)
+    f32 or bf16 (upcast to f32 after the gather, with the probabilities
+    kept in f32, as the reference oracle does); block_table: (B,
+    max_pages) int32; ctx_len: (B,) int32 — positions < ctx_len are
+    attended; ctx_len == 0 gives zeros. Returns (B, Hkv, rep, dh)."""
     return _paged_softmax(q, _gather(k_pages, block_table),
                           _gather(v_pages, block_table), ctx_len,
                           out_dtype or q.dtype)
@@ -106,9 +107,10 @@ def paged_decode_ragged_ref(q, k_pages, v_pages, block_table, ctx_len,
                             q_len, *, w: int, out_dtype=None):
     """Ragged decode-window attention over a paged KV cache.
 
-    q: (B, Hkv, R, dh), R = rep * w rows, rep-major. Window position i
-    attends positions <= ctx_len + i; rows with i >= q_len come back
-    exactly zero. Returns (B, Hkv, R, dh)."""
+    q: (B, Hkv, R, dh), R = rep * w rows, rep-major; pools f32 or bf16,
+    upcast as in ``paged_attention_ref``. Window position i attends
+    positions <= ctx_len + i; rows with i >= q_len come back exactly zero.
+    Returns (B, Hkv, R, dh)."""
     return _ragged_softmax(q, _gather(k_pages, block_table),
                            _gather(v_pages, block_table), ctx_len, q_len, w,
                            out_dtype or q.dtype)

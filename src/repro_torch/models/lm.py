@@ -5,9 +5,10 @@ the speculative verify window, the fused decode tick, and the page copies
 the serving engine's copy-on-write and preemption use. Dense
 (``attn+dense``) patterns only.
 
-Caches and page pools (f32, or SPx codes + f32 scales when quantized) are
-updated in place; the step functions still return ``(logits, caches)`` so
-callers read like the reference.
+Caches and page pools (bf16 by default as in the reference, f32 when asked
+for, or SPx codes + f32 scales when quantized) are updated in place; the
+step functions still return ``(logits, caches)`` so callers read like the
+reference.
 """
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):
 # -- dense serving ------------------------------------------------------------
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
-                dtype=torch.float32, kv_quant: bool = False,
+                dtype=torch.bfloat16, kv_quant: bool = False,
                 device=None) -> list:
     """Dense per-slot K/V caches for every slot in the pattern, on
     ``device`` (``cuda`` unless the caller asks for another)."""
@@ -117,12 +118,12 @@ def lm_decode_step(params, token, pos, caches, cfg: ArchConfig,
 # -- paged serving ------------------------------------------------------------
 
 def paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
-                      dtype=torch.float32, kv_quant: bool = False,
+                      dtype=torch.bfloat16, kv_quant: bool = False,
                       device=None) -> list:
     """K/V page pools for every slot in the pattern, on ``device``
-    (``cuda`` unless the caller asks for another): f32, or codes + scale
-    dicts when ``kv_quant`` (scheme from ``Runtime.kv_scheme`` at step
-    time)."""
+    (``cuda`` unless the caller asks for another): values of ``dtype``
+    (bf16 unless asked for f32), or codes + scale dicts when ``kv_quant``
+    (scheme from ``Runtime.kv_scheme`` at step time)."""
     device = resolve_device(device)
     return [slot_init_paged_cache(slot, cfg, n_pages, page_size, dtype,
                                   kv_quant=kv_quant, device=device)

@@ -7,11 +7,12 @@ resolved copy. Same fields, env knobs and defaults as the reference.
 This port serves two layouts on one device, for ``attn+dense`` patterns:
 paged KV under ``cb`` or ``fifo`` scheduling — the fused or the unfused
 decode tick, speculative decoding and the prefix cache included — and the
-dense per-slot layout under ``fifo``; either in f32 or, with
-``Runtime.kv_quant``, as SPx codes. A knob the dense layout cannot have
-raises the reference's ``ValueError``, and its env default degrades
-silently, as in the reference. A knob that asks **explicitly** for
-something this port lacks (bf16 caches, shards, replicas) raises
+dense per-slot layout under ``fifo``; either in f32 or bf16
+(``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes. A knob
+the dense layout cannot have raises the reference's ``ValueError``, and its
+env default degrades silently, as in the reference. A knob that asks
+**explicitly** for something this port lacks (another cache dtype,
+shards, replicas) raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it; its env
 default degrades silently to one device.
 """
@@ -215,7 +216,7 @@ class ServeConfig:
         # REPRO_SHARDS / REPRO_REPLICAS degrade silently to one device
 
         kv_cache_dtype = _torch_dtype(self.kv_cache_dtype)
-        if kv_cache_dtype != torch.float32:
+        if kv_cache_dtype not in (torch.float32, torch.bfloat16):
             raise _not_ported(f"kv_cache_dtype={kv_cache_dtype}",
                               "the other KV cache dtypes")
 

@@ -562,10 +562,10 @@ class ServeEngine:
 
     def _snapshot_pages(self, pages) -> list:
         """The written pages' bytes (codes and scales of a quantized pool),
-        copied to host numpy arrays."""
+        copied to host tensors (numpy has no bf16)."""
         idx = self._tensor(np.asarray(pages, np.int32))
         snap = lm_mod.paged_gather_pages(self.caches, idx)
-        return tree_map(lambda _, leaf: leaf.cpu().numpy(), snap)
+        return tree_map(lambda _, leaf: leaf.cpu(), snap)
 
     def _restore_pages(self, pages: list[int], payload):
         n = tree_leaves(payload)[0].shape[1]

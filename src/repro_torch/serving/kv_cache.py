@@ -86,6 +86,9 @@ def _elem_bytes(cache_dtype=None, dtype_bytes: int | None = None) -> int:
             f"cache_dtype={cache_dtype!r} is a raw int — ambiguous "
             f"(np.dtype(2) parses as float64, not 2 bytes). Pass a real "
             f"dtype, or the byte width via dtype_bytes=")
+    itemsize = getattr(cache_dtype, "itemsize", None)   # a torch.dtype
+    if isinstance(itemsize, int):
+        return itemsize
     return int(np.dtype(cache_dtype).itemsize)
 
 

@@ -175,7 +175,8 @@ def test_prefill_and_decode_match_reference(weights, scheme):
                   kv_scheme=scheme or "uniform8")
     b, max_seq, s = 2, 24, 9
     jc = jlm.init_caches(jcfg, b, max_seq, dtype=jnp.float32, kv_quant=quant)
-    tc = tlm.init_caches(tcfg, b, max_seq, kv_quant=quant, device="cpu")
+    tc = tlm.init_caches(tcfg, b, max_seq, dtype=torch.float32,
+                         kv_quant=quant, device="cpu")
     rng = np.random.default_rng(4)
     prompt = rng.integers(0, 32, (b, s)).astype(np.int32)
     jl, jc = jlm.lm_prefill(jp, jnp.asarray(prompt), jc, jcfg, jrt)
@@ -206,11 +207,13 @@ def workload():
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in LENS]
     want, metrics = {}, {}
-    for scheme in (None, "spx_8_x3"):
-        rt = JRuntime(impl="ref", q_chunk=16, kv_quant=scheme is not None,
-                      kv_scheme=scheme or "uniform8")
-        eng = JServeEngine(params, cfg, JServeConfig(kv_layout="dense",
-                                                     **KNOBS), rt=rt)
+    for scheme in (None, "spx_8_x3", "bfloat16"):
+        quant = scheme not in (None, "bfloat16")
+        rt = JRuntime(impl="ref", q_chunk=16, kv_quant=quant,
+                      kv_scheme=scheme if quant else "uniform8")
+        dtype = "bfloat16" if scheme == "bfloat16" else "float32"
+        eng = JServeEngine(params, cfg, JServeConfig(
+            kv_layout="dense", kv_cache_dtype=dtype, **KNOBS), rt=rt)
         for i, p in enumerate(prompts):
             eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
         want[scheme] = {r.rid: list(r.output) for r in eng.run()}
@@ -220,12 +223,18 @@ def workload():
                 want=want, metrics=metrics)
 
 
-@pytest.mark.parametrize("scheme", [None, "spx_8_x3"])
+@pytest.mark.parametrize("scheme", [None, "spx_8_x3", "bfloat16"])
 def test_dense_engine_greedy_matches_reference(workload, scheme):
-    rt = Runtime(device="cpu", q_chunk=16, kv_quant=scheme is not None,
-                 kv_scheme=scheme or "uniform8")
+    """Greedy tokens and metrics of the dense engine against the JAX
+    engine's: f32 caches, SPx-coded caches, and bf16 caches (read through
+    f32 math, as the reference reads them)."""
+    quant = scheme not in (None, "bfloat16")
+    rt = Runtime(device="cpu", q_chunk=16, kv_quant=quant,
+                 kv_scheme=scheme if quant else "uniform8")
+    dtype = "bfloat16" if scheme == "bfloat16" else "float32"
     eng = ServeEngine(workload["params"], workload["cfg"],
-                      ServeConfig(kv_layout="dense", **KNOBS), rt=rt)
+                      ServeConfig(kv_layout="dense", kv_cache_dtype=dtype,
+                                  **KNOBS), rt=rt)
     ops.reset_op_calls()
     for i, p in enumerate(workload["prompts"]):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW))

@@ -101,6 +101,94 @@ def test_paged_attention_matches_interpret_kernel(jx):
     assert (got[0] == 0).all()                 # ctx_len == 0 -> zeros
 
 
+def _bf16_case(rng, dh, ps, w):
+    """Kernels 2 and 5 over bf16 pages: 4 slots, 2 KV heads under rep 2,
+    3 pages per slot. Slot 0 is empty (ctx_len 0), slot 1's window
+    crosses a page boundary (ctx = ps - 2), slot 2 ends one token into its
+    last page. The bf16 values are made in torch and handed to JAX as the
+    f32 values they are, so both sides hold the same bf16 pages."""
+    b, hkv, rep, mp = 4, 2, 2, 3
+    n_pages = 1 + b * mp
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pages, hkv, ps, dh)).astype(np.float32)).bfloat16()
+        for _ in range(2))
+    bt = rng.permutation(n_pages)[:b * mp].reshape(b, mp).astype(np.int32)
+    q = rng.standard_normal((b, w, hkv * rep, dh)).astype(np.float32)
+    ctx = np.asarray([0, ps - 2, 2 * ps + 1 - w, 3 * ps - w], np.int32)
+    qlen = np.asarray([0, w, max(1, w - 2), w], np.int32)
+    return q, kp, vp, bt, ctx, qlen
+
+
+def _jbf16(jx, t):
+    return jx.jnp.asarray(t.float().numpy()).astype(jx.jnp.bfloat16)
+
+
+def _slot_rel_err(got, want) -> float:
+    """The largest over slots (axis 0) of max|got - want| over that slot's
+    own max|want|: a long slot's outputs are far smaller than a one-token
+    slot's, so one peak over all slots would hide an error there. A slot
+    whose ``want`` is all zeros counts as inf unless ``got``'s is too."""
+    got, want = np.asarray(got), np.asarray(want)
+    b = want.shape[0]
+    err = np.abs(got - want).reshape(b, -1).max(1)
+    peak = np.abs(want).reshape(b, -1).max(1)
+    rel = np.where(peak > 0, err / np.maximum(peak, 1e-30),
+                   np.where(err > 0, np.inf, 0.0))
+    return float(rel.max())
+
+
+@pytest.mark.parametrize("w", [1, 5])
+@pytest.mark.parametrize("ps", [16, 32])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+def test_bf16_pages_plain_versions_match_reference(jx, dh, ps, w):
+    """The port's plain versions of kernels 2 and 5 over bf16 pages (upcast
+    after the gather, probabilities in f32) against the reference oracle
+    on the same pages, within 1e-5 of the largest |output|, and against
+    the Pallas kernels in interpret mode, which round each probability to
+    bf16 before P @ V (``pv.astype(v.dtype)``), within 1e-2 of each slot's
+    own largest |output|."""
+    from repro.kernels.paged_attention import (paged_attention_pallas,
+                                               paged_decode_ragged_pallas)
+    rng = np.random.default_rng(dh + ps + w)
+    q, kp, vp, bt, ctx, qlen = _bf16_case(rng, dh, ps, w)
+    t = lambda a: torch.from_numpy(a)
+    ops.reset_op_calls()
+    got = ops.paged_decode_ragged(t(q), kp, vp, t(bt), t(ctx),
+                                  t(qlen)).numpy()
+    assert ops.ref_calls() == {"paged_decode_ragged": 1}
+    assert ops.op_calls() == {}
+    b, _, hq, _ = q.shape
+    hkv = kp.shape[1]
+    # the reference's (B, Hkv, rep * w, dh) rep-major rows
+    q4 = q.reshape(b, w, hkv, hq // hkv, dh).transpose(0, 2, 3, 1, 4) \
+        .reshape(b, hkv, -1, dh)
+    j = (jx.jnp.asarray(q4), _jbf16(jx, kp), _jbf16(jx, vp),
+         jx.jnp.asarray(bt), jx.jnp.asarray(ctx), jx.jnp.asarray(qlen))
+    unpack = lambda o: np.asarray(o).reshape(b, hkv, hq // hkv, w, dh) \
+        .transpose(0, 3, 1, 2, 4).reshape(b, w, hq, dh)
+    oracle = unpack(jx.ref.paged_decode_ragged_ref(*j, w=w))
+    pallas = unpack(paged_decode_ragged_pallas(*j, w=w, interpret=True))
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 1e-5 * peak
+    assert _slot_rel_err(got, pallas) <= 1e-2
+    for row, n in enumerate(qlen):
+        assert (got[row, n:] == 0).all()
+
+    # kernel 5: one query token per slot, positions < ctx_len attended
+    ctx1 = np.asarray([0, 1, ps, 3 * ps], np.int32)
+    q1 = np.ascontiguousarray(q[:, 0])
+    got = ops.paged_attention(t(q1), kp, vp, t(bt), t(ctx1)).numpy()
+    q14 = jx.jnp.asarray(q1.reshape(b, hkv, hq // hkv, dh))
+    j1 = (q14, j[1], j[2], j[3], jx.jnp.asarray(ctx1))
+    oracle = np.asarray(jx.ref.paged_attention_ref(*j1)).reshape(b, hq, dh)
+    pallas = np.asarray(paged_attention_pallas(*j1, interpret=True)) \
+        .reshape(b, hq, dh)
+    peak = np.abs(oracle).max()
+    assert np.abs(got - oracle).max() <= 1e-5 * peak
+    assert _slot_rel_err(got, pallas) <= 1e-2
+    assert (got[0] == 0).all()
+
+
 def _split_case(rng, quant: bool):
     """Pools, block table and rows of a multi-page ragged case: 4 slots,
     2 KV heads of 32 under rep 2, 8-token pages (f32) or 16-token code
@@ -436,6 +524,66 @@ def test_cuda_spx_matmul_ragged_shapes_deterministic(cuda):
                 assert torch.equal(got, again), (scheme, k, n, m)
 
 
+@pytest.mark.gpu
+def test_cuda_bf16_pages_match_plain_version(cuda):
+    """Kernels 2 and 5 over bf16 pages (the ``Bf16Page`` instance) at dh in
+    {32, 64, 128, 256} and page sizes 16 and 32, W = 1 and 5, an empty
+    slot, a window across a page boundary, and a context of 2048 tokens
+    that splits: within 1e-2 of the plain version's largest |output| in
+    each slot (the kernel rounds each probability to bf16, the plain
+    version does not),
+    masked rows exact zeros, a second launch bit-identical, and every
+    launch counted under the bf16 route."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    ops.reset_op_calls()
+    launches = 0
+    for dh in (32, 64, 128, 256):
+        for ps in (16, 32):
+            for w, mp in ((1, 3), (5, 3), (1, 2048 // ps)):
+                b, hkv, rep = 4, 2 if dh < 256 else 1, 8 if w == 1 else 2
+                n_pages = 1 + b * mp
+                kp, vp = (torch.randn((n_pages, hkv, ps, dh), generator=gen,
+                                      device=cuda).bfloat16()
+                          for _ in range(2))
+                bt = (torch.randperm(n_pages - 1, generator=gen,
+                                     device=cuda)[:b * mp].reshape(b, mp)
+                      + 1).to(torch.int32)
+                top = mp * ps
+                ctx = torch.tensor([0, ps - 2, top - 1 - w, top - w],
+                                   dtype=torch.int32, device=cuda)
+                qn = torch.tensor([0, w, max(1, w - 2), w],
+                                  dtype=torch.int32, device=cuda)
+                q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                                device=cuda)
+                got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+                again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
+                want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn,
+                                                   w=w)
+                case = (dh, ps, w, mp)
+                assert got.dtype == torch.float32, case
+                assert _slot_rel_err(got.cpu(), want.cpu()) <= 1e-2, case
+                assert torch.equal(got, again), case
+                rows_off = torch.arange(rep * w, device=cuda) % w \
+                    >= qn[:, None]
+                assert (got.permute(0, 2, 1, 3)[rows_off] == 0).all(), case
+                ctx1 = torch.tensor([0, 1, ps + 1, top], dtype=torch.int32,
+                                    device=cuda)
+                q1 = q[:, :, :rep].contiguous()
+                got = paged_attention_cuda(q1, kp, vp, bt, ctx1)
+                again = paged_attention_cuda(q1, kp, vp, bt, ctx1)
+                want = ref.paged_attention_ref(q1, kp, vp, bt, ctx1)
+                assert _slot_rel_err(got.cpu(), want.cpu()) <= 1e-2, case
+                assert torch.equal(got, again) and (got[0] == 0).all(), case
+                launches += 2
+    assert ops.op_calls() == {"paged_decode_ragged_bf16": launches,
+                              "paged_attention_bf16": launches}
+    with pytest.raises(TypeError, match="bfloat16"):
+        # a bf16 K pool beside an f32 V pool
+        paged_decode_ragged_cuda(q, kp, vp.float(), bt, ctx, qn, w=w)
+
+
 # ---------------------------------------------------------------------------
 # The tensor-core kernels' exact bf16 splits, in plain PyTorch
 # ---------------------------------------------------------------------------
@@ -582,19 +730,25 @@ def test_cuda_spx_prefill_kernel_matches_plain_version(cuda):
 def test_cuda_spx_matmul_paper_mlp_shapes(cuda):
     """The paper MLP's two layers, (K, N) = (784, 128) and (128, 10): K not
     a multiple of the prefill kernel's K step, packed rows of 5 bytes, one
-    column tile; M over both kernels up to 1024; bit-identical reruns."""
+    column tile; M over both kernels up to quickstart's 2048 test digits;
+    and the Q-network's quantized layers (4, 64) and (64, 64) at M = 1 and
+    64; 4-bit packed, 5-bit (pot4) and 8-bit codebooks; bit-identical
+    reruns."""
     from repro_torch.core import spx
     from repro_torch.kernels.spx_matmul import spx_matmul_cuda
     gen = torch.Generator(device=cuda).manual_seed(6)
-    for scheme, packed in (("sp2_4", True), ("sp2_8", False)):
+    for scheme, packed in (("sp2_4", True), ("sp2_8", False),
+                           ("pot4", False)):
         lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
-        for k, n in ((784, 128), (128, 10)):
-            codes = torch.randint(0, 16 if packed else 256,
+        for k, n, ms in ((784, 128, (1, 8, 9, 64, 1024, 2048)),
+                         (128, 10, (1, 8, 9, 64, 1024, 2048)),
+                         (4, 64, (1, 64)), (64, 64, (1, 64))):
+            codes = torch.randint(0, lut.numel(),
                                   (k, n // 2 if packed else n),
                                   generator=gen, device=cuda,
                                   dtype=torch.int32).to(torch.uint8)
             scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
-            for m in (1, 8, 9, 64, 1024):
+            for m in ms:
                 x = torch.rand((m, k), generator=gen, device=cuda)
                 got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
                 again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)

@@ -293,6 +293,71 @@ def test_quant_engine_metrics_match_reference(workload, scheme):
         assert got[key] == want[key], key
 
 
+# ---------------------------------------------------------------------------
+# Cache bytes by dtype, and the default cache dtype
+# ---------------------------------------------------------------------------
+
+def _nbytes(tree) -> int:
+    from repro_torch.nn.layers import tree_leaves
+    return sum(leaf.nbytes for leaf in tree_leaves(tree))
+
+
+def _jnbytes(tree) -> int:
+    return sum(leaf.nbytes for leaf in jax.tree_util.tree_leaves(tree))
+
+
+def _gqa_cfgs():
+    """Reduced granite (4 query heads on 1 KV head), in both packages."""
+    return (treduced(tget_config("granite-3-8b")),
+            reduced(get_config("granite-3-8b")))
+
+
+@pytest.mark.parametrize("dtype,kv_quant", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.float32, True)])
+def test_pool_bytes_matches_allocated_nbytes(dtype, kv_quant):
+    from repro_torch.models import lm as tlm
+    from repro_torch.serving.kv_cache import pool_bytes
+    cfg, _ = _gqa_cfgs()
+    n_pages, ps = 6, 8
+    caches = tlm.paged_init_caches(cfg, n_pages, ps, dtype=dtype,
+                                   kv_quant=kv_quant, device="cpu")
+    scheme = "spx_8_x3" if kv_quant else None
+    assert _nbytes(caches) == pool_bytes(cfg, n_pages, ps, dtype,
+                                         kv_scheme=scheme)
+
+
+@pytest.mark.parametrize("dtype,kv_quant", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.float32, True)])
+def test_dense_cache_bytes_match_kv_bytes_per_token(dtype, kv_quant):
+    from repro_torch.models import lm as tlm
+    from repro_torch.serving.kv_cache import kv_bytes_per_token
+    cfg, _ = _gqa_cfgs()
+    b, s = 3, 16
+    caches = tlm.init_caches(cfg, b, s, dtype=dtype, kv_quant=kv_quant,
+                             device="cpu")
+    scheme = "uniform8" if kv_quant else None
+    assert _nbytes(caches) == b * s * kv_bytes_per_token(
+        cfg, dtype, kv_scheme=scheme)
+
+
+def test_default_cache_dtype_is_the_references():
+    """With ``dtype`` omitted both allocators give bf16, as the
+    reference's do, with the reference's bytes."""
+    from repro_torch.models import lm as tlm
+    cfg, jcfg = _gqa_cfgs()
+    paged = tlm.paged_init_caches(cfg, 6, 8, device="cpu")
+    dense = tlm.init_caches(cfg, 3, 16, device="cpu")
+    jpaged = jlm.paged_init_caches(jcfg, 6, 8)
+    jdense = jlm.init_caches(jcfg, 3, 16)
+    from repro_torch.nn.layers import tree_leaves
+    for tree, jtree in ((paged, jpaged), (dense, jdense)):
+        dtypes = {str(leaf.dtype) for leaf in tree_leaves(tree)}
+        jdtypes = {str(leaf.dtype) for leaf in
+                   jax.tree_util.tree_leaves(jtree)}
+        assert dtypes == {"torch.bfloat16"} and jdtypes == {"bfloat16"}
+        assert _nbytes(tree) == _jnbytes(jtree)
+
+
 def test_quant_engine_preemption_offloads_codes_and_scales(workload):
     scheme = "spx_8_x3"
     out, eng = _serve(workload, scheme, ServeConfig(pool_pages=13, **KNOBS),

@@ -55,7 +55,8 @@ def test_paged_steps_match_reference(quantized):
     jrt, trt = JRuntime(impl="ref", q_chunk=16), Runtime(device="cpu")
     n_pages, ps = 8, 8
     jc = jlm.paged_init_caches(jcfg, n_pages, ps, dtype=jnp.float32)
-    tc = tlm.paged_init_caches(tcfg, n_pages, ps, device="cpu")
+    tc = tlm.paged_init_caches(tcfg, n_pages, ps, dtype=torch.float32,
+                               device="cpu")
     bt = np.array([[3, 0, 5, 1], [2, 7, 4, 6]], np.int32)
     sidx = jnp.zeros((2, 2), jnp.int32)
     rng = np.random.default_rng(0)

@@ -3,8 +3,9 @@ pinned workload (reduced gemma-2b, vocab 32, head_dim 128, seed 3; page
 size pinned in both engines): greedy outputs are identical under the cb
 and fifo schedulers, with preemption and host offload, with weights the
 port quantizes itself or that JAX quantized and the port carried over, and
-with the prefix cache, speculative decoding and the unfused tick. Also:
-knobs this port lacks raise, env knobs resolve as in the reference,
+with the prefix cache, speculative decoding and the unfused tick, and on
+bf16 pages (fused and unfused ticks, and with preemption). Also: knobs
+this port lacks raise, env knobs resolve as in the reference,
 entry points never fall back quietly to the CPU, and importing the port
 loads neither JAX nor ``repro``."""
 import dataclasses
@@ -173,11 +174,67 @@ def test_serving_modes_match_reference(workload, knobs):
         assert m[key] == jm[key], key
 
 
+@pytest.fixture(scope="module")
+def bf16_want(workload):
+    """The reference engine's greedy tokens and metrics on bf16 pages
+    (the oracle path: probabilities in f32 over the upcast pages)."""
+    jeng = JServeEngine(workload["params"], _cfg(get_config, reduced),
+                        JServeConfig(kv_cache_dtype="bfloat16", **KNOBS),
+                        rt=JRuntime(impl="ref", q_chunk=16))
+    for i, p in enumerate(workload["prompts"]):
+        jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
+    return {r.rid: list(r.output) for r in jeng.run()}, jeng.metrics()
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(),
+    dict(fused_decode=False),
+    dict(pool_pages=13),
+], ids=["fused", "unfused", "preempted"])
+def test_bf16_pages_match_reference(workload, bf16_want, knobs):
+    """Paged engines on bf16 pages give the JAX bf16 engine's greedy
+    tokens: the fused tick (kernel 2), the unfused tick (kernel 5), and a
+    pool of 13 pages where a late priority-1 request preempts a resident
+    (its bf16 pages go to the host tier and come back)."""
+    want, jm = bf16_want
+    ops.reset_op_calls()
+    out, m = _serve(params_from_reference(workload["params"]),
+                    workload["cfg"], workload["prompts"],
+                    ServeConfig(kv_cache_dtype="bfloat16", **KNOBS, **knobs),
+                    priority_at=3 if "pool_pages" in knobs else None)
+    assert out == want
+    assert m["kv_cache_dtype"] == jm["kv_cache_dtype"] == "bfloat16"
+    for key in ("page_size", "tokens_generated"):
+        assert m[key] == jm[key], key
+    if not knobs:
+        assert (m["n_pages"], m["peak_kv_bytes"]) == (jm["n_pages"],
+                                                      jm["peak_kv_bytes"])
+        assert set(ops.ref_calls()) == {"spx_matmul", "paged_attention",
+                                        "paged_decode_ragged"}
+    if "fused_decode" in knobs:
+        assert "paged_decode_ragged" not in ops.ref_calls()
+    if "pool_pages" in knobs:
+        assert m["preemptions"] >= 1 and m["resumes"] == m["preemptions"]
+        assert m["offload_bytes"] > 0 \
+            and m["onload_bytes"] == m["offload_bytes"]
+    assert ops.op_calls() == {}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16, "float32"])
+def test_cache_dtypes_resolve(workload, dtype):
+    sc = ServeConfig(kv_cache_dtype=dtype, **KNOBS).resolve(workload["cfg"])
+    assert sc.kv_cache_dtype == (torch.float32 if dtype == "float32"
+                                 else torch.bfloat16)
+    dense = ServeConfig(kv_layout="dense", kv_cache_dtype=dtype).resolve(
+        workload["cfg"])
+    assert dense.kv_cache_dtype == sc.kv_cache_dtype
+
+
 @pytest.mark.parametrize("config", [
     ServeConfig(shards=2),
     ServeConfig(replicas=2),
-    ServeConfig(kv_cache_dtype="bfloat16"),
-    ServeConfig(kv_layout="dense", kv_cache_dtype="bfloat16"),
+    ServeConfig(kv_cache_dtype="float16"),
+    ServeConfig(kv_layout="dense", kv_cache_dtype="float16"),
     ServeConfig(kv_layout="dense", replicas=2),
 ])
 def test_knobs_this_port_lacks_raise(workload, config):

@@ -323,7 +323,8 @@ def test_verify_window_logits_match_reference(pinned, fused):
     want = np.asarray(want)
 
     t = lambda a: torch.as_tensor(a)
-    tc = tlm.paged_init_caches(cfg, n_pages, ps, device="cpu")
+    tc = tlm.paged_init_caches(cfg, n_pages, ps, dtype=torch.float32,
+                               device="cpu")
     _, tc = tlm.lm_paged_step(pinned["params"], t(prompt), t(nv0) * 0,
                               t(bt), t(nv0), tc, cfg, CPU)
     tfn = tlm.lm_paged_fused_step if fused else tlm.lm_paged_verify
