@@ -19,7 +19,12 @@ Phases, each printing JSON lines:
               that crosses a page boundary, kernels 2 and 5 over bf16 pages
               (page sizes 32 and 16, up to 2048 tokens, each slot within
               BF16_ATTN_RTOL of its own peak), flash attention up to 2048
-              tokens; second launches bit-identical;
+              tokens; second launches bit-identical; then every shape the
+              four families of ``serve_families`` give the kernels:
+              spx_matmul at each (K, N) of their projections (N = 8 and
+              160, K = 128 among them) and every M their ticks give it,
+              kernels 2 and 5 at head_dim 128 with GQA ratios 1, 6 and 8,
+              flash attention at olmoe's heads;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, outputs against the
@@ -64,6 +69,20 @@ Phases, each printing JSON lines:
               per request as the path says, and no plain version may run;
               the last three give the paged engine's greedy tokens, or
               differ first where its top-2 logit gap is a near-tie;
+     serve_families  olmoe-1b-7b, xlstm-350m and qwen2-vl-2b at their
+              published widths and depths, and jamba-1.5-large at one
+              period (8 layers, d_model 2048; the cuts listed under
+              ``reduced``), built on the card from a seed and quantized to
+              sp2_4 one period at a time (expert stacks too), each
+              answering the 8 requests through ``ServeConfig()``: tokens
+              held to the same engine on the plain versions (a difference
+              only at a near-tie, E2E_RTOL); olmoe (capacity factor 64)
+              and xlstm also on the dense layout, held to the paged
+              tokens; xlstm with one injected preemption; one spx_matmul
+              launch per quantized projection in every model step and one
+              paged kernel per attention layer (none for xlstm); every
+              launch at a shape checked in phase 3; per family the
+              spx_matmul decode tick and the MoE experts' tick timed;
   6. e2e      full-width logits, kernels against plain versions: a prefill
               chunk and a fused tick (f32 and coded pages), a one-token
               chunk over coded pages, a dense prefill; greedy tokens
@@ -97,6 +116,7 @@ package is missing. The last line is the device record.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -183,8 +203,8 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
     # in a ragged K step, N = 10 packs 5-byte rows); the Q-network's
     # quantized layers (4, 64) and (64, 64) at one state and at 64, also
     # under pot4's 5-bit codebook (32 LUT entries, unpacked). Every
-    # (packed, LUT size, M, K, N) checked here is returned: the
-    # paper_experiments phase launches no other
+    # launch key (``_launch_key``: packed, LUT size, M, K, N) checked here
+    # is returned: the paper_experiments phase launches no other
     serve_m = (1, 3, 4, 8, 9, 37, 64, 65, 128, 256)
     mlp_m = serve_m + (1024, 2048)
     serve_shapes = ((2048, 2048, serve_m), (2048, 256, serve_m),
@@ -222,7 +242,8 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
                       "ok": ok})
                 require(ok, f"spx_matmul {scheme} M={m} K={k} N={n}")
                 worst["spx_matmul"] = max(worst["spx_matmul"], err)
-                checked.add((packed, lut.numel(), m, k, n))
+                checked.add(_launch_key("spx_matmul", (x, codes, scale, lut),
+                                        {"packed": packed}))
 
     # ragged decode at gemma-2b's head shapes: B=4, Hkv=1, rep=8, dh=256
     ps = planner.plan_kv_pages(256).page_size
@@ -843,7 +864,7 @@ ACC_FLOOR = 0.9
 ACC_TOL = {"sp2_8": 0.01, "spx_8_x3": 0.01, "sp2_4": 0.02, "pot4": 0.03}
 
 
-def paper_experiments_phase(torch, np, card: str, spx_checked: set) -> dict:
+def paper_experiments_phase(torch, np, card: str, checked: set) -> dict:
     """The paper's §4 experiments through the port's entry points, on the
     card: ``examples.quickstart`` (train the MLP for 4 epochs, then test
     accuracy per scheme), ``benchmarks.table1`` (time and energy per
@@ -853,40 +874,29 @@ def paper_experiments_phase(torch, np, card: str, spx_checked: set) -> dict:
     episodes, then the returns per scheme). Each is one run with the
     counts set to 0 just before and read just after: every quantized arm
     must launch ``spx_matmul`` and no plain version may run. Each launch's
-    (packed, LUT size, M, K, N) is recorded, and each must be one that
-    the kernel phase held against the plain version (``spx_checked``).
+    ``_launch_key`` (packed, LUT size, M, K, N) is recorded, and each must
+    be one that the kernel phase held against the plain version
+    (``checked``).
     Returns the launches of all five."""
     from repro_torch.benchmarks import fig5, quant_quality, table1
     from repro_torch.examples import quickstart, rl_qlearning
     from repro_torch.kernels import ops
-    from repro_torch.runtime import registry
 
     total: dict[str, int] = {}
-    _, kernel = registry.resolve("spx_matmul", "cuda", torch.device("cuda"))
-    shapes = set()
-
-    def recorded(x, codes, scale, lut, *, packed):
-        shapes.add((packed, lut.numel(), *x.shape, scale.numel()))
-        return kernel(x, codes, scale, lut, packed=packed)
 
     def run(name, fn):
         ops.reset_op_calls()
-        shapes.clear()
         t0 = time.perf_counter()
-        registry.register("spx_matmul", "cuda")(recorded)
-        try:
+        with _ShapeRecorder(torch) as shapes:
             result = fn()
-        finally:
-            registry.register("spx_matmul", "cuda")(kernel)
         torch.cuda.synchronize()
         launches, plain = ops.op_calls(), ops.ref_calls()
         require(launches.get("spx_matmul", 0) > 0,
                 f"{name}: spx_matmul never launched")
         require(not plain, f"{name}: plain versions ran on the card: "
                            f"{plain}")
-        unchecked = sorted(shapes - spx_checked)
-        require(not unchecked, f"{name}: spx_matmul launched at (packed, "
-                               f"LUT size, M, K, N) {unchecked}, which the "
+        unchecked = sorted(shapes - checked)
+        require(not unchecked, f"{name}: launched at {unchecked}, which the "
                                "kernel phase never held to the plain version")
         for op, n in launches.items():
             total[op] = total.get(op, 0) + n
@@ -1401,6 +1411,554 @@ def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
     return out
 
 
+# -- phase 5: the MoE, recurrent and M-RoPE families ---------------------------
+
+#: the spx_matmul (K, N) of every quantized projection of the four family
+#: configurations: olmoe's attention; xlstm's mLSTM (in_proj, q/k/v,
+#: w_gates, down_proj), sLSTM (w_in, out_proj) and the sLSTM slot's 4/3
+#: FFN; qwen2-vl's attention and FFN; jamba's attention, FFN and mamba
+#: (in_proj, x_proj, dt_proj, out_proj) at one period
+FAMILY_SPX_SHAPES = (
+    (2048, 2048),
+    (1024, 4096), (2048, 8), (2048, 1024), (1024, 1024), (1024, 1408),
+    (1408, 1024),
+    (1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),
+    (2048, 256), (2048, 6144), (6144, 2048), (2048, 8192), (4096, 160),
+    (128, 4096), (4096, 2048))
+#: the ops whose launches serve_families records with their shapes
+RECORDED_OPS = ("spx_matmul", "paged_decode_ragged", "paged_attention",
+                "flash_attention")
+
+
+def _family_configs() -> dict:
+    """name -> (ArchConfig, the cuts from the published config). Jamba
+    runs one period of its 72 layers at a cut width: the full model is
+    398B parameters, and one of its MoE layers alone (16 experts of
+    3 x 8192 x 24576) is 9.7B, 38.6 GB in f32 before quantization."""
+    from repro_torch.configs import get_config
+    jamba = get_config("jamba-1.5-large-398b")
+    cut = dict(n_layers=8, d_model=2048, n_heads=16, n_kv_heads=2,
+               d_ff=6144, ssm_dt_rank=128)
+    return {
+        "olmoe-1b-7b": (get_config("olmoe-1b-7b"), {}),
+        "xlstm-350m": (get_config("xlstm-350m"), {}),
+        "qwen2-vl-2b": (get_config("qwen2-vl-2b"), {}),
+        "jamba-1.5-large-398b": (
+            dataclasses.replace(jamba, **cut),
+            {k: f"{getattr(jamba, k)} -> {v}" for k, v in cut.items()}),
+    }
+
+
+def _launch_key(op: str, args, kw) -> tuple:
+    """What a kernel launch's shape is, as recorded and as checked."""
+    if op == "spx_matmul":
+        x, _, scale, lut = args
+        return (op, bool(kw["packed"]), lut.numel(), *x.shape,
+                scale.numel())
+    if op == "flash_attention":
+        q, k = args[:2]
+        return (op, tuple(q.shape), tuple(k.shape), bool(kw["causal"]))
+    q4, kp, _, bt = args[:4]
+    return (op, tuple(q4.shape), tuple(kp.shape[1:]), str(kp.dtype),
+            bt.shape[1], kw.get("w", 1))
+
+
+class _ShapeRecorder:
+    """Swap the registry's CUDA impl of every op in RECORDED_OPS for one
+    that records each launch's ``_launch_key``, and put them back on
+    exit."""
+
+    def __init__(self, torch):
+        from repro_torch.runtime import registry
+        self.registry = registry
+        self.saved = {op: registry.resolve(op, "cuda",
+                                           torch.device("cuda"))[1]
+                      for op in RECORDED_OPS}
+        self.keys: set = set()
+
+    def __enter__(self):
+        for op, fn in self.saved.items():
+            def recorded(*args, _op=op, _fn=fn, **kw):
+                self.keys.add(_launch_key(_op, args, kw))
+                return _fn(*args, **kw)
+            self.registry.register(op, "cuda")(recorded)
+        return self.keys
+
+    def __exit__(self, *exc):
+        for op, fn in self.saved.items():
+            self.registry.register(op, "cuda")(fn)
+
+
+def family_kernel_phase(torch, np) -> tuple[dict, set]:
+    """The shapes that the four families give the kernels, each held
+    against its plain version before serve_families launches it:
+    ``spx_matmul`` at every (K, N) of FAMILY_SPX_SHAPES (sp2_4, packed) and
+    every M the serving ticks give it (4 slots x the padded chunk, the
+    dense prefill's prompt lengths), the decode kernel (M <= 8) and the
+    tensor-core prefill kernel (M > 8) alike, N = 8 and N = 160 among
+    them; kernels 2 and 5 at head_dim 128 with GQA ratios 1, 6 and 8 on
+    the page size ``plan_kv_pages`` picks; flash attention at olmoe's
+    heads for its dense prefill. A second launch must be bit-identical.
+    Returns the worst errors and the checked launch keys."""
+    from repro_torch.core import spx
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    from repro_torch.runtime import planner
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    checked: set = set()
+    worst = {"spx_matmul": 0.0, "paged_decode_ragged": 0.0,
+             "paged_attention": 0.0, "flash_attention": 0.0}
+    configs = {name: cfg for name, (cfg, _) in _family_configs().items()}
+    lens, _ = _prompts(np, configs["olmoe-1b-7b"])
+    ms = sorted({4 * c for c in (1, 2, 4, 8, 16, 32)} | set(lens)
+                | {1, 9, 65, 256})
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device="cuda")
+    for k, n in FAMILY_SPX_SHAPES:
+        codes = torch.randint(0, lut.numel(), (k, n // 2), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        codes = (codes | (torch.randint_like(codes, 0, lut.numel()) << 4)) \
+            .to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
+        errs = {}
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            got = spx_matmul_cuda(x, codes, scale, lut, packed=True)
+            again = spx_matmul_cuda(x, codes, scale, lut, packed=True)
+            want = ref.spx_matmul_ref(x, codes, scale, lut, packed=True)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            peak = want.abs().max().item()
+            ok = bool(torch.isfinite(got).all()) \
+                and err <= SPX_RTOL * peak and bool(torch.equal(got, again))
+            require(ok, f"spx_matmul sp2_4 M={m} K={k} N={n}: err {err}, "
+                        f"peak {peak}")
+            errs[m] = err / peak
+            worst["spx_matmul"] = max(worst["spx_matmul"], err)
+            checked.add(_launch_key("spx_matmul", (x, codes, scale, lut),
+                                    {"packed": True}))
+        emit({"phase": "kernel", "kernel": "spx_matmul", "scheme": "sp2_4",
+              "for": "serve_families", "K": k, "N": n,
+              "max_rel_err_by_M": errs, "tol_rel": SPX_RTOL,
+              "bit_identical_rerun": True, "ok": True})
+
+    # (Hkv, rep, dh) of the attention families: olmoe (16, 1, 128),
+    # qwen2-vl (2, 6, 128), jamba (2, 8, 128); 4 slots of max_seq 256
+    heads = sorted({(c.n_kv_heads, c.n_heads // c.n_kv_heads, c.dh)
+                    for c in configs.values()
+                    if any(s.startswith("attn") for s in c.pattern)})
+    b, max_seq = 4, 256
+    for hkv, rep, dh in heads:
+        ps = planner.plan_kv_pages(dh).page_size
+        mp = -(-max_seq // ps)
+        n_pages = 1 + b * mp
+        kp, vp = _rand_pools(torch, gen, n_pages, hkv, ps, dh)
+        bt = torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+            :b * mp].reshape(b, mp).to(torch.int32) + 1
+        q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
+        ctx = torch.tensor([ps - 1, ps, ps + 1, 3 * ps + 7],
+                           dtype=torch.int32, device="cuda")
+        qn = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device="cuda")
+        ctx1 = torch.tensor([0, 1, ps, 2 * ps + 3], dtype=torch.int32,
+                            device="cuda")
+        for name, launch, plain, args in (
+                ("paged_decode_ragged",
+                 lambda *a: paged_decode_ragged_cuda(*a, w=1),
+                 lambda *a: ref.paged_decode_ragged_ref(*a, w=1),
+                 (q, kp, vp, bt, ctx, qn)),
+                ("paged_attention", paged_attention_cuda,
+                 ref.paged_attention_ref, (q, kp, vp, bt, ctx1))):
+            got, again, want = launch(*args), launch(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            zeros = bool((got[0] == 0).all())
+            ok = _attn_ok(torch, got, want) and zeros \
+                and bool(torch.equal(got, again))
+            emit({"phase": "kernel", "kernel": name, "for": "serve_families",
+                  "hkv": hkv, "rep": rep, "dh": dh, "page_size": ps,
+                  "max_pages": mp, "max_abs_err": err,
+                  "max_rel_err": err / want.abs().max().item(),
+                  "tol": f"{ATTN_TOL} * (1 + |plain|)",
+                  "empty_row_exact_zero": zeros, "bit_identical_rerun": True,
+                  "ok": ok})
+            require(ok, f"{name} hkv={hkv} rep={rep} dh={dh}")
+            worst[name] = max(worst[name], err)
+            checked.add(_launch_key(name, args, {"w": 1}))
+
+    # olmoe's dense prefill: one prompt, 16 heads over 16 KV heads
+    olmoe = configs["olmoe-1b-7b"]
+    hq, hkv, dh = olmoe.n_heads, olmoe.n_kv_heads, olmoe.dh
+    errs = {}
+    for s in sorted(set(lens)):
+        q = torch.randn((1, hq, s, dh), generator=gen, device="cuda")
+        k, v = (torch.randn((1, hkv, s, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        got = flash_attention_cuda(q, k, v, causal=True)
+        again = flash_attention_cuda(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True, q_chunk=s)
+        torch.cuda.synchronize()
+        errs[s] = (got - want).abs().max().item()
+        require(_attn_ok(torch, got, want) and bool(torch.equal(got, again)),
+                f"flash_attention olmoe heads S={s}")
+        checked.add(_launch_key("flash_attention", (q, k, v),
+                                {"causal": True}))
+    worst["flash_attention"] = max(errs.values())
+    emit({"phase": "kernel", "kernel": "flash_attention",
+          "for": "serve_families", "hq": hq, "hkv": hkv, "dh": dh,
+          "causal": True, "max_abs_err_by_len": errs,
+          "tol": f"{ATTN_TOL} * (1 + |plain|)", "bit_identical_rerun": True,
+          "ok": True})
+    ops.reset_op_calls()
+    return worst, checked
+
+
+def _stack_periods(torch, trees):
+    """Stack per-period param trees along a new leading (period) dim,
+    QuantizedTensors by their codes and scales."""
+    from repro_torch.core.quantized import QuantizedTensor
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_periods(torch, [t[k] for t in trees])
+                for k in first}
+    if isinstance(first, QuantizedTensor):
+        return QuantizedTensor(torch.stack([t.codes for t in trees]),
+                               torch.stack([t.scale for t in trees]),
+                               first.scheme, first.packed)
+    return torch.stack(trees)
+
+
+def _family_params(torch, cfg, seed: int) -> dict:
+    """Random weights from a seed on the card, each period's slots built
+    and quantized to sp2_4 before the next is drawn: olmoe-1b-7b is 27.7
+    GB in f32, and building every period before quantizing would hold
+    about twice that. Per-period quantization gives the stacked
+    quantization's codes and scales (each scale is per period, expert and
+    column)."""
+    from repro_torch.nn.layers import (dense_init, embedding_init,
+                                       norm_init, quantize_params)
+    from repro_torch.nn.transformer import _slot_init
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                      device="cuda"),
+              "final_norm": norm_init(cfg.norm, cfg.d_model,
+                                      device="cuda")}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                    device="cuda")
+    slots = []
+    for slot in cfg.pattern:
+        slots.append(_stack_periods(torch, [
+            quantize_params(_slot_init(gen, slot, cfg, torch.float32,
+                                       device="cuda"), "sp2_4")
+            for _ in range(cfg.n_periods)]))
+    params["stack"] = {"slots": slots}
+    return params
+
+
+def _projections(params) -> list:
+    """Every quantized projection of the stack: (slot, path, stacked
+    QuantizedTensor (P, K, N)). The MoE expert stacks are not among them:
+    they are dequantized, not multiplied through spx_matmul."""
+    from repro_torch.core.quantized import QuantizedTensor
+    from repro_torch.nn.layers import tree_map
+    out = []
+    for j, slot_p in enumerate(params["stack"]["slots"]):
+        def visit(path, leaf, j=j):
+            if isinstance(leaf, QuantizedTensor) and path[-1] == "w":
+                out.append((j, path, leaf))
+            return leaf
+        tree_map(visit, slot_p)
+    return out
+
+
+def _moe_layers(params) -> list:
+    """The MoE params of every MoE slot and period, sliced per period."""
+    from repro_torch.nn.layers import tree_index
+    out = []
+    for slot_p in params["stack"]["slots"]:
+        if "moe" in slot_p:
+            n = slot_p["moe"]["router"]["w"].shape[0]
+            out += [tree_index(slot_p["moe"], i) for i in range(n)]
+    return out
+
+
+def _family_timing(torch, cfg, params, m: int) -> dict:
+    """Per decode tick of ``m`` slots: ``spx_matmul`` over every quantized
+    projection (its kernel, its plain version, ``torch.matmul`` on the
+    dequantized weights, the bound), and the MoE experts of every MoE
+    layer (``moe_apply`` on m tokens: the dequantize of the stacked experts
+    and the batched products, the reference's library path)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    from repro_torch.nn.moe import moe_apply
+    from repro_torch.runtime import Runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    mats = [qt[i] for _, _, qt in _projections(params)
+            for i in range(qt.logical_shape[0])]
+    lut = mats[0].lut()
+    xs = {k: torch.randn((m, k), generator=gen, device="cuda")
+          for k in {qt.logical_shape[0] for qt in mats}}
+
+    def tick(fn):
+        def run():
+            for qt in mats:
+                k, n = qt.logical_shape
+                fn(xs[k], qt.codes, qt.scale.reshape(1, n), lut,
+                   packed=True)
+        return run
+
+    dense = [qt.dequantize() for qt in mats]
+
+    def library():
+        for w in dense:
+            torch.matmul(xs[w.shape[0]], w)
+
+    nbytes = flops = 0
+    for qt in mats:
+        k, n = qt.logical_shape
+        nbytes += m * k * 4 + k * n // 2 + n * 4 + 16 * 4 + m * n * 4
+        flops += 2 * m * k * n
+    row = {"per": f"decode tick: {len(mats)} launches, M={m}",
+           "ms": _time_ms(torch, tick(spx_matmul_cuda)),
+           "device_ms": _device_ms(torch, tick(spx_matmul_cuda),
+                                   ("spx_matmul_kernel",)),
+           "plain_ms": _time_ms(torch, tick(ref.spx_matmul_ref), reps=3),
+           "library_ms": _time_ms(torch, library),
+           "library_device_ms": _device_ms(torch, library, ("",)),
+           "library_call": "torch.matmul on pre-dequantized f32 weights",
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
+    del dense
+    out = {"spx_matmul": row}
+    moes = _moe_layers(params)
+    if moes:
+        rt = Runtime()
+        x = torch.randn((m, 1, cfg.d_model), generator=gen, device="cuda")
+
+        def experts():
+            for p in moes:
+                moe_apply(p, x, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                          capacity_factor=cfg.capacity_factor, rt=rt)
+
+        codes_bytes = sum(p[k].codes.numel() + p[k].scale.numel() * 4
+                          for p in moes for k in ("gate", "up", "down"))
+        out["moe_experts"] = {
+            "per": f"decode tick: {len(moes)} MoE layers, {m} tokens, "
+                   f"{cfg.n_experts} experts top-{cfg.top_k}",
+            "ms": _time_ms(torch, experts, reps=3),
+            "device_ms": _device_ms(torch, experts, ("",), reps=2),
+            "what": "moe_apply: router, dequantize of the stacked sp2_4 "
+                    "experts to f32, batched products, combine",
+            "codes_bytes": codes_bytes,
+            "codes_read_bound_ms": codes_bytes / HBM_BYTES_PER_S * 1e3}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_recorded(torch, np, eng, prompts, checked, name, *,
+                    preempt_after=None):
+    """Serve ``prompts`` on ``eng`` with every launch's shape recorded and
+    every model step's launches counted; each launch must be at a shape
+    the kernel phases checked. Returns (tokens, launches, plain calls,
+    metrics, step records, preempted rid)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+    records, restore = _record_steps(torch, ("lm_paged_step",
+                                             "lm_paged_fused_step"))
+    preempted = None
+    try:
+        with _ShapeRecorder(torch) as keys:
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_op_calls()
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p,
+                                   max_new_tokens=NEW_TOKENS))
+            if preempt_after is not None:
+                for _ in range(preempt_after):
+                    eng.step()
+                preempted = next(r.rid for r in eng.slot_req
+                                 if r is not None)
+                eng.preempt(preempted)
+            eng.run()
+            torch.cuda.synchronize()
+            launches, plain = ops.op_calls(), ops.ref_calls()
+    finally:
+        restore()
+    unchecked = sorted(keys - checked)
+    require(not unchecked, f"{name}: launches at shapes the kernel phases "
+                           f"never held to the plain version: {unchecked}")
+    tokens = {r.rid: list(r.output) for r in eng.finished}
+    return tokens, launches, plain, eng.metrics(), records, preempted
+
+
+def serve_families_phase(torch, np, card: str, checked: set) -> dict:
+    """olmoe-1b-7b, xlstm-350m and qwen2-vl-2b at their published widths
+    and depths, and jamba-1.5-large at one period, each built on the card
+    from a seeded generator and quantized to sp2_4 (expert stacks too),
+    each answering the serve phase's 8 greedy requests of 16 new tokens
+    with ``ServeEngine(params, cfg, ServeConfig())`` (paged, cb, 4 slots,
+    max_seq 256), one family at a time, each freed before the next.
+
+    Each family's tokens are held to the same engine on the plain versions
+    (``Runtime(impl="ref")``), a difference allowed only at a near-tie
+    (E2E_RTOL). olmoe and xlstm are also served on the dense layout, held
+    to the paged tokens; olmoe's pair runs at capacity_factor 64, as
+    ``reduced`` does: at the published 1.25 the experts drop assignments
+    by the batch's shape, and the reference's paged and dense layouts emit
+    different tokens (tests/test_torch_state_cache.py). xlstm takes one
+    injected preemption (its slab to the host and back). Every model step
+    launches one spx_matmul per quantized projection, and one paged kernel
+    per attention layer where the pattern has attention (none of xlstm's).
+    Returns, per family, its launches and the timing rows."""
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    out = {}
+    for name, (cfg, cuts) in _family_configs().items():
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = _family_params(torch, cfg, seed=len(out))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        peak_setup = torch.cuda.max_memory_allocated()
+        lens, prompts = _prompts(np, cfg)
+        n_attn = cfg.n_periods * sum(s.startswith("attn")
+                                     for s in cfg.pattern)
+        per_call = sum(qt.logical_shape[0]
+                       for _, _, qt in _projections(params))
+
+        eng = ServeEngine(params, cfg, ServeConfig())
+        slots = eng.batch_slots
+        gaps = _record_gaps(np, eng, E2E_RTOL)
+        tokens, launches, plain, m, records, _ = _serve_recorded(
+            torch, np, eng, prompts, checked, name)
+        peak_serve = torch.cuda.max_memory_allocated()
+        require(len(tokens) == N_REQUESTS,
+                f"{name}: {len(tokens)} of {N_REQUESTS} finished")
+        for rid, toks in tokens.items():
+            require(len(toks) == NEW_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in toks),
+                    f"{name}: request {rid}: bad output {toks}")
+        require(not plain, f"{name}: plain versions ran on the card: {plain}")
+        bad = [r for r in records if r[3].get("spx_matmul", 0) != per_call]
+        require(not bad, f"{name}: model steps without {per_call} "
+                         f"spx_matmul launches: {bad[:3]}")
+        ticks = [r for r in records if r[0] == "lm_paged_fused_step"]
+        one_token = [r for r in records if r[0] == "lm_paged_step"
+                     and r[1] == 1]
+        if n_attn:
+            require(ticks and all(r[3].get("paged_decode_ragged") == n_attn
+                                  for r in ticks),
+                    f"{name}: decode ticks without {n_attn} ragged launches")
+            require(one_token and all(r[3].get("paged_attention") == n_attn
+                                      for r in one_token),
+                    f"{name}: one-token chunks without {n_attn} "
+                    "paged_attention launches")
+        else:
+            require(not {"paged_decode_ragged", "paged_attention"}
+                    & set(launches), f"{name}: paged kernels launched "
+                                     f"on a pageless pattern: {launches}")
+        del eng
+        _free(torch)
+
+        ref_eng = ServeEngine(params, cfg, ServeConfig(),
+                              rt=Runtime(impl="ref"))
+        ref_gaps = _record_gaps(np, ref_eng, E2E_RTOL)
+        want, ref_launches, ref_plain, _ = _run_engine(torch, ref_eng,
+                                                       prompts)
+        del ref_eng
+        _free(torch)
+        require(not ref_launches and ref_plain,
+                f"{name}: the plain run launched {ref_launches}")
+        vs_plain = _near_tie_check(f"{name} kernels vs plain", tokens, want,
+                                   ref_gaps)
+        result = {"phase": "serve_families", "arch": name,
+                  "family": cfg.family, "pattern": list(cfg.pattern),
+                  "layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "vocab": cfg.vocab_size, "reduced": cuts,
+                  "config": "ServeConfig()", "card": card,
+                  "page_size": m["page_size"], "n_pages": m["n_pages"],
+                  "batch_slots": slots,
+                  "prompt_lens": lens, "requests_finished": len(tokens),
+                  "setup_s": setup_s, "tokens_per_s": m["tokens_per_s"],
+                  "ttft_p50_ms": m["ttft_p50_ms"],
+                  "latency_p50_ms": m["latency_p50_ms"],
+                  "wall_s": m["wall_s"], "model_calls": m["model_calls"],
+                  "peak_state_bytes": m["peak_state_bytes"],
+                  "peak_kv_bytes": m["peak_kv_bytes"],
+                  "peak_slabs": m["peak_slabs"],
+                  "slab_bytes_per_seq": m["slab_bytes_per_seq"],
+                  "max_memory_allocated_setup": peak_setup,
+                  "max_memory_allocated_serve": peak_serve,
+                  "launches": launches,
+                  "launches_per_model_step": {
+                      "spx_matmul": per_call,
+                      "paged_decode_ragged_per_decode_tick":
+                          n_attn if ticks else 0,
+                      "paged_attention_per_one_token_chunk":
+                          n_attn if one_token else 0},
+                  "model_steps": len(records),
+                  "tokens_vs_plain_versions": vs_plain,
+                  "near_tie_tol_rel": E2E_RTOL}
+
+        if name in ("olmoe-1b-7b", "xlstm-350m"):
+            pair_cfg = (dataclasses.replace(cfg, capacity_factor=64.0)
+                        if cfg.is_moe else cfg)
+            pair, pair_gaps = {}, {}
+            for layout in ("paged", "dense"):
+                e = ServeEngine(params, pair_cfg,
+                                ServeConfig(kv_layout=layout))
+                pair_gaps[layout] = _record_gaps(np, e, E2E_RTOL)
+                pair[layout], pair_launches, *_ = _serve_recorded(
+                    torch, np, e, prompts, checked, f"{name} {layout}")
+                del e
+                _free(torch)
+            if not cfg.is_moe:
+                require(pair["paged"] == tokens,
+                        f"{name}: the paged run is not repeatable")
+            result["paged_vs_dense"] = {
+                "capacity_factor": pair_cfg.capacity_factor
+                if cfg.is_moe else None,
+                "dense_launches": pair_launches,
+                **_near_tie_check(f"{name} dense vs paged", pair["dense"],
+                                  pair["paged"], pair_gaps["paged"])}
+        if name == "xlstm-350m":
+            e = ServeEngine(params, cfg, ServeConfig())
+            got, _, _, pm, _, rid = _serve_recorded(
+                torch, np, e, prompts, checked, f"{name} preempted",
+                preempt_after=3)
+            del e
+            _free(torch)
+            require(pm["preemptions"] >= 1 and pm["resumes"] >= 1
+                    and pm["offload_bytes"] > 0,
+                    f"{name}: preemption did not round-trip: {pm}")
+            result["preemption"] = {
+                "rid": rid, "preemptions": pm["preemptions"],
+                "resumes": pm["resumes"],
+                "offload_bytes": pm["offload_bytes"],
+                "onload_bytes": pm["onload_bytes"],
+                **_near_tie_check(f"{name} preempted vs paged", got, tokens,
+                                  gaps)}
+        result["timing"] = _family_timing(torch, cfg, params, 4)
+        emit(result)
+        out[name] = {"launches": launches, "timing": result["timing"]}
+        del params
+        _free(torch)
+    return out
+
+
+def _free(torch) -> None:
+    """Drop an engine's caches: it holds itself in a cycle once
+    ``_record_gaps`` wrapped its methods."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 #: logits: |cuda - plain| <= E2E_RTOL * max|plain logits|. 18 layers of f32
@@ -1438,6 +1996,8 @@ def e2e_phase(torch, np, eng) -> None:
     ctx0 = torch.zeros(b, dtype=torch.int32, device="cuda")
     nv = torch.tensor([32, 20, 1, 0][:b], dtype=torch.int32, device="cuda")
     act = (nv > 0).to(torch.int32)
+    # (slab, cross) indices: the sentinels, no region of either kind
+    sidx = torch.zeros((b, 2), dtype=torch.int32, device="cuda")
     # f32 pages: a prefill chunk, then a fused tick; coded pages: the same
     # and then a one-token chunk (the single-token quantized kernel). The
     # coded pages run on the dequantized weights: both arms then project
@@ -1459,15 +2019,15 @@ def e2e_phase(torch, np, eng) -> None:
                                               kv_quant=kv_quant,
                                               device="cuda")
             pre, caches = lm_mod.lm_paged_step(params, tokens, ctx0, bt,
-                                               nv, caches, cfg, rt)
+                                               nv, sidx, caches, cfg, rt)
             nxt = pre.argmax(-1)[:, None]
             fused, caches = lm_mod.lm_paged_fused_step(
-                params, nxt, nv, bt, act, caches, cfg, rt)
+                params, nxt, nv, bt, act, sidx, caches, cfg, rt)
             out[impl] = [pre, fused]
             if kv_quant:
                 one, _ = lm_mod.lm_paged_step(
-                    params, fused.argmax(-1), nv + act, bt, act, caches,
-                    cfg, rt)
+                    params, fused.argmax(-1), nv + act, bt, act, sidx,
+                    caches, cfg, rt)
                 out[impl].append(one)
         torch.cuda.synchronize()
         for i, name in enumerate(("prefill_chunk", "fused_tick",
@@ -1702,7 +2262,7 @@ def _f32_bound_ms(nbytes: float, flops: float) -> float:
 
 
 def timing_phase(torch, np, eng, launches, new_launches, worst,
-                 mlp) -> list:
+                 mlp, families) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -1819,6 +2379,10 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
         for name, qt in layers[0].items()}
     del dense
     spx["paper_mlp_by_M"] = _paper_mlp_timing(torch, gen, mlp["params"])
+    # the families' decode ticks, timed in serve_families while each
+    # family's weights were on the card
+    spx["decode_tick_by_family"] = {
+        name: f["timing"]["spx_matmul"] for name, f in families.items()}
 
     # attention at the decode shapes: 4 slots, gemma-2b heads, pools of
     # every layer, each slot 48 tokens into its sequence
@@ -1927,7 +2491,9 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     # experiments (counts set to 0 before each and read after it)
     by_path = {"paged": launches, **new_launches,
                "paper_mlp": {"spx_matmul": mlp["launches"]},
-               "paper_experiments": mlp["experiments"]}
+               "paper_experiments": mlp["experiments"],
+               **{f"serve_families {name}": f["launches"]
+                  for name, f in families.items()}}
     rows = []
     for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
                   bf16_one):
@@ -2458,11 +3024,17 @@ def main() -> int:
         emit({"phase": "build", "seconds": cuda_lib.build_all(),
               "dir": str(cuda_lib.build_dir()),
               "tensor_core_instructions": _sass_counts(cuda_lib)})
-        worst, spx_checked = kernel_phase(torch, np)
+        worst, checked = kernel_phase(torch, np)
+        fam_worst, fam_checked = family_kernel_phase(torch, np)
+        for name, err in fam_worst.items():
+            worst[name] = max(worst[name], err)
+        checked |= fam_checked
+        families = serve_families_phase(torch, np, info["nvidia_smi"],
+                                        checked)
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
         mlp["experiments"] = paper_experiments_phase(
-            torch, np, info["nvidia_smi"], spx_checked)
+            torch, np, info["nvidia_smi"], checked)
         eng, launches, paged_m, paged_tokens = serve_phase(torch, np)
         new_launches = serve_new_paths_phase(torch, np, eng.params)
         new_launches.update(serve_modes_phase(torch, np, eng.params,
@@ -2472,7 +3044,7 @@ def main() -> int:
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,
-                            mlp)
+                            mlp, families)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

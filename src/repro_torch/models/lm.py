@@ -1,14 +1,15 @@
 """Decoder-only language model: init, the full-sequence forward
 (``lm_logits``), the dense serving path (``lm_prefill`` of a whole prompt
 into per-slot caches, ``lm_decode_step``), the paged prefill/decode step,
-the speculative verify window, the fused decode tick, and the page copies
-the serving engine's copy-on-write and preemption use. Dense
-(``attn+dense``) patterns only.
+the speculative verify window, the fused decode tick, and the page and
+slab copies the serving engine's copy-on-write, preemption and admission
+use. Dense, MoE, recurrent (xLSTM), hybrid (Jamba) and M-RoPE (Qwen2-VL)
+patterns; not the encoder-decoder family.
 
 Caches and page pools (bf16 by default as in the reference, f32 when asked
-for, or SPx codes + f32 scales when quantized) are updated in place; the
-step functions still return ``(logits, caches)`` so callers read like the
-reference.
+for, or SPx codes + f32 scales when quantized; recurrent states f32) are
+updated in place; the step functions still return ``(logits, caches)`` so
+callers read like the reference.
 """
 from __future__ import annotations
 
@@ -27,8 +28,12 @@ from repro_torch.runtime import Runtime, resolve_device
 __all__ = ["lm_init", "lm_logits", "init_caches", "lm_prefill",
            "lm_decode_step", "paged_init_caches", "lm_paged_step",
            "lm_paged_verify", "lm_paged_fused_step", "paged_copy_page",
-           "paged_gather_pages", "paged_scatter_pages"]
+           "paged_gather_pages", "paged_scatter_pages",
+           "paged_gather_slabs", "paged_scatter_slabs", "paged_reset_slabs"]
 
+#: leaf keys of the token-page region; every other leaf of a slot's
+#: state-cache region is slab state (the reference's ``_CROSS_KEYS``
+#: region has no slot kind in this port)
 _PAGE_KEYS = ("kp", "vp")
 
 
@@ -58,8 +63,14 @@ def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["head"]["w"].to(h.dtype))
 
 
-def _default_positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, device=device).expand(b, s)
+def _default_positions(cfg: ArchConfig, b: int, s: int,
+                       device) -> torch.Tensor:
+    """(B, S) token positions; for M-RoPE the three streams of text
+    tokens, each the token index: (B, 3, S)."""
+    pos = torch.arange(s, device=device).expand(b, s)
+    if cfg.mrope_sections is not None:
+        return pos[:, None, :].expand(b, 3, s)
+    return pos
 
 
 def _backbone(params, cfg: ArchConfig, tokens, positions, rt: Runtime):
@@ -72,7 +83,7 @@ def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):
     """Full-sequence logits (B, S, V) of tokens (B, S) (small-model and
     test use)."""
     if positions is None:
-        positions = _default_positions(*tokens.shape, tokens.device)
+        positions = _default_positions(cfg, *tokens.shape, tokens.device)
     h, _ = _backbone(params, cfg, tokens, positions, rt)
     return _head(params, cfg, h)
 
@@ -82,8 +93,9 @@ def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, kv_quant: bool = False,
                 device=None) -> list:
-    """Dense per-slot K/V caches for every slot in the pattern, on
-    ``device`` (``cuda`` unless the caller asks for another)."""
+    """Dense per-slot serving state for every slot in the pattern (K/V
+    caches, recurrent states), on ``device`` (``cuda`` unless the caller
+    asks for another)."""
     device = resolve_device(device)
     return [slot_init_cache(slot, cfg, batch, max_seq, dtype,
                             kv_quant=kv_quant, device=device)
@@ -93,10 +105,12 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 def lm_prefill(params, tokens, caches, cfg: ArchConfig, rt: Runtime,
                positions=None):
     """Run the prompt tokens (B, S) through the stack, write its K/V into
-    positions [0, S) of ``caches`` (in place), and return the last
-    position's logits (B, V) and the caches."""
+    positions [0, S) of ``caches`` and each recurrent slot's final state
+    (in place), and return the last position's logits (B, V) and the
+    caches."""
     if positions is None:
-        positions = _default_positions(*tokens.shape[:2], tokens.device)
+        positions = _default_positions(cfg, *tokens.shape[:2],
+                                       tokens.device)
     x = embedding_apply(params["embed"], tokens)
     h, caches, _ = stack_prefill(params["stack"], x, positions, cfg, rt,
                                  caches)
@@ -119,37 +133,47 @@ def lm_decode_step(params, token, pos, caches, cfg: ArchConfig,
 
 def paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       dtype=torch.bfloat16, kv_quant: bool = False,
-                      device=None) -> list:
-    """K/V page pools for every slot in the pattern, on ``device``
-    (``cuda`` unless the caller asks for another): values of ``dtype``
-    (bf16 unless asked for f32), or codes + scale dicts when ``kv_quant``
-    (scheme from ``Runtime.kv_scheme`` at step time)."""
+                      n_slabs: int = 0, device=None) -> list:
+    """The state-cache regions of every slot in the pattern, on ``device``
+    (``cuda`` unless the caller asks for another): K/V page pools for
+    attention slots — values of ``dtype`` (bf16 unless asked for f32), or
+    codes + scale dicts when ``kv_quant`` (scheme from
+    ``Runtime.kv_scheme`` at step time) — and ``n_slabs`` recurrent-state
+    slabs for recurrent slots."""
     device = resolve_device(device)
     return [slot_init_paged_cache(slot, cfg, n_pages, page_size, dtype,
-                                  kv_quant=kv_quant, device=device)
+                                  kv_quant=kv_quant, n_slabs=n_slabs,
+                                  device=device)
             for slot in cfg.pattern]
 
 
-def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, caches,
-                  cfg: ArchConfig, rt: Runtime):
+def _slab_keys(slot_cache: dict) -> list:
+    return [k for k in slot_cache if k not in _PAGE_KEYS]
+
+
+def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,
+                  caches, cfg: ArchConfig, rt: Runtime):
     """One paged engine step: the next C tokens of each sequence — a
     prefill chunk (C > 1) or a decode step (C == 1).
 
     tokens: (B, C) int (rows may be padded past ``n_valid``); ctx_len:
     (B,) tokens already in the pages; block_table: (B, max_pages);
-    n_valid: (B,) valid tokens in this chunk (0 = inactive row). Returns
-    (logits (B, V) at each row's last valid position, caches)."""
+    n_valid: (B,) valid tokens in this chunk (0 = inactive row);
+    state_idx: (B, 2) each row's (slab, cross) index, the out-of-range
+    sentinels for rows without one (all-sentinel for attention-only
+    patterns). Returns (logits (B, V) at each row's last valid position,
+    caches)."""
     x = embedding_apply(params["embed"], tokens)
     h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, cfg, rt, caches)
+                            n_valid, state_idx, cfg, rt, caches)
     h = norm_apply(cfg.norm, params["final_norm"], h)
     last = torch.clamp(n_valid.long() - 1, 0, tokens.shape[1] - 1)
     h_last = h[torch.arange(h.shape[0], device=h.device), last]
     return _head(params, cfg, h_last), caches
 
 
-def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid, caches,
-                    cfg: ArchConfig, rt: Runtime):
+def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid,
+                    state_idx, caches, cfg: ArchConfig, rt: Runtime):
     """Score a speculation window in one paged forward pass (the unfused
     verify step; serving/spec.py has the drafter). Same contract as
     ``lm_paged_step`` — tokens (B, C) is the pending token plus up to C-1
@@ -161,13 +185,13 @@ def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid, caches,
     never read."""
     x = embedding_apply(params["embed"], tokens)
     h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, cfg, rt, caches)
+                            n_valid, state_idx, cfg, rt, caches)
     h = norm_apply(cfg.norm, params["final_norm"], h)
     return _head(params, cfg, h), caches
 
 
 def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
-                        caches, cfg: ArchConfig, rt: Runtime):
+                        state_idx, caches, cfg: ArchConfig, rt: Runtime):
     """One fused decode tick, plain decode (W == 1) and the speculative
     verify window (W == spec_k + 1) alike: every layer's attention is ONE
     ``paged_decode_ragged`` launch over the batch's ragged (slot,
@@ -177,7 +201,7 @@ def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
     never read."""
     x = embedding_apply(params["embed"], tokens)
     h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, cfg, rt, caches, fused=True)
+                            n_valid, state_idx, cfg, rt, caches, fused=True)
     h = norm_apply(cfg.norm, params["final_norm"], h)
     return _head(params, cfg, h), caches
 
@@ -187,7 +211,7 @@ def paged_copy_page(caches, src: int, dst: int):
     pool leaf (codes and scales of a quantized pool), in place."""
     for slot_cache in caches:
         for k in _PAGE_KEYS:
-            for leaf in tree_leaves(slot_cache[k]):
+            for leaf in tree_leaves(slot_cache.get(k, {})):
                 leaf[:, dst] = leaf[:, src]
     return caches
 
@@ -195,10 +219,12 @@ def paged_copy_page(caches, src: int, dst: int):
 def paged_gather_pages(caches, pages: torch.Tensor) -> list:
     """Whole physical pages across every pool leaf: the preemption
     snapshot. Each (P, n_pages, Hkv, ps, w) leaf yields (P, n, Hkv, ps,
-    w); quantized pools keep their codes + scale structure."""
+    w); quantized pools keep their codes + scale structure. Slab leaves
+    are left out (``paged_gather_slabs``): one dict per slot, empty for
+    recurrent slots."""
     idx = pages.long()
     return [{k: tree_map(lambda _, leaf: leaf[:, idx], slot_cache[k])
-             for k in _PAGE_KEYS}
+             for k in _PAGE_KEYS if k in slot_cache}
             for slot_cache in caches]
 
 
@@ -207,9 +233,38 @@ def paged_scatter_pages(caches, pages: torch.Tensor, payload):
     of ``paged_gather_pages``."""
     idx = pages.long()
     for slot_cache, pay in zip(caches, payload):
-        for k in _PAGE_KEYS:
+        for k in pay:
             for leaf, val in zip(tree_leaves(slot_cache[k]),
                                  tree_leaves(pay[k])):
                 leaf[:, idx] = torch.as_tensor(val).to(leaf.device,
                                                        leaf.dtype)
+    return caches
+
+
+def paged_gather_slabs(caches, slab: int) -> list:
+    """One slab's recurrent state across every recurrent slot, copied:
+    each (P, n_slabs, ...) slab leaf yields (P, ...). One dict per slot,
+    empty for attention slots."""
+    return [{k: slot_cache[k][:, slab].clone() for k in _slab_keys(slot_cache)}
+            for slot_cache in caches]
+
+
+def paged_scatter_slabs(caches, slab: int, payload):
+    """Write a snapshotted slab back, in place — the inverse of
+    ``paged_gather_slabs``, possibly into another slab index than the one
+    it was taken from."""
+    for slot_cache, pay in zip(caches, payload):
+        for k, val in pay.items():
+            leaf = slot_cache[k]
+            leaf[:, slab] = torch.as_tensor(val).to(leaf.device, leaf.dtype)
+    return caches
+
+
+def paged_reset_slabs(caches, slab: int):
+    """Zero one slab across every recurrent slot, in place: a fresh
+    sequence starts from the zero state, and a recycled slab still holds
+    its previous owner's."""
+    for slot_cache in caches:
+        for k in _slab_keys(slot_cache):
+            slot_cache[k][:, slab] = 0
     return caches

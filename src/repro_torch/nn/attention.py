@@ -22,7 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.runtime import Runtime
 
 from .layers import dense_apply, dense_init
-from .rotary import apply_rope
+from .rotary import apply_mrope, apply_rope
 
 __all__ = ["attn_init", "attn_apply_dense", "attention_core",
            "decode_attention", "attn_decode_step", "paged_kv_write",
@@ -55,12 +55,23 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt):
 
 
 def _apply_positional(q, k, positions, rope_theta, mrope_sections):
+    """RoPE over (B, S) positions, or M-RoPE over (B, 3, S) streams."""
     if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet (ROADMAP.md: the other "
-            "architecture families)")
+        return (apply_mrope(q, positions, sections=mrope_sections,
+                            theta=rope_theta),
+                apply_mrope(k, positions, sections=mrope_sections,
+                            theta=rope_theta))
     return (apply_rope(q, positions, theta=rope_theta),
             apply_rope(k, positions, theta=rope_theta))
+
+
+def _text_positions(positions, mrope_sections):
+    """(B, S) token positions, or for M-RoPE the three streams of a text
+    token, each the token index: (B, 3, S)."""
+    if mrope_sections is None:
+        return positions
+    b, s = positions.shape
+    return positions[:, None, :].expand(b, 3, s)
 
 
 # -- dense forward (train / prefill) ------------------------------------------
@@ -214,8 +225,9 @@ def attn_decode_step(p: dict, x: torch.Tensor, pos, kv_cache: tuple, *,
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                (b,)).long()
-    q, k = _apply_positional(q, k, pos_b[:, None], rope_theta,
-                             mrope_sections)
+    q, k = _apply_positional(q, k,
+                             _text_positions(pos_b[:, None], mrope_sections),
+                             rope_theta, mrope_sections)
     k_cache, v_cache = kv_cache
     out, k_cache, v_cache = decode_attention(
         q[:, 0], k_cache, v_cache, k[:, 0], v[:, 0], pos_b, rt=rt)
@@ -329,7 +341,9 @@ def attn_paged_step(p: dict, x: torch.Tensor, ctx_len: torch.Tensor,
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     positions = ctx_len[:, None] + torch.arange(c, dtype=ctx_len.dtype,
                                                 device=x.device)
-    q, k = _apply_positional(q, k, positions, rope_theta, mrope_sections)
+    # rotated before the page write, so the kernels need no positions
+    q, k = _apply_positional(q, k, _text_positions(positions, mrope_sections),
+                             rope_theta, mrope_sections)
     valid = torch.arange(c, device=x.device)[None, :] < n_valid[:, None]
     kp, vp = paged_kv_write(cache["kp"], cache["vp"], k, v, block_table,
                             positions, valid, kv_scheme=rt.kv_scheme)

@@ -1,14 +1,18 @@
 """Block assembly and the loop over periods.
 
-An architecture is a repeating *pattern* of slots (ArchConfig.pattern).
-Parameters for each slot are stacked over periods (leading P dim), as in
-the reference; the reference's ``lax.scan`` over periods becomes a Python
-loop that slices period ``i`` out of every leaf (caches included: their
-slices are views, written in place). One slot dispatcher serves four
-modes: ``train`` (full-sequence forward), ``prefill`` (forward that writes
-the prompt's K/V into a dense per-slot cache), ``decode`` (one token
-against that cache) and ``paged`` (serving over the page pools). This port
-runs the ``attn+dense`` slot; other slot kinds raise.
+An architecture is a repeating *pattern* of slots (ArchConfig.pattern):
+a mixer (``attn``, ``mamba``, ``mlstm`` or ``slstm``), optionally with an
+FFN (``+dense`` or ``+moe``). Parameters for each slot are stacked over
+periods (leading P dim), as in the reference; the reference's ``lax.scan``
+over periods becomes a Python loop that slices period ``i`` out of every
+leaf (caches included: their slices are views, written in place). One
+slot dispatcher serves four modes: ``train`` (full-sequence forward),
+``prefill`` (the forward that also writes each slot's serving state: the
+prompt's K/V into a dense per-slot cache, a recurrent mixer's final
+state), ``decode`` (one token against that state) and ``paged`` (serving
+over the state cache: attention slots read and write token pages,
+recurrent slots their row of the slab region). The decoder cross-attention
+slot ``xdec`` (whisper) is not in this port and raises.
 """
 from __future__ import annotations
 
@@ -17,39 +21,66 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime
 
+from . import ssm
 from .attention import (attn_apply_dense, attn_decode_step, attn_init,
                         attn_paged_step, quantize_kv)
 from .layers import norm_apply, norm_init, tree_index
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply, moe_init
 
 __all__ = ["stack_init", "stack_apply", "stack_prefill", "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
-           "SUPPORTED_SLOTS"]
+           "SLOT_KINDS"]
 
-#: slot kinds this port serves
-SUPPORTED_SLOTS = ("attn+dense",)
+SLOT_KINDS = ("attn", "xdec", "mamba", "mlstm", "slstm")
+#: mixers whose serving state is a per-sequence slab
+SLAB_MIXERS = ("mamba", "mlstm", "slstm")
 
 
-def _check_slot(slot: str) -> None:
-    if slot not in SUPPORTED_SLOTS:
+def _parse_slot(slot: str):
+    parts = slot.split("+")
+    mixer = parts[0]
+    ffn = parts[1] if len(parts) > 1 else None
+    if mixer not in SLOT_KINDS:
+        raise ValueError(f"unknown slot {slot!r}")
+    if mixer == "xdec":
         raise NotImplementedError(
-            f"slot {slot!r} is not ported yet (this port serves "
-            f"{SUPPORTED_SLOTS}; ROADMAP.md: the other architecture "
-            "families)")
+            f"slot {slot!r} (decoder cross-attention) is not ported yet "
+            "(ROADMAP.md: the encoder-decoder family)")
+    return mixer, ffn
 
 
 def _slot_init(gen: torch.Generator, slot: str, cfg: ArchConfig, dtype,
                device) -> dict:
-    _check_slot(slot)
+    mixer, ffn = _parse_slot(slot)
     d = cfg.d_model
-    return {
-        "norm1": norm_init(cfg.norm, d, dtype, device),
-        "attn": attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
-                          qkv_bias=cfg.qkv_bias, dtype=dtype, device=device),
-        "norm2": norm_init(cfg.norm, d, dtype, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, variant=cfg.mlp_variant,
-                        act=cfg.act, dtype=dtype, device=device),
-    }
+    kw = dict(dtype=dtype, device=device)
+    p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
+    if mixer == "attn":
+        p["attn"] = attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+                              qkv_bias=cfg.qkv_bias, **kw)
+    elif mixer == "mamba":
+        p["mamba"] = ssm.mamba_init(
+            gen, d, d_state=cfg.ssm_d_state, d_conv=cfg.ssm_d_conv,
+            expand=cfg.ssm_expand, dt_rank=cfg.ssm_dt_rank or None, **kw)
+    elif mixer == "mlstm":
+        p["mlstm"] = ssm.mlstm_init(gen, d, n_heads=cfg.lstm_heads,
+                                    expand=cfg.ssm_expand,
+                                    d_conv=cfg.ssm_d_conv, **kw)
+    elif mixer == "slstm":
+        p["slstm"] = ssm.slstm_init(gen, d, n_heads=cfg.lstm_heads, **kw)
+    if ffn == "dense":
+        p["norm2"] = norm_init(cfg.norm, d, dtype, device)
+        # d_ff = 0 (xLSTM): the sLSTM slot's FFN takes a 4/3 expansion,
+        # rounded up to a multiple of 128
+        d_ff = cfg.d_ff or ((4 * d // 3 + 127) // 128 * 128)
+        p["mlp"] = mlp_init(gen, d, d_ff, variant=cfg.mlp_variant,
+                            act=cfg.act, **kw)
+    elif ffn == "moe":
+        p["norm2"] = norm_init(cfg.norm, d, dtype, device)
+        p["moe"] = moe_init(gen, d, cfg.d_ff, cfg.n_experts,
+                            n_shared=cfg.n_shared_experts, **kw)
+    return p
 
 
 def _stack(trees: list):
@@ -85,38 +116,107 @@ def _write_prefix(cache, val, rt: Runtime) -> None:
         cache[:, :, :s] = val.to(cache.dtype)
 
 
+def _write_state(cache: dict, state: dict) -> None:
+    """Copy a recurrent mixer's new state into its dense cache, in place."""
+    for k, leaf in cache.items():
+        leaf.copy_(state[k].to(leaf.dtype))
+
+
+def _slab_step(cache: dict, state_idx, rows, step_fn):
+    """Run a recurrent mixer's paged step against the slab region: gather
+    each row's slab (``state_idx[:, 0]``, clamped where it is the sentinel),
+    step, and write the new state back for ``rows`` only — the rows with
+    ``n_valid > 0`` and a real slab. Every other slab stays bit-identical.
+    ``cache``: the slot's slab leaves, (n_slabs, ...) views."""
+    slab_idx = state_idx[:, 0].long()
+    n_slabs = next(iter(cache.values())).shape[0]
+    safe = torch.clamp(slab_idx, 0, max(n_slabs - 1, 0))
+    y, new = step_fn({k: leaf[safe] for k, leaf in cache.items()})
+    dst = slab_idx[rows]
+    for k, leaf in cache.items():
+        leaf[dst] = new[k][rows].to(leaf.dtype)
+    return y, cache
+
+
+_PAGED_STEPS = {"mamba": ssm.mamba_paged_step, "mlstm": ssm.mlstm_paged_step,
+                "slstm": ssm.slstm_paged_step}
+_DECODE_STEPS = {"mamba": ssm.mamba_decode_step,
+                 "mlstm": ssm.mlstm_decode_step,
+                 "slstm": ssm.slstm_decode_step}
+_APPLIES = {"mamba": ssm.mamba_apply, "mlstm": ssm.mlstm_apply,
+            "slstm": ssm.slstm_apply}
+
+
+def _recurrent(slot_p, h, cfg: ArchConfig, rt: Runtime, mixer: str, *,
+               mode: str, cache, paged_ctx):
+    """A recurrent mixer in one of the four modes. Returns (y, cache)."""
+    kw = dict(rt=rt)
+    if mixer == "mlstm":
+        kw["n_heads"] = cfg.lstm_heads
+    if mode == "paged":
+        _, _, n_valid, state_idx, rows = paged_ctx
+        return _slab_step(cache, state_idx, rows,
+                          lambda st: _PAGED_STEPS[mixer](slot_p, h, st,
+                                                         n_valid, **kw))
+    if mode == "decode":
+        y, new = _DECODE_STEPS[mixer](slot_p, h, cache, **kw)
+        _write_state(cache, new)
+        return y, cache
+    if mode == "prefill":
+        # from the zero state, as the reference's prefill
+        y, new = _APPLIES[mixer](slot_p, h, return_state=True, **kw)
+        _write_state(cache, new)
+        return y, cache
+    return _APPLIES[mixer](slot_p, h, **kw), cache
+
+
 def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                 rt: Runtime, *, mode: str, cache=None, pos=None,
                 causal: bool = True, paged_ctx=None, fused: bool = False):
     """One slot (the reference's ``_slot_apply``). mode: 'train' |
     'prefill' | 'decode' | 'paged'. Paged mode takes ``paged_ctx =
-    (ctx_len, block_table, n_valid)``. Returns (x, cache)."""
-    _check_slot(slot)
-    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                 head_dim=cfg.dh, rope_theta=cfg.rope_theta,
-                 mrope_sections=cfg.mrope_sections, rt=rt)
+    (ctx_len, block_table, n_valid, state_idx, slab_rows)``. Returns
+    (x, cache, aux) with aux the MoE load-balance loss (0 elsewhere)."""
+    mixer, ffn = _parse_slot(slot)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, p["norm1"], x)
-    if mode == "paged":
-        ctx_len, block_table, n_valid = paged_ctx
-        y, cache = attn_paged_step(p["attn"], h, ctx_len, block_table, cache,
-                                   n_valid=n_valid, fused=fused, **heads)
-    elif mode == "decode":
-        y, (k, v) = attn_decode_step(p["attn"], h, pos,
-                                     (cache["k"], cache["v"]), **heads)
-        cache = dict(cache, k=k, v=v)
-    elif mode == "prefill":
-        y, (k, v) = attn_apply_dense(p["attn"], h, positions, causal=causal,
-                                     kv_out=True, **heads)
-        # (B, S, Hkv, dh) -> the cache's (B, Hkv, S, dh) layout
-        _write_prefix(cache["k"], k.transpose(1, 2), rt)
-        _write_prefix(cache["v"], v.transpose(1, 2), rt)
+    if mixer == "attn":
+        heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                     head_dim=cfg.dh, rope_theta=cfg.rope_theta,
+                     mrope_sections=cfg.mrope_sections, rt=rt)
+        if mode == "paged":
+            ctx_len, block_table, n_valid = paged_ctx[:3]
+            y, cache = attn_paged_step(p["attn"], h, ctx_len, block_table,
+                                       cache, n_valid=n_valid, fused=fused,
+                                       **heads)
+        elif mode == "decode":
+            y, (k, v) = attn_decode_step(p["attn"], h, pos,
+                                         (cache["k"], cache["v"]), **heads)
+            cache = dict(cache, k=k, v=v)
+        elif mode == "prefill":
+            y, (k, v) = attn_apply_dense(p["attn"], h, positions,
+                                         causal=causal, kv_out=True, **heads)
+            # (B, S, Hkv, dh) -> the cache's (B, Hkv, S, dh) layout
+            _write_prefix(cache["k"], k.transpose(1, 2), rt)
+            _write_prefix(cache["v"], v.transpose(1, 2), rt)
+        else:
+            y = attn_apply_dense(p["attn"], h, positions, causal=causal,
+                                 **heads)
     else:
-        y = attn_apply_dense(p["attn"], h, positions, causal=causal, **heads)
+        y, cache = _recurrent(p[mixer], h, cfg, rt, mixer, mode=mode,
+                              cache=cache, paged_ctx=paged_ctx)
     x = x + y
-    h = norm_apply(cfg.norm, p["norm2"], x)
-    x = x + mlp_apply(p["mlp"], h, variant=cfg.mlp_variant, act=cfg.act,
-                      rt=rt)
-    return x, cache
+    if ffn == "dense":
+        h = norm_apply(cfg.norm, p["norm2"], x)
+        x = x + mlp_apply(p["mlp"], h, variant=cfg.mlp_variant, act=cfg.act,
+                          rt=rt)
+    elif ffn == "moe":
+        h = norm_apply(cfg.norm, p["norm2"], x)
+        y, aux = moe_apply(p["moe"], h, top_k=cfg.top_k,
+                           n_experts=cfg.n_experts,
+                           capacity_factor=cfg.capacity_factor, rt=rt)
+        x = x + y
+    return x, cache, aux
 
 
 def _periods(params: dict, cfg: ArchConfig, caches=None):
@@ -130,23 +230,28 @@ def _periods(params: dict, cfg: ArchConfig, caches=None):
 
 def stack_apply(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
                 rt: Runtime, causal: bool = True):
-    """Train-mode stack (forward only). Returns (x, aux) with aux the
-    reference's auxiliary-loss sum, 0 for ``attn+dense``."""
+    """Train-mode stack (forward only). Returns (x, aux) with aux the sum
+    of the MoE load-balance losses."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for slot, sp, _ in _periods(params, cfg):
-        x, _ = _slot_apply(slot, sp, x, positions, cfg, rt, mode="train",
-                           causal=causal)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt, mode="train",
+                              causal=causal)
+        aux = aux + a
+    return x, aux
 
 
 def stack_prefill(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
                   rt: Runtime, caches):
-    """Prefill: the train-mode forward that also writes each layer's K/V
-    prefix into the pre-allocated dense ``caches`` (in place). Returns
-    (x, caches, aux)."""
+    """Prefill: the train-mode forward that also writes each slot's
+    serving state into the pre-allocated dense ``caches`` (in place): the
+    K/V prefix of attention slots, the final state of recurrent ones.
+    Returns (x, caches, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for slot, sp, cache in _periods(params, cfg, caches):
-        x, _ = _slot_apply(slot, sp, x, positions, cfg, rt, mode="prefill",
-                           cache=cache)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt,
+                              mode="prefill", cache=cache)
+        aux = aux + a
+    return x, caches, aux
 
 
 def stack_decode(params: dict, x: torch.Tensor, pos, cfg: ArchConfig,
@@ -154,25 +259,40 @@ def stack_decode(params: dict, x: torch.Tensor, pos, cfg: ArchConfig,
     """One-token decode through all periods, writing the caches in place.
     Returns (x, caches)."""
     for slot, sp, cache in _periods(params, cfg, caches):
-        x, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="decode",
-                           cache=cache, pos=pos)
+        x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="decode",
+                              cache=cache, pos=pos)
     return x, caches
 
 
+def _slab_rows(cfg: ArchConfig, caches, n_valid, state_idx):
+    """Rows whose slab a paged step writes: n_valid > 0 and a slab index
+    below the sentinel. None for patterns without a slab region."""
+    for slot, cache in zip(cfg.pattern, caches):
+        if _parse_slot(slot)[0] in SLAB_MIXERS:
+            n_slabs = next(iter(cache.values())).shape[1]
+            live = (n_valid > 0) & (state_idx[:, 0] < n_slabs)
+            return torch.nonzero(live).squeeze(1)
+    return None
+
+
 def stack_paged(params: dict, x: torch.Tensor, ctx_len, block_table,
-                n_valid, cfg: ArchConfig, rt: Runtime, caches, *,
+                n_valid, state_idx, cfg: ArchConfig, rt: Runtime, caches, *,
                 fused: bool = False):
-    """C-token step through every period against the paged pools —
+    """C-token step through every period against the state cache —
     chunked prefill (C > 1) and decode (C == 1) share this path. x:
-    (B, C, D); ctx_len/n_valid: (B,); block_table: (B, max_pages).
-    ``caches``: per-slot {"kp", "vp"} pools (tensors or quantized
-    {"codes", "scale"} dicts) stacked over periods, written in place.
-    ``fused`` routes every attention through the ragged decode kernel.
-    Returns (x, caches)."""
+    (B, C, D); ctx_len/n_valid: (B,); block_table: (B, max_pages);
+    state_idx: (B, 2) — column 0 each row's slab (the out-of-range
+    sentinel ``n_slabs`` for rows without one), column 1 its cross entry
+    (all-sentinel: no pattern here has a cross region). ``caches``: per
+    slot, {"kp", "vp"} pools of attention slots (tensors or quantized
+    {"codes", "scale"} dicts) or the slab leaves of recurrent ones, stacked
+    over periods, written in place. ``fused`` routes every attention
+    through the ragged decode kernel. Returns (x, caches)."""
+    ctx = (ctx_len, block_table, n_valid, state_idx,
+           _slab_rows(cfg, caches, n_valid, state_idx))
     for slot, sp, cache in _periods(params, cfg, caches):
-        x, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="paged",
-                           cache=cache, paged_ctx=(ctx_len, block_table,
-                                                   n_valid), fused=fused)
+        x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="paged",
+                              cache=cache, paged_ctx=ctx, fused=fused)
     return x, caches
 
 
@@ -186,14 +306,40 @@ def _kv_leaf(shape, kv_quant: bool, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
+def _state_leaves(mixer: str, cfg: ArchConfig, lead: tuple, dtype,
+                  device) -> dict:
+    """Zero recurrent state of one mixer with leading dims ``lead``: the
+    scan and cell states in f32, the conv windows in ``dtype``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    di = cfg.ssm_expand * cfg.d_model
+    conv = (cfg.ssm_d_conv - 1, di)
+    if mixer == "mamba":
+        return {"h": torch.zeros(lead + (di, cfg.ssm_d_state), **f32),
+                "conv": torch.zeros(lead + conv, dtype=dtype, device=device)}
+    nh = cfg.lstm_heads
+    if mixer == "mlstm":
+        dh = di // nh
+        return {"C": torch.zeros(lead + (nh, dh, dh), **f32),
+                "n": torch.zeros(lead + (nh, dh), **f32),
+                "m": torch.zeros(lead + (nh,), **f32),
+                "conv": torch.zeros(lead + conv, dtype=dtype, device=device)}
+    dh = cfg.d_model // nh
+    return {k: torch.zeros(lead + (nh, dh), **f32)
+            for k in ("c", "n", "m", "h")}
+
+
 def slot_init_cache(slot: str, cfg: ArchConfig, batch: int, max_seq: int,
                     dtype=torch.float32, kv_quant: bool = False,
                     device="cpu") -> dict:
-    """Dense per-slot K/V cache for one slot, stacked over periods:
-    {"k", "v"} each (P, batch, Hkv, max_seq, dh), or, when ``kv_quant``,
-    {"codes" uint8, "scale" f32 (..., 1)} dicts (codes interpreted under
-    ``Runtime.kv_scheme``; ``dtype`` is ignored for them)."""
-    _check_slot(slot)
+    """Dense serving state of one slot, stacked over periods: for
+    attention {"k", "v"} each (P, batch, Hkv, max_seq, dh), or, when
+    ``kv_quant``, {"codes" uint8, "scale" f32 (..., 1)} dicts (codes under
+    ``Runtime.kv_scheme``); for a recurrent mixer its state leaves
+    (P, batch, ...)."""
+    mixer, _ = _parse_slot(slot)
+    if mixer in SLAB_MIXERS:
+        return _state_leaves(mixer, cfg, (cfg.n_periods, batch), dtype,
+                             device)
     shape = (cfg.n_periods, batch, cfg.n_kv_heads, max_seq, cfg.dh)
     return {"k": _kv_leaf(shape, kv_quant, dtype, device),
             "v": _kv_leaf(shape, kv_quant, dtype, device)}
@@ -201,11 +347,17 @@ def slot_init_cache(slot: str, cfg: ArchConfig, batch: int, max_seq: int,
 
 def slot_init_paged_cache(slot: str, cfg: ArchConfig, n_pages: int,
                           page_size: int, dtype=torch.float32,
-                          kv_quant: bool = False, device="cpu") -> dict:
-    """K/V page pools for one slot, stacked over periods: {"kp", "vp"}
-    each (P, n_pages, Hkv, page_size, dh), or quantized dicts as in
-    ``slot_init_cache``."""
-    _check_slot(slot)
+                          kv_quant: bool = False, n_slabs: int = 0,
+                          device="cpu") -> dict:
+    """One slot's state-cache region, stacked over periods (axis 0) with
+    the shared pool axis at axis 1: K/V page pools {"kp", "vp"} each
+    (P, n_pages, Hkv, page_size, dh) for attention (quantized dicts as in
+    ``slot_init_cache``), or the slab region of a recurrent mixer, its
+    state leaves (P, n_slabs, ...)."""
+    mixer, _ = _parse_slot(slot)
+    if mixer in SLAB_MIXERS:
+        return _state_leaves(mixer, cfg, (cfg.n_periods, n_slabs), dtype,
+                             device)
     shape = (cfg.n_periods, n_pages, cfg.n_kv_heads, page_size, cfg.dh)
     return {"kp": _kv_leaf(shape, kv_quant, dtype, device),
             "vp": _kv_leaf(shape, kv_quant, dtype, device)}

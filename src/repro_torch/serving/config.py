@@ -4,17 +4,19 @@
 cross-knob checks run, as in ``repro.serving.config``; it returns a fully
 resolved copy. Same fields, env knobs and defaults as the reference.
 
-This port serves two layouts on one device, for ``attn+dense`` patterns:
-paged KV under ``cb`` or ``fifo`` scheduling — the fused or the unfused
-decode tick, speculative decoding and the prefix cache included — and the
-dense per-slot layout under ``fifo``; either in f32 or bf16
-(``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes. A knob
-the dense layout cannot have raises the reference's ``ValueError``, and its
-env default degrades silently, as in the reference. A knob that asks
-**explicitly** for something this port lacks (another cache dtype,
-shards, replicas) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it; its env
-default degrades silently to one device.
+This port serves every decoder-only pattern (dense, MoE, recurrent,
+hybrid, M-RoPE) on two layouts on one device: the paged state cache under
+``cb`` or ``fifo`` scheduling — the fused or the unfused decode tick,
+speculative decoding and the prefix cache included where the pattern
+allows them — and the dense per-slot layout under ``fifo``; either in f32
+or bf16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes.
+A knob the layout or the pattern cannot have raises the reference's
+``ValueError`` naming the failing predicates, and its env default
+degrades silently, as in the reference. A knob or a model that asks
+**explicitly** for something this port lacks (the encoder-decoder family,
+another cache dtype, shards, replicas) raises ``NotImplementedError``
+naming the ROADMAP.md item that ports it; the env default of shards and
+replicas degrades silently to one device.
 """
 from __future__ import annotations
 
@@ -38,6 +40,12 @@ DEFAULT_PREFILL_CHUNK = 32
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md: {item})")
+
+
+def _slab_mixers(cfg: ArchConfig) -> list[str]:
+    """The recurrent mixer kinds present in the pattern."""
+    return sorted({s.split("+")[0] for s in cfg.pattern}
+                  & {"mamba", "mlstm", "slstm"})
 
 
 def _torch_dtype(d) -> torch.dtype:
@@ -83,10 +91,10 @@ class ServeConfig:
         """A fully resolved copy for ``cfg``. Idempotent."""
         if self.resolved:
             return self
-        if cfg.enc_dec or any(s != "attn+dense" for s in cfg.pattern):
-            raise _not_ported(
-                f"serving pattern {cfg.pattern} (enc_dec={cfg.enc_dec})",
-                "the other architecture families")
+        if cfg.enc_dec:
+            raise _not_ported(f"serving {cfg.name} (enc_dec=True)",
+                              "the encoder-decoder family")
+        has_slab = bool(_slab_mixers(cfg))
         if self.batch_slots < 1:
             raise ValueError(
                 f"batch_slots must be >= 1, got {self.batch_slots}")
@@ -107,11 +115,19 @@ class ServeConfig:
         if prefix_cache is None:
             prefix_cache = os.environ.get(
                 "REPRO_PREFIX_CACHE", "").lower() in ("1", "true")
-        if prefix_cache and not paged:
+        prefix_gaps = []
+        if not paged:
+            prefix_gaps.append("kv_layout='dense' — per-slot rows, "
+                               "nothing to share")
+        if has_slab:
+            prefix_gaps.append(
+                f"recurrent mixer(s) {_slab_mixers(cfg)} in "
+                f"pattern={cfg.pattern} — slab state is per-sequence, "
+                "not per-page")
+        if prefix_cache and prefix_gaps:
             if self.prefix_cache is not None:
-                raise ValueError(
-                    "prefix_cache=True is unsupported here: kv_layout="
-                    "'dense' — per-slot rows, nothing to share")
+                raise ValueError("prefix_cache=True is unsupported here: "
+                                 + "; ".join(prefix_gaps))
             prefix_cache = False
 
         # speculative decoding (paged only — the verify window rides the
@@ -131,12 +147,20 @@ class ServeConfig:
         spec_decode = self.spec_decode
         if spec_decode is None:
             spec_decode = env_k > 0 or raw_k is not None
-        if spec_decode and not paged:
+        spec_gaps = []
+        if not paged:
+            spec_gaps.append("kv_layout='dense' — the verify step scores "
+                             "the draft window through the paged chunk "
+                             "path")
+        if has_slab:
+            spec_gaps.append(
+                f"recurrent mixer(s) {_slab_mixers(cfg)} in "
+                f"pattern={cfg.pattern} — slab updates are destructive, "
+                "a rejected draft tail cannot roll back")
+        if spec_decode and spec_gaps:
             if explicit_spec:
-                raise ValueError(
-                    "spec_decode is unsupported here: kv_layout='dense' — "
-                    "the verify step scores the draft window through the "
-                    "paged chunk path")
+                raise ValueError("spec_decode is unsupported here: "
+                                 + "; ".join(spec_gaps))
             spec_decode = False
         if spec_decode:
             spec_k = raw_k if raw_k is not None else (env_k or DEFAULT_SPEC_K)

@@ -3,11 +3,15 @@ deployment mode), on two KV layouts:
 
 * **paged** (the default): serving state lives in a ``StateCache``
   (serving/kv_cache.py, a copy of the reference's host-side allocator)
-  over page pools on the device. Admission is all-or-nothing: a request
-  enters a slot when the pool covers its worst-case footprint (prompt +
-  max_new_tokens). Prompts stream through chunked prefill, one chunk per
-  engine tick per slot, interleaved with the decode tick of the running
-  sequences. A decode tick is one fused step by default
+  over two regions on the device: token-paged K/V for attention slots,
+  and one fixed-size **slab** of recurrent state per live sequence for
+  recurrent slots (mamba, mLSTM, sLSTM). A hybrid pattern (Jamba) uses
+  both; a purely recurrent one (xLSTM) runs pageless. Admission is
+  all-or-nothing across regions: a request enters a slot when the pool
+  covers its worst-case footprint (prompt + max_new_tokens, and a slab).
+  Prompts stream through chunked prefill, one chunk per engine tick per
+  slot, interleaved with the decode tick of the running sequences. A
+  decode tick is one fused step by default
   (``models.lm.lm_paged_fused_step``): one ``paged_decode_ragged`` launch
   per layer for the whole batch. With ``fused_decode=False`` it is the
   one-token step instead (``lm_paged_verify`` at W = 1), through
@@ -15,8 +19,9 @@ deployment mode), on two KV layouts:
   schedulers, as in the reference:
   ``fifo`` (strict submit order, a blocked head blocks the queue) and
   ``cb`` (continuous batching: priority admission with skip-ahead, and
-  preemption of strictly lower-priority residents whose written pages go
-  to a host tier and come back on resume).
+  preemption of strictly lower-priority residents whose written pages
+  and slab go to a host tier and come back on resume, the slab possibly
+  into another slab index).
 * **dense** (``ServeConfig(kv_layout="dense")``, the reference's
   differential-test baseline): one ``(Hkv, max_seq, dh)`` cache row per
   slot. An admitted request is prefilled whole through ``lm_prefill``
@@ -49,8 +54,9 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
-Not in this port yet (``ServeConfig.resolve`` raises): bf16 KV caches,
-sharding and replicas, and every pattern but ``attn+dense``.
+Not in this port yet (``ServeConfig.resolve`` raises): the
+encoder-decoder family (whisper), other cache dtypes than f32 and bf16,
+sharding and replicas.
 """
 from __future__ import annotations
 
@@ -66,8 +72,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn.layers import quantize_params, tree_leaves, tree_map
 from repro_torch.runtime import Runtime, planner, resolve_device
-from repro_torch.serving.config import ServeConfig
-from repro_torch.serving.kv_cache import StateCache, kv_bytes_per_token
+from repro_torch.serving.config import ServeConfig, _slab_mixers
+from repro_torch.serving.kv_cache import (StateCache, kv_bytes_per_token,
+                                          ssm_state_bytes_per_seq)
 from repro_torch.serving.spec import PromptLookupDrafter
 from repro_torch.serving.stream import StreamState, TokenStream
 
@@ -136,6 +143,9 @@ class ServeEngine:
         self.scheduler = sc.scheduler
         self.host_pages = sc.host_pages
         self.prefix_cache_pages = sc.prefix_cache_pages
+        # attention slots page token K/V; recurrent slots hold a slab
+        self._has_pages = any(s.split("+")[0] == "attn" for s in cfg.pattern)
+        self._has_slab = bool(_slab_mixers(cfg))
         params = tree_map(lambda _, leaf: leaf.to(self.device), params)
         if sc.quantize:
             params = quantize_params(params, sc.quantize)
@@ -178,21 +188,36 @@ class ServeEngine:
 
     def _init_paged(self):
         cfg, sc = self.cfg, self.config
-        plan = planner.plan_kv_pages(cfg.dh,
-                                     act_bytes=self.kv_cache_dtype.itemsize,
-                                     kv_scheme=self.kv_scheme)
-        self.page_size = min(sc.page_size or plan.page_size, self.max_seq)
-        self.pages_per_seq = -(-self.max_seq // self.page_size)
-        n_pages = sc.pool_pages or self.batch_slots * self.pages_per_seq
+        if self._has_pages:
+            plan = planner.plan_kv_pages(
+                cfg.dh, act_bytes=self.kv_cache_dtype.itemsize,
+                kv_scheme=self.kv_scheme)
+            self.page_size = min(sc.page_size or plan.page_size,
+                                 self.max_seq)
+            self.pages_per_seq = -(-self.max_seq // self.page_size)
+            n_pages = sc.pool_pages or self.batch_slots * self.pages_per_seq
+        else:
+            # pageless (purely recurrent pattern): the pool is the slab
+            # region alone
+            self.page_size, self.pages_per_seq, n_pages = 1, 0, 0
+        # one slab per live sequence holds every recurrent slot x period
+        self._n_slabs = self.batch_slots if self._has_slab else 0
         self.pool = StateCache(n_pages, self.page_size,
+                               n_slabs=self._n_slabs,
                                host_pages=self.host_pages,
                                cache_pages=self.prefix_cache_pages)
         self.prefill_chunk = sc.prefill_chunk
         self.caches = lm_mod.paged_init_caches(
             cfg, self.pool.n_pages, self.page_size, dtype=self.kv_cache_dtype,
-            kv_quant=self.rt.kv_quant, device=self.device)
-        self.block_tables = np.zeros((self.batch_slots, self.pages_per_seq),
-                                     np.int32)
+            kv_quant=self.rt.kv_quant, n_slabs=self._n_slabs,
+            device=self.device)
+        # per-slot (slab, cross) indices for the step functions; an index
+        # equal to its region's size means "none". No pattern of this port
+        # has a cross region, so column 1 stays at its size, 0
+        self._state_idx = np.tile(np.array([self._n_slabs, 0], np.int32),
+                                  (self.batch_slots, 1))
+        self.block_tables = np.zeros(
+            (self.batch_slots, max(self.pages_per_seq, 1)), np.int32)
         # per-slot prefill progress: prompt tokens already fed; -1 = decoding
         self._fed = np.full(self.batch_slots, -1, np.int64)
         if self.spec_k:
@@ -215,8 +240,15 @@ class ServeEngine:
         return len(req.prompt) + req.max_new_tokens
 
     def _set_block_row(self, slot: int, rid: int):
-        self.block_tables[slot] = self.pool.block_table_row(
-            rid, self.pages_per_seq)
+        if self.pages_per_seq:
+            self.block_tables[slot] = self.pool.block_table_row(
+                rid, self.pages_per_seq)
+
+    def _sync_state_idx(self, slot: int, rid: int):
+        """Point the slot's slab column at the pool's current slab (the
+        sentinel where the sequence holds none)."""
+        slab = self.pool.seq_slab(rid)
+        self._state_idx[slot, 0] = self._n_slabs if slab is None else slab
 
     def submit(self, req: Request):
         if len(req.prompt) < 1 or req.max_new_tokens < 1:
@@ -243,7 +275,7 @@ class ServeEngine:
                 f"request id {req.rid} already finished this measurement "
                 "window — reuse a rid only after reset_metrics(), and "
                 "always with a fresh Request object")
-        if self.kv_layout == "paged":
+        if self.kv_layout == "paged" and self._has_pages:
             need = planner.plan_seq_pages(self._worst_case_tokens(req),
                                           self.page_size)
             if need > self.pool.n_pages:
@@ -386,6 +418,7 @@ class ServeEngine:
         st.prefix_lookups = 0
         st.prefix_hits = 0
         st.prefix_evictions = 0
+        st.peak_slabs_in_use = st.slabs_in_use
         self._prefix_hits = 0
         self._prefill_skipped = 0
         self._cow_copies = 0
@@ -399,9 +432,14 @@ class ServeEngine:
         per_tok = kv_bytes_per_token(
             self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize,
             kv_scheme=self.kv_scheme)
+        # a slab bills per sequence: f32 states, conv windows in the cache
+        # dtype
+        slab_bytes = ssm_state_bytes_per_seq(
+            self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize)
         if self.kv_layout == "paged":
             st = self.pool.stats
             peak_kv = st.peak_pages_in_use * self.page_size * per_tok
+            peak_state = peak_kv + st.peak_slabs_in_use * slab_bytes
             page_bytes = self.page_size * per_tok
             paged = {
                 "page_size": self.page_size,
@@ -410,6 +448,12 @@ class ServeEngine:
                 "peak_kv_pages": st.peak_pages_in_use,
                 "admission_denials": st.admission_denials,
                 "prefill_chunk": self.prefill_chunk,
+                # the slab region: one slab of recurrent state per live
+                # sequence
+                "n_slabs": st.n_slabs,
+                "slabs_in_use": st.slabs_in_use,
+                "peak_slabs": st.peak_slabs_in_use,
+                "slab_bytes_per_seq": int(slab_bytes),
                 "preemptions": self._preemptions,
                 "resumes": self._resumes,
                 "offload_bytes": self._offload_bytes,
@@ -439,8 +483,11 @@ class ServeEngine:
                     if self._spec_proposed else 0.0,
             }
         else:
-            # dense bills every slot its worst case up front
+            # dense bills every slot its worst case up front: max_seq of
+            # token K/V and a whole recurrent state
             peak_kv = self.batch_slots * self.max_seq * per_tok
+            peak_state = self.batch_slots * (self.max_seq * per_tok
+                                             + slab_bytes)
             paged = {}
         return {
             "kv_layout": self.kv_layout,
@@ -473,6 +520,8 @@ class ServeEngine:
             "occupancy_peak": float(np.max(self._occ_samples))
             if self._occ_samples else 0.0,
             "peak_kv_bytes": int(peak_kv),
+            # the whole bill: token K/V and recurrent slabs
+            "peak_state_bytes": int(peak_state),
             **paged,
         }
 
@@ -536,9 +585,10 @@ class ServeEngine:
         shared, cow_src, matched = [], None, 0
         if self.prefix_cache:
             shared, cow_src, matched = self._match_prefix(req)
-        pages = self.pool.allocate(req.rid, self._worst_case_tokens(req),
-                                   shared_prefix=shared)
-        if pages is None:
+        kv_tokens = self._worst_case_tokens(req) if self._has_pages else 0
+        pages = self.pool.allocate(req.rid, kv_tokens, shared_prefix=shared,
+                                   need_slab=self._has_slab)
+        if pages is None:                   # a pageless success is []
             return False
         if cow_src is not None:
             # a private copy of the last matched page, before the re-run
@@ -548,11 +598,17 @@ class ServeEngine:
         if matched:
             self._prefix_hits += 1
             self._prefill_skipped += matched
+        if self._has_slab:
+            # a fresh sequence starts from the zero state; its recycled
+            # slab still holds the previous owner's
+            lm_mod.paged_reset_slabs(self.caches,
+                                     self.pool.seq_slab(req.rid))
         self.queue.remove(req)
         self.slot_req[slot] = req
         self.slot_pos[slot] = matched
         self._fed[slot] = matched
         self._set_block_row(slot, req.rid)
+        self._sync_state_idx(slot, req.rid)
         if self.spec_k:
             # the drafter indexes the whole prompt, shared prefix included
             self.drafter.start(req.rid, req.prompt)
@@ -583,6 +639,7 @@ class ServeEngine:
         if self.kv_layout == "paged":
             self.block_tables[slot] = 0
             self._fed[slot] = -1
+            self._state_idx[slot, 0] = self._n_slabs
             if self.spec_k:
                 # rebuilt from prompt + output on resume
                 self.drafter.drop(rid)
@@ -602,14 +659,26 @@ class ServeEngine:
         req = self.slot_req[slot]
         n_written = int(self.slot_pos[slot])
         fed = int(self._fed[slot])
-        _, n_keep = planner.plan_resume_pages(
-            n_written, self._worst_case_tokens(req), self.page_size)
-        payload = (self._snapshot_pages(self.pool.seq_pages(req.rid)[:n_keep])
-                   if n_keep else None)
+        n_keep = self._pages_to_keep(n_written, req)
+        page_payload = (
+            self._snapshot_pages(self.pool.seq_pages(req.rid)[:n_keep])
+            if n_keep else None)
+        slab_payload = None
+        if self._has_slab:
+            # the slab is the sequence's whole recurrent state, O(1) in
+            # its length: always snapshotted whole
+            slab_payload = tree_map(
+                lambda _, leaf: leaf.cpu(),
+                lm_mod.paged_gather_slabs(self.caches,
+                                          self.pool.seq_slab(req.rid)))
+        payload = ((page_payload, slab_payload)
+                   if page_payload is not None or slab_payload is not None
+                   else None)
         if self.pool.offload(req.rid, n_keep, payload) is None:
             return False                    # host tier full
-        if payload is not None:
-            self._offload_bytes += self._payload_bytes(payload)
+        for part in (page_payload, slab_payload):
+            if part is not None:
+                self._offload_bytes += self._payload_bytes(part)
         req._resume = (n_written, fed)
         req.preemptions += 1
         self._preemptions += 1
@@ -621,13 +690,21 @@ class ServeEngine:
         """Bring a preempted request back at its exact (write cursor,
         prefill progress)."""
         n_written, fed = req._resume
-        res = self.pool.onload(req.rid, self._worst_case_tokens(req))
+        kv_tokens = self._worst_case_tokens(req) if self._has_pages else 0
+        res = self.pool.onload(req.rid, kv_tokens)
         if res is None:
             return False
         pages, payload = res
-        if payload is not None:
-            self._restore_pages(pages, payload)
-            self._onload_bytes += self._payload_bytes(payload)
+        page_payload, slab_payload = payload or (None, None)
+        if page_payload is not None:
+            self._restore_pages(pages, page_payload)
+            self._onload_bytes += self._payload_bytes(page_payload)
+        if slab_payload is not None:
+            # the slab the pool gave back may be another index
+            lm_mod.paged_scatter_slabs(self.caches,
+                                       self.pool.seq_slab(req.rid),
+                                       slab_payload)
+            self._onload_bytes += self._payload_bytes(slab_payload)
         self.queue.remove(req)
         req._resume = None
         self._resumes += 1
@@ -635,18 +712,28 @@ class ServeEngine:
         self.slot_pos[slot] = n_written
         self._fed[slot] = fed
         self._set_block_row(slot, req.rid)
+        self._sync_state_idx(slot, req.rid)
         if self.spec_k:
             self.drafter.start(req.rid, req.prompt)
             for tok in req.output:
                 self.drafter.extend(req.rid, int(tok))
         return True
 
+    def _pages_to_keep(self, n_written: int, req: Request) -> int:
+        """Pages a preemption snapshots: those covering the write cursor
+        (none on a pageless pool)."""
+        if not self._has_pages:
+            return 0
+        return planner.plan_resume_pages(
+            n_written, self._worst_case_tokens(req), self.page_size)[1]
+
     def _preempt_for(self, cand: Request) -> bool:
         """Preempt strictly-lower-priority residents (lowest priority,
         then youngest, first) until ``cand`` has a slot and enough free
         pages; prechecked against both tiers before any eviction."""
-        need = planner.plan_seq_pages(self._worst_case_tokens(cand),
-                                      self.page_size)
+        need = (planner.plan_seq_pages(self._worst_case_tokens(cand),
+                                       self.page_size)
+                if self._has_pages else 0)
         victims = sorted(
             (s for s, r in enumerate(self.slot_req)
              if r is not None and r.priority < cand.priority),
@@ -659,9 +746,8 @@ class ServeEngine:
         for s in victims:
             if gain >= need and (free_slot or chosen):
                 break
-            _, n_keep = planner.plan_resume_pages(
-                int(self.slot_pos[s]),
-                self._worst_case_tokens(self.slot_req[s]), self.page_size)
+            n_keep = self._pages_to_keep(int(self.slot_pos[s]),
+                                         self.slot_req[s])
             if (self.pool.host_pages is not None
                     and self.pool.stats.host_pages_in_use + host_extra
                     + n_keep > self.pool.host_pages):
@@ -714,7 +800,7 @@ class ServeEngine:
         logits, self.caches = lm_mod.lm_paged_step(
             self.params, self._tensor(tokens), self._tensor(ctx),
             self._tensor(self.block_tables), self._tensor(n_valid),
-            self.caches, self.cfg, self.rt)
+            self._tensor(self._state_idx), self.caches, self.cfg, self.rt)
         self._model_calls += 1
         logits = logits.cpu().numpy()
         for i in rows:
@@ -770,7 +856,7 @@ class ServeEngine:
         logits, self.caches = step_fn(
             self.params, self._tensor(tokens), self._tensor(ctx),
             self._tensor(self.block_tables), self._tensor(n_valid),
-            self.caches, self.cfg, self.rt)
+            self._tensor(self._state_idx), self.caches, self.cfg, self.rt)
         self._model_calls += 1
         logits = logits.cpu().numpy()                # (B, W, V)
         for i in active:

@@ -800,3 +800,51 @@ def test_cuda_flash_kernel_long_and_ragged_deterministic(cuda):
                                                q_chunk=s)
                 assert _attn_close(got, want), (s, rep, causal)
                 assert torch.equal(got, again), (s, rep, causal)
+
+
+@pytest.mark.gpu
+def test_cuda_family_shapes_match_plain_versions(cuda):
+    """The shapes the MoE, recurrent and M-RoPE families give the kernels:
+    ``spx_matmul`` at xlstm's gate projection (2048, 8: packed rows of 4
+    bytes), jamba's x_proj (4096, 160) and dt_proj (128, 4096), through
+    the decode (M = 4) and the prefill (M = 128) kernels; kernels 2 and 5
+    at head_dim 128 with olmoe's 16 KV heads of GQA ratio 1 and qwen2-vl's
+    2 of ratio 6, on 32-token pages; bit-identical reruns."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device=cuda)
+    for k, n in ((2048, 8), (4096, 160), (128, 4096)):
+        codes = torch.randint(0, 256, (k, n // 2), generator=gen,
+                              device=cuda, dtype=torch.int32).to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+        for m in (4, 128):
+            x = torch.randn((m, k), generator=gen, device=cuda)
+            got = spx_matmul_cuda(x, codes, scale, lut, packed=True)
+            want = ref.spx_matmul_ref(x, codes, scale, lut, packed=True)
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
+                (k, n, m)
+            assert torch.equal(got, spx_matmul_cuda(x, codes, scale, lut,
+                                                    packed=True))
+    b, dh, ps, mp = 4, 128, 32, 8
+    for hkv, rep in ((16, 1), (2, 6)):
+        kp = torch.randn((1 + b * mp, hkv, ps, dh), generator=gen,
+                         device=cuda)
+        vp = torch.randn_like(kp)
+        bt = (torch.randperm(b * mp, generator=gen, device=cuda)
+              .reshape(b, mp) + 1).to(torch.int32)
+        ctx = torch.tensor([ps - 1, ps, ps + 1, 3 * ps + 7],
+                           dtype=torch.int32, device=cuda)
+        qn = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device=cuda)
+        q = torch.randn((b, hkv, rep, dh), generator=gen, device=cuda)
+        got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=1)
+        want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=1)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+        assert (got[0] == 0).all()
+        assert torch.equal(got, paged_decode_ragged_cuda(q, kp, vp, bt, ctx,
+                                                         qn, w=1))
+        got = paged_attention_cuda(q, kp, vp, bt, ctx)
+        want = ref.paged_attention_ref(q, kp, vp, bt, ctx)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()

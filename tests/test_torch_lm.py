@@ -67,7 +67,8 @@ def test_paged_steps_match_reference(quantized):
         tfn = tlm.lm_paged_fused_step if fused else tlm.lm_paged_step
         jl, jc_new = jfn(jp, *(jnp.asarray(a) for a in args), sidx, jc,
                          jcfg, jrt)
-        tl, _ = tfn(tp, *(torch.from_numpy(a) for a in args), tc, tcfg, trt)
+        tl, _ = tfn(tp, *(torch.from_numpy(a) for a in args),
+                    torch.tensor(np.asarray(sidx)), tc, tcfg, trt)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         for js, ts in zip(jc_new, tc):
             for k in ("kp", "vp"):

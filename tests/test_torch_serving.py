@@ -244,7 +244,7 @@ def test_knobs_this_port_lacks_raise(workload, config):
 
 
 def test_other_patterns_raise():
-    cfg = treduced(tget_config("xlstm-350m"))
+    cfg = treduced(tget_config("whisper-small"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServeConfig().resolve(cfg)
 

@@ -326,10 +326,10 @@ def test_verify_window_logits_match_reference(pinned, fused):
     tc = tlm.paged_init_caches(cfg, n_pages, ps, dtype=torch.float32,
                                device="cpu")
     _, tc = tlm.lm_paged_step(pinned["params"], t(prompt), t(nv0) * 0,
-                              t(bt), t(nv0), tc, cfg, CPU)
+                              t(bt), t(nv0), t(state_idx), tc, cfg, CPU)
     tfn = tlm.lm_paged_fused_step if fused else tlm.lm_paged_verify
-    got, tc = tfn(pinned["params"], t(window), t(nv0), t(bt), t(nv), tc,
-                  cfg, CPU)
+    got, tc = tfn(pinned["params"], t(window), t(nv0), t(bt), t(nv),
+                  t(state_idx), tc, cfg, CPU)
     got = got.numpy()
     assert got.shape == want.shape == (b, w, cfg.vocab_size)
     for i in range(b):

@@ -44,7 +44,9 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_torch_interop.py",
         "tests/test_torch_kernels.py",
         "tests/test_torch_mlp.py",
+        "tests/test_torch_moe.py",
         "tests/test_torch_spx.py",
+        "tests/test_torch_ssm.py",
     ],
     # serving engine + model-level serving paths
     "serving-models": [
@@ -62,6 +64,7 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_torch_prefix.py",
         "tests/test_torch_serving.py",
         "tests/test_torch_spec.py",
+        "tests/test_torch_state_cache.py",
     ],
     # multi-device dry-runs + training loops — few long tests
     "system-training": [
