@@ -24,7 +24,17 @@ Phases, each printing JSON lines:
               spx_matmul at each (K, N) of their projections (N = 8 and
               160, K = 128 among them) and every M their ticks give it,
               kernels 2 and 5 at head_dim 128 with GQA ratios 1, 6 and 8,
-              flash attention at olmoe's heads;
+              flash attention at olmoe's heads; and every shape
+              whisper-small gives them (``whisper_kernel_phase``): flash
+              attention not causal at head_dim 64 over 1500 encoder frames
+              (the encoder, the cross-attention of every paged tick and
+              dense step) and the dense prefill's causal self-attention,
+              kernels 2, 3 and 5 at head_dim 64 with 12 KV heads (f32,
+              bf16 and code pages), spx_matmul at M = 1500 and every M of
+              the whisper ticks; and flash attention at every shape the
+              train phase launches (``train_kernel_phase``: gemma-2b,
+              granite-100m, whisper's encoder, decoder and
+              cross-attention, all at their training batches);
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, outputs against the
@@ -83,6 +93,29 @@ Phases, each printing JSON lines:
               paged kernel per attention layer (none for xlstm); every
               launch at a shape checked in phase 3; per family the
               spx_matmul decode tick and the MoE experts' tick timed;
+     serve_whisper  whisper-small at full width and depth (12 + 12
+              layers, 1500 encoder frames), sp2_4 weights from a seed, the
+              8 requests over 3 distinct encoder inputs through
+              ``ServeConfig()``: 3 encoder passes (the rest served from the
+              shared cross region: cross_hits >= 5, peak_cross <= 3,
+              110,592,000 B per entry), every launch at a checked shape,
+              launches per encoder pass and per model step, tokens against
+              the plain versions, the dense layout and spec decoding
+              (spec_k = 4), up to a near-tie; the encoder pass's
+              spx_matmul, the encoder's and the cross-attention's flash
+              launches and kernel 2 at head_dim 64 timed;
+     train    the flash kernel's ``autograd.Function`` against plain
+              autograd at every training shape of phase 3;
+              ``launch.train.main`` on full-width gemma-2b (2 x 256
+              tokens): adamw_q8 killed at step 2 and resumed from its
+              checkpoint (the resumed step-3 loss equal to an unbroken
+              run's), one adamw step; whisper-small through
+              ``launch.train`` (zero frames, one step) and ``TrainLoop`` on
+              seeded frames (3 steps); ``examples/train_llm.py`` (granite-100m,
+              TRAIN_LLM_STEPS steps); per run ms per step,
+              max_memory_allocated, and every flash launch through the
+              Function at a shape checked in phase 3; the Function's
+              forward timed over a training step;
   6. e2e      full-width logits, kernels against plain versions: a prefill
               chunk and a fused tick (f32 and coded pages), a one-token
               chunk over coded pages, a dense prefill; greedy tokens
@@ -108,7 +141,10 @@ Phases, each printing JSON lines:
               kernel at a verify tick of W = 5 (``verify_tick``), kernels 2
               and 5 over bf16 pages (a decode tick and 4 slots x 2048
               tokens; SDPA over the bf16 K/V), and the split counts the
-              wrappers chose (a ``splits`` line).
+              wrappers chose (a ``splits`` line); the whisper and training
+              rows of the serve_whisper and train phases ride along
+              (``whisper_encoder_pass``, ``whisper``,
+              ``whisper_decode_tick``, ``train_function``).
 
 Exits non-zero on any failure, and when no CUDA device is visible or the
 package is missing. The last line is the device record.
@@ -118,6 +154,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -226,24 +263,12 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
             scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
             for m in ms:
                 x = torch.randn((m, k), generator=gen, device="cuda")
-                got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
-                again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
-                want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                peak = want.abs().max().item()
-                same = bool(torch.equal(got, again))
-                ok = bool(torch.isfinite(got).all()) \
-                    and err <= SPX_RTOL * peak and same
+                _, rec = _check_launch(
+                    torch, "spx_matmul", spx_matmul_cuda, ref.spx_matmul_ref,
+                    (x, codes, scale, lut), {"packed": packed}, checked,
+                    worst, SPX_RTOL)
                 emit({"phase": "kernel", "kernel": "spx_matmul",
-                      "scheme": scheme, "M": m, "K": k, "N": n,
-                      "max_abs_err": err, "max_rel_err": err / peak,
-                      "tol_rel": SPX_RTOL, "bit_identical_rerun": same,
-                      "ok": ok})
-                require(ok, f"spx_matmul {scheme} M={m} K={k} N={n}")
-                worst["spx_matmul"] = max(worst["spx_matmul"], err)
-                checked.add(_launch_key("spx_matmul", (x, codes, scale, lut),
-                                        {"packed": packed}))
+                      "scheme": scheme, "M": m, "K": k, "N": n, **rec})
 
     # ragged decode at gemma-2b's head shapes: B=4, Hkv=1, rep=8, dh=256
     ps = planner.plan_kv_pages(256).page_size
@@ -299,7 +324,7 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
     for name, err in _split_kernel_checks(torch, gen).items():
         worst[name] = max(worst[name], err)
     worst.update(_bf16_kernel_checks(torch, gen))
-    worst["flash_attention"] = _flash_kernel_checks(torch, gen)
+    _flash_kernel_checks(torch, gen, checked, worst)
     ops.reset_op_calls()
     return worst, checked
 
@@ -571,15 +596,13 @@ def _bf16_kernel_checks(torch, gen) -> dict:
     return worst
 
 
-def _flash_kernel_checks(torch, gen) -> float:
+def _flash_kernel_checks(torch, gen, checked, worst) -> None:
     """Kernel 4 at the dense prefill's lengths (ragged ones included),
     causal and not, at two head dims and two GQA groupings, and at a long
     prompt (2048 tokens, gemma-2b's heads, causal); a second launch must be
     bit-identical."""
-    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    worst = 0.0
     for dh in (128, 256):
         for rep in (1, 8):
             for causal in (True, False):
@@ -590,23 +613,16 @@ def _flash_kernel_checks(torch, gen) -> float:
                                     device="cuda")
                     k, v = (torch.randn((2, 1, s, dh), generator=gen,
                                         device="cuda") for _ in range(2))
-                    got = flash_attention_cuda(q, k, v, causal=causal)
-                    again = flash_attention_cuda(q, k, v, causal=causal)
-                    want = ref.flash_attention_ref(q, k, v, causal=causal,
-                                                   q_chunk=s)
-                    torch.cuda.synchronize()
-                    errs[s] = (got - want).abs().max().item()
-                    require(_attn_ok(torch, got, want)
-                            and bool(torch.equal(got, again)),
-                            f"flash_attention dh={dh} rep={rep} "
-                            f"causal={causal} S={s}")
+                    _, rec = _check_launch(
+                        torch, "flash_attention", flash_attention_cuda,
+                        _flash_plain, (q, k, v), {"causal": causal}, checked,
+                        worst)
+                    errs[s] = rec["max_abs_err"]
                 emit({"phase": "kernel", "kernel": "flash_attention",
                       "dh": dh, "rep": rep, "causal": causal,
                       "max_abs_err_by_len": errs,
                       "tol": f"{ATTN_TOL} * (1 + |plain|)",
                       "bit_identical_rerun": True, "ok": True})
-                worst = max(worst, *errs.values())
-    return worst
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -671,18 +687,21 @@ def _prompts(np, cfg):
                   for n in lens]
 
 
-def _serve_ticks(torch, eng, prompts, watch=(), staged: int = 0):
+def _serve_ticks(torch, eng, prompts, watch=(), staged: int = 0,
+                 frames=None):
     """Serve ``prompts`` through ``eng.step()`` until drained. The counts
     are set to 0 just before and read just after. ``staged``: submit the
     first prompt alone and step that many ticks before the others arrive.
-    Returns (finished, launches, plain calls, {op: launches of each tick
-    that launched it})."""
+    ``frames``: each request's encoder input (enc-dec models). Returns
+    (finished, launches, plain calls, {op: launches of each tick that
+    launched it})."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Request
     torch.cuda.reset_peak_memory_stats()
     ops.reset_op_calls()
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS,
+                           frames=None if frames is None else frames[i]))
         if i == 0:
             for _ in range(staged):
                 eng.step()
@@ -984,13 +1003,15 @@ class _ReplayDrafter:
         return list(self.tokens[rid][n:n + k])
 
 
-def _record_steps(torch, names):
-    """Wrap the model-step functions ``names`` of ``repro_torch.models.lm``
-    (the engine looks them up at each call): each call appends [name,
-    window width, n_valid (its largest value once ``restore`` ran),
-    launches by op during the call]. Returns (records, restore)."""
+def _record_steps(torch, names, module=None):
+    """Wrap the model-step functions ``names`` of ``module``
+    (``repro_torch.models.lm`` by default; the engine looks them up at each
+    call): each call appends [name, window width, n_valid (its largest
+    value once ``restore`` ran), launches by op during the call]. Returns
+    (records, restore)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm as lm_mod
+    lm_mod = module or lm_mod
     records, saved = [], {}
     for name in names:
         fn = saved[name] = getattr(lm_mod, name)
@@ -1015,11 +1036,11 @@ def _record_steps(torch, names):
     return records, restore
 
 
-def _run_engine(torch, eng, prompts, staged: int = 0):
+def _run_engine(torch, eng, prompts, staged: int = 0, frames=None):
     """``_serve_ticks`` without a watch: (tokens by rid, launches, plain
     calls, metrics)."""
     done, launches, plain, _ = _serve_ticks(torch, eng, prompts,
-                                            staged=staged)
+                                            staged=staged, frames=frames)
     return ({r.rid: list(r.output) for r in done}, launches, plain,
             eng.metrics())
 
@@ -1526,20 +1547,10 @@ def family_kernel_phase(torch, np) -> tuple[dict, set]:
         errs = {}
         for m in ms:
             x = torch.randn((m, k), generator=gen, device="cuda")
-            got = spx_matmul_cuda(x, codes, scale, lut, packed=True)
-            again = spx_matmul_cuda(x, codes, scale, lut, packed=True)
-            want = ref.spx_matmul_ref(x, codes, scale, lut, packed=True)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            peak = want.abs().max().item()
-            ok = bool(torch.isfinite(got).all()) \
-                and err <= SPX_RTOL * peak and bool(torch.equal(got, again))
-            require(ok, f"spx_matmul sp2_4 M={m} K={k} N={n}: err {err}, "
-                        f"peak {peak}")
-            errs[m] = err / peak
-            worst["spx_matmul"] = max(worst["spx_matmul"], err)
-            checked.add(_launch_key("spx_matmul", (x, codes, scale, lut),
-                                    {"packed": True}))
+            _, rec = _check_launch(torch, "spx_matmul", spx_matmul_cuda,
+                                   ref.spx_matmul_ref, (x, codes, scale, lut),
+                                   {"packed": True}, checked, worst, SPX_RTOL)
+            errs[m] = rec["max_rel_err"]
         emit({"phase": "kernel", "kernel": "spx_matmul", "scheme": "sp2_4",
               "for": "serve_families", "K": k, "N": n,
               "max_rel_err_by_M": errs, "tol_rel": SPX_RTOL,
@@ -1564,29 +1575,21 @@ def family_kernel_phase(torch, np) -> tuple[dict, set]:
         qn = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device="cuda")
         ctx1 = torch.tensor([0, 1, ps, 2 * ps + 3], dtype=torch.int32,
                             device="cuda")
-        for name, launch, plain, args in (
-                ("paged_decode_ragged",
-                 lambda *a: paged_decode_ragged_cuda(*a, w=1),
-                 lambda *a: ref.paged_decode_ragged_ref(*a, w=1),
-                 (q, kp, vp, bt, ctx, qn)),
+        for name, launch, plain, args, kw in (
+                ("paged_decode_ragged", paged_decode_ragged_cuda,
+                 ref.paged_decode_ragged_ref, (q, kp, vp, bt, ctx, qn),
+                 {"w": 1}),
                 ("paged_attention", paged_attention_cuda,
-                 ref.paged_attention_ref, (q, kp, vp, bt, ctx1))):
-            got, again, want = launch(*args), launch(*args), plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
+                 ref.paged_attention_ref, (q, kp, vp, bt, ctx1), {})):
+            got, rec = _check_launch(torch, name, launch, plain, args, kw,
+                                     checked, worst)
             zeros = bool((got[0] == 0).all())
-            ok = _attn_ok(torch, got, want) and zeros \
-                and bool(torch.equal(got, again))
             emit({"phase": "kernel", "kernel": name, "for": "serve_families",
                   "hkv": hkv, "rep": rep, "dh": dh, "page_size": ps,
-                  "max_pages": mp, "max_abs_err": err,
-                  "max_rel_err": err / want.abs().max().item(),
-                  "tol": f"{ATTN_TOL} * (1 + |plain|)",
-                  "empty_row_exact_zero": zeros, "bit_identical_rerun": True,
-                  "ok": ok})
-            require(ok, f"{name} hkv={hkv} rep={rep} dh={dh}")
-            worst[name] = max(worst[name], err)
-            checked.add(_launch_key(name, args, {"w": 1}))
+                  "max_pages": mp, **rec, "empty_row_exact_zero": zeros,
+                  "ok": zeros})
+            require(zeros, f"{name} hkv={hkv} rep={rep} dh={dh}: the empty "
+                           "row is not zero")
 
     # olmoe's dense prefill: one prompt, 16 heads over 16 KV heads
     olmoe = configs["olmoe-1b-7b"]
@@ -1596,16 +1599,10 @@ def family_kernel_phase(torch, np) -> tuple[dict, set]:
         q = torch.randn((1, hq, s, dh), generator=gen, device="cuda")
         k, v = (torch.randn((1, hkv, s, dh), generator=gen, device="cuda")
                 for _ in range(2))
-        got = flash_attention_cuda(q, k, v, causal=True)
-        again = flash_attention_cuda(q, k, v, causal=True)
-        want = ref.flash_attention_ref(q, k, v, causal=True, q_chunk=s)
-        torch.cuda.synchronize()
-        errs[s] = (got - want).abs().max().item()
-        require(_attn_ok(torch, got, want) and bool(torch.equal(got, again)),
-                f"flash_attention olmoe heads S={s}")
-        checked.add(_launch_key("flash_attention", (q, k, v),
-                                {"causal": True}))
-    worst["flash_attention"] = max(errs.values())
+        _, rec = _check_launch(torch, "flash_attention", flash_attention_cuda,
+                               _flash_plain, (q, k, v), {"causal": True},
+                               checked, worst)
+        errs[s] = rec["max_abs_err"]
     emit({"phase": "kernel", "kernel": "flash_attention",
           "for": "serve_families", "hq": hq, "hkv": hkv, "dh": dh,
           "causal": True, "max_abs_err_by_len": errs,
@@ -1760,23 +1757,26 @@ def _family_timing(torch, cfg, params, m: int) -> dict:
 
 
 def _serve_recorded(torch, np, eng, prompts, checked, name, *,
-                    preempt_after=None):
-    """Serve ``prompts`` on ``eng`` with every launch's shape recorded and
-    every model step's launches counted; each launch must be at a shape
-    the kernel phases checked. Returns (tokens, launches, plain calls,
+                    preempt_after=None, frames=None,
+                    steps=("lm_paged_step", "lm_paged_fused_step"),
+                    module=None):
+    """Serve ``prompts`` (with ``frames``, an enc-dec model's inputs) on
+    ``eng`` with every launch's shape recorded and every model step
+    (``steps`` of ``module``) counted; each launch must be at a shape the
+    kernel phases checked. Returns (tokens, launches, plain calls,
     metrics, step records, preempted rid)."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Request
-    records, restore = _record_steps(torch, ("lm_paged_step",
-                                             "lm_paged_fused_step"))
+    records, restore = _record_steps(torch, steps, module)
     preempted = None
     try:
         with _ShapeRecorder(torch) as keys:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_op_calls()
             for i, p in enumerate(prompts):
-                eng.submit(Request(rid=i, prompt=p,
-                                   max_new_tokens=NEW_TOKENS))
+                eng.submit(Request(
+                    rid=i, prompt=p, max_new_tokens=NEW_TOKENS,
+                    frames=None if frames is None else frames[i]))
             if preempt_after is not None:
                 for _ in range(preempt_after):
                     eng.step()
@@ -1957,6 +1957,858 @@ def _free(torch) -> None:
     ``_record_gaps`` wrapped its methods."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# -- phase 5: whisper-small, the encoder-decoder -----------------------------
+
+#: whisper-small's quantized projections (K, N): the attention's 768 x 768,
+#: the MLP's 768 x 3072 and 3072 x 768
+WHISPER_SPX_SHAPES = ((768, 768), (768, 3072), (3072, 768))
+#: distinct encoder inputs among the serve phase's 8 requests (request i
+#: takes input i % 3): 3 encoder passes, 5 requests served from the
+#: shared cross region
+WHISPER_INPUTS = 3
+#: the paged engine's padded prefill chunks and decode windows (the fused
+#: tick, and spec_k = 4's verify window)
+WHISPER_CHUNKS = (1, 2, 4, 8, 16, 32)
+WHISPER_WINDOWS = (1, 5)
+
+
+def _whisper_config():
+    from repro_torch.configs import get_config
+    return get_config("whisper-small")
+
+
+def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
+                  tol_rel=None) -> tuple:
+    """One kernel launch at ``args`` twice against its plain version: the
+    run fails unless the output is finite, the rerun bit-identical and the
+    error within ATTN_TOL * (1 + |plain|) of every element (or, with
+    ``tol_rel``, within tol_rel of the largest plain output; bf16 pages: of
+    each slot's). The error joins ``worst`` and the launch key of a
+    recorded op joins ``checked``. Returns the output and the check's
+    numbers."""
+    got, again, want = launch(*args, **kw), launch(*args, **kw), \
+        plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    if tol_rel is None:
+        ok = _attn_ok(torch, got, want)
+        tol = f"{ATTN_TOL} * (1 + |plain|)"
+    elif name.endswith("_bf16"):
+        ok = _slot_rel_err(torch, got, want) <= tol_rel
+        tol = f"{tol_rel} of each slot's largest plain output"
+    else:
+        ok = err <= tol_rel * peak
+        tol = f"{tol_rel} * max|plain|"
+    ok = ok and bool(torch.isfinite(got).all()) \
+        and bool(torch.equal(got, again))
+    shapes = [tuple(a.shape) for a in args if hasattr(a, "shape")]
+    require(ok, f"{name} {kw} at {shapes}: max_abs_err {err}, max|plain| "
+                f"{peak}, tol {tol}, rerun identical "
+                f"{bool(torch.equal(got, again))}")
+    worst[name] = max(worst.get(name, 0.0), err)
+    op = name.removesuffix("_bf16")
+    if op in RECORDED_OPS:
+        checked.add(_launch_key(op, args, kw))
+    return got, {"max_abs_err": err, "max_rel_err": err / max(peak, 1e-30),
+                 "tol": tol, "bit_identical_rerun": True, "ok": True}
+
+
+def _flash_plain(q, k, v, *, causal):
+    """The plain version of kernel 4, all queries in one chunk."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q.shape[2])
+
+
+def whisper_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Every shape whisper-small gives the kernels, each held against its
+    plain version before the serve phase launches it, twice (the second
+    launch bit-identical):
+
+    * flash attention, 12 heads over 12 KV heads of 64: the encoder (1500
+      frames, not causal); the cross-attention over 1500 encoder frames of
+      every paged tick (4 slots x the padded chunk or window) and of the
+      dense layout (one prompt, 4 slots x 1 token); the dense prefill's
+      causal self-attention of each prompt;
+    * kernels 2 and 5 at head_dim 64 with 12 KV heads on f32 and bf16
+      pages (W = 1 and the W = 5 verify window), and kernel 3 over code
+      pages;
+    * spx_matmul at whisper's three (K, N), at M = 1500 (the encoder and
+      the cross K/V projection of one input) and every M the paged and
+      dense ticks give it.
+
+    Returns the worst errors and the checked launch keys."""
+    from repro_torch.core import spx
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_decode_ragged_cuda,
+        paged_decode_ragged_quant_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    from repro_torch.runtime import planner
+
+    cfg = _whisper_config()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    checked: set = set()
+    worst: dict = {}
+
+    def check(name, launch, plain, args, kw, tol_rel=None, **record):
+        _, rec = _check_launch(torch, name, launch, plain, args, kw, checked,
+                               worst, tol_rel)
+        emit({"phase": "kernel", "kernel": name, "for": "whisper", **record,
+              **rec})
+
+    lens, _ = _prompts(np, cfg)
+    slots, enc, h, dh = 4, cfg.enc_seq_len, cfg.n_heads, cfg.dh
+    rows = sorted({slots * c for c in WHISPER_CHUNKS + WHISPER_WINDOWS}
+                  | set(lens) | {enc})
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device="cuda")
+    for k, n in WHISPER_SPX_SHAPES:
+        codes = torch.randint(0, 256, (k, n // 2), generator=gen,
+                              device="cuda", dtype=torch.int32) \
+            .to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
+        for m in rows:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            check("spx_matmul", spx_matmul_cuda, ref.spx_matmul_ref,
+                  (x, codes, scale, lut), {"packed": True}, tol_rel=SPX_RTOL,
+                  K=k, N=n, M=m)
+
+    shapes = ([(1, enc, enc, False)]
+              + [(slots, c, enc, False)
+                 for c in sorted(set(WHISPER_CHUNKS + WHISPER_WINDOWS))]
+              + [(1, s, enc, False) for s in sorted(set(lens))]
+              + [(1, s, s, True) for s in sorted(set(lens))])
+    for b, sq, skv, causal in shapes:
+        q = torch.randn((b, h, sq, dh), generator=gen, device="cuda")
+        kv = tuple(torch.randn((b, h, skv, dh), generator=gen,
+                               device="cuda") for _ in range(2))
+        check("flash_attention", flash_attention_cuda, _flash_plain,
+              (q, *kv), {"causal": causal}, B=b, Sq=sq, Skv=skv, dh=dh,
+              causal=causal)
+
+    b, hkv, max_seq = slots, cfg.n_kv_heads, 256
+    for pool_dtype in (torch.float32, torch.bfloat16):
+        ps = planner.plan_kv_pages(
+            dh, act_bytes=torch.tensor([], dtype=pool_dtype).element_size()
+        ).page_size
+        mp = -(-max_seq // ps)
+        n_pages = 1 + b * mp
+        kp, vp = (t.to(pool_dtype) for t in
+                  _rand_pools(torch, gen, n_pages, hkv, ps, dh))
+        bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+            :b * mp].reshape(b, mp) + 1).to(torch.int32)
+        suffix = "_bf16" if pool_dtype == torch.bfloat16 else ""
+        tol = BF16_ATTN_RTOL if suffix else None
+        for w, ctx_l, qlens in (
+                (1, [0, ps - 1, ps, 3 * ps + 7], [0, 1, 1, 1]),
+                (5, [0, ps - 2, ps + 1, 2 * ps], [0, 5, 3, 5])):
+            q = torch.randn((b, hkv, w, dh), generator=gen, device="cuda")
+            ctx, qn = (torch.tensor(v, dtype=torch.int32, device="cuda")
+                       for v in (ctx_l, qlens))
+            check("paged_decode_ragged" + suffix, paged_decode_ragged_cuda,
+                  ref.paged_decode_ragged_ref, (q, kp, vp, bt, ctx, qn),
+                  {"w": w}, tol_rel=tol, hkv=hkv, dh=dh, page_size=ps, w=w,
+                  ctx_len=ctx_l, q_len=qlens)
+        q = torch.randn((b, hkv, 1, dh), generator=gen, device="cuda")
+        ctx = torch.tensor([0, 1, ps, 2 * ps + 3], dtype=torch.int32,
+                           device="cuda")
+        check("paged_attention" + suffix, paged_attention_cuda,
+              ref.paged_attention_ref, (q, kp, vp, bt, ctx), {},
+              tol_rel=tol, hkv=hkv, dh=dh, page_size=ps, mode="single-token")
+    scheme = KV_SCHEME
+    ps = planner.plan_kv_pages(dh, kv_scheme=scheme).page_size
+    mp = -(-max_seq // ps)
+    n_pages = 1 + b * mp
+    kc, ks = quantize_kv(torch.randn((n_pages, hkv, ps, dh), generator=gen,
+                                     device="cuda"), scheme)
+    vc, vs = quantize_kv(torch.randn((n_pages, hkv, ps, dh), generator=gen,
+                                     device="cuda"), scheme)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+        :b * mp].reshape(b, mp) + 1).to(torch.int32)
+    q = torch.randn((b, hkv, 1, dh), generator=gen, device="cuda")
+    ctx = torch.tensor([0, ps - 1, ps, 3 * ps + 7], dtype=torch.int32,
+                       device="cuda")
+    qn = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device="cuda")
+    check("paged_decode_ragged_quant", paged_decode_ragged_quant_cuda,
+          ref.paged_decode_ragged_quant_ref,
+          (q, kc, ks, vc, vs, bt, ctx, qn, kv_lut(scheme, "cuda")), {"w": 1},
+          hkv=hkv, dh=dh, page_size=ps, scheme=scheme)
+    return worst, checked
+
+
+def _whisper_params(torch, cfg, seed: int) -> dict:
+    """Random whisper weights from a seed on the card, quantized to sp2_4
+    (the engine takes them as they are: ``quantize_params`` passes
+    quantized leaves through)."""
+    from repro_torch.models.encdec import encdec_init
+    from repro_torch.nn.layers import quantize_params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return quantize_params(encdec_init(gen, cfg, device="cuda"), "sp2_4")
+
+
+class _EncoderPasses:
+    """Wrap ``models.encdec.encdec_cross_kv`` (the engine's encoder pass,
+    looked up at each call): count the calls and each call's launches by
+    op."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import encdec
+        self.module, self.ops = encdec, ops
+        self.fn = encdec.encdec_cross_kv
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            before = self.ops.op_calls()
+            out = self.fn(*args, **kw)
+            after = self.ops.op_calls()
+            self.calls.append({op: after[op] - before.get(op, 0)
+                               for op in after
+                               if after[op] != before.get(op, 0)})
+            return out
+        self.module.encdec_cross_kv = wrapped
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.module.encdec_cross_kv = self.fn
+
+
+def serve_whisper_phase(torch, np, card: str, checked: set) -> dict:
+    """whisper-small at its published width and depth (12 encoder and 12
+    decoder layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51865,
+    1500 encoder frames; arXiv:2212.04356), nothing cut: random weights
+    from a seed quantized to sp2_4, 8 greedy requests of 16 new tokens
+    (the serve phase's prompt lengths, one of 33) over 3 distinct encoder
+    inputs of (1500, 768) f32 from a seed, through
+    ``ServeEngine(params, cfg, ServeConfig())`` (paged, cb, fused tick, 4
+    slots, max_seq 256). Held: every launch at a shape the kernel phase
+    checked; 3 encoder passes (one per distinct input), each 96
+    spx_matmul launches (12 layers x 6 projections and 12 x the cross K
+    and V) and 12 flash launches; each decoder step 96 spx_matmul launches
+    (12 layers x 8), 12 flash launches (the cross-attention), and 12 of
+    kernel 2 (fused tick) or kernel 5 (a one-token chunk); cross_hits >= 5,
+    peak_cross <= 3, cross_bytes_per_entry == 110,592,000; tokens equal to
+    the same engine's on the plain versions, to the dense layout's and to
+    a speculative run's (spec_k = 4), a difference allowed only at a
+    near-tie (E2E_RTOL). Returns the launches and the timing rows."""
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = _whisper_config()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _whisper_params(torch, cfg, seed=7)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated()
+    lens, prompts = _prompts(np, cfg)
+    inputs = np.random.default_rng(11).standard_normal(
+        (WHISPER_INPUTS, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    frames = [inputs[i % WHISPER_INPUTS] for i in range(N_REQUESTS)]
+    steps = ("encdec_paged_step", "encdec_paged_fused_step")
+    per_step = cfg.n_layers * 8
+    per_pass = cfg.n_enc_layers * 6 + cfg.n_layers * 2
+
+    eng = ServeEngine(params, cfg, ServeConfig())
+    gaps = _record_gaps(np, eng, E2E_RTOL)
+    with _EncoderPasses() as passes:
+        tokens, launches, plain, m, records, _ = _serve_recorded(
+            torch, np, eng, prompts, checked, "whisper-small",
+            frames=frames, steps=steps, module=encdec_mod)
+    peak_serve = torch.cuda.max_memory_allocated()
+    del eng
+    _free(torch)
+    require(len(tokens) == N_REQUESTS,
+            f"whisper: {len(tokens)} of {N_REQUESTS} finished")
+    for rid, toks in tokens.items():
+        require(len(toks) == NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in toks),
+                f"whisper: request {rid}: bad output {toks}")
+    require(not plain, f"whisper: plain versions ran on the card: {plain}")
+    require(len(passes) == WHISPER_INPUTS and all(
+        p == {"spx_matmul": per_pass, "flash_attention": cfg.n_enc_layers}
+        for p in passes), f"whisper: encoder passes {passes}")
+    bad = [r for r in records
+           if r[3].get("spx_matmul") != per_step
+           or r[3].get("flash_attention") != cfg.n_layers]
+    require(not bad, f"whisper: model steps without {per_step} spx_matmul "
+                     f"and {cfg.n_layers} flash launches: {bad[:3]}")
+    ticks = [r for r in records if r[0] == "encdec_paged_fused_step"]
+    one_token = [r for r in records if r[0] == "encdec_paged_step"
+                 and r[1] == 1]
+    require(ticks and all(r[3].get("paged_decode_ragged") == cfg.n_layers
+                          for r in ticks),
+            "whisper: decode ticks without one ragged launch per layer")
+    require(one_token and all(r[3].get("paged_attention") == cfg.n_layers
+                              for r in one_token),
+            "whisper: one-token chunks without one paged_attention launch "
+            "per layer")
+    cross = {k: m[k] for k in ("n_cross", "cross_lookups", "cross_hits",
+                               "peak_cross", "cross_evictions",
+                               "cross_bytes_per_entry")}
+    require(cross["cross_hits"] >= N_REQUESTS - WHISPER_INPUTS
+            and cross["peak_cross"] <= WHISPER_INPUTS
+            and cross["cross_bytes_per_entry"] == 110_592_000,
+            f"whisper: the cross region {cross}")
+
+    ref_eng = ServeEngine(params, cfg, ServeConfig(), rt=Runtime(impl="ref"))
+    ref_gaps = _record_gaps(np, ref_eng, E2E_RTOL)
+    want, ref_launches, ref_plain, _ = _run_engine(torch, ref_eng, prompts,
+                                                   frames=frames)
+    del ref_eng
+    _free(torch)
+    require(not ref_launches and ref_plain,
+            f"whisper: the plain run launched {ref_launches}")
+    result = {"phase": "serve_whisper", "arch": cfg.name,
+              "layers": cfg.n_layers, "encoder_layers": cfg.n_enc_layers,
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "head_dim": cfg.dh, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+              "encoder_frames": cfg.enc_seq_len, "reduced": {},
+              "config": "ServeConfig()", "card": card,
+              "page_size": m["page_size"], "batch_slots": 4,
+              "prompt_lens": lens, "distinct_inputs": WHISPER_INPUTS,
+              "requests_finished": len(tokens), "setup_s": setup_s,
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+              "model_calls": m["model_calls"], **cross,
+              "peak_state_bytes": m["peak_state_bytes"],
+              "peak_kv_bytes": m["peak_kv_bytes"],
+              "max_memory_allocated_setup": peak_setup,
+              "max_memory_allocated_serve": peak_serve,
+              "launches": launches,
+              "launches_per_encoder_pass": passes[0],
+              "launches_per_model_step": {
+                  "spx_matmul": per_step,
+                  "flash_attention": cfg.n_layers,
+                  "paged_decode_ragged_per_decode_tick": cfg.n_layers,
+                  "paged_attention_per_one_token_chunk": cfg.n_layers},
+              "model_steps": len(records),
+              "tokens_vs_plain_versions": _near_tie_check(
+                  "whisper kernels vs plain", tokens, want, ref_gaps),
+              "near_tie_tol_rel": E2E_RTOL}
+    for path, sc in (("dense", ServeConfig(kv_layout="dense")),
+                     ("spec", ServeConfig(spec_decode=True, spec_k=4))):
+        e = ServeEngine(params, cfg, sc)
+        got, path_launches, path_plain, pm, _, _ = _serve_recorded(
+            torch, np, e, prompts, checked, f"whisper {path}",
+            frames=frames, steps=steps, module=encdec_mod)
+        del e
+        _free(torch)
+        require(not path_plain, f"whisper {path}: plain versions ran")
+        result[path] = {"launches": path_launches,
+                        "model_calls": pm["model_calls"],
+                        "tokens_per_s": pm["tokens_per_s"],
+                        **_near_tie_check(f"whisper {path} vs paged", got,
+                                          tokens, gaps)}
+        if path == "spec":
+            result[path]["draft_acceptance_rate"] = \
+                pm["draft_acceptance_rate"]
+    result["timing"] = _whisper_timing(torch, cfg, params)
+    emit(result)
+    del params
+    _free(torch)
+    return {"launches": launches, "dense_launches": result["dense"]
+            ["launches"], "timing": result["timing"]}
+
+
+def _whisper_timing(torch, cfg, params) -> dict:
+    """Per whisper step, on its weights: spx_matmul over one encoder pass
+    (96 launches at M = 1500), the flash kernel over one encoder pass (12
+    launches of 1500 x 1500) and over a decode tick's and a 32-token
+    prefill chunk's cross-attention (12 launches over 1500 frames, 4
+    slots), and kernel 2 over a decode tick (12 layers, 4 slots, 49
+    tokens attended each, head_dim 64)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    from repro_torch.nn.layers import tree_index
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    enc = cfg.enc_seq_len
+    mats = []
+    for name in ("wq", "wk", "wv", "wo"):
+        qt = params["enc_stack"]["slots"][0]["attn"][name]["w"]
+        mats += [qt[i] for i in range(cfg.n_enc_layers)]
+    for name in ("up", "down"):
+        qt = params["enc_stack"]["slots"][0]["mlp"][name]["w"]
+        mats += [qt[i] for i in range(cfg.n_enc_layers)]
+    for name in ("wk", "wv"):
+        qt = params["dec_stack"]["slots"][0]["xattn"][name]["w"]
+        mats += [qt[i] for i in range(cfg.n_layers)]
+    lut = mats[0].lut()
+    xs = {k: torch.randn((enc, k), generator=gen, device="cuda")
+          for k in {qt.logical_shape[0] for qt in mats}}
+
+    def tick(fn):
+        def run():
+            for qt in mats:
+                k, n = qt.logical_shape
+                fn(xs[k], qt.codes, qt.scale.reshape(1, n), lut,
+                   packed=True)
+        return run
+
+    dense = [qt.dequantize() for qt in mats]
+
+    def library():
+        for w in dense:
+            torch.matmul(xs[w.shape[0]], w)
+
+    nbytes = flops = 0
+    for qt in mats:
+        k, n = qt.logical_shape
+        nbytes += enc * k * 4 + k * n // 2 + n * 4 + 16 * 4 + enc * n * 4
+        flops += 2 * enc * k * n
+    spx = {"per": f"encoder pass: {len(mats)} launches, M={enc}",
+           "ms": _time_ms(torch, tick(spx_matmul_cuda), reps=3),
+           "device_ms": _device_ms(torch, tick(spx_matmul_cuda),
+                                   ("spx_matmul_kernel",), reps=2),
+           "plain_ms": _time_ms(torch, tick(ref.spx_matmul_ref), reps=1,
+                                warmup=1),
+           "library_ms": _time_ms(torch, library, reps=3),
+           "library_device_ms": _device_ms(torch, library, ("",), reps=2),
+           "library_call": "torch.matmul on pre-dequantized f32 weights",
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+    spx["bound_ms"], spx["bound_by"] = _bound_ms(nbytes, flops)
+    spx["share_of_bound"] = spx["bound_ms"] / spx["device_ms"] \
+        if spx["device_ms"] else None
+    del dense
+    h, dh, L = cfg.n_heads, cfg.dh, cfg.n_layers
+    flash = {
+        "encoder": _flash_shape_timing(
+            torch, gen, b=1, hq=h, hkv=h, sq=enc, skv=enc, dh=dh,
+            causal=False, layers=cfg.n_enc_layers,
+            per=f"encoder pass: {cfg.n_enc_layers} launches, {enc} frames "
+                f"not causal, {h} heads of {dh}"),
+        "cross_decode_tick": _flash_shape_timing(
+            torch, gen, b=4, hq=h, hkv=h, sq=1, skv=enc, dh=dh,
+            causal=False, layers=L,
+            per=f"decode tick: {L} launches, 4 slots x 1 query over {enc} "
+                "encoder frames"),
+        "cross_prefill_chunk": _flash_shape_timing(
+            torch, gen, b=4, hq=h, hkv=h, sq=32, skv=enc, dh=dh,
+            causal=False, layers=L,
+            per=f"prefill tick: {L} launches, 4 slots x 32 queries over "
+                f"{enc} encoder frames")}
+    ragged = _paged_dh_timing(torch, gen, hkv=cfg.n_kv_heads, rep=1, dh=dh,
+                              layers=L)
+    torch.cuda.empty_cache()
+    return {"spx_matmul": spx, "flash_attention": flash,
+            "paged_decode_ragged": ragged}
+
+
+def _paged_dh_timing(torch, gen, *, hkv, rep, dh, layers, m=4,
+                     ctx_tokens=48, max_seq=256) -> dict:
+    """Kernel 2 over a decode tick: ``layers`` launches, ``m`` slots each
+    ``ctx_tokens + 1`` tokens in, f32 pages of the planner's size; beside
+    its plain version and SDPA over the pre-gathered K/V."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_ragged_cuda
+    from repro_torch.runtime import planner
+    ps = planner.plan_kv_pages(dh).page_size
+    mp = -(-max_seq // ps)
+    n_pages = m * mp
+    pools = [_rand_pools(torch, gen, n_pages, hkv, ps, dh)
+             for _ in range(layers)]
+    bt = torch.arange(n_pages, dtype=torch.int32,
+                      device="cuda").reshape(m, mp)
+    q = torch.randn((m, hkv, rep, dh), generator=gen, device="cuda")
+    ctx = torch.full((m,), ctx_tokens, dtype=torch.int32, device="cuda")
+    one = torch.ones((m,), dtype=torch.int32, device="cuda")
+    attend = ctx_tokens + 1
+    gathered = [(ref._gather(kp, bt)[:, :, :attend].repeat_interleave(rep, 1),
+                 ref._gather(vp, bt)[:, :, :attend].repeat_interleave(rep, 1))
+                for kp, vp in pools]
+    q_sdpa = q.reshape(m, hkv * rep, 1, dh)
+
+    def kernel():
+        for kp, vp in pools:
+            paged_decode_ragged_cuda(q, kp, vp, bt, ctx, one, w=1)
+
+    def library():
+        for k, v in gathered:
+            F.scaled_dot_product_attention(q_sdpa, k, v)
+
+    nbytes = layers * (m * hkv * attend * dh * 4 * 2
+                       + 2 * m * hkv * rep * dh * 4 + m * (mp + 2) * 4)
+    flops = layers * 4 * m * hkv * rep * dh * attend
+    row = {"per": f"decode tick: {layers} launches, {m} slots, {attend} "
+                  f"tokens attended each, {hkv} KV heads of {dh}, "
+                  f"{ps}-token f32 pages",
+           "ms": _time_ms(torch, kernel),
+           "device_ms": _device_ms(torch, kernel, PAGED_KERNELS),
+           "plain_ms": _time_ms(torch, lambda: [ref.paged_decode_ragged_ref(
+               q, kp, vp, bt, ctx, one, w=1) for kp, vp in pools]),
+           "library_ms": _time_ms(torch, library),
+           "library_device_ms": _device_ms(torch, library, ("",)),
+           "library_call": "scaled_dot_product_attention over pre-gathered "
+                           "K/V",
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+    row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
+    row["share_of_bound"] = row["bound_ms"] / row["device_ms"] \
+        if row["device_ms"] else None
+    return row
+
+
+# -- phase 5: training the LM ------------------------------------------------
+
+#: the gemma-2b training runs of the train phase: batch 2 x 256 tokens
+TRAIN_ARGS = ("--arch", "gemma-2b", "--batch", "2", "--seq", "256")
+#: the resumed step-3 loss against the unbroken run's: |a - b| <= this *
+#: |b|. Both runs take the same batches from the same weights and moments
+#: (the checkpoint holds them exactly); the kernels are bit-identical
+#: across launches.
+RESUME_RTOL = 1e-5
+#: examples/train_llm.py's steps, batch and tokens (granite-100m)
+TRAIN_LLM_STEPS, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ = 300, 16, 256
+#: the flash Function's gradients against plain autograd: |a - b| <= this
+#: * max|b| per input (its backward is the plain version's recompute; its
+#: forward the kernel's f32 sums in another order)
+GRAD_RTOL = 1e-4
+
+
+
+def _train_flash_shapes() -> tuple:
+    """(run, (B, Hq, Hkv, Sq, Skv, dh, causal)) of every flash launch the
+    train phase makes: gemma-2b and whisper-small at TRAIN_ARGS' batch and
+    tokens (whisper's encoder over its 1500 frames, its decoder's causal
+    self-attention, and its cross-attention from the tokens to the
+    frames), and train_llm's granite-100m."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples.train_llm import make_100m_cfg
+    gemma, granite, whisper = (get_config("gemma-2b"), make_100m_cfg(),
+                               _whisper_config())
+    b, s = int(TRAIN_ARGS[3]), int(TRAIN_ARGS[5])
+    enc, wh = whisper.enc_seq_len, (whisper.n_heads, whisper.n_kv_heads)
+    return (("gemma-2b", (b, gemma.n_heads, gemma.n_kv_heads, s, s,
+                          gemma.dh, True)),
+            ("whisper encoder", (b, *wh, enc, enc, whisper.dh, False)),
+            ("whisper decoder", (b, *wh, s, s, whisper.dh, True)),
+            ("whisper cross", (b, *wh, s, enc, whisper.dh, False)),
+            ("granite-100m", (TRAIN_LLM_BATCH, granite.n_heads,
+                              granite.n_kv_heads, TRAIN_LLM_SEQ,
+                              TRAIN_LLM_SEQ, granite.dh, True)))
+
+
+def _train_flash_inputs(torch, gen, b, hq, hkv, sq, skv, dh):
+    q = torch.randn((b, hq, sq, dh), generator=gen, device="cuda")
+    k, v = (torch.randn((b, hkv, skv, dh), generator=gen, device="cuda")
+            for _ in range(2))
+    return q, k, v
+
+
+def train_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Kernel 4's forward at every shape of ``_train_flash_shapes``, held
+    against its plain version and bit-identical on a second launch, before
+    the train phase launches it there (``_train_run`` requires it).
+    Returns the worst errors and the checked launch keys."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    checked: set = set()
+    worst: dict = {}
+    for name, (b, hq, hkv, sq, skv, dh, causal) in _train_flash_shapes():
+        q, k, v = _train_flash_inputs(torch, gen, b, hq, hkv, sq, skv, dh)
+        _, rec = _check_launch(torch, "flash_attention", flash_attention_cuda,
+                               _flash_plain, (q, k, v), {"causal": causal},
+                               checked, worst)
+        emit({"phase": "kernel", "kernel": "flash_attention", "for": "train",
+              "run": name, "B": b, "Hq": hq, "Hkv": hkv, "Sq": sq,
+              "Skv": skv, "dh": dh, "causal": causal, **rec})
+    return worst, checked
+
+
+def _flash_function_checks(torch) -> dict:
+    """``FlashAttentionFn`` with the kernel's forward against plain
+    autograd through the plain version, at every shape of
+    ``_train_flash_shapes``: the output is the kernel's, bit for bit, and
+    each input's gradient within GRAD_RTOL of the plain one's largest."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_autograd,
+                                                     flash_attention_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    out = {}
+    for name, (b, hq, hkv, sq, skv, dh, causal) in _train_flash_shapes():
+        q, k, v = _train_flash_inputs(torch, gen, b, hq, hkv, sq, skv, dh)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+
+        def run(fn):
+            ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*ts)
+            return o.detach(), torch.autograd.grad(o, ts, g)
+        got, got_g = run(lambda *t: flash_attention_autograd(
+            *t, causal=causal, q_chunk=1024))
+        want, want_g = run(lambda *t: ref.flash_attention_ref(
+            *t, causal=causal, q_chunk=1024))
+        torch.cuda.synchronize()
+        errs = [((a - w).abs().max() / w.abs().max()).item()
+                for a, w in zip(got_g, want_g)]
+        same = bool(torch.equal(got, flash_attention_cuda(q, k, v,
+                                                          causal=causal)))
+        ok = same and _attn_ok(torch, got, want) \
+            and max(errs) <= GRAD_RTOL
+        out[name] = {"shape": [b, hq, hkv, sq, skv, dh], "causal": causal,
+                     "forward_is_kernel": same,
+                     "forward_max_abs_err": (got - want).abs().max().item(),
+                     "grad_max_rel_err": dict(zip(("q", "k", "v"), errs)),
+                     "tol_grad_rel": GRAD_RTOL, "ok": ok}
+        require(ok, f"flash Function at {name}: {out[name]}")
+    return out
+
+
+def _train_run(torch, name, run, checked, *, killed=False) -> tuple:
+    """Run ``run()`` (a training entry point) with every count set to 0
+    just before and read just after; every flash launch must have gone
+    through ``FlashAttentionFn`` (as many Function forwards as launches, as
+    many backwards) at a shape the kernel phases held to the plain version
+    (``checked``), and nothing else may launch or run a plain version.
+    Returns (history or None when ``killed``, record)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import FUNCTION_CALLS
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_op_calls()
+    FUNCTION_CALLS.clear()
+    t0 = time.perf_counter()
+    hist = None
+    with _ShapeRecorder(torch) as keys:
+        try:
+            hist = run()
+        except KeyboardInterrupt:
+            require(killed, f"{name}: interrupted")
+        else:
+            require(not killed, f"{name}: the injected kill did not fire")
+    torch.cuda.synchronize()
+    launches, plain = ops.op_calls(), ops.ref_calls()
+    fn = dict(FUNCTION_CALLS)
+    require(launches == {"flash_attention": fn.get("forward", -1)}
+            and fn.get("backward") == fn.get("forward") and not plain,
+            f"{name}: launches {launches}, Function calls {fn}, plain "
+            f"{plain}")
+    unchecked = sorted(keys - checked)
+    require(not unchecked, f"{name}: flash launches at shapes the kernel "
+                           f"phases never held to the plain version: "
+                           f"{unchecked}")
+    rec = {"run": name, "wall_s": time.perf_counter() - t0,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "function_calls": fn,
+           "launch_shapes": sorted(keys)}
+    if hist is not None:
+        losses = [h["loss"] for h in hist]
+        require(all(math.isfinite(x) for x in losses),
+                f"{name}: losses {losses}")
+        rec.update(steps=[h["step"] for h in hist], losses=losses,
+                   ms_per_step=[h["dt"] * 1e3 for h in hist])
+    return hist, rec
+
+
+def train_phase(torch, np, card: str, checked: set) -> dict:
+    """Training through the port's entry points, on the card:
+
+    * the flash Function's gradients against plain autograd at every
+      training shape (``_flash_function_checks``);
+    * ``repro_torch.launch.train.main`` on gemma-2b at its published width
+      and depth (18 layers, d_model 2048, vocab 256000), nothing cut,
+      batch 2 x 256 tokens: 3 steps of ``adamw_q8`` killed at step 2 after
+      a checkpoint there and resumed from ``--ckpt-dir`` (the checkpoint
+      goes under ``build/`` and is removed), then 3 unbroken steps: the
+      resumed step-3 loss within RESUME_RTOL of the unbroken run's; one
+      step of plain ``adamw``; losses, ms per step and
+      ``max_memory_allocated`` of each;
+    * whisper-small at full width: one step of ``launch.train`` (which
+      feeds zero encoder frames, as the reference's does: at full depth their
+      gradient overflows f32 after the first step in both packages, the
+      layer norms' 1/sqrt(eps) gain on a zero input compounding over 25
+      norms), then 3 steps of ``TrainLoop`` on frames from a seed: the
+      encoder's non-causal flash kernel under autograd;
+    * ``examples/train_llm.py`` (granite-100m, batch 16 x 256 tokens) for
+      TRAIN_LLM_STEPS steps: its first and last 5-step mean loss against
+      ln(8192).
+
+    Every flash launch goes through ``FlashAttentionFn`` at a shape in
+    ``checked`` (``_train_run``).
+    Returns the launches by run and the Function's timing row."""
+    import shutil
+    from repro_torch.examples import train_llm
+    from repro_torch.launch import train
+
+    out = {"phase": "train", "card": card,
+           "flash_function": _flash_function_checks(torch)}
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    out["ckpt_disk_free_bytes"] = shutil.disk_usage(ckpt).free
+    q8 = TRAIN_ARGS + ("--steps", "3", "--optimizer", "adamw_q8")
+    resume = q8 + ("--ckpt-dir", str(ckpt), "--ckpt-every", "2")
+    runs = []
+    try:
+        for name, args, killed in (
+                ("gemma-2b adamw_q8 killed at step 2",
+                 resume + ("--kill-at-step", "2"), True),
+                ("gemma-2b adamw_q8 resumed", resume, False),
+                ("gemma-2b adamw_q8 unbroken", q8, False),
+                ("gemma-2b adamw", TRAIN_ARGS + ("--steps", "1"), False),
+                ("whisper-small adamw, zero frames",
+                 ("--arch", "whisper-small", "--batch", "2", "--seq", "256",
+                  "--steps", "1"), False)):
+            hist, rec = _train_run(torch, name,
+                                   lambda args=args: train.main(list(args)),
+                                   checked, killed=killed)
+            runs.append(rec)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _, rec = _train_run(torch, "whisper-small adamw, seeded frames",
+                        lambda: _whisper_train(torch), checked)
+    runs.append(rec)
+    by = {r["run"]: r for r in runs}
+    resumed = by["gemma-2b adamw_q8 resumed"]
+    unbroken = by["gemma-2b adamw_q8 unbroken"]
+    a, b = resumed["losses"][0], unbroken["losses"][2]
+    require(resumed["steps"] == [3] and abs(a - b) <= RESUME_RTOL * abs(b),
+            f"resumed step-3 loss {a} against the unbroken run's {b}")
+    out["resume"] = {"resumed_step3_loss": a, "unbroken_step3_loss": b,
+                     "rel_diff": abs(a - b) / abs(b),
+                     "tol_rel": RESUME_RTOL}
+    hist, rec = _train_run(torch, "train_llm granite-100m", lambda: (
+        train_llm.main(["--steps", str(TRAIN_LLM_STEPS), "--batch",
+                        str(TRAIN_LLM_BATCH), "--seq", str(TRAIN_LLM_SEQ)])),
+        checked)
+    first = float(np.mean(rec["losses"][:5]))
+    last = float(np.mean(rec["losses"][-5:]))
+    require(len(hist) == TRAIN_LLM_STEPS and last < first,
+            f"train_llm: loss {first} -> {last}")
+    rec.update(first5_mean_loss=first, last5_mean_loss=last,
+               uniform_loss=math.log(8192),
+               ms_per_step_median=float(np.median(rec["ms_per_step"])))
+    del rec["losses"], rec["ms_per_step"], rec["steps"]
+    runs.append(rec)
+    out["runs"] = runs
+    out["timing"] = _train_flash_timing(torch)
+    emit(out)
+    return {"launches": {r["run"]: r["launches"] for r in runs},
+            "timing": out["timing"]}
+
+
+def _whisper_train(torch, steps: int = 3) -> list:
+    """``steps`` AdamW steps of whisper-small at full width through
+    ``TrainLoop`` and ``encdec_loss``, batch 2 x 256 tokens of the Markov
+    stream, on encoder frames (2, 1500, 768) drawn from a seed. Returns
+    the history."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import encdec
+    from repro_torch.runtime import Runtime
+    from repro_torch.training import TrainConfig, TrainLoop, make_optimizer
+    cfg = _whisper_config()
+    rt = Runtime(q_chunk=256)
+    frames = torch.randn((2, cfg.enc_seq_len, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(43))
+    data = TokenStream(cfg.vocab_size, 2, 256, seed=0)
+    try:
+        loop = TrainLoop(
+            lambda p, b: encdec.encdec_loss(p, dict(b, frames=frames), cfg,
+                                            rt),
+            make_optimizer("adamw", lr=3e-3),
+            lambda: encdec.encdec_init(
+                torch.Generator(device="cuda").manual_seed(0), cfg,
+                device="cuda"),
+            iter(data), TrainConfig(max_steps=steps, log_every=1))
+        return loop.run()[1]
+    finally:
+        data.close()
+
+
+def _train_flash_timing(torch) -> dict:
+    """The flash kernel's forward inside ``FlashAttentionFn`` over one
+    gemma-2b training step (18 launches, 8 query heads over 1 KV head of
+    256, causal, 2 x 256 tokens, inputs that require grad), beside its
+    plain version, SDPA, the bounds, and the backward's plain recompute
+    (the gradients of all 18 layers)."""
+    from repro_torch.kernels.flash_attention import flash_attention_autograd
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    row = _flash_shape_timing(
+        torch, gen, b=2, hq=8, hkv=1, sq=256, skv=256, dh=256, causal=True,
+        layers=18, grad=True,
+        per="gemma-2b training step: 18 forward launches under "
+            "FlashAttentionFn, causal, 2 x 256 tokens, 8 query heads over "
+            "1 KV head of 256")
+    qkv = [tuple(torch.randn(shape, generator=gen, device="cuda")
+                 .requires_grad_(True)
+                 for shape in ((2, 8, 256, 256), (2, 1, 256, 256),
+                               (2, 1, 256, 256))) for _ in range(18)]
+    outs = [flash_attention_autograd(q, k, v, causal=True, q_chunk=256)
+            for q, k, v in qkv]
+    g = torch.ones_like(outs[0])
+
+    def backward():
+        for (q, k, v), o in zip(qkv, outs):
+            torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+    row["backward_plain_recompute_ms"] = _time_ms(torch, backward, reps=3)
+    return row
+
+
+def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
+                        layers, per, grad=False) -> dict:
+    """Kernel 4 over ``layers`` launches of q (b, hq, sq, dh) against k/v
+    (b, hkv, skv, dh) (``grad``: inside ``FlashAttentionFn``, the inputs
+    requiring grad), beside its plain version, SDPA over K/V repeated to
+    the query heads, and the two bounds: q, k, v read once, out written
+    once; 4 * dh flops per (query, key) pair attended (the causal half at
+    sq == skv)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_autograd,
+                                                     flash_attention_cuda)
+    qkv = [(torch.randn((b, hq, sq, dh), generator=gen, device="cuda"),
+            torch.randn((b, hkv, skv, dh), generator=gen, device="cuda"),
+            torch.randn((b, hkv, skv, dh), generator=gen, device="cuda"))
+           for _ in range(layers)]
+    if grad:
+        qkv = [tuple(t.requires_grad_(True) for t in x) for x in qkv]
+    expanded = [(q.detach(), k.detach().repeat_interleave(hq // hkv, 1),
+                 v.detach().repeat_interleave(hq // hkv, 1))
+                for q, k, v in qkv]
+
+    def kernel():
+        with torch.enable_grad():
+            for q, k, v in qkv:
+                if grad:
+                    flash_attention_autograd(q, k, v, causal=causal,
+                                             q_chunk=1024)
+                else:
+                    flash_attention_cuda(q, k, v, causal=causal)
+
+    def plain():
+        with torch.no_grad():
+            for q, k, v in qkv:
+                ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=1024)
+
+    def library():
+        for q, k, v in expanded:
+            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    nbytes = layers * 4 * dh * (2 * b * hq * sq + 2 * b * hkv * skv)
+    flops = layers * 4 * b * hq * dh * pairs
+    bound, by = _bound_ms(nbytes, flops)
+    device_ms = _device_ms(torch, kernel, ("flash_attention_kernel",))
+    return {"name": "flash_attention", "per": per,
+            "ms": _time_ms(torch, kernel), "device_ms": device_ms,
+            "plain_ms": _time_ms(torch, plain, reps=3),
+            "library_ms": _time_ms(torch, library),
+            "library_device_ms": _device_ms(torch, library, ("",)),
+            "library_call": f"scaled_dot_product_attention(is_causal="
+                            f"{causal}), K/V pre-repeated over the query "
+                            "heads",
+            "bound_ms": bound, "bound_by": by,
+            "f32_bound_ms": _f32_bound_ms(nbytes, flops),
+            "share_of_bound": bound / device_ms if device_ms else None}
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -2262,7 +3114,7 @@ def _f32_bound_ms(nbytes: float, flops: float) -> float:
 
 
 def timing_phase(torch, np, eng, launches, new_launches, worst,
-                 mlp, families) -> list:
+                 mlp, families, whisper, training) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -2458,6 +3310,11 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     quant.update(_long_ctx_timing(torch, gen, cfg, m, quant=True))
     flash = _flash_timing(torch, gen, cfg)
     flash["long_prompt"] = _flash_timing(torch, gen, cfg, s=LONG_CTX)
+    # whisper's shapes and the training step's, timed in their phases
+    flash["whisper"] = whisper["timing"]["flash_attention"]
+    flash["train_function"] = training["timing"]
+    spx["whisper_encoder_pass"] = whisper["timing"]["spx_matmul"]
+    ragged["whisper_decode_tick"] = whisper["timing"]["paged_decode_ragged"]
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -2493,7 +3350,11 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                "paper_mlp": {"spx_matmul": mlp["launches"]},
                "paper_experiments": mlp["experiments"],
                **{f"serve_families {name}": f["launches"]
-                  for name, f in families.items()}}
+                  for name, f in families.items()},
+               "serve_whisper": whisper["launches"],
+               "serve_whisper dense": whisper["dense_launches"],
+               **{f"train {run}": n
+                  for run, n in training["launches"].items()}}
     rows = []
     for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
                   bf16_one):
@@ -2924,50 +3785,12 @@ def _flash_timing(torch, gen, cfg, s: int = 33):
     """Kernel 4 per admitted request of the dense path: one launch per
     layer over the prompt (the 33-token prompt of the serve phase, or a
     long one)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-
-    hkv, hq, dh = cfg.n_kv_heads, cfg.n_heads, cfg.dh
-    qkv = [(torch.randn((1, hq, s, dh), generator=gen, device="cuda"),
-            torch.randn((1, hkv, s, dh), generator=gen, device="cuda"),
-            torch.randn((1, hkv, s, dh), generator=gen, device="cuda"))
-           for _ in range(cfg.n_layers)]
-    expanded = [(q, k.repeat_interleave(hq // hkv, 1),
-                 v.repeat_interleave(hq // hkv, 1)) for q, k, v in qkv]
-
-    def kernel():
-        for q, k, v in qkv:
-            flash_attention_cuda(q, k, v, causal=True)
-
-    def plain():
-        for q, k, v in qkv:
-            ref.flash_attention_ref(q, k, v, causal=True, q_chunk=1024)
-
-    def library():
-        for q, k, v in expanded:
-            F.scaled_dot_product_attention(q, k, v, is_causal=True)
-
-    # q, k, v read once and out written once; the causal half of the
-    # (query, key) pairs, 4 * dh flops each (QK^T and PV)
-    nbytes = cfg.n_layers * 4 * dh * (2 * hq * s + 2 * hkv * s)
-    flops = cfg.n_layers * 4 * hq * dh * (s * (s + 1) // 2)
-    bound, by = _bound_ms(nbytes, flops)
-    device_ms = _device_ms(torch, kernel, ("flash_attention_kernel",))
-    return {"name": "flash_attention",
-            "per": f"admitted request: {cfg.n_layers} launches, causal "
-                   f"prefill of {s} tokens, {hq} query heads over {hkv} KV "
-                   f"head(s) of {dh}",
-            "ms": _time_ms(torch, kernel),
-            "device_ms": device_ms,
-            "plain_ms": _time_ms(torch, plain, reps=3),
-            "library_ms": _time_ms(torch, library),
-            "library_device_ms": _device_ms(torch, library, ("",)),
-            "library_call": "scaled_dot_product_attention(is_causal=True), "
-                            "K/V pre-repeated over the query heads",
-            "bound_ms": bound, "bound_by": by,
-            "f32_bound_ms": _f32_bound_ms(nbytes, flops),
-            "share_of_bound": bound / device_ms if device_ms else None}
+    return _flash_shape_timing(
+        torch, gen, b=1, hq=cfg.n_heads, hkv=cfg.n_kv_heads, sq=s, skv=s,
+        dh=cfg.dh, causal=True, layers=cfg.n_layers,
+        per=f"admitted request: {cfg.n_layers} launches, causal prefill of "
+            f"{s} tokens, {cfg.n_heads} query heads over {cfg.n_kv_heads} "
+            f"KV head(s) of {cfg.dh}")
 
 
 def _layer_weights(params, i):
@@ -3025,12 +3848,16 @@ def main() -> int:
               "dir": str(cuda_lib.build_dir()),
               "tensor_core_instructions": _sass_counts(cuda_lib)})
         worst, checked = kernel_phase(torch, np)
-        fam_worst, fam_checked = family_kernel_phase(torch, np)
-        for name, err in fam_worst.items():
-            worst[name] = max(worst[name], err)
-        checked |= fam_checked
+        for phase in (family_kernel_phase, whisper_kernel_phase,
+                      train_kernel_phase):
+            more_worst, more_checked = phase(torch, np)
+            for name, err in more_worst.items():
+                worst[name] = max(worst[name], err)
+            checked |= more_checked
         families = serve_families_phase(torch, np, info["nvidia_smi"],
                                         checked)
+        whisper = serve_whisper_phase(torch, np, info["nvidia_smi"], checked)
+        training = train_phase(torch, np, info["nvidia_smi"], checked)
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
         mlp["experiments"] = paper_experiments_phase(
@@ -3044,7 +3871,7 @@ def main() -> int:
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,
-                            mlp, families)
+                            mlp, families, whisper, training)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

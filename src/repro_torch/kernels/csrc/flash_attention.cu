@@ -52,7 +52,8 @@
 //    and are masked; rows past the end are never written. Causal: KV tiles
 //    wholly above the tile's last position are skipped, which computes
 //    the same function as visiting and masking them.
-//  * dh is a template parameter (32, 64, 128, 256); others are refused.
+//  * dh is a template parameter (32, 64, 80, 128, 256; any multiple of 16
+//    whose planes fit); others are refused.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -382,6 +383,8 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
     case 32: err = launch<32>(q, k, v, out, B, hq, rep, sq, skv, causal,
                               scale, stream); break;
     case 64: err = launch<64>(q, k, v, out, B, hq, rep, sq, skv, causal,
+                              scale, stream); break;
+    case 80: err = launch<80>(q, k, v, out, B, hq, rep, sq, skv, causal,
                               scale, stream); break;
     case 128: err = launch<128>(q, k, v, out, B, hq, rep, sq, skv, causal,
                                 scale, stream); break;

@@ -9,17 +9,32 @@ nothing. Every Sq and Skv runs: the kernel masks the tail tiles. The
 wrapper checks what the kernel takes, allocates the output, launches on
 the current stream, raises on a launch error and counts the
 launch. It never falls back to the plain version.
+
+The kernel's output has no ``grad_fn``: it is written through ``ctypes``.
+``FlashAttentionFn`` makes it differentiable for training: its forward is
+the kernel, its backward recomputes the attention through the plain
+version (``ref.flash_attention_ref``) under autograd and returns that
+recompute's gradients. The TPU kernel is forward-only too, and the
+reference differentiates the same chunked attention; no backward kernel
+is owed.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, ref
 
-__all__ = ["flash_attention_cuda", "HEAD_DIMS"]
+__all__ = ["flash_attention_cuda", "flash_attention_autograd",
+           "FlashAttentionFn", "FUNCTION_CALLS", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)
+
+#: ``FlashAttentionFn`` calls: "forward" (each one forward launch of the
+#: kernel on the card) and "backward" (each one plain recompute)
+FUNCTION_CALLS: collections.Counter = collections.Counter()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,3 +73,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cuda_lib.check(lib, err, "flash_attention launch")
     cuda_lib.LAUNCHES["flash_attention"] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention: ``forward(q, k, v, causal=...)`` in
+    the forward (the kernel on the card), the plain version's gradients in
+    the backward. ``apply(q, k, v, causal, q_chunk, forward)``: q_chunk is
+    the plain version's query chunk; ``forward`` any callable with the
+    kernel's contract (the tests pass the plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int, forward):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_chunk = causal, q_chunk
+        FUNCTION_CALLS["forward"] += 1
+        return forward(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        FUNCTION_CALLS["backward"] += 1
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*inputs, causal=ctx.causal,
+                                          q_chunk=ctx.q_chunk)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*grads, None, None, None)
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool, q_chunk: int,
+                             forward=flash_attention_cuda) -> torch.Tensor:
+    """``flash_attention_cuda`` (or ``forward``) with a backward: what the
+    op runs on the card when an input requires grad."""
+    return FlashAttentionFn.apply(q, k, v, causal, q_chunk, forward)

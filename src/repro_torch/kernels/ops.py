@@ -18,7 +18,7 @@ from repro_torch.core.quantized import QuantizedTensor
 from repro_torch.runtime import registry
 
 from . import cuda_lib, ref
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_autograd, flash_attention_cuda
 from .paged_attention import (paged_attention_cuda,
                               paged_attention_quant_cuda,
                               paged_decode_ragged_cuda,
@@ -86,7 +86,14 @@ def _flash_attention_ref(q, k, v, *, causal, q_chunk):
 
 @registry.register("flash_attention", "cuda")
 def _flash_attention_cuda(q, k, v, *, causal, q_chunk):
-    del q_chunk                 # the kernel tiles queries itself
+    """The kernel; inside ``FlashAttentionFn`` when autograd records (an
+    input requires grad), so training differentiates it. ``q_chunk`` is
+    the plain recompute's in the backward: the kernel tiles queries
+    itself."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_autograd(q, k, v, causal=causal,
+                                        q_chunk=q_chunk)
     return flash_attention_cuda(q, k, v, causal=causal)
 
 

@@ -1,0 +1,229 @@
+"""Encoder-decoder backbone (whisper-small). The audio frontend is a stub,
+as in the reference: inputs are precomputed frame embeddings (B,
+enc_seq_len, D). The encoder is an ``attn+dense`` stack run non-causally;
+the decoder an ``xdec+dense`` stack whose cross-attention reads the
+encoder's output, projected per layer.
+
+Serving keeps the encoder out of the decoder's state: the dense layout
+caches each slot's projected cross K/V at prefill (``xk``/``xv`` of the
+dense caches), the paged layout projects the encoder output once per
+distinct input (``encdec_cross_kv``) into an entry of the state cache's
+shared cross region (``models.lm.paged_fill_cross``), which every paged
+step reads through ``state_idx[:, 1]``. Caches are updated in place; the
+step functions still return them so callers read like the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.layers import (dense_init, embedding_apply,
+                                   embedding_init, norm_apply, norm_init,
+                                   tree_index)
+from repro_torch.nn.transformer import (_cross_kv, slot_init_cache,
+                                        slot_init_paged_cache, stack_apply,
+                                        stack_decode, stack_init,
+                                        stack_paged, stack_prefill)
+from repro_torch.runtime import Runtime, resolve_device
+
+from .lm import Z_WEIGHT, _default_positions, chunked_ce
+
+__all__ = ["encdec_init", "encdec_loss", "encdec_encode", "encdec_prefill",
+           "encdec_decode_step", "encdec_init_caches", "enc_cfg", "dec_cfg",
+           "encdec_paged_init_caches", "encdec_cross_kv",
+           "encdec_paged_step", "encdec_paged_verify",
+           "encdec_paged_fused_step"]
+
+
+def enc_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, pattern=("attn+dense",),
+                               n_layers=cfg.n_enc_layers)
+
+
+def dec_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, pattern=("xdec+dense",))
+
+
+def encdec_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+                device=None) -> dict:
+    """Random params drawn from ``gen``, on ``device`` (``cuda`` unless the
+    caller asks for another; raises without a card). ``gen`` must live on
+    that device. The reference's ``jax.random`` draws cannot be
+    reproduced: tests carry JAX-made weights over (``interop``)."""
+    device = resolve_device(device)
+    return {
+        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                dtype=dtype, device=device),
+        "enc_stack": stack_init(gen, enc_cfg(cfg), dtype=dtype,
+                                device=device),
+        "enc_norm": norm_init(cfg.norm, cfg.d_model, dtype, device),
+        "dec_stack": stack_init(gen, dec_cfg(cfg), dtype=dtype,
+                                device=device),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, device),
+        "head": dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype,
+                           device=device),
+    }
+
+
+def _logits(params, h: torch.Tensor) -> torch.Tensor:
+    """The untied head: a plain product outside any kernel."""
+    return torch.matmul(h, params["head"]["w"].to(h.dtype))
+
+
+def encdec_encode(params, frames: torch.Tensor, cfg: ArchConfig,
+                  rt: Runtime) -> torch.Tensor:
+    """frames (B, S_enc, D) -> the encoder output (B, S_enc, D): roped
+    self-attention over every frame, not causal."""
+    b, s, _ = frames.shape
+    pos = torch.arange(s, device=frames.device).expand(b, s)
+    h, _ = stack_apply(params["enc_stack"], frames, pos, enc_cfg(cfg), rt,
+                       causal=False)
+    return norm_apply(cfg.norm, params["enc_norm"], h)
+
+
+def encdec_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
+    """batch: {"frames": (B, S_enc, D), "tokens": (B, S), "labels":
+    (B, S)}. Returns (scalar loss, {"ce", "z"}): cross-entropy plus
+    ``Z_WEIGHT`` x the z-loss."""
+    enc_out = encdec_encode(params, batch["frames"], cfg, rt)
+    tokens = batch["tokens"]
+    pos = _default_positions(cfg, *tokens.shape, tokens.device)
+    x = embedding_apply(params["embed"], tokens)
+    h, _ = stack_apply(params["dec_stack"], x, pos, dec_cfg(cfg), rt,
+                       enc_out=enc_out)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    ce, z = chunked_ce(h, params["head"]["w"], batch["labels"])
+    return ce + Z_WEIGHT * z, {"ce": ce, "z": z}
+
+
+# -- dense serving ------------------------------------------------------------
+
+def encdec_init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                       dtype=torch.bfloat16, kv_quant: bool = False,
+                       device=None) -> list:
+    """The decoder's dense per-slot caches: self-attention K/V and the
+    cross K/V of every xdec slot, on ``device`` (``cuda`` unless the
+    caller asks for another)."""
+    device = resolve_device(device)
+    dcfg = dec_cfg(cfg)
+    return [slot_init_cache(slot, dcfg, batch, max_seq, dtype,
+                            kv_quant=kv_quant, device=device)
+            for slot in dcfg.pattern]
+
+
+def encdec_prefill(params, frames, tokens, caches, cfg: ArchConfig,
+                   rt: Runtime):
+    """Encode ``frames`` and run the decoder prompt ``tokens`` (B, S),
+    writing the self-attention prefix and the cross K/V into ``caches``
+    in place. Returns the last position's logits (B, V) and the caches."""
+    enc_out = encdec_encode(params, frames, cfg, rt)
+    pos = _default_positions(cfg, *tokens.shape, tokens.device)
+    x = embedding_apply(params["embed"], tokens)
+    h, caches, _ = stack_prefill(params["dec_stack"], x, pos, dec_cfg(cfg),
+                                 rt, caches, enc_out=enc_out)
+    h = norm_apply(cfg.norm, params["final_norm"], h[:, -1:])
+    return _logits(params, h[:, 0]), caches
+
+
+def encdec_decode_step(params, token, pos, caches, cfg: ArchConfig,
+                       rt: Runtime):
+    """One decode step of the decoder against the dense caches (cross K/V
+    read from them). token: (B,); pos: scalar or (B,). Returns (logits
+    (B, V), caches)."""
+    x = embedding_apply(params["embed"], token[:, None])
+    h, caches = stack_decode(params["dec_stack"], x, pos, dec_cfg(cfg), rt,
+                             caches)
+    h = norm_apply(cfg.norm, params["final_norm"], h)
+    return _logits(params, h[:, 0]), caches
+
+
+# -- paged serving (the state cache) ------------------------------------------
+
+def encdec_paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
+                             dtype=torch.bfloat16, kv_quant: bool = False,
+                             n_slabs: int = 0, n_cross: int = 0,
+                             device=None) -> list:
+    """The decoder's state-cache regions: token-paged self-attention K/V
+    pools and ``n_cross`` read-only encoder-output entries per xdec slot
+    (the encoder holds no serving state: its output is projected once per
+    distinct input by ``encdec_cross_kv`` and shared)."""
+    device = resolve_device(device)
+    dcfg = dec_cfg(cfg)
+    return [slot_init_paged_cache(slot, dcfg, n_pages, page_size, dtype,
+                                  kv_quant=kv_quant, n_slabs=n_slabs,
+                                  n_cross=n_cross, device=device)
+            for slot in dcfg.pattern]
+
+
+def encdec_cross_kv(params, frames: torch.Tensor, cfg: ArchConfig,
+                    rt: Runtime) -> list:
+    """Run the encoder once and project its output through every decoder
+    slot and period's cross-attention K/V: frames (B, S_enc, D) -> per
+    slot ``None`` (not xdec) or {"xk", "xv"} each (P, B, Hkv, S_enc, dh),
+    what ``lm.paged_fill_cross`` writes into a cross entry (B = 1 there).
+    The reference's vmap over the stacked periods is a loop over them;
+    every projection goes through ``dense_apply`` (``spx_matmul`` for SPx
+    weights)."""
+    enc_out = encdec_encode(params, frames, cfg, rt)
+    dcfg = dec_cfg(cfg)
+    out = []
+    for j, slot in enumerate(dcfg.pattern):
+        if slot.split("+")[0] != "xdec":
+            out.append(None)
+            continue
+        p_x = params["dec_stack"]["slots"][j]["xattn"]
+        ks, vs = [], []
+        for i in range(dcfg.n_periods):
+            k, v = _cross_kv(tree_index(p_x, i), enc_out, dcfg.n_kv_heads,
+                             dcfg.dh, rt)
+            # (B, S_enc, Hkv, dh) -> the cache layout (B, Hkv, S_enc, dh)
+            ks.append(k.transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        out.append({"xk": torch.stack(ks), "xv": torch.stack(vs)})
+    return out
+
+
+def _paged(params, tokens, ctx_len, block_table, n_valid, state_idx, caches,
+           cfg: ArchConfig, rt: Runtime, *, fused: bool = False):
+    """The decoder over a paged chunk: (final-normed h (B, C, D),
+    caches)."""
+    x = embedding_apply(params["embed"], tokens)
+    h, caches = stack_paged(params["dec_stack"], x, ctx_len, block_table,
+                            n_valid, state_idx, dec_cfg(cfg), rt, caches,
+                            fused=fused)
+    return norm_apply(cfg.norm, params["final_norm"], h), caches
+
+
+def encdec_paged_step(params, tokens, ctx_len, block_table, n_valid,
+                      state_idx, caches, cfg: ArchConfig, rt: Runtime):
+    """Decoder twin of ``lm.lm_paged_step``: same contract, cross-attention
+    reading the shared cross region through ``state_idx[:, 1]``. Returns
+    (logits (B, V) at each row's last valid position, caches)."""
+    h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
+                       state_idx, caches, cfg, rt)
+    last = torch.clamp(n_valid.long() - 1, 0, tokens.shape[1] - 1)
+    h_last = h[torch.arange(h.shape[0], device=h.device), last]
+    return _logits(params, h_last), caches
+
+
+def encdec_paged_verify(params, tokens, ctx_len, block_table, n_valid,
+                        state_idx, caches, cfg: ArchConfig, rt: Runtime):
+    """Decoder twin of ``lm.lm_paged_verify``: logits at every window
+    position, (B, C, V)."""
+    h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
+                       state_idx, caches, cfg, rt)
+    return _logits(params, h), caches
+
+
+def encdec_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
+                            state_idx, caches, cfg: ArchConfig,
+                            rt: Runtime):
+    """Decoder twin of ``lm.lm_paged_fused_step``: the self-attention of
+    every layer is one ``paged_decode_ragged`` launch; the cross-attention
+    runs the flash kernel over each row's cross entry (a dense per-entry
+    block, not pages). Logits at every window position, (B, W, V)."""
+    h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
+                       state_idx, caches, cfg, rt, fused=True)
+    return _logits(params, h), caches

@@ -1,10 +1,12 @@
-"""Decoder-only language model: init, the full-sequence forward
-(``lm_logits``), the dense serving path (``lm_prefill`` of a whole prompt
-into per-slot caches, ``lm_decode_step``), the paged prefill/decode step,
-the speculative verify window, the fused decode tick, and the page and
-slab copies the serving engine's copy-on-write, preemption and admission
-use. Dense, MoE, recurrent (xLSTM), hybrid (Jamba) and M-RoPE (Qwen2-VL)
-patterns; not the encoder-decoder family.
+"""Decoder-only language model: init, the training loss (``lm_loss``
+over ``chunked_ce``), the full-sequence forward (``lm_logits``), the dense
+serving path (``lm_prefill`` of a whole prompt into per-slot caches,
+``lm_decode_step``), the paged prefill/decode step, the speculative verify
+window, the fused decode tick, and the page, slab and cross-entry writes
+the serving engine's copy-on-write, preemption and admission use. Dense,
+MoE, recurrent (xLSTM), hybrid (Jamba) and M-RoPE (Qwen2-VL) patterns; the
+encoder-decoder family is assembled in ``models/encdec.py`` from the same
+pieces.
 
 Caches and page pools (bf16 by default as in the reference, f32 when asked
 for, or SPx codes + f32 scales when quantized; recurrent states f32) are
@@ -14,6 +16,7 @@ callers read like the reference.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
@@ -25,16 +28,21 @@ from repro_torch.nn.transformer import (slot_init_cache,
                                         stack_paged, stack_prefill)
 from repro_torch.runtime import Runtime, resolve_device
 
-__all__ = ["lm_init", "lm_logits", "init_caches", "lm_prefill",
-           "lm_decode_step", "paged_init_caches", "lm_paged_step",
-           "lm_paged_verify", "lm_paged_fused_step", "paged_copy_page",
-           "paged_gather_pages", "paged_scatter_pages",
-           "paged_gather_slabs", "paged_scatter_slabs", "paged_reset_slabs"]
+__all__ = ["lm_init", "lm_loss", "lm_logits", "chunked_ce", "init_caches",
+           "lm_prefill", "lm_decode_step", "paged_init_caches",
+           "lm_paged_step", "lm_paged_verify", "lm_paged_fused_step",
+           "paged_copy_page", "paged_gather_pages", "paged_scatter_pages",
+           "paged_gather_slabs", "paged_scatter_slabs", "paged_reset_slabs",
+           "paged_fill_cross", "LOSS_CHUNK", "AUX_WEIGHT", "Z_WEIGHT"]
 
-#: leaf keys of the token-page region; every other leaf of a slot's
-#: state-cache region is slab state (the reference's ``_CROSS_KEYS``
-#: region has no slot kind in this port)
+LOSS_CHUNK = 256
+AUX_WEIGHT = 0.01
+Z_WEIGHT = 1e-4
+
+#: leaf keys of a slot's state-cache regions: the token pages, the
+#: read-only cross entries (xdec slots); every other leaf is slab state
 _PAGE_KEYS = ("kp", "vp")
+_CROSS_KEYS = ("xk", "xv")
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
@@ -55,6 +63,14 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     return p
 
 
+def _head_w(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The (D, V) vocabulary projection: the tied table's transpose or the
+    untied head."""
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["head"]["w"]
+
+
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     """Vocabulary logits: the tied ``h @ table.T`` (or the untied head) —
     a plain product outside any kernel."""
@@ -73,10 +89,61 @@ def _default_positions(cfg: ArchConfig, b: int, s: int,
     return pos
 
 
+def _ce_chunk(h_i, w16, y_i):
+    """(sum of lse - true logit, sum of lse^2) of one chunk: bf16 operands,
+    f32 products and sums (the reference's ``preferred_element_type``)."""
+    logits = torch.matmul(h_i.to(torch.bfloat16).to(torch.float32),
+                          w16.to(torch.float32))
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, y_i.long()[..., None])[..., 0]
+    return torch.sum(lse - true), torch.sum(lse * lse)
+
+
+def chunked_ce(h: torch.Tensor, w_head: torch.Tensor, labels: torch.Tensor,
+               *, chunk: int = LOSS_CHUNK):
+    """Mean token cross-entropy and z-loss (mean log^2 Z) of h (B, S, D)
+    against labels (B, S) under the head w_head (D, V), over sequence
+    chunks: the (B, chunk, V) logits block is the only vocab-sized live
+    tensor, and each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)
+    instead of being saved. One chunk when S is not a multiple."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    w16 = w_head.to(torch.bfloat16)
+    ce = z = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, chunk):
+        args = (h[:, i:i + chunk], w16, labels[:, i:i + chunk])
+        if torch.is_grad_enabled():
+            c, zz = torch.utils.checkpoint.checkpoint(
+                _ce_chunk, *args, use_reentrant=False)
+        else:
+            c, zz = _ce_chunk(*args)
+        ce, z = ce + c, z + zz
+    return ce / (b * s), z / (b * s)
+
+
 def _backbone(params, cfg: ArchConfig, tokens, positions, rt: Runtime):
     x = embedding_apply(params["embed"], tokens)
     h, aux = stack_apply(params["stack"], x, positions, cfg, rt)
     return norm_apply(cfg.norm, params["final_norm"], h), aux
+
+
+def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
+    """batch: {"tokens": (B, S), "labels": (B, S), optional "positions"}.
+    Returns (scalar loss, {"ce", "aux", "z"}): cross-entropy plus
+    ``AUX_WEIGHT`` x the MoE load-balance loss plus ``Z_WEIGHT`` x the
+    z-loss. Differentiable: on the card the attention runs the flash
+    kernel inside its ``autograd.Function``."""
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(cfg, *tokens.shape, tokens.device)
+    h, aux = _backbone(params, cfg, tokens, positions, rt)
+    ce, z = chunked_ce(h, _head_w(params, cfg), batch["labels"])
+    loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
+    return loss, {"ce": ce, "aux": aux, "z": z}
 
 
 def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):
@@ -133,22 +200,25 @@ def lm_decode_step(params, token, pos, caches, cfg: ArchConfig,
 
 def paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
                       dtype=torch.bfloat16, kv_quant: bool = False,
-                      n_slabs: int = 0, device=None) -> list:
+                      n_slabs: int = 0, n_cross: int = 0,
+                      device=None) -> list:
     """The state-cache regions of every slot in the pattern, on ``device``
     (``cuda`` unless the caller asks for another): K/V page pools for
     attention slots — values of ``dtype`` (bf16 unless asked for f32), or
     codes + scale dicts when ``kv_quant`` (scheme from
-    ``Runtime.kv_scheme`` at step time) — and ``n_slabs`` recurrent-state
-    slabs for recurrent slots."""
+    ``Runtime.kv_scheme`` at step time) — ``n_slabs`` recurrent-state
+    slabs for recurrent slots, and ``n_cross`` read-only encoder-output
+    entries for xdec slots."""
     device = resolve_device(device)
     return [slot_init_paged_cache(slot, cfg, n_pages, page_size, dtype,
                                   kv_quant=kv_quant, n_slabs=n_slabs,
-                                  device=device)
+                                  n_cross=n_cross, device=device)
             for slot in cfg.pattern]
 
 
 def _slab_keys(slot_cache: dict) -> list:
-    return [k for k in slot_cache if k not in _PAGE_KEYS]
+    return [k for k in slot_cache
+            if k not in _PAGE_KEYS and k not in _CROSS_KEYS]
 
 
 def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,
@@ -267,4 +337,17 @@ def paged_reset_slabs(caches, slab: int):
     for slot_cache in caches:
         for k in _slab_keys(slot_cache):
             slot_cache[k][:, slab] = 0
+    return caches
+
+
+def paged_fill_cross(caches, idx: int, entries):
+    """Write one encoder pass's projected K/V into cross entry ``idx`` of
+    every xdec slot, in place. ``entries``: per slot ``None`` (no xdec) or
+    {"xk", "xv"} each (P, 1, Hkv, enc_seq_len, dh), the output of
+    ``models.encdec.encdec_cross_kv`` on one input. An entry is written
+    once here and only read by the decode path."""
+    for slot_cache, ent in zip(caches, entries):
+        if ent is not None:
+            for k in _CROSS_KEYS:
+                slot_cache[k][:, idx] = ent[k][:, 0].to(slot_cache[k].dtype)
     return caches

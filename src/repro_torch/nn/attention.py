@@ -3,8 +3,10 @@ prefill, through ``ops.flash_attention``), the one-token decode against a
 dense per-slot cache, and the paged KV cache of serving (chunked prefill
 and the fused decode tick). K/V caches and page pools hold f32 values, or
 SPx codebook codes (uint8) with one f32 scale per token when quantized
-(``Runtime.kv_quant``; ``Runtime.kv_scheme`` picks the level set).
-Context-parallel attention, mesh hints and cross-attention of
+(``Runtime.kv_quant``; ``Runtime.kv_scheme`` picks the level set). The
+dense forward and the one-token decode also take ``cross_kv``: the
+encoder-decoder's cross-attention over precomputed, unroped encoder K/V,
+non-causal. Context-parallel attention and the mesh hints of
 ``repro.nn.attention`` are not in this port.
 
 Caches and page pools are updated **in place** (indexed assignment) where
@@ -54,15 +56,17 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt):
     return q, k, v
 
 
-def _apply_positional(q, k, positions, rope_theta, mrope_sections):
+def _rotate(t, positions, rope_theta, mrope_sections):
     """RoPE over (B, S) positions, or M-RoPE over (B, 3, S) streams."""
     if mrope_sections is not None:
-        return (apply_mrope(q, positions, sections=mrope_sections,
-                            theta=rope_theta),
-                apply_mrope(k, positions, sections=mrope_sections,
-                            theta=rope_theta))
-    return (apply_rope(q, positions, theta=rope_theta),
-            apply_rope(k, positions, theta=rope_theta))
+        return apply_mrope(t, positions, sections=mrope_sections,
+                           theta=rope_theta)
+    return apply_rope(t, positions, theta=rope_theta)
+
+
+def _apply_positional(q, k, positions, rope_theta, mrope_sections):
+    return (_rotate(q, positions, rope_theta, mrope_sections),
+            _rotate(k, positions, rope_theta, mrope_sections))
 
 
 def _text_positions(positions, mrope_sections):
@@ -84,14 +88,32 @@ def attention_core(q, k, v, *, causal: bool, rt: Runtime):
                                impl=rt.impl)
 
 
+def _cross_attention(q, cross_kv, rt: Runtime):
+    """Non-causal attention of q (B, Sq, Hq, dh) over the encoder K/V
+    ``cross_kv`` (each (B, S_enc, Hkv, dh), in any cache dtype). Returns
+    (B, Hq, Sq, dh)."""
+    k, v = (t.transpose(1, 2).to(q.dtype) for t in cross_kv)
+    return attention_core(q.transpose(1, 2), k, v, causal=False, rt=rt)
+
+
 def attn_apply_dense(p: dict, x: torch.Tensor, positions, *, n_heads: int,
                      n_kv_heads: int, head_dim: int, causal: bool = True,
                      rope_theta: float = 10000.0, mrope_sections=None,
-                     rt: Runtime, kv_out: bool = False):
+                     rt: Runtime, kv_out: bool = False, cross_kv=None):
     """Full attention sublayer (projections, rope, core, output
     projection). Returns y, or (y, (k, v)) with k/v (B, S, Hkv, dh) roped
-    when ``kv_out``."""
+    when ``kv_out``. ``cross_kv``: (k, v) each (B, S_enc, Hkv, dh), the
+    enc-dec decoder's cross-attention: q alone is projected and roped
+    (M-RoPE leaves it unroped, as the reference does), K/V are taken as
+    given and the attention is not causal."""
     b, s, _ = x.shape
+    if cross_kv is not None:
+        q = dense_apply(p["wq"], x, rt).reshape(b, s, n_heads, head_dim)
+        if mrope_sections is None:
+            q = apply_rope(q, positions, theta=rope_theta)
+        o = _cross_attention(q, cross_kv, rt)
+        return dense_apply(p["wo"], o.transpose(1, 2).reshape(
+            b, s, n_heads * head_dim), rt)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     if positions is not None:
         q, k = _apply_positional(q, k, positions, rope_theta, mrope_sections)
@@ -218,13 +240,23 @@ def decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *, rt: Runtime):
 def attn_decode_step(p: dict, x: torch.Tensor, pos, kv_cache: tuple, *,
                      n_heads: int, n_kv_heads: int, head_dim: int,
                      rope_theta: float = 10000.0, mrope_sections=None,
-                     rt: Runtime):
+                     rt: Runtime, cross_kv=None):
     """One-token attention sublayer. x: (B, 1, D); kv_cache: (k, v) each
-    (B, Hkv, S, dh) or quantized dicts. Returns (y (B, 1, D), cache)."""
+    (B, Hkv, S, dh) or quantized dicts. Returns (y (B, 1, D), cache).
+    ``cross_kv``: (k, v) each (B, S_enc, Hkv, dh), static encoder K/V for
+    cross-attention: q is roped at ``pos``, nothing is cached, and
+    ``kv_cache`` comes back untouched."""
     b = x.shape[0]
-    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
                                (b,)).long()
+    if cross_kv is not None:
+        q = dense_apply(p["wq"], x, rt).reshape(b, 1, n_heads, head_dim)
+        q = _rotate(q, _text_positions(pos_b[:, None], mrope_sections),
+                    rope_theta, mrope_sections)
+        o = _cross_attention(q, cross_kv, rt)
+        y = o.transpose(1, 2).reshape(b, 1, n_heads * head_dim)
+        return dense_apply(p["wo"], y, rt), kv_cache
+    q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     q, k = _apply_positional(q, k,
                              _text_positions(pos_b[:, None], mrope_sections),
                              rope_theta, mrope_sections)

@@ -11,8 +11,12 @@ slot dispatcher serves four modes: ``train`` (full-sequence forward),
 prompt's K/V into a dense per-slot cache, a recurrent mixer's final
 state), ``decode`` (one token against that state) and ``paged`` (serving
 over the state cache: attention slots read and write token pages,
-recurrent slots their row of the slab region). The decoder cross-attention
-slot ``xdec`` (whisper) is not in this port and raises.
+recurrent slots their row of the slab region). The enc-dec decoder slot
+``xdec`` (whisper) is self-attention followed by cross-attention over the
+encoder's output: projected from ``enc_out`` in the train and prefill
+modes (prefill also writes it into the dense cache's ``xk``/``xv``), read
+from that cache in decode, and read from the shared cross region of the
+state cache in paged mode.
 """
 from __future__ import annotations
 
@@ -22,11 +26,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime
 
 from . import ssm
-from .attention import (attn_apply_dense, attn_decode_step, attn_init,
-                        attn_paged_step, quantize_kv)
-from .layers import norm_apply, norm_init, tree_index
+from .attention import (attention_core, attn_apply_dense, attn_decode_step,
+                        attn_init, attn_paged_step, quantize_kv)
+from .layers import dense_apply, norm_apply, norm_init, tree_index
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
+from .rotary import apply_rope
 
 __all__ = ["stack_init", "stack_apply", "stack_prefill", "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
@@ -43,10 +48,6 @@ def _parse_slot(slot: str):
     ffn = parts[1] if len(parts) > 1 else None
     if mixer not in SLOT_KINDS:
         raise ValueError(f"unknown slot {slot!r}")
-    if mixer == "xdec":
-        raise NotImplementedError(
-            f"slot {slot!r} (decoder cross-attention) is not ported yet "
-            "(ROADMAP.md: the encoder-decoder family)")
     return mixer, ffn
 
 
@@ -56,9 +57,13 @@ def _slot_init(gen: torch.Generator, slot: str, cfg: ArchConfig, dtype,
     d = cfg.d_model
     kw = dict(dtype=dtype, device=device)
     p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
-    if mixer == "attn":
+    if mixer in ("attn", "xdec"):
         p["attn"] = attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
                               qkv_bias=cfg.qkv_bias, **kw)
+        if mixer == "xdec":
+            p["xattn"] = attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.dh, qkv_bias=cfg.qkv_bias, **kw)
+            p["norm_x"] = norm_init(cfg.norm, d, dtype, device)
     elif mixer == "mamba":
         p["mamba"] = ssm.mamba_init(
             gen, d, d_state=cfg.ssm_d_state, d_conv=cfg.ssm_d_conv,
@@ -101,6 +106,65 @@ def stack_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
                       for _ in range(cfg.n_periods)]
         slots.append(_stack(per_period))
     return {"slots": slots}
+
+
+def _cross_kv(p_attn: dict, enc_out: torch.Tensor, n_kv_heads: int,
+              head_dim: int, rt: Runtime):
+    """Cross-attention K/V of one layer: the encoder output (B, S_enc, D)
+    through ``wk`` and ``wv`` (``spx_matmul`` for SPx weights), each
+    (B, S_enc, Hkv, dh), unroped."""
+    b, s, _ = enc_out.shape
+    k = dense_apply(p_attn["wk"], enc_out, rt).reshape(b, s, n_kv_heads,
+                                                       head_dim)
+    v = dense_apply(p_attn["wv"], enc_out, rt).reshape(b, s, n_kv_heads,
+                                                       head_dim)
+    return k, v
+
+
+def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
+                 cfg: ArchConfig, rt: Runtime):
+    """Cross-attention of a paged chunk against the shared cross region:
+    row b reads entry ``state_idx[b, 1]`` (clamped where it is the
+    sentinel: such a row's output is never read), q is roped at the
+    row's absolute positions ``ctx_len + i``, K/V are unroped and the
+    attention spans every encoder frame. Entries are only read here."""
+    b, c, _ = hx.shape
+    n_cross = cache["xk"].shape[0]
+    idx = torch.clamp(state_idx[:, 1].long(), 0, max(n_cross - 1, 0))
+    q = dense_apply(p_x["wq"], hx, rt).reshape(b, c, cfg.n_heads, cfg.dh)
+    positions = ctx_len[:, None] + torch.arange(c, dtype=ctx_len.dtype,
+                                                device=hx.device)
+    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    o = attention_core(q.transpose(1, 2), cache["xk"][idx].to(q.dtype),
+                       cache["xv"][idx].to(q.dtype), causal=False, rt=rt)
+    return dense_apply(p_x["wo"], o.transpose(1, 2).reshape(
+        b, c, cfg.n_heads * cfg.dh), rt)
+
+
+def _cross_sublayer(p: dict, x, positions, cfg: ArchConfig, rt: Runtime, *,
+                    mode: str, cache, pos, enc_out, paged_ctx):
+    """The xdec slot's cross-attention in one of the four modes. Returns
+    its output y (B, S, D); prefill writes the projected encoder K/V into
+    the dense cache's ``xk``/``xv`` in place."""
+    hx = norm_apply(cfg.norm, p["norm_x"], x)
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=cfg.dh, rope_theta=cfg.rope_theta, rt=rt)
+    if mode == "paged":
+        ctx_len, _, _, state_idx = paged_ctx[:4]
+        return _paged_cross(p["xattn"], hx, cache, ctx_len, state_idx, cfg,
+                            rt)
+    if mode == "decode":
+        y, _ = attn_decode_step(
+            p["xattn"], hx, pos, None,
+            cross_kv=(cache["xk"].transpose(1, 2),
+                      cache["xv"].transpose(1, 2)), **heads)
+        return y
+    xk, xv = _cross_kv(p["xattn"], enc_out, cfg.n_kv_heads, cfg.dh, rt)
+    if mode == "prefill":
+        cache["xk"].copy_(xk.transpose(1, 2))
+        cache["xv"].copy_(xv.transpose(1, 2))
+    return attn_apply_dense(p["xattn"], hx, positions, causal=False,
+                            cross_kv=(xk, xv), **heads)
 
 
 def _write_prefix(cache, val, rt: Runtime) -> None:
@@ -172,15 +236,17 @@ def _recurrent(slot_p, h, cfg: ArchConfig, rt: Runtime, mixer: str, *,
 
 def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                 rt: Runtime, *, mode: str, cache=None, pos=None,
-                causal: bool = True, paged_ctx=None, fused: bool = False):
+                enc_out=None, causal: bool = True, paged_ctx=None,
+                fused: bool = False):
     """One slot (the reference's ``_slot_apply``). mode: 'train' |
     'prefill' | 'decode' | 'paged'. Paged mode takes ``paged_ctx =
-    (ctx_len, block_table, n_valid, state_idx, slab_rows)``. Returns
-    (x, cache, aux) with aux the MoE load-balance loss (0 elsewhere)."""
+    (ctx_len, block_table, n_valid, state_idx, slab_rows)``; an xdec slot
+    takes ``enc_out`` in the train and prefill modes. Returns (x, cache,
+    aux) with aux the MoE load-balance loss (0 elsewhere)."""
     mixer, ffn = _parse_slot(slot)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, p["norm1"], x)
-    if mixer == "attn":
+    if mixer in ("attn", "xdec"):
         heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                      head_dim=cfg.dh, rope_theta=cfg.rope_theta,
                      mrope_sections=cfg.mrope_sections, rt=rt)
@@ -202,6 +268,11 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
         else:
             y = attn_apply_dense(p["attn"], h, positions, causal=causal,
                                  **heads)
+        if mixer == "xdec":
+            x = x + y
+            y = _cross_sublayer(p, x, positions, cfg, rt, mode=mode,
+                                cache=cache, pos=pos, enc_out=enc_out,
+                                paged_ctx=paged_ctx)
     else:
         y, cache = _recurrent(p[mixer], h, cfg, rt, mixer, mode=mode,
                               cache=cache, paged_ctx=paged_ctx)
@@ -229,27 +300,28 @@ def _periods(params: dict, cfg: ArchConfig, caches=None):
 
 
 def stack_apply(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
-                rt: Runtime, causal: bool = True):
-    """Train-mode stack (forward only). Returns (x, aux) with aux the sum
-    of the MoE load-balance losses."""
+                rt: Runtime, enc_out=None, causal: bool = True):
+    """Train-mode stack (differentiable under autograd). Returns (x, aux)
+    with aux the sum of the MoE load-balance losses. ``enc_out``: the
+    encoder output an xdec slot cross-attends."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for slot, sp, _ in _periods(params, cfg):
         x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt, mode="train",
-                              causal=causal)
+                              enc_out=enc_out, causal=causal)
         aux = aux + a
     return x, aux
 
 
 def stack_prefill(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
-                  rt: Runtime, caches):
+                  rt: Runtime, caches, enc_out=None):
     """Prefill: the train-mode forward that also writes each slot's
     serving state into the pre-allocated dense ``caches`` (in place): the
-    K/V prefix of attention slots, the final state of recurrent ones.
-    Returns (x, caches, aux)."""
+    K/V prefix of attention slots, the final state of recurrent ones, the
+    projected encoder K/V of xdec slots. Returns (x, caches, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for slot, sp, cache in _periods(params, cfg, caches):
         x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt,
-                              mode="prefill", cache=cache)
+                              mode="prefill", cache=cache, enc_out=enc_out)
         aux = aux + a
     return x, caches, aux
 
@@ -283,11 +355,13 @@ def stack_paged(params: dict, x: torch.Tensor, ctx_len, block_table,
     (B, C, D); ctx_len/n_valid: (B,); block_table: (B, max_pages);
     state_idx: (B, 2) — column 0 each row's slab (the out-of-range
     sentinel ``n_slabs`` for rows without one), column 1 its cross entry
-    (all-sentinel: no pattern here has a cross region). ``caches``: per
-    slot, {"kp", "vp"} pools of attention slots (tensors or quantized
-    {"codes", "scale"} dicts) or the slab leaves of recurrent ones, stacked
-    over periods, written in place. ``fused`` routes every attention
-    through the ragged decode kernel. Returns (x, caches)."""
+    (the sentinel ``n_cross`` for rows without one; all-sentinel for
+    decoder-only patterns). ``caches``: per slot, {"kp", "vp"} pools of
+    attention slots (tensors or quantized {"codes", "scale"} dicts), plus
+    the read-only {"xk", "xv"} cross region of xdec slots, or the slab
+    leaves of recurrent ones, stacked over periods, written in place.
+    ``fused`` routes every attention through the ragged decode kernel.
+    Returns (x, caches)."""
     ctx = (ctx_len, block_table, n_valid, state_idx,
            _slab_rows(cfg, caches, n_valid, state_idx))
     for slot, sp, cache in _periods(params, cfg, caches):
@@ -334,30 +408,47 @@ def slot_init_cache(slot: str, cfg: ArchConfig, batch: int, max_seq: int,
     """Dense serving state of one slot, stacked over periods: for
     attention {"k", "v"} each (P, batch, Hkv, max_seq, dh), or, when
     ``kv_quant``, {"codes" uint8, "scale" f32 (..., 1)} dicts (codes under
-    ``Runtime.kv_scheme``); for a recurrent mixer its state leaves
-    (P, batch, ...)."""
+    ``Runtime.kv_scheme``); an xdec slot adds the cross K/V {"xk", "xv"}
+    each (P, batch, Hkv, enc_seq_len, dh) in ``dtype``; for a recurrent
+    mixer its state leaves (P, batch, ...)."""
     mixer, _ = _parse_slot(slot)
     if mixer in SLAB_MIXERS:
         return _state_leaves(mixer, cfg, (cfg.n_periods, batch), dtype,
                              device)
     shape = (cfg.n_periods, batch, cfg.n_kv_heads, max_seq, cfg.dh)
-    return {"k": _kv_leaf(shape, kv_quant, dtype, device),
-            "v": _kv_leaf(shape, kv_quant, dtype, device)}
+    cache = {"k": _kv_leaf(shape, kv_quant, dtype, device),
+             "v": _kv_leaf(shape, kv_quant, dtype, device)}
+    if mixer == "xdec":
+        cache.update(_cross_leaves(cfg, batch, dtype, device))
+    return cache
+
+
+def _cross_leaves(cfg: ArchConfig, n: int, dtype, device) -> dict:
+    """Zero cross K/V {"xk", "xv"}, each (P, n, Hkv, enc_seq_len, dh)."""
+    shape = (cfg.n_periods, n, cfg.n_kv_heads, cfg.enc_seq_len, cfg.dh)
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k in ("xk", "xv")}
 
 
 def slot_init_paged_cache(slot: str, cfg: ArchConfig, n_pages: int,
                           page_size: int, dtype=torch.float32,
                           kv_quant: bool = False, n_slabs: int = 0,
-                          device="cpu") -> dict:
+                          n_cross: int = 0, device="cpu") -> dict:
     """One slot's state-cache region, stacked over periods (axis 0) with
     the shared pool axis at axis 1: K/V page pools {"kp", "vp"} each
     (P, n_pages, Hkv, page_size, dh) for attention (quantized dicts as in
-    ``slot_init_cache``), or the slab region of a recurrent mixer, its
-    state leaves (P, n_slabs, ...)."""
+    ``slot_init_cache``); an xdec slot adds the read-only cross region
+    {"xk", "xv"} each (P, n_cross, Hkv, enc_seq_len, dh) in ``dtype``, one
+    entry per distinct encoder input, shared across sequences; a
+    recurrent mixer has the slab region, its state leaves (P, n_slabs,
+    ...)."""
     mixer, _ = _parse_slot(slot)
     if mixer in SLAB_MIXERS:
         return _state_leaves(mixer, cfg, (cfg.n_periods, n_slabs), dtype,
                              device)
     shape = (cfg.n_periods, n_pages, cfg.n_kv_heads, page_size, cfg.dh)
-    return {"kp": _kv_leaf(shape, kv_quant, dtype, device),
-            "vp": _kv_leaf(shape, kv_quant, dtype, device)}
+    cache = {"kp": _kv_leaf(shape, kv_quant, dtype, device),
+             "vp": _kv_leaf(shape, kv_quant, dtype, device)}
+    if mixer == "xdec":
+        cache.update(_cross_leaves(cfg, n_cross, dtype, device))
+    return cache

@@ -4,18 +4,19 @@
 cross-knob checks run, as in ``repro.serving.config``; it returns a fully
 resolved copy. Same fields, env knobs and defaults as the reference.
 
-This port serves every decoder-only pattern (dense, MoE, recurrent,
-hybrid, M-RoPE) on two layouts on one device: the paged state cache under
-``cb`` or ``fifo`` scheduling — the fused or the unfused decode tick,
+This port serves every pattern of the reference (dense, MoE, recurrent,
+hybrid, M-RoPE and the encoder-decoder) on two layouts on one device:
+the paged state cache under ``cb`` or ``fifo`` scheduling — the fused or
+the unfused decode tick,
 speculative decoding and the prefix cache included where the pattern
 allows them — and the dense per-slot layout under ``fifo``; either in f32
 or bf16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes.
 A knob the layout or the pattern cannot have raises the reference's
 ``ValueError`` naming the failing predicates, and its env default
 degrades silently, as in the reference. A knob or a model that asks
-**explicitly** for something this port lacks (the encoder-decoder family,
-another cache dtype, shards, replicas) raises ``NotImplementedError``
-naming the ROADMAP.md item that ports it; the env default of shards and
+**explicitly** for something this port lacks (another cache dtype,
+shards, replicas) raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it; the env default of shards and
 replicas degrades silently to one device.
 """
 from __future__ import annotations
@@ -91,10 +92,8 @@ class ServeConfig:
         """A fully resolved copy for ``cfg``. Idempotent."""
         if self.resolved:
             return self
-        if cfg.enc_dec:
-            raise _not_ported(f"serving {cfg.name} (enc_dec=True)",
-                              "the encoder-decoder family")
         has_slab = bool(_slab_mixers(cfg))
+        has_cross = bool(cfg.enc_dec)
         if self.batch_slots < 1:
             raise ValueError(
                 f"batch_slots must be >= 1, got {self.batch_slots}")
@@ -124,6 +123,12 @@ class ServeConfig:
                 f"recurrent mixer(s) {_slab_mixers(cfg)} in "
                 f"pattern={cfg.pattern} — slab state is per-sequence, "
                 "not per-page")
+        if has_cross:
+            prefix_gaps.append(
+                "enc_dec=True — decoder KV depends on the encoder "
+                "output, so prompt pages are not shareable by token "
+                "content (the cross region already shares the encoder "
+                "pass by frames)")
         if prefix_cache and prefix_gaps:
             if self.prefix_cache is not None:
                 raise ValueError("prefix_cache=True is unsupported here: "

@@ -6,9 +6,13 @@ deployment mode), on two KV layouts:
   over two regions on the device: token-paged K/V for attention slots,
   and one fixed-size **slab** of recurrent state per live sequence for
   recurrent slots (mamba, mLSTM, sLSTM). A hybrid pattern (Jamba) uses
-  both; a purely recurrent one (xLSTM) runs pageless. Admission is
-  all-or-nothing across regions: a request enters a slot when the pool
-  covers its worst-case footprint (prompt + max_new_tokens, and a slab).
+  both; a purely recurrent one (xLSTM) runs pageless. An encoder-decoder
+  (whisper) adds a third region: read-only **cross** entries of projected
+  encoder K/V, keyed by a hash of the request's frames, so requests with
+  identical frames share one entry and one encoder pass, run at
+  admission. Admission is all-or-nothing across regions: a request enters
+  a slot when the pool covers its worst-case footprint (prompt +
+  max_new_tokens, a slab, a cross entry).
   Prompts stream through chunked prefill, one chunk per engine tick per
   slot, interleaved with the decode tick of the running sequences. A
   decode tick is one fused step by default
@@ -25,8 +29,9 @@ deployment mode), on two KV layouts:
 * **dense** (``ServeConfig(kv_layout="dense")``, the reference's
   differential-test baseline): one ``(Hkv, max_seq, dh)`` cache row per
   slot. An admitted request is prefilled whole through ``lm_prefill``
-  (the flash kernel) straight into its slot's row; every tick then
-  decodes all slots with ``lm_decode_step``. ``fifo`` only.
+  (``encdec_prefill``: the encoder, then the decoder prompt; the flash
+  kernel) straight into its slot's row; every tick then decodes all slots
+  with ``lm_decode_step`` (``encdec_decode_step``). ``fifo`` only.
 
 The paged layout optionally shares KV pages across requests
 (``prefix_cache=True`` / ``REPRO_PREFIX_CACHE=1``): admission maps the
@@ -54,9 +59,8 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
-Not in this port yet (``ServeConfig.resolve`` raises): the
-encoder-decoder family (whisper), other cache dtypes than f32 and bf16,
-sharding and replicas.
+Not in this port yet (``ServeConfig.resolve`` raises): other cache
+dtypes than f32 and bf16, sharding and replicas.
 """
 from __future__ import annotations
 
@@ -69,11 +73,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn.layers import quantize_params, tree_leaves, tree_map
 from repro_torch.runtime import Runtime, planner, resolve_device
 from repro_torch.serving.config import ServeConfig, _slab_mixers
-from repro_torch.serving.kv_cache import (StateCache, kv_bytes_per_token,
+from repro_torch.serving.kv_cache import (StateCache, cross_kv_bytes_per_seq,
+                                          kv_bytes_per_token,
                                           ssm_state_bytes_per_seq)
 from repro_torch.serving.spec import PromptLookupDrafter
 from repro_torch.serving.stream import StreamState, TokenStream
@@ -96,6 +102,10 @@ class Request:
     #: priority class for the cb scheduler: higher admits first and may
     #: preempt strictly lower-priority residents; ties break FIFO
     priority: int = 0
+    #: encoder input (enc_seq_len, d_model) of an enc-dec model, required
+    #: there and refused elsewhere; identical frames across requests share
+    #: one encoded cross entry of the state cache
+    frames: Optional[np.ndarray] = None
     # filled by the engine:
     output: list = dataclasses.field(default_factory=list)
     done: bool = False
@@ -143,9 +153,17 @@ class ServeEngine:
         self.scheduler = sc.scheduler
         self.host_pages = sc.host_pages
         self.prefix_cache_pages = sc.prefix_cache_pages
-        # attention slots page token K/V; recurrent slots hold a slab
-        self._has_pages = any(s.split("+")[0] == "attn" for s in cfg.pattern)
-        self._has_slab = bool(_slab_mixers(cfg))
+        # the decoder's pattern holds the serving state of an enc-dec
+        # model: attention slots page token K/V, recurrent slots hold a
+        # slab, an enc-dec model adds the shared cross region; its step
+        # functions are the models.encdec twins of models.lm's
+        self._decode_cfg = encdec_mod.dec_cfg(cfg) if cfg.enc_dec else cfg
+        self._has_pages = any(s.split("+")[0] in ("attn", "xdec")
+                              for s in self._decode_cfg.pattern)
+        self._has_slab = bool(_slab_mixers(self._decode_cfg))
+        self._has_cross = bool(cfg.enc_dec)
+        self._model, self._prefix = ((encdec_mod, "encdec_") if cfg.enc_dec
+                                     else (lm_mod, "lm_"))
         params = tree_map(lambda _, leaf: leaf.to(self.device), params)
         if sc.quantize:
             params = quantize_params(params, sc.quantize)
@@ -180,11 +198,17 @@ class ServeEngine:
         else:
             self._init_dense()
 
+    def _fn(self, name: str):
+        """The model's step function ``name`` (``paged_step``,
+        ``decode_step``, ...), looked up at each call."""
+        return getattr(self._model, self._prefix + name)
+
     def _init_dense(self):
-        self.caches = lm_mod.init_caches(
-            self.cfg, self.batch_slots, self.max_seq,
-            dtype=self.kv_cache_dtype, kv_quant=self.rt.kv_quant,
-            device=self.device)
+        init = (encdec_mod.encdec_init_caches if self._has_cross
+                else lm_mod.init_caches)
+        self.caches = init(self.cfg, self.batch_slots, self.max_seq,
+                           dtype=self.kv_cache_dtype,
+                           kv_quant=self.rt.kv_quant, device=self.device)
 
     def _init_paged(self):
         cfg, sc = self.cfg, self.config
@@ -200,22 +224,26 @@ class ServeEngine:
             # pageless (purely recurrent pattern): the pool is the slab
             # region alone
             self.page_size, self.pages_per_seq, n_pages = 1, 0, 0
-        # one slab per live sequence holds every recurrent slot x period
+        # one slab per live sequence holds every recurrent slot x period;
+        # one cross entry per live distinct input, shared across sequences
         self._n_slabs = self.batch_slots if self._has_slab else 0
+        self._n_cross = self.batch_slots if self._has_cross else 0
         self.pool = StateCache(n_pages, self.page_size,
-                               n_slabs=self._n_slabs,
+                               n_slabs=self._n_slabs, n_cross=self._n_cross,
                                host_pages=self.host_pages,
                                cache_pages=self.prefix_cache_pages)
         self.prefill_chunk = sc.prefill_chunk
-        self.caches = lm_mod.paged_init_caches(
+        init = (encdec_mod.encdec_paged_init_caches if self._has_cross
+                else lm_mod.paged_init_caches)
+        self.caches = init(
             cfg, self.pool.n_pages, self.page_size, dtype=self.kv_cache_dtype,
             kv_quant=self.rt.kv_quant, n_slabs=self._n_slabs,
-            device=self.device)
+            n_cross=self._n_cross, device=self.device)
         # per-slot (slab, cross) indices for the step functions; an index
-        # equal to its region's size means "none". No pattern of this port
-        # has a cross region, so column 1 stays at its size, 0
-        self._state_idx = np.tile(np.array([self._n_slabs, 0], np.int32),
-                                  (self.batch_slots, 1))
+        # equal to its region's size means "none"
+        self._state_idx = np.tile(
+            np.array([self._n_slabs, self._n_cross], np.int32),
+            (self.batch_slots, 1))
         self.block_tables = np.zeros(
             (self.batch_slots, max(self.pages_per_seq, 1)), np.int32)
         # per-slot prefill progress: prompt tokens already fed; -1 = decoding
@@ -229,6 +257,9 @@ class ServeEngine:
         self._prefill_skipped = 0
         self._cow_copies = 0
         self._prompt_keys: dict[int, list[bytes]] = {}
+        # each in-flight request's frames hash (the cross-region key),
+        # computed once
+        self._frames_keys: dict[int, bytes] = {}
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
@@ -245,10 +276,27 @@ class ServeEngine:
                 rid, self.pages_per_seq)
 
     def _sync_state_idx(self, slot: int, rid: int):
-        """Point the slot's slab column at the pool's current slab (the
-        sentinel where the sequence holds none)."""
+        """Point the slot's (slab, cross) row at the pool's current
+        assignment (the sentinels where the sequence holds none)."""
         slab = self.pool.seq_slab(rid)
+        cross = self.pool.seq_cross(rid)
         self._state_idx[slot, 0] = self._n_slabs if slab is None else slab
+        self._state_idx[slot, 1] = self._n_cross if cross is None else cross
+
+    def _frames_key(self, req: Request) -> bytes | None:
+        """Content hash of the request's frames (f32 bytes and shape): the
+        cross-region key, as the reference hashes it. Identical frames hash
+        equal, so their requests share one encoded entry. Cached per rid:
+        admission retries do not hash 1500 frames again."""
+        if not self._has_cross:
+            return None
+        key = self._frames_keys.get(req.rid)
+        if key is None:
+            f = np.ascontiguousarray(req.frames, np.float32)
+            h = hashlib.blake2b(f.tobytes(), digest_size=16)
+            h.update(repr(f.shape).encode())
+            key = self._frames_keys[req.rid] = h.digest()
+        return key
 
     def submit(self, req: Request):
         if len(req.prompt) < 1 or req.max_new_tokens < 1:
@@ -256,6 +304,14 @@ class ServeEngine:
                 f"request {req.rid}: needs a non-empty prompt and "
                 f"max_new_tokens >= 1 (got {len(req.prompt)}, "
                 f"{req.max_new_tokens})")
+        if self.cfg.enc_dec and req.frames is None:
+            raise ValueError(
+                f"request {req.rid}: {self.cfg.name} is enc-dec — every "
+                "request needs frames=(S_enc, D) encoder input")
+        if not self.cfg.enc_dec and req.frames is not None:
+            raise ValueError(
+                f"request {req.rid}: frames= given but {self.cfg.name} "
+                "has no encoder")
         if self._worst_case_tokens(req) > self.max_seq:
             raise ValueError(
                 f"request {req.rid}: prompt ({len(req.prompt)}) + "
@@ -380,6 +436,7 @@ class ServeEngine:
     def _drop_request(self, req: Request, st: StreamState | None):
         if self.kv_layout == "paged":
             self._prompt_keys.pop(req.rid, None)
+            self._frames_keys.pop(req.rid, None)
         req.done = True
         req.t_done = _now()
         self._cancelled += 1
@@ -419,6 +476,10 @@ class ServeEngine:
         st.prefix_hits = 0
         st.prefix_evictions = 0
         st.peak_slabs_in_use = st.slabs_in_use
+        st.peak_cross_in_use = st.cross_in_use
+        st.cross_lookups = 0
+        st.cross_hits = 0
+        st.cross_evictions = 0
         self._prefix_hits = 0
         self._prefill_skipped = 0
         self._cow_copies = 0
@@ -428,18 +489,20 @@ class ServeEngine:
         lat = [r.t_done - r.t_enqueue for r in self.finished]
         ttft = [r.t_first_token - r.t_enqueue for r in self.finished]
         # bytes follow the layout allocated: the cache dtype, or codes +
-        # scale when rt.kv_quant is set
-        per_tok = kv_bytes_per_token(
-            self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize,
-            kv_scheme=self.kv_scheme)
-        # a slab bills per sequence: f32 states, conv windows in the cache
-        # dtype
-        slab_bytes = ssm_state_bytes_per_seq(
-            self.cfg, dtype_bytes=self.kv_cache_dtype.itemsize)
+        # scale when rt.kv_quant is set; the decoder's pattern holds the
+        # state of an enc-dec model
+        dcfg, nbytes = self._decode_cfg, self.kv_cache_dtype.itemsize
+        per_tok = kv_bytes_per_token(dcfg, dtype_bytes=nbytes,
+                                     kv_scheme=self.kv_scheme)
+        # a slab bills per sequence (f32 states, conv windows in the cache
+        # dtype), a cross entry per distinct input
+        slab_bytes = ssm_state_bytes_per_seq(dcfg, dtype_bytes=nbytes)
+        cross_bytes = cross_kv_bytes_per_seq(dcfg, dtype_bytes=nbytes)
         if self.kv_layout == "paged":
             st = self.pool.stats
             peak_kv = st.peak_pages_in_use * self.page_size * per_tok
-            peak_state = peak_kv + st.peak_slabs_in_use * slab_bytes
+            peak_state = (peak_kv + st.peak_slabs_in_use * slab_bytes
+                          + st.peak_cross_in_use * cross_bytes)
             page_bytes = self.page_size * per_tok
             paged = {
                 "page_size": self.page_size,
@@ -454,6 +517,14 @@ class ServeEngine:
                 "slabs_in_use": st.slabs_in_use,
                 "peak_slabs": st.peak_slabs_in_use,
                 "slab_bytes_per_seq": int(slab_bytes),
+                # the cross region: one entry per live distinct input
+                "n_cross": st.n_cross,
+                "cross_in_use": st.cross_in_use,
+                "peak_cross": st.peak_cross_in_use,
+                "cross_bytes_per_entry": int(cross_bytes),
+                "cross_lookups": st.cross_lookups,
+                "cross_hits": st.cross_hits,
+                "cross_evictions": st.cross_evictions,
                 "preemptions": self._preemptions,
                 "resumes": self._resumes,
                 "offload_bytes": self._offload_bytes,
@@ -484,10 +555,10 @@ class ServeEngine:
             }
         else:
             # dense bills every slot its worst case up front: max_seq of
-            # token K/V and a whole recurrent state
+            # token K/V, a whole recurrent state and a private cross block
             peak_kv = self.batch_slots * self.max_seq * per_tok
             peak_state = self.batch_slots * (self.max_seq * per_tok
-                                             + slab_bytes)
+                                             + slab_bytes + cross_bytes)
             paged = {}
         return {
             "kv_layout": self.kv_layout,
@@ -520,7 +591,7 @@ class ServeEngine:
             "occupancy_peak": float(np.max(self._occ_samples))
             if self._occ_samples else 0.0,
             "peak_kv_bytes": int(peak_kv),
-            # the whole bill: token K/V and recurrent slabs
+            # the whole bill: token K/V, recurrent slabs, cross entries
             "peak_state_bytes": int(peak_state),
             **paged,
         }
@@ -587,7 +658,8 @@ class ServeEngine:
             shared, cow_src, matched = self._match_prefix(req)
         kv_tokens = self._worst_case_tokens(req) if self._has_pages else 0
         pages = self.pool.allocate(req.rid, kv_tokens, shared_prefix=shared,
-                                   need_slab=self._has_slab)
+                                   need_slab=self._has_slab,
+                                   cross_key=self._frames_key(req))
         if pages is None:                   # a pageless success is []
             return False
         if cow_src is not None:
@@ -603,6 +675,17 @@ class ServeEngine:
             # slab still holds the previous owner's
             lm_mod.paged_reset_slabs(self.caches,
                                      self.pool.seq_slab(req.rid))
+        if self._has_cross and self.pool.consume_cross_fresh(req.rid):
+            # a cross-region miss: run the encoder and every layer's K/V
+            # projection once, into the claimed entry. A hit (frames of a
+            # live or cached entry) skips the encoder pass entirely
+            frames = torch.as_tensor(np.asarray(req.frames, np.float32),
+                                     device=self.device)[None]
+            entries = encdec_mod.encdec_cross_kv(self.params, frames,
+                                                 self.cfg, self.rt)
+            self._model_calls += 1
+            lm_mod.paged_fill_cross(self.caches,
+                                    self.pool.seq_cross(req.rid), entries)
         self.queue.remove(req)
         self.slot_req[slot] = req
         self.slot_pos[slot] = matched
@@ -639,7 +722,7 @@ class ServeEngine:
         if self.kv_layout == "paged":
             self.block_tables[slot] = 0
             self._fed[slot] = -1
-            self._state_idx[slot, 0] = self._n_slabs
+            self._state_idx[slot] = (self._n_slabs, self._n_cross)
             if self.spec_k:
                 # rebuilt from prompt + output on resume
                 self.drafter.drop(rid)
@@ -797,7 +880,7 @@ class ServeEngine:
             tokens[i, :c] = self.slot_req[i].prompt[fed:fed + c]
             ctx[i] = fed
             n_valid[i] = c
-        logits, self.caches = lm_mod.lm_paged_step(
+        logits, self.caches = self._fn("paged_step")(
             self.params, self._tensor(tokens), self._tensor(ctx),
             self._tensor(self.block_tables), self._tensor(n_valid),
             self._tensor(self._state_idx), self.caches, self.cfg, self.rt)
@@ -840,10 +923,10 @@ class ServeEngine:
             return
         drafts = {i: self._propose(i) for i in active}
         if self.fused_decode:
-            w, step_fn = self.spec_k + 1, lm_mod.lm_paged_fused_step
+            w, step_fn = self.spec_k + 1, self._fn("paged_fused_step")
         else:
             w = self.spec_k + 1 if any(drafts.values()) else 1
-            step_fn = lm_mod.lm_paged_verify
+            step_fn = self._fn("paged_verify")
         tokens = np.zeros((self.batch_slots, w), np.int32)
         n_valid = np.zeros(self.batch_slots, np.int32)
         ctx = np.zeros(self.batch_slots, np.int32)
@@ -945,6 +1028,7 @@ class ServeEngine:
         self._release_slot(slot)
         if self.kv_layout == "paged":
             self._prompt_keys.pop(req.rid, None)
+            self._frames_keys.pop(req.rid, None)
 
     # -- dense layout ---------------------------------------------------------
 
@@ -960,8 +1044,14 @@ class ServeEngine:
             row = tree_map(lambda _, leaf: leaf[:, slot:slot + 1],
                            self.caches)
             tok = self._tensor(np.asarray(req.prompt, np.int32)[None, :])
-            logits, _ = lm_mod.lm_prefill(self.params, tok, row, self.cfg,
-                                          self.rt)
+            if self._has_cross:
+                frames = self._tensor(np.asarray(req.frames,
+                                                 np.float32))[None]
+                logits, _ = encdec_mod.encdec_prefill(
+                    self.params, frames, tok, row, self.cfg, self.rt)
+            else:
+                logits, _ = lm_mod.lm_prefill(self.params, tok, row,
+                                              self.cfg, self.rt)
             self._model_calls += 1
             self.slot_pos[slot] = len(req.prompt)
             req.output.append(self._pick_token(logits[0].cpu().numpy(), req))
@@ -977,7 +1067,7 @@ class ServeEngine:
         tokens = np.zeros(self.batch_slots, np.int32)
         for i in active:
             tokens[i] = self.slot_req[i].output[-1]
-        logits, self.caches = lm_mod.lm_decode_step(
+        logits, self.caches = self._fn("decode_step")(
             self.params, self._tensor(tokens),
             self._tensor(self.slot_pos.astype(np.int32)), self.caches,
             self.cfg, self.rt)

@@ -848,3 +848,101 @@ def test_cuda_family_shapes_match_plain_versions(cuda):
         got = paged_attention_cuda(q, kp, vp, bt, ctx)
         want = ref.paged_attention_ref(q, kp, vp, bt, ctx)
         assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
+
+
+@pytest.mark.gpu
+def test_cuda_whisper_shapes_match_plain_versions(cuda):
+    """whisper-small's shapes: flash attention not causal at head_dim 64,
+    12 heads over 12 KV heads, (Sq, Skv) in {(1500, 1500), (1, 1500),
+    (32, 1500)} (the encoder and the cross-attention of decode ticks and
+    prefill chunks: Skv not a multiple of the 32-key tile); kernels 2 and
+    5 at head_dim 64 with 12 KV heads on f32 and bf16 pages; spx_matmul at
+    M = 1500 with whisper's (K, N); bit-identical reruns."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for sq, skv in ((1500, 1500), (1, 1500), (32, 1500)):
+        q = torch.randn((4 if sq < skv else 1, 12, sq, 64), generator=gen,
+                        device=cuda)
+        k, v = (torch.randn((q.shape[0], 12, skv, 64), generator=gen,
+                            device=cuda) for _ in range(2))
+        got = flash_attention_cuda(q, k, v, causal=False)
+        want = ref.flash_attention_ref(q, k, v, causal=False, q_chunk=sq)
+        assert _attn_close(got, want), (sq, skv)
+        assert torch.equal(got, flash_attention_cuda(q, k, v, causal=False))
+    b, hkv, dh, ps, mp = 4, 12, 64, 64, 4
+    for dtype in (torch.float32, torch.bfloat16):
+        kp = torch.randn((1 + b * mp, hkv, ps, dh), generator=gen,
+                         device=cuda).to(dtype)
+        vp = torch.randn_like(kp)
+        bt = (torch.randperm(b * mp, generator=gen, device=cuda)
+              .reshape(b, mp) + 1).to(torch.int32)
+        ctx = torch.tensor([0, 1, ps, 3 * ps + 7], dtype=torch.int32,
+                           device=cuda)
+        qn = torch.tensor([0, 1, 1, 1], dtype=torch.int32, device=cuda)
+        q = torch.randn((b, hkv, 1, dh), generator=gen, device=cuda)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        for got, want in (
+                (paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=1),
+                 ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=1)),
+                (paged_attention_cuda(q, kp, vp, bt, ctx + 1),
+                 ref.paged_attention_ref(q, kp, vp, bt, ctx + 1))):
+            assert ((got - want).abs()
+                    <= tol * (1 + want.abs().amax())).all(), dtype
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device=cuda)
+    for k, n in ((768, 768), (768, 3072), (3072, 768)):
+        codes = torch.randint(0, 256, (k, n // 2), generator=gen,
+                              device=cuda, dtype=torch.int32).to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+        x = torch.randn((1500, k), generator=gen, device=cuda)
+        got = spx_matmul_cuda(x, codes, scale, lut, packed=True)
+        want = ref.spx_matmul_ref(x, codes, scale, lut, packed=True)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), (k, n)
+        assert torch.equal(got, spx_matmul_cuda(x, codes, scale, lut,
+                                                packed=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal", [
+    (2, 8, 1, 256, 256, 256, True),         # gemma-2b's heads, training
+    (2, 12, 12, 1500, 1500, 64, False),     # whisper's encoder
+    (2, 12, 12, 256, 256, 64, True),        # whisper's decoder
+    (2, 12, 12, 256, 1500, 64, False),      # whisper's cross-attention
+    (16, 8, 2, 256, 256, 80, True)],        # granite-100m (train_llm)
+    ids=["gemma", "whisper-encoder", "whisper-decoder", "whisper-cross",
+         "granite-100m"])
+def test_cuda_flash_function_grads_match_plain_autograd(cuda, b, hq, hkv, sq,
+                                                        skv, dh, causal):
+    """The flash kernel inside ``FlashAttentionFn`` on the card: its output
+    is the kernel's, bit for bit, and its gradients equal plain autograd
+    through the plain version within 1e-4 of each input's largest
+    gradient (the forward differs from the plain version by the kernel's
+    f32 sums in another order; the backward recomputes the plain one)."""
+    from repro_torch.kernels.flash_attention import (FUNCTION_CALLS,
+                                                     flash_attention_autograd,
+                                                     flash_attention_cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, hq, sq, dh), generator=gen, device=cuda)
+    k, v = (torch.randn((b, hkv, skv, dh), generator=gen, device=cuda)
+            for _ in range(2))
+    g = torch.randn(q.shape, generator=gen, device=cuda)
+
+    def run(fn):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts)
+        return out.detach(), torch.autograd.grad(out, ts, g)
+    FUNCTION_CALLS.clear()
+    ops.reset_op_calls()
+    got, got_g = run(lambda *t: flash_attention_autograd(
+        *t, causal=causal, q_chunk=1024))
+    assert ops.op_calls() == {"flash_attention": 1}
+    assert FUNCTION_CALLS == {"forward": 1, "backward": 1}
+    assert torch.equal(got, flash_attention_cuda(q, k, v, causal=causal))
+    want, want_g = run(lambda *t: ref.flash_attention_ref(
+        *t, causal=causal, q_chunk=1024))
+    assert _attn_close(got, want)
+    for a, w in zip(got_g, want_g):
+        assert (a - w).abs().max() <= 1e-4 * w.abs().max()

@@ -243,8 +243,7 @@ def test_optimizer_helpers_match_reference():
         assert abs(float(norm) - float(jnorm)) <= 1e-5
         np.testing.assert_allclose(clipped["a"].numpy(),
                                    np.asarray(jclipped["a"]), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="Training the LM"):
-        make_optimizer("adamw_q8", lr=1e-3)
+    assert make_optimizer("adamw_q8", lr=1e-3).name == "adamw_q8"
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer("lion", lr=1e-3)
 

@@ -244,9 +244,18 @@ def test_knobs_this_port_lacks_raise(workload, config):
 
 
 def test_other_patterns_raise():
+    """Every pattern of the reference resolves, the encoder-decoder's
+    included; the knobs this port lacks raise on it too, naming their
+    ROADMAP.md items."""
     cfg = treduced(tget_config("whisper-small"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeConfig().resolve(cfg)
+    sc = ServeConfig().resolve(cfg)
+    assert sc.kv_layout == "paged" and sc.fused_decode
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: multi-device and drivers"):
+        ServeConfig(shards=2).resolve(cfg)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: the other KV cache dtypes"):
+        ServeConfig(kv_cache_dtype="float16").resolve(cfg)
 
 
 def test_env_defaults_degrade_silently(workload, monkeypatch):

@@ -1,15 +1,18 @@
-"""The port's serving engine on the recurrent, hybrid, MoE and M-RoPE
-families against ``repro.serving.ServeEngine`` at reduced size: xlstm-350m
-(4 layers: mLSTM and sLSTM slabs, pageless), jamba (one period of 8:
-attention pages, mamba slabs, MoE), olmoe-1b-7b and kimi-k2 (MoE, kimi's
-shared expert) and qwen2-vl-2b (M-RoPE), 2 layers each. The greedy tokens
+"""The port's serving engine on the recurrent, hybrid, MoE, M-RoPE and
+encoder-decoder families against ``repro.serving.ServeEngine`` at reduced
+size: xlstm-350m (4 layers: mLSTM and sLSTM slabs, pageless), jamba (one
+period of 8: attention pages, mamba slabs, MoE), olmoe-1b-7b and kimi-k2
+(MoE, kimi's shared expert), qwen2-vl-2b (M-RoPE) and whisper-small
+(pages and the cross region; two requests share one encoder input), 2
+layers each. The greedy tokens
 of the port's paged engine (cb) and of its dense layout (fifo) equal the
 reference's paged engine's, with unquantized weights and with sp2_4
 weights that JAX quantized and the port carried over; a preempted
 sequence's slab goes to the host and back without changing a token; the
 paged state cache bills less than the dense layout; the prefix cache and
 speculative decoding refuse recurrent patterns with the reference's
-reasons; whisper-small raises, naming ROADMAP.md.
+reasons; whisper-small's knobs this port still lacks raise, naming
+ROADMAP.md.
 
 Tokens are compared exactly. The page size is pinned in both engines
 (the port plans its own, ROADMAP.md Queue 3)."""
@@ -22,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import get_config, reduced
+from repro.models import encdec as jed
 from repro.models import lm as jlm
 from repro.nn.layers import quantize_params as jquantize
 from repro.runtime import Runtime as JRuntime
@@ -41,7 +45,7 @@ NEW = 8
 LENS = (7, 33, 12)                  # 33 ends in a one-token chunk
 #: arch -> layers at reduced size
 ARCHS = {"xlstm-350m": 4, "jamba-1.5-large-398b": 8, "olmoe-1b-7b": 2,
-         "kimi-k2-1t-a32b": 2, "qwen2-vl-2b": 2}
+         "kimi-k2-1t-a32b": 2, "qwen2-vl-2b": 2, "whisper-small": 2}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,11 +70,21 @@ def _prompts(vocab, lens=LENS, seed=0):
     return [rng.integers(1, vocab, n).astype(np.int32) for n in lens]
 
 
+def _frames(cfg, n):
+    """Encoder inputs of an enc-dec config (None elsewhere): rids 0 and 1
+    share one input, the rest another."""
+    if not cfg.enc_dec:
+        return [None] * n
+    fr = np.random.default_rng(3).standard_normal(
+        (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    return [fr[min(i // 2, 1)] for i in range(n)]
+
+
 def _jax_serve(params, cfg, prompts, **knobs):
     eng = JServeEngine(params, cfg, JServeConfig(**{**KNOBS, **knobs}),
                        rt=JRT)
-    for i, p in enumerate(prompts):
-        eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
+    for i, (p, f) in enumerate(zip(prompts, _frames(cfg, len(prompts)))):
+        eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW, frames=f))
     eng.run()
     return {r.rid: list(r.output) for r in eng.finished}
 
@@ -78,8 +92,8 @@ def _jax_serve(params, cfg, prompts, **knobs):
 def _serve(params, cfg, prompts, *, preempt_after=None, **knobs):
     eng = ServeEngine(params, cfg, ServeConfig(**{**KNOBS, **knobs}),
                       rt=CPU)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW))
+    for i, (p, f) in enumerate(zip(prompts, _frames(cfg, len(prompts)))):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=NEW, frames=f))
     if preempt_after is not None:
         for _ in range(preempt_after):
             eng.step()
@@ -100,7 +114,8 @@ def _case(runs, arch, quantized):
     key = (arch, quantized)
     if key not in runs:
         jcfg, tcfg = _cfgs(arch)
-        jp = jlm.lm_init(jax.random.PRNGKey(1), jcfg)
+        init = jed.encdec_init if jcfg.enc_dec else jlm.lm_init
+        jp = init(jax.random.PRNGKey(1), jcfg)
         if quantized:
             jp = jquantize(jp, "sp2_4")
         prompts = _prompts(jcfg.vocab_size)
@@ -131,17 +146,21 @@ def test_dense_fifo_matches_reference(runs, arch, quantized):
     assert m["kv_layout"] == "dense"
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b",
+                                  "whisper-small"])
 def test_preempt_resume_keeps_tokens(runs, arch):
     """Two slots, three requests, one resident preempted after five ticks:
-    its slab (and jamba's written pages) go to the host and come back,
-    possibly into another slab, and every token equals the reference's."""
+    its slab (and jamba's and whisper's written pages) go to the host and
+    come back, possibly into another slab, whisper's cross entry stays
+    referenced while it is parked, and every token equals the
+    reference's."""
     params, cfg, prompts, want = _case(runs, arch, False)
     got, m = _serve(params, cfg, prompts, preempt_after=5, batch_slots=2)
     assert got == want
     assert m["preemptions"] >= 1 and m["resumes"] >= 1
     assert m["offload_bytes"] > 0 and m["onload_bytes"] > 0
     assert m["peak_slabs"] <= 2 and m["slabs_in_use"] == 0
+    assert m["cross_in_use"] == 0
 
 
 @pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
@@ -198,7 +217,31 @@ def test_recurrent_patterns_refuse_prefix_cache_and_spec(arch):
     assert not sc.prefix_cache and not sc.spec_decode
 
 
+def test_paged_state_bills_less_than_dense_whisper(runs):
+    """whisper-small: three requests over two distinct inputs. The state
+    cache bills the pages that were live and one cross entry per distinct
+    input; the dense layout every slot's worst case and a private cross
+    block each."""
+    params, cfg, prompts, _ = _case(runs, "whisper-small", False)
+    _, mp = _serve(params, cfg, prompts, kv_layout="paged")
+    _, md = _serve(params, cfg, prompts, kv_layout="dense")
+    per_entry = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.enc_seq_len \
+        * cfg.dh * 4
+    assert mp["peak_cross"] == 2 and mp["cross_hits"] == 1
+    assert mp["cross_bytes_per_entry"] == per_entry
+    assert 2 * per_entry < mp["peak_state_bytes"] < md["peak_state_bytes"]
+    assert md["peak_state_bytes"] > KNOBS["batch_slots"] * per_entry
+
+
 def test_whisper_raises_naming_the_roadmap():
+    """whisper-small serves (ServeConfig resolves on both layouts); what
+    this port still lacks for it raises, naming its ROADMAP.md item."""
     cfg = treduced(tget_config("whisper-small"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeConfig().resolve(cfg)
+    for layout in ("paged", "dense"):
+        assert ServeConfig(kv_layout=layout).resolve(cfg).resolved
+    for knobs, item in ((dict(shards=2), "multi-device and drivers"),
+                        (dict(replicas=2), "multi-device and drivers"),
+                        (dict(kv_cache_dtype="float16"),
+                         "the other KV cache dtypes")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
+            ServeConfig(**knobs).resolve(cfg)

@@ -63,6 +63,7 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_torch_lm.py",
         "tests/test_torch_prefix.py",
         "tests/test_torch_serving.py",
+        "tests/test_torch_encdec.py",
         "tests/test_torch_spec.py",
         "tests/test_torch_state_cache.py",
     ],
@@ -70,6 +71,7 @@ SHARDS: dict[str, list[str]] = {
     "system-training": [
         "tests/test_sharding.py",
         "tests/test_system.py",
+        "tests/test_torch_training.py",
         "tests/test_training.py",
     ],
     # tensor-parallel serving: runs under forced host devices
