@@ -34,7 +34,17 @@ Phases, each printing JSON lines:
               the whisper ticks; and flash attention at every shape the
               train phase launches (``train_kernel_phase``: gemma-2b,
               granite-100m, whisper's encoder, decoder and
-              cross-attention, all at their training batches);
+              cross-attention, all at their training batches); and every
+              per-shard shape of the shards=2 runs
+              (``sharded_kernel_phase``): spx_matmul at one shard's
+              column and row cuts of gemma-2b and qwen2-vl-2b at M in
+              SHARD_MS, kernels 2, 3, 5 and 6 at one shard's heads (4
+              query heads over gemma's one KV head of 256, 6 over one of
+              qwen2-vl's two of 128), w = 1 and 5; and every shape of
+              the router and serve_cli runs (``tier_kernel_phase``):
+              spx_matmul at gemma-2b's (K, N) at M in TIER_MS, kernels 2
+              (w = 1) and 5 at its heads with the block tables of
+              max_seq 256 and 128;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, outputs against the
@@ -116,6 +126,30 @@ Phases, each printing JSON lines:
               max_memory_allocated, and every flash launch through the
               Function at a shape checked in phase 3; the Function's
               forward timed over a training step;
+     serve_sharded  tensor-parallel serving on the one card
+              (``REPRO_FORCE_DEVICE_COUNT=2``, set here for this phase
+              only, lists it twice):
+              full-width gemma-2b on the serve phase's weights at
+              ``ServeConfig(quantize=None, shards=2)`` on the fused tick,
+              the unfused tick, spec decoding (spec_k = 4) and coded
+              pages, and qwen2-vl-2b at full width, whose two KV heads
+              head-shard its pools (``kv_sharded`` true, per-shard KV bytes
+              half); each held to the same config at shards=1 (a
+              difference only at a near-tie), every launch at a shape
+              ``sharded_kernel_phase`` checked, per model step one
+              spx_matmul per shard and projection and one paged kernel per
+              shard and layer; one shard's kernels timed (the ``shards2``
+              entries of the kernels line);
+     router   ``ReplicaRouter`` over 2 replicas sharing the card: the 8
+              requests land [0, 1, 0, 1, ...] and give the paged engine's
+              tokens; every launch at a shape ``tier_kernel_phase``
+              checked;
+     serve_cli  ``python -m repro_torch.launch.serve`` through its
+              ``main`` at full width: default flags, ``--stream`` and
+              ``--replicas 2``, each metrics line parsed, every launch at
+              a shape ``tier_kernel_phase`` checked, the last two runs'
+              tokens held to the default run's (a difference only at a
+              near-tie);
   6. e2e      full-width logits, kernels against plain versions: a prefill
               chunk and a fused tick (f32 and coded pages), a one-token
               chunk over coded pages, a dense prefill; greedy tokens
@@ -155,6 +189,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1472,6 +1507,10 @@ def _family_configs() -> dict:
 
 def _launch_key(op: str, args, kw) -> tuple:
     """What a kernel launch's shape is, as recorded and as checked."""
+    if op.endswith("_quant"):
+        q4, kc, _, _, _, bt = args[:6]
+        return (op, tuple(q4.shape), tuple(kc.shape[1:]), str(kc.dtype),
+                bt.shape[1], kw.get("w", 1))
     if op == "spx_matmul":
         x, _, scale, lut = args
         return (op, bool(kw["packed"]), lut.numel(), *x.shape,
@@ -1485,16 +1524,16 @@ def _launch_key(op: str, args, kw) -> tuple:
 
 
 class _ShapeRecorder:
-    """Swap the registry's CUDA impl of every op in RECORDED_OPS for one
-    that records each launch's ``_launch_key``, and put them back on
-    exit."""
+    """Swap the registry's CUDA impl of every op in ``ops`` (RECORDED_OPS
+    by default) for one that records each launch's ``_launch_key``, and
+    put them back on exit."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, ops=RECORDED_OPS):
         from repro_torch.runtime import registry
         self.registry = registry
         self.saved = {op: registry.resolve(op, "cuda",
                                            torch.device("cuda"))[1]
-                      for op in RECORDED_OPS}
+                      for op in ops}
         self.keys: set = set()
 
     def __enter__(self):
@@ -1759,18 +1798,18 @@ def _family_timing(torch, cfg, params, m: int) -> dict:
 def _serve_recorded(torch, np, eng, prompts, checked, name, *,
                     preempt_after=None, frames=None,
                     steps=("lm_paged_step", "lm_paged_fused_step"),
-                    module=None):
+                    module=None, recorded=RECORDED_OPS):
     """Serve ``prompts`` (with ``frames``, an enc-dec model's inputs) on
-    ``eng`` with every launch's shape recorded and every model step
-    (``steps`` of ``module``) counted; each launch must be at a shape the
-    kernel phases checked. Returns (tokens, launches, plain calls,
-    metrics, step records, preempted rid)."""
+    ``eng`` with the shape of every launch of ``recorded`` ops recorded
+    and every model step (``steps`` of ``module``) counted; each launch
+    must be at a shape the kernel phases checked. Returns (tokens, launches, plain
+    calls, metrics, step records, preempted rid)."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Request
     records, restore = _record_steps(torch, steps, module)
     preempted = None
     try:
-        with _ShapeRecorder(torch) as keys:
+        with _ShapeRecorder(torch, recorded) as keys:
             torch.cuda.reset_peak_memory_stats()
             ops.reset_op_calls()
             for i, p in enumerate(prompts):
@@ -2010,7 +2049,7 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
                 f"{bool(torch.equal(got, again))}")
     worst[name] = max(worst.get(name, 0.0), err)
     op = name.removesuffix("_bf16")
-    if op in RECORDED_OPS:
+    if op in RECORDED_OPS or op in SHARDED_OPS:
         checked.add(_launch_key(op, args, kw))
     return got, {"max_abs_err": err, "max_rel_err": err / max(peak, 1e-30),
                  "tol": tol, "bit_identical_rerun": True, "ok": True}
@@ -2811,6 +2850,643 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
             "share_of_bound": bound / device_ms if device_ms else None}
 
 
+# -- phase 5: tensor-parallel serving, the replica router, the CLI ------------
+
+#: the ops a sharded engine launches: kernels 1, 2, 3, 5 and 6
+SHARDED_OPS = ("spx_matmul", "paged_decode_ragged", "paged_attention",
+               "paged_decode_ragged_quant", "paged_attention_quant")
+#: the tensor-parallel width of the sharded runs, on the one card
+#: (REPRO_FORCE_DEVICE_COUNT lists it twice)
+SHARDS = 2
+#: the rows spx_matmul takes in the sharded runs: 4 slots x each padded
+#: prefill chunk, a decode tick (W = 1) and a spec_k = 4 window (W = 5)
+SHARD_MS = (4, 8, 16, 20, 32, 64, 128)
+
+
+def _sharded_configs() -> dict:
+    from repro_torch.configs import get_config
+    return {name: get_config(name) for name in ("gemma-2b", "qwen2-vl-2b")}
+
+
+def _shard_heads(cfg) -> dict:
+    """One shard's heads as ``sharding.shard_params`` cuts them: the query
+    heads split evenly, the KV heads split where ``kv_heads_split`` says
+    they do (qwen2-vl-2b's 2), else every shard holds them whole
+    (gemma-2b's 1)."""
+    from repro_torch.runtime.planner import kv_heads_split
+    sharded = kv_heads_split(cfg.n_kv_heads, SHARDS)
+    hkv = cfg.n_kv_heads // SHARDS if sharded else cfg.n_kv_heads
+    hq = cfg.n_heads // SHARDS
+    return {"hq": hq, "hkv": hkv, "rep": hq // hkv, "kv_sharded": sharded}
+
+
+def _shard_spx_shapes(cfg) -> list:
+    """(K, N) of one shard's projections: wq, wk/wv, wo, gate/up, down."""
+    h = _shard_heads(cfg)
+    d, dh, ff = cfg.d_model, cfg.dh, cfg.d_ff // SHARDS
+    return sorted({(d, h["hq"] * dh), (d, h["hkv"] * dh), (h["hq"] * dh, d),
+                   (d, ff), (ff, d)})
+
+
+def _check_spx_shapes(torch, gen, tag: dict, shapes, ms, checked,
+                      worst) -> None:
+    """spx_matmul (sp2_4, packed) at every (K, N) of ``shapes`` and every
+    M of ``ms`` against its plain version, twice (``_check_launch``); one
+    line per (K, N), labelled with ``tag``."""
+    from repro_torch.core import spx
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device="cuda")
+    for k, n in shapes:
+        codes = torch.randint(0, 256, (k, n // 2), generator=gen,
+                              device="cuda", dtype=torch.int32) \
+            .to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
+        errs = {}
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            _, rec = _check_launch(torch, "spx_matmul", spx_matmul_cuda,
+                                   ref.spx_matmul_ref, (x, codes, scale, lut),
+                                   {"packed": True}, checked, worst,
+                                   SPX_RTOL)
+            errs[m] = rec["max_rel_err"]
+        emit({"phase": "kernel", "kernel": "spx_matmul", **tag, "K": k,
+              "N": n, "max_rel_err_by_M": errs, "tol_rel": SPX_RTOL,
+              "bit_identical_rerun": True, "ok": True})
+
+
+def _check_paged_shapes(torch, gen, tag: dict, *, hkv, rep, dh, max_seqs,
+                        ws, pages_kinds, checked, worst) -> None:
+    """The paged kernels at one engine's heads (B = 4 slots, ``hkv`` KV
+    heads of ``dh``, ``rep`` query heads each) on ``plan_kv_pages``'s page
+    size, a block table as wide as each of ``max_seqs`` needs: kernel 2
+    (f32 pages) or 3 (code pages) at every window ``w`` of ``ws``, and
+    kernel 5 or 6 for one-token chunks, each against its plain version,
+    twice; the ctx_len 0 row must come back exactly zero."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_quant_cuda,
+        paged_decode_ragged_cuda, paged_decode_ragged_quant_cuda)
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    from repro_torch.runtime import planner
+
+    b = 4
+    kv_lut_ = kv_lut(KV_SCHEME, "cuda")
+    for pages in pages_kinds:
+        ps = planner.plan_kv_pages(
+            dh, kv_scheme=KV_SCHEME if pages == "codes" else None).page_size
+        for max_seq in max_seqs:
+            mp = -(-max_seq // ps)
+            n_pages = 1 + b * mp
+            kp, vp = _rand_pools(torch, gen, n_pages, hkv, ps, dh)
+            if pages == "codes":
+                pools = (*quantize_kv(kp, KV_SCHEME),
+                         *quantize_kv(vp, KV_SCHEME))
+                cases = (("paged_decode_ragged_quant",
+                          paged_decode_ragged_quant_cuda,
+                          ref.paged_decode_ragged_quant_ref),
+                         ("paged_attention_quant", paged_attention_quant_cuda,
+                          ref.paged_attention_quant_ref))
+                tail = (kv_lut_,)
+            else:
+                pools = (kp, vp)
+                cases = (("paged_decode_ragged", paged_decode_ragged_cuda,
+                          ref.paged_decode_ragged_ref),
+                         ("paged_attention", paged_attention_cuda,
+                          ref.paged_attention_ref))
+                tail = ()
+            bt = torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+                :b * mp].reshape(b, mp).to(torch.int32) + 1
+            ctx = torch.tensor([ps - 1, ps, ps + 1, 3 * ps + 7],
+                               dtype=torch.int32, device="cuda")
+            ctx1 = torch.tensor([0, 1, ps, 2 * ps + 3], dtype=torch.int32,
+                                device="cuda")
+            errs = {}
+            for w in ws:
+                q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                                device="cuda")
+                qn = torch.tensor([0, 1, min(3, w), w], dtype=torch.int32,
+                                  device="cuda")
+                op, launch, plain = cases[0]
+                _, rec = _check_launch(torch, op, launch, plain,
+                                       (q, *pools, bt, ctx, qn, *tail),
+                                       {"w": w}, checked, worst)
+                errs[f"{op} w={w}"] = rec["max_abs_err"]
+            q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
+            op, launch, plain = cases[1]
+            got, rec = _check_launch(torch, op, launch, plain,
+                                     (q, *pools, bt, ctx1, *tail), {},
+                                     checked, worst)
+            errs[op] = rec["max_abs_err"]
+            zeros = bool((got[0] == 0).all())
+            emit({"phase": "kernel", **tag, "pages": pages, "hkv": hkv,
+                  "rep": rep, "dh": dh, "page_size": ps, "max_seq": max_seq,
+                  "max_pages": mp, "max_abs_err": errs,
+                  "tol": f"{ATTN_TOL} * (1 + |plain|)",
+                  "bit_identical_rerun": True,
+                  "empty_row_exact_zero": zeros, "ok": zeros})
+            require(zeros, f"{op} {tag}: the ctx_len 0 row is not zero")
+
+
+def sharded_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Every launch shape of the shards=2 serve runs, held against its
+    plain version before serve_sharded launches it, twice (the second
+    launch bit-identical): spx_matmul (sp2_4, packed) at one shard's
+    (K, N) of gemma-2b and qwen2-vl-2b, column cuts of wq/wk/wv/gate/up and
+    row cuts of wo/down, at every M of SHARD_MS; kernels 2 and 5 over f32
+    pages and kernels 3 and 6 over code pages at one shard's heads
+    (gemma-2b: 4 query heads over its one KV head of 256, which every
+    shard holds; qwen2-vl-2b: 6 over one of its two KV heads of 128), w = 1
+    and 5, on plan_kv_pages's page sizes and ServeConfig()'s max_seq 256.
+    Returns the worst errors and the checked launch keys."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    checked: set = set()
+    worst = {op: 0.0 for op in SHARDED_OPS}
+    for name, cfg in _sharded_configs().items():
+        tag = {"for": "serve_sharded", "arch": name, "shards": SHARDS}
+        _check_spx_shapes(torch, gen, tag, _shard_spx_shapes(cfg), SHARD_MS,
+                          checked, worst)
+        h = _shard_heads(cfg)
+        _check_paged_shapes(torch, gen, tag, hkv=h["hkv"], rep=h["rep"],
+                            dh=cfg.dh, max_seqs=(256,), ws=(1, 5),
+                            pages_kinds=("f32", "codes"), checked=checked,
+                            worst=worst)
+    ops.reset_op_calls()
+    return worst, checked
+
+
+#: the rows spx_matmul takes in the router and CLI runs: 4 slots x each
+#: padded prefill chunk (1 to 32 tokens) and the decode tick
+TIER_MS = (4, 8, 16, 32, 64, 128)
+#: the serving CLI's default max_seq (the router runs ServeConfig()'s 256)
+CLI_MAX_SEQ = 128
+
+
+def tier_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Every launch shape of the router and serve_cli runs (full-width
+    gemma-2b, one shard, f32 pages), held against its plain version before
+    those runs launch it, twice: spx_matmul at gemma-2b's (K, N) of
+    wq/wo, wk/wv, gate/up and down at every M of TIER_MS, kernel 2
+    (w = 1) and kernel 5 at its 8 query heads over one KV head of 256,
+    with the block tables of max_seq 256 (the router) and CLI_MAX_SEQ (the
+    CLI). Returns the worst errors and the checked launch keys."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config("gemma-2b")
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    checked: set = set()
+    worst = {op: 0.0 for op in SHARDED_OPS}
+    tag = {"for": "router, serve_cli", "arch": cfg.name}
+    d, dh, ff = cfg.d_model, cfg.dh, cfg.d_ff
+    _check_spx_shapes(torch, gen, tag, sorted({
+        (d, cfg.n_heads * dh), (d, cfg.n_kv_heads * dh),
+        (cfg.n_heads * dh, d), (d, ff), (ff, d)}), TIER_MS, checked, worst)
+    _check_paged_shapes(torch, gen, tag, hkv=cfg.n_kv_heads,
+                        rep=cfg.n_heads // cfg.n_kv_heads, dh=dh,
+                        max_seqs=(256, CLI_MAX_SEQ), ws=(1,),
+                        pages_kinds=("f32",), checked=checked, worst=worst)
+    ops.reset_op_calls()
+    return worst, checked
+
+
+def _step_launch_checks(name, records, per_call, n_attn, quant) -> dict:
+    """Launches per model step of a sharded run: every step one spx_matmul
+    per shard and projection, every decode tick (fused) and one-token step
+    one paged kernel per shard and layer."""
+    ragged = "paged_decode_ragged_quant" if quant else "paged_decode_ragged"
+    single = "paged_attention_quant" if quant else "paged_attention"
+    bad = [r for r in records if r[3].get("spx_matmul", 0) != per_call]
+    require(not bad, f"{name}: model steps without {per_call} spx_matmul "
+                     f"launches: {bad[:3]}")
+    ticks = [r for r in records if r[0] == "lm_paged_fused_step"]
+    one = [r for r in records if r[0] != "lm_paged_fused_step" and r[1] == 1]
+    require(all(r[3].get(ragged) == n_attn for r in ticks),
+            f"{name}: decode ticks without {n_attn} {ragged} launches")
+    require(one and all(r[3].get(single) == n_attn for r in one),
+            f"{name}: one-token steps without {n_attn} {single} launches")
+    return {"spx_matmul_per_model_step": per_call,
+            f"{ragged}_per_decode_tick": n_attn if ticks else 0,
+            f"{single}_per_one_token_step": n_attn,
+            "decode_ticks": len(ticks), "one_token_steps": len(one),
+            "model_steps": len(records)}
+
+
+def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
+                        name, card) -> dict:
+    """``ServeConfig(quantize=None, **knobs)`` at shards=1, then at
+    shards=SHARDS with every launch recorded (each at a checked shape).
+    The sharded tokens must be the one-shard engine's, a difference allowed
+    only first where its top-2 gap is a near-tie (E2E_RTOL). Returns the
+    emitted line, the sharded run's launches and its engine."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    _free(torch)
+    base = ServeEngine(params, cfg, ServeConfig(quantize=None, **knobs),
+                       rt=rt)
+    gaps = _record_gaps(np, base, E2E_RTOL)
+    want, _, _, bm = _run_engine(torch, base, prompts)
+    del base
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(params, cfg,
+                      ServeConfig(quantize=None, shards=SHARDS, **knobs),
+                      rt=rt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tokens, launches, plain, m, records, _ = _serve_recorded(
+        torch, np, eng, prompts, checked, name,
+        steps=("lm_paged_step", "lm_paged_fused_step", "lm_paged_verify"),
+        recorded=SHARDED_OPS)
+    peak = torch.cuda.max_memory_allocated()
+    require(len(tokens) == N_REQUESTS,
+            f"{name}: {len(tokens)} of {N_REQUESTS} finished")
+    for rid, toks in tokens.items():
+        require(len(toks) == NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in toks),
+                f"{name}: request {rid}: bad output {toks}")
+    require(not plain, f"{name}: plain versions ran on the card: {plain}")
+    h = _shard_heads(cfg)
+    require(m["shards"] == SHARDS and m["kv_sharded"] == h["kv_sharded"]
+            and m["kv_heads_per_shard"] == h["hkv"],
+            f"{name}: shard metrics {m['shards']}, {m['kv_sharded']}, "
+            f"{m['kv_heads_per_shard']}")
+    if h["kv_sharded"]:
+        require(m["peak_kv_bytes_per_shard"] * SHARDS == m["peak_kv_bytes"],
+                f"{name}: per-shard KV bytes")
+    per_step = _step_launch_checks(
+        name, records, SHARDS * 7 * cfg.n_layers, SHARDS * cfg.n_layers,
+        bool(rt.kv_quant))
+    line = {"phase": "serve_sharded", "arch": cfg.name, "path": name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size,
+            "config": f"ServeConfig(quantize=None, shards={SHARDS}"
+                      + "".join(f", {k}={v!r}" for k, v in knobs.items())
+                      + ")" + (f", Runtime(kv_quant=True, kv_scheme="
+                               f"'{KV_SCHEME}')" if rt.kv_quant else ""),
+            "devices": [str(d) for d in eng.mesh.devices], "card": card,
+            "shards": m["shards"], "kv_sharded": m["kv_sharded"],
+            "kv_heads_per_shard": m["kv_heads_per_shard"],
+            "peak_kv_bytes": m["peak_kv_bytes"],
+            "peak_kv_bytes_per_shard": m["peak_kv_bytes_per_shard"],
+            "pool_bytes_per_shard": m["pool_bytes_per_shard"],
+            "requests_finished": len(tokens), "setup_s": setup_s,
+            "tokens_per_s": m["tokens_per_s"],
+            "ttft_p50_ms": m["ttft_p50_ms"],
+            "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+            "model_calls": m["model_calls"],
+            "max_memory_allocated": peak,
+            "one_shard": {k: bm[k] for k in (
+                "tokens_per_s", "ttft_p50_ms", "latency_p50_ms", "wall_s",
+                "model_calls", "peak_kv_bytes")},
+            "launches": launches, "launches_per_model_step": per_step,
+            "tokens_vs_one_shard": _near_tie_check(
+                f"{name} vs shards=1", tokens, want, gaps),
+            "near_tie_tol_rel": E2E_RTOL}
+    return line, launches, eng
+
+
+def serve_sharded_phase(torch, np, params, card: str, checked: set) -> dict:
+    """Tensor-parallel serving on the one card (``REPRO_FORCE_DEVICE_COUNT``
+    = 2 lists it twice): full-width gemma-2b on the quantized weights of
+    the serve phase at ``ServeConfig(quantize=None, shards=2)`` in four
+    modes (the fused tick, the unfused tick, spec decoding with spec_k =
+    4, and SPx-coded pages), then qwen2-vl-2b at full width (weights from
+    a seed, quantized to sp2_4 one period at a time), whose two KV heads
+    head-shard its pools. Each against the same config at shards=1
+    (``_serve_sharded_pair``); gemma's one KV head replicates. Every launch
+    at a shape the kernel phase's ``"for": "serve_sharded"`` checks
+    covered; per model step one spx_matmul per shard and projection and
+    one paged kernel per shard and layer. Also times the kernels at one
+    shard's shapes. Returns each path's launches and the timing rows."""
+    from repro_torch.runtime import Runtime
+
+    cfg = _sharded_configs()["gemma-2b"]
+    lens, prompts = _prompts(np, cfg)
+    coded = Runtime(kv_quant=True, kv_scheme=KV_SCHEME)
+    out = {"launches": {}}
+    for mode, knobs, rt in (
+            ("fused", {}, Runtime()),
+            ("unfused", {"fused_decode": False}, Runtime()),
+            ("spec", {"spec_decode": True, "spec_k": 4}, Runtime()),
+            ("coded-kv", {}, coded)):
+        line, launches, eng = _serve_sharded_pair(
+            torch, np, params, cfg, prompts, knobs, rt, checked,
+            f"serve_sharded {mode}", card)
+        if mode == "fused":
+            out["timing"] = _sharded_timing(torch, eng)
+        elif mode == "coded-kv":
+            out["timing_quant"] = _sharded_quant_timing(torch, eng)
+        del eng
+        line["prompt_lens"] = lens
+        emit(line)
+        out["launches"][f"serve_sharded {mode}"] = launches
+    _free(torch)
+
+    qwen = _sharded_configs()["qwen2-vl-2b"]
+    t0 = time.perf_counter()
+    qparams = _family_params(torch, qwen, seed=2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lens, prompts = _prompts(np, qwen)
+    line, launches, eng = _serve_sharded_pair(
+        torch, np, qparams, qwen, prompts, {}, Runtime(), checked,
+        "serve_sharded qwen2-vl-2b", card)
+    require(line["kv_sharded"] is True,
+            "qwen2-vl-2b: its two KV heads did not head-shard")
+    del eng, qparams
+    line.update(prompt_lens=lens, params_setup_s=setup_s)
+    emit(line)
+    out["launches"]["serve_sharded qwen2-vl-2b"] = launches
+    _free(torch)
+    return out
+
+
+def _sharded_timing(torch, eng) -> dict:
+    """Kernels 1, 2 and 5 per decode tick at one shard's shapes, both
+    shards' launches (gemma-2b, 4 slots, each 48 tokens into its
+    sequence): spx_matmul over every shard's seven projections (the
+    engine's own cut weights), the paged kernels over every shard's layer
+    pools (random, f32). Each beside its plain version, its library call
+    and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+
+    cfg, m = eng.cfg, eng.batch_slots
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    mats = [qt for shard in eng.params for i in range(cfg.n_periods)
+            for _, qt in _layer_weights(shard, i)]
+    lut = mats[0].lut()
+    xs = {k: torch.randn((m, k), generator=gen, device="cuda")
+          for k in {qt.logical_shape[0] for qt in mats}}
+
+    def spx_tick(fn):
+        def run():
+            for qt in mats:
+                k, n = qt.logical_shape
+                fn(xs[k], qt.codes, qt.scale.reshape(1, n), lut,
+                   packed=True)
+        return run
+
+    dense = [qt.dequantize() for qt in mats]
+
+    def spx_library():
+        for w in dense:
+            torch.matmul(xs[w.shape[0]], w)
+
+    nbytes = flops = 0
+    for qt in mats:
+        k, n = qt.logical_shape
+        nbytes += m * k * 4 + k * n // 2 + n * 4 + 16 * 4 + m * n * 4
+        flops += 2 * m * k * n
+    spx = {"per": f"decode tick at shards={SHARDS}: {len(mats)} launches "
+                  f"({SHARDS} shards x 7 x {cfg.n_layers}), M={m}",
+           "shapes": [f"{k}x{n}" for k, n in _shard_spx_shapes(cfg)],
+           "ms": _time_ms(torch, spx_tick(spx_matmul_cuda)),
+           "device_ms": _device_ms(torch, spx_tick(spx_matmul_cuda),
+                                   ("spx_matmul_kernel",)),
+           "plain_ms": _time_ms(torch, spx_tick(ref.spx_matmul_ref), reps=3),
+           "library_ms": _time_ms(torch, spx_library),
+           "library_device_ms": _device_ms(torch, spx_library, ("",)),
+           "library_call": "torch.matmul on pre-dequantized f32 weights",
+           "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+    spx["bound_ms"], spx["bound_by"] = _bound_ms(nbytes, flops)
+    del dense
+
+    h, dh, ps, mp = _shard_heads(cfg), cfg.dh, eng.page_size, \
+        eng.pages_per_seq
+    layers = SHARDS * cfg.n_layers
+    n_pages, ctx_tokens = m * mp, 48
+    attend = ctx_tokens + 1
+    pools = [_rand_pools(torch, gen, n_pages, h["hkv"], ps, dh)
+             for _ in range(layers)]
+    bt = torch.arange(n_pages, dtype=torch.int32,
+                      device="cuda").reshape(m, mp)
+    q = torch.randn((m, h["hkv"], h["rep"], dh), generator=gen,
+                    device="cuda")
+    ctx = torch.full((m,), ctx_tokens, dtype=torch.int32, device="cuda")
+    one = torch.ones((m,), dtype=torch.int32, device="cuda")
+    ctx1 = ctx + 1
+    gathered = [
+        tuple(ref._gather(p, bt)[:, :, :attend]
+              .repeat_interleave(h["rep"], 1) for p in kv) for kv in pools]
+    q_sdpa = q.reshape(m, h["hq"], 1, dh)
+
+    def sdpa_tick():
+        for k, v in gathered:
+            F.scaled_dot_product_attention(q_sdpa, k, v)
+
+    a_bytes = layers * (m * h["hkv"] * attend * dh * 4 * 2
+                        + 2 * m * h["hq"] * dh * 4 + m * (mp + 2) * 4)
+    a_flops = layers * 4 * m * h["hq"] * dh * attend
+    lib = {"library_ms": _time_ms(torch, sdpa_tick),
+           "library_device_ms": _device_ms(torch, sdpa_tick, ("",)),
+           "library_call": "scaled_dot_product_attention over "
+                           "pre-gathered K/V",
+           "f32_bound_ms": _f32_bound_ms(a_bytes, a_flops)}
+    lib["bound_ms"], lib["bound_by"] = _bound_ms(a_bytes, a_flops)
+
+    def ragged(impl):
+        fn = (paged_decode_ragged_cuda if impl == "cuda"
+              else ref.paged_decode_ragged_ref)
+        for kp, vp in pools:
+            fn(q, kp, vp, bt, ctx, one, w=1)
+
+    def single(impl):
+        fn = (paged_attention_cuda if impl == "cuda"
+              else ref.paged_attention_ref)
+        for kp, vp in pools:
+            fn(q, kp, vp, bt, ctx1)
+
+    out = {"spx_matmul": spx}
+    for name, fn, per in (("paged_decode_ragged", ragged, "decode tick"),
+                          ("paged_attention", single,
+                           "one-token prefill tick")):
+        out[name] = {
+            "per": f"{per} at shards={SHARDS}: {layers} launches "
+                   f"({SHARDS} shards x {cfg.n_layers}), {m} slots, "
+                   f"{h['hq']} query heads over {h['hkv']} KV head of {dh} "
+                   f"per shard, {attend} tokens attended each",
+            "ms": _time_ms(torch, lambda fn=fn: fn("cuda")),
+            "device_ms": _device_ms(torch, lambda fn=fn: fn("cuda"),
+                                    PAGED_KERNELS),
+            "plain_ms": _time_ms(torch, lambda fn=fn: fn("ref")), **lib}
+    del pools, gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_quant_timing(torch, eng) -> dict:
+    """Kernels 3 and 6 per tick at one shard's heads over code pages, both
+    shards' launches (``_quant_timing`` at the shard's query heads and
+    twice the layers)."""
+    cfg, m = eng.cfg, eng.batch_slots
+    h = _shard_heads(cfg)
+    scfg = dataclasses.replace(cfg, n_heads=h["hq"], n_kv_heads=h["hkv"],
+                               n_layers=SHARDS * cfg.n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((m, h["hkv"], h["rep"], cfg.dh), generator=gen,
+                    device="cuda")
+    rows = _quant_timing(torch, gen, scfg, m, 48, q)
+    torch.cuda.empty_cache()
+    return {r.pop("name"): dict(r, per=f"{r['per']} (shards={SHARDS}: "
+                                       f"{SHARDS} shards x {cfg.n_layers})")
+            for r in rows}
+
+
+def router_phase(torch, np, params, paged_tokens, card: str,
+                 checked: set) -> dict:
+    """``ReplicaRouter`` with ``ServeConfig(quantize=None, replicas=2)`` on
+    the serve phase's quantized gemma-2b weights: both replicas share the
+    card. The 8 requests must land ``[0, 1, 0, 1, ...]`` (least-loaded,
+    lowest index on ties) and give the paged engine's tokens (a difference
+    only at a near-tie, as ``_check_tokens``); every launch must be at a
+    shape the kernel phases checked (``tier_kernel_phase``). Returns its
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (ReplicaRouter, Request, ServeConfig)
+
+    cfg = get_config("gemma-2b")
+    lens, prompts = _prompts(np, cfg)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    router = ReplicaRouter(params, cfg, ServeConfig(quantize=None,
+                                                    replicas=2))
+    with _ShapeRecorder(torch, SHARDED_OPS) as keys:
+        ops.reset_op_calls()
+        placements = [router.submit(Request(rid=i, prompt=p,
+                                            max_new_tokens=NEW_TOKENS))
+                      for i, p in enumerate(prompts)]
+        done = router.run()
+        torch.cuda.synchronize()
+        launches, plain = ops.op_calls(), ops.ref_calls()
+    unchecked = sorted(keys - checked)
+    require(not unchecked, f"router: launches at shapes the kernel phases "
+                           f"never held to the plain version: {unchecked}")
+    m = router.metrics()
+    tokens = {r.rid: list(r.output) for r in done}
+    require(placements == [0, 1] * (N_REQUESTS // 2),
+            f"router placements {placements}")
+    require(len(tokens) == N_REQUESTS and m["requests_per_replica"]
+            == [N_REQUESTS // 2] * 2, f"router finished {m}")
+    require(not plain, f"router: plain versions ran on the card: {plain}")
+    require(launches.get("spx_matmul") and launches.get(
+        "paged_decode_ragged"), f"router launches {launches}")
+    vs = _check_tokens(torch, np, "router", tokens, paged_tokens, params,
+                       cfg, prompts)
+    emit({"phase": "router", "arch": cfg.name, "layers": cfg.n_layers,
+          "config": "ReplicaRouter(params, cfg, ServeConfig(quantize=None, "
+                    "replicas=2))", "card": card, "replicas": m["replicas"],
+          "shards": m["shards"], "placements": placements,
+          "requests_per_replica": m["requests_per_replica"],
+          "prompt_lens": lens, "tokens_per_s": m["tokens_per_s"],
+          "ttft_p50_ms": m["ttft_p50_ms"],
+          "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+          "model_calls": m["model_calls"],
+          "engine_steps": m["engine_steps"],
+          "peak_kv_bytes": m["peak_kv_bytes"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches, "launch_shapes": len(keys),
+          "tokens_vs_one_engine": vs})
+    del router
+    _free(torch)
+    return launches
+
+
+#: the serving CLI's runs: its default flags (full-width gemma-2b, 16
+#: requests of 16 new tokens, 4 slots, max_seq 128), the asyncio
+#: front-end, and two replicas
+CLI_RUNS = (("default", []), ("stream", ["--stream"]),
+            ("replicas", ["--replicas", "2"]))
+
+
+def serve_cli_phase(torch, np, card: str, checked: set) -> dict:
+    """``python -m repro_torch.launch.serve`` through its ``main``, on the
+    card: it builds full-width gemma-2b from ``--seed`` 0, quantizes it to
+    sp2_4 and serves its request wave. Its ``[serve] metrics:`` line must
+    parse, every request finish, no plain version run and every launch be
+    at a shape the kernel phases checked (``tier_kernel_phase``). The
+    ``--stream`` and ``--replicas 2`` runs serve the same wave on the same
+    weights: their greedy tokens must be the default run's, a difference
+    allowed only first where that run's top-2 gap is a near-tie
+    (E2E_RTOL). Returns each run's launches."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out, want, noted_gaps = {}, None, []
+    engine = serve.ServeEngine
+
+    def noted(*args, **kw):
+        # the default run's engine notes the top-2 gap of every token
+        eng = engine(*args, **kw)
+        noted_gaps.append(_record_gaps(np, eng, E2E_RTOL))
+        return eng
+
+    for name, argv in CLI_RUNS:
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        serve.ServeEngine = noted if want is None else engine
+        try:
+            with _ShapeRecorder(torch, SHARDED_OPS) as keys:
+                ops.reset_op_calls()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    done = serve.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches, plain = ops.op_calls(), ops.ref_calls()
+        finally:
+            serve.ServeEngine = engine
+        unchecked = sorted(keys - checked)
+        require(not unchecked, f"serve_cli {name}: launches at shapes the "
+                               "kernel phases never held to the plain "
+                               f"version: {unchecked}")
+        lines = buf.getvalue().splitlines()
+        prefix = "[serve] metrics: "
+        require(lines and lines[-1].startswith(prefix),
+                f"serve_cli {name}: no metrics line: {lines[-3:]}")
+        m = json.loads(lines[-1][len(prefix):])
+        require(m["requests_finished"] == 16
+                and m["tokens_generated"] == 16 * 16,
+                f"serve_cli {name}: {m['requests_finished']} requests, "
+                f"{m['tokens_generated']} tokens")
+        require(not plain, f"serve_cli {name}: plain versions ran: {plain}")
+        require(launches.get("spx_matmul") and launches.get(
+            "paged_decode_ragged"), f"serve_cli {name}: launches {launches}")
+        tokens = {r.rid: list(r.output) for r in done}
+        if want is None:
+            want, vs = tokens, "the reference of the other runs"
+        else:
+            vs = _near_tie_check(f"serve_cli {name} vs default", tokens,
+                                 want, noted_gaps[0])
+        emit({"phase": "serve_cli", "run": name,
+              "argv": ["python", "-m", "repro_torch.launch.serve", *argv],
+              "card": card, "printed": lines[:-1],
+              "replicas": m.get("replicas", 1),
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"],
+              "model_calls": m["model_calls"], "seconds": seconds,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": launches, "launch_shapes": len(keys),
+              "metrics_keys": len(m), "tokens_vs_default_run": vs})
+        out[f"serve_cli {name}"] = launches
+    _free(torch)
+    return out
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 #: logits: |cuda - plain| <= E2E_RTOL * max|plain logits|. 18 layers of f32
@@ -3114,7 +3790,7 @@ def _f32_bound_ms(nbytes: float, flops: float) -> float:
 
 
 def timing_phase(torch, np, eng, launches, new_launches, worst,
-                 mlp, families, whisper, training) -> list:
+                 mlp, families, whisper, training, sharded) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -3315,6 +3991,18 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     flash["train_function"] = training["timing"]
     spx["whisper_encoder_pass"] = whisper["timing"]["spx_matmul"]
     ragged["whisper_decode_tick"] = whisper["timing"]["paged_decode_ragged"]
+    # one shard's shapes at shards=2, timed in serve_sharded, with their
+    # launches on the fused (kernels 1, 2, 5) or coded-page (3, 6) path
+    for entry, timing, path in (
+            (spx, sharded["timing"], "fused"),
+            (ragged, sharded["timing"], "fused"),
+            (paged, sharded["timing"], "fused"),
+            (quant, sharded["timing_quant"], "coded-kv"),
+            (quant_one, sharded["timing_quant"], "coded-kv")):
+        entry[f"shards{SHARDS}"] = dict(
+            timing[entry["name"]], path=f"serve_sharded {path}",
+            launches=sharded["launches"][f"serve_sharded {path}"].get(
+                entry["name"], 0))
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -3849,7 +4537,8 @@ def main() -> int:
               "tensor_core_instructions": _sass_counts(cuda_lib)})
         worst, checked = kernel_phase(torch, np)
         for phase in (family_kernel_phase, whisper_kernel_phase,
-                      train_kernel_phase):
+                      train_kernel_phase, sharded_kernel_phase,
+                      tier_kernel_phase):
             more_worst, more_checked = phase(torch, np)
             for name, err in more_worst.items():
                 worst[name] = max(worst[name], err)
@@ -3868,10 +4557,28 @@ def main() -> int:
                                               paged_tokens, paged_m))
         new_launches.update(serve_bf16_phase(torch, np, eng.params,
                                              paged_tokens))
+        # two shards on the one card: launch.hostdev lists it twice, for
+        # the sharded phase only
+        saved = os.environ.get("REPRO_FORCE_DEVICE_COUNT")
+        os.environ["REPRO_FORCE_DEVICE_COUNT"] = str(SHARDS)
+        try:
+            sharded = serve_sharded_phase(torch, np, eng.params,
+                                          info["nvidia_smi"], checked)
+        finally:
+            if saved is None:
+                del os.environ["REPRO_FORCE_DEVICE_COUNT"]
+            else:
+                os.environ["REPRO_FORCE_DEVICE_COUNT"] = saved
+        new_launches.update(sharded["launches"])
+        new_launches["router"] = router_phase(torch, np, eng.params,
+                                              paged_tokens,
+                                              info["nvidia_smi"], checked)
+        new_launches.update(serve_cli_phase(torch, np, info["nvidia_smi"],
+                                            checked))
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,
-                            mlp, families, whisper, training)
+                            mlp, families, whisper, training, sharded)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

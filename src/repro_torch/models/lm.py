@@ -12,6 +12,13 @@ Caches and page pools (bf16 by default as in the reference, f32 when asked
 for, or SPx codes + f32 scales when quantized; recurrent states f32) are
 updated in place; the step functions still return ``(logits, caches)`` so
 callers read like the reference.
+
+Under ``Runtime.mesh`` (a tensor-parallel serving engine) the paged step
+functions take one param tree and one state cache per shard
+(``sharding.shard_params``, ``shard_paged_state``): the embedding lookup
+is vocab-parallel (a masked gather per shard, summed in shard order),
+``stack_paged`` runs the shards' layers, and the vocab-parallel head's
+logit slices are joined in shard order on the first shard's device.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
-                                   tree_leaves, tree_map)
+                                   sharded_embedding_apply, tree_leaves,
+                                   tree_map)
 from repro_torch.nn.transformer import (slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_decode, stack_init,
@@ -221,6 +229,35 @@ def _slab_keys(slot_cache: dict) -> list:
             if k not in _PAGE_KEYS and k not in _CROSS_KEYS]
 
 
+def _paged_forward(params, tokens, ctx_len, block_table, n_valid,
+                   state_idx, caches, cfg: ArchConfig, rt: Runtime, *,
+                   fused: bool = False):
+    """Embedding, the stack over the state cache, the final norm: (h
+    (B, C, D), caches); one device, or the shards of ``rt.mesh``."""
+    if rt.mesh is None:
+        x = embedding_apply(params["embed"], tokens)
+        stack, final_norm = params["stack"], params["final_norm"]
+    else:
+        x = sharded_embedding_apply([p["embed"] for p in params], tokens,
+                                    rt.mesh.devices)
+        stack = [p["stack"] for p in params]
+        final_norm = params[0]["final_norm"]
+    h, caches = stack_paged(stack, x, ctx_len, block_table, n_valid,
+                            state_idx, cfg, rt, caches, fused=fused)
+    return norm_apply(cfg.norm, final_norm, h), caches
+
+
+def _paged_head(params, cfg: ArchConfig, h, rt: Runtime) -> torch.Tensor:
+    """The head of a paged step; under ``rt.mesh`` each shard's logits
+    over its vocabulary slice, joined in shard order on the first
+    shard's device."""
+    if rt.mesh is None:
+        return _head(params, cfg, h)
+    dev0 = rt.mesh.devices[0]
+    return torch.cat([_head(p, cfg, h.to(dev)).to(dev0)
+                      for p, dev in zip(params, rt.mesh.devices)], dim=-1)
+
+
 def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,
                   caches, cfg: ArchConfig, rt: Runtime):
     """One paged engine step: the next C tokens of each sequence — a
@@ -233,13 +270,11 @@ def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,
     sentinels for rows without one (all-sentinel for attention-only
     patterns). Returns (logits (B, V) at each row's last valid position,
     caches)."""
-    x = embedding_apply(params["embed"], tokens)
-    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, state_idx, cfg, rt, caches)
-    h = norm_apply(cfg.norm, params["final_norm"], h)
+    h, caches = _paged_forward(params, tokens, ctx_len, block_table, n_valid,
+                               state_idx, caches, cfg, rt)
     last = torch.clamp(n_valid.long() - 1, 0, tokens.shape[1] - 1)
-    h_last = h[torch.arange(h.shape[0], device=h.device), last]
-    return _head(params, cfg, h_last), caches
+    h_last = h[torch.arange(h.shape[0], device=h.device), last.to(h.device)]
+    return _paged_head(params, cfg, h_last, rt), caches
 
 
 def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid,
@@ -253,11 +288,9 @@ def lm_paged_verify(params, tokens, ctx_len, block_table, n_valid,
     back at every window position, (B, C, V): position j scores the token
     after window token j. Rows past ``n_valid`` carry garbage logits —
     never read."""
-    x = embedding_apply(params["embed"], tokens)
-    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, state_idx, cfg, rt, caches)
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    return _head(params, cfg, h), caches
+    h, caches = _paged_forward(params, tokens, ctx_len, block_table, n_valid,
+                               state_idx, caches, cfg, rt)
+    return _paged_head(params, cfg, h, rt), caches
 
 
 def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
@@ -265,15 +298,13 @@ def lm_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
     """One fused decode tick, plain decode (W == 1) and the speculative
     verify window (W == spec_k + 1) alike: every layer's attention is ONE
     ``paged_decode_ragged`` launch over the batch's ragged (slot,
-    attend_len) grid. tokens (B, W) is each row's window, padded past
-    ``n_valid``; logits come back at every window position, (B, W, V), as
-    from ``lm_paged_verify``. Rows past ``n_valid`` carry garbage logits —
-    never read."""
-    x = embedding_apply(params["embed"], tokens)
-    h, caches = stack_paged(params["stack"], x, ctx_len, block_table,
-                            n_valid, state_idx, cfg, rt, caches, fused=True)
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    return _head(params, cfg, h), caches
+    attend_len) grid (one per shard under ``rt.mesh``). tokens (B, W) is
+    each row's window, padded past ``n_valid``; logits come back at every
+    window position, (B, W, V), as from ``lm_paged_verify``. Rows past
+    ``n_valid`` carry garbage logits — never read."""
+    h, caches = _paged_forward(params, tokens, ctx_len, block_table, n_valid,
+                               state_idx, caches, cfg, rt, fused=True)
+    return _paged_head(params, cfg, h, rt), caches
 
 
 def paged_copy_page(caches, src: int, dst: int):
@@ -293,7 +324,8 @@ def paged_gather_pages(caches, pages: torch.Tensor) -> list:
     are left out (``paged_gather_slabs``): one dict per slot, empty for
     recurrent slots."""
     idx = pages.long()
-    return [{k: tree_map(lambda _, leaf: leaf[:, idx], slot_cache[k])
+    return [{k: tree_map(lambda _, leaf: leaf[:, idx.to(leaf.device)],
+                         slot_cache[k])
              for k in _PAGE_KEYS if k in slot_cache}
             for slot_cache in caches]
 
@@ -306,8 +338,8 @@ def paged_scatter_pages(caches, pages: torch.Tensor, payload):
         for k in pay:
             for leaf, val in zip(tree_leaves(slot_cache[k]),
                                  tree_leaves(pay[k])):
-                leaf[:, idx] = torch.as_tensor(val).to(leaf.device,
-                                                       leaf.dtype)
+                leaf[:, idx.to(leaf.device)] = torch.as_tensor(val).to(
+                    leaf.device, leaf.dtype)
     return caches
 
 

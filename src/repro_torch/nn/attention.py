@@ -6,7 +6,9 @@ SPx codebook codes (uint8) with one f32 scale per token when quantized
 (``Runtime.kv_quant``; ``Runtime.kv_scheme`` picks the level set). The
 dense forward and the one-token decode also take ``cross_kv``: the
 encoder-decoder's cross-attention over precomputed, unroped encoder K/V,
-non-causal. Context-parallel attention and the mesh hints of
+non-causal. ``attn_paged_step_sharded`` is the tensor-parallel paged
+sublayer of a sharded serving engine (``Runtime.mesh``): each shard
+attends its own heads. Context-parallel attention and the mesh hints of
 ``repro.nn.attention`` are not in this port.
 
 Caches and page pools are updated **in place** (indexed assignment) where
@@ -23,12 +25,13 @@ from repro_torch.core import spx
 from repro_torch.kernels import ops
 from repro_torch.runtime import Runtime
 
-from .layers import dense_apply, dense_init
+from .layers import dense_apply, dense_init, shard_sum
 from .rotary import apply_mrope, apply_rope
 
 __all__ = ["attn_init", "attn_apply_dense", "attention_core",
            "decode_attention", "attn_decode_step", "paged_kv_write",
-           "attn_paged_step", "quantize_kv", "dequantize_kv", "kv_lut"]
+           "attn_paged_step", "attn_paged_step_sharded", "quantize_kv",
+           "dequantize_kv", "kv_lut"]
 
 _NEG = -1e30
 
@@ -403,3 +406,35 @@ def attn_paged_step(p: dict, x: torch.Tensor, ctx_len: torch.Tensor,
         o = o.transpose(1, 2).reshape(b, c, n_heads * head_dim)
     y = dense_apply(p["wo"], o, rt)
     return y, dict(cache, kp=kp, vp=vp)
+
+
+def attn_paged_step_sharded(ps: list, x: torch.Tensor, ctx_len: list,
+                            block_table: list, caches: list, *,
+                            n_heads: int, n_kv_heads: int, head_dim: int,
+                            n_valid: list, rope_theta: float = 10000.0,
+                            mrope_sections=None, rt: Runtime,
+                            fused: bool = False):
+    """``attn_paged_step`` split over the shards of ``rt.mesh`` by heads.
+    Shard s holds the ``wq`` columns of its query heads, the ``wk``/``wv``
+    columns of its KV heads (all of them where they replicate) and the
+    ``wo`` rows of its query heads (``sharding.shard_params``): it
+    projects, writes its own pool and attends its heads through the same
+    kernel routes as one device does, and its ``wo`` product is a partial
+    sum. The partials are summed in shard order on the first shard's
+    device (``shard_sum``).
+
+    ps, caches: per shard, this layer's params and {"kp", "vp"} pools;
+    ctx_len, block_table, n_valid: per shard, on its device; n_heads,
+    n_kv_heads: the model's (unsharded) counts; x: the normed input
+    (B, C, D). Writes the pools in place and returns (y (B, C, D) on the
+    first shard's device, caches)."""
+    parts = []
+    for p, ctx, bt, nv, cache, dev in zip(ps, ctx_len, block_table, n_valid,
+                                          caches, rt.mesh.devices):
+        y, _ = attn_paged_step(
+            p, x.to(dev), ctx, bt, cache, n_heads=n_heads // len(ps),
+            n_kv_heads=p["wk"]["w"].shape[-1] // head_dim,
+            head_dim=head_dim, n_valid=nv, rope_theta=rope_theta,
+            mrope_sections=mrope_sections, rt=rt, fused=fused)
+        parts.append(y)
+    return shard_sum(parts), caches

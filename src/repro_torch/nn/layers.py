@@ -18,7 +18,8 @@ from repro_torch.runtime import Runtime
 __all__ = ["dense_init", "dense_apply", "embedding_init", "embedding_apply",
            "rmsnorm_init", "rmsnorm_apply", "layernorm_init",
            "layernorm_apply", "norm_init", "norm_apply", "quantize_params",
-           "tree_map", "tree_index"]
+           "tree_map", "tree_index", "shard_sum",
+           "sharded_embedding_apply"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -52,6 +53,39 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *,
 
 def embedding_apply(p: dict, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
+
+
+# -- tensor parallelism: the ordered reduction and the vocab-parallel lookup --
+
+def shard_sum(parts: list) -> torch.Tensor:
+    """The shards' partial products (of a row-parallel ``wo`` or ``down``,
+    or of the vocab-parallel lookup) summed in fixed shard order on the
+    first shard's device: the same sum on every run, whatever the
+    devices. The caller hands the result on to each shard."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
+
+
+def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices) -> \
+        torch.Tensor:
+    """Vocab-parallel lookup: shard s holds table rows [lo_s, lo_s + V_s)
+    and gathers the ids in its range (exact zeros elsewhere); the rows
+    are summed in shard order on the first shard's device, so each id's
+    row comes back exactly."""
+    parts, lo = [], 0
+    for p, dev in zip(ps, devices):
+        table = p["table"]
+        v = table.shape[0]
+        local = ids.to(dev).long() - lo
+        hit = (local >= 0) & (local < v)
+        rows = table[torch.clamp(local, 0, v - 1)]
+        parts.append(torch.where(hit[..., None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=dev)))
+        lo += v
+    return shard_sum(parts)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> dict:

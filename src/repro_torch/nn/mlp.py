@@ -3,7 +3,9 @@
   * "swiglu"  — gated silu (granite, qwen2.5, kimi/olmoe/jamba experts)
   * "geglu"   — gated gelu (gemma)
   * "relu2"   — squared relu, ungated (minitron/nemotron)
-All large projections may be SPx-quantized (QuantizedTensor weights)."""
+All large projections may be SPx-quantized (QuantizedTensor weights).
+``mlp_apply_sharded`` is the tensor-parallel FFN: column-parallel
+up/gate, row-parallel down."""
 from __future__ import annotations
 
 import torch
@@ -11,9 +13,9 @@ import torch.nn.functional as F
 
 from repro_torch.runtime import Runtime
 
-from .layers import dense_apply, dense_init
+from .layers import dense_apply, dense_init, shard_sum
 
-__all__ = ["mlp_init", "mlp_apply", "ACTIVATIONS"]
+__all__ = ["mlp_init", "mlp_apply", "mlp_apply_sharded", "ACTIVATIONS"]
 
 #: "gelu" is the tanh approximation, as jax.nn.gelu's default
 ACTIVATIONS = {
@@ -50,3 +52,13 @@ def mlp_apply(p: dict, x: torch.Tensor, *, variant: str = "swiglu",
     else:
         h = ACTIVATIONS[act](up)
     return dense_apply(p["down"], h, rt)
+
+
+def mlp_apply_sharded(ps: list, x: torch.Tensor, *, variant: str = "swiglu",
+                      act: str = "gelu", rt: Runtime) -> torch.Tensor:
+    """``mlp_apply`` split over the shards of ``rt.mesh`` by d_ff columns:
+    shard s holds its columns of ``up`` (and ``gate``) and the matching
+    rows of ``down``, so its output is a partial sum; the partials are
+    summed in shard order on the first shard's device (``shard_sum``)."""
+    return shard_sum([mlp_apply(p, x.to(dev), variant=variant, act=act,
+                                rt=rt) for p, dev in zip(ps, rt.mesh.devices)])

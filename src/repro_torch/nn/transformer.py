@@ -16,7 +16,8 @@ recurrent slots their row of the slab region). The enc-dec decoder slot
 encoder's output: projected from ``enc_out`` in the train and prefill
 modes (prefill also writes it into the dense cache's ``xk``/``xv``), read
 from that cache in decode, and read from the shared cross region of the
-state cache in paged mode.
+state cache in paged mode. Under ``Runtime.mesh`` the paged mode of an
+``attn+dense`` pattern runs tensor-parallel over the mesh's shards.
 """
 from __future__ import annotations
 
@@ -27,19 +28,22 @@ from repro_torch.runtime import Runtime
 
 from . import ssm
 from .attention import (attention_core, attn_apply_dense, attn_decode_step,
-                        attn_init, attn_paged_step, quantize_kv)
+                        attn_init, attn_paged_step, attn_paged_step_sharded,
+                        quantize_kv)
 from .layers import dense_apply, norm_apply, norm_init, tree_index
-from .mlp import mlp_apply, mlp_init
+from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 from .moe import moe_apply, moe_init
 from .rotary import apply_rope
 
 __all__ = ["stack_init", "stack_apply", "stack_prefill", "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
-           "SLOT_KINDS"]
+           "SLOT_KINDS", "SHARDED_SLOTS"]
 
 SLOT_KINDS = ("attn", "xdec", "mamba", "mlstm", "slstm")
 #: mixers whose serving state is a per-sequence slab
 SLAB_MIXERS = ("mamba", "mlstm", "slstm")
+#: the slots ``stack_paged`` runs tensor-parallel
+SHARDED_SLOTS = ("attn+dense",)
 
 
 def _parse_slot(slot: str):
@@ -237,12 +241,15 @@ def _recurrent(slot_p, h, cfg: ArchConfig, rt: Runtime, mixer: str, *,
 def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                 rt: Runtime, *, mode: str, cache=None, pos=None,
                 enc_out=None, causal: bool = True, paged_ctx=None,
-                fused: bool = False):
+                fused: bool = False, paged_attn=attn_paged_step,
+                mlp=mlp_apply):
     """One slot (the reference's ``_slot_apply``). mode: 'train' |
     'prefill' | 'decode' | 'paged'. Paged mode takes ``paged_ctx =
     (ctx_len, block_table, n_valid, state_idx, slab_rows)``; an xdec slot
-    takes ``enc_out`` in the train and prefill modes. Returns (x, cache,
-    aux) with aux the MoE load-balance loss (0 elsewhere)."""
+    takes ``enc_out`` in the train and prefill modes. ``paged_attn`` and
+    ``mlp`` run the paged attention and the dense FFN: one device's, or
+    the tensor-parallel ones (``stack_paged`` under a mesh). Returns (x,
+    cache, aux) with aux the MoE load-balance loss (0 elsewhere)."""
     mixer, ffn = _parse_slot(slot)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, p["norm1"], x)
@@ -252,9 +259,9 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                      mrope_sections=cfg.mrope_sections, rt=rt)
         if mode == "paged":
             ctx_len, block_table, n_valid = paged_ctx[:3]
-            y, cache = attn_paged_step(p["attn"], h, ctx_len, block_table,
-                                       cache, n_valid=n_valid, fused=fused,
-                                       **heads)
+            y, cache = paged_attn(p["attn"], h, ctx_len, block_table,
+                                  cache, n_valid=n_valid, fused=fused,
+                                  **heads)
         elif mode == "decode":
             y, (k, v) = attn_decode_step(p["attn"], h, pos,
                                          (cache["k"], cache["v"]), **heads)
@@ -279,8 +286,7 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
     x = x + y
     if ffn == "dense":
         h = norm_apply(cfg.norm, p["norm2"], x)
-        x = x + mlp_apply(p["mlp"], h, variant=cfg.mlp_variant, act=cfg.act,
-                          rt=rt)
+        x = x + mlp(p["mlp"], h, variant=cfg.mlp_variant, act=cfg.act, rt=rt)
     elif ffn == "moe":
         h = norm_apply(cfg.norm, p["norm2"], x)
         y, aux = moe_apply(p["moe"], h, top_k=cfg.top_k,
@@ -347,8 +353,8 @@ def _slab_rows(cfg: ArchConfig, caches, n_valid, state_idx):
     return None
 
 
-def stack_paged(params: dict, x: torch.Tensor, ctx_len, block_table,
-                n_valid, state_idx, cfg: ArchConfig, rt: Runtime, caches, *,
+def stack_paged(params, x: torch.Tensor, ctx_len, block_table, n_valid,
+                state_idx, cfg: ArchConfig, rt: Runtime, caches, *,
                 fused: bool = False):
     """C-token step through every period against the state cache —
     chunked prefill (C > 1) and decode (C == 1) share this path. x:
@@ -361,12 +367,42 @@ def stack_paged(params: dict, x: torch.Tensor, ctx_len, block_table,
     the read-only {"xk", "xv"} cross region of xdec slots, or the slab
     leaves of recurrent ones, stacked over periods, written in place.
     ``fused`` routes every attention through the ragged decode kernel.
-    Returns (x, caches)."""
-    ctx = (ctx_len, block_table, n_valid, state_idx,
-           _slab_rows(cfg, caches, n_valid, state_idx))
-    for slot, sp, cache in _periods(params, cfg, caches):
+
+    Under ``rt.mesh`` (an ``attn+dense`` pattern, tensor-parallel)
+    ``params`` and ``caches`` hold one stack and one paged state cache per
+    shard (``sharding.shard_params``, ``shard_paged_state``). The residual
+    stream stays on the first shard's device; each sublayer's normed
+    input is handed to every shard and the shards' partial outputs come
+    back summed in shard order (``attn_paged_step_sharded``,
+    ``mlp_apply_sharded``). The block table and the token batch are
+    replicated: each shard gets its own copy once per call. Returns (x,
+    caches)."""
+    if rt.mesh is None:
+        ctx = (ctx_len, block_table, n_valid, state_idx,
+               _slab_rows(cfg, caches, n_valid, state_idx))
+        for slot, sp, cache in _periods(params, cfg, caches):
+            x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="paged",
+                                  cache=cache, paged_ctx=ctx, fused=fused)
+        return x, caches
+    ctx = tuple([t.to(d) for d in rt.mesh.devices]
+                for t in (ctx_len, block_table, n_valid))
+    for per_shard in zip(*(_periods(p, cfg, c)
+                           for p, c in zip(params, caches))):
+        slot = per_shard[0][0]
+        if slot not in SHARDED_SLOTS:
+            raise NotImplementedError(
+                f"tensor-parallel slot {slot!r}: only {SHARDED_SLOTS} run "
+                "sharded")
+        sps = [sp for _, sp, _ in per_shard]
+        # the norms are replicated: shard 0's copy serves the residual
+        # stream on its device
+        sp = dict(sps[0], attn=[p["attn"] for p in sps],
+                  mlp=[p["mlp"] for p in sps])
         x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="paged",
-                              cache=cache, paged_ctx=ctx, fused=fused)
+                              cache=[c for _, _, c in per_shard],
+                              paged_ctx=ctx, fused=fused,
+                              paged_attn=attn_paged_step_sharded,
+                              mlp=mlp_apply_sharded)
     return x, caches
 
 

@@ -7,10 +7,13 @@
   kv_scheme  core/spx scheme of the quantized KV cache
   device     where params, caches and activations live. ``"cuda"`` by
              default; the CPU is taken only when asked for
+  mesh       a ``launch.mesh.ServingMesh`` (the shard devices) when the
+             serving engine runs tensor-parallel, else None
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -36,6 +39,7 @@ class Runtime:
     kv_quant: bool = False
     kv_scheme: str = "uniform8"
     device: str = "cuda"
+    mesh: Any = None
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)

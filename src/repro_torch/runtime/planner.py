@@ -14,17 +14,22 @@ for head_dim 128, 32. Quantized pools (``kv_scheme``) hold a page as codes,
 larger pages: 32 tokens at head_dim 256, 64 at 128.
 
 ``plan_seq_pages``, ``plan_resume_pages`` and ``plan_seq_state`` are the
-reference's integer page math, verbatim.
+reference's integer page math, verbatim. ``plan_shard_budget`` is the
+reference's per-shard byte model of a tensor-parallel paged engine; its
+kernel working set is this planner's page pair (``smem_bytes``) where the
+reference's is the TPU kernel's VMEM.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 from repro_torch.core import spx
 
 __all__ = ["KVPagePlan", "plan_kv_pages", "plan_seq_pages",
            "plan_resume_pages", "StateReservation", "plan_seq_state",
+           "ShardBudget", "kv_heads_split", "plan_shard_budget",
            "PAGE_PAIR_SMEM_BYTES"]
 
 #: shared-memory budget of one K page + one V page of one (slot, KV head)
@@ -104,3 +109,76 @@ def plan_seq_state(n_tokens: int, page_size: int, *,
         else 0
     return StateReservation(pages=pages, slabs=int(bool(needs_slab)),
                             cross=int(bool(needs_cross)))
+
+
+# -- per-shard budgets (tensor-parallel serving) -------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardBudget:
+    """Where one model shard's serving memory goes when the paged pools
+    are head-sharded over a ``model`` axis of ``shards`` devices.
+
+    kv_sharded          the pool's KV-head axis divides evenly, so each
+                        shard holds ``kv_heads_per_shard`` of it; when
+                        False the pool replicates and the per-shard
+                        numbers equal the global ones
+    kv_heads_per_shard  KV heads resident per shard
+    page_bytes          one page's bytes on one shard (all layers)
+    pool_bytes          the whole page pool's bytes on one shard
+    slab_bytes          recurrent-slab bytes on one shard (slabs
+                        replicate: sequence-private state, no head axis)
+    smem_bytes          the paged-decode kernel's K+V page pair of one
+                        (slot, KV head): the same on every shard, since
+                        the kernel's grid covers a shard's heads
+    """
+    shards: int
+    kv_sharded: bool
+    kv_heads_per_shard: int
+    page_bytes: int
+    pool_bytes: int
+    slab_bytes: int
+    smem_bytes: int
+
+
+def kv_heads_split(n_kv_heads: int, shards: int) -> bool:
+    """Whether a tensor-parallel engine's KV heads, and so its paged
+    pools, split over ``shards``: they divide evenly (else every shard
+    holds them whole and the pools replicate). The one rule that the
+    sharding policy, the engine and this budget read."""
+    return shards > 1 and n_kv_heads % shards == 0
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_shard_budget_cached(n_kv_heads: int, shards: int, page_size: int,
+                              n_pages: int, n_layers: int, slab_bytes: int,
+                              tok_side_bytes: int,
+                              smem_bytes: int) -> ShardBudget:
+    kv_sharded = kv_heads_split(n_kv_heads, shards)
+    heads = n_kv_heads // shards if kv_sharded else n_kv_heads
+    # K and V sides, every paged layer, the shard's resident heads
+    page_bytes = 2 * page_size * tok_side_bytes * heads * n_layers
+    return ShardBudget(shards=shards, kv_sharded=kv_sharded,
+                       kv_heads_per_shard=heads, page_bytes=page_bytes,
+                       pool_bytes=page_bytes * n_pages,
+                       slab_bytes=slab_bytes, smem_bytes=smem_bytes)
+
+
+def plan_shard_budget(n_kv_heads: int, dh: int, *, shards: int = 1,
+                      page_size: int, n_pages: int, n_layers: int = 1,
+                      slab_bytes: int = 0, act_bytes: int = 2,
+                      kv_scheme: str | None = None) -> ShardBudget:
+    """Per-shard page and slab budget of a tensor-parallel paged engine.
+
+    The page pool is ``(layers, n_pages, Hkv, page_size, dh)`` per K/V
+    side; sharding splits its ``Hkv`` axis over ``shards`` devices when
+    it divides, else the pool replicates (``kv_heads_split``).
+    ``slab_bytes`` never shards. ``kv_scheme`` switches the per-token
+    bytes to the codes + scale layout, as ``plan_kv_pages`` does."""
+    if shards < 1:
+        raise ValueError(f"shards must be >= 1, got {shards}")
+    tok_side = (spx.kv_token_side_bytes(dh) if kv_scheme is not None
+                else dh * act_bytes)
+    plan = plan_kv_pages(dh, act_bytes=act_bytes, kv_scheme=kv_scheme)
+    return _plan_shard_budget_cached(n_kv_heads, shards, page_size, n_pages,
+                                     n_layers, slab_bytes, tok_side,
+                                     plan.smem_bytes)

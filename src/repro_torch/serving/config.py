@@ -5,19 +5,22 @@ cross-knob checks run, as in ``repro.serving.config``; it returns a fully
 resolved copy. Same fields, env knobs and defaults as the reference.
 
 This port serves every pattern of the reference (dense, MoE, recurrent,
-hybrid, M-RoPE and the encoder-decoder) on two layouts on one device:
+hybrid, M-RoPE and the encoder-decoder) on two layouts:
 the paged state cache under ``cb`` or ``fifo`` scheduling — the fused or
 the unfused decode tick,
 speculative decoding and the prefix cache included where the pattern
 allows them — and the dense per-slot layout under ``fifo``; either in f32
-or bf16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes.
-A knob the layout or the pattern cannot have raises the reference's
-``ValueError`` naming the failing predicates, and its env default
-degrades silently, as in the reference. A knob or a model that asks
-**explicitly** for something this port lacks (another cache dtype,
-shards, replicas) raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it; the env default of shards and
-replicas degrades silently to one device.
+or bf16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes;
+tensor-parallel (``shards``) for the ``attn+dense`` patterns on the paged
+layout, and behind a replica router (``replicas``) for every pattern.
+``shards`` and ``replicas`` resolve as the reference's do, env fallbacks
+(``REPRO_SHARDS``, ``REPRO_REPLICAS``) included. A knob the layout or the
+pattern cannot have raises the reference's ``ValueError`` naming the
+failing predicates, and its env default degrades silently, as in the
+reference. A knob or a model that asks **explicitly** for something this
+port lacks (another cache dtype, shards of another pattern) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it; the env
+default of shards degrades silently to one shard there.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.nn.transformer import SHARDED_SLOTS
 from repro_torch.serving.spec import DEFAULT_SPEC_K
+from repro_torch.sharding import SHARDED_REST
 
 __all__ = ["ServeConfig", "DEFAULT_PREFILL_CHUNK"]
 
@@ -231,18 +236,40 @@ class ServeConfig:
                     f"prefill_chunk must be >= 1, got {prefill_chunk} "
                     "(check REPRO_PREFILL_CHUNK)")
 
-        for knob in ("shards", "replicas"):
-            val = getattr(self, knob)
-            if val is not None and val < 1:
-                raise ValueError(f"{knob} must be >= 1, got {val}")
-            if knob == "shards" and not paged and val is not None and val > 1:
+        # tensor-parallel width, as in the reference: REPRO_SHARDS on a
+        # dense engine degrades to 1, an explicit shards= there is a caller
+        # error (the sharded engine head-shards the paged pools). Patterns
+        # this port does not shard yet raise when asked explicitly, and
+        # their env default degrades to one shard.
+        explicit_shards = self.shards is not None
+        shards = self.shards
+        if shards is None:
+            shards = int(os.environ.get("REPRO_SHARDS", "1") or 1)
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards} "
+                             "(check REPRO_SHARDS)")
+        if shards > 1 and not paged:
+            if explicit_shards:
                 raise ValueError(
-                    f"shards={val} needs kv_layout='paged' — the sharded "
-                    "engine head-shards the paged KV/state pools over the "
-                    "model axis")
-            if val is not None and val > 1:
-                raise _not_ported(f"{knob}={val}", "multi-device and drivers")
-        # REPRO_SHARDS / REPRO_REPLICAS degrade silently to one device
+                    f"shards={shards} needs kv_layout='paged' — the "
+                    "sharded engine head-shards the paged KV/state pools "
+                    "over the model axis")
+            shards = 1
+        if shards > 1 and (cfg.enc_dec
+                           or set(cfg.pattern) - set(SHARDED_SLOTS)):
+            if explicit_shards:
+                raise _not_ported(
+                    f"shards={shards} for pattern={cfg.pattern}"
+                    + (" (enc_dec)" if cfg.enc_dec else ""), SHARDED_REST)
+            shards = 1
+
+        # data-parallel replicas: a router knob (serving/router.py)
+        replicas = self.replicas
+        if replicas is None:
+            replicas = int(os.environ.get("REPRO_REPLICAS", "1") or 1)
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas} "
+                             "(check REPRO_REPLICAS)")
 
         kv_cache_dtype = _torch_dtype(self.kv_cache_dtype)
         if kv_cache_dtype not in (torch.float32, torch.bfloat16):
@@ -255,4 +282,5 @@ class ServeConfig:
             spec_k=spec_k, fused_decode=bool(fused_decode),
             scheduler=scheduler, host_pages=host_pages,
             prefix_cache_pages=prefix_cache_pages,
-            prefill_chunk=prefill_chunk, shards=1, replicas=1, resolved=True)
+            prefill_chunk=prefill_chunk, shards=shards, replicas=replicas,
+            resolved=True)

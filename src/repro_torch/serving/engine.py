@@ -59,8 +59,19 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
+Tensor parallelism (``ServeConfig(shards=N)``, paged ``attn+dense``
+patterns: the dense and M-RoPE models) runs the shards from this one
+process, as the reference's single controller does: the engine cuts the
+quantized params and the paged pools into one tree per shard
+(``sharding.shard_params``, ``shard_paged_state``; the pools head-shard
+when the KV heads divide, else replicate), over the shard devices of
+``devices`` or ``launch.hostdev.device_list()`` (``REPRO_FORCE_DEVICE_COUNT``
+puts several shards on one device). Block tables and token batches stay
+replicated; the step functions run the sharded forward (``models.lm``).
+Data-parallel replicas are the router's (``serving.router.ReplicaRouter``).
+
 Not in this port yet (``ServeConfig.resolve`` raises): other cache
-dtypes than f32 and bf16, sharding and replicas.
+dtypes than f32 and bf16, and sharding the other patterns.
 """
 from __future__ import annotations
 
@@ -73,6 +84,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import hostdev
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.nn.layers import quantize_params, tree_leaves, tree_map
@@ -83,6 +96,8 @@ from repro_torch.serving.kv_cache import (StateCache, cross_kv_bytes_per_seq,
                                           ssm_state_bytes_per_seq)
 from repro_torch.serving.spec import PromptLookupDrafter
 from repro_torch.serving.stream import StreamState, TokenStream
+from repro_torch.sharding import (ShardingPolicy, shard_paged_state,
+                                  shard_params)
 
 __all__ = ["Request", "ServeConfig", "ServeEngine"]
 
@@ -131,7 +146,7 @@ def _request_seed(engine_seed: int, rid: int) -> int:
 class ServeEngine:
     def __init__(self, params, cfg: ArchConfig,
                  config: ServeConfig | None = None, *,
-                 rt: Runtime | None = None):
+                 rt: Runtime | None = None, devices=None):
         if config is not None and not isinstance(config, ServeConfig):
             raise TypeError(
                 f"config must be a ServeConfig, got {type(config).__name__}")
@@ -143,6 +158,12 @@ class ServeEngine:
         self.kv_scheme = self.rt.kv_scheme if self.rt.kv_quant else None
         sc = (config or ServeConfig()).resolve(cfg)
         self.config = sc
+        if sc.replicas > 1:
+            raise ValueError(
+                f"replicas={sc.replicas} is a router knob — build a "
+                "repro_torch.serving.ReplicaRouter for data-parallel "
+                "replicas (a bare ServeEngine is always one replica)")
+        self.shards = sc.shards
         self.batch_slots = sc.batch_slots
         self.max_seq = sc.max_seq
         self.kv_cache_dtype = sc.kv_cache_dtype
@@ -164,9 +185,30 @@ class ServeEngine:
         self._has_cross = bool(cfg.enc_dec)
         self._model, self._prefix = ((encdec_mod, "encdec_") if cfg.enc_dec
                                      else (lm_mod, "lm_"))
+        # tensor parallelism: the shard devices, the policy that cuts the
+        # params (here) and the pools (_init_paged), and the mesh the step
+        # functions read from the runtime
+        self.mesh = self._policy = None
+        if sc.shards > 1:
+            devs = (list(devices) if devices is not None
+                    else hostdev.device_list(self.rt.device))
+            if len(devs) < sc.shards:
+                raise ValueError(
+                    f"shards={sc.shards} needs at least {sc.shards} "
+                    f"devices, have {len(devs)} — set "
+                    f"{hostdev.FORCE_ENV}=N to run N shards on one device "
+                    "(repro_torch.launch.hostdev)")
+            self.mesh = make_serving_mesh(sc.shards, devs[:sc.shards])
+            self.device = self.mesh.devices[0]
+            self.rt = self.rt.replace(mesh=self.mesh)
+            self._policy = ShardingPolicy(cfg, self.mesh)
         params = tree_map(lambda _, leaf: leaf.to(self.device), params)
         if sc.quantize:
             params = quantize_params(params, sc.quantize)
+        if self.mesh is not None:
+            # quantize first, then cut: each shard holds exactly the
+            # unsharded codes and scales of its slice
+            params = shard_params(params, self._policy, self.mesh)
         self.params = params
         self.seed = sc.seed
 
@@ -239,6 +281,11 @@ class ServeEngine:
             cfg, self.pool.n_pages, self.page_size, dtype=self.kv_cache_dtype,
             kv_quant=self.rt.kv_quant, n_slabs=self._n_slabs,
             n_cross=self._n_cross, device=self.device)
+        if self.mesh is not None:
+            # head-sharded pools (replicated where Hkv does not divide),
+            # one state cache per shard on its device
+            self.caches = shard_paged_state(self.caches, self._policy,
+                                            self.mesh)
         # per-slot (slab, cross) indices for the step functions; an index
         # equal to its region's size means "none"
         self._state_idx = np.tile(
@@ -263,6 +310,10 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
+
+    def _shard_caches(self) -> list:
+        """The state cache of every shard (one, unsharded)."""
+        return self.caches if self.mesh is not None else [self.caches]
 
     # -- public API ----------------------------------------------------------
 
@@ -553,6 +604,21 @@ class ServeEngine:
                     self._spec_accepted / self._spec_proposed
                     if self._spec_proposed else 0.0,
             }
+            if self._has_pages:
+                # how one shard's slice of the pool bills (the planner's
+                # ShardBudget); at one shard the global numbers. The pools
+                # stack every period on their leading dim
+                budget = planner.plan_shard_budget(
+                    dcfg.n_kv_heads, dcfg.dh, shards=self.shards,
+                    page_size=self.page_size, n_pages=self.pool.n_pages,
+                    n_layers=dcfg.n_periods, slab_bytes=int(slab_bytes),
+                    act_bytes=nbytes, kv_scheme=self.kv_scheme)
+                paged.update(
+                    kv_sharded=budget.kv_sharded,
+                    kv_heads_per_shard=budget.kv_heads_per_shard,
+                    pool_bytes_per_shard=budget.pool_bytes,
+                    peak_kv_bytes_per_shard=int(
+                        st.peak_pages_in_use * budget.page_bytes))
         else:
             # dense bills every slot its worst case up front: max_seq of
             # token K/V, a whole recurrent state and a private cross block
@@ -563,6 +629,7 @@ class ServeEngine:
         return {
             "kv_layout": self.kv_layout,
             "scheduler": self.scheduler,
+            "shards": self.shards,
             "device": str(self.device),
             "undrained_runs": self._undrained_runs,
             "drained": self.drained,
@@ -665,7 +732,8 @@ class ServeEngine:
         if cow_src is not None:
             # a private copy of the last matched page, before the re-run
             # final token writes its (identical) K/V into it
-            lm_mod.paged_copy_page(self.caches, cow_src, pages[len(shared)])
+            for caches in self._shard_caches():
+                lm_mod.paged_copy_page(caches, cow_src, pages[len(shared)])
             self._cow_copies += 1
         if matched:
             self._prefix_hits += 1
@@ -701,15 +769,23 @@ class ServeEngine:
 
     def _snapshot_pages(self, pages) -> list:
         """The written pages' bytes (codes and scales of a quantized pool),
-        copied to host tensors (numpy has no bf16)."""
+        copied to host tensors (numpy has no bf16): one payload per shard
+        of head-sharded pools, one of replicated (or unsharded) pools."""
         idx = self._tensor(np.asarray(pages, np.int32))
-        snap = lm_mod.paged_gather_pages(self.caches, idx)
-        return tree_map(lambda _, leaf: leaf.cpu(), snap)
+        shards = self._shard_caches()
+        if self._policy is None or not self._policy.kv_sharded:
+            shards = shards[:1]
+        return [tree_map(lambda _, leaf: leaf.cpu(),
+                         lm_mod.paged_gather_pages(caches, idx))
+                for caches in shards]
 
     def _restore_pages(self, pages: list[int], payload):
         n = tree_leaves(payload)[0].shape[1]
         idx = self._tensor(np.asarray(pages[:n], np.int32))
-        lm_mod.paged_scatter_pages(self.caches, idx, payload)
+        for s, caches in enumerate(self._shard_caches()):
+            # a replicated pool's one payload goes to every shard
+            lm_mod.paged_scatter_pages(caches, idx,
+                                       payload[min(s, len(payload) - 1)])
 
     @staticmethod
     def _payload_bytes(payload) -> int:

@@ -5,7 +5,8 @@ and fifo schedulers, with preemption and host offload, with weights the
 port quantizes itself or that JAX quantized and the port carried over, and
 with the prefix cache, speculative decoding and the unfused tick, and on
 bf16 pages (fused and unfused ticks, and with preemption). Also: knobs
-this port lacks raise, env knobs resolve as in the reference,
+this port lacks raise (and shards beyond the devices, replicas on a bare
+engine), env knobs resolve as in the reference,
 entry points never fall back quietly to the CPU, and importing the port
 loads neither JAX nor ``repro``."""
 import dataclasses
@@ -238,7 +239,15 @@ def test_cache_dtypes_resolve(workload, dtype):
     ServeConfig(kv_layout="dense", replicas=2),
 ])
 def test_knobs_this_port_lacks_raise(workload, config):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """float16 caches raise naming their ROADMAP.md item. shards and
+    replicas are ported: a bare engine refuses replicas (the router's
+    knob), and shards beyond the one CPU device ask for
+    REPRO_FORCE_DEVICE_COUNT."""
+    if config.shards or config.replicas:
+        exc, match = ValueError, "REPRO_FORCE_DEVICE_COUNT|ReplicaRouter"
+    else:
+        exc, match = NotImplementedError, "ROADMAP.md"
+    with pytest.raises(exc, match=match):
         ServeEngine(params_from_reference(workload["params"]),
                     workload["cfg"], config, rt=CPU)
 
@@ -261,7 +270,7 @@ def test_other_patterns_raise():
 def test_env_defaults_degrade_silently(workload, monkeypatch):
     """As in the reference: the prefix-cache, speculation and fused-tick
     env knobs take effect on the paged layout and degrade silently on the
-    dense one; shards and replicas degrade to one device."""
+    dense one; shards and replicas resolve from the env."""
     for var, val in (("REPRO_PREFIX_CACHE", "1"), ("REPRO_SPEC_K", "3"),
                      ("REPRO_FUSED_DECODE", "0"), ("REPRO_SHARDS", "2"),
                      ("REPRO_REPLICAS", "2"),
@@ -270,10 +279,10 @@ def test_env_defaults_degrade_silently(workload, monkeypatch):
     sc = ServeConfig(**KNOBS).resolve(workload["cfg"])
     assert (sc.prefix_cache, sc.spec_decode, sc.spec_k) == (True, True, 3)
     assert sc.fused_decode is False and sc.prefix_cache_pages == 5
-    assert (sc.shards, sc.replicas) == (1, 1)
+    assert (sc.shards, sc.replicas) == (2, 2)
     want = JServeConfig(**KNOBS).resolve(_cfg(get_config, reduced))
     for knob in ("prefix_cache", "spec_decode", "spec_k", "fused_decode",
-                 "prefix_cache_pages"):
+                 "prefix_cache_pages", "shards", "replicas"):
         assert getattr(sc, knob) == getattr(want, knob), knob
     dense = ServeConfig(kv_layout="dense").resolve(workload["cfg"])
     assert (dense.prefix_cache, dense.spec_decode, dense.spec_k,

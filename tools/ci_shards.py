@@ -64,6 +64,8 @@ SHARDS: dict[str, list[str]] = {
         "tests/test_torch_prefix.py",
         "tests/test_torch_serving.py",
         "tests/test_torch_encdec.py",
+        "tests/test_torch_router.py",
+        "tests/test_torch_sharding.py",
         "tests/test_torch_spec.py",
         "tests/test_torch_state_cache.py",
     ],
