@@ -16,9 +16,11 @@ Phases, each printing JSON lines:
               the paper MLP's layers (784, 128) and (128, 10) and M = 1024
               and 2048, and the Q-network's (4, 64) and (64, 64) at M = 1
               and 64, the ragged decode kernel at a w = 5 verify window
-              that crosses a page boundary, kernels 2 and 5 over bf16 pages
-              (page sizes 32 and 16, up to 2048 tokens, each slot within
-              BF16_ATTN_RTOL of its own peak), flash attention up to 2048
+              that crosses a page boundary, kernels 2 and 5 over bf16 and
+              f16 pages (page sizes 32 and 16, up to 2048 tokens, each
+              slot within BF16_ATTN_RTOL / F16_ATTN_RTOL of its own peak;
+              on f16 pages also a case whose probabilities are all f16
+              subnormals, within 1e-5), flash attention up to 2048
               tokens; second launches bit-identical; then every shape the
               four families of ``serve_families`` give the kernels:
               spx_matmul at each (K, N) of their projections (N = 8 and
@@ -40,7 +42,11 @@ Phases, each printing JSON lines:
               column and row cuts of gemma-2b and qwen2-vl-2b at M in
               SHARD_MS, kernels 2, 3, 5 and 6 at one shard's heads (4
               query heads over gemma's one KV head of 256, 6 over one of
-              qwen2-vl's two of 128), w = 1 and 5; and every shape of
+              qwen2-vl's two of 128), w = 1 and 5, and one shard's
+              shapes of olmoe-1b-7b, xlstm-350m, whisper-small (its
+              encoder at M = 1500, flash over 1500 frames at 6 heads) and
+              full-width jamba at one period (also its shards=1 shapes);
+              and every shape of
               the router and serve_cli runs (``tier_kernel_phase``):
               spx_matmul at gemma-2b's (K, N) at M in TIER_MS, kernels 2
               (w = 1) and 5 at its heads with the block tables of
@@ -84,7 +90,12 @@ Phases, each printing JSON lines:
                         fused tick, the unfused tick and the dense layout,
                         each held to the same engine on the plain versions
                         (``Runtime(impl="ref")``), a difference allowed
-                        only at a near-tie (BF16_E2E_RTOL).
+                        only at a near-tie (BF16_E2E_RTOL);
+                paged-f16, unfused-f16
+                        ``ServeConfig(kv_cache_dtype="float16")`` on the
+                        fused and the unfused tick (kernels 2 and 5's
+                        ``F16Page`` instance), held to the f32-page engine
+                        up to a near-tie (F16_E2E_RTOL).
               Every kernel of each path must launch, as often per tick or
               per request as the path says, and no plain version may run;
               the last three give the paged engine's greedy tokens, or
@@ -103,6 +114,21 @@ Phases, each printing JSON lines:
               paged kernel per attention layer (none for xlstm); every
               launch at a shape checked in phase 3; per family the
               spx_matmul decode tick and the MoE experts' tick timed;
+              olmoe and xlstm then also at ``ServeConfig(shards=2)``
+              on the same weights (``REPRO_FORCE_DEVICE_COUNT=2``: the
+              MoE expert-parallel, the recurrent mixers whole on each
+              shard), held to the shards=1 run (a difference only at a
+              near-tie), per model step one spx_matmul per shard and
+              projection and one paged kernel per shard and attention
+              layer, every launch at a shape ``sharded_kernel_phase``
+              checked; one shard's kernels timed (``serve_sharded``
+              lines);
+     serve_jamba  jamba-1.5-large at one period and full width (d_model
+              8192, 64 query heads over 8 KV heads, 16 experts of 8192 x
+              24576), sp2_4 weights drawn an expert at a time, the 8
+              requests at shards=1 and shards=2 (a ``serve_sharded`` line:
+              tokens held to shards=1 up to a near-tie, launches per model
+              step, one shard's kernels timed);
      serve_whisper  whisper-small at full width and depth (12 + 12
               layers, 1500 encoder frames), sp2_4 weights from a seed, the
               8 requests over 3 distinct encoder inputs through
@@ -113,7 +139,9 @@ Phases, each printing JSON lines:
               the plain versions, the dense layout and spec decoding
               (spec_k = 4), up to a near-tie; the encoder pass's
               spx_matmul, the encoder's and the cross-attention's flash
-              launches and kernel 2 at head_dim 64 timed;
+              launches and kernel 2 at head_dim 64 timed; then the same
+              at shards=2 (6 heads per shard, the vocabulary cut on d),
+              held to the shards=1 run;
      train    the flash kernel's ``autograd.Function`` against plain
               autograd at every training shape of phase 3;
               ``launch.train.main`` on full-width gemma-2b (2 x 256
@@ -173,8 +201,10 @@ Phases, each printing JSON lines:
               slots x 2048 tokens (``long_ctx_device_ms``), ``spx_matmul``
               at the paper MLP's two layers (``paper_mlp_by_M``), the ragged
               kernel at a verify tick of W = 5 (``verify_tick``), kernels 2
-              and 5 over bf16 pages (a decode tick and 4 slots x 2048
-              tokens; SDPA over the bf16 K/V), and the split counts the
+              and 5 over bf16 and f16 pages (a decode tick and 4 slots x
+              2048 tokens; SDPA over the same K/V), one shard's kernels of
+              the families served at shards=2 (``shards2_by_family``,
+              ``shards2_whisper``), and the split counts the
               wrappers chose (a ``splits`` line); the whisper and training
               rows of the serve_whisper and train phases ride along
               (``whisper_encoder_pass``, ``whisper``,
@@ -185,6 +215,7 @@ package is missing. The last line is the device record.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -358,7 +389,8 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
     worst.update(_quant_kernel_checks(torch, gen))
     for name, err in _split_kernel_checks(torch, gen).items():
         worst[name] = max(worst[name], err)
-    worst.update(_bf16_kernel_checks(torch, gen))
+    worst.update(_half_kernel_checks(torch, gen, torch.bfloat16))
+    worst.update(_half_kernel_checks(torch, gen, torch.float16))
     _flash_kernel_checks(torch, gen, checked, worst)
     ops.reset_op_calls()
     return worst, checked
@@ -546,27 +578,41 @@ def _slot_rel_err(torch, got, want) -> float:
     return float(rel.max())
 
 
-def _bf16_kernel_checks(torch, gen) -> dict:
-    """Kernels 2 and 5 over bf16 pages (the ``Bf16Page`` instance) at
-    gemma-2b's heads (4 slots, 1 KV head of 256, rep 8), at the bf16
-    engine's page size (32 tokens) and at 16: W = 1 and a W = 5 verify
-    window that crosses a page boundary, an empty slot, and block tables
-    of 256 and 2048 tokens (several splits). Each launch twice: the
-    second must be bit-identical."""
+#: f16 pages: in each slot, |kernel - plain| <= F16_ATTN_RTOL * that
+#: slot's max|plain|. Both round each probability to f16 before P @ V, the
+#: kernel at its running max and the plain version at the global one: the
+#: bf16 bound over 2^3, f16 carrying three more significand bits.
+F16_ATTN_RTOL = BF16_ATTN_RTOL / 8
+#: the half-width page dtypes: (the launch count's suffix, the per-slot
+#: tolerance against the plain version)
+HALF_PAGES = {"bfloat16": ("_bf16", BF16_ATTN_RTOL),
+              "float16": ("_f16", F16_ATTN_RTOL)}
+
+
+def _half_kernel_checks(torch, gen, dtype) -> dict:
+    """Kernels 2 and 5 over bf16 or f16 pages (``dtype``: the ``Bf16Page``
+    or ``F16Page`` instance) at gemma-2b's heads (4 slots, 1 KV head of
+    256, rep 8), at the half-width engine's page size (32 tokens) and at
+    16: W = 1 and a W = 5 verify window that crosses a page boundary, an
+    empty slot, and block tables of 256 and 2048 tokens (several splits).
+    Each launch twice: the second must be bit-identical."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (
         decode_splits, paged_attention_cuda, paged_decode_ragged_cuda)
     from repro_torch.runtime import planner
 
+    suffix, tol = HALF_PAGES[str(dtype).removeprefix("torch.")]
+    ragged_name, single_name = ("paged_decode_ragged" + suffix,
+                                "paged_attention" + suffix)
     b, hkv, rep, dh = 4, 1, 8, 256
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    worst = {"paged_decode_ragged_bf16": 0.0, "paged_attention_bf16": 0.0}
-    bf16_ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
-    for ps in (bf16_ps, 16):
+    worst = {ragged_name: 0.0, single_name: 0.0}
+    half_ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
+    for ps in (half_ps, 16):
         for tokens in (256, 2048):
             mp = tokens // ps
             n_pages = 1 + b * mp
-            kp, vp = (t.bfloat16() for t in
+            kp, vp = (t.to(dtype) for t in
                       _rand_pools(torch, gen, n_pages, hkv, ps, dh))
             bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
                 :b * mp].reshape(b, mp) + 1).to(torch.int32)
@@ -590,20 +636,17 @@ def _bf16_kernel_checks(torch, gen) -> dict:
                 same = bool(torch.equal(got, again))
                 rel = _slot_rel_err(torch, got, want)
                 ok = (bool(torch.isfinite(got).all()) and zeros and same
-                      and rel <= BF16_ATTN_RTOL)
-                emit({"phase": "kernel", "kernel": "paged_decode_ragged_bf16",
+                      and rel <= tol)
+                emit({"phase": "kernel", "kernel": ragged_name,
                       "w": w, "page_size": ps, "ctx_len": ctx_l,
                       "q_len": qlens,
                       "splits": decode_splits(b, hkv, rep * w, mp, ps, sms),
                       "max_abs_err": err, "max_rel_err": err / peak,
-                      "max_slot_rel_err": rel,
-                      "tol_slot_rel": BF16_ATTN_RTOL,
+                      "max_slot_rel_err": rel, "tol_slot_rel": tol,
                       "masked_rows_exact_zero": zeros,
                       "bit_identical_rerun": same, "ok": ok})
-                require(ok, f"paged_decode_ragged_bf16 ps={ps} "
-                            f"tokens={tokens} w={w}")
-                worst["paged_decode_ragged_bf16"] = max(
-                    worst["paged_decode_ragged_bf16"], err)
+                require(ok, f"{ragged_name} ps={ps} tokens={tokens} w={w}")
+                worst[ragged_name] = max(worst[ragged_name], err)
             ctx_l = [0, 1, ps + 1, tokens]
             ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
             q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
@@ -617,18 +660,59 @@ def _bf16_kernel_checks(torch, gen) -> dict:
             same = bool(torch.equal(got, again))
             rel = _slot_rel_err(torch, got, want)
             ok = (bool(torch.isfinite(got).all()) and zeros and same
-                  and rel <= BF16_ATTN_RTOL)
-            emit({"phase": "kernel", "kernel": "paged_attention_bf16",
+                  and rel <= tol)
+            emit({"phase": "kernel", "kernel": single_name,
                   "mode": "single-token", "page_size": ps, "ctx_len": ctx_l,
                   "splits": decode_splits(b, hkv, rep, mp, ps, sms),
                   "max_abs_err": err, "max_rel_err": err / peak,
-                  "max_slot_rel_err": rel, "tol_slot_rel": BF16_ATTN_RTOL,
+                  "max_slot_rel_err": rel, "tol_slot_rel": tol,
                   "ctx0_rows_exact_zero": zeros,
                   "bit_identical_rerun": same, "ok": ok})
-            require(ok, f"paged_attention_bf16 ps={ps} tokens={tokens}")
-            worst["paged_attention_bf16"] = max(
-                worst["paged_attention_bf16"], err)
+            require(ok, f"{single_name} ps={ps} tokens={tokens}")
+            worst[single_name] = max(worst[single_name], err)
+    if dtype == torch.float16:
+        worst[ragged_name] = max(worst[ragged_name],
+                                 _f16_subnormal_check(torch))
     return worst
+
+
+def _f16_subnormal_check(torch) -> float:
+    """Kernel 2 over f16 pages whose probabilities are f16 subnormals, at
+    2048 tokens (several splits): every fourth position (the first of each
+    4-token group, so every running max already holds it) scores 12 over
+    the rest and has V = 0, the others score 0 and have V = 1, so each
+    output is made of probabilities exp(-12) = 6.1e-6, below f16's normal
+    range, alone. Within 1e-5 of the plain version (which rounds them as
+    ``Tensor.to(torch.float16)`` does) and nonzero: a kernel that flushed
+    them would give zeros. Returns the largest error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode_ragged_cuda
+
+    b, ps, dh, tokens = 2, 16, 128, 2048
+    mp = tokens // ps
+    k = torch.zeros((b * mp, 1, ps, dh), device="cuda")
+    k[:, :, ::4, 0] = 1.0
+    v = torch.ones((b * mp, 1, ps, dh), device="cuda")
+    v[:, :, ::4] = 0.0
+    q = torch.zeros((b, 1, 1, dh), device="cuda")
+    q[..., 0] = 12.0 * dh ** 0.5
+    bt = torch.arange(b * mp, dtype=torch.int32,
+                      device="cuda").reshape(b, mp)
+    ctx = torch.tensor([tokens - 1, tokens // 2 - 1], dtype=torch.int32,
+                       device="cuda")
+    qn = torch.ones((b,), dtype=torch.int32, device="cuda")
+    args = (q, k.half(), v.half(), bt, ctx, qn)
+    got = paged_decode_ragged_cuda(*args, w=1)
+    want = ref.paged_decode_ragged_ref(*args, w=1)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = bool((want > 0).all()) and err <= 1e-5 * want.abs().min().item()
+    emit({"phase": "kernel", "kernel": "paged_decode_ragged_f16",
+          "case": "subnormal probabilities", "tokens": tokens,
+          "plain_output": want.abs().min().item(), "max_abs_err": err,
+          "tol": "1e-5 * |plain|", "ok": ok})
+    require(ok, "paged_decode_ragged_f16: subnormal probabilities")
+    return err
 
 
 def _flash_kernel_checks(torch, gen, checked, worst) -> None:
@@ -1358,6 +1442,45 @@ def _token_agreement(got: dict, want: dict) -> dict:
             "requests_identical": sum(got[r] == want[r] for r in want)}
 
 
+def _serve_half_path(torch, params, cfg, prompts, path, sc, watch,
+                     unwanted) -> tuple:
+    """Serve ``prompts`` on ``ServeEngine(params, cfg, sc)`` (bf16 or f16
+    caches), freed after: every request finished with ``NEW_TOKENS`` valid
+    tokens, every op of ``watch`` launched in multiples of the layer count
+    per tick, no plain version and no op of ``unwanted`` launched, the
+    caches and the metrics in ``sc.kv_cache_dtype``. Returns (tokens,
+    launches, plain calls, launches per tick, metrics)."""
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(params, cfg, sc)
+    dtype = eng.kv_cache_dtype
+    require(all(leaf.dtype == dtype for c in eng.caches
+                for leaf in c.values()),
+            f"{path}: the caches are not {dtype}")
+    done, launches, plain, per_tick = _serve_ticks(torch, eng, prompts,
+                                                   watch)
+    m = eng.metrics()
+    tokens = {r.rid: list(r.output) for r in done}
+    require(len(done) == N_REQUESTS,
+            f"{path}: {len(done)} of {N_REQUESTS} finished")
+    for rid, toks in tokens.items():
+        require(len(toks) == NEW_TOKENS
+                and all(0 <= t < cfg.vocab_size for t in toks),
+                f"{path}: request {rid}: bad output {toks}")
+    for op in ("spx_matmul",) + watch:
+        require(launches.get(op, 0) > 0, f"{path}: {op} never launched")
+    require(not plain, f"{path}: plain versions ran on the card: {plain}")
+    require(not unwanted & set(launches),
+            f"{path}: launched another path's kernels: {launches}")
+    for op in watch:
+        require(all(n % cfg.n_layers == 0 for n in per_tick[op]),
+                f"{path}: {op} launches per tick {per_tick[op]}")
+    require(m["kv_cache_dtype"] == str(dtype).removeprefix("torch."),
+            f"{path}: metrics say {m['kv_cache_dtype']}")
+    del eng
+    torch.cuda.empty_cache()
+    return tokens, launches, plain, per_tick, m
+
+
 def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
     """Full-width gemma-2b on bf16 KV caches (``ServeConfig(kv_cache_dtype=
     "bfloat16")``), on the quantized weights of the paged engine and the
@@ -1400,35 +1523,11 @@ def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
     out = {}
     for path, (knobs, watch, unwanted) in paths.items():
         sc = ServeConfig(quantize=None, **knobs)
-        eng = ServeEngine(params, cfg, sc)
-        require(all(leaf.dtype == torch.bfloat16 for c in eng.caches
-                    for leaf in c.values()),
-                f"{path}: the caches are not bf16")
-        done, launches, plain, per_tick = _serve_ticks(torch, eng, prompts,
-                                                       watch)
-        m = eng.metrics()
-        tokens = {r.rid: list(r.output) for r in done}
-        require(len(done) == N_REQUESTS,
-                f"{path}: {len(done)} of {N_REQUESTS} finished")
-        for rid, toks in tokens.items():
-            require(len(toks) == NEW_TOKENS
-                    and all(0 <= t < cfg.vocab_size for t in toks),
-                    f"{path}: request {rid}: bad output {toks}")
-        for op in ("spx_matmul",) + watch:
-            require(launches.get(op, 0) > 0, f"{path}: {op} never launched")
-        require(not plain, f"{path}: plain versions ran on the card: {plain}")
-        require(not unwanted & set(launches),
-                f"{path}: launched another path's kernels: {launches}")
-        for op in watch:
-            require(all(n % layers == 0 for n in per_tick[op]),
-                    f"{path}: {op} launches per tick {per_tick[op]}")
+        tokens, launches, plain, per_tick, m = _serve_half_path(
+            torch, params, cfg, prompts, path, sc, watch, unwanted)
         if path == "dense-bf16":
             require(launches["flash_attention"] == layers * N_REQUESTS,
                     "dense-bf16: flash per request")
-        require(m["kv_cache_dtype"] == "bfloat16",
-                f"{path}: metrics say {m['kv_cache_dtype']}")
-        del eng
-        torch.cuda.empty_cache()
 
         ref_eng = ServeEngine(params, cfg, sc, rt=Runtime(impl="ref"))
         gaps = _record_gaps(np, ref_eng, BF16_E2E_RTOL)
@@ -1448,7 +1547,7 @@ def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
               "kv_cache_dtype": m["kv_cache_dtype"],
               "page_size": m.get("page_size"),
               "batch_slots": sc.batch_slots, "prompt_lens": lens,
-              "requests_finished": len(done),
+              "requests_finished": len(tokens),
               "tokens_per_s": m["tokens_per_s"],
               "ttft_p50_ms": m["ttft_p50_ms"],
               "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
@@ -1463,6 +1562,84 @@ def serve_bf16_phase(torch, np, params, paged_tokens) -> dict:
               "near_tie_tol_rel": BF16_E2E_RTOL,
               "agreement_with_f32_paged_engine": _token_agreement(
                   tokens, paged_tokens)})
+        out[path] = launches
+    return out
+
+
+#: greedy tokens of an f16-page engine against the f32-page engine may
+#: differ only first where the f32 run's top-2 logit gap is within
+#: F16_E2E_RTOL of its largest |logit|: K, V and each probability round to
+#: f16 (2^-11) in each of the 18 layers; BF16_E2E_RTOL over 2^3
+F16_E2E_RTOL = BF16_E2E_RTOL / 8
+
+
+def serve_f16_phase(torch, np, params) -> dict:
+    """Full-width gemma-2b on f16 KV pages (``ServeConfig(kv_cache_dtype=
+    "float16")``), on the quantized weights of the paged engine and the
+    serve phase's 8 requests:
+
+      paged-f16    the fused tick: kernel 2's f16 instance (``F16Page``)
+                   in every decode tick, kernel 5's in the one-token
+                   prefill chunk;
+      unfused-f16  ``fused_decode=False``: kernel 5's f16 instance in every
+                   layer of every one-token step.
+
+    Each path's greedy tokens are held against the f32-page engine of the
+    same weights (run first, its top-2 gaps recorded), a difference
+    allowed only at a near-tie (F16_E2E_RTOL). Returns each path's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config("gemma-2b")
+    lens, prompts = _prompts(np, cfg)
+    f32 = ServeEngine(params, cfg, ServeConfig(quantize=None))
+    gaps = _record_gaps(np, f32, F16_E2E_RTOL)
+    want, _, _, fm = _run_engine(torch, f32, prompts)
+    del f32
+    torch.cuda.empty_cache()
+    others = {"paged_decode_ragged", "paged_attention",
+              "paged_decode_ragged_quant", "paged_attention_quant",
+              "paged_decode_ragged_bf16", "paged_attention_bf16",
+              "flash_attention"}
+    paths = {
+        "paged-f16": (dict(kv_cache_dtype="float16"),
+                      ("paged_decode_ragged_f16", "paged_attention_f16"),
+                      others),
+        "unfused-f16": (dict(kv_cache_dtype="float16", fused_decode=False),
+                        ("paged_attention_f16",),
+                        others | {"paged_decode_ragged_f16"}),
+    }
+    out = {}
+    for path, (knobs, watch, unwanted) in paths.items():
+        sc = ServeConfig(quantize=None, **knobs)
+        tokens, launches, plain, per_tick, m = _serve_half_path(
+            torch, params, cfg, prompts, path, sc, watch, unwanted)
+        emit({"phase": "serve", "path": path, "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size,
+              "config": "ServeConfig(quantize=None, "
+                        + ", ".join(f"{k}={v!r}" for k, v in knobs.items())
+                        + ")",
+              "kv_cache_dtype": m["kv_cache_dtype"],
+              "page_size": m["page_size"], "batch_slots": sc.batch_slots,
+              "prompt_lens": lens, "requests_finished": len(tokens),
+              "tokens_per_s": m["tokens_per_s"],
+              "ttft_p50_ms": m["ttft_p50_ms"],
+              "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
+              "model_calls": m["model_calls"],
+              "peak_kv_bytes": m["peak_kv_bytes"],
+              "f32_pages": {k: fm[k] for k in (
+                  "tokens_per_s", "ttft_p50_ms", "model_calls",
+                  "peak_kv_bytes")},
+              "launches": launches,
+              "f16_route_launches": {op: n for op, n in launches.items()
+                                     if op.endswith("_f16")},
+              "launches_per_tick": {op: sorted(set(v))
+                                    for op, v in per_tick.items()},
+              "tokens_vs_f32_pages": _near_tie_check(
+                  f"{path} vs f32 pages", tokens, want, gaps),
+              "near_tie_tol_rel": F16_E2E_RTOL})
         out[path] = launches
     return out
 
@@ -1666,16 +1843,49 @@ def _stack_periods(torch, trees):
     return torch.stack(trees)
 
 
+def _quantized_slot(torch, gen, slot: str, cfg) -> dict:
+    """One period of ``slot`` drawn from ``gen`` on the card and quantized
+    to sp2_4. An MoE slot's expert stacks are drawn and quantized a block
+    of experts at a time, the blocks of ``nn.moe.EXPERT_BLOCK_ELEMS``
+    (``moe_init``'s scales; per (expert, column) scales, as the stacked
+    quantization gives): a full-width jamba MoE layer, 38.6 GB in f32, is
+    never whole in f32."""
+    from repro_torch.core.quantized import QuantizedTensor, quantize_weight
+    from repro_torch.nn.layers import dense_init, norm_init, quantize_params
+    from repro_torch.nn.moe import EXPERT_BLOCK_ELEMS
+    from repro_torch.nn.transformer import _slot_init
+
+    mixer, _, ffn = slot.partition("+")
+    if ffn != "moe":
+        return quantize_params(_slot_init(gen, slot, cfg, torch.float32,
+                                          device="cuda"), "sp2_4")
+    require(not cfg.n_shared_experts, f"{cfg.name}: a shared expert")
+    p = quantize_params(_slot_init(gen, mixer, cfg, torch.float32,
+                                   device="cuda"), "sp2_4")
+    d, f = cfg.d_model, cfg.d_ff
+    moe = {"router": dense_init(gen, d, cfg.n_experts, device="cuda")}
+    e, per = cfg.n_experts, max(1, EXPERT_BLOCK_ELEMS // (d * f))
+    for name, (rows, cols) in (("gate", (d, f)), ("up", (d, f)),
+                               ("down", (f, d))):
+        qts = [quantize_weight(torch.randn(
+            (min(per, e - lo), rows, cols), generator=gen, device="cuda")
+            * rows ** -0.5, "sp2_4") for lo in range(0, e, per)]
+        moe[name] = QuantizedTensor(torch.cat([q.codes for q in qts]),
+                                    torch.cat([q.scale for q in qts]),
+                                    qts[0].scheme, qts[0].packed)
+        del qts
+    p.update(norm2=norm_init(cfg.norm, d, device="cuda"), moe=moe)
+    return p
+
+
 def _family_params(torch, cfg, seed: int) -> dict:
     """Random weights from a seed on the card, each period's slots built
-    and quantized to sp2_4 before the next is drawn: olmoe-1b-7b is 27.7
-    GB in f32, and building every period before quantizing would hold
-    about twice that. Per-period quantization gives the stacked
-    quantization's codes and scales (each scale is per period, expert and
-    column)."""
-    from repro_torch.nn.layers import (dense_init, embedding_init,
-                                       norm_init, quantize_params)
-    from repro_torch.nn.transformer import _slot_init
+    and quantized to sp2_4 before the next is drawn (``_quantized_slot``:
+    expert stacks one expert at a time): olmoe-1b-7b is 27.7 GB in f32,
+    and building every period before quantizing would hold about twice
+    that. Per-period quantization gives the stacked quantization's codes
+    and scales (each scale is per period, expert and column)."""
+    from repro_torch.nn.layers import dense_init, embedding_init, norm_init
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                       device="cuda"),
@@ -1687,8 +1897,7 @@ def _family_params(torch, cfg, seed: int) -> dict:
     slots = []
     for slot in cfg.pattern:
         slots.append(_stack_periods(torch, [
-            quantize_params(_slot_init(gen, slot, cfg, torch.float32,
-                                       device="cuda"), "sp2_4")
+            _quantized_slot(torch, gen, slot, cfg)
             for _ in range(cfg.n_periods)]))
     params["stack"] = {"slots": slots}
     return params
@@ -1852,7 +2061,10 @@ def serve_families_phase(torch, np, card: str, checked: set) -> dict:
     injected preemption (its slab to the host and back). Every model step
     launches one spx_matmul per quantized projection, and one paged kernel
     per attention layer where the pattern has attention (none of xlstm's).
-    Returns, per family, its launches and the timing rows."""
+    olmoe and xlstm (SHARDED_FAMILIES) then serve the same requests
+    on the same weights at shards=2 (``_serve_sharded_pair`` against the
+    shards=1 run above), one shard's kernels timed. Returns, per family,
+    its launches and the timing rows (and the sharded run's)."""
     from repro_torch.runtime import Runtime
     from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -1986,9 +2198,66 @@ def serve_families_phase(torch, np, card: str, checked: set) -> dict:
         result["timing"] = _family_timing(torch, cfg, params, 4)
         emit(result)
         out[name] = {"launches": launches, "timing": result["timing"]}
+        if name in SHARDED_FAMILIES:
+            # the same weights at shards=2, held to the shards=1 run above
+            with _forced_shards():
+                line, s_launches, s_eng = _serve_sharded_pair(
+                    torch, np, params, cfg, prompts, {}, Runtime(), checked,
+                    f"serve_sharded {name}", card, per_call=per_call,
+                    n_attn=n_attn, base=(tokens, gaps, m))
+            line.update(reduced=cuts, prompt_lens=lens,
+                        timing=_sharded_family_timing(
+                            torch, cfg, s_eng.params[0], n_attn))
+            del s_eng
+            _free(torch)
+            emit(line)
+            out[name]["sharded"] = {"launches": s_launches,
+                                    "timing": line["timing"]}
         del params
         _free(torch)
     return out
+
+
+def serve_jamba_phase(torch, np, card: str, checked: set) -> dict:
+    """jamba-1.5-large at one period (8 of its 72 layers: attention, 7
+    mamba mixers, 4 MoE layers of 16 experts top-2) and its published
+    width (d_model 8192, 64 query heads over 8 KV heads of 128, d_ff
+    24576, mamba d_state 16, dt_rank 256; arXiv:2403.19887): weights from
+    a seed quantized to sp2_4 an expert at a time (``_family_params``),
+    the serve phase's 8 requests through ``_serve_sharded_pair`` at
+    shards=1 and at shards=2 (the experts expert-parallel, 8 a shard;
+    the mamba mixers whole on each shard), tokens held to shards=1 up to
+    a near-tie, per model step one spx_matmul per shard and projection
+    and one paged kernel per shard in each decode tick and one-token
+    step, every sharded launch at a shape ``sharded_kernel_phase``
+    checked; one shard's kernels timed. Returns the sharded run's
+    launches and timing rows."""
+    from repro_torch.runtime import Runtime
+
+    cfg, cuts = _jamba_full_config()
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _family_params(torch, cfg, seed=5)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated()
+    lens, prompts = _prompts(np, cfg)
+    n_attn = cfg.n_periods * sum(s.startswith("attn") for s in cfg.pattern)
+    per_call = sum(qt.logical_shape[0] for _, _, qt in _projections(params))
+    with _forced_shards():
+        line, launches, eng = _serve_sharded_pair(
+            torch, np, params, cfg, prompts, {}, Runtime(), checked,
+            f"serve_sharded {cfg.name}", card, per_call=per_call,
+            n_attn=n_attn)
+    line.update(reduced=cuts, prompt_lens=lens, params_setup_s=setup_s,
+                max_memory_allocated_setup=peak_setup,
+                timing=_sharded_family_timing(torch, cfg, eng.params[0],
+                                              n_attn))
+    del eng, params
+    _free(torch)
+    emit(line)
+    return {"launches": launches, "timing": line["timing"]}
 
 
 def _free(torch) -> None:
@@ -2023,8 +2292,8 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
     """One kernel launch at ``args`` twice against its plain version: the
     run fails unless the output is finite, the rerun bit-identical and the
     error within ATTN_TOL * (1 + |plain|) of every element (or, with
-    ``tol_rel``, within tol_rel of the largest plain output; bf16 pages: of
-    each slot's). The error joins ``worst`` and the launch key of a
+    ``tol_rel``, within tol_rel of the largest plain output; bf16 and f16
+    pages: of each slot's). The error joins ``worst`` and the launch key of a
     recorded op joins ``checked``. Returns the output and the check's
     numbers."""
     got, again, want = launch(*args, **kw), launch(*args, **kw), \
@@ -2035,7 +2304,7 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
     if tol_rel is None:
         ok = _attn_ok(torch, got, want)
         tol = f"{ATTN_TOL} * (1 + |plain|)"
-    elif name.endswith("_bf16"):
+    elif name.endswith(("_bf16", "_f16")):
         ok = _slot_rel_err(torch, got, want) <= tol_rel
         tol = f"{tol_rel} of each slot's largest plain output"
     else:
@@ -2048,7 +2317,7 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
                 f"{peak}, tol {tol}, rerun identical "
                 f"{bool(torch.equal(got, again))}")
     worst[name] = max(worst.get(name, 0.0), err)
-    op = name.removesuffix("_bf16")
+    op = name.removesuffix("_bf16").removesuffix("_f16")
     if op in RECORDED_OPS or op in SHARDED_OPS:
         checked.add(_launch_key(op, args, kw))
     return got, {"max_abs_err": err, "max_rel_err": err / max(peak, 1e-30),
@@ -2234,7 +2503,11 @@ def serve_whisper_phase(torch, np, card: str, checked: set) -> dict:
     peak_cross <= 3, cross_bytes_per_entry == 110,592,000; tokens equal to
     the same engine's on the plain versions, to the dense layout's and to
     a speculative run's (spec_k = 4), a difference allowed only at a
-    near-tie (E2E_RTOL). Returns the launches and the timing rows."""
+    near-tie (E2E_RTOL). Then the same at shards=2 (6 heads and 1536 FFN
+    columns per shard, the vocabulary of 51865 cut on d), held to the
+    shards=1 run: per encoder pass and per model step twice the launches,
+    every one at a shape ``sharded_kernel_phase`` checked; one shard's
+    kernels timed. Returns the launches and the timing rows."""
     from repro_torch.models import encdec as encdec_mod
     from repro_torch.runtime import Runtime
     from repro_torch.serving import ServeConfig, ServeEngine
@@ -2352,10 +2625,39 @@ def serve_whisper_phase(torch, np, card: str, checked: set) -> dict:
                 pm["draft_acceptance_rate"]
     result["timing"] = _whisper_timing(torch, cfg, params)
     emit(result)
-    del params
+
+    # the same weights at shards=2: the encoder tensor-parallel, each
+    # shard's cross K/V into its head-sharded cross region
+    with _forced_shards(), _EncoderPasses() as s_passes:
+        line, s_launches, s_eng = _serve_sharded_pair(
+            torch, np, params, cfg, prompts, {}, Runtime(), checked,
+            "serve_sharded whisper-small", card, per_call=per_step,
+            n_attn=cfg.n_layers, base=(tokens, gaps, m), frames=frames,
+            module=encdec_mod, recorded=SHARDED_OPS + ("flash_attention",))
+    want_pass = {"spx_matmul": SHARDS * per_pass,
+                 "flash_attention": SHARDS * cfg.n_enc_layers}
+    require(len(s_passes) == WHISPER_INPUTS
+            and all(p == want_pass for p in s_passes),
+            f"whisper at shards={SHARDS}: encoder passes {s_passes}")
+    h, sm = _shard_heads(cfg), s_eng.metrics()
+    line.update(prompt_lens=lens, distinct_inputs=WHISPER_INPUTS,
+                launches_per_encoder_pass=s_passes[0],
+                cross={k: sm[k] for k in ("cross_hits", "peak_cross",
+                                          "cross_bytes_per_entry")},
+                timing=_whisper_timing(
+                    torch, dataclasses.replace(cfg, n_heads=h["hq"],
+                                               n_kv_heads=h["hkv"]),
+                    s_eng.params[0]))
+    for row in (line["timing"]["spx_matmul"],
+                line["timing"]["paged_decode_ragged"],
+                *line["timing"]["flash_attention"].values()):
+        row["per"] = f"one shard of {SHARDS}: " + row["per"]
+    del s_eng, params
     _free(torch)
+    emit(line)
     return {"launches": launches, "dense_launches": result["dense"]
-            ["launches"], "timing": result["timing"]}
+            ["launches"], "timing": result["timing"],
+            "sharded": {"launches": s_launches, "timing": line["timing"]}}
 
 
 def _whisper_timing(torch, cfg, params) -> dict:
@@ -2868,15 +3170,82 @@ def _sharded_configs() -> dict:
     return {name: get_config(name) for name in ("gemma-2b", "qwen2-vl-2b")}
 
 
-def _shard_heads(cfg) -> dict:
+#: the families of serve_families that also serve at shards=SHARDS there
+#: (qwen2-vl-2b's pair runs in serve_sharded; jamba's in serve_jamba, at
+#: its full width)
+SHARDED_FAMILIES = ("olmoe-1b-7b", "xlstm-350m")
+
+
+def _jamba_full_config() -> tuple:
+    """jamba-1.5-large at one period (8 of its 72 layers) and its published
+    width, and the cut from the published config: the period holds 4 MoE
+    layers of 16 experts of 8192 x 24576 (38.6 GB each in f32, 4.8 GB in
+    sp2_4 codes), and the whole is 26 GB in sp2_4."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return (dataclasses.replace(cfg, n_layers=len(cfg.pattern)),
+            {"n_layers": f"{cfg.n_layers} -> {len(cfg.pattern)}"})
+
+
+@contextlib.contextmanager
+def _forced_shards():
+    """``REPRO_FORCE_DEVICE_COUNT=SHARDS`` for the block (``launch.hostdev``
+    lists the one card that many times); the earlier value restored."""
+    saved = os.environ.get("REPRO_FORCE_DEVICE_COUNT")
+    os.environ["REPRO_FORCE_DEVICE_COUNT"] = str(SHARDS)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["REPRO_FORCE_DEVICE_COUNT"]
+        else:
+            os.environ["REPRO_FORCE_DEVICE_COUNT"] = saved
+
+
+def _shard_projection_shapes(torch, cfg, shards: int = SHARDS) -> list:
+    """(K, N) of one shard's ``spx_matmul`` projections at ``shards``:
+    every leaf ``quantize_params`` quantizes that ``dense_apply``
+    multiplies (a projection's ``w``; the MoE's expert stacks are
+    dequantized instead, and the table and head stay plain products), cut
+    as ``ShardingPolicy.serving_dim`` cuts it: heads, FFN columns and
+    ``wo``/``down`` rows split, a recurrent mixer's projections whole.
+    Built on the meta device: nothing is allocated."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.encdec import encdec_init
+    from repro_torch.models.lm import lm_init
+    from repro_torch.nn.layers import _NO_QUANT_KEYS, tree_map
+    from repro_torch.sharding import ShardingPolicy
+
+    init = encdec_init if cfg.enc_dec else lm_init
+    tree = init(torch.Generator(), cfg, device="meta")
+    policy = ShardingPolicy(cfg, make_serving_mesh(shards,
+                                                   ["meta"] * shards))
+    shapes = set()
+
+    def visit(path, leaf):
+        keys = [str(k) for k in path]
+        if (keys[-1] == "w" and leaf.ndim >= 2 and leaf.numel() >= 4096
+                and leaf.shape[-1] % 2 == 0
+                and not set(path) & set(_NO_QUANT_KEYS)):
+            shape = list(leaf.shape)
+            dim = policy.serving_dim(keys, tuple(shape))
+            if dim is not None:
+                shape[dim] //= shards
+            shapes.add(tuple(shape[-2:]))
+        return leaf
+    tree_map(visit, tree)
+    return sorted(shapes)
+
+
+def _shard_heads(cfg, shards: int = SHARDS) -> dict:
     """One shard's heads as ``sharding.shard_params`` cuts them: the query
     heads split evenly, the KV heads split where ``kv_heads_split`` says
     they do (qwen2-vl-2b's 2), else every shard holds them whole
     (gemma-2b's 1)."""
     from repro_torch.runtime.planner import kv_heads_split
-    sharded = kv_heads_split(cfg.n_kv_heads, SHARDS)
-    hkv = cfg.n_kv_heads // SHARDS if sharded else cfg.n_kv_heads
-    hq = cfg.n_heads // SHARDS
+    sharded = kv_heads_split(cfg.n_kv_heads, shards)
+    hkv = cfg.n_kv_heads // shards if sharded else cfg.n_kv_heads
+    hq = cfg.n_heads // shards
     return {"hq": hq, "hkv": hkv, "rep": hq // hkv, "kv_sharded": sharded}
 
 
@@ -2991,7 +3360,7 @@ def _check_paged_shapes(torch, gen, tag: dict, *, hkv, rep, dh, max_seqs,
 
 def sharded_kernel_phase(torch, np) -> tuple[dict, set]:
     """Every launch shape of the shards=2 serve runs, held against its
-    plain version before serve_sharded launches it, twice (the second
+    plain version before any of them launches it, twice (the second
     launch bit-identical): spx_matmul (sp2_4, packed) at one shard's
     (K, N) of gemma-2b and qwen2-vl-2b, column cuts of wq/wk/wv/gate/up and
     row cuts of wo/down, at every M of SHARD_MS; kernels 2 and 5 over f32
@@ -2999,8 +3368,21 @@ def sharded_kernel_phase(torch, np) -> tuple[dict, set]:
     (gemma-2b: 4 query heads over its one KV head of 256, which every
     shard holds; qwen2-vl-2b: 6 over one of its two KV heads of 128), w = 1
     and 5, on plan_kv_pages's page sizes and ServeConfig()'s max_seq 256.
-    Returns the worst errors and the checked launch keys."""
+    Then the families served at shards=2 (SHARDED_FAMILIES, at
+    serve_families' configurations, whisper-small, and jamba at one period
+    and full width, whose shards=1 run's shapes are new too): spx_matmul
+    at every (K, N) of one shard's projections
+    (``_shard_projection_shapes``: olmoe's attention, xlstm's and jamba's
+    projections, the recurrent ones whole, whisper's encoder and decoder)
+    at every M of SHARD_MS, and whisper's also at its encoder's M = 1500;
+    kernels 2 and 5 (f32 pages, w = 1) at one shard's heads (olmoe 8 over
+    8 of 128, jamba 32 over 4 of 128 and at shards=1 64 over 8, whisper 6
+    over 6 of 64); flash attention at whisper's 6 heads per shard: the
+    encoder (1500 frames, not causal) and the cross-attention of every
+    paged chunk over 1500 frames. Returns the worst errors and the checked
+    launch keys."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(19)
     checked: set = set()
@@ -3014,6 +3396,43 @@ def sharded_kernel_phase(torch, np) -> tuple[dict, set]:
                             dh=cfg.dh, max_seqs=(256,), ws=(1, 5),
                             pages_kinds=("f32", "codes"), checked=checked,
                             worst=worst)
+    families = {name: (cfg, (SHARDS,))
+                for name, (cfg, _) in _family_configs().items()
+                if name in SHARDED_FAMILIES}
+    families["whisper-small"] = (_whisper_config(), (SHARDS,))
+    jamba, _ = _jamba_full_config()
+    families["jamba-1.5-large-398b"] = (jamba, (1, SHARDS))
+    for name, (cfg, widths) in families.items():
+        for n in widths:
+            tag = {"for": "serve_sharded", "arch": name, "shards": n}
+            ms = SHARD_MS + ((cfg.enc_seq_len,) if cfg.enc_dec else ())
+            _check_spx_shapes(torch, gen, tag,
+                              _shard_projection_shapes(torch, cfg, n), ms,
+                              checked, worst)
+            if any(s.split("+")[0] in ("attn", "xdec")
+                   for s in cfg.pattern):
+                h = _shard_heads(cfg, n)
+                _check_paged_shapes(torch, gen, tag, hkv=h["hkv"],
+                                    rep=h["rep"], dh=cfg.dh, max_seqs=(256,),
+                                    ws=(1,), pages_kinds=("f32",),
+                                    checked=checked, worst=worst)
+    cfg = families["whisper-small"][0]
+    h, dh, enc = _shard_heads(cfg), cfg.dh, cfg.enc_seq_len
+    errs = {}
+    for b, sq in [(1, enc)] + [(4, c) for c in WHISPER_CHUNKS]:
+        q = torch.randn((b, h["hq"], sq, dh), generator=gen, device="cuda")
+        kv = tuple(torch.randn((b, h["hkv"], enc, dh), generator=gen,
+                               device="cuda") for _ in range(2))
+        _, rec = _check_launch(torch, "flash_attention", flash_attention_cuda,
+                               _flash_plain, (q, *kv), {"causal": False},
+                               checked, worst)
+        errs[f"{b}x{sq}"] = rec["max_abs_err"]
+    emit({"phase": "kernel", "kernel": "flash_attention",
+          "for": "serve_sharded", "arch": cfg.name, "shards": SHARDS,
+          "hq": h["hq"], "hkv": h["hkv"], "dh": dh, "skv": enc,
+          "causal": False, "max_abs_err_by_rows": errs,
+          "tol": f"{ATTN_TOL} * (1 + |plain|)", "bit_identical_rerun": True,
+          "ok": True})
     ops.reset_op_calls()
     return worst, checked
 
@@ -3053,21 +3472,30 @@ def tier_kernel_phase(torch, np) -> tuple[dict, set]:
     return worst, checked
 
 
-def _step_launch_checks(name, records, per_call, n_attn, quant) -> dict:
-    """Launches per model step of a sharded run: every step one spx_matmul
-    per shard and projection, every decode tick (fused) and one-token step
-    one paged kernel per shard and layer."""
+def _step_launch_checks(name, records, per_call, n_attn, quant,
+                        prefix="lm_") -> dict:
+    """Launches per model step of a sharded run (the ``prefix`` model's
+    steps): every step ``per_call`` spx_matmul launches (one per shard and
+    projection), every decode tick (fused) and one-token step ``n_attn``
+    paged kernels (one per shard and attention layer; none for a pageless
+    pattern)."""
     ragged = "paged_decode_ragged_quant" if quant else "paged_decode_ragged"
     single = "paged_attention_quant" if quant else "paged_attention"
+    fused = prefix + "paged_fused_step"
     bad = [r for r in records if r[3].get("spx_matmul", 0) != per_call]
     require(not bad, f"{name}: model steps without {per_call} spx_matmul "
                      f"launches: {bad[:3]}")
-    ticks = [r for r in records if r[0] == "lm_paged_fused_step"]
-    one = [r for r in records if r[0] != "lm_paged_fused_step" and r[1] == 1]
-    require(all(r[3].get(ragged) == n_attn for r in ticks),
-            f"{name}: decode ticks without {n_attn} {ragged} launches")
-    require(one and all(r[3].get(single) == n_attn for r in one),
-            f"{name}: one-token steps without {n_attn} {single} launches")
+    ticks = [r for r in records if r[0] == fused]
+    one = [r for r in records if r[0] != fused and r[1] == 1]
+    if n_attn:
+        require(all(r[3].get(ragged) == n_attn for r in ticks),
+                f"{name}: decode ticks without {n_attn} {ragged} launches")
+        require(one and all(r[3].get(single) == n_attn for r in one),
+                f"{name}: one-token steps without {n_attn} {single} "
+                "launches")
+    else:
+        require(not any({ragged, single} & set(r[3]) for r in records),
+                f"{name}: paged kernels launched on a pageless pattern")
     return {"spx_matmul_per_model_step": per_call,
             f"{ragged}_per_decode_tick": n_attn if ticks else 0,
             f"{single}_per_one_token_step": n_attn,
@@ -3076,21 +3504,32 @@ def _step_launch_checks(name, records, per_call, n_attn, quant) -> dict:
 
 
 def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
-                        name, card) -> dict:
-    """``ServeConfig(quantize=None, **knobs)`` at shards=1, then at
-    shards=SHARDS with every launch recorded (each at a checked shape).
-    The sharded tokens must be the one-shard engine's, a difference allowed
-    only first where its top-2 gap is a near-tie (E2E_RTOL). Returns the
-    emitted line, the sharded run's launches and its engine."""
+                        name, card, *, per_call, n_attn, base=None,
+                        frames=None, module=None,
+                        recorded=SHARDED_OPS) -> tuple:
+    """``ServeConfig(quantize=None, **knobs)`` at shards=1 (or ``base``,
+    that run's (tokens, top-2 gaps, metrics) taken by the caller), then
+    at shards=SHARDS with every launch recorded (each at a checked shape)
+    and every model step counted: ``per_call`` spx_matmul launches at
+    shards=1, each shard launching its cut of every one, and ``n_attn``
+    attention layers, one paged kernel per shard and layer.
+    ``frames``: an enc-dec model's inputs (``module``: its step
+    functions). The sharded tokens must be the one-shard engine's, a
+    difference allowed only first where its top-2 gap is a near-tie
+    (E2E_RTOL). Returns the emitted line, the sharded run's launches and
+    its engine."""
     from repro_torch.serving import ServeConfig, ServeEngine
 
     _free(torch)
-    base = ServeEngine(params, cfg, ServeConfig(quantize=None, **knobs),
-                       rt=rt)
-    gaps = _record_gaps(np, base, E2E_RTOL)
-    want, _, _, bm = _run_engine(torch, base, prompts)
-    del base
-    _free(torch)
+    if base is None:
+        one = ServeEngine(params, cfg, ServeConfig(quantize=None, **knobs),
+                          rt=rt)
+        gaps = _record_gaps(np, one, E2E_RTOL)
+        want, _, _, bm = _run_engine(torch, one, prompts, frames=frames)
+        del one
+        _free(torch)
+    else:
+        want, gaps, bm = base
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServeEngine(params, cfg,
@@ -3098,10 +3537,12 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
                       rt=rt)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    prefix = "encdec_" if cfg.enc_dec else "lm_"
     tokens, launches, plain, m, records, _ = _serve_recorded(
-        torch, np, eng, prompts, checked, name,
-        steps=("lm_paged_step", "lm_paged_fused_step", "lm_paged_verify"),
-        recorded=SHARDED_OPS)
+        torch, np, eng, prompts, checked, name, frames=frames,
+        steps=tuple(prefix + f for f in ("paged_step", "paged_fused_step",
+                                         "paged_verify")),
+        module=module, recorded=recorded)
     peak = torch.cuda.max_memory_allocated()
     require(len(tokens) == N_REQUESTS,
             f"{name}: {len(tokens)} of {N_REQUESTS} finished")
@@ -3110,17 +3551,19 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
                 and all(0 <= t < cfg.vocab_size for t in toks),
                 f"{name}: request {rid}: bad output {toks}")
     require(not plain, f"{name}: plain versions ran on the card: {plain}")
-    h = _shard_heads(cfg)
-    require(m["shards"] == SHARDS and m["kv_sharded"] == h["kv_sharded"]
-            and m["kv_heads_per_shard"] == h["hkv"],
-            f"{name}: shard metrics {m['shards']}, {m['kv_sharded']}, "
-            f"{m['kv_heads_per_shard']}")
-    if h["kv_sharded"]:
-        require(m["peak_kv_bytes_per_shard"] * SHARDS == m["peak_kv_bytes"],
-                f"{name}: per-shard KV bytes")
-    per_step = _step_launch_checks(
-        name, records, SHARDS * 7 * cfg.n_layers, SHARDS * cfg.n_layers,
-        bool(rt.kv_quant))
+    require(m["shards"] == SHARDS, f"{name}: shards {m['shards']}")
+    if n_attn:
+        h = _shard_heads(cfg)
+        require(m["kv_sharded"] == h["kv_sharded"]
+                and m["kv_heads_per_shard"] == h["hkv"],
+                f"{name}: shard metrics {m['kv_sharded']}, "
+                f"{m['kv_heads_per_shard']}")
+        if h["kv_sharded"]:
+            require(m["peak_kv_bytes_per_shard"] * SHARDS
+                    == m["peak_kv_bytes"], f"{name}: per-shard KV bytes")
+    per_step = _step_launch_checks(name, records, SHARDS * per_call,
+                                   SHARDS * n_attn, bool(rt.kv_quant),
+                                   prefix)
     line = {"phase": "serve_sharded", "arch": cfg.name, "path": name,
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size,
@@ -3129,11 +3572,13 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
                       + ")" + (f", Runtime(kv_quant=True, kv_scheme="
                                f"'{KV_SCHEME}')" if rt.kv_quant else ""),
             "devices": [str(d) for d in eng.mesh.devices], "card": card,
-            "shards": m["shards"], "kv_sharded": m["kv_sharded"],
-            "kv_heads_per_shard": m["kv_heads_per_shard"],
+            "shards": m["shards"],
+            **{k: m[k] for k in ("kv_sharded", "kv_heads_per_shard",
+                                 "peak_kv_bytes_per_shard",
+                                 "pool_bytes_per_shard") if k in m},
             "peak_kv_bytes": m["peak_kv_bytes"],
-            "peak_kv_bytes_per_shard": m["peak_kv_bytes_per_shard"],
-            "pool_bytes_per_shard": m["pool_bytes_per_shard"],
+            "peak_state_bytes": m["peak_state_bytes"],
+            "peak_slabs": m["peak_slabs"],
             "requests_finished": len(tokens), "setup_s": setup_s,
             "tokens_per_s": m["tokens_per_s"],
             "ttft_p50_ms": m["ttft_p50_ms"],
@@ -3142,12 +3587,29 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
             "max_memory_allocated": peak,
             "one_shard": {k: bm[k] for k in (
                 "tokens_per_s", "ttft_p50_ms", "latency_p50_ms", "wall_s",
-                "model_calls", "peak_kv_bytes")},
+                "model_calls", "peak_kv_bytes", "peak_state_bytes")},
             "launches": launches, "launches_per_model_step": per_step,
             "tokens_vs_one_shard": _near_tie_check(
                 f"{name} vs shards=1", tokens, want, gaps),
             "near_tie_tol_rel": E2E_RTOL}
     return line, launches, eng
+
+
+def _sharded_family_timing(torch, cfg, shard, n_attn: int) -> dict:
+    """One shard's kernels per decode tick at shards=SHARDS (4 slots):
+    its spx_matmul launches and the MoE experts it holds
+    (``_family_timing`` on its cut weights), and kernel 2 at its heads
+    over every attention layer."""
+    out = _family_timing(torch, cfg, shard, 4)
+    if n_attn:
+        h = _shard_heads(cfg)
+        out["paged_decode_ragged"] = _paged_dh_timing(
+            torch, torch.Generator(device="cuda").manual_seed(37),
+            hkv=h["hkv"], rep=h["rep"], dh=cfg.dh, layers=n_attn)
+    for row in out.values():
+        row["per"] = f"one shard of {SHARDS}: " + row["per"]
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_sharded_phase(torch, np, params, card: str, checked: set) -> dict:
@@ -3176,7 +3638,8 @@ def serve_sharded_phase(torch, np, params, card: str, checked: set) -> dict:
             ("coded-kv", {}, coded)):
         line, launches, eng = _serve_sharded_pair(
             torch, np, params, cfg, prompts, knobs, rt, checked,
-            f"serve_sharded {mode}", card)
+            f"serve_sharded {mode}", card, per_call=7 * cfg.n_layers,
+            n_attn=cfg.n_layers)
         if mode == "fused":
             out["timing"] = _sharded_timing(torch, eng)
         elif mode == "coded-kv":
@@ -3195,7 +3658,8 @@ def serve_sharded_phase(torch, np, params, card: str, checked: set) -> dict:
     lens, prompts = _prompts(np, qwen)
     line, launches, eng = _serve_sharded_pair(
         torch, np, qparams, qwen, prompts, {}, Runtime(), checked,
-        "serve_sharded qwen2-vl-2b", card)
+        "serve_sharded qwen2-vl-2b", card, per_call=7 * qwen.n_layers,
+        n_attn=qwen.n_layers)
     require(line["kv_sharded"] is True,
             "qwen2-vl-2b: its two KV heads did not head-shard")
     del eng, qparams
@@ -3980,7 +4444,10 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
              "bound_ms": a_bound, "bound_by": a_by, "f32_bound_ms": a_f32}
     del pools, gathered
     quant, quant_one = _quant_timing(torch, gen, cfg, m, ctx_tokens, q)
-    bf16, bf16_one = _bf16_timing(torch, gen, cfg, m, ctx_tokens, q)
+    bf16, bf16_one = _half_timing(torch, gen, cfg, m, ctx_tokens, q,
+                                  torch.bfloat16)
+    f16, f16_one = _half_timing(torch, gen, cfg, m, ctx_tokens, q,
+                                torch.float16)
     ragged.update(_long_ctx_timing(torch, gen, cfg, m, quant=False))
     ragged["verify_tick"] = _verify_timing(torch, gen, cfg, eng, m)
     quant.update(_long_ctx_timing(torch, gen, cfg, m, quant=True))
@@ -4003,6 +4470,16 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
             timing[entry["name"]], path=f"serve_sharded {path}",
             launches=sharded["launches"][f"serve_sharded {path}"].get(
                 entry["name"], 0))
+    # one shard's kernels of the families, whisper-small and jamba at
+    # shards=2, timed in their phases
+    shard_families = sharded["families"]
+    spx[f"shards{SHARDS}_by_family"] = {
+        name: t["spx_matmul"] for name, t in shard_families.items()}
+    ragged[f"shards{SHARDS}_by_family"] = {
+        name: t["paged_decode_ragged"] for name, t in shard_families.items()
+        if "paged_decode_ragged" in t}
+    flash[f"shards{SHARDS}_whisper"] = \
+        shard_families["whisper-small"]["flash_attention"]
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -4026,12 +4503,20 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
         "paged_attention_bf16": (
             src + "paged_decode.cu",
             "src/repro/kernels/paged_attention.py:354"),
+        "paged_decode_ragged_f16": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:247"),
+        "paged_attention_f16": (
+            src + "paged_decode.cu",
+            "src/repro/kernels/paged_attention.py:354"),
     }
     path_launches = {"paged_decode_ragged_quant": new_launches["quant"],
                      "paged_attention_quant": new_launches["quant"],
                      "flash_attention": new_launches["dense"],
                      "paged_decode_ragged_bf16": new_launches["paged-bf16"],
-                     "paged_attention_bf16": new_launches["paged-bf16"]}
+                     "paged_attention_bf16": new_launches["paged-bf16"],
+                     "paged_decode_ragged_f16": new_launches["paged-f16"],
+                     "paged_attention_f16": new_launches["paged-f16"]}
     # every serving path's run, the paper MLP's forward and the §4
     # experiments (counts set to 0 before each and read after it)
     by_path = {"paged": launches, **new_launches,
@@ -4041,11 +4526,12 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                   for name, f in families.items()},
                "serve_whisper": whisper["launches"],
                "serve_whisper dense": whisper["dense_launches"],
+
                **{f"train {run}": n
                   for run, n in training["launches"].items()}}
     rows = []
     for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
-                  bf16_one):
+                  bf16_one, f16, f16_one):
         name = entry["name"]
         source, replaces = meta[name]
         entry.update(route="cuda", source=source, replaces=replaces,
@@ -4258,13 +4744,13 @@ def _quant_timing(torch, gen, cfg, m, ctx_tokens, q):
     return rows
 
 
-def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
-    """Kernels 2 and 5 over bf16 pages per tick at the decode shapes of the
-    bf16 path: ``m`` slots, every layer's bf16 pools at the bf16 page size,
-    each slot ``ctx_tokens`` into its sequence; kernel 2 also at ``m``
-    slots x ``LONG_CTX`` tokens. The library call is SDPA over the same
-    bf16 K/V, pre-gathered, with q cast to bf16. The byte bound counts
-    half the f32 rows' K/V bytes."""
+def _half_timing(torch, gen, cfg, m, ctx_tokens, q, dtype):
+    """Kernels 2 and 5 over bf16 or f16 pages (``dtype``) per tick at the
+    decode shapes of that path: ``m`` slots, every layer's pools at the
+    half-width page size, each slot ``ctx_tokens`` into its sequence;
+    kernel 2 also at ``m`` slots x ``LONG_CTX`` tokens. The library call
+    is SDPA over the same K/V, pre-gathered, with q cast to ``dtype``. The
+    byte bound counts half the f32 rows' K/V bytes."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -4273,11 +4759,13 @@ def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
 
     hkv, rep, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
     ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
+    name = str(dtype).removeprefix("torch.")
+    suffix = HALF_PAGES[name][0]
     rows = []
     for tokens in (ctx_tokens + 1, LONG_CTX):
         mp = -(-max(tokens, 256) // ps)          # ServeConfig().max_seq
         n_pages = m * mp
-        pools = [tuple(t.bfloat16() for t in
+        pools = [tuple(t.to(dtype) for t in
                        _rand_pools(torch, gen, n_pages, hkv, ps, dh))
                  for _ in range(cfg.n_layers)]
         bt = torch.arange(n_pages, dtype=torch.int32,
@@ -4303,13 +4791,14 @@ def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
         gathered = [tuple(ref._gather(p, bt)[:, :, :tokens]
                           .repeat_interleave(rep, 1) for p in pair)
                     for pair in pools]
-        q_sdpa = q.reshape(m, hkv * rep, 1, dh).bfloat16()
+        q_sdpa = q.reshape(m, hkv * rep, 1, dh).to(dtype)
 
         def sdpa_tick():
             for k, v in gathered:
                 F.scaled_dot_product_attention(q_sdpa, k, v)
 
-        # bf16 K and V of every attended token, q in and out f32, tables
+        # half-width K and V of every attended token, q in and out f32,
+        # tables
         nbytes = cfg.n_layers * (m * hkv * tokens * dh * 2 * 2
                                  + 2 * m * hkv * rep * dh * 4
                                  + m * (mp + 2) * 4)
@@ -4320,7 +4809,7 @@ def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
             rows[0].update({
                 "long_ctx_per": f"decode tick: {cfg.n_layers} launches, "
                                 f"{m} slots, {LONG_CTX} tokens attended "
-                                f"each, bf16 pages of {ps}",
+                                f"each, {name} pages of {ps}",
                 "long_ctx_device_ms": dev,
                 "long_ctx_ms": _time_ms(torch, lambda: ragged("cuda")),
                 "long_ctx_plain_ms": _time_ms(torch, lambda: ragged("ref"),
@@ -4336,18 +4825,19 @@ def _bf16_timing(torch, gen, cfg, m, ctx_tokens, q):
             lib = {"library_ms": _time_ms(torch, sdpa_tick),
                    "library_device_ms": _device_ms(torch, sdpa_tick, ("",)),
                    "library_call": "scaled_dot_product_attention over "
-                                   "pre-gathered bf16 K/V (q cast to bf16)",
+                                   f"pre-gathered {name} K/V (q cast to "
+                                   f"{name})",
                    "bound_ms": bound, "bound_by": by,
                    "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
-            for name, fn, per in (
-                    ("paged_decode_ragged_bf16", ragged, "decode tick"),
-                    ("paged_attention_bf16", single,
+            for row, fn, per in (
+                    ("paged_decode_ragged" + suffix, ragged, "decode tick"),
+                    ("paged_attention" + suffix, single,
                      "one-token prefill tick")):
                 rows.append({
-                    "name": name,
+                    "name": row,
                     "per": f"{per}: {cfg.n_layers} launches, {m} slots, "
-                           f"{tokens} tokens attended each, bf16 pages of "
-                           f"{ps}",
+                           f"{tokens} tokens attended each, {name} pages "
+                           f"of {ps}",
                     "ms": _time_ms(torch, lambda fn=fn: fn("cuda")),
                     "device_ms": _device_ms(torch, lambda fn=fn: fn("cuda"),
                                             PAGED_KERNELS),
@@ -4545,7 +5035,14 @@ def main() -> int:
             checked |= more_checked
         families = serve_families_phase(torch, np, info["nvidia_smi"],
                                         checked)
+        # the shards=2 runs of the families, whisper-small and full-width
+        # jamba, each beside its shards=1 run
+        shard_runs = {name: f.pop("sharded") for name, f in families.items()
+                      if "sharded" in f}
+        shard_runs["jamba-1.5-large-398b"] = serve_jamba_phase(
+            torch, np, info["nvidia_smi"], checked)
         whisper = serve_whisper_phase(torch, np, info["nvidia_smi"], checked)
+        shard_runs["whisper-small"] = whisper.pop("sharded")
         training = train_phase(torch, np, info["nvidia_smi"], checked)
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
@@ -4557,19 +5054,17 @@ def main() -> int:
                                               paged_tokens, paged_m))
         new_launches.update(serve_bf16_phase(torch, np, eng.params,
                                              paged_tokens))
+        new_launches.update(serve_f16_phase(torch, np, eng.params))
         # two shards on the one card: launch.hostdev lists it twice, for
-        # the sharded phase only
-        saved = os.environ.get("REPRO_FORCE_DEVICE_COUNT")
-        os.environ["REPRO_FORCE_DEVICE_COUNT"] = str(SHARDS)
-        try:
+        # the sharded runs only
+        with _forced_shards():
             sharded = serve_sharded_phase(torch, np, eng.params,
                                           info["nvidia_smi"], checked)
-        finally:
-            if saved is None:
-                del os.environ["REPRO_FORCE_DEVICE_COUNT"]
-            else:
-                os.environ["REPRO_FORCE_DEVICE_COUNT"] = saved
         new_launches.update(sharded["launches"])
+        new_launches.update({f"serve_sharded {name}": run["launches"]
+                             for name, run in shard_runs.items()})
+        sharded["families"] = {name: run["timing"]
+                               for name, run in shard_runs.items()}
         new_launches["router"] = router_phase(torch, np, eng.params,
                                               paged_tokens,
                                               info["nvidia_smi"], checked)

@@ -1,6 +1,6 @@
 // Ragged decode-window attention over a paged KV cache, for Hopper (sm_90a),
-// over f32 pages, bf16 pages or SPx-quantized (uint8 codes + f32 scale)
-// pages.
+// over f32 pages, bf16 pages, f16 pages or SPx-quantized (uint8 codes +
+// f32 scale) pages.
 //
 // Replaces: src/repro/kernels/paged_attention.py::paged_decode_ragged_pallas
 // and ::paged_decode_ragged_quant_pallas (TPU), and, through the in-kernel
@@ -13,10 +13,10 @@
 // i >= q_len[b] are exact zeros. Online softmax with a -1e30 mask, masked
 // probabilities forced to 0, a 1e-30 clamp on the denominator, and scores
 // scaled by 1/sqrt(dh). block_table (B, max_pages) int32. Pools are
-// (n_pages, Hkv, page_size, dh): f32, bf16, or uint8 codebook codes beside
-// (n_pages, Hkv, page_size, 1) f32 per-token scales and a LUT of <= 256 f32
-// levels. For code pages k = lut[code] * k_scale and v = lut[code] *
-// v_scale; the scales fold out of the dh sums, as the reference folds them:
+// (n_pages, Hkv, page_size, dh): f32, bf16, f16, or uint8 codebook codes
+// beside (n_pages, Hkv, page_size, 1) f32 per-token scales and a LUT of
+// <= 256 f32 levels. For code pages k = lut[code] * k_scale and
+// v = lut[code] * v_scale; the scales fold out of the dh sums, as the reference folds them:
 // k_scale multiplies each score after the dot product, v_scale each
 // probability before P @ V. In single-token mode (w = 1) the kernel reads
 // ctx_len as "positions < ctx_len attended": ctx = max(ctx_len - 1, 0) and
@@ -24,7 +24,11 @@
 // bf16 pages compute what the TPU kernel computes for them: q stays f32,
 // K and V widen to f32, and each probability is rounded to bf16 before
 // P @ V (``pv.astype(v.dtype)``), while the denominator sums the f32
-// probabilities.
+// probabilities. f16 pages do the same with f16: each probability is
+// rounded to nearest even (``__float2half_rn``, subnormals kept, as
+// ``Tensor.to(torch.float16)`` rounds), since the probabilities of far-off
+// tokens fall below f16's normal range (6.1e-5) and flushing them to zero
+// would depart from the reference. f16 * f16 products are exact in f32.
 //
 // Bound on the H100: each (slot, KV head) must read its ctx + q_len cached
 // tokens of K and V once (2 * dh * 4 bytes per token in f32, 2 * dh * 2 in
@@ -73,6 +77,7 @@
 //    attribute. dh is a template parameter (32, 64, 128, 256); others are
 //    refused.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,10 +116,11 @@ __device__ __forceinline__ void load_f32(const float* __restrict__ p,
 }
 
 // How a lane loads its dh/32 elements of one page row, and how the raw
-// load becomes floats. F32 rows are the floats; bf16 rows are E halves of
-// 32-bit words, widened exactly; code rows are E bytes, decoded through
-// the block's LUT. ``round_p`` is what P @ V multiplies V by: the f32
-// probability, or for bf16 pages that probability rounded to bf16.
+// load becomes floats. F32 rows are the floats; bf16 and f16 rows are E
+// halves of 32-bit words, widened exactly; code rows are E bytes, decoded
+// through the block's LUT. ``round_p`` is what P @ V multiplies V by: the
+// f32 probability, or for bf16 (f16) pages that probability rounded to
+// bf16 (f16).
 struct F32Page {
   using T = float;
   __device__ __forceinline__ static float round_p(float p) { return p; }
@@ -184,6 +190,23 @@ struct Bf16Page {
     for (int e = 0; e < E; ++e)
       v[e] = __uint_as_float(e % 2 ? r.w[e / 2] & 0xFFFF0000u
                                    : r.w[e / 2] << 16);
+  }
+};
+
+// f16 pages load as bf16 pages do (16-bit words); they differ in how a
+// half widens and in how a probability rounds.
+struct F16Page : Bf16Page {
+  __device__ __forceinline__ static float round_p(float p) {
+    return __half2float(__float2half_rn(p));
+  }
+  template <int E>
+  __device__ __forceinline__ static void decode(const Raw<E>& r,
+                                                float (&v)[E],
+                                                const float*) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      v[e] = __half2float(__ushort_as_half(static_cast<unsigned short>(
+          e % 2 ? r.w[e / 2] >> 16 : r.w[e / 2] & 0xFFFFu)));
   }
 };
 
@@ -591,6 +614,19 @@ int paged_decode_ragged_bf16(const float* q, const uint16_t* kp,
                             block_table, ctx_len, q_len, out, scratch, B,
                             hkv, rows, dh, w, single, page_size, max_pages,
                             splits, scale, stream);
+}
+
+// f16 pools: ``kp``/``vp`` hold f16 bits; q, out and scratch are f32.
+int paged_decode_ragged_f16(const float* q, const uint16_t* kp,
+                            const uint16_t* vp, const int* block_table,
+                            const int* ctx_len, const int* q_len, float* out,
+                            float* scratch, int B, int hkv, int rows, int dh,
+                            int w, int single, int page_size, int max_pages,
+                            int splits, float scale, cudaStream_t stream) {
+  return dispatch<F16Page>(q, kp, vp, nullptr, nullptr, nullptr, 0,
+                           block_table, ctx_len, q_len, out, scratch, B, hkv,
+                           rows, dh, w, single, page_size, max_pages, splits,
+                           scale, stream);
 }
 
 int paged_decode_ragged_quant_f32(const float* q, const uint8_t* k_codes,

@@ -1,9 +1,10 @@
 """Wrappers of the hand-written paged-decode kernel
 (``csrc/paged_decode.cu``), the Hopper counterpart of
-``repro/kernels/paged_attention.py``, over f32 pools, bf16 pools and
-SPx-quantized (uint8 codes + f32 per-token scale) pools. q and the output
-are f32 whatever the pool holds; over bf16 pools the kernel rounds each
-probability to bf16 before P @ V, as the TPU kernel does.
+``repro/kernels/paged_attention.py``, over f32 pools, bf16 pools, f16
+pools and SPx-quantized (uint8 codes + f32 per-token scale) pools. q and
+the output are f32 whatever the pool holds; over bf16 (f16) pools the
+kernel rounds each probability to bf16 (f16) before P @ V, as the TPU
+kernel does.
 
 ``paged_decode_ragged_cuda`` and ``paged_decode_ragged_quant_cuda`` launch
 the ragged decode-window kernel. ``paged_attention_cuda`` and
@@ -20,8 +21,9 @@ is cached per shape; a split is a multiple of ``SPLIT_GRANULE`` tokens
 (``split_tokens``). With several splits the wrapper allocates one scratch
 buffer for the partials and the kernel's merge pass combines them in a
 fixed order. Each wrapper keeps its own launch count, and counts a launch
-over bf16 pools under its own name with ``_bf16`` added (the kernel's bf16
-instance). None falls back to the plain version.
+over bf16 (f16) pools under its own name with ``_bf16`` (``_f16``) added
+(the kernel's bf16 and f16 instances). None falls back to the plain
+version.
 """
 from __future__ import annotations
 
@@ -72,6 +74,14 @@ def decode_splits(batch: int, hkv: int, rows: int, max_pages: int,
     return -(-max_tokens // split_tokens(max_tokens, splits))
 
 
+#: the kernel's entry for each dtype of unquantized pools
+_ENTRIES = {torch.float32: "paged_decode_ragged_f32",
+            torch.bfloat16: "paged_decode_ragged_bf16",
+            torch.float16: "paged_decode_ragged_f16"}
+#: the launch count's suffix of each pool dtype's kernel instance
+_SUFFIXES = {torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
 def _check(name: str, t: torch.Tensor, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"paged_decode: {name} on {t.device}, expected "
@@ -88,9 +98,9 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
 def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             quant=None):
     """``q_len`` None selects the single-token mode (``w`` must be 1).
-    ``quant``: None for f32 or bf16 pools, else (k_scale, v_scale, lut)
-    with ``k_pages``/``v_pages`` the uint8 code pools. Returns the output
-    and the pool dtype the kernel ran on."""
+    ``quant``: None for f32, bf16 or f16 pools, else (k_scale, v_scale,
+    lut) with ``k_pages``/``v_pages`` the uint8 code pools. Returns the
+    output and the pool dtype the kernel ran on."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"paged_decode needs CUDA tensors, got {device}")
@@ -112,8 +122,8 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
                          "(B,) and q_len (B,) must match q's batch")
     if quant is not None:
         pool_dtype = torch.uint8
-    elif k_pages.dtype == torch.bfloat16:
-        pool_dtype = torch.bfloat16
+    elif k_pages.dtype in _ENTRIES:
+        pool_dtype = k_pages.dtype
     else:
         pool_dtype = torch.float32
     tensors = [("q", q, torch.float32), ("k_pages", k_pages, pool_dtype),
@@ -152,12 +162,9 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             int(single), ps, max_pages, splits, dh ** -0.5,
             torch.cuda.current_stream(device).cuda_stream)
     if quant is None:
-        entry = (lib.paged_decode_ragged_bf16
-                 if pool_dtype == torch.bfloat16
-                 else lib.paged_decode_ragged_f32)
-        err = entry(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                    block_table.data_ptr(), ctx_len.data_ptr(),
-                    qn.data_ptr(), *tail)
+        err = getattr(lib, _ENTRIES[pool_dtype])(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), ctx_len.data_ptr(), qn.data_ptr(), *tail)
     else:
         err = lib.paged_decode_ragged_quant_f32(
             q.data_ptr(), k_pages.data_ptr(), k_scale.data_ptr(),
@@ -169,15 +176,14 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
 
 
 def _count(name: str, pool_dtype) -> None:
-    suffix = "_bf16" if pool_dtype == torch.bfloat16 else ""
-    cuda_lib.LAUNCHES[name + suffix] += 1
+    cuda_lib.LAUNCHES[name + _SUFFIXES.get(pool_dtype, "")] += 1
 
 
 def paged_decode_ragged_cuda(q, k_pages, v_pages, block_table, ctx_len,
                              q_len, *, w: int) -> torch.Tensor:
     """q (B, Hkv, rep * w, dh) rep-major rows; pools (n_pages, Hkv,
-    page_size, dh) f32 or bf16; block_table (B, max_pages), ctx_len (B,),
-    q_len (B,) int32. Returns (B, Hkv, rep * w, dh) f32."""
+    page_size, dh) f32, bf16 or f16; block_table (B, max_pages), ctx_len
+    (B,), q_len (B,) int32. Returns (B, Hkv, rep * w, dh) f32."""
     out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
                               q_len, w)
     _count("paged_decode_ragged", pool_dtype)
@@ -187,7 +193,7 @@ def paged_decode_ragged_cuda(q, k_pages, v_pages, block_table, ctx_len,
 def paged_attention_cuda(q, k_pages, v_pages, block_table,
                          ctx_len) -> torch.Tensor:
     """q (B, Hkv, rep, dh); positions < ctx_len attended, ctx_len == 0
-    gives zeros; pools f32 or bf16. Returns (B, Hkv, rep, dh) f32."""
+    gives zeros; pools f32, bf16 or f16. Returns (B, Hkv, rep, dh) f32."""
     out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
                               None, 1)
     _count("paged_attention", pool_dtype)

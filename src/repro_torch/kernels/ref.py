@@ -43,6 +43,18 @@ def _gather_dequant(codes, scale, block_table, lut):
         * _gather(scale, block_table)
 
 
+def _pv_probs(p, v):
+    """The probabilities P @ V multiplies V by: f32, or over f16 pages
+    each rounded to f16 (nearest even, subnormals kept: ``Tensor.to``),
+    as the TPU kernel's ``pv.astype(v.dtype)`` and the CUDA kernel's
+    ``F16Page`` round them. The sum of the f32 probabilities stays the
+    denominator. bf16 pages keep the reference oracle's f32
+    probabilities."""
+    if v.dtype == torch.float16:
+        return p.to(torch.float16).to(torch.float32)
+    return p
+
+
 def _paged_softmax(q, k, v, ctx_len, out_dtype):
     """Masked-softmax core of the single-token oracles. q: (B,Hkv,rep,dh);
     k/v: (B,Hkv,S,dh) gathered views; positions < ctx_len attended,
@@ -57,8 +69,8 @@ def _paged_softmax(q, k, v, ctx_len, out_dtype):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrk,bhkd->bhrd", p, v.to(torch.float32)) \
-        / torch.clamp(l, min=1e-30)
+    o = torch.einsum("bhrk,bhkd->bhrd", _pv_probs(p, v),
+                     v.to(torch.float32)) / torch.clamp(l, min=1e-30)
     o = torch.where(ctx[:, None, None, None] > 0, o, torch.zeros_like(o))
     return o.to(out_dtype)
 
@@ -83,8 +95,8 @@ def _ragged_softmax(q, k, v, ctx_len, q_len, w: int, out_dtype):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhrk,bhkd->bhrd", p, v.to(torch.float32)) \
-        / torch.clamp(l, min=1e-30)
+    o = torch.einsum("bhrk,bhkd->bhrd", _pv_probs(p, v),
+                     v.to(torch.float32)) / torch.clamp(l, min=1e-30)
     o = torch.where(row_ok, o, torch.zeros_like(o))
     return o.to(out_dtype)
 
@@ -94,10 +106,11 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, ctx_len, *,
     """Single-token decode attention over a paged KV cache.
 
     q: (B, Hkv, rep, dh); k_pages/v_pages: (n_pages, Hkv, page_size, dh)
-    f32 or bf16 (upcast to f32 after the gather, with the probabilities
-    kept in f32, as the reference oracle does); block_table: (B,
-    max_pages) int32; ctx_len: (B,) int32 — positions < ctx_len are
-    attended; ctx_len == 0 gives zeros. Returns (B, Hkv, rep, dh)."""
+    f32, bf16 or f16 (upcast to f32 after the gather, with the
+    probabilities kept in f32, as the reference oracle does, except that
+    over f16 pages they are rounded to f16 before P @ V: ``_pv_probs``);
+    block_table: (B, max_pages) int32; ctx_len: (B,) int32 — positions <
+    ctx_len are attended; ctx_len == 0 gives zeros. Returns (B, Hkv, rep, dh)."""
     return _paged_softmax(q, _gather(k_pages, block_table),
                           _gather(v_pages, block_table), ctx_len,
                           out_dtype or q.dtype)
@@ -107,8 +120,8 @@ def paged_decode_ragged_ref(q, k_pages, v_pages, block_table, ctx_len,
                             q_len, *, w: int, out_dtype=None):
     """Ragged decode-window attention over a paged KV cache.
 
-    q: (B, Hkv, R, dh), R = rep * w rows, rep-major; pools f32 or bf16,
-    upcast as in ``paged_attention_ref``. Window position i attends
+    q: (B, Hkv, R, dh), R = rep * w rows, rep-major; pools f32, bf16 or
+    f16, upcast as in ``paged_attention_ref``. Window position i attends
     positions <= ctx_len + i; rows with i >= q_len come back exactly zero.
     Returns (B, Hkv, R, dh)."""
     return _ragged_softmax(q, _gather(k_pages, block_table),

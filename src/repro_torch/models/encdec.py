@@ -11,6 +11,13 @@ distinct input (``encdec_cross_kv``) into an entry of the state cache's
 shared cross region (``models.lm.paged_fill_cross``), which every paged
 step reads through ``state_idx[:, 1]``. Caches are updated in place; the
 step functions still return them so callers read like the reference.
+
+Under ``Runtime.mesh`` the paged functions take one param tree and one
+state cache per shard, as ``models.lm``'s do: the encoder runs
+tensor-parallel, each shard projects the cross K/V of its own KV heads
+into its head-sharded cross region, and the decoder's paged step is
+``lm._paged_forward`` over ``dec_stack``, with the head over the shards'
+slices of it.
 """
 from __future__ import annotations
 
@@ -25,10 +32,12 @@ from repro_torch.nn.layers import (dense_init, embedding_apply,
 from repro_torch.nn.transformer import (_cross_kv, slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_decode, stack_init,
-                                        stack_paged, stack_prefill)
+                                        stack_prefill)
 from repro_torch.runtime import Runtime, resolve_device
+from repro_torch.sharding import refuse_training_mesh
 
-from .lm import Z_WEIGHT, _default_positions, chunked_ce
+from .lm import (Z_WEIGHT, _default_positions, _paged_forward, _paged_head,
+                 chunked_ce)
 
 __all__ = ["encdec_init", "encdec_loss", "encdec_encode", "encdec_prefill",
            "encdec_decode_step", "encdec_init_caches", "enc_cfg", "dec_cfg",
@@ -75,18 +84,25 @@ def _logits(params, h: torch.Tensor) -> torch.Tensor:
 def encdec_encode(params, frames: torch.Tensor, cfg: ArchConfig,
                   rt: Runtime) -> torch.Tensor:
     """frames (B, S_enc, D) -> the encoder output (B, S_enc, D): roped
-    self-attention over every frame, not causal."""
+    self-attention over every frame, not causal. Under ``rt.mesh``
+    ``params`` holds one tree per shard and the encoder stack runs
+    tensor-parallel (``stack_apply``); the output is on the first
+    shard's device."""
     b, s, _ = frames.shape
     pos = torch.arange(s, device=frames.device).expand(b, s)
-    h, _ = stack_apply(params["enc_stack"], frames, pos, enc_cfg(cfg), rt,
-                       causal=False)
-    return norm_apply(cfg.norm, params["enc_norm"], h)
+    if rt.mesh is None:
+        stack, norm = params["enc_stack"], params["enc_norm"]
+    else:
+        stack, norm = [p["enc_stack"] for p in params], params[0]["enc_norm"]
+    h, _ = stack_apply(stack, frames, pos, enc_cfg(cfg), rt, causal=False)
+    return norm_apply(cfg.norm, norm, h)
 
 
 def encdec_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, S), "labels":
     (B, S)}. Returns (scalar loss, {"ce", "z"}): cross-entropy plus
     ``Z_WEIGHT`` x the z-loss."""
+    refuse_training_mesh(rt)
     enc_out = encdec_encode(params, batch["frames"], cfg, rt)
     tokens = batch["tokens"]
     pos = _default_positions(cfg, *tokens.shape, tokens.device)
@@ -157,6 +173,28 @@ def encdec_paged_init_caches(cfg: ArchConfig, n_pages: int, page_size: int,
             for slot in dcfg.pattern]
 
 
+def _cross_entries(params, enc_out: torch.Tensor, cfg: ArchConfig,
+                   rt: Runtime) -> list:
+    """One tree's cross K/V of ``enc_out``: per decoder slot ``None`` or
+    {"xk", "xv"} of the KV heads its ``wk``/``wv`` project."""
+    dcfg = dec_cfg(cfg)
+    out = []
+    for j, slot in enumerate(dcfg.pattern):
+        if slot.split("+")[0] != "xdec":
+            out.append(None)
+            continue
+        p_x = params["dec_stack"]["slots"][j]["xattn"]
+        hkv = p_x["wk"]["w"].shape[-1] // dcfg.dh
+        ks, vs = [], []
+        for i in range(dcfg.n_periods):
+            k, v = _cross_kv(tree_index(p_x, i), enc_out, hkv, dcfg.dh, rt)
+            # (B, S_enc, Hkv, dh) -> the cache layout (B, Hkv, S_enc, dh)
+            ks.append(k.transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        out.append({"xk": torch.stack(ks), "xv": torch.stack(vs)})
+    return out
+
+
 def encdec_cross_kv(params, frames: torch.Tensor, cfg: ArchConfig,
                     rt: Runtime) -> list:
     """Run the encoder once and project its output through every decoder
@@ -165,35 +203,24 @@ def encdec_cross_kv(params, frames: torch.Tensor, cfg: ArchConfig,
     what ``lm.paged_fill_cross`` writes into a cross entry (B = 1 there).
     The reference's vmap over the stacked periods is a loop over them;
     every projection goes through ``dense_apply`` (``spx_matmul`` for SPx
-    weights)."""
+    weights). Under ``rt.mesh``: one such list per shard, on its device,
+    of the KV heads its cut of ``wk``/``wv`` holds (what its head-sharded
+    cross region keeps)."""
     enc_out = encdec_encode(params, frames, cfg, rt)
-    dcfg = dec_cfg(cfg)
-    out = []
-    for j, slot in enumerate(dcfg.pattern):
-        if slot.split("+")[0] != "xdec":
-            out.append(None)
-            continue
-        p_x = params["dec_stack"]["slots"][j]["xattn"]
-        ks, vs = [], []
-        for i in range(dcfg.n_periods):
-            k, v = _cross_kv(tree_index(p_x, i), enc_out, dcfg.n_kv_heads,
-                             dcfg.dh, rt)
-            # (B, S_enc, Hkv, dh) -> the cache layout (B, Hkv, S_enc, dh)
-            ks.append(k.transpose(1, 2))
-            vs.append(v.transpose(1, 2))
-        out.append({"xk": torch.stack(ks), "xv": torch.stack(vs)})
-    return out
+    if rt.mesh is None:
+        return _cross_entries(params, enc_out, cfg, rt)
+    return [_cross_entries(p, enc_out.to(dev), cfg, rt)
+            for p, dev in zip(params, rt.mesh.devices)]
 
 
 def _paged(params, tokens, ctx_len, block_table, n_valid, state_idx, caches,
            cfg: ArchConfig, rt: Runtime, *, fused: bool = False):
     """The decoder over a paged chunk: (final-normed h (B, C, D),
-    caches)."""
-    x = embedding_apply(params["embed"], tokens)
-    h, caches = stack_paged(params["dec_stack"], x, ctx_len, block_table,
-                            n_valid, state_idx, dec_cfg(cfg), rt, caches,
-                            fused=fused)
-    return norm_apply(cfg.norm, params["final_norm"], h), caches
+    caches); one device, or the shards of ``rt.mesh``
+    (``lm._paged_forward`` over ``dec_stack``)."""
+    return _paged_forward(params, tokens, ctx_len, block_table, n_valid,
+                          state_idx, caches, dec_cfg(cfg), rt, fused=fused,
+                          stack="dec_stack")
 
 
 def encdec_paged_step(params, tokens, ctx_len, block_table, n_valid,
@@ -204,8 +231,8 @@ def encdec_paged_step(params, tokens, ctx_len, block_table, n_valid,
     h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
                        state_idx, caches, cfg, rt)
     last = torch.clamp(n_valid.long() - 1, 0, tokens.shape[1] - 1)
-    h_last = h[torch.arange(h.shape[0], device=h.device), last]
-    return _logits(params, h_last), caches
+    h_last = h[torch.arange(h.shape[0], device=h.device), last.to(h.device)]
+    return _paged_head(params, cfg, h_last, rt), caches
 
 
 def encdec_paged_verify(params, tokens, ctx_len, block_table, n_valid,
@@ -214,7 +241,7 @@ def encdec_paged_verify(params, tokens, ctx_len, block_table, n_valid,
     position, (B, C, V)."""
     h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
                        state_idx, caches, cfg, rt)
-    return _logits(params, h), caches
+    return _paged_head(params, cfg, h, rt), caches
 
 
 def encdec_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
@@ -226,4 +253,4 @@ def encdec_paged_fused_step(params, tokens, ctx_len, block_table, n_valid,
     block, not pages). Logits at every window position, (B, W, V)."""
     h, caches = _paged(params, tokens, ctx_len, block_table, n_valid,
                        state_idx, caches, cfg, rt, fused=True)
-    return _logits(params, h), caches
+    return _paged_head(params, cfg, h, rt), caches

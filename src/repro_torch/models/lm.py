@@ -16,9 +16,10 @@ callers read like the reference.
 Under ``Runtime.mesh`` (a tensor-parallel serving engine) the paged step
 functions take one param tree and one state cache per shard
 (``sharding.shard_params``, ``shard_paged_state``): the embedding lookup
-is vocab-parallel (a masked gather per shard, summed in shard order),
-``stack_paged`` runs the shards' layers, and the vocab-parallel head's
-logit slices are joined in shard order on the first shard's device.
+runs over the shards' slices of the table (``sharded_embedding_apply``),
+``stack_paged`` runs the shards' layers, and the head over the shards'
+slices of it (``sharded_logits``), all joined or summed in shard order
+on the first shard's device.
 """
 from __future__ import annotations
 
@@ -28,13 +29,14 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
-                                   sharded_embedding_apply, tree_leaves,
-                                   tree_map)
+                                   sharded_embedding_apply, sharded_logits,
+                                   tree_leaves, tree_map)
 from repro_torch.nn.transformer import (slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_decode, stack_init,
                                         stack_paged, stack_prefill)
 from repro_torch.runtime import Runtime, resolve_device
+from repro_torch.sharding import refuse_training_mesh
 
 __all__ = ["lm_init", "lm_loss", "lm_logits", "chunked_ce", "init_caches",
            "lm_prefill", "lm_decode_step", "paged_init_caches",
@@ -144,6 +146,7 @@ def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
     ``AUX_WEIGHT`` x the MoE load-balance loss plus ``Z_WEIGHT`` x the
     z-loss. Differentiable: on the card the attention runs the flash
     kernel inside its ``autograd.Function``."""
+    refuse_training_mesh(rt)
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
@@ -231,31 +234,32 @@ def _slab_keys(slot_cache: dict) -> list:
 
 def _paged_forward(params, tokens, ctx_len, block_table, n_valid,
                    state_idx, caches, cfg: ArchConfig, rt: Runtime, *,
-                   fused: bool = False):
-    """Embedding, the stack over the state cache, the final norm: (h
-    (B, C, D), caches); one device, or the shards of ``rt.mesh``."""
+                   fused: bool = False, stack: str = "stack"):
+    """Embedding, the stack ``params[stack]`` over the state cache, the
+    final norm: (h (B, C, D), caches); one device, or the shards of
+    ``rt.mesh``. ``cfg`` is the stack's (an enc-dec model's decoder)."""
     if rt.mesh is None:
         x = embedding_apply(params["embed"], tokens)
-        stack, final_norm = params["stack"], params["final_norm"]
+        layers, final_norm = params[stack], params["final_norm"]
     else:
         x = sharded_embedding_apply([p["embed"] for p in params], tokens,
-                                    rt.mesh.devices)
-        stack = [p["stack"] for p in params]
+                                    rt.mesh.devices, cfg.vocab_size)
+        layers = [p[stack] for p in params]
         final_norm = params[0]["final_norm"]
-    h, caches = stack_paged(stack, x, ctx_len, block_table, n_valid,
+    h, caches = stack_paged(layers, x, ctx_len, block_table, n_valid,
                             state_idx, cfg, rt, caches, fused=fused)
     return norm_apply(cfg.norm, final_norm, h), caches
 
 
 def _paged_head(params, cfg: ArchConfig, h, rt: Runtime) -> torch.Tensor:
-    """The head of a paged step; under ``rt.mesh`` each shard's logits
-    over its vocabulary slice, joined in shard order on the first
-    shard's device."""
+    """The head of a paged step; under ``rt.mesh`` over the shards'
+    slices of it (``sharded_logits``: the vocabulary's slices joined, or
+    the partial logits of a d-cut head summed, in shard order on the
+    first shard's device)."""
     if rt.mesh is None:
         return _head(params, cfg, h)
-    dev0 = rt.mesh.devices[0]
-    return torch.cat([_head(p, cfg, h.to(dev)).to(dev0)
-                      for p, dev in zip(params, rt.mesh.devices)], dim=-1)
+    return sharded_logits([_head_w(p, cfg) for p in params], h,
+                          rt.mesh.devices)
 
 
 def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,

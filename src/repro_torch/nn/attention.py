@@ -6,10 +6,11 @@ SPx codebook codes (uint8) with one f32 scale per token when quantized
 (``Runtime.kv_quant``; ``Runtime.kv_scheme`` picks the level set). The
 dense forward and the one-token decode also take ``cross_kv``: the
 encoder-decoder's cross-attention over precomputed, unroped encoder K/V,
-non-causal. ``attn_paged_step_sharded`` is the tensor-parallel paged
-sublayer of a sharded serving engine (``Runtime.mesh``): each shard
-attends its own heads. Context-parallel attention and the mesh hints of
-``repro.nn.attention`` are not in this port.
+non-causal. ``attn_paged_step_sharded`` and ``attn_apply_dense_sharded``
+are the tensor-parallel paged sublayer and encoder sublayer of a sharded
+serving engine (``Runtime.mesh``): each shard attends its own heads.
+Context-parallel attention and the mesh hints of ``repro.nn.attention``
+are not in this port.
 
 Caches and page pools are updated **in place** (indexed assignment) where
 the reference rebuilds them functionally; the functions still return them
@@ -30,7 +31,8 @@ from .rotary import apply_mrope, apply_rope
 
 __all__ = ["attn_init", "attn_apply_dense", "attention_core",
            "decode_attention", "attn_decode_step", "paged_kv_write",
-           "attn_paged_step", "attn_paged_step_sharded", "quantize_kv",
+           "attn_paged_step", "attn_paged_step_sharded",
+           "attn_apply_dense_sharded", "quantize_kv",
            "dequantize_kv", "kv_lut"]
 
 _NEG = -1e30
@@ -128,6 +130,24 @@ def attn_apply_dense(p: dict, x: torch.Tensor, positions, *, n_heads: int,
     if kv_out:
         return y, (k, v)
     return y
+
+
+def attn_apply_dense_sharded(ps: list, x: torch.Tensor, positions, *,
+                             n_heads: int, n_kv_heads: int, head_dim: int,
+                             rt: Runtime, **kw) -> torch.Tensor:
+    """``attn_apply_dense`` split over the shards of ``rt.mesh`` by heads
+    (the tensor-parallel encoder of an enc-dec model): shard s projects
+    and attends its own heads through the same kernel route as one device
+    does, and the partial products of its ``wo`` rows are summed in shard
+    order (``shard_sum``). ``n_heads``, ``n_kv_heads``: the model's
+    (unsharded) counts; a shard's KV heads are those its ``wk`` holds."""
+    n = len(ps)
+    return shard_sum([
+        attn_apply_dense(p, x.to(dev), positions.to(dev),
+                         n_heads=n_heads // n,
+                         n_kv_heads=p["wk"]["w"].shape[-1] // head_dim,
+                         head_dim=head_dim, rt=rt, **kw)
+        for p, dev in zip(ps, rt.mesh.devices)])
 
 
 # -- SPx KV quantization ------------------------------------------------------

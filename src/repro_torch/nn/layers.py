@@ -19,7 +19,7 @@ __all__ = ["dense_init", "dense_apply", "embedding_init", "embedding_apply",
            "rmsnorm_init", "rmsnorm_apply", "layernorm_init",
            "layernorm_apply", "norm_init", "norm_apply", "quantize_params",
            "tree_map", "tree_index", "shard_sum",
-           "sharded_embedding_apply"]
+           "sharded_embedding_apply", "sharded_logits"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -55,25 +55,33 @@ def embedding_apply(p: dict, ids: torch.Tensor) -> torch.Tensor:
     return p["table"][ids.long()]
 
 
-# -- tensor parallelism: the ordered reduction and the vocab-parallel lookup --
+# -- tensor parallelism: the ordered reduction, the lookup and the head ------
 
 def shard_sum(parts: list) -> torch.Tensor:
     """The shards' partial products (of a row-parallel ``wo`` or ``down``,
-    or of the vocab-parallel lookup) summed in fixed shard order on the
-    first shard's device: the same sum on every run, whatever the
-    devices. The caller hands the result on to each shard."""
+    of the experts of an expert-parallel MoE, of the vocab-parallel lookup
+    or of a d-cut head) summed in fixed shard order on the first shard's
+    device: the same sum on every run, whatever the devices. The caller
+    hands the result on to each shard."""
     total = parts[0]
     for part in parts[1:]:
         total = total + part.to(total.device)
     return total
 
 
-def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices) -> \
-        torch.Tensor:
-    """Vocab-parallel lookup: shard s holds table rows [lo_s, lo_s + V_s)
-    and gathers the ids in its range (exact zeros elsewhere); the rows
-    are summed in shard order on the first shard's device, so each id's
-    row comes back exactly."""
+def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices,
+                            vocab: int) -> torch.Tensor:
+    """The lookup over the shards' slices of a (``vocab``, D) table, each
+    id's row exact. Vocab-parallel (the rows split): shard s holds rows
+    [lo_s, lo_s + V_s) and gathers the ids in its range (exact zeros
+    elsewhere), the rows summed in shard order on the first shard's
+    device. d-cut (a vocabulary that does not split: every shard holds
+    all rows, its slice of the columns): each shard gathers its columns,
+    put side by side in shard order there."""
+    dev0 = devices[0]
+    if ps[0]["table"].shape[0] == vocab:
+        return torch.cat([embedding_apply(p, ids.to(dev)).to(dev0)
+                          for p, dev in zip(ps, devices)], dim=-1)
     parts, lo = [], 0
     for p, dev in zip(ps, devices):
         table = p["table"]
@@ -85,6 +93,27 @@ def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices) -> \
                                  torch.zeros((), dtype=rows.dtype,
                                              device=dev)))
         lo += v
+    return shard_sum(parts)
+
+
+def sharded_logits(ws: list, h: torch.Tensor, devices) -> torch.Tensor:
+    """Vocabulary logits of h (..., D) over the shards' slices ``ws`` of
+    the (D, V) head (the tied table's transpose or the untied head), plain
+    products outside any kernel. Column slices (the vocabulary splits):
+    each shard's logits over its vocabulary, joined in shard order on the
+    first shard's device. Row slices (it does not: the head is cut on d):
+    each shard multiplies its columns of h, and the partial logits are
+    summed in shard order (``shard_sum``)."""
+    dev0 = devices[0]
+    if ws[0].shape[0] == h.shape[-1]:
+        return torch.cat([torch.matmul(h.to(dev), w.to(h.dtype)).to(dev0)
+                          for w, dev in zip(ws, devices)], dim=-1)
+    parts, lo = [], 0
+    for w, dev in zip(ws, devices):
+        rows = w.shape[0]
+        parts.append(torch.matmul(h[..., lo:lo + rows].to(dev),
+                                  w.to(h.dtype)))
+        lo += rows
     return shard_sum(parts)
 
 

@@ -1,13 +1,17 @@
-"""Mixture-of-Experts (top-k, capacity-bounded), on one device.
+"""Mixture-of-Experts (top-k, capacity-bounded), on one device or
+expert-parallel over the shards of ``Runtime.mesh``.
 
 The reference (``repro.nn.moe``) shards experts over a mesh's model axis
-with ``shard_map``; this port runs the same body with every expert local
-(the reference's ``model_axis=None`` path). Each expert takes at most
+with ``shard_map``; ``moe_apply`` runs its body with every expert local
+(the reference's ``model_axis=None`` path), ``moe_apply_sharded`` runs it
+once per shard over that shard's experts (the reference's ``shard_map``
+body, its ``psum`` a ``shard_sum``). Each expert takes at most
 ``C = expert_capacity(T, E, k, capacity_factor)`` of the T tokens it is
-handed; assignments are queued token-major (token 0's k choices, then
-token 1's, ...) and an assignment past its expert's capacity is dropped.
-Every row of the (B, S) input is a token here, padding included, as in
-the reference: which tokens drop depends on the whole batch.
+handed, E the global expert count; assignments are queued token-major
+(token 0's k choices, then token 1's, ...) and an assignment past its
+expert's capacity is dropped. Every row of the (B, S) input is a token
+here, padding included, as in the reference: which tokens drop depends on
+the whole batch.
 
 Router ties: ``jax.lax.top_k`` takes the lower expert index first when two
 probabilities are equal; a stable descending sort does the same here
@@ -15,7 +19,10 @@ probabilities are equal; a stable descending sort does the same here
 
 The experts run as the reference runs them, outside any kernel: each
 stacked weight (E, D, F), a ``QuantizedTensor`` after ``quantize_params``,
-is dequantized to the activation dtype and applied as a batched product.
+is dequantized to the activation dtype and applied as a batched product,
+a block of experts at a time where one weight's block would pass
+``EXPERT_BLOCK_ELEMS`` elements (each expert's product is the same
+either way).
 """
 from __future__ import annotations
 
@@ -25,10 +32,10 @@ import torch.nn.functional as F
 from repro_torch.core.quantized import QuantizedTensor, dequantize
 from repro_torch.runtime import Runtime
 
-from .layers import dense_init
-from .mlp import mlp_apply, mlp_init
+from .layers import dense_init, shard_sum
+from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 
-__all__ = ["moe_init", "moe_apply", "expert_capacity"]
+__all__ = ["moe_init", "moe_apply", "moe_apply_sharded", "expert_capacity"]
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -63,6 +70,23 @@ def _dense_w(w, dtype) -> torch.Tensor:
         else w.to(dtype)
 
 
+#: the most elements of one expert weight (gate, up or down) that one
+#: batched product dequantizes at once: a larger stack runs a block of
+#: experts at a time, so that a full-width jamba MoE layer (16 experts of
+#: 8192 x 24576, 38.6 GB in f32) never holds all of them in f32
+EXPERT_BLOCK_ELEMS = 1 << 29
+
+
+def _experts(xg, gate_w, up_w, down_w) -> torch.Tensor:
+    """A block of swiglu experts on their dequantized weights: xg (E, C,
+    D) -> (E, C, D)."""
+    gw = _dense_w(gate_w, xg.dtype)
+    uw = _dense_w(up_w, xg.dtype)
+    dw = _dense_w(down_w, xg.dtype)
+    h = F.silu(torch.bmm(xg, gw)) * torch.bmm(xg, uw)
+    return torch.bmm(h, dw)
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """(values, indices) of the k largest entries of each row, the lower
     index first among equal values (``jax.lax.top_k``'s order)."""
@@ -71,12 +95,17 @@ def _top_k(probs: torch.Tensor, k: int):
 
 
 def _moe_local(x, router_w, gate_w, up_w, down_w, *, top_k: int,
-               n_experts: int, capacity_factor: float):
-    """The reference's shard-local body with every expert local.
-    x: (T, D); gate/up_w (E, D, F), down_w (E, F, D), dense or
-    QuantizedTensor. Returns (y (T, D), aux loss)."""
+               n_experts: int, capacity_factor: float, e0: int = 0):
+    """The reference's shard-local body. x: (T, D), the same on every
+    shard; gate/up_w (E_loc, D, F), down_w (E_loc, F, D), dense or
+    QuantizedTensor: experts [e0, e0 + E_loc) of the ``n_experts`` (all
+    of them at e0 = 0, E_loc = n_experts). The router and the capacity
+    are global, so every shard routes and drops as one device does; an
+    assignment to another shard's expert is parked. Returns (y (T, D),
+    the partial sum of this shard's experts, and the aux loss)."""
     t, d = x.shape
     e = n_experts
+    e_loc = gate_w.shape[0]
     logits = torch.matmul(x.to(torch.float32),
                           router_w.to(torch.float32))       # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -88,30 +117,35 @@ def _moe_local(x, router_w, gate_w, up_w, down_w, *, top_k: int,
     flat_e = top_e.reshape(-1)                               # (T*k,)
     flat_p = top_p.reshape(-1)
     flat_tok = torch.arange(t, device=x.device).repeat_interleave(top_k)
-    onehot = F.one_hot(flat_e, e + 1)                        # (T*k, E+1)
+    local_e = flat_e - e0
+    mine = (local_e >= 0) & (local_e < e_loc)
+    local_e = torch.where(mine, local_e, e_loc)              # foreign: parked
+    onehot = F.one_hot(local_e, e_loc + 1)                   # (T*k, E_loc+1)
     slot = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1
-    keep = slot < cap
-    e_idx = torch.where(keep, flat_e, e)                     # drop -> parked
+    keep = mine & (slot < cap)
+    e_idx = torch.where(keep, local_e, e_loc)                # drop -> parked
     s_idx = torch.where(keep, slot, 0)
 
-    # tokens gathered into (E, C, D); row E is the parked scratch row
-    dispatch = torch.zeros((e + 1, cap), dtype=torch.long, device=x.device)
+    # tokens gathered into (E_loc, C, D); row E_loc is the parked scratch
+    dispatch = torch.zeros((e_loc + 1, cap), dtype=torch.long,
+                           device=x.device)
     dispatch[e_idx, s_idx] = flat_tok
-    valid = torch.zeros((e + 1, cap), dtype=torch.bool, device=x.device)
+    valid = torch.zeros((e_loc + 1, cap), dtype=torch.bool, device=x.device)
     valid[e_idx, s_idx] = keep
-    xg = x[dispatch[:e].reshape(-1)].reshape(e, cap, d)
-    xg = torch.where(valid[:e, :, None], xg, torch.zeros_like(xg))
+    xg = x[dispatch[:e_loc].reshape(-1)].reshape(e_loc, cap, d)
+    xg = torch.where(valid[:e_loc, :, None], xg, torch.zeros_like(xg))
 
-    # the experts (swiglu), on dequantized weights
-    gw = _dense_w(gate_w, xg.dtype)
-    uw = _dense_w(up_w, xg.dtype)
-    dw = _dense_w(down_w, xg.dtype)
-    h = F.silu(torch.bmm(xg, gw)) * torch.bmm(xg, uw)
-    y_e = torch.bmm(h, dw)                                   # (E, C, D)
+    # the experts (swiglu), on dequantized weights, a block of experts at
+    # a time where their f32 weights would be large
+    per = max(1, EXPERT_BLOCK_ELEMS // (d * gate_w.shape[-1]))
+    y_e = torch.cat([_experts(xg[lo:lo + per], gate_w[lo:lo + per],
+                              up_w[lo:lo + per], down_w[lo:lo + per])
+                     for lo in range(0, e_loc, per)])        # (E_loc, C, D)
 
     # combine in the activation dtype: each token's kept assignments added
     # into zeros in ascending expert order, the order of the reference's
-    # scatter-add over the (E, C) dispatch grid; deterministic on the card
+    # scatter-add over the (E_loc, C) dispatch grid (a parked one adds an
+    # exact zero); deterministic on the card
     y_e = torch.cat([y_e, torch.zeros_like(y_e[:1])])        # parked row 0
     w = torch.where(keep, flat_p, torch.zeros_like(flat_p))
     contrib = (y_e[e_idx, s_idx] * w[:, None].to(y_e.dtype)).to(x.dtype)
@@ -126,6 +160,33 @@ def _moe_local(x, router_w, gate_w, up_w, down_w, *, top_k: int,
     me = F.one_hot(top_e[:, 0], e).to(torch.float32).mean(dim=0)
     ce = probs.mean(dim=0)
     aux = e * torch.sum(me * ce)
+    return y, aux
+
+
+def moe_apply_sharded(ps: list, x: torch.Tensor, *, top_k: int,
+                      n_experts: int, capacity_factor: float = 1.25,
+                      rt: Runtime):
+    """``moe_apply`` expert-parallel over the shards of ``rt.mesh``: shard
+    s holds experts [s * E / n, (s + 1) * E / n) and the replicated
+    router (``sharding.shard_params``), routes every token of x as one
+    device does and runs its own experts; the partial outputs, in the
+    activation dtype, are summed in shard order (``shard_sum``, where the
+    reference ``psum``s). A shared expert is a tensor-parallel MLP. x:
+    (B, S, D) on the first shard's device. Returns (y, aux_loss) there."""
+    b, s, d = x.shape
+    parts, aux, e0 = [], None, 0
+    for p, dev in zip(ps, rt.mesh.devices):
+        y, a = _moe_local(x.to(dev).reshape(b * s, d), p["router"]["w"],
+                          p["gate"], p["up"], p["down"], top_k=top_k,
+                          n_experts=n_experts,
+                          capacity_factor=capacity_factor, e0=e0)
+        parts.append(y)
+        aux = a if aux is None else aux
+        e0 += p["gate"].shape[0]
+    y = shard_sum(parts).reshape(b, s, d)
+    if "shared" in ps[0]:
+        y = y + mlp_apply_sharded([p["shared"] for p in ps], x,
+                                  variant="swiglu", rt=rt)
     return y, aux
 
 

@@ -16,8 +16,11 @@ recurrent slots their row of the slab region). The enc-dec decoder slot
 encoder's output: projected from ``enc_out`` in the train and prefill
 modes (prefill also writes it into the dense cache's ``xk``/``xv``), read
 from that cache in decode, and read from the shared cross region of the
-state cache in paged mode. Under ``Runtime.mesh`` the paged mode of an
-``attn+dense`` pattern runs tensor-parallel over the mesh's shards.
+state cache in paged mode. Under ``Runtime.mesh`` the paged mode of
+every pattern (and the train mode of an enc-dec model's encoder) runs
+tensor-parallel over the mesh's shards: attention by heads, the dense FFN
+by its columns, the MoE by experts, and each recurrent mixer whole on
+every shard (``stack_paged``).
 """
 from __future__ import annotations
 
@@ -27,23 +30,25 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime
 
 from . import ssm
-from .attention import (attention_core, attn_apply_dense, attn_decode_step,
+from .attention import (attention_core, attn_apply_dense,
+                        attn_apply_dense_sharded, attn_decode_step,
                         attn_init, attn_paged_step, attn_paged_step_sharded,
                         quantize_kv)
-from .layers import dense_apply, norm_apply, norm_init, tree_index
+from .layers import dense_apply, norm_apply, norm_init, shard_sum, tree_index
 from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
-from .moe import moe_apply, moe_init
+from .moe import moe_apply, moe_apply_sharded, moe_init
 from .rotary import apply_rope
 
 __all__ = ["stack_init", "stack_apply", "stack_prefill", "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
-           "SLOT_KINDS", "SHARDED_SLOTS"]
+           "SLOT_KINDS"]
 
 SLOT_KINDS = ("attn", "xdec", "mamba", "mlstm", "slstm")
 #: mixers whose serving state is a per-sequence slab
 SLAB_MIXERS = ("mamba", "mlstm", "slstm")
-#: the slots ``stack_paged`` runs tensor-parallel
-SHARDED_SLOTS = ("attn+dense",)
+#: a slot's replicated norms: under ``rt.mesh`` shard 0's copy serves the
+#: residual stream on its device
+_NORMS = ("norm1", "norm2", "norm_x")
 
 
 def _parse_slot(slot: str):
@@ -126,37 +131,57 @@ def _cross_kv(p_attn: dict, enc_out: torch.Tensor, n_kv_heads: int,
 
 
 def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
-                 cfg: ArchConfig, rt: Runtime):
+                 cfg: ArchConfig, rt: Runtime, n_heads: int):
     """Cross-attention of a paged chunk against the shared cross region:
     row b reads entry ``state_idx[b, 1]`` (clamped where it is the
     sentinel: such a row's output is never read), q is roped at the
     row's absolute positions ``ctx_len + i``, K/V are unroped and the
-    attention spans every encoder frame. Entries are only read here."""
+    attention spans every encoder frame. Entries are only read here.
+    ``n_heads``: the query heads ``p_x`` projects (one shard's under
+    ``rt.mesh``)."""
     b, c, _ = hx.shape
     n_cross = cache["xk"].shape[0]
     idx = torch.clamp(state_idx[:, 1].long(), 0, max(n_cross - 1, 0))
-    q = dense_apply(p_x["wq"], hx, rt).reshape(b, c, cfg.n_heads, cfg.dh)
+    q = dense_apply(p_x["wq"], hx, rt).reshape(b, c, n_heads, cfg.dh)
     positions = ctx_len[:, None] + torch.arange(c, dtype=ctx_len.dtype,
                                                 device=hx.device)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     o = attention_core(q.transpose(1, 2), cache["xk"][idx].to(q.dtype),
                        cache["xv"][idx].to(q.dtype), causal=False, rt=rt)
     return dense_apply(p_x["wo"], o.transpose(1, 2).reshape(
-        b, c, cfg.n_heads * cfg.dh), rt)
+        b, c, n_heads * cfg.dh), rt)
+
+
+def _paged_cross_sharded(ps: list, hx, caches: list, ctx_len: list,
+                         state_idx: list, cfg: ArchConfig, rt: Runtime):
+    """``_paged_cross`` split over the shards of ``rt.mesh`` by heads:
+    shard s attends its query heads over its head-sharded cross region,
+    and its ``wo`` rows' partial products are summed in shard order
+    (``shard_sum``)."""
+    n = len(ps)
+    return shard_sum([
+        _paged_cross(p, hx.to(dev), c, cl, si, cfg, rt, cfg.n_heads // n)
+        for p, c, cl, si, dev in zip(ps, caches, ctx_len, state_idx,
+                                     rt.mesh.devices)])
 
 
 def _cross_sublayer(p: dict, x, positions, cfg: ArchConfig, rt: Runtime, *,
-                    mode: str, cache, pos, enc_out, paged_ctx):
-    """The xdec slot's cross-attention in one of the four modes. Returns
-    its output y (B, S, D); prefill writes the projected encoder K/V into
-    the dense cache's ``xk``/``xv`` in place."""
+                    mode: str, cache, pos, enc_out, paged_ctx,
+                    tp: bool = False):
+    """The xdec slot's cross-attention in one of the four modes (paged
+    mode tensor-parallel under ``tp``). Returns its output y (B, S, D);
+    prefill writes the projected encoder K/V into the dense cache's
+    ``xk``/``xv`` in place."""
     hx = norm_apply(cfg.norm, p["norm_x"], x)
     heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                  head_dim=cfg.dh, rope_theta=cfg.rope_theta, rt=rt)
     if mode == "paged":
         ctx_len, _, _, state_idx = paged_ctx[:4]
+        if tp:
+            return _paged_cross_sharded(p["xattn"], hx, cache, ctx_len,
+                                        state_idx, cfg, rt)
         return _paged_cross(p["xattn"], hx, cache, ctx_len, state_idx, cfg,
-                            rt)
+                            rt, cfg.n_heads)
     if mode == "decode":
         y, _ = attn_decode_step(
             p["xattn"], hx, pos, None,
@@ -238,17 +263,30 @@ def _recurrent(slot_p, h, cfg: ArchConfig, rt: Runtime, mixer: str, *,
     return _APPLIES[mixer](slot_p, h, **kw), cache
 
 
+def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
+                       mixer: str, *, mode: str, cache: list, paged_ctx):
+    """A recurrent mixer's paged step under ``rt.mesh``: whole on every
+    shard (its leaves and its slabs replicate, as the reference's pool
+    spec keeps the slabs), each shard stepping its own copy of the slab
+    region the same way, so the copies stay identical; shard 0's output
+    joins the residual stream. ``paged_ctx``: per-shard lists."""
+    ys = [_recurrent(p, h.to(dev), cfg, rt, mixer, mode=mode, cache=c,
+                     paged_ctx=tuple(t[s] for t in paged_ctx))[0]
+          for s, (p, c, dev) in enumerate(zip(ps, cache, rt.mesh.devices))]
+    return ys[0], cache
+
+
 def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                 rt: Runtime, *, mode: str, cache=None, pos=None,
                 enc_out=None, causal: bool = True, paged_ctx=None,
-                fused: bool = False, paged_attn=attn_paged_step,
-                mlp=mlp_apply):
+                fused: bool = False, tp: bool = False):
     """One slot (the reference's ``_slot_apply``). mode: 'train' |
     'prefill' | 'decode' | 'paged'. Paged mode takes ``paged_ctx =
     (ctx_len, block_table, n_valid, state_idx, slab_rows)``; an xdec slot
-    takes ``enc_out`` in the train and prefill modes. ``paged_attn`` and
-    ``mlp`` run the paged attention and the dense FFN: one device's, or
-    the tensor-parallel ones (``stack_paged`` under a mesh). Returns (x,
+    takes ``enc_out`` in the train and prefill modes. ``tp`` runs the
+    slot tensor-parallel over ``rt.mesh`` (the paged mode, and the train
+    mode of an encoder): ``p`` is then a shard view (``_shard_view``),
+    ``cache`` and each entry of ``paged_ctx`` per-shard lists. Returns (x,
     cache, aux) with aux the MoE load-balance loss (0 elsewhere)."""
     mixer, ffn = _parse_slot(slot)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -259,9 +297,9 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
                      mrope_sections=cfg.mrope_sections, rt=rt)
         if mode == "paged":
             ctx_len, block_table, n_valid = paged_ctx[:3]
-            y, cache = paged_attn(p["attn"], h, ctx_len, block_table,
-                                  cache, n_valid=n_valid, fused=fused,
-                                  **heads)
+            step = attn_paged_step_sharded if tp else attn_paged_step
+            y, cache = step(p["attn"], h, ctx_len, block_table, cache,
+                            n_valid=n_valid, fused=fused, **heads)
         elif mode == "decode":
             y, (k, v) = attn_decode_step(p["attn"], h, pos,
                                          (cache["k"], cache["v"]), **heads)
@@ -273,25 +311,27 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
             _write_prefix(cache["k"], k.transpose(1, 2), rt)
             _write_prefix(cache["v"], v.transpose(1, 2), rt)
         else:
-            y = attn_apply_dense(p["attn"], h, positions, causal=causal,
-                                 **heads)
+            dense = attn_apply_dense_sharded if tp else attn_apply_dense
+            y = dense(p["attn"], h, positions, causal=causal, **heads)
         if mixer == "xdec":
             x = x + y
             y = _cross_sublayer(p, x, positions, cfg, rt, mode=mode,
                                 cache=cache, pos=pos, enc_out=enc_out,
-                                paged_ctx=paged_ctx)
+                                paged_ctx=paged_ctx, tp=tp)
     else:
-        y, cache = _recurrent(p[mixer], h, cfg, rt, mixer, mode=mode,
-                              cache=cache, paged_ctx=paged_ctx)
+        recurrent = _recurrent_sharded if tp else _recurrent
+        y, cache = recurrent(p[mixer], h, cfg, rt, mixer, mode=mode,
+                             cache=cache, paged_ctx=paged_ctx)
     x = x + y
     if ffn == "dense":
         h = norm_apply(cfg.norm, p["norm2"], x)
+        mlp = mlp_apply_sharded if tp else mlp_apply
         x = x + mlp(p["mlp"], h, variant=cfg.mlp_variant, act=cfg.act, rt=rt)
     elif ffn == "moe":
         h = norm_apply(cfg.norm, p["norm2"], x)
-        y, aux = moe_apply(p["moe"], h, top_k=cfg.top_k,
-                           n_experts=cfg.n_experts,
-                           capacity_factor=cfg.capacity_factor, rt=rt)
+        moe = moe_apply_sharded if tp else moe_apply
+        y, aux = moe(p["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                     capacity_factor=cfg.capacity_factor, rt=rt)
         x = x + y
     return x, cache, aux
 
@@ -305,15 +345,38 @@ def _periods(params: dict, cfg: ArchConfig, caches=None):
                    None if caches is None else tree_index(caches[j], i))
 
 
-def stack_apply(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
+def _shard_view(per_shard: list) -> dict:
+    """One (period, slot)'s params as ``_slot_apply`` takes them under
+    ``rt.mesh``: the replicated norms from shard 0, every sublayer's
+    params a list over the shards."""
+    return {k: v if k in _NORMS else [sp[k] for sp in per_shard]
+            for k, v in per_shard[0].items()}
+
+
+def _tp_periods(params: list, cfg: ArchConfig, caches=None):
+    """``_periods`` over the shards' stacks: (slot kind, shard view, the
+    shards' cache slices or None) of every (period, slot)."""
+    caches = caches if caches is not None else [None] * len(params)
+    for per_shard in zip(*(_periods(p, cfg, c)
+                           for p, c in zip(params, caches))):
+        yield (per_shard[0][0], _shard_view([sp for _, sp, _ in per_shard]),
+               [c for _, _, c in per_shard])
+
+
+def stack_apply(params, x: torch.Tensor, positions, cfg: ArchConfig,
                 rt: Runtime, enc_out=None, causal: bool = True):
     """Train-mode stack (differentiable under autograd). Returns (x, aux)
     with aux the sum of the MoE load-balance losses. ``enc_out``: the
-    encoder output an xdec slot cross-attends."""
+    encoder output an xdec slot cross-attends. Under ``rt.mesh`` (an
+    enc-dec model's encoder in a sharded serving engine) ``params`` holds
+    one stack per shard and every slot runs tensor-parallel; x and the
+    result stay on the first shard's device."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for slot, sp, _ in _periods(params, cfg):
+    tp = rt.mesh is not None
+    periods = _tp_periods(params, cfg) if tp else _periods(params, cfg)
+    for slot, sp, _ in periods:
         x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt, mode="train",
-                              enc_out=enc_out, causal=causal)
+                              enc_out=enc_out, causal=causal, tp=tp)
         aux = aux + a
     return x, aux
 
@@ -368,15 +431,18 @@ def stack_paged(params, x: torch.Tensor, ctx_len, block_table, n_valid,
     leaves of recurrent ones, stacked over periods, written in place.
     ``fused`` routes every attention through the ragged decode kernel.
 
-    Under ``rt.mesh`` (an ``attn+dense`` pattern, tensor-parallel)
-    ``params`` and ``caches`` hold one stack and one paged state cache per
-    shard (``sharding.shard_params``, ``shard_paged_state``). The residual
-    stream stays on the first shard's device; each sublayer's normed
-    input is handed to every shard and the shards' partial outputs come
-    back summed in shard order (``attn_paged_step_sharded``,
-    ``mlp_apply_sharded``). The block table and the token batch are
-    replicated: each shard gets its own copy once per call. Returns (x,
-    caches)."""
+    Under ``rt.mesh`` (tensor-parallel) ``params`` and ``caches`` hold one
+    stack and one paged state cache per shard (``sharding.shard_params``,
+    ``shard_paged_state``). The residual stream stays on the first shard's
+    device; each sublayer's normed input is handed to every shard and the
+    shards' partial outputs come back summed in shard order: attention
+    and cross-attention by heads (``attn_paged_step_sharded``), the dense
+    FFN by columns (``mlp_apply_sharded``), the MoE by experts
+    (``moe_apply_sharded``); a recurrent mixer runs whole on every shard
+    against its own copy of the slabs, and shard 0's output joins the
+    stream (``_recurrent_sharded``). The block table, the token batch and
+    the state indices are replicated: each shard gets its own copy once
+    per call. Returns (x, caches)."""
     if rt.mesh is None:
         ctx = (ctx_len, block_table, n_valid, state_idx,
                _slab_rows(cfg, caches, n_valid, state_idx))
@@ -385,24 +451,13 @@ def stack_paged(params, x: torch.Tensor, ctx_len, block_table, n_valid,
                                   cache=cache, paged_ctx=ctx, fused=fused)
         return x, caches
     ctx = tuple([t.to(d) for d in rt.mesh.devices]
-                for t in (ctx_len, block_table, n_valid))
-    for per_shard in zip(*(_periods(p, cfg, c)
-                           for p, c in zip(params, caches))):
-        slot = per_shard[0][0]
-        if slot not in SHARDED_SLOTS:
-            raise NotImplementedError(
-                f"tensor-parallel slot {slot!r}: only {SHARDED_SLOTS} run "
-                "sharded")
-        sps = [sp for _, sp, _ in per_shard]
-        # the norms are replicated: shard 0's copy serves the residual
-        # stream on its device
-        sp = dict(sps[0], attn=[p["attn"] for p in sps],
-                  mlp=[p["mlp"] for p in sps])
+                for t in (ctx_len, block_table, n_valid, state_idx))
+    ctx += ([_slab_rows(cfg, c, nv, si)
+             for c, nv, si in zip(caches, ctx[2], ctx[3])],)
+    for slot, sp, cache in _tp_periods(params, cfg, caches):
         x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="paged",
-                              cache=[c for _, _, c in per_shard],
-                              paged_ctx=ctx, fused=fused,
-                              paged_attn=attn_paged_step_sharded,
-                              mlp=mlp_apply_sharded)
+                              cache=cache, paged_ctx=ctx, fused=fused,
+                              tp=True)
     return x, caches
 
 

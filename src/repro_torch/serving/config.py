@@ -9,18 +9,17 @@ hybrid, M-RoPE and the encoder-decoder) on two layouts:
 the paged state cache under ``cb`` or ``fifo`` scheduling — the fused or
 the unfused decode tick,
 speculative decoding and the prefix cache included where the pattern
-allows them — and the dense per-slot layout under ``fifo``; either in f32
-or bf16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx codes;
-tensor-parallel (``shards``) for the ``attn+dense`` patterns on the paged
-layout, and behind a replica router (``replicas``) for every pattern.
+allows them — and the dense per-slot layout under ``fifo``; either in f32,
+bf16 or f16 (``kv_cache_dtype``) or, with ``Runtime.kv_quant``, as SPx
+codes; tensor-parallel (``shards``) on the paged layout and behind a
+replica router (``replicas``), for every pattern.
 ``shards`` and ``replicas`` resolve as the reference's do, env fallbacks
 (``REPRO_SHARDS``, ``REPRO_REPLICAS``) included. A knob the layout or the
 pattern cannot have raises the reference's ``ValueError`` naming the
 failing predicates, and its env default degrades silently, as in the
 reference. A knob or a model that asks **explicitly** for something this
-port lacks (another cache dtype, shards of another pattern) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it; the env
-default of shards degrades silently to one shard there.
+port lacks (another cache dtype) raises ``NotImplementedError`` naming
+the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
@@ -31,9 +30,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.nn.transformer import SHARDED_SLOTS
 from repro_torch.serving.spec import DEFAULT_SPEC_K
-from repro_torch.sharding import SHARDED_REST
 
 __all__ = ["ServeConfig", "DEFAULT_PREFILL_CHUNK"]
 
@@ -238,9 +235,9 @@ class ServeConfig:
 
         # tensor-parallel width, as in the reference: REPRO_SHARDS on a
         # dense engine degrades to 1, an explicit shards= there is a caller
-        # error (the sharded engine head-shards the paged pools). Patterns
-        # this port does not shard yet raise when asked explicitly, and
-        # their env default degrades to one shard.
+        # error (the sharded engine head-shards the paged pools). Every
+        # pattern shards; a leaf the port's forward cannot cut raises when
+        # the engine cuts the params (sharding.ShardingPolicy).
         explicit_shards = self.shards is not None
         shards = self.shards
         if shards is None:
@@ -255,13 +252,6 @@ class ServeConfig:
                     "sharded engine head-shards the paged KV/state pools "
                     "over the model axis")
             shards = 1
-        if shards > 1 and (cfg.enc_dec
-                           or set(cfg.pattern) - set(SHARDED_SLOTS)):
-            if explicit_shards:
-                raise _not_ported(
-                    f"shards={shards} for pattern={cfg.pattern}"
-                    + (" (enc_dec)" if cfg.enc_dec else ""), SHARDED_REST)
-            shards = 1
 
         # data-parallel replicas: a router knob (serving/router.py)
         replicas = self.replicas
@@ -272,7 +262,8 @@ class ServeConfig:
                              "(check REPRO_REPLICAS)")
 
         kv_cache_dtype = _torch_dtype(self.kv_cache_dtype)
-        if kv_cache_dtype not in (torch.float32, torch.bfloat16):
+        if kv_cache_dtype not in (torch.float32, torch.bfloat16,
+                                  torch.float16):
             raise _not_ported(f"kv_cache_dtype={kv_cache_dtype}",
                               "the other KV cache dtypes")
 

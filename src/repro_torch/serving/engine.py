@@ -59,19 +59,22 @@ from ``Request.seed`` or from the engine seed and the rid, so a sampled
 output depends on the request alone; it cannot reproduce ``jax.random``'s
 draws.
 
-Tensor parallelism (``ServeConfig(shards=N)``, paged ``attn+dense``
-patterns: the dense and M-RoPE models) runs the shards from this one
-process, as the reference's single controller does: the engine cuts the
-quantized params and the paged pools into one tree per shard
-(``sharding.shard_params``, ``shard_paged_state``; the pools head-shard
-when the KV heads divide, else replicate), over the shard devices of
-``devices`` or ``launch.hostdev.device_list()`` (``REPRO_FORCE_DEVICE_COUNT``
-puts several shards on one device). Block tables and token batches stay
-replicated; the step functions run the sharded forward (``models.lm``).
-Data-parallel replicas are the router's (``serving.router.ReplicaRouter``).
+Tensor parallelism (``ServeConfig(shards=N)``, every pattern on the
+paged layout) runs the shards from this one process, as the reference's
+single controller does: the engine cuts the quantized params and the
+paged pools into one tree per shard (``sharding.shard_params``,
+``shard_paged_state``; the pools and the cross region head-shard when the
+KV heads divide, else replicate, and the slab region replicates), over
+the shard devices of ``devices`` or ``launch.hostdev.device_list()``
+(``REPRO_FORCE_DEVICE_COUNT`` puts several shards on one device). Block
+tables and token batches stay replicated; the step functions run the
+sharded forward (``models.lm``, ``models.encdec``), the encoder pass fills
+every shard's cross region, and a slab is reset, snapshotted and restored
+on every shard's copy. Data-parallel replicas are the router's
+(``serving.router.ReplicaRouter``).
 
 Not in this port yet (``ServeConfig.resolve`` raises): other cache
-dtypes than f32 and bf16, and sharding the other patterns.
+dtypes than f32, bf16 and f16.
 """
 from __future__ import annotations
 
@@ -740,9 +743,10 @@ class ServeEngine:
             self._prefill_skipped += matched
         if self._has_slab:
             # a fresh sequence starts from the zero state; its recycled
-            # slab still holds the previous owner's
-            lm_mod.paged_reset_slabs(self.caches,
-                                     self.pool.seq_slab(req.rid))
+            # slab still holds the previous owner's (on every shard: each
+            # holds a copy of the slab region)
+            for caches in self._shard_caches():
+                lm_mod.paged_reset_slabs(caches, self.pool.seq_slab(req.rid))
         if self._has_cross and self.pool.consume_cross_fresh(req.rid):
             # a cross-region miss: run the encoder and every layer's K/V
             # projection once, into the claimed entry. A hit (frames of a
@@ -752,8 +756,12 @@ class ServeEngine:
             entries = encdec_mod.encdec_cross_kv(self.params, frames,
                                                  self.cfg, self.rt)
             self._model_calls += 1
-            lm_mod.paged_fill_cross(self.caches,
-                                    self.pool.seq_cross(req.rid), entries)
+            if self.mesh is None:
+                entries = [entries]
+            # each shard's entry into its own (head-sharded) cross region
+            for caches, ent in zip(self._shard_caches(), entries):
+                lm_mod.paged_fill_cross(caches, self.pool.seq_cross(req.rid),
+                                        ent)
         self.queue.remove(req)
         self.slot_req[slot] = req
         self.slot_pos[slot] = matched
@@ -826,9 +834,10 @@ class ServeEngine:
         if self._has_slab:
             # the slab is the sequence's whole recurrent state, O(1) in
             # its length: always snapshotted whole
+            # (shard 0's copy: every shard holds the same slabs)
             slab_payload = tree_map(
                 lambda _, leaf: leaf.cpu(),
-                lm_mod.paged_gather_slabs(self.caches,
+                lm_mod.paged_gather_slabs(self._shard_caches()[0],
                                           self.pool.seq_slab(req.rid)))
         payload = ((page_payload, slab_payload)
                    if page_payload is not None or slab_payload is not None
@@ -859,10 +868,12 @@ class ServeEngine:
             self._restore_pages(pages, page_payload)
             self._onload_bytes += self._payload_bytes(page_payload)
         if slab_payload is not None:
-            # the slab the pool gave back may be another index
-            lm_mod.paged_scatter_slabs(self.caches,
-                                       self.pool.seq_slab(req.rid),
-                                       slab_payload)
+            # the slab the pool gave back may be another index; every
+            # shard's copy gets it
+            for caches in self._shard_caches():
+                lm_mod.paged_scatter_slabs(caches,
+                                           self.pool.seq_slab(req.rid),
+                                           slab_payload)
             self._onload_bytes += self._payload_bytes(slab_payload)
         self.queue.remove(req)
         req._resume = None

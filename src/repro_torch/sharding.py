@@ -4,22 +4,26 @@ paged pools is cut over the ``model`` axis, and the cutting.
 ``ShardingPolicy`` holds the reference's tensor-parallel rules
 (``repro.sharding``) as far as the port's serving engine runs them:
 Megatron alternation (column-parallel q/k/v/up/gate/head, row-parallel
-``wo``/``down``), the replicated names, the vocab-parallel table, and
-the paged pools head-sharded where their KV heads divide
-(``pool_spec``). ``serving_dim`` is the cut of one param leaf; it
-follows head boundaries where the reference's spec would not: GSPMD may
-split the one 256-wide KV head of gemma-2b's ``wk`` over two devices,
-since any placement is correct there, but a shard of the port's forward
-attends whole heads, so K/V projections whose heads do not divide the
-shards are computed whole on every shard, as their pools replicate.
+``wo``/``down``), the replicated names, the table and head cut on the
+vocabulary or, where it does not divide, on d, the MoE's experts split
+over the shards (expert parallelism), and the paged pools head-sharded
+where their KV heads divide (``pool_spec``). ``serving_dim`` is the cut
+of one param leaf; it departs from the reference's spec where the
+port's forward must: GSPMD may split the one 256-wide KV head of
+gemma-2b's ``wk`` over two devices, since any placement is correct
+there, but a shard of the port's forward attends whole heads, so K/V
+projections whose heads do not divide the shards are computed whole on
+every shard, as their pools replicate; and a recurrent mixer (whose
+projections GSPMD cuts by columns and rows) runs whole on every shard,
+since its slabs replicate, as the reference's pool spec keeps them.
 
 ``shard_params`` and ``shard_paged_state`` cut a param tree and the
 paged pools into one tree per shard, for the port's single-controller
-tensor-parallel forward (``models.lm``): each shard holds the column
-slices of its heads and FFN columns, the row slices of ``wo`` and
-``down``, and its vocabulary rows. A quantized weight is cut after
-quantization: each shard holds exactly the unsharded codes and
-per-column scales of its slice.
+tensor-parallel forward (``models.lm``, ``models.encdec``): each shard
+holds the column slices of its heads and FFN columns, the row slices of
+``wo`` and ``down``, its experts, and its slice of the table and head. A
+quantized weight is cut after quantization: each shard holds exactly the
+unsharded codes and scales of its slice.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.nn.layers import tree_map
 from repro_torch.runtime.planner import kv_heads_split
 
 __all__ = ["ShardingPolicy", "shard_params", "shard_paged_state",
-           "SHARDED_REST"]
+           "refuse_training_mesh", "SHARDED_REST"]
 
 #: the ROADMAP.md item that ports what sharded serving still lacks
 SHARDED_REST = "multi-device and drivers (the rest)"
@@ -41,10 +45,20 @@ SHARDED_REST = "multi-device and drivers (the rest)"
 #: replicated regardless of size
 _REPLICATED = {"norm1", "norm2", "norm_x", "final_norm", "enc_norm", "router",
                "conv_w", "conv_b", "A_log", "D", "out_norm_g", "r", "b", "g"}
+#: the recurrent mixers, whose leaves every shard holds whole
+_RECURRENT = {"mamba", "mlstm", "slstm"}
 #: leaf keys of the paged state cache's head-sharded pools
 _POOL_KEYS = ("kp", "vp", "xk", "xv")
 
 Spec = tuple
+
+
+def refuse_training_mesh(rt) -> None:
+    """Raise for a training loss under ``rt.mesh``: the port's mesh is a
+    serving engine's; training under a mesh is still to be ported."""
+    if rt.mesh is not None:
+        raise NotImplementedError(
+            f"training under a mesh (ROADMAP.md: {SHARDED_REST})")
 
 
 def _div(n: int, k: int) -> bool:
@@ -88,11 +102,16 @@ class ShardingPolicy:
         """The dim of a logical (unpacked) param leaf that the port's
         tensor-parallel forward cuts over the model axis, or None for a
         leaf every shard holds whole. The reference's tp rule, held to
-        head boundaries: q heads split evenly; K/V heads split when they
-        divide (``kv_sharded``) and are computed whole on every shard
-        otherwise (one KV head only: a shard's query heads must share
-        it); ``wo`` and ``down`` split their input rows; the vocabulary
-        splits the tied table's rows or the untied head's columns. Raises
+        what this forward can cut: q heads split evenly; K/V heads split
+        when they divide (``kv_sharded``) and are computed whole on every
+        shard otherwise (one KV head only: a shard's query heads must
+        share it); ``wo`` and ``down`` split their input rows; the
+        vocabulary splits the tied table's rows or the untied head's
+        columns, and where it does not divide the table is cut on d (its
+        columns) and the head on d (its rows); the MoE's stacked experts
+        split on their expert dim and the router replicates; a recurrent
+        mixer's leaves (mamba, mLSTM, sLSTM) stay whole on every shard,
+        since the mixer runs whole there against replicated slabs. Raises
         NotImplementedError for a leaf this forward cannot cut."""
         cfg, n, nd = self.cfg, self.n_model, len(shape)
         names = set(keys)
@@ -105,11 +124,23 @@ class ShardingPolicy:
                     f"shards={n}: {what} (ROADMAP.md: {SHARDED_REST})")
 
         if "table" in names or "head" in names:
-            need(_div(cfg.vocab_size, n),
-                 f"vocab {cfg.vocab_size} does not split evenly")
-            return nd - 2 if "table" in names else nd - 1
-        if "attn" in names:
-            proj = keys[keys.index("attn") + 1]
+            table = "table" in names
+            vocab, d = (nd - 2, nd - 1) if table else (nd - 1, nd - 2)
+            if _div(shape[vocab], n):
+                return vocab
+            need(_div(shape[d], n), f"neither vocab {shape[vocab]} nor "
+                 f"d_model {shape[d]} splits evenly")
+            return d
+        if names & _RECURRENT or "router" in names:
+            return None
+        if "moe" in names and "shared" not in names:
+            need(nd >= 3 and shape[nd - 3] == cfg.n_experts
+                 and _div(cfg.n_experts, n),
+                 f"{cfg.n_experts} experts do not split evenly")
+            return nd - 3
+        mixer = "attn" if "attn" in names else "xattn"
+        if mixer in names:
+            proj = keys[keys.index(mixer) + 1]
             need(_div(cfg.n_heads, n),
                  f"{cfg.n_heads} query heads do not split evenly")
             if proj in ("wk", "wv"):
@@ -123,13 +154,15 @@ class ShardingPolicy:
                 return nd - 1
             need(keys[-1] == "w", f"a bias on the row-parallel {proj}")
             return nd - 2
-        if "mlp" in names:
-            proj = keys[keys.index("mlp") + 1]
-            need(_div(cfg.d_ff, n), f"d_ff {cfg.d_ff} does not split evenly")
+        ffn = "mlp" if "mlp" in names else "shared"
+        if ffn in names:
+            proj = keys[keys.index(ffn) + 1]
+            dim = nd - 2 if proj == "down" else nd - 1
             if proj == "down":
                 need(keys[-1] == "w", "a bias on the row-parallel down")
-                return nd - 2
-            return nd - 1
+            need(_div(shape[dim], n),
+                 f"d_ff {shape[dim]} does not split evenly")
+            return dim
         if names & _REPLICATED or nd < 2:
             return None
         need(False, f"no serving cut for {'/'.join(keys)}")
@@ -158,9 +191,9 @@ def _cut(t: torch.Tensor, dim: int, s: int, n: int) -> torch.Tensor:
 def shard_params(params: Any, policy: ShardingPolicy, mesh) -> list:
     """One param tree per shard of ``mesh`` (on that shard's device), cut
     by ``policy.serving_dim``. A QuantizedTensor's column cut takes its
-    packed code bytes and per-column scales of the slice, a row cut its
-    code rows and every scale: each shard holds exactly the unsharded
-    codes of its slice."""
+    packed code bytes and per-column scales of the slice, an expert cut
+    its experts' codes and scales, a row cut its code rows and every
+    scale: each shard holds exactly the unsharded codes of its slice."""
     n = mesh.size
 
     def take(s: int, device):
@@ -175,10 +208,12 @@ def shard_params(params: Any, policy: ShardingPolicy, mesh) -> list:
                         raise NotImplementedError(
                             f"shards={n}: {'/'.join(keys)} would cut a "
                             f"packed code byte ({cols} columns per shard)")
+                if dim is not None:
                     codes = _cut(codes, dim, s, n)
-                    scale = _cut(scale, dim, s, n)
-                elif dim is not None:
-                    codes = _cut(codes, dim, s, n)
+                    if scale.shape[dim] > 1:
+                        # per-column (or per-expert) scales go with their
+                        # slice; a row cut keeps every scale
+                        scale = _cut(scale, dim, s, n)
                 return QuantizedTensor(_place(codes, device),
                                        _place(scale, device), x.scheme,
                                        x.packed)

@@ -199,6 +199,10 @@ def test_prefill_and_decode_match_reference(weights, scheme):
 # the dense serving engine
 # ---------------------------------------------------------------------------
 
+#: the half-width cache dtypes, each its own case beside f32 and codes
+HALF = ("bfloat16", "float16")
+
+
 @pytest.fixture(scope="module")
 def workload():
     cfg = _cfg(get_config, reduced)
@@ -207,11 +211,11 @@ def workload():
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in LENS]
     want, metrics = {}, {}
-    for scheme in (None, "spx_8_x3", "bfloat16"):
-        quant = scheme not in (None, "bfloat16")
+    for scheme in (None, "spx_8_x3") + HALF:
+        quant = scheme not in (None,) + HALF
         rt = JRuntime(impl="ref", q_chunk=16, kv_quant=quant,
                       kv_scheme=scheme if quant else "uniform8")
-        dtype = "bfloat16" if scheme == "bfloat16" else "float32"
+        dtype = scheme if scheme in HALF else "float32"
         eng = JServeEngine(params, cfg, JServeConfig(
             kv_layout="dense", kv_cache_dtype=dtype, **KNOBS), rt=rt)
         for i, p in enumerate(prompts):
@@ -223,15 +227,16 @@ def workload():
                 want=want, metrics=metrics)
 
 
-@pytest.mark.parametrize("scheme", [None, "spx_8_x3", "bfloat16"])
+@pytest.mark.parametrize("scheme", [None, "spx_8_x3", "bfloat16",
+                                    "float16"])
 def test_dense_engine_greedy_matches_reference(workload, scheme):
     """Greedy tokens and metrics of the dense engine against the JAX
-    engine's: f32 caches, SPx-coded caches, and bf16 caches (read through
-    f32 math, as the reference reads them)."""
-    quant = scheme not in (None, "bfloat16")
+    engine's: f32 caches, SPx-coded caches, and bf16 and f16 caches (read
+    through f32 math, as the reference reads them)."""
+    quant = scheme not in (None,) + HALF
     rt = Runtime(device="cpu", q_chunk=16, kv_quant=quant,
                  kv_scheme=scheme if quant else "uniform8")
-    dtype = "bfloat16" if scheme == "bfloat16" else "float32"
+    dtype = scheme if scheme in HALF else "float32"
     eng = ServeEngine(workload["params"], workload["cfg"],
                       ServeConfig(kv_layout="dense", kv_cache_dtype=dtype,
                                   **KNOBS), rt=rt)

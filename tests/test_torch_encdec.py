@@ -4,8 +4,8 @@ and ``repro.serving.ServeEngine``: the encoder, the per-layer cross K/V,
 the dense prefill and decode steps, the three paged steps over the state
 cache's cross region, and the greedy tokens of the serving engine (paged
 cb and dense fifo; f32 and JAX-quantized sp2_4 weights; speculative
-decoding; one preemption), and the shared encoder pass: identical frames
-share one cross entry.
+decoding; one preemption; f16 pages and cross region), and the shared
+encoder pass: identical frames share one cross entry.
 
 The same numpy-seeded frames and tokens and the same JAX-made weights
 (carried over by ``interop``) go through both packages; the JAX side runs
@@ -267,6 +267,19 @@ def test_spec_decode_matches_reference(runs, model, fused):
     got, m = _serve(params, cfg, prompts, frames, **knobs)
     assert got == want
     assert m["spec_decode"] and m["spec_k"] == 3
+
+
+@pytest.mark.parametrize("knobs", [dict(), dict(spec_decode=True,
+                                                 spec_k=3)],
+                         ids=["fused", "spec"])
+def test_f16_pages_match_reference(runs, model, knobs):
+    """f16 pages and an f16 cross region (the fused tick, and speculative
+    decoding) give the reference engine's tokens on the same dtype."""
+    knobs = dict(knobs, kv_cache_dtype="float16")
+    params, cfg, prompts, frames, want = _case(runs, model, False, **knobs)
+    got, m = _serve(params, cfg, prompts, frames, **knobs)
+    assert got == want
+    assert m["kv_cache_dtype"] == "float16"
 
 
 def test_preempt_resume_keeps_tokens(runs, model):

@@ -101,16 +101,16 @@ def test_paged_attention_matches_interpret_kernel(jx):
     assert (got[0] == 0).all()                 # ctx_len == 0 -> zeros
 
 
-def _bf16_case(rng, dh, ps, w):
-    """Kernels 2 and 5 over bf16 pages: 4 slots, 2 KV heads under rep 2,
-    3 pages per slot. Slot 0 is empty (ctx_len 0), slot 1's window
-    crosses a page boundary (ctx = ps - 2), slot 2 ends one token into its
-    last page. The bf16 values are made in torch and handed to JAX as the
-    f32 values they are, so both sides hold the same bf16 pages."""
+def _bf16_case(rng, dh, ps, w, dtype=torch.bfloat16):
+    """Kernels 2 and 5 over bf16 (or ``dtype``) pages: 4 slots, 2 KV heads
+    under rep 2, 3 pages per slot. Slot 0 is empty (ctx_len 0), slot 1's
+    window crosses a page boundary (ctx = ps - 2), slot 2 ends one token
+    into its last page. The page values are made in torch and handed to
+    JAX as the f32 values they are, so both sides hold the same pages."""
     b, hkv, rep, mp = 4, 2, 2, 3
     n_pages = 1 + b * mp
     kp, vp = (torch.from_numpy(rng.standard_normal(
-        (n_pages, hkv, ps, dh)).astype(np.float32)).bfloat16()
+        (n_pages, hkv, ps, dh)).astype(np.float32)).to(dtype)
         for _ in range(2))
     bt = rng.permutation(n_pages)[:b * mp].reshape(b, mp).astype(np.int32)
     q = rng.standard_normal((b, w, hkv * rep, dh)).astype(np.float32)
@@ -120,7 +120,9 @@ def _bf16_case(rng, dh, ps, w):
 
 
 def _jbf16(jx, t):
-    return jx.jnp.asarray(t.float().numpy()).astype(jx.jnp.bfloat16)
+    """A torch bf16 (or f16) tensor as the JAX array of the same dtype."""
+    return jx.jnp.asarray(t.float().numpy()).astype(
+        getattr(jx.jnp, str(t.dtype).replace("torch.", "")))
 
 
 def _slot_rel_err(got, want) -> float:
@@ -187,6 +189,102 @@ def test_bf16_pages_plain_versions_match_reference(jx, dh, ps, w):
     assert np.abs(got - oracle).max() <= 1e-5 * peak
     assert _slot_rel_err(got, pallas) <= 1e-2
     assert (got[0] == 0).all()
+
+
+#: f16 pages: the plain versions' largest error in a slot, over that slot's
+#: largest |output|, against the reference oracle (probabilities in f32)
+#: and against the Pallas kernels (each probability rounded to f16 at the
+#: page's running max): the bf16 bound of 1e-2 over 2^3, f16 carrying
+#: three more significand bits (measured: up to 2.6e-4)
+F16_SLOT_RTOL = 1e-2 / 8
+
+
+@pytest.mark.parametrize("w", [1, 5])
+@pytest.mark.parametrize("dh", [32, 128])
+def test_f16_pages_plain_versions_match_reference(jx, dh, w):
+    """The port's plain versions of kernels 2 and 5 over f16 pages (upcast
+    after the gather; each probability rounded to f16 before P @ V, as the
+    TPU kernel's ``pv.astype(v.dtype)`` does) against the reference oracle
+    and the Pallas kernels in interpret mode on the same pages, within
+    F16_SLOT_RTOL of each slot's largest |output|."""
+    from repro.kernels.paged_attention import (paged_attention_pallas,
+                                               paged_decode_ragged_pallas)
+    ps = 16
+    rng = np.random.default_rng(dh + ps + w + 1)
+    q, kp, vp, bt, ctx, qlen = _bf16_case(rng, dh, ps, w, torch.float16)
+    t = lambda a: torch.from_numpy(a)
+    ops.reset_op_calls()
+    got = ops.paged_decode_ragged(t(q), kp, vp, t(bt), t(ctx),
+                                  t(qlen)).numpy()
+    assert ops.ref_calls() == {"paged_decode_ragged": 1}
+    assert ops.op_calls() == {}
+    b, _, hq, _ = q.shape
+    hkv = kp.shape[1]
+    q4 = q.reshape(b, w, hkv, hq // hkv, dh).transpose(0, 2, 3, 1, 4) \
+        .reshape(b, hkv, -1, dh)
+    j = (jx.jnp.asarray(q4), _jbf16(jx, kp), _jbf16(jx, vp),
+         jx.jnp.asarray(bt), jx.jnp.asarray(ctx), jx.jnp.asarray(qlen))
+    unpack = lambda o: np.asarray(o).reshape(b, hkv, hq // hkv, w, dh) \
+        .transpose(0, 3, 1, 2, 4).reshape(b, w, hq, dh)
+    for want in (jx.ref.paged_decode_ragged_ref(*j, w=w),
+                 paged_decode_ragged_pallas(*j, w=w, interpret=True)):
+        assert _slot_rel_err(got, unpack(want)) <= F16_SLOT_RTOL
+    for row, n in enumerate(qlen):
+        assert (got[row, n:] == 0).all()
+
+    ctx1 = np.asarray([0, 1, ps, 3 * ps], np.int32)
+    q1 = np.ascontiguousarray(q[:, 0])
+    got = ops.paged_attention(t(q1), kp, vp, t(bt), t(ctx1)).numpy()
+    j1 = (jx.jnp.asarray(q1.reshape(b, hkv, hq // hkv, dh)), j[1], j[2],
+          j[3], jx.jnp.asarray(ctx1))
+    for want in (jx.ref.paged_attention_ref(*j1),
+                 paged_attention_pallas(*j1, interpret=True)):
+        assert _slot_rel_err(got, np.asarray(want).reshape(b, hq, dh)) \
+            <= F16_SLOT_RTOL
+    assert (got[0] == 0).all()
+
+
+def f16_subnormal_case(device="cpu", n_tokens=64, dh=32):
+    """f16 pages whose probabilities are f16 subnormals: every fourth
+    position (the first of each of the kernel's 4-token groups, so every
+    running max already holds it) scores 12 over the rest and has V = 0;
+    the others score 0 and have V = 1, so each of their probabilities,
+    exp(-12) = 6.1e-6, lies below f16's normal range (6.1e-5) and the
+    output, 3 round(exp(-12)) / (1 + 3 exp(-12)), is made of them alone:
+    zero where they are flushed. 2 slots of one KV head, one query row;
+    slot 1 attends half the context. Returns (q (B, 1, 1, dh), kp, vp,
+    block_table, ctx, q_len)."""
+    b, ps = 2, 16
+    mp = n_tokens // ps
+    k = torch.zeros((b * mp, 1, ps, dh))
+    k[:, :, ::4, 0] = 1.0
+    v = torch.ones((b * mp, 1, ps, dh))
+    v[:, :, ::4] = 0.0
+    q = torch.zeros((b, 1, 1, dh))
+    q[..., 0] = 12.0 * dh ** 0.5
+    bt = torch.arange(b * mp, dtype=torch.int32).reshape(b, mp)
+    ctx = torch.tensor([n_tokens - 1, n_tokens // 2 - 1], dtype=torch.int32)
+    return tuple(x.to(device) for x in (
+        q, k.half(), v.half(), bt, ctx, torch.ones(b, dtype=torch.int32)))
+
+
+def test_f16_subnormal_probabilities_are_kept(jx):
+    """The plain version rounds subnormal probabilities as the Pallas
+    kernel does (within 1e-5 of it), where flushing them would give
+    zeros."""
+    from repro.kernels.paged_attention import paged_decode_ragged_pallas
+    q, kp, vp, bt, ctx, qlen = f16_subnormal_case()
+    got = ops.paged_decode_ragged(q, kp, vp, bt, ctx, qlen).numpy()
+    p = np.float32(np.exp(np.float32(-12.0)))
+    want = 3 * np.float32(np.float16(p)) / (1 + 3 * p)
+    assert np.float16(p) != 0 and np.float16(p) < np.finfo(np.float16).tiny
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # one KV head and one row: (B, W, Hq, dh) is (B, Hkv, R, dh)
+    j = (jx.jnp.asarray(q.numpy()), _jbf16(jx, kp), _jbf16(jx, vp),
+         jx.jnp.asarray(bt.numpy()), jx.jnp.asarray(ctx.numpy()),
+         jx.jnp.asarray(qlen.numpy()))
+    pallas = np.asarray(paged_decode_ragged_pallas(*j, w=1, interpret=True))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5)
 
 
 def _split_case(rng, quant: bool):
@@ -524,16 +622,13 @@ def test_cuda_spx_matmul_ragged_shapes_deterministic(cuda):
                 assert torch.equal(got, again), (scheme, k, n, m)
 
 
-@pytest.mark.gpu
-def test_cuda_bf16_pages_match_plain_version(cuda):
-    """Kernels 2 and 5 over bf16 pages (the ``Bf16Page`` instance) at dh in
-    {32, 64, 128, 256} and page sizes 16 and 32, W = 1 and 5, an empty
-    slot, a window across a page boundary, and a context of 2048 tokens
-    that splits: within 1e-2 of the plain version's largest |output| in
-    each slot (the kernel rounds each probability to bf16, the plain
-    version does not),
-    masked rows exact zeros, a second launch bit-identical, and every
-    launch counted under the bf16 route."""
+def _cuda_half_pages_match_plain_version(cuda, dtype, tol, suffix):
+    """Kernels 2 and 5 over ``dtype`` pages at dh in {32, 64, 128, 256}
+    and page sizes 16 and 32, W = 1 and 5, an empty slot, a window across
+    a page boundary, and a context of 2048 tokens that splits: within
+    ``tol`` of the plain version's largest |output| in each slot, masked
+    rows exact zeros, a second launch bit-identical, and every launch
+    counted under the ``suffix`` route."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_decode_ragged_cuda)
     gen = torch.Generator(device=cuda).manual_seed(16)
@@ -545,7 +640,7 @@ def test_cuda_bf16_pages_match_plain_version(cuda):
                 b, hkv, rep = 4, 2 if dh < 256 else 1, 8 if w == 1 else 2
                 n_pages = 1 + b * mp
                 kp, vp = (torch.randn((n_pages, hkv, ps, dh), generator=gen,
-                                      device=cuda).bfloat16()
+                                      device=cuda).to(dtype)
                           for _ in range(2))
                 bt = (torch.randperm(n_pages - 1, generator=gen,
                                      device=cuda)[:b * mp].reshape(b, mp)
@@ -563,7 +658,7 @@ def test_cuda_bf16_pages_match_plain_version(cuda):
                                                    w=w)
                 case = (dh, ps, w, mp)
                 assert got.dtype == torch.float32, case
-                assert _slot_rel_err(got.cpu(), want.cpu()) <= 1e-2, case
+                assert _slot_rel_err(got.cpu(), want.cpu()) <= tol, case
                 assert torch.equal(got, again), case
                 rows_off = torch.arange(rep * w, device=cuda) % w \
                     >= qn[:, None]
@@ -574,14 +669,41 @@ def test_cuda_bf16_pages_match_plain_version(cuda):
                 got = paged_attention_cuda(q1, kp, vp, bt, ctx1)
                 again = paged_attention_cuda(q1, kp, vp, bt, ctx1)
                 want = ref.paged_attention_ref(q1, kp, vp, bt, ctx1)
-                assert _slot_rel_err(got.cpu(), want.cpu()) <= 1e-2, case
+                assert _slot_rel_err(got.cpu(), want.cpu()) <= tol, case
                 assert torch.equal(got, again) and (got[0] == 0).all(), case
                 launches += 2
-    assert ops.op_calls() == {"paged_decode_ragged_bf16": launches,
-                              "paged_attention_bf16": launches}
-    with pytest.raises(TypeError, match="bfloat16"):
-        # a bf16 K pool beside an f32 V pool
+    assert ops.op_calls() == {"paged_decode_ragged" + suffix: launches,
+                              "paged_attention" + suffix: launches}
+    with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
+        # a half K pool beside an f32 V pool
         paged_decode_ragged_cuda(q, kp, vp.float(), bt, ctx, qn, w=w)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_pages_match_plain_version(cuda):
+    """``_cuda_half_pages_match_plain_version`` on bf16 pages (the
+    ``Bf16Page`` instance), within 1e-2: the kernel rounds each
+    probability to bf16, the plain version does not."""
+    _cuda_half_pages_match_plain_version(cuda, torch.bfloat16, 1e-2, "_bf16")
+
+
+@pytest.mark.gpu
+def test_cuda_f16_pages_match_plain_version(cuda):
+    """``_cuda_half_pages_match_plain_version`` on f16 pages (the
+    ``F16Page`` instance), within F16_SLOT_RTOL: both round each
+    probability to f16, the kernel at its running max, the plain version
+    at the global one. Then the subnormal case at 2048 tokens (split over
+    blocks): within 1e-5 of the plain version, which keeps the subnormal
+    probabilities as the kernel must."""
+    from repro_torch.kernels.paged_attention import paged_decode_ragged_cuda
+    _cuda_half_pages_match_plain_version(cuda, torch.float16, F16_SLOT_RTOL,
+                                         "_f16")
+    q, kp, vp, bt, ctx, qn = f16_subnormal_case(cuda, n_tokens=2048, dh=128)
+    # one KV head and one row: (B, W, Hq, dh) is (B, Hkv, R, dh)
+    got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=1)
+    want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn, w=1)
+    assert (want > 0).all()
+    assert ((got - want).abs() <= 1e-5 * want.abs()).all()
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 same JAX-made params and the same inputs: top-1 and top-2 routing with the
 capacity unconstrained, capacity drops (the same tokens dropped), the
 shared expert, the capacity formula, the aux loss, stacked
-QuantizedTensor experts, and a router tie, where the lower expert index
-must win as in ``jax.lax.top_k``.
+QuantizedTensor experts, a router tie, where the lower expert index
+must win as in ``jax.lax.top_k``, the experts run a block at a time, and
+the expert-parallel MoE over two CPU shards (``moe_apply_sharded``)
+against the reference's one-device MoE.
 
 Tolerance: outputs within 1e-5 of the largest |output| (``_close``), the
 aux loss within 1e-5 relative. Both sides sum f32 products over D and F in
@@ -141,3 +143,55 @@ def test_router_tie_takes_the_lower_index():
     assert (idx[:, 0] == 1).all()
     _, idx2 = tmoe._top_k(torch.tensor([[0.1, 0.3, 0.2, 0.3, 0.1]]), 3)
     assert idx2.tolist() == [[1, 3, 2]]
+
+
+@pytest.mark.parametrize("per", [1, 3], ids=["one-expert", "three-experts"])
+def test_expert_blocks_match_reference(monkeypatch, per):
+    """A stack dequantized a block of experts at a time (as a full-width
+    jamba layer is: ``EXPERT_BLOCK_ELEMS`` set here to ``per`` experts of
+    16 x 32, the last block short) gives the reference's output, capacity
+    drops included."""
+    p, x = _setup(seed=6)
+    monkeypatch.setattr(tmoe, "EXPERT_BLOCK_ELEMS", per * 16 * 32)
+    (jy, _), (ty, _) = _both(p, x, top_k=2, n_experts=4,
+                             capacity_factor=0.1)
+    _close(ty, jy)
+
+
+def _expert_shards(p, n_experts, n_shared=0):
+    """The reference's MoE params cut over two CPU shards by
+    ``sharding.shard_params`` (experts split, router whole, a shared
+    expert cut as a tensor-parallel MLP), and the runtime of their mesh."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.sharding import ShardingPolicy, shard_params
+    cfg = dataclasses.replace(reduced(get_config("olmoe-1b-7b")),
+                              n_experts=n_experts,
+                              n_shared_experts=n_shared)
+    mesh = make_serving_mesh(2, ["cpu", "cpu"])
+    shards = shard_params({"moe": params_from_reference(p)},
+                          ShardingPolicy(cfg, mesh), mesh)
+    return [s["moe"] for s in shards], Runtime(device="cpu", mesh=mesh)
+
+
+@pytest.mark.parametrize("cf,n_shared", [(64.0, 0), (0.1, 0), (64.0, 1)],
+                         ids=["unconstrained", "drops", "shared"])
+def test_expert_parallel_matches_reference(cf, n_shared):
+    """``moe_apply_sharded`` over two shards of 2 experts each (the
+    reference's expert-parallel body: the router and the capacity global,
+    another shard's assignments parked, the partials summed in shard
+    order) against the reference's one-device MoE: the same output within
+    RTOL (only the combine's order differs), the same tokens dropped, the
+    same aux loss, and each shard holding its half of the experts."""
+    p, x = _setup(seed=7, n_shared=n_shared)
+    shards, rt = _expert_shards(p, 4, n_shared)
+    assert [s["gate"].shape[0] for s in shards] == [2, 2]
+    assert torch.equal(shards[1]["gate"],
+                       torch.tensor(np.asarray(p["gate"])[2:]))
+    jy, jaux = jmoe.moe_apply(p, jnp.asarray(x), top_k=2, n_experts=4,
+                              capacity_factor=cf, rt=JRT)
+    ty, taux = tmoe.moe_apply_sharded(shards, torch.from_numpy(x), top_k=2,
+                                      n_experts=4, capacity_factor=cf, rt=rt)
+    _close(ty.numpy(), np.asarray(jy))
+    assert float(taux) == pytest.approx(float(jaux), rel=RTOL)

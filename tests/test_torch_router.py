@@ -190,12 +190,13 @@ def test_resolve_owns_env_fallbacks(monkeypatch):
     assert dense.shards == 1 and dense.replicas == 3
     with pytest.raises(ValueError, match="paged"):
         ServeConfig(quantize=None, kv_layout="dense", shards=2).resolve(CFG)
-    # a pattern this port does not shard degrades the env default, and
-    # raises when asked explicitly
+    # every pattern takes the env default and an explicit shards=, as the
+    # reference's resolve does
     moe = reduced(get_config("olmoe-1b-7b"))
-    assert ServeConfig().resolve(moe).shards == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeConfig(shards=2).resolve(moe)
+    jmoe = jreduced(jget_config("olmoe-1b-7b"))
+    assert ServeConfig().resolve(moe).shards == \
+        JServeConfig().resolve(jmoe).shards == 2
+    assert ServeConfig(shards=4).resolve(moe).shards == 4
 
 
 def test_resolve_validates_new_knobs():

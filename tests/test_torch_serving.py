@@ -4,7 +4,7 @@ size pinned in both engines): greedy outputs are identical under the cb
 and fifo schedulers, with preemption and host offload, with weights the
 port quantizes itself or that JAX quantized and the port carried over, and
 with the prefix cache, speculative decoding and the unfused tick, and on
-bf16 pages (fused and unfused ticks, and with preemption). Also: knobs
+bf16 and f16 pages (fused and unfused ticks, and with preemption). Also: knobs
 this port lacks raise (and shards beyond the devices, replicas on a bare
 engine), env knobs resolve as in the reference,
 entry points never fall back quietly to the CPU, and importing the port
@@ -175,36 +175,40 @@ def test_serving_modes_match_reference(workload, knobs):
         assert m[key] == jm[key], key
 
 
-@pytest.fixture(scope="module")
-def bf16_want(workload):
-    """The reference engine's greedy tokens and metrics on bf16 pages
+def _half_want(workload, dtype):
+    """The reference engine's greedy tokens and metrics on ``dtype`` pages
     (the oracle path: probabilities in f32 over the upcast pages)."""
     jeng = JServeEngine(workload["params"], _cfg(get_config, reduced),
-                        JServeConfig(kv_cache_dtype="bfloat16", **KNOBS),
+                        JServeConfig(kv_cache_dtype=dtype, **KNOBS),
                         rt=JRuntime(impl="ref", q_chunk=16))
     for i, p in enumerate(workload["prompts"]):
         jeng.submit(JRequest(rid=i, prompt=p, max_new_tokens=NEW))
     return {r.rid: list(r.output) for r in jeng.run()}, jeng.metrics()
 
 
-@pytest.mark.parametrize("knobs", [
-    dict(),
-    dict(fused_decode=False),
-    dict(pool_pages=13),
-], ids=["fused", "unfused", "preempted"])
-def test_bf16_pages_match_reference(workload, bf16_want, knobs):
-    """Paged engines on bf16 pages give the JAX bf16 engine's greedy
-    tokens: the fused tick (kernel 2), the unfused tick (kernel 5), and a
-    pool of 13 pages where a late priority-1 request preempts a resident
-    (its bf16 pages go to the host tier and come back)."""
-    want, jm = bf16_want
+@pytest.fixture(scope="module")
+def bf16_want(workload):
+    return _half_want(workload, "bfloat16")
+
+
+@pytest.fixture(scope="module")
+def f16_want(workload):
+    return _half_want(workload, "float16")
+
+
+def _check_half_pages(workload, reference, knobs, dtype):
+    """Paged engines on ``dtype`` pages give the JAX engine's greedy
+    tokens on the same pages: the fused tick (kernel 2), the unfused tick
+    (kernel 5), and a pool of 13 pages where a late priority-1 request
+    preempts a resident (its pages go to the host tier and come back)."""
+    want, jm = reference
     ops.reset_op_calls()
     out, m = _serve(params_from_reference(workload["params"]),
                     workload["cfg"], workload["prompts"],
-                    ServeConfig(kv_cache_dtype="bfloat16", **KNOBS, **knobs),
+                    ServeConfig(kv_cache_dtype=dtype, **KNOBS, **knobs),
                     priority_at=3 if "pool_pages" in knobs else None)
     assert out == want
-    assert m["kv_cache_dtype"] == jm["kv_cache_dtype"] == "bfloat16"
+    assert m["kv_cache_dtype"] == jm["kv_cache_dtype"] == dtype
     for key in ("page_size", "tokens_generated"):
         assert m[key] == jm[key], key
     if not knobs:
@@ -221,11 +225,33 @@ def test_bf16_pages_match_reference(workload, bf16_want, knobs):
     assert ops.op_calls() == {}
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16, "float32"])
+HALF_KNOBS = pytest.mark.parametrize("knobs", [
+    dict(),
+    dict(fused_decode=False),
+    dict(pool_pages=13),
+], ids=["fused", "unfused", "preempted"])
+
+
+@HALF_KNOBS
+def test_bf16_pages_match_reference(workload, bf16_want, knobs):
+    """``_check_half_pages`` on bf16 pages."""
+    _check_half_pages(workload, bf16_want, knobs, "bfloat16")
+
+
+@HALF_KNOBS
+def test_f16_pages_match_reference(workload, f16_want, knobs):
+    """``_check_half_pages`` on f16 pages: the port's plain versions round
+    each probability to f16 before P @ V (as the CUDA and TPU kernels do),
+    the reference's oracle keeps it in f32; the tokens agree."""
+    _check_half_pages(workload, f16_want, knobs, "float16")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", torch.bfloat16, "float32",
+                                   "float16", torch.float16])
 def test_cache_dtypes_resolve(workload, dtype):
     sc = ServeConfig(kv_cache_dtype=dtype, **KNOBS).resolve(workload["cfg"])
-    assert sc.kv_cache_dtype == (torch.float32 if dtype == "float32"
-                                 else torch.bfloat16)
+    assert sc.kv_cache_dtype == getattr(torch, str(dtype).replace(
+        "torch.", ""))
     dense = ServeConfig(kv_layout="dense", kv_cache_dtype=dtype).resolve(
         workload["cfg"])
     assert dense.kv_cache_dtype == sc.kv_cache_dtype
@@ -234,12 +260,13 @@ def test_cache_dtypes_resolve(workload, dtype):
 @pytest.mark.parametrize("config", [
     ServeConfig(shards=2),
     ServeConfig(replicas=2),
-    ServeConfig(kv_cache_dtype="float16"),
-    ServeConfig(kv_layout="dense", kv_cache_dtype="float16"),
+    ServeConfig(kv_cache_dtype="float64"),
+    ServeConfig(kv_layout="dense", kv_cache_dtype="float64"),
     ServeConfig(kv_layout="dense", replicas=2),
 ])
 def test_knobs_this_port_lacks_raise(workload, config):
-    """float16 caches raise naming their ROADMAP.md item. shards and
+    """Cache dtypes other than f32, bf16 and f16 (float64 here) raise
+    naming their ROADMAP.md item. shards and
     replicas are ported: a bare engine refuses replicas (the router's
     knob), and shards beyond the one CPU device ask for
     REPRO_FORCE_DEVICE_COUNT."""
@@ -254,17 +281,17 @@ def test_knobs_this_port_lacks_raise(workload, config):
 
 def test_other_patterns_raise():
     """Every pattern of the reference resolves, the encoder-decoder's
-    included; the knobs this port lacks raise on it too, naming their
-    ROADMAP.md items."""
+    included, with shards and f16 pages; a cache dtype this port lacks
+    raises on it too, naming its ROADMAP.md item."""
     cfg = treduced(tget_config("whisper-small"))
     sc = ServeConfig().resolve(cfg)
     assert sc.kv_layout == "paged" and sc.fused_decode
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: multi-device and drivers"):
-        ServeConfig(shards=2).resolve(cfg)
+    assert ServeConfig(shards=2).resolve(cfg).shards == 2
+    assert ServeConfig(kv_cache_dtype="float16").resolve(
+        cfg).kv_cache_dtype == torch.float16
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md: the other KV cache dtypes"):
-        ServeConfig(kv_cache_dtype="float16").resolve(cfg)
+        ServeConfig(kv_cache_dtype="float64").resolve(cfg)
 
 
 def test_env_defaults_degrade_silently(workload, monkeypatch):

@@ -10,15 +10,17 @@
   whole into a replicated pool, as gemma-2b at full width does); also on
   a reduced qwen2-vl-2b (M-RoPE) with one and two KV heads, and under
   preemption. The reference's own test shows its ``shards=2`` equals its
-  ``shards=1``.
+  ``shards=1``. Also reduced olmoe-1b-7b (expert-parallel, sp2_4),
+  xlstm-350m (recurrent mixers whole on each shard), jamba's one period
+  and whisper-small (an odd vocabulary cut on d) at ``shards=2``: the
+  reference's one-device tokens, and its bills.
 * The logits at ``shards=2`` are within SHARD_LOGIT_TOL of ``shards=1``
   (the row-parallel sums add in another order), each shard holds exactly
   the unsharded codes and scales of its slice, and the prefix cache keeps
   the one-shard tokens.
 * ``ShardingPolicy.serving_dim`` cuts the dim the JAX tp policy shards,
-  for every leaf of every bundled ``attn+dense`` config (plain and
-  sp2_4-quantized params) at model widths 2, 4 and 8, wherever head
-  boundaries let the two rules agree; ``pool_spec`` is the reference's
+  for every leaf of every bundled config (plain and sp2_4-quantized
+  params) at model widths 2, 4 and 8, except at the named departures; ``pool_spec`` is the reference's
   pool spec for every config; ``plan_shard_budget`` gives the
   reference's numbers.
 * ``ServeEngine.metrics()`` has the reference's keys plus ``device``, and
@@ -38,6 +40,7 @@ from repro.configs import assigned_archs
 from repro.configs import get_config as jget_config
 from repro.configs import reduced as jreduced
 from repro.launch.steps import _params_sds
+from repro.models import encdec as jed
 from repro.models import lm as jlm
 from repro.runtime import Runtime as JRuntime
 from repro.runtime import planner as jplanner
@@ -55,7 +58,6 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.runtime import Runtime, planner
 from repro_torch.serving import Request, ServeConfig, ServeEngine
 from repro_torch.serving.kv_cache import kv_bytes_per_token
-from repro_torch.nn.transformer import SHARDED_SLOTS
 from repro_torch.sharding import ShardingPolicy, shard_paged_state
 
 KNOBS = dict(batch_slots=2, max_seq=64, quantize="sp2_4", kv_layout="paged",
@@ -197,6 +199,127 @@ def test_sharded_mrope_matches_reference(workloads, two_devices, fused, hkv):
     _check_shard_bills(work, m, False, hkv)
 
 
+#: the families served sharded beside gemma-2b and qwen2-vl-2b: arch ->
+#: (layers, vocab, weights) at reduced size. jamba is one period of its 8
+#: slots; whisper-small's vocabulary of 513 does not split, so its table
+#: and head are cut on d; olmoe's sp2_4 experts are cut with their scales
+FAMILIES = {"olmoe-1b-7b": (2, 512, "sp2_4"), "xlstm-350m": (4, 512, None),
+            "jamba-1.5-large-398b": (8, 512, None),
+            "whisper-small": (2, 513, None)}
+FAMILY_KNOBS = dict(batch_slots=4, max_seq=64, page_size=8)
+FAMILY_LENS = (5, 12, 9)
+FAMILY_NEW = 6
+#: the bills a shard count does not change, held to the reference's
+SHARED_BILLS = ("n_pages", "peak_kv_bytes", "n_slabs", "peak_slabs",
+                "slab_bytes_per_seq", "peak_state_bytes", "n_cross",
+                "peak_cross", "cross_bytes_per_entry", "cross_hits",
+                "tokens_generated")
+
+
+def _family_frames(cfg, n):
+    """Encoder inputs of an enc-dec config (None elsewhere): rids 0 and 1
+    share one, the rest another."""
+    if not cfg.enc_dec:
+        return [None] * n
+    fr = np.random.default_rng(3).standard_normal(
+        (2, cfg.enc_seq_len, cfg.d_model)).astype(np.float32)
+    return [fr[min(i // 2, 1)] for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def families():
+    """``get(arch)``: the reduced config, the reference's weights (seed 1)
+    and prompts, its one-device paged engine's greedy tokens and metrics,
+    and the reference's per-shard budget at shards=2 (its planner on the
+    arguments its engine bills with); each built once."""
+    built = {}
+
+    def get(arch):
+        if arch in built:
+            return built[arch]
+        layers, vocab, weights = FAMILIES[arch]
+        jcfg = jreduced(jget_config(arch), n_layers=layers, vocab=vocab)
+        jp = (jed.encdec_init if jcfg.enc_dec else jlm.lm_init)(
+            jax.random.PRNGKey(1), jcfg)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, vocab, n).astype(np.int32)
+                   for n in FAMILY_LENS]
+        frames = _family_frames(jcfg, len(prompts))
+        eng = JServeEngine(jp, jcfg, JServeConfig(**FAMILY_KNOBS,
+                                                  quantize=weights),
+                           rt=JRuntime(impl="ref", q_chunk=16))
+        for i, (p, f) in enumerate(zip(prompts, frames)):
+            eng.submit(JRequest(rid=i, prompt=p, max_new_tokens=FAMILY_NEW,
+                                frames=f))
+        want = {r.rid: list(r.output) for r in eng.run()}
+        jm = eng.metrics()
+        budget = None
+        if "page_size" in jm and jm["n_pages"]:
+            dcfg = eng._decode_cfg
+            budget = jplanner.plan_shard_budget(
+                dcfg.n_kv_heads, dcfg.dh, shards=2,
+                page_size=jm["page_size"], n_pages=jm["n_pages"],
+                n_layers=eng._paged_layers(),
+                slab_bytes=jm["slab_bytes_per_seq"],
+                act_bytes=eng.kv_cache_dtype.itemsize, kv_scheme=None)
+        built[arch] = dict(
+            cfg=reduced(get_config(arch), n_layers=layers, vocab=vocab),
+            weights=weights,
+            params=params_from_reference(jp), prompts=prompts,
+            frames=frames, want=want, metrics=jm, budget=budget)
+        return built[arch]
+    return get
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_sharded_families_match_reference(families, two_devices, arch):
+    """olmoe-1b-7b (expert-parallel MoE), xlstm-350m (mLSTM and sLSTM
+    whole on each shard, pageless), jamba (one period: attention pages,
+    mamba slabs and the MoE) and whisper-small (the encoder and the cross
+    region head-sharded; an odd vocabulary cut on d) at shards=2 (olmoe
+    with sp2_4 weights each engine quantizes itself): the reference's
+    one-device greedy tokens, the bills a shard count does not change
+    equal to the reference's, one shard's bills equal to the reference's
+    planner at shards=2, and no kernel launched (CPU tensors)."""
+    work = families(arch)
+    cfg = work["cfg"]
+    ops.reset_op_calls()
+    eng = ServeEngine(work["params"], cfg,
+                      ServeConfig(**FAMILY_KNOBS, quantize=work["weights"],
+                                  shards=2), rt=_rt(False))
+    for i, (p, f) in enumerate(zip(work["prompts"], work["frames"])):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=FAMILY_NEW,
+                           frames=f))
+    assert {r.rid: list(r.output) for r in eng.run()} == work["want"]
+    assert ops.op_calls() == {}
+    m, jm, budget = eng.metrics(), work["metrics"], work["budget"]
+    assert m["shards"] == 2
+    for key in SHARED_BILLS:
+        assert m.get(key) == jm.get(key), key
+    if budget is not None:
+        assert (m["kv_sharded"], m["kv_heads_per_shard"],
+                m["pool_bytes_per_shard"]) == (
+            budget.kv_sharded, budget.kv_heads_per_shard, budget.pool_bytes)
+        assert m["peak_kv_bytes_per_shard"] == \
+            m["peak_kv_pages"] * budget.page_bytes
+    else:
+        assert "kv_sharded" not in m and m["n_pages"] == 0
+    d, v = cfg.d_model, cfg.vocab_size
+    for s, p in enumerate(eng.params):
+        table = p["embed"]["table"]
+        if v % 2:
+            # a vocabulary that does not split: table columns, head rows
+            assert tuple(table.shape) == (v, d // 2)
+            assert tuple(p["head"]["w"].shape) == (d // 2, v)
+        else:
+            assert tuple(table.shape) == (v // 2, d)
+        if cfg.is_moe:
+            slot = next(sp for sp in p["stack"]["slots"] if "moe" in sp)
+            assert slot["moe"]["gate"].shape[1] == cfg.n_experts // 2
+            assert tuple(slot["moe"]["router"]["w"].shape[-1:]) == \
+                (cfg.n_experts,)
+
+
 def test_one_shard_bills_globally(workload):
     out, m = _serve(workload, ServeConfig(**KNOBS))
     assert out == workload["want"](False)
@@ -302,9 +425,36 @@ def test_devices_and_mesh(monkeypatch, workload):
 
 
 def test_other_patterns_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: multi-device and drivers"):
-        ServeConfig(shards=2).resolve(reduced(get_config("olmoe-1b-7b")))
+    """Every pattern resolves at shards=2; what the port's forward still
+    cannot cut raises naming the ROADMAP.md item: KV heads that neither
+    split nor sit one per shard's query heads (qwen2-vl-2b at 4 shards),
+    experts or a vocabulary and d_model that do not split, and a training
+    loss under a mesh."""
+    for arch in ("olmoe-1b-7b", "xlstm-350m", "jamba-1.5-large-398b",
+                 "whisper-small"):
+        assert ServeConfig(shards=2).resolve(
+            reduced(get_config(arch))).shards == 2
+    match = "ROADMAP.md: multi-device and drivers"
+    qwen = get_config("qwen2-vl-2b")
+    with pytest.raises(NotImplementedError, match=match):
+        ShardingPolicy(qwen, make_serving_mesh(4, ["meta"] * 4)).serving_dim(
+            ["stack", "slots", "0", "attn", "wk", "w"],
+            (qwen.n_periods, qwen.d_model, qwen.n_kv_heads * qwen.dh))
+    olmoe = get_config("olmoe-1b-7b")
+    three = ShardingPolicy(olmoe, make_serving_mesh(3, ["meta"] * 3))
+    with pytest.raises(NotImplementedError, match="64 experts"):
+        three.serving_dim(["stack", "slots", "0", "moe", "gate"],
+                          (olmoe.n_periods, 64, olmoe.d_model, olmoe.d_ff))
+    with pytest.raises(NotImplementedError, match="vocab 50305"):
+        three.serving_dim(["embed", "table"], (50305, 2050))
+    cfg = dataclasses.replace(reduced(get_config("gemma-2b")), vocab_size=32)
+    params = lm_mod.lm_init(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match=match):
+        lm_mod.lm_loss(params, batch, cfg, Runtime(
+            device="cpu", mesh=make_serving_mesh(2, ["cpu", "cpu"])))
 
 
 def test_heads_the_forward_cannot_cut_raise():
@@ -400,58 +550,69 @@ def _port_leaves(tree, path=()):
         yield path, tree
 
 
-def _serves_sharded(cfg) -> bool:
-    return not cfg.enc_dec and not set(cfg.pattern) - set(SHARDED_SLOTS)
+#: the recurrent mixers, whose leaves the port keeps whole on every shard
+RECURRENT = {"mamba", "mlstm", "slstm"}
 
 
 @pytest.mark.parametrize("width", [2, 4, 8])
 def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
     """``serving_dim`` against the JAX tp policy (fsdp off, as the
     reference's serving engine builds it), leaf for leaf of every bundled
-    ``attn+dense`` config, plain and sp2_4 (a QuantizedTensor: the dim of
-    its logical shape against the spec of its codes, and a column cut of
-    its scales against theirs). The two rules differ only where head
-    boundaries force it: K/V projections whose KV heads do not split are
-    computed whole on every shard (the reference may cut gemma-2b's one
-    KV head), the bias of a column-parallel projection is cut with its
-    heads (the reference replicates it: any placement is correct under
-    GSPMD), and a leaf the port's forward cannot cut raises. Then
+    config, plain and sp2_4 (a QuantizedTensor: the dim of its logical
+    shape against the spec of its codes, and a column or expert cut of its
+    scales against theirs). The two rules differ only where the port's
+    forward forces it, each departure named: K/V projections whose KV
+    heads do not split are computed whole on every shard (the reference
+    may cut gemma-2b's one KV head), the bias of a column-parallel
+    projection is cut with its heads (the reference replicates it: any
+    placement is correct under GSPMD), a recurrent mixer's projections
+    stay whole (the mixer runs whole on every shard against replicated
+    slabs, where GSPMD cuts them by columns and rows), and a leaf the
+    port's forward cannot cut raises. The MoE's experts, its router, the
+    d-cut table and head of a vocabulary that does not split (whisper-small,
+    granite-3-8b) and the encoder's leaves agree with the reference. Then
     ``pool_spec`` against the reference's ``paged_state_specs`` for every
     config, and the engine's per-shard pools follow it."""
     mesh = types.SimpleNamespace(shape={"data": 1, "model": width})
-    agree, whole_kv, bias_cut, refused = 0, [], [], []
+    agree, whole_kv, bias_cut, whole_recurrent, refused = 0, [], [], [], []
+    cut = set()
     for (arch, quantized), (sds, tree) in param_shapes.items():
         jcfg, cfg = jget_config(arch), get_config(arch)
         pol = ShardingPolicy(cfg, mesh)
-        if _serves_sharded(cfg):
-            want = _jax_flat(JShardingPolicy(jcfg, mesh, fsdp=False,
-                                             parallelism="tp")
-                             .param_specs(sds))
-            for path, leaf in _port_leaves(tree):
-                qt = isinstance(leaf, QuantizedTensor)
-                shape = leaf.logical_shape if qt else tuple(leaf.shape)
-                try:
-                    dim = pol.serving_dim(list(path), shape)
-                except NotImplementedError:
-                    refused.append((arch, path))
-                    continue
-                got = tuple("model" if d == dim else None
-                            for d in range(len(shape)))
-                ref = want[path + ("codes",) if qt else path]
-                if got != ref and path[-1] == "b":
-                    assert dim == len(shape) - 1 and not any(ref), \
-                        (arch, quantized, path, got, ref)
-                    bias_cut.append((arch, path))
-                    continue
-                if got != ref:
-                    assert path[-2] in ("wk", "wv") and dim is None \
-                        and not pol.kv_sharded and cfg.n_kv_heads == 1, \
-                        (arch, quantized, path, got, ref)
-                    whole_kv.append((arch, path))
-                    continue
-                agree += 1
-                if qt and dim == len(shape) - 1:
-                    assert want[path + ("scale",)] == got, (arch, path)
+        want = _jax_flat(JShardingPolicy(jcfg, mesh, fsdp=False,
+                                         parallelism="tp").param_specs(sds))
+        for path, leaf in _port_leaves(tree):
+            qt = isinstance(leaf, QuantizedTensor)
+            shape = leaf.logical_shape if qt else tuple(leaf.shape)
+            try:
+                dim = pol.serving_dim(list(path), shape)
+            except NotImplementedError:
+                refused.append((arch, path))
+                continue
+            got = tuple("model" if d == dim else None
+                        for d in range(len(shape)))
+            ref = want[path + ("codes",) if qt else path]
+            if got != ref and path[-1] == "b" and not RECURRENT & set(path):
+                assert dim == len(shape) - 1 and not any(ref), \
+                    (arch, quantized, path, got, ref)
+                bias_cut.append((arch, path))
+                continue
+            if got != ref and RECURRENT & set(path):
+                assert dim is None, (arch, quantized, path, got, ref)
+                whole_recurrent.append((arch, path))
+                continue
+            if got != ref:
+                assert path[-2] in ("wk", "wv") and dim is None \
+                    and not pol.kv_sharded and cfg.n_kv_heads == 1, \
+                    (arch, quantized, path, got, ref)
+                whole_kv.append((arch, path))
+                continue
+            agree += 1
+            if dim is not None:
+                cut.add((arch, path[-2] if path[-1] in ("w", "b")
+                         else path[-1]))
+            if qt and dim is not None and dim != len(shape) - 2:
+                assert want[path + ("scale",)] == got, (arch, path)
         hkv, dh = cfg.n_kv_heads, cfg.dh
         jpol = JShardingPolicy(jcfg, mesh, fsdp=False, parallelism="tp")
         want = _jax_flat(jpol.paged_state_specs(_pools(hkv, dh, _Leaf)))
@@ -461,23 +622,33 @@ def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
         spec = want[("0", "kp")]
         assert (spec[2] == "model") is pol.kv_sharded
         # the engine's per-shard pools follow the spec
-        cut = shard_paged_state(
+        pools = shard_paged_state(
             [{"kp": torch.zeros((1, 2, hkv, 1, 1))}], pol,
             make_serving_mesh(width, ["cpu"] * width))
-        assert cut[0][0]["kp"].shape[2] == (hkv // width if spec[2]
-                                            else hkv)
-    # every attn+dense config has leaves the rules cut alike; gemma-2b's
-    # one KV head and qwen2-vl-2b's q/k/v biases are where they part
-    assert agree > 100
+        assert pools[0][0]["kp"].shape[2] == (hkv // width if spec[2]
+                                              else hkv)
+    # every config has leaves the rules cut alike; gemma-2b's one KV head,
+    # qwen2-vl-2b's q/k/v biases and the recurrent projections are where
+    # they part
+    assert agree > 300
     assert ("gemma-2b", ("stack", "slots", "0", "attn", "wk", "w")) \
         in whole_kv
     assert ("qwen2-vl-2b", ("stack", "slots", "0", "attn", "wq", "b")) \
         in bias_cut or width == 8
+    for arch, mixer, proj in (("xlstm-350m", "mlstm", "in_proj"),
+                              ("xlstm-350m", "slstm", "w_in"),
+                              ("jamba-1.5-large-398b", "mamba", "in_proj")):
+        assert any(a == arch and mixer in p and proj in p
+                   for a, p in whole_recurrent), (arch, mixer, proj)
+    # the experts, the shared expert and the odd vocabularies' d cut are
+    # the reference's
+    for arch, leaf in (("olmoe-1b-7b", "gate"), ("kimi-k2-1t-a32b", "up"),
+                       ("whisper-small", "table"), ("whisper-small", "head"),
+                       ("granite-3-8b", "table"), ("granite-3-8b", "head")):
+        assert (arch, leaf) in cut, (arch, leaf)
     if width == 2:
-        # the two served at shards=2 on the card cut whole (granite-3-8b's
-        # odd vocab of 49155 does not split: it raises)
-        assert not [r for r in refused
-                    if r[0] in ("gemma-2b", "qwen2-vl-2b")], refused[:5]
+        # every bundled config cuts whole at two shards
+        assert not refused, refused[:5]
 
 
 def test_shard_budget_equals_reference():

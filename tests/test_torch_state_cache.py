@@ -234,15 +234,16 @@ def test_paged_state_bills_less_than_dense_whisper(runs):
 
 
 def test_whisper_raises_naming_the_roadmap():
-    """whisper-small serves (ServeConfig resolves on both layouts, and
-    with replicas for the router); what this port still lacks for it
-    raises, naming its ROADMAP.md item."""
+    """whisper-small serves (ServeConfig resolves on both layouts, with
+    replicas for the router, with shards and on f16 pages); a cache dtype
+    this port still lacks raises, naming its ROADMAP.md item."""
     cfg = treduced(tget_config("whisper-small"))
     for layout in ("paged", "dense"):
         assert ServeConfig(kv_layout=layout).resolve(cfg).resolved
     assert ServeConfig(replicas=2).resolve(cfg).replicas == 2
-    for knobs, item in ((dict(shards=2), "multi-device and drivers"),
-                        (dict(kv_cache_dtype="float16"),
-                         "the other KV cache dtypes")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md: {item}"):
-            ServeConfig(**knobs).resolve(cfg)
+    assert ServeConfig(shards=2).resolve(cfg).shards == 2
+    assert ServeConfig(kv_cache_dtype="float16").resolve(
+        cfg).kv_cache_dtype == torch.float16
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: the other KV cache dtypes"):
+        ServeConfig(kv_cache_dtype="float64").resolve(cfg)

@@ -30,6 +30,8 @@ from repro.configs import get_config, reduced
 from repro.data.tokens import TokenStream as JTokenStream
 from repro.models import encdec as jed
 from repro.models import lm as jlm
+from repro.nn import layers as jlayers
+from repro.nn import transformer as jtrans
 from repro.runtime import Runtime as JRuntime
 from repro import training as jtr
 from repro_torch import training as ttr
@@ -42,6 +44,8 @@ from repro_torch.kernels.flash_attention import (FUNCTION_CALLS,
                                                  flash_attention_autograd)
 from repro_torch.models import encdec as ted
 from repro_torch.models import lm as tlm
+from repro_torch.nn import layers as tlayers
+from repro_torch.nn import transformer as ttrans
 from repro_torch.nn.layers import tree_leaves, tree_map
 from repro_torch.runtime import Runtime
 
@@ -158,33 +162,130 @@ def test_chunked_ce_value_and_grad_match_reference(s, chunk):
                  bf16_leaves=("h", "w"))
 
 
+def _head_vjp_jax(h, w, labels):
+    """The loss head's value and cotangents (of h and of the (D, V) head)
+    in the reference."""
+    def head(h, w):
+        ce, z = jlm.chunked_ce(h, w, labels)
+        return ce + jlm.Z_WEIGHT * z
+    return jax.value_and_grad(head, argnums=(0, 1))(h, w)
+
+
+def _head_vjp_torch(h, w, labels):
+    th, tw = (torch.tensor(np.asarray(a), requires_grad=True) for a in (h, w))
+    ce, z = tlm.chunked_ce(th, tw, torch.tensor(np.asarray(labels)))
+    loss = ce + tlm.Z_WEIGHT * z
+    return loss.detach(), torch.autograd.grad(loss, (th, tw))
+
+
+def _backbone_vjp_torch(params, backbone, dh):
+    """The port's gradients of every leaf of ``params`` under the cotangent
+    ``dh`` of ``backbone(params)`` (zeros for a leaf it does not read)."""
+    live = [leaf.detach().requires_grad_(True)
+            for leaf in tree_leaves(params)]
+    it = iter(live)
+    tree = tree_map(lambda _, leaf: next(it), params)
+    grads = torch.autograd.grad(backbone(tree), live, dh, allow_unused=True)
+    grads = iter(torch.zeros_like(leaf) if g is None else g
+                 for g, leaf in zip(grads, live))
+    return tree_map(lambda _, leaf: next(grads), params)
+
+
+def _split_grads_close(jp, jbackbone, tbackbone, head_w, labels):
+    """A loss's gradient held in the two parts where the packages may
+    part, as ``test_train_step_matches_reference_from_the_same_state``
+    holds a step: the loss head's value within LOSS_RTOL and its
+    cotangents (of h and of the head ``head_w(params)``) each element
+    within GRAD_RTOL of the largest plus one bf16 step (both packages
+    round these f32 sums to bf16, ``chunked_ce``'s bf16 operands); then
+    the backbone's gradients (``jbackbone``/``tbackbone``: params -> the
+    final-normed h) under the reference's cotangent of h, within GRAD_RTOL
+    of each leaf's largest with no bf16 step. A whole gradient cannot be
+    held to GRAD_RTOL: a flipped element of h's cotangent reaches every
+    backbone leaf."""
+    h, backbone_vjp = jax.vjp(jbackbone, jp)
+    w = head_w(jp)
+    jhv, (jdh, jdw) = _head_vjp_jax(h, w, labels)
+    thv, (tdh, tdw) = _head_vjp_torch(h, w, labels)
+    _loss_close(thv, jhv)
+    _grads_close({"h": tdh, "w": tdw}, {"h": jdh, "w": jdw},
+                 bf16_leaves=("h", "w"))
+    _grads_close(_backbone_vjp_torch(params_from_reference(jp), tbackbone,
+                                     torch.tensor(np.asarray(jdh))),
+                 backbone_vjp(jdh)[0])
+
+
 def test_lm_loss_value_and_grad_match_reference():
+    """The loss and its parts within LOSS_RTOL; the gradient in the two
+    parts of ``_split_grads_close``."""
     jcfg, tcfg = _gemma()
     jp = jlm.lm_init(jax.random.PRNGKey(1), jcfg)
     batch = _batch(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     (jv, jm), jg = jax.value_and_grad(jlm.lm_loss, has_aux=True)(
-        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg, JRT)
+        jp, jb, jcfg, JRT)
     (tv, tm), tg = ttr.value_and_grad(
-        tlm.lm_loss, params_from_reference(jp),
-        {k: torch.as_tensor(v) for k, v in batch.items()}, tcfg, CPU,
-        has_aux=True)
+        tlm.lm_loss, params_from_reference(jp), tb, tcfg, CPU, has_aux=True)
     _loss_close(tv, jv)
     _loss_close(tm["ce"], jm["ce"])
-    _grads_close(tg, jg)
+    assert set(_flat_torch(tg)) == set(_flat_jax(jg))
+    jpos = jlm._default_positions(jcfg, *jb["tokens"].shape)
+    tpos = tlm._default_positions(tcfg, *tb["tokens"].shape, "cpu")
+    _split_grads_close(
+        jp, lambda p: jlm._backbone(p, jcfg, jb["tokens"], jpos, JRT)[0],
+        lambda p: tlm._backbone(p, tcfg, tb["tokens"], tpos, CPU)[0],
+        lambda p: jlm._head_w(p, jcfg), jb["labels"])
+
+
+def _jax_encdec_backbone(cfg, batch):
+    """params -> whisper's final-normed decoder output h, as the
+    reference's ``encdec_loss`` computes it."""
+    tokens = batch["tokens"]
+    pos = jlm._default_positions(cfg, *tokens.shape)
+
+    def run(p):
+        enc_out = jed.encdec_encode(p, batch["frames"], cfg, JRT)
+        x = jlayers.embedding_apply(p["embed"], tokens)
+        h, _ = jtrans.stack_apply(p["dec_stack"], x, pos, jed.dec_cfg(cfg),
+                                  JRT, enc_out=enc_out)
+        return jlayers.norm_apply(cfg.norm, p["final_norm"], h)
+    return run
+
+
+def _torch_encdec_backbone(cfg, batch):
+    """The port's twin of ``_jax_encdec_backbone``."""
+    tokens = batch["tokens"]
+    pos = tlm._default_positions(cfg, *tokens.shape, tokens.device)
+
+    def run(p):
+        enc_out = ted.encdec_encode(p, batch["frames"], cfg, CPU)
+        x = tlayers.embedding_apply(p["embed"], tokens)
+        h, _ = ttrans.stack_apply(p["dec_stack"], x, pos, ted.dec_cfg(cfg),
+                                  CPU, enc_out=enc_out)
+        return tlayers.norm_apply(cfg.norm, p["final_norm"], h)
+    return run
 
 
 def test_encdec_loss_value_and_grad_match_reference():
+    """whisper-small: the loss within LOSS_RTOL; the gradient in the two
+    parts of ``_split_grads_close`` (the untied head is the head
+    operand)."""
     jcfg, tcfg = _whisper()
     jp = jed.encdec_init(jax.random.PRNGKey(2), jcfg)
     batch = _batch(jcfg, s=12, frames=True)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     (jv, _), jg = jax.value_and_grad(jed.encdec_loss, has_aux=True)(
-        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg, JRT)
+        jp, jb, jcfg, JRT)
     (tv, _), tg = ttr.value_and_grad(
-        ted.encdec_loss, params_from_reference(jp),
-        {k: torch.as_tensor(v) for k, v in batch.items()}, tcfg, CPU,
+        ted.encdec_loss, params_from_reference(jp), tb, tcfg, CPU,
         has_aux=True)
     _loss_close(tv, jv)
-    _grads_close(tg, jg, bf16_leaves=("head/w",))
+    assert set(_flat_torch(tg)) == set(_flat_jax(jg))
+    _split_grads_close(
+        jp, _jax_encdec_backbone(jcfg, jb), _torch_encdec_backbone(tcfg, tb),
+        lambda p: p["head"]["w"], jb["labels"])
 
 
 @pytest.mark.parametrize("causal,sq,skv,rep", [
@@ -431,35 +532,6 @@ def test_train_loop_history_matches_reference(tmp_path, opt):
             (a, b)
 
 
-def _head_vjp_jax(h, w, labels):
-    """The loss head's value and cotangents (of h and of the (D, V) head)
-    in the reference."""
-    def head(h, w):
-        ce, z = jlm.chunked_ce(h, w, labels)
-        return ce + jlm.Z_WEIGHT * z
-    return jax.value_and_grad(head, argnums=(0, 1))(h, w)
-
-
-def _head_vjp_torch(h, w, labels):
-    th, tw = (torch.tensor(np.asarray(a), requires_grad=True) for a in (h, w))
-    ce, z = tlm.chunked_ce(th, tw, torch.tensor(np.asarray(labels)))
-    loss = ce + tlm.Z_WEIGHT * z
-    return loss.detach(), torch.autograd.grad(loss, (th, tw))
-
-
-def _backbone_vjp_torch(params, tokens, dh, tcfg):
-    """The port's backbone gradients under the cotangent ``dh`` of its
-    output."""
-    live = [leaf.detach().requires_grad_(True)
-            for leaf in tree_leaves(params)]
-    it = iter(live)
-    tree = tree_map(lambda _, leaf: next(it), params)
-    pos = tlm._default_positions(tcfg, *tokens.shape, tokens.device)
-    h, _ = tlm._backbone(tree, tcfg, tokens, pos, CPU)
-    grads = iter(torch.autograd.grad(h, live, dh))
-    return tree_map(lambda _, leaf: next(grads), params)
-
-
 #: the port's update of the reference's own gradients, against the
 #: reference's update: within this of each leaf's largest update, plus
 #: one f32 step of the updated parameter (``p - lr * u`` rounds there)
@@ -514,20 +586,13 @@ def test_train_step_matches_reference_from_the_same_state(opt):
                                             has_aux=True)
             _loss_close(tv, jv)
 
-            pos = jlm._default_positions(jcfg, *jb["tokens"].shape)
-            h, backbone_vjp = jax.vjp(
-                lambda p: jlm._backbone(p, jcfg, jb["tokens"], pos, JRT)[0],
-                jp)
-            w = jlm._head_w(jp, jcfg)
-            jhv, (jdh, jdw) = _head_vjp_jax(h, w, jb["labels"])
-            thv, (tdh, tdw) = _head_vjp_torch(h, w, jb["labels"])
-            _loss_close(thv, jhv)
-            _grads_close({"h": tdh, "w": tdw}, {"h": jdh, "w": jdw},
-                         bf16_leaves=("h", "w"))
-            _grads_close(_backbone_vjp_torch(tp, tb["tokens"],
-                                             torch.tensor(np.asarray(jdh)),
-                                             tcfg),
-                         backbone_vjp(jdh)[0])
+            jpos = jlm._default_positions(jcfg, *jb["tokens"].shape)
+            tpos = tlm._default_positions(tcfg, *tb["tokens"].shape, "cpu")
+            _split_grads_close(
+                jp,
+                lambda p: jlm._backbone(p, jcfg, jb["tokens"], jpos, JRT)[0],
+                lambda p: tlm._backbone(p, tcfg, tb["tokens"], tpos, CPU)[0],
+                lambda p: jlm._head_w(p, jcfg), jb["labels"])
 
             jclip, _ = jtr.clip_by_global_norm(jg, 1.0)
             want, _ = jopt.update(jp, jclip, js)
