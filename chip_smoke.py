@@ -50,7 +50,18 @@ Phases, each printing JSON lines:
               the router and serve_cli runs (``tier_kernel_phase``):
               spx_matmul at gemma-2b's (K, N) at M in TIER_MS, kernels 2
               (w = 1) and 5 at its heads with the block tables of
-              max_seq 256 and 128;
+              max_seq 256 and 128; every per-shard shape of the wide runs
+              (``wide_kernel_phase``: qwen2-vl-2b at 4 shards, 3 query
+              heads over one KV head of 128 read as a view of the
+              replicated pool; whisper-small at 8, head groups of 2 and 1
+              over views of its 12 replicated KV heads; spx_matmul at every
+              shard's uneven cut, flash at whisper's per-shard heads); and
+              every shape of serve_mesh (``mesh_kernel_phase``):
+              spx_matmul at gemma-2b's 4-shard cut and at its whole
+              weights at the mesh steps' and the one-device steps' M,
+              flash attention at a tensor-parallel shard's 2 heads over
+              512 tokens and at the context-parallel shards' 128 rows
+              over 512 keys with causal offsets 0, 128, 256 and 384;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, outputs against the
@@ -168,6 +179,25 @@ Phases, each printing JSON lines:
               spx_matmul per shard and projection and one paged kernel per
               shard and layer; one shard's kernels timed (the ``shards2``
               entries of the kernels line);
+     serve_wide  the widths the port refused before it cut heads
+              unevenly (``REPRO_FORCE_DEVICE_COUNT`` = 4 and 8):
+              qwen2-vl-2b at shards=4 on serve_sharded's weights and
+              whisper-small at shards=8 on serve_whisper's, each held to
+              its shards=1 run (a difference only at a near-tie), every
+              launch at a checked shape, per model step one spx_matmul per
+              shard and projection and one paged kernel per shard and
+              layer; one shard's kernels timed (whisper: a 2-head and a
+              1-head shard);
+     serve_mesh  gemma-2b's serve steps (``launch.steps.build_serve_step``)
+              at mesh (data 2, model 4) on the one card
+              (``REPRO_FORCE_DEVICE_COUNT`` = 8), 16 rows, a 512-token f32
+              cache: the tensor-parallel prefill, the context-parallel
+              prefill (the flash kernel with causal offsets 0, 128, 256,
+              384) and 16 decode steps against the sequence-sharded cache,
+              each beside the one-device step: host ms,
+              max_memory_allocated, launches by kernel and by shape
+              (every one checked), logits and caches within E2E_RTOL,
+              prefill reruns bit-identical, no plain version run;
      router   ``ReplicaRouter`` over 2 replicas sharing the card: the 8
               requests land [0, 1, 0, 1, ...] and give the paged engine's
               tokens; every launch at a shape ``tier_kernel_phase``
@@ -204,7 +234,12 @@ Phases, each printing JSON lines:
               and 5 over bf16 and f16 pages (a decode tick and 4 slots x
               2048 tokens; SDPA over the same K/V), one shard's kernels of
               the families served at shards=2 (``shards2_by_family``,
-              ``shards2_whisper``), and the split counts the
+              ``shards2_whisper``) and of the wide runs (``wide``,
+              ``wide_whisper``: qwen2-vl-2b's shard 0 of 4, whisper's
+              shards 0 and 4 of 8), flash attention at the
+              context-parallel shards' rows with the first and the last
+              causal offset beside SDPA with the same mask
+              (``context_parallel``), and the split counts the
               wrappers chose (a ``splits`` line); the whisper and training
               rows of the serve_whisper and train phases ride along
               (``whisper_encoder_pass``, ``whisper``,
@@ -215,6 +250,7 @@ package is missing. The last line is the device record.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1694,7 +1730,8 @@ def _launch_key(op: str, args, kw) -> tuple:
                 scale.numel())
     if op == "flash_attention":
         q, k = args[:2]
-        return (op, tuple(q.shape), tuple(k.shape), bool(kw["causal"]))
+        return (op, tuple(q.shape), tuple(k.shape), bool(kw["causal"]),
+                int(kw.get("q_offset", 0)))
     q4, kp, _, bt = args[:4]
     return (op, tuple(q4.shape), tuple(kp.shape[1:]), str(kp.dtype),
             bt.shape[1], kw.get("w", 1))
@@ -1712,11 +1749,14 @@ class _ShapeRecorder:
                                            torch.device("cuda"))[1]
                       for op in ops}
         self.keys: set = set()
+        self.counts: collections.Counter = collections.Counter()
 
     def __enter__(self):
         for op, fn in self.saved.items():
             def recorded(*args, _op=op, _fn=fn, **kw):
-                self.keys.add(_launch_key(_op, args, kw))
+                key = _launch_key(_op, args, kw)
+                self.keys.add(key)
+                self.counts[key] += 1
                 return _fn(*args, **kw)
             self.registry.register(op, "cuda")(recorded)
         return self.keys
@@ -2324,10 +2364,11 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
                  "tol": tol, "bit_identical_rerun": True, "ok": True}
 
 
-def _flash_plain(q, k, v, *, causal):
+def _flash_plain(q, k, v, *, causal, q_offset=0):
     """The plain version of kernel 4, all queries in one chunk."""
     from repro_torch.kernels import ref
-    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q.shape[2])
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q.shape[2],
+                                   q_offset=q_offset)
 
 
 def whisper_kernel_phase(torch, np) -> tuple[dict, set]:
@@ -2652,12 +2693,61 @@ def serve_whisper_phase(torch, np, card: str, checked: set) -> dict:
                 line["timing"]["paged_decode_ragged"],
                 *line["timing"]["flash_attention"].values()):
         row["per"] = f"one shard of {SHARDS}: " + row["per"]
-    del s_eng, params
+    del s_eng
     _free(torch)
     emit(line)
+    wide = _whisper_wide(torch, np, params, cfg, prompts, lens, frames,
+                         (tokens, gaps, m), per_step, per_pass, card,
+                         checked)
+    del params
+    _free(torch)
     return {"launches": launches, "dense_launches": result["dense"]
             ["launches"], "timing": result["timing"],
-            "sharded": {"launches": s_launches, "timing": line["timing"]}}
+            "sharded": {"launches": s_launches, "timing": line["timing"]},
+            "wide": wide}
+
+
+def _whisper_wide(torch, np, params, cfg, prompts, lens, frames, base,
+                  per_step, per_pass, card, checked) -> dict:
+    """whisper-small at WIDE's 8 shards on serve_whisper's weights and
+    inputs, held to its shards=1 run (``base``): 12 heads as 2, 2, 2, 2,
+    1, 1, 1, 1 a shard over the replicated KV heads; per encoder pass and
+    per model step each shard launches its cut of every projection and
+    one flash kernel per layer; the kernels of shard 0 (2 heads) and of
+    shard 4 (1 head) timed. Returns the run's launches and timing."""
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.runtime import Runtime
+    from repro_torch.runtime.planner import shard_heads
+
+    n = WIDE["whisper-small"]
+    with _forced_shards(n), _EncoderPasses() as passes:
+        line, launches, eng = _serve_sharded_pair(
+            torch, np, params, cfg, prompts, {}, Runtime(), checked,
+            f"serve_wide whisper-small shards={n}", card, per_call=per_step,
+            n_attn=cfg.n_layers, base=base, frames=frames,
+            module=encdec_mod, recorded=SHARDED_OPS + ("flash_attention",),
+            shards=n)
+    want_pass = {"spx_matmul": n * per_pass,
+                 "flash_attention": n * cfg.n_enc_layers}
+    require(len(passes) == WHISPER_INPUTS
+            and all(p == want_pass for p in passes),
+            f"whisper at shards={n}: encoder passes {passes}")
+    groups = shard_heads(cfg.n_heads, cfg.n_kv_heads, n)
+    timing = {}
+    for s in (0, n // 2):
+        heads = groups[s].nq
+        t = _whisper_timing(torch, dataclasses.replace(
+            cfg, n_heads=heads, n_kv_heads=heads), eng.params[s])
+        for row in (t["spx_matmul"], t["paged_decode_ragged"],
+                    *t["flash_attention"].values()):
+            row["per"] = f"shard {s} of {n} ({heads} heads): " + row["per"]
+        timing[f"shard {s} ({heads} heads)"] = t
+    line.update(phase="serve_wide", prompt_lens=lens,
+                launches_per_encoder_pass=passes[0],
+                head_groups=[g.nq for g in groups], timing=timing)
+    del eng
+    emit(line)
+    return {"launches": launches, "timing": timing}
 
 
 def _whisper_timing(torch, cfg, params) -> dict:
@@ -3095,13 +3185,15 @@ def _train_flash_timing(torch) -> dict:
 
 
 def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
-                        layers, per, grad=False) -> dict:
+                        layers, per, grad=False, q_offset=0) -> dict:
     """Kernel 4 over ``layers`` launches of q (b, hq, sq, dh) against k/v
     (b, hkv, skv, dh) (``grad``: inside ``FlashAttentionFn``, the inputs
-    requiring grad), beside its plain version, SDPA over K/V repeated to
-    the query heads, and the two bounds: q, k, v read once, out written
-    once; 4 * dh flops per (query, key) pair attended (the causal half at
-    sq == skv)."""
+    requiring grad; ``q_offset``: query row i at position q_offset + i
+    under the causal mask), beside its plain version, SDPA over K/V
+    repeated to the query heads (with an explicit mask of the same rows
+    at an offset), and the two bounds: q read once, the keys and values
+    the causal rows reach (the first q_offset + sq) read once, out written
+    once; 4 * dh flops per (query, key) pair attended."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_autograd,
@@ -3123,19 +3215,31 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
                     flash_attention_autograd(q, k, v, causal=causal,
                                              q_chunk=1024)
                 else:
-                    flash_attention_cuda(q, k, v, causal=causal)
+                    flash_attention_cuda(q, k, v, causal=causal,
+                                         q_offset=q_offset)
 
     def plain():
         with torch.no_grad():
             for q, k, v in qkv:
-                ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=1024)
+                ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=1024,
+                                        q_offset=q_offset)
+
+    mask = None
+    if causal and q_offset:
+        mask = (torch.arange(skv, device="cuda")[None, :]
+                <= q_offset + torch.arange(sq, device="cuda")[:, None])
 
     def library():
         for q, k, v in expanded:
-            F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            if mask is None:
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            else:
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
-    pairs = sq * (sq + 1) // 2 if causal else sq * skv
-    nbytes = layers * 4 * dh * (2 * b * hq * sq + 2 * b * hkv * skv)
+    pairs = (sum(min(q_offset + i + 1, skv) for i in range(sq)) if causal
+             else sq * skv)
+    keys = min(skv, q_offset + sq) if causal else skv
+    nbytes = layers * 4 * dh * (2 * b * hq * sq + 2 * b * hkv * keys)
     flops = layers * 4 * b * hq * dh * pairs
     bound, by = _bound_ms(nbytes, flops)
     device_ms = _device_ms(torch, kernel, ("flash_attention_kernel",))
@@ -3144,9 +3248,11 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
             "plain_ms": _time_ms(torch, plain, reps=3),
             "library_ms": _time_ms(torch, library),
             "library_device_ms": _device_ms(torch, library, ("",)),
-            "library_call": f"scaled_dot_product_attention(is_causal="
-                            f"{causal}), K/V pre-repeated over the query "
-                            "heads",
+            "library_call": (f"scaled_dot_product_attention(is_causal="
+                             f"{causal})" if mask is None else
+                             "scaled_dot_product_attention(attn_mask= the "
+                             "offset causal mask)")
+            + ", K/V pre-repeated over the query heads",
             "bound_ms": bound, "bound_by": by,
             "f32_bound_ms": _f32_bound_ms(nbytes, flops),
             "share_of_bound": bound / device_ms if device_ms else None}
@@ -3188,11 +3294,11 @@ def _jamba_full_config() -> tuple:
 
 
 @contextlib.contextmanager
-def _forced_shards():
-    """``REPRO_FORCE_DEVICE_COUNT=SHARDS`` for the block (``launch.hostdev``
+def _forced_shards(n: int = SHARDS):
+    """``REPRO_FORCE_DEVICE_COUNT=n`` for the block (``launch.hostdev``
     lists the one card that many times); the earlier value restored."""
     saved = os.environ.get("REPRO_FORCE_DEVICE_COUNT")
-    os.environ["REPRO_FORCE_DEVICE_COUNT"] = str(SHARDS)
+    os.environ["REPRO_FORCE_DEVICE_COUNT"] = str(n)
     try:
         yield
     finally:
@@ -3207,9 +3313,10 @@ def _shard_projection_shapes(torch, cfg, shards: int = SHARDS) -> list:
     every leaf ``quantize_params`` quantizes that ``dense_apply``
     multiplies (a projection's ``w``; the MoE's expert stacks are
     dequantized instead, and the table and head stay plain products), cut
-    as ``ShardingPolicy.serving_dim`` cuts it: heads, FFN columns and
-    ``wo``/``down`` rows split, a recurrent mixer's projections whole.
-    Built on the meta device: nothing is allocated."""
+    as ``ShardingPolicy.serving_cut`` cuts it, every shard's slice (head
+    groups, FFN columns and ``wo``/``down`` rows, uneven where a count
+    does not divide), a recurrent mixer's projections whole. Built on the
+    meta device: nothing is allocated."""
     from repro_torch.launch.mesh import make_serving_mesh
     from repro_torch.models.encdec import encdec_init
     from repro_torch.models.lm import lm_init
@@ -3227,11 +3334,12 @@ def _shard_projection_shapes(torch, cfg, shards: int = SHARDS) -> list:
         if (keys[-1] == "w" and leaf.ndim >= 2 and leaf.numel() >= 4096
                 and leaf.shape[-1] % 2 == 0
                 and not set(path) & set(_NO_QUANT_KEYS)):
-            shape = list(leaf.shape)
-            dim = policy.serving_dim(keys, tuple(shape))
-            if dim is not None:
-                shape[dim] //= shards
-            shapes.add(tuple(shape[-2:]))
+            cut = policy.serving_cut(keys, tuple(leaf.shape))
+            for _, size in (cut[1] if cut else ((0, None),)):
+                shape = list(leaf.shape)
+                if cut:
+                    shape[cut[0]] = size
+                shapes.add(tuple(shape[-2:]))
         return leaf
     tree_map(visit, tree)
     return sorted(shapes)
@@ -3246,7 +3354,18 @@ def _shard_heads(cfg, shards: int = SHARDS) -> dict:
     sharded = kv_heads_split(cfg.n_kv_heads, shards)
     hkv = cfg.n_kv_heads // shards if sharded else cfg.n_kv_heads
     hq = cfg.n_heads // shards
-    return {"hq": hq, "hkv": hkv, "rep": hq // hkv, "kv_sharded": sharded}
+    return {"hq": hq, "hkv": hkv, "rep": max(hq // hkv, 1),
+            "kv_sharded": sharded}
+
+
+def _shard_kernel_heads(cfg, shards: int) -> list:
+    """The (KV heads, query heads per KV head) the attention kernels see
+    on each shard (``nn.attention.head_segments``: a shard's pieces over
+    its cut of the pools, or over a view of the replicated pools), in
+    shard order."""
+    from repro_torch.nn.attention import head_segments
+    return [sorted({(g, qn // g) for _, qn, _, g in head_segments(
+        cfg.n_heads, cfg.n_kv_heads, shards, s)}) for s in range(shards)]
 
 
 def _shard_spx_shapes(cfg) -> list:
@@ -3472,6 +3591,312 @@ def tier_kernel_phase(torch, np) -> tuple[dict, set]:
     return worst, checked
 
 
+#: the widths the port refused before it cut heads unevenly: arch ->
+#: shards (REPRO_FORCE_DEVICE_COUNT lists the one card that many times)
+WIDE = {"qwen2-vl-2b": 4, "whisper-small": 8}
+
+
+def wide_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Every launch shape of the wide runs (WIDE: qwen2-vl-2b at 4
+    shards, 3 query heads each over one of its 2 KV heads, read as a view
+    of the replicated pools; whisper-small at 8, head groups of 2, 2, 2,
+    2, 1, 1, 1, 1 over its 12 replicated KV heads), held against its plain
+    version before they launch, twice: spx_matmul at every shard's
+    (K, N) (``_shard_projection_shapes``: the uneven head groups' columns
+    and rows) at every M of SHARD_MS, whisper's also at its encoder's M =
+    1500; kernels 2 and 5 over f32 pages at every shard's (KV heads, query
+    heads per KV head) (``_shard_kernel_heads``), w = 1; and whisper's
+    flash launches at every shard's heads: the encoder (1500 frames) and
+    the cross-attention of every paged chunk. Returns the worst errors
+    and the checked launch keys."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    checked: set = set()
+    worst = {op: 0.0 for op in SHARDED_OPS}
+    for name, n in WIDE.items():
+        cfg = _whisper_config() if name == "whisper-small" \
+            else get_config(name)
+        tag = {"for": "serve_wide", "arch": name, "shards": n}
+        ms = SHARD_MS + ((cfg.enc_seq_len,) if cfg.enc_dec else ())
+        _check_spx_shapes(torch, gen, tag,
+                          _shard_projection_shapes(torch, cfg, n), ms,
+                          checked, worst)
+        heads = sorted({h for per in _shard_kernel_heads(cfg, n)
+                        for h in per})
+        for hkv, rep in heads:
+            _check_paged_shapes(torch, gen, tag, hkv=hkv, rep=rep,
+                                dh=cfg.dh, max_seqs=(256,), ws=(1,),
+                                pages_kinds=("f32",), checked=checked,
+                                worst=worst)
+        if not cfg.enc_dec:
+            continue
+        dh, enc = cfg.dh, cfg.enc_seq_len
+        for hkv, rep in heads:
+            errs = {}
+            for b, sq in [(1, enc)] + [(4, c) for c in WHISPER_CHUNKS]:
+                q = torch.randn((b, hkv * rep, sq, dh), generator=gen,
+                                device="cuda")
+                kv = tuple(torch.randn((b, hkv, enc, dh), generator=gen,
+                                       device="cuda") for _ in range(2))
+                _, rec = _check_launch(torch, "flash_attention",
+                                       flash_attention_cuda, _flash_plain,
+                                       (q, *kv), {"causal": False}, checked,
+                                       worst)
+                errs[f"{b}x{sq}"] = rec["max_abs_err"]
+            emit({"phase": "kernel", "kernel": "flash_attention", **tag,
+                  "hq": hkv * rep, "hkv": hkv, "dh": dh, "skv": enc,
+                  "causal": False, "max_abs_err_by_rows": errs,
+                  "tol": f"{ATTN_TOL} * (1 + |plain|)",
+                  "bit_identical_rerun": True, "ok": True})
+    ops.reset_op_calls()
+    return worst, checked
+
+
+#: the serve steps' mesh on the one card (REPRO_FORCE_DEVICE_COUNT = 8):
+#: (data, model), and their batch and cache length (the reference's
+#: prefill default turns context parallelism on at multiples of 16)
+MESH = (2, 4)
+MESH_BATCH, MESH_SEQ = 16, 512
+#: decode: MESH_DECODE_STEPS tokens after a MESH_PROMPT-token prefill fill
+#: the cache's last sequence block
+MESH_DECODE_STEPS = 16
+MESH_PROMPT = MESH_SEQ - MESH_DECODE_STEPS
+
+
+def _cp_offsets() -> tuple:
+    """The causal offsets of the context-parallel shards' rows."""
+    rows = MESH_SEQ // MESH[1]
+    return tuple(m * rows for m in range(MESH[1]))
+
+
+def mesh_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Every launch shape of serve_mesh (full-width gemma-2b's serve steps
+    at mesh (2, 4), batch 16, a 512-token cache, and the one-device steps
+    beside them) held against its plain version first, twice: spx_matmul
+    at one model shard's tensor-parallel cut at M = 8 (a data group's
+    decode rows) and 4096 (its prefill rows), and at the whole weights at
+    M = 1024 (a context-parallel shard's rows), 16, 7936 and 8192 (the
+    one-device steps); flash attention causal at a tensor-parallel shard's
+    2 query heads over 512 tokens, at the context-parallel shards' 128
+    rows of 8 query heads over the 512 gathered keys with the causal
+    offset of each shard (0, 128, 256, 384), and at the one-device
+    prefills (496 and 512 tokens). Returns the worst errors and the
+    checked launch keys."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cfg = get_config("gemma-2b")
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    checked: set = set()
+    worst = {op: 0.0 for op in SHARDED_OPS}
+    rows = MESH_BATCH // MESH[0]
+    tag = {"for": "serve_mesh", "arch": cfg.name, "mesh": list(MESH)}
+    _check_spx_shapes(torch, gen, dict(tag, weights="tensor-parallel cut"),
+                      _shard_projection_shapes(torch, cfg, MESH[1]),
+                      (rows, rows * MESH_SEQ), checked, worst)
+    _check_spx_shapes(torch, gen, dict(tag, weights="whole"),
+                      _shard_projection_shapes(torch, cfg, 1),
+                      (MESH_BATCH, rows * MESH_SEQ // MESH[1],
+                       MESH_BATCH * MESH_PROMPT, MESH_BATCH * MESH_SEQ),
+                      checked, worst)
+    dh, hq, hkv = cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    tp_heads = hq // MESH[1]
+    cases = [("tensor-parallel shard", rows, tp_heads, MESH_SEQ, MESH_SEQ, 0)]
+    cases += [("context-parallel shard", rows, hq, MESH_SEQ // MESH[1],
+               MESH_SEQ, off) for off in _cp_offsets()]
+    cases += [("one device", MESH_BATCH, hq, s, s, 0)
+              for s in (MESH_PROMPT, MESH_SEQ)]
+    for what, b, h, sq, skv, off in cases:
+        q = torch.randn((b, h, sq, dh), generator=gen, device="cuda")
+        kv = tuple(torch.randn((b, hkv, skv, dh), generator=gen,
+                               device="cuda") for _ in range(2))
+        _, rec = _check_launch(torch, "flash_attention", flash_attention_cuda,
+                               _flash_plain, (q, *kv),
+                               {"causal": True, "q_offset": off}, checked,
+                               worst)
+        emit({"phase": "kernel", "kernel": "flash_attention", **tag,
+              "what": what, "b": b, "hq": h, "hkv": hkv, "sq": sq,
+              "skv": skv, "dh": dh, "causal": True, "q_offset": off, **rec})
+    ops.reset_op_calls()
+    return worst, checked
+
+
+def _mesh_run(torch, name, run, checked) -> tuple:
+    """One serve step (``run()``) with every launch recorded: (its
+    output, host ms, max_memory_allocated, launches by op, launches by
+    shape); every launch at a shape the kernel phases checked, no plain
+    version run."""
+    from repro_torch.kernels import ops
+    rec = _ShapeRecorder(torch, SHARDED_OPS + ("flash_attention",))
+    with rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_op_calls()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, plain = ops.op_calls(), ops.ref_calls()
+    require(not plain, f"{name}: plain versions ran on the card: {plain}")
+    unchecked = sorted(rec.keys - checked)
+    require(not unchecked, f"{name}: launches at shapes the kernel phases "
+                           f"never held to the plain version: {unchecked}")
+    by_shape = [[*k, n] for k, n in sorted(rec.counts.items())]
+    return out, ms, torch.cuda.max_memory_allocated(), launches, by_shape
+
+
+def _rel_err(torch, got, want) -> float:
+    return ((got - want.to(got.device)).abs().max()
+            / want.abs().max()).item()
+
+
+def _caches_err(torch, got, want) -> float:
+    from repro_torch.nn.layers import tree_leaves
+    return max((g.float() - w.float().to(g.device)).abs().max().item()
+               for g, w in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
+    """gemma-2b's serve steps at full width under a (data=2, model=4)
+    mesh on the one card (``launch.steps.build_serve_step``;
+    ``REPRO_FORCE_DEVICE_COUNT`` = 8, set by the caller), on the serve
+    phase's sp2_4 weights, f32 dense caches, 16 rows of 512 tokens: the
+    tensor-parallel prefill, the context-parallel prefill (queries
+    sequence-sharded, K/V gathered, the flash kernel's causal offset) and
+    16 decode steps against the sequence-sharded cache filled to 496
+    tokens, each beside the one-device step on the same inputs. Per step:
+    host ms, max_memory_allocated, launches by kernel and by shape (every
+    shape checked by ``mesh_kernel_phase``), the logits against the
+    one-device step (within E2E_RTOL of their peak) and the caches
+    reassembled from their blocks against the one-device caches. Returns
+    the launches of each step kind."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hostdev
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.runtime import Runtime
+    from repro_torch.sharding import shard_dense_caches
+
+    cfg = get_config("gemma-2b")
+    mesh = make_host_mesh(*MESH, hostdev.device_list())
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    tokens = torch.randint(1, cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                           generator=gen, device="cuda")
+    one_rt, f32 = Runtime(), torch.float32
+
+    def one_prefill(n):
+        caches = lm_mod.init_caches(cfg, MESH_BATCH, MESH_SEQ, dtype=f32)
+        with torch.no_grad():
+            return lm_mod.lm_prefill(params, tokens[:, :n], caches, cfg,
+                                     one_rt)
+
+    _free(torch)
+    out = {"launches": {}}
+    base = {"mesh": list(MESH), "devices": [str(d) for d in mesh.devices],
+            "card": card, "arch": cfg.name, "batch": MESH_BATCH,
+            "cache_tokens": MESH_SEQ, "cache_dtype": "float32",
+            "weights": "sp2_4", "tol_rel": E2E_RTOL}
+    (want, want_c), one_ms, one_mem, _, _ = _mesh_run(
+        torch, "one-device prefill", lambda: one_prefill(MESH_SEQ), checked)
+    for cp in (False, True):
+        name = "prefill-cp" if cp else "prefill-tp"
+        bundle = build_serve_step(
+            cfg, ShapeConfig(name, MESH_SEQ, MESH_BATCH, "prefill"), mesh,
+            prefill_cp=cp, dtype=f32)
+        require(bundle.meta["context_parallel"] is cp,
+                f"serve_mesh {name}: meta {bundle.meta}")
+        args = bundle.place(params, tokens)
+        # a prefill writes every position of its cache: the rerun may
+        # reuse the blocks
+        grid = bundle.init_caches()
+        runs = [_mesh_run(torch, f"serve_mesh {name}",
+                          lambda: bundle.fn(*args, grid), checked)
+                for _ in range(2)]
+        (got, grid), ms, mem, launches, by_shape = runs[1]
+        require(torch.equal(runs[0][0][0], got),
+                f"serve_mesh {name}: a rerun changed the logits")
+        err = _rel_err(torch, got, want)
+        c_err = _caches_err(torch, bundle.gather_caches(grid, "cuda"),
+                            want_c)
+        offsets = sorted({r[4] for r in by_shape
+                          if r[0] == "flash_attention"})
+        line = dict(base, phase="serve_mesh", step=name, meta={
+            k: v for k, v in bundle.meta.items() if k != "data_axes"},
+            ms=ms, first_run_ms=runs[0][1], one_device_ms=one_ms,
+            max_memory_allocated=mem, one_device_max_memory_allocated=one_mem,
+            launches_per_step=launches, launches_by_shape=by_shape,
+            flash_q_offsets=offsets, logits_max_rel_err=err,
+            caches_max_abs_err=c_err, caches_peak=max(
+                t.abs().max().item() for c in want_c for t in c.values()),
+            bit_identical_rerun=True)
+        ok = err <= E2E_RTOL and c_err <= E2E_RTOL * line["caches_peak"]
+        if cp:
+            ok = ok and offsets == list(_cp_offsets())
+        emit(dict(line, ok=ok))
+        require(ok, f"serve_mesh {name}: logits {err}, caches {c_err}, "
+                    f"flash offsets {offsets}")
+        out["launches"][f"serve_mesh {name}"] = launches
+        del args, runs, grid, got, bundle
+        _free(torch)
+    del want, want_c
+    _free(torch)
+
+    # decode: the one-device prefill of MESH_PROMPT tokens, cut into the
+    # mesh's blocks, then MESH_DECODE_STEPS steps on each side
+    _, one_c = one_prefill(MESH_PROMPT)
+    bundle = build_serve_step(
+        cfg, ShapeConfig("decode", MESH_SEQ, MESH_BATCH, "decode"), mesh,
+        dtype=f32)
+    require(bundle.rt.decode_seq_axis == "model",
+            "serve_mesh decode: the cache is not sequence-sharded")
+    grid = shard_dense_caches(one_c, bundle.cache_specs, mesh)
+    placed, = bundle.place(params)
+    steps, total = [], {}
+    for i in range(MESH_DECODE_STEPS):
+        pos = MESH_PROMPT + i
+        tok = tokens[:, pos]
+        (want, one_c), one_ms, _, _, _ = _mesh_run(
+            torch, "one-device decode", lambda: lm_mod.lm_decode_step(
+                params, tok, pos, one_c, cfg, one_rt), checked)
+        (got, grid), ms, mem, launches, by_shape = _mesh_run(
+            torch, "serve_mesh decode", lambda: bundle.fn(
+                placed, tok, torch.tensor(pos), grid), checked)
+        steps.append({"pos": pos, "ms": ms, "one_device_ms": one_ms,
+                      "max_memory_allocated": mem,
+                      "logits_max_rel_err": _rel_err(torch, got, want)})
+        for op, n in launches.items():
+            total[op] = total.get(op, 0) + n
+    c_err = _caches_err(torch, bundle.gather_caches(grid, "cuda"), one_c)
+    errs = [st["logits_max_rel_err"] for st in steps]
+    ok = max(errs) <= E2E_RTOL and c_err <= E2E_RTOL * max(
+        t.abs().max().item() for c in one_c for t in c.values())
+    emit(dict(base, phase="serve_mesh", step="decode",
+              meta={k: v for k, v in bundle.meta.items()
+                    if k != "data_axes"},
+              prompt_tokens=MESH_PROMPT, decode_steps=MESH_DECODE_STEPS,
+              ms_per_step=sum(st["ms"] for st in steps[1:])
+              / (len(steps) - 1),
+              one_device_ms_per_step=sum(st["one_device_ms"]
+                                         for st in steps[1:])
+              / (len(steps) - 1),
+              launches_per_step={op: n / MESH_DECODE_STEPS
+                                 for op, n in total.items()},
+              launches_by_shape_last_step=by_shape, steps=steps,
+              logits_max_rel_err=max(errs), caches_max_abs_err=c_err,
+              ok=ok))
+    require(ok, f"serve_mesh decode: logits {max(errs)}, caches {c_err}")
+    out["launches"]["serve_mesh decode"] = total
+    del grid, placed, one_c, bundle
+    _free(torch)
+    return out
+
+
 def _step_launch_checks(name, records, per_call, n_attn, quant,
                         prefix="lm_") -> dict:
     """Launches per model step of a sharded run (the ``prefix`` model's
@@ -3503,13 +3928,28 @@ def _step_launch_checks(name, records, per_call, n_attn, quant,
             "model_steps": len(records)}
 
 
+def _one_shard_base(torch, np, params, cfg, prompts, knobs, rt,
+                    frames=None) -> tuple:
+    """``ServeConfig(quantize=None, **knobs)`` at shards=1: (tokens, top-2
+    gaps, metrics), what ``_serve_sharded_pair`` holds a sharded run to."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    _free(torch)
+    one = ServeEngine(params, cfg, ServeConfig(quantize=None, **knobs),
+                      rt=rt)
+    gaps = _record_gaps(np, one, E2E_RTOL)
+    want, _, _, bm = _run_engine(torch, one, prompts, frames=frames)
+    del one
+    _free(torch)
+    return want, gaps, bm
+
+
 def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
                         name, card, *, per_call, n_attn, base=None,
                         frames=None, module=None,
-                        recorded=SHARDED_OPS) -> tuple:
+                        recorded=SHARDED_OPS, shards=SHARDS) -> tuple:
     """``ServeConfig(quantize=None, **knobs)`` at shards=1 (or ``base``,
     that run's (tokens, top-2 gaps, metrics) taken by the caller), then
-    at shards=SHARDS with every launch recorded (each at a checked shape)
+    at ``shards`` with every launch recorded (each at a checked shape)
     and every model step counted: ``per_call`` spx_matmul launches at
     shards=1, each shard launching its cut of every one, and ``n_attn``
     attention layers, one paged kernel per shard and layer.
@@ -3521,19 +3961,12 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
     from repro_torch.serving import ServeConfig, ServeEngine
 
     _free(torch)
-    if base is None:
-        one = ServeEngine(params, cfg, ServeConfig(quantize=None, **knobs),
-                          rt=rt)
-        gaps = _record_gaps(np, one, E2E_RTOL)
-        want, _, _, bm = _run_engine(torch, one, prompts, frames=frames)
-        del one
-        _free(torch)
-    else:
-        want, gaps, bm = base
+    want, gaps, bm = base or _one_shard_base(torch, np, params, cfg, prompts,
+                                             knobs, rt, frames)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServeEngine(params, cfg,
-                      ServeConfig(quantize=None, shards=SHARDS, **knobs),
+                      ServeConfig(quantize=None, shards=shards, **knobs),
                       rt=rt)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -3551,23 +3984,23 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
                 and all(0 <= t < cfg.vocab_size for t in toks),
                 f"{name}: request {rid}: bad output {toks}")
     require(not plain, f"{name}: plain versions ran on the card: {plain}")
-    require(m["shards"] == SHARDS, f"{name}: shards {m['shards']}")
+    require(m["shards"] == shards, f"{name}: shards {m['shards']}")
     if n_attn:
-        h = _shard_heads(cfg)
+        h = _shard_heads(cfg, shards)
         require(m["kv_sharded"] == h["kv_sharded"]
                 and m["kv_heads_per_shard"] == h["hkv"],
                 f"{name}: shard metrics {m['kv_sharded']}, "
                 f"{m['kv_heads_per_shard']}")
         if h["kv_sharded"]:
-            require(m["peak_kv_bytes_per_shard"] * SHARDS
+            require(m["peak_kv_bytes_per_shard"] * shards
                     == m["peak_kv_bytes"], f"{name}: per-shard KV bytes")
-    per_step = _step_launch_checks(name, records, SHARDS * per_call,
-                                   SHARDS * n_attn, bool(rt.kv_quant),
+    per_step = _step_launch_checks(name, records, shards * per_call,
+                                   shards * n_attn, bool(rt.kv_quant),
                                    prefix)
     line = {"phase": "serve_sharded", "arch": cfg.name, "path": name,
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size,
-            "config": f"ServeConfig(quantize=None, shards={SHARDS}"
+            "config": f"ServeConfig(quantize=None, shards={shards}"
                       + "".join(f", {k}={v!r}" for k, v in knobs.items())
                       + ")" + (f", Runtime(kv_quant=True, kv_scheme="
                                f"'{KV_SCHEME}')" if rt.kv_quant else ""),
@@ -3595,19 +4028,20 @@ def _serve_sharded_pair(torch, np, params, cfg, prompts, knobs, rt, checked,
     return line, launches, eng
 
 
-def _sharded_family_timing(torch, cfg, shard, n_attn: int) -> dict:
-    """One shard's kernels per decode tick at shards=SHARDS (4 slots):
-    its spx_matmul launches and the MoE experts it holds
-    (``_family_timing`` on its cut weights), and kernel 2 at its heads
-    over every attention layer."""
+def _sharded_family_timing(torch, cfg, shard, n_attn: int, shards=SHARDS,
+                           s: int = 0) -> dict:
+    """Shard ``s``'s kernels per decode tick at ``shards`` (4 slots): its
+    spx_matmul launches and the MoE experts it holds (``_family_timing``
+    on its cut weights), and kernel 2 at its (KV heads, query heads per KV
+    head) over every attention layer."""
     out = _family_timing(torch, cfg, shard, 4)
     if n_attn:
-        h = _shard_heads(cfg)
+        (hkv, rep), = _shard_kernel_heads(cfg, shards)[s]
         out["paged_decode_ragged"] = _paged_dh_timing(
             torch, torch.Generator(device="cuda").manual_seed(37),
-            hkv=h["hkv"], rep=h["rep"], dh=cfg.dh, layers=n_attn)
+            hkv=hkv, rep=rep, dh=cfg.dh, layers=n_attn)
     for row in out.values():
-        row["per"] = f"one shard of {SHARDS}: " + row["per"]
+        row["per"] = f"shard {s} of {shards}: " + row["per"]
     torch.cuda.empty_cache()
     return out
 
@@ -3656,16 +4090,36 @@ def serve_sharded_phase(torch, np, params, card: str, checked: set) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     lens, prompts = _prompts(np, qwen)
+    base = _one_shard_base(torch, np, qparams, qwen, prompts, {}, Runtime())
     line, launches, eng = _serve_sharded_pair(
         torch, np, qparams, qwen, prompts, {}, Runtime(), checked,
         "serve_sharded qwen2-vl-2b", card, per_call=7 * qwen.n_layers,
-        n_attn=qwen.n_layers)
+        n_attn=qwen.n_layers, base=base)
     require(line["kv_sharded"] is True,
             "qwen2-vl-2b: its two KV heads did not head-shard")
-    del eng, qparams
+    del eng
     line.update(prompt_lens=lens, params_setup_s=setup_s)
     emit(line)
     out["launches"]["serve_sharded qwen2-vl-2b"] = launches
+    # the width the port refused before: 3 query heads a shard over one
+    # of the 2 replicated KV heads
+    n = WIDE["qwen2-vl-2b"]
+    with _forced_shards(n):
+        line, launches, eng = _serve_sharded_pair(
+            torch, np, qparams, qwen, prompts, {}, Runtime(), checked,
+            f"serve_wide qwen2-vl-2b shards={n}", card,
+            per_call=7 * qwen.n_layers, n_attn=qwen.n_layers, base=base,
+            shards=n)
+    require(line["kv_sharded"] is False and line["kv_heads_per_shard"]
+            == qwen.n_kv_heads, "qwen2-vl-2b at 4 shards: its KV heads "
+            "did not replicate")
+    line.update(phase="serve_wide", prompt_lens=lens,
+                timing=_sharded_family_timing(torch, qwen, eng.params[0],
+                                              qwen.n_layers, shards=n))
+    del eng, qparams
+    emit(line)
+    out["launches"][f"serve_wide qwen2-vl-2b shards={n}"] = launches
+    out["wide"] = {f"qwen2-vl-2b shards={n}": line["timing"]}
     _free(torch)
     return out
 
@@ -4195,6 +4649,10 @@ def _device_ms(torch, fn, names: tuple, reps: int = 5):
         if len(hit) in counts:
             break
         counts.append(len(hit))
+    if not best[1] and reps < 50:
+        # a window of a few microsecond launches can come back empty:
+        # once more over ten times the launches
+        return _device_ms(torch, fn, names, reps=10 * reps)
     return best[1] / 1e3 / reps if best[1] else None
 
 
@@ -4480,6 +4938,28 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
         if "paged_decode_ragged" in t}
     flash[f"shards{SHARDS}_whisper"] = \
         shard_families["whisper-small"]["flash_attention"]
+    # the widths refused before (qwen2-vl-2b at 4 shards, whisper-small at
+    # 8: one shard of each head-group size), timed in their phases
+    wide = dict(sharded["wide"], **{
+        f"whisper-small shards={WIDE['whisper-small']} {k}": t
+        for k, t in whisper["wide"]["timing"].items()})
+    spx["wide"] = {k: t["spx_matmul"] for k, t in wide.items()}
+    ragged["wide"] = {k: t["paged_decode_ragged"] for k, t in wide.items()}
+    flash["wide_whisper"] = {k: t["flash_attention"] for k, t in wide.items()
+                             if "flash_attention" in t}
+    # the context-parallel prefill's shards (serve_mesh): 128 rows of
+    # gemma-2b's 8 query heads over the 512 gathered keys of its one KV
+    # head, at the first and the last shard's causal offset
+    rows = MESH_SEQ // MESH[1]
+    flash["context_parallel"] = {
+        f"q_offset={off}": _flash_shape_timing(
+            torch, gen, b=MESH_BATCH // MESH[0], hq=cfg.n_heads,
+            hkv=cfg.n_kv_heads, sq=rows, skv=MESH_SEQ, dh=cfg.dh,
+            causal=True, layers=cfg.n_layers, q_offset=off,
+            per=f"one context-parallel shard's prefill: {cfg.n_layers} "
+                f"launches, {MESH_BATCH // MESH[0]} rows x {rows} queries "
+                f"at offset {off} over {MESH_SEQ} keys")
+        for off in (_cp_offsets()[0], _cp_offsets()[-1])}
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -5028,7 +5508,8 @@ def main() -> int:
         worst, checked = kernel_phase(torch, np)
         for phase in (family_kernel_phase, whisper_kernel_phase,
                       train_kernel_phase, sharded_kernel_phase,
-                      tier_kernel_phase):
+                      tier_kernel_phase, wide_kernel_phase,
+                      mesh_kernel_phase):
             more_worst, more_checked = phase(torch, np)
             for name, err in more_worst.items():
                 worst[name] = max(worst[name], err)
@@ -5063,6 +5544,14 @@ def main() -> int:
         new_launches.update(sharded["launches"])
         new_launches.update({f"serve_sharded {name}": run["launches"]
                              for name, run in shard_runs.items()})
+        new_launches[f"serve_wide whisper-small shards="
+                     f"{WIDE['whisper-small']}"] = whisper["wide"]["launches"]
+        # the serve steps under a (data, model) mesh: eight devices, the
+        # one card listed eight times
+        with _forced_shards(MESH[0] * MESH[1]):
+            mesh = serve_mesh_phase(torch, np, eng.params,
+                                    info["nvidia_smi"], checked)
+        new_launches.update(mesh["launches"])
         sharded["families"] = {name: run["timing"]
                                for name, run in shard_runs.items()}
         new_launches["router"] = router_phase(torch, np, eng.params,

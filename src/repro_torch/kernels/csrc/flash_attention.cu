@@ -7,9 +7,11 @@
 // q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) f32, Hq = rep * Hkv (GQA):
 // query head hq attends KV head hq / rep. out (B, Hq, Sq, dh) f32.
 // Scores are q . k * 1/sqrt(dh); with ``causal`` a key at position c is
-// attended by the query at position r only when r >= c (positions from 0
-// in both, as the TPU kernel masks). Online softmax with a -1e30 mask,
-// masked probabilities forced to 0, and a 1e-30 clamp on the denominator.
+// attended by the query at position r only when r >= c (keys from 0,
+// query row i at q_offset + i: 0 as the TPU kernel masks, a shard's
+// first position under context-parallel prefill). Online softmax with a
+// -1e30 mask, masked probabilities forced to 0, and a 1e-30 clamp on the
+// denominator.
 //
 // Bound on the H100: the function reads q, k, v once and writes out once
 // (4 * dh * (2 * B * Hq * Sq + 2 * B * Hkv * Skv) bytes) and does
@@ -174,7 +176,7 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int hq, int rep, int sq, int skv, int causal,
-                       float scale) {
+                       int q_offset, float scale) {
   using T = Tile<DH>;
   constexpr int kNd = DH / 8;            // O fragments (8 columns each)
   constexpr int kPlane = kBkv * T::kPl;  // one K or V plane
@@ -196,7 +198,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
   int n_tiles = (skv + kBkv - 1) / kBkv;
   if (causal) {
-    const int last = min(sq - 1, (min(rows, rho0 + kBq) - 1) / rep);
+    const int last =
+        q_offset + min(sq - 1, (min(rows, rho0 + kBq) - 1) / rep);
     n_tiles = min(n_tiles, last / kBkv + 1);
   }
 
@@ -227,9 +230,11 @@ flash_attention_kernel(const float* __restrict__ q,
   __syncthreads();                // the Q tile landed
   split_rows<DH>(q_f32, q_pl, kBq * T::kPl, kBq);
 
-  // this thread's two rows (g and g + 8 of the warp's 16) and positions
+  // this thread's two rows (g and g + 8 of the warp's 16) and their
+  // positions under the causal mask (row i of q sits at q_offset + i)
   const int r0 = warp * 16 + g;
-  const int pos0 = (rho0 + r0) / rep, pos1 = (rho0 + r0 + 8) / rep;
+  const int pos0 = q_offset + (rho0 + r0) / rep;
+  const int pos1 = q_offset + (rho0 + r0 + 8) / rep;
   // ldmatrix row addresses: A (Q) rows of the warp, B (K) keys, V keys
   const uint32_t qa = smem_u32(q_pl) + (warp * 16 + (lane & 15)) * T::kPl +
                       16 * (lane >> 4);
@@ -356,7 +361,7 @@ flash_attention_kernel(const float* __restrict__ q,
 template <int DH>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int B, int hq, int rep, int sq, int skv, int causal,
-                   float scale, cudaStream_t stream) {
+                   int q_offset, float scale, cudaStream_t stream) {
   constexpr int kSmem = Tile<DH>::kBytes;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
       flash_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,7 +369,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((sq * rep + kBq - 1) / kBq, B * (hq / rep));
   flash_attention_kernel<DH><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, out, hq, rep, sq, skv, causal, scale);
+      q, k, v, out, hq, rep, sq, skv, causal, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -376,20 +381,20 @@ extern "C" {
 // kernel is not built for.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* out, int B, int hq, int rep, int sq, int skv,
-                        int dh, int causal, float scale,
+                        int dh, int causal, int q_offset, float scale,
                         cudaStream_t stream) {
   cudaError_t err;
   switch (dh) {
     case 32: err = launch<32>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              scale, stream); break;
+                              q_offset, scale, stream); break;
     case 64: err = launch<64>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              scale, stream); break;
+                              q_offset, scale, stream); break;
     case 80: err = launch<80>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              scale, stream); break;
+                              q_offset, scale, stream); break;
     case 128: err = launch<128>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                                scale, stream); break;
+                                q_offset, scale, stream); break;
     case 256: err = launch<256>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                                scale, stream); break;
+                                q_offset, scale, stream); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -50,7 +50,7 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_f32":
-            ([_P] * 4 + [_I] * 7 + [ctypes.c_float, _P], _I),
+            ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
     },
 }
 

@@ -38,9 +38,10 @@ FUNCTION_CALLS: collections.Counter = collections.Counter()
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool) -> torch.Tensor:
-    """q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) f32, Hq % Hkv == 0.
-    Returns (B, Hq, Sq, dh) f32."""
+                         *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """q (B, Hq, Sq, dh), k/v (B, Hkv, Skv, dh) f32, Hq % Hkv == 0; query
+    row i at position ``q_offset + i`` under the causal mask. Returns
+    (B, Hq, Sq, dh) f32."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"flash_attention needs CUDA tensors, got {device}")
@@ -55,6 +56,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {dh} not in "
                          f"{HEAD_DIMS}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != device:
             raise ValueError(f"flash_attention: {name} on {t.device}, "
@@ -68,7 +71,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = lib.flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        hq // hkv, sq, skv, dh, int(causal), dh ** -0.5,
+        hq // hkv, sq, skv, dh, int(causal), int(q_offset), dh ** -0.5,
         torch.cuda.current_stream(device).cuda_stream)
     cuda_lib.check(lib, err, "flash_attention launch")
     cuda_lib.LAUNCHES["flash_attention"] += 1

@@ -79,36 +79,42 @@ def spx_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
 # -- flash_attention: the dense prefill ---------------------------------------
 
 @registry.register("flash_attention", "ref")
-def _flash_attention_ref(q, k, v, *, causal, q_chunk):
+def _flash_attention_ref(q, k, v, *, causal, q_chunk, q_offset=0):
     _REF_CALLS["flash_attention"] += 1
-    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk)
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
+                                   q_offset=q_offset)
 
 
 @registry.register("flash_attention", "cuda")
-def _flash_attention_cuda(q, k, v, *, causal, q_chunk):
+def _flash_attention_cuda(q, k, v, *, causal, q_chunk, q_offset=0):
     """The kernel; inside ``FlashAttentionFn`` when autograd records (an
     input requires grad), so training differentiates it. ``q_chunk`` is
     the plain recompute's in the backward: the kernel tiles queries
     itself."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q_offset:
+            raise NotImplementedError(
+                "flash_attention: no gradient with a query offset")
         return flash_attention_autograd(q, k, v, causal=causal,
                                         q_chunk=q_chunk)
-    return flash_attention_cuda(q, k, v, causal=causal)
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_chunk: int = 1024,
-                    impl: str = "auto") -> torch.Tensor:
+                    impl: str = "auto", q_offset: int = 0) -> torch.Tensor:
     """GQA attention. q: (B, Hq, Sq, dh); k, v: (B, Hkv, Skv, dh);
     Hq % Hkv == 0. Returns (B, Hq, Sq, dh). Every length runs through the
-    kernel on the card; ``q_chunk`` is the plain version's query chunk."""
+    kernel on the card; ``q_chunk`` is the plain version's query chunk.
+    ``q_offset``: query row i sits at position ``q_offset + i`` under the
+    causal mask (a context-parallel shard's rows)."""
     hq, hkv = q.shape[1], k.shape[1]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
     _, fn = registry.resolve("flash_attention", impl, q.device)
     return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-              q_chunk=q_chunk)
+              q_chunk=q_chunk, q_offset=int(q_offset))
 
 
 # -- paged_attention: single-token decode over the paged KV cache -------------

@@ -212,12 +212,14 @@ def paged_decode_split_ref(q, k_pages, v_pages, block_table, ctx_len,
     return acc / torch.clamp(l_sum, min=1e-30)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int):
+def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int,
+                        q_offset: int = 0):
     """The flash kernel's function in plain PyTorch: the reference's
     chunked attention (``repro.nn.attention._chunked_attention``), which
     is ``repro.kernels.ref.attention_ref`` computed ``q_chunk`` query rows
     at a time (one chunk when Sq is not a multiple). q: (B, Hq, Sq, dh); k/v:
-    (B, Hkv, Skv, dh), GQA repeated here. Returns (B, Hq, Sq, dh)."""
+    (B, Hkv, Skv, dh), GQA repeated here; query row i sits at position
+    ``q_offset + i`` under the causal mask. Returns (B, Hq, Sq, dh)."""
     b, hq, sq, dh = q.shape
     rep = hq // k.shape[1]
     if rep > 1:
@@ -233,7 +235,7 @@ def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int):
         s = torch.einsum("bhqd,bhkd->bhqk", q_i,
                          k.to(torch.float32)) * (dh ** -0.5)
         if causal:
-            q_pos = i * cq + torch.arange(cq, device=q.device)
+            q_pos = q_offset + i * cq + torch.arange(cq, device=q.device)
             s = torch.where(q_pos[:, None] >= kv_pos[None, :], s,
                             torch.full_like(s, _NEG))
         p = torch.softmax(s, dim=-1)

@@ -37,7 +37,7 @@ from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import refuse_training_mesh
 
 from .lm import (Z_WEIGHT, _default_positions, _paged_forward, _paged_head,
-                 chunked_ce)
+                 chunked_ce, mesh_apply, mesh_embed)
 
 __all__ = ["encdec_init", "encdec_loss", "encdec_encode", "encdec_prefill",
            "encdec_decode_step", "encdec_init_caches", "enc_cfg", "dec_cfg",
@@ -133,7 +133,12 @@ def encdec_prefill(params, frames, tokens, caches, cfg: ArchConfig,
                    rt: Runtime):
     """Encode ``frames`` and run the decoder prompt ``tokens`` (B, S),
     writing the self-attention prefix and the cross K/V into ``caches``
-    in place. Returns the last position's logits (B, V) and the caches."""
+    in place. Returns the last position's logits (B, V) and the caches.
+    Under ``rt.mesh`` (a ``HostMesh``, ``launch.steps``) per data group
+    (``lm.mesh_apply``), encoder and decoder tensor-parallel over its
+    model shards, ``params``/``caches`` ``grid[d][m]`` trees."""
+    if rt.mesh is not None:
+        return _mesh_step(params, tokens, caches, cfg, rt, frames=frames)
     enc_out = encdec_encode(params, frames, cfg, rt)
     pos = _default_positions(cfg, *tokens.shape, tokens.device)
     x = embedding_apply(params["embed"], tokens)
@@ -147,12 +152,40 @@ def encdec_decode_step(params, token, pos, caches, cfg: ArchConfig,
                        rt: Runtime):
     """One decode step of the decoder against the dense caches (cross K/V
     read from them). token: (B,); pos: scalar or (B,). Returns (logits
-    (B, V), caches)."""
+    (B, V), caches). Under ``rt.mesh`` as ``encdec_prefill``."""
+    if rt.mesh is not None:
+        return _mesh_step(params, token[:, None], caches, cfg, rt, pos=pos)
     x = embedding_apply(params["embed"], token[:, None])
     h, caches = stack_decode(params["dec_stack"], x, pos, dec_cfg(cfg), rt,
                              caches)
     h = norm_apply(cfg.norm, params["final_norm"], h)
     return _logits(params, h[:, 0]), caches
+
+
+def _mesh_step(params, tokens, caches, cfg: ArchConfig, rt: Runtime, *,
+               frames=None, pos=None):
+    """The serve steps' prefill (``frames`` given) or decode (``pos``)
+    over each data group's model shards."""
+    if rt.attn_cp:
+        raise NotImplementedError(
+            "context-parallel prefill of an encoder-decoder model")
+    dcfg = dec_cfg(cfg)
+    pos = None if pos is None else torch.as_tensor(pos)
+
+    def body(ps, tok, rows, rt_d, c):
+        x = mesh_embed(ps, tok, cfg, rt_d)
+        stack = [p["dec_stack"] for p in ps]
+        if frames is None:
+            h, _ = stack_decode(stack, x, (pos[rows] if pos.ndim else pos)
+                                .to(x.device), dcfg, rt_d, c)
+            return h, slice(None)
+        enc_out = encdec_encode(ps, frames[rows].to(x.device), cfg, rt_d)
+        h, _, _ = stack_prefill(
+            stack, x, _default_positions(cfg, *tok.shape, x.device), dcfg,
+            rt_d, c, enc_out=enc_out)
+        return h[:, -1:], slice(None)
+    return mesh_apply(params, tokens, caches, cfg, rt, body,
+                      head_w=lambda p: p["head"]["w"])
 
 
 # -- paged serving (the state cache) ------------------------------------------

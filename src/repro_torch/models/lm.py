@@ -19,7 +19,10 @@ functions take one param tree and one state cache per shard
 runs over the shards' slices of the table (``sharded_embedding_apply``),
 ``stack_paged`` runs the shards' layers, and the head over the shards'
 slices of it (``sharded_logits``), all joined or summed in shard order
-on the first shard's device.
+on the first shard's device. Under a ``HostMesh`` (the serve steps of
+``launch.steps``) ``lm_prefill`` and ``lm_decode_step`` take
+``grid[d][m]`` trees and run each data group's rows over its model
+shards the same way (``mesh_apply``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from repro_torch.nn.layers import (dense_init, embedding_apply,
 from repro_torch.nn.transformer import (slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_decode, stack_init,
-                                        stack_paged, stack_prefill)
+                                        stack_paged, stack_prefill,
+                                        stack_prefill_cp)
 from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import refuse_training_mesh
 
@@ -185,10 +189,16 @@ def lm_prefill(params, tokens, caches, cfg: ArchConfig, rt: Runtime,
     """Run the prompt tokens (B, S) through the stack, write its K/V into
     positions [0, S) of ``caches`` and each recurrent slot's final state
     (in place), and return the last position's logits (B, V) and the
-    caches."""
+    caches. Under ``rt.mesh`` (a ``HostMesh``: the serve steps of
+    ``launch.steps``) ``params`` and ``caches`` are ``grid[d][m]`` trees
+    and the prompt runs per data group (``mesh_apply``),
+    tensor-parallel or, under ``rt.attn_cp``, context-parallel over its
+    model shards."""
     if positions is None:
         positions = _default_positions(cfg, *tokens.shape[:2],
                                        tokens.device)
+    if rt.mesh is not None:
+        return _mesh_prefill(params, tokens, positions, caches, cfg, rt)
     x = embedding_apply(params["embed"], tokens)
     h, caches, _ = stack_prefill(params["stack"], x, positions, cfg, rt,
                                  caches)
@@ -200,11 +210,87 @@ def lm_decode_step(params, token, pos, caches, cfg: ArchConfig,
                    rt: Runtime):
     """One decode step. token: (B,) int; pos: scalar or (B,) write position
     (tokens already in each row's cache). Returns (logits (B, V),
-    caches)."""
+    caches). Under ``rt.mesh`` as ``lm_prefill``: the caches' blocks cut on
+    their sequence (``rt.decode_seq_axis``) take the token where it
+    lands and attend in parallel."""
+    if rt.mesh is not None:
+        return _mesh_decode(params, token, pos, caches, cfg, rt)
     x = embedding_apply(params["embed"], token[:, None])
     h, caches = stack_decode(params["stack"], x, pos, cfg, rt, caches)
     h = norm_apply(cfg.norm, params["final_norm"], h)
     return _head(params, cfg, h[:, 0]), caches
+
+
+def mesh_apply(params, tokens, caches, cfg: ArchConfig, rt: Runtime, body,
+               head_w=None):
+    """The serve steps' forward under ``rt.mesh`` (a ``HostMesh``): each
+    data group takes its rows of ``tokens`` (split over ``rt.data_axes``,
+    else the whole batch in every group) and runs ``body(ps, tokens_d,
+    rows, rt_d, caches_d)`` over its model shards (``rt_d.mesh``), which
+    returns the last hidden rows (B_d, 1, D) and the shards (a slice)
+    whose head slices give the logits; the final norm and the vocabulary
+    projection (``head_w(p)``, the tied table or untied head by default)
+    follow. Returns the logits (B, V) on the mesh's first device, side by
+    side where the batch split, and the caches."""
+    head_w = head_w or (lambda p: _head_w(p, cfg))
+    n, b = rt.mesh.shape["data"], tokens.shape[0]
+    per = b // n if rt.data_axes else b
+    outs = []
+    for d in range(n):
+        lo = d * per if per < b else 0
+        rows = slice(lo, lo + per)
+        rt_d = rt.replace(mesh=rt.mesh.row(d))
+        h, heads = body(params[d], tokens[rows], rows, rt_d, caches[d])
+        ps, devs = params[d][heads], rt_d.mesh.devices[heads]
+        h = norm_apply(cfg.norm, ps[0]["final_norm"], h.to(devs[0]))
+        outs.append(sharded_logits([head_w(p) for p in ps], h[:, 0], devs)
+                    .to(rt.mesh.devices[0]))
+    return (torch.cat(outs) if per < b else outs[0]), caches
+
+
+def mesh_embed(ps: list, tokens, cfg: ArchConfig, rt: Runtime):
+    """``tokens`` embedded over the shards' slices of the table, on the
+    first shard's device."""
+    devs = rt.mesh.devices
+    return sharded_embedding_apply([p["embed"] for p in ps],
+                                   tokens.to(devs[0]), devs, cfg.vocab_size)
+
+
+def _mesh_prefill(params, tokens, positions, caches, cfg: ArchConfig,
+                  rt: Runtime):
+    def tp(ps, tok, rows, rt_d, c):
+        x = mesh_embed(ps, tok, cfg, rt_d)
+        h, _, _ = stack_prefill([p["stack"] for p in ps], x,
+                                positions[rows].to(x.device), cfg, rt_d, c)
+        return h[:, -1:], slice(None)
+
+    def cp(ps, tok, rows, rt_d, c):
+        # shard m embeds and runs the rows [m S/n, (m + 1) S/n); the last
+        # shard holds the last position
+        devs = rt_d.mesh.devices
+        s_loc = tok.shape[1] // len(devs)
+        spans = [slice(m * s_loc, (m + 1) * s_loc) for m in range(len(devs))]
+        xs = [embedding_apply(p["embed"], tok[:, sp].to(dev))
+              for p, dev, sp in zip(ps, devs, spans)]
+        pos = [positions[rows][..., sp].to(dev)
+               for dev, sp in zip(devs, spans)]
+        xs = stack_prefill_cp([p["stack"] for p in ps], xs, pos, cfg, rt_d,
+                              c)
+        return xs[-1][:, -1:], slice(-1, None)
+    return mesh_apply(params, tokens, caches, cfg, rt,
+                      cp if rt.attn_cp else tp)
+
+
+def _mesh_decode(params, token, pos, caches, cfg: ArchConfig, rt: Runtime):
+    pos = torch.as_tensor(pos)
+
+    def body(ps, tok, rows, rt_d, c):
+        x = mesh_embed(ps, tok, cfg, rt_d)
+        h, _ = stack_decode([p["stack"] for p in ps], x,
+                            (pos[rows] if pos.ndim else pos).to(x.device),
+                            cfg, rt_d, c)
+        return h, slice(None)
+    return mesh_apply(params, token[:, None], caches, cfg, rt, body)
 
 
 # -- paged serving ------------------------------------------------------------

@@ -20,20 +20,25 @@ state cache in paged mode. Under ``Runtime.mesh`` the paged mode of
 every pattern (and the train mode of an enc-dec model's encoder) runs
 tensor-parallel over the mesh's shards: attention by heads, the dense FFN
 by its columns, the MoE by experts, and each recurrent mixer whole on
-every shard (``stack_paged``).
+every shard (``stack_paged``); so do the prefill and decode modes of the
+serve steps (``launch.steps``, one data group's model shards), against
+dense caches held as one block per shard, and ``stack_prefill_cp`` runs
+the context-parallel prefill.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.runtime import Runtime
+from repro_torch.runtime import Runtime, planner
+from repro_torch.sharding import state_cut_dim
 
 from . import ssm
 from .attention import (attention_core, attn_apply_dense,
-                        attn_apply_dense_sharded, attn_decode_step,
+                        attn_apply_dense_cp, attn_apply_dense_sharded,
+                        attn_decode_step, attn_decode_step_sharded,
                         attn_init, attn_paged_step, attn_paged_step_sharded,
-                        quantize_kv)
+                        gather_kv, head_segments, quantize_kv)
 from .layers import dense_apply, norm_apply, norm_init, shard_sum, tree_index
 from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 from .moe import moe_apply, moe_apply_sharded, moe_init
@@ -131,14 +136,14 @@ def _cross_kv(p_attn: dict, enc_out: torch.Tensor, n_kv_heads: int,
 
 
 def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
-                 cfg: ArchConfig, rt: Runtime, n_heads: int):
+                 cfg: ArchConfig, rt: Runtime, n_heads: int, segments=None):
     """Cross-attention of a paged chunk against the shared cross region:
     row b reads entry ``state_idx[b, 1]`` (clamped where it is the
     sentinel: such a row's output is never read), q is roped at the
     row's absolute positions ``ctx_len + i``, K/V are unroped and the
     attention spans every encoder frame. Entries are only read here.
     ``n_heads``: the query heads ``p_x`` projects (one shard's under
-    ``rt.mesh``)."""
+    ``rt.mesh``, attending its ``segments``)."""
     b, c, _ = hx.shape
     n_cross = cache["xk"].shape[0]
     idx = torch.clamp(state_idx[:, 1].long(), 0, max(n_cross - 1, 0))
@@ -147,7 +152,8 @@ def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
                                                 device=hx.device)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     o = attention_core(q.transpose(1, 2), cache["xk"][idx].to(q.dtype),
-                       cache["xv"][idx].to(q.dtype), causal=False, rt=rt)
+                       cache["xv"][idx].to(q.dtype), causal=False, rt=rt,
+                       segments=segments)
     return dense_apply(p_x["wo"], o.transpose(1, 2).reshape(
         b, c, n_heads * cfg.dh), rt)
 
@@ -155,14 +161,17 @@ def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
 def _paged_cross_sharded(ps: list, hx, caches: list, ctx_len: list,
                          state_idx: list, cfg: ArchConfig, rt: Runtime):
     """``_paged_cross`` split over the shards of ``rt.mesh`` by heads:
-    shard s attends its query heads over its head-sharded cross region,
-    and its ``wo`` rows' partial products are summed in shard order
-    (``shard_sum``)."""
+    shard s attends its head group (``planner.shard_heads``) over its
+    cross region (head-sharded, or replicated where the KV heads do not
+    split), and its ``wo`` rows' partial products are summed in shard
+    order (``shard_sum``)."""
     n = len(ps)
+    groups = planner.shard_heads(cfg.n_heads, cfg.n_kv_heads, n)
     return shard_sum([
-        _paged_cross(p, hx.to(dev), c, cl, si, cfg, rt, cfg.n_heads // n)
-        for p, c, cl, si, dev in zip(ps, caches, ctx_len, state_idx,
-                                     rt.mesh.devices)])
+        _paged_cross(p, hx.to(dev), c, cl, si, cfg, rt, groups[s].nq,
+                     head_segments(cfg.n_heads, cfg.n_kv_heads, n, s))
+        for s, (p, c, cl, si, dev) in enumerate(zip(
+            ps, caches, ctx_len, state_idx, rt.mesh.devices))])
 
 
 def _cross_sublayer(p: dict, x, positions, cfg: ArchConfig, rt: Runtime, *,
@@ -182,6 +191,9 @@ def _cross_sublayer(p: dict, x, positions, cfg: ArchConfig, rt: Runtime, *,
                                         state_idx, cfg, rt)
         return _paged_cross(p["xattn"], hx, cache, ctx_len, state_idx, cfg,
                             rt, cfg.n_heads)
+    if tp:
+        return _cross_mesh(p["xattn"], hx, positions, cfg, rt, mode=mode,
+                           caches=cache, pos=pos, enc_out=enc_out)
     if mode == "decode":
         y, _ = attn_decode_step(
             p["xattn"], hx, pos, None,
@@ -265,15 +277,220 @@ def _recurrent(slot_p, h, cfg: ArchConfig, rt: Runtime, mixer: str, *,
 
 def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
                        mixer: str, *, mode: str, cache: list, paged_ctx):
-    """A recurrent mixer's paged step under ``rt.mesh``: whole on every
-    shard (its leaves and its slabs replicate, as the reference's pool
-    spec keeps the slabs), each shard stepping its own copy of the slab
-    region the same way, so the copies stay identical; shard 0's output
-    joins the residual stream. ``paged_ctx``: per-shard lists."""
+    """A recurrent mixer under ``rt.mesh``, whole on every shard (its
+    leaves replicate). Paged mode: its slabs replicate too, as the
+    reference's pool spec keeps them, each shard stepping its own copy of
+    the slab region the same way, so the copies stay identical, and shard
+    0's output joins the residual stream (``paged_ctx``: per-shard
+    lists). The serve steps' prefill and decode: the state, cut over the
+    shards as ``sharding.cache_spec`` lays it out, is joined on the first
+    shard's device, the mixer runs there once, and each shard keeps its
+    block of the new state."""
+    if mode in ("prefill", "decode"):
+        state = _join_state(cache, mixer, cfg, len(ps))
+        y, _ = _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=state,
+                          paged_ctx=None)
+        _split_state(cache, state, mixer, cfg, len(ps))
+        return y, cache
     ys = [_recurrent(p, h.to(dev), cfg, rt, mixer, mode=mode, cache=c,
                      paged_ctx=tuple(t[s] for t in paged_ctx))[0]
           for s, (p, c, dev) in enumerate(zip(ps, cache, rt.mesh.devices))]
     return ys[0], cache
+
+
+# -- the serve steps under a mesh (``launch.steps``) -------------------------
+
+def _state_dims(mixer: str, cfg: ArchConfig, b: int, m: int) -> dict:
+    """The dim of each of a recurrent mixer's state leaves (a period's,
+    (B, ...)) that ``sharding.cache_spec`` cuts over ``m`` model shards,
+    or None."""
+    leaves = _state_leaves(mixer, cfg, (1, b), torch.float32, "meta")
+    return {k: (None if d is None else d - 1) for k, d in (
+        (k, state_cut_dim(tuple(v.shape), m)) for k, v in leaves.items())}
+
+
+def _join_state(blocks: list, mixer: str, cfg: ArchConfig, m: int) -> dict:
+    """A recurrent state whole on the first block's device, from each
+    shard's block of it."""
+    dev0 = next(iter(blocks[0].values())).device
+    b = next(iter(blocks[0].values())).shape[0]
+    out = {}
+    for k, d in _state_dims(mixer, cfg, b, m).items():
+        out[k] = (blocks[0][k].clone() if d is None else
+                  torch.cat([c[k].to(dev0) for c in blocks], dim=d))
+    return out
+
+
+def _split_state(blocks: list, state: dict, mixer: str, cfg: ArchConfig,
+                 m: int) -> None:
+    """Write each shard's block of ``state`` back, in place."""
+    b = next(iter(state.values())).shape[0]
+    for k, d in _state_dims(mixer, cfg, b, m).items():
+        for s, c in enumerate(blocks):
+            part = state[k]
+            if d is not None:
+                size = part.shape[d] // m
+                part = part.narrow(d, s * size, size)
+            c[k].copy_(part.to(c[k].device))
+
+
+def _write_blocks(blocks: list, val, rt: Runtime, seq_sharded: bool) -> None:
+    """Write a prompt's K or V (B, Hkv, S, dh) into positions [0, S) of a
+    dense cache held as one block per shard, in place: block m holds
+    positions [m S_blk, (m + 1) S_blk) where the cache is cut on its
+    sequence, every position otherwise."""
+    s = val.shape[2]
+    for m, blk in enumerate(blocks):
+        leaf = blk["codes"] if isinstance(blk, dict) else blk
+        lo = m * leaf.shape[2] if seq_sharded else 0
+        part = val[:, :, lo:min(s, lo + leaf.shape[2])]
+        if part.shape[2]:
+            _write_prefix(blk, part.to(leaf.device), rt)
+
+
+def _join_blocks(blocks: list, dev, seq_sharded: bool):
+    """A dense cache (B, Hkv, S, dh) whole on ``dev`` from its blocks."""
+    if not seq_sharded:
+        return blocks[0].to(dev)
+    return torch.cat([t.to(dev) for t in blocks], dim=2)
+
+
+def _attn_mesh(ps: list, h, positions, pos, caches: list, cfg: ArchConfig,
+               rt: Runtime, *, mode: str):
+    """A self-attention sublayer of the serve steps, tensor-parallel over
+    the shards of ``rt.mesh`` (one data group's model shards) against
+    dense caches held as one block per shard (``caches``), cut on their
+    sequence when ``rt.decode_seq_axis`` is set: the sharded dense
+    forward with its K/V of every KV head written into the blocks
+    (prefill), or ``attn_decode_step_sharded`` (decode)."""
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=cfg.dh, rope_theta=cfg.rope_theta,
+                 mrope_sections=cfg.mrope_sections, rt=rt)
+    if mode == "decode":
+        return attn_decode_step_sharded(ps, h, pos, [c["k"] for c in caches],
+                                        [c["v"] for c in caches], **heads)
+    y, (k, v) = attn_apply_dense_sharded(ps, h, positions, kv_out=True,
+                                         **heads)
+    seq = rt.decode_seq_axis is not None
+    _write_blocks([c["k"] for c in caches], k.transpose(1, 2), rt, seq)
+    _write_blocks([c["v"] for c in caches], v.transpose(1, 2), rt, seq)
+    return y
+
+
+def _cross_mesh(ps: list, hx, positions, cfg: ArchConfig, rt: Runtime, *,
+                mode: str, caches: list, pos, enc_out):
+    """The xdec slot's cross-attention in the serve steps, tensor-parallel
+    by heads: prefill projects each shard's KV heads of the encoder
+    output, attends them and writes every KV head into the cross blocks
+    (cut on the encoder's sequence where ``cache_specs`` cut them: a block
+    shorter than ``enc_seq_len``); decode joins each shard's KV heads
+    from the blocks and attends them at ``pos``. Each shard's ``wo``
+    partial summed in shard order."""
+    devs, dh, n = rt.mesh.devices, cfg.dh, len(ps)
+    seq = caches[0]["xk"].shape[2] < cfg.enc_seq_len
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=dh, rope_theta=cfg.rope_theta, rt=rt)
+    if mode == "prefill":
+        kvs = [_cross_kv(p, enc_out.to(dev), p["wk"]["w"].shape[-1] // dh,
+                         dh, rt) for p, dev in zip(ps, devs)]
+        for key, i in (("xk", 0), ("xv", 1)):
+            whole = gather_kv([kv[i] for kv in kvs], cfg.n_kv_heads, devs[0])
+            _write_blocks([c[key] for c in caches], whole.transpose(1, 2),
+                          rt, seq)
+        return attn_apply_dense_sharded(ps, hx, positions, causal=False,
+                                        cross_kv=kvs, **heads)
+    b = hx.shape[0]
+    pos_b = torch.broadcast_to(torch.as_tensor(pos, device=hx.device),
+                               (b,)).long()
+    split = planner.kv_heads_split(cfg.n_kv_heads, n)
+    kvs = []
+    for s, dev in enumerate(devs):
+        kv = []
+        for key in ("xk", "xv"):
+            t = _join_blocks([c[key] for c in caches], dev, seq)
+            if split:
+                g = t.shape[1] // n
+                t = t[:, s * g:(s + 1) * g]
+            kv.append(t.transpose(1, 2))
+        kvs.append(tuple(kv))
+    return attn_apply_dense_sharded(ps, hx, pos_b[:, None], causal=False,
+                                    cross_kv=kvs, **heads)
+
+
+def _cp_periods(params: list, cfg: ArchConfig, caches: list):
+    """(slot kind, each shard's whole slot params, each shard's cache
+    blocks) of every (period, slot): the context-parallel prefill's
+    walk, every shard holding every weight."""
+    for per_shard in zip(*(_periods(p, cfg, c)
+                           for p, c in zip(params, caches))):
+        yield (per_shard[0][0], [sp for _, sp, _ in per_shard],
+               [c for _, _, c in per_shard])
+
+
+def stack_prefill_cp(params: list, xs: list, positions: list,
+                     cfg: ArchConfig, rt: Runtime, caches: list) -> list:
+    """The context-parallel prefill (``rt.attn_cp``) over the shards of
+    ``rt.mesh``, every shard holding the whole stack (the ``replicated``
+    policy): shard m runs the rows [m S/n, (m + 1) S/n) of the prompt
+    (``xs[m]``, ``positions[m]``) through norms, projections and the dense
+    FFN; the attention gathers K/V and offsets shard m's causal mask by m
+    S/n (``attn_apply_dense_cp``), and its K/V go into the cache blocks; a
+    MoE or a recurrent mixer, whose result depends on the whole sequence,
+    runs once on the rows joined on the first shard's device. Returns
+    each shard's rows."""
+    devs = rt.mesh.devices
+    seq = rt.decode_seq_axis is not None
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            "context-parallel prefill of an encoder-decoder model")
+    for slot, sps, blocks in _cp_periods(params, cfg, caches):
+        mixer, ffn = _parse_slot(slot)
+        hs = [norm_apply(cfg.norm, sp["norm1"], x) for sp, x in zip(sps, xs)]
+        if mixer == "attn":
+            ys, kvs = attn_apply_dense_cp(
+                [sp["attn"] for sp in sps], hs, positions,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.dh, rope_theta=cfg.rope_theta,
+                mrope_sections=cfg.mrope_sections, rt=rt)
+            for key, i in (("k", 0), ("v", 1)):
+                whole = torch.cat([kv[i].to(devs[0]) for kv in kvs], dim=1)
+                _write_blocks([c[key] for c in blocks],
+                              whole.transpose(1, 2), rt, seq)
+        else:
+            state = _join_state(blocks, mixer, cfg, len(devs))
+            y, _ = _recurrent(sps[0][mixer], _join_rows(hs, devs[0]), cfg,
+                              rt, mixer, mode="prefill", cache=state,
+                              paged_ctx=None)
+            _split_state(blocks, state, mixer, cfg, len(devs))
+            ys = _split_rows(y, xs)
+        xs = [x + y for x, y in zip(xs, ys)]
+        if ffn is None:
+            continue
+        hs = [norm_apply(cfg.norm, sp["norm2"], x) for sp, x in zip(sps, xs)]
+        if ffn == "dense":
+            ys = [mlp_apply(sp["mlp"], h, variant=cfg.mlp_variant,
+                            act=cfg.act, rt=rt) for sp, h in zip(sps, hs)]
+        else:
+            y, _ = moe_apply(sps[0]["moe"], _join_rows(hs, devs[0]),
+                             top_k=cfg.top_k, n_experts=cfg.n_experts,
+                             capacity_factor=cfg.capacity_factor, rt=rt)
+            ys = _split_rows(y, xs)
+        xs = [x + y for x, y in zip(xs, ys)]
+    return xs
+
+
+def _join_rows(parts: list, dev):
+    return torch.cat([t.to(dev) for t in parts], dim=1)
+
+
+def _split_rows(y, like: list) -> list:
+    """``y`` (B, S, D) cut back into the shards' row blocks, each on the
+    device of its block in ``like``."""
+    out, lo = [], 0
+    for x in like:
+        out.append(y[:, lo:lo + x.shape[1]].to(x.device))
+        lo += x.shape[1]
+    return out
 
 
 def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
@@ -300,6 +517,9 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
             step = attn_paged_step_sharded if tp else attn_paged_step
             y, cache = step(p["attn"], h, ctx_len, block_table, cache,
                             n_valid=n_valid, fused=fused, **heads)
+        elif tp and mode in ("prefill", "decode"):
+            y = _attn_mesh(p["attn"], h, positions, pos, cache, cfg, rt,
+                           mode=mode)
         elif mode == "decode":
             y, (k, v) = attn_decode_step(p["attn"], h, pos,
                                          (cache["k"], cache["v"]), **heads)
@@ -381,27 +601,40 @@ def stack_apply(params, x: torch.Tensor, positions, cfg: ArchConfig,
     return x, aux
 
 
-def stack_prefill(params: dict, x: torch.Tensor, positions, cfg: ArchConfig,
+def stack_prefill(params, x: torch.Tensor, positions, cfg: ArchConfig,
                   rt: Runtime, caches, enc_out=None):
     """Prefill: the train-mode forward that also writes each slot's
     serving state into the pre-allocated dense ``caches`` (in place): the
     K/V prefix of attention slots, the final state of recurrent ones, the
-    projected encoder K/V of xdec slots. Returns (x, caches, aux)."""
+    projected encoder K/V of xdec slots. Under ``rt.mesh`` (one data
+    group of the serve steps) ``params`` and ``caches`` hold one stack and
+    one cache block tree per model shard and every slot runs
+    tensor-parallel (``_attn_mesh``, ``_cross_mesh``, the sharded FFN and
+    MoE, recurrent mixers whole); x stays on the first shard's device.
+    Returns (x, caches, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for slot, sp, cache in _periods(params, cfg, caches):
+    tp = rt.mesh is not None
+    periods = (_tp_periods(params, cfg, caches) if tp
+               else _periods(params, cfg, caches))
+    for slot, sp, cache in periods:
         x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt,
-                              mode="prefill", cache=cache, enc_out=enc_out)
+                              mode="prefill", cache=cache, enc_out=enc_out,
+                              tp=tp)
         aux = aux + a
     return x, caches, aux
 
 
-def stack_decode(params: dict, x: torch.Tensor, pos, cfg: ArchConfig,
+def stack_decode(params, x: torch.Tensor, pos, cfg: ArchConfig,
                  rt: Runtime, caches):
-    """One-token decode through all periods, writing the caches in place.
-    Returns (x, caches)."""
-    for slot, sp, cache in _periods(params, cfg, caches):
+    """One-token decode through all periods, writing the caches in place
+    (tensor-parallel over ``rt.mesh`` as ``stack_prefill``). Returns (x,
+    caches)."""
+    tp = rt.mesh is not None
+    periods = (_tp_periods(params, cfg, caches) if tp
+               else _periods(params, cfg, caches))
+    for slot, sp, cache in periods:
         x, _, _ = _slot_apply(slot, sp, x, None, cfg, rt, mode="decode",
-                              cache=cache, pos=pos)
+                              cache=cache, pos=pos, tp=tp)
     return x, caches
 
 

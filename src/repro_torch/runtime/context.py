@@ -8,12 +8,23 @@
   device     where params, caches and activations live. ``"cuda"`` by
              default; the CPU is taken only when asked for
   mesh       a ``launch.mesh.ServingMesh`` (the shard devices) when the
-             serving engine runs tensor-parallel, else None
+             serving engine runs tensor-parallel, a ``launch.mesh.HostMesh``
+             (a data x model grid) under the serve steps of
+             ``launch.steps``, else None
+  decode_seq_axis  the mesh axis the dense self-attention caches'
+             sequence is cut over (sequence-sharded decode), or None: the
+             cut that ``ShardingPolicy.cache_specs`` gave the caches
+  data_axes  the batch's axes (a tuple): empty where the batch does not
+             divide the data axis and every data group runs all of it
+  attn_cp    context-parallel prefill: queries sequence-sharded over the
+             model axis, K/V gathered
+The mesh fields are read only under a ``HostMesh``; with ``mesh`` None
+they change nothing.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -40,6 +51,14 @@ class Runtime:
     kv_scheme: str = "uniform8"
     device: str = "cuda"
     mesh: Any = None
+    decode_seq_axis: Optional[str] = None
+    data_axes: tuple = ("data",)
+    attn_cp: bool = False
+
+    def __post_init__(self):
+        if not isinstance(self.data_axes, tuple):
+            object.__setattr__(self, "data_axes",
+                               tuple(self.data_axes or ()))
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)

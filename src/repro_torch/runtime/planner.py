@@ -17,7 +17,9 @@ larger pages: 32 tokens at head_dim 256, 64 at 128.
 reference's integer page math, verbatim. ``plan_shard_budget`` is the
 reference's per-shard byte model of a tensor-parallel paged engine; its
 kernel working set is this planner's page pair (``smem_bytes``) where the
-reference's is the TPU kernel's VMEM.
+reference's is the TPU kernel's VMEM. ``split_ranges`` and ``shard_heads``
+are the uneven tensor-parallel cuts, where a count does not divide the
+shards.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from repro_torch.core import spx
 __all__ = ["KVPagePlan", "plan_kv_pages", "plan_seq_pages",
            "plan_resume_pages", "StateReservation", "plan_seq_state",
            "ShardBudget", "kv_heads_split", "plan_shard_budget",
+           "split_ranges", "HeadGroup", "shard_heads",
            "PAGE_PAIR_SMEM_BYTES"]
 
 #: shared-memory budget of one K page + one V page of one (slot, KV head)
@@ -146,6 +149,51 @@ def kv_heads_split(n_kv_heads: int, shards: int) -> bool:
     holds them whole and the pools replicate). The one rule that the
     sharding policy, the engine and this budget read."""
     return shards > 1 and n_kv_heads % shards == 0
+
+
+def split_ranges(n: int, parts: int, granule: int = 1) -> tuple:
+    """(start, size) of ``parts`` contiguous pieces of ``n`` items, cut on
+    multiples of ``granule`` (which must divide ``n``): equal where they
+    divide, else the first pieces one granule larger. The one rule for
+    every uneven tensor-parallel cut (heads, experts, FFN columns, a
+    vocabulary that splits on neither axis)."""
+    if n % granule:
+        raise ValueError(f"{n} items do not cut on multiples of {granule}")
+    units, extra = divmod(n // granule, parts)
+    out, start = [], 0
+    for s in range(parts):
+        size = (units + (s < extra)) * granule
+        out.append((start, size))
+        start += size
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadGroup:
+    """One shard's heads: query heads ``[q0, q0 + nq)`` (``split_ranges``
+    over the shards) and the KV heads ``[kv0, kv0 + nkv)`` they read."""
+    q0: int
+    nq: int
+    kv0: int
+    nkv: int
+
+
+@functools.lru_cache(maxsize=256)
+def shard_heads(n_heads: int, n_kv_heads: int, shards: int) -> tuple:
+    """The ``HeadGroup`` of every shard: ``n_heads`` query heads split as
+    evenly as they go (12 over 8: 2, 2, 2, 2, 1, 1, 1, 1), each shard
+    reading the KV heads of its queries (query head ``h`` reads KV head
+    ``h // (n_heads // n_kv_heads)``). Raises where a shard would hold no
+    query head."""
+    if n_heads < shards:
+        raise ValueError(f"{n_heads} query heads cannot cover {shards} "
+                         "shards")
+    rep = n_heads // n_kv_heads
+    out = []
+    for q0, nq in split_ranges(n_heads, shards):
+        kv0 = q0 // rep
+        out.append(HeadGroup(q0, nq, kv0, (q0 + nq - 1) // rep + 1 - kv0))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=256)

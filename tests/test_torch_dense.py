@@ -9,7 +9,17 @@
 * the dense engine gives the JAX engine's greedy tokens with an f32 cache
   and with an ``spx_8_x3`` cache, every prefill through the flash op;
 * ``ServeConfig(kv_layout="dense").resolve`` gives the reference's
-  defaults and raises its ``ValueError``s.
+  defaults and raises its ``ValueError``s;
+* the plain flash version with a causal query offset matches the
+  reference's chunked attention with its ``q_offset``;
+* ``launch.steps.build_serve_step`` over a (data=2, model=4) mesh of
+  eight CPU devices gives the reference's one-device prefill and decode
+  step (the reference's own mesh cells: decode on granite-3-8b,
+  olmoe-1b-7b and xlstm-350m, prefill on granite-3-8b with and without
+  the context-parallel prefill and on whisper-small): logits within
+  SHARD_LOGIT_TOL of their largest magnitude, the caches reassembled from
+  their blocks within 1e-5, a rerun bit-identical, and a decode write
+  landing in one sequence block only.
 
 The CUDA kernels are held against these plain versions on the card by
 the ``gpu`` tests of ``tests/test_torch_kernels.py``."""
@@ -26,7 +36,9 @@ import jax.numpy as jnp
 from repro.configs import get_config, reduced
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models import encdec as jed
 from repro.models import lm as jlm
+from repro.nn.attention import _chunked_attention
 from repro.nn.layers import quantize_params as jquantize
 from repro.runtime import Runtime as JRuntime
 from repro.serving.config import ServeConfig as JServeConfig
@@ -34,9 +46,13 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch.configs import get_config as tget_config
 from repro_torch.configs import reduced as treduced
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.interop import params_from_reference
 from repro_torch.kernels import ops, ref
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import build_serve_step, make_runtime
 from repro_torch.models import lm as tlm
+from repro_torch.sharding import shard_dense_caches
 from repro_torch.runtime import Runtime
 from repro_torch.serving import Request, ServeConfig, ServeEngine
 
@@ -109,6 +125,25 @@ def test_flash_attention_ragged_length_matches_reference_plain_path(s):
     got = ops.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
                               causal=True, q_chunk=16).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("q_offset", [0, 16, 48])
+def test_flash_attention_query_offset_matches_reference(q_offset):
+    """The plain version's causal offset (a context-parallel shard's rows
+    [q_offset, q_offset + 16) over 64 keys) against the reference's
+    ``_chunked_attention(q_offset=...)``, GQA 2 to 1."""
+    rng = np.random.default_rng(q_offset)
+    b, hkv, rep, sq, skv, dh = 2, 2, 2, 16, 64, 32
+    q = rng.standard_normal((b, hkv * rep, sq, dh)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, skv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, skv, dh)).astype(np.float32)
+    want = np.asarray(_chunked_attention(
+        jnp.asarray(q), *(jnp.asarray(np.repeat(a, rep, axis=1))
+                          for a in (k, v)),
+        causal=True, q_chunk=8, q_offset=q_offset))
+    got = ref.flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  causal=True, q_chunk=8, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_flash_cuda_wrapper_refuses_cpu_tensors():
@@ -308,3 +343,111 @@ def test_dense_explicit_paged_knobs_raise_like_reference(knob):
                     (JServeConfig, _cfg(get_config, reduced))):
         with pytest.raises(ValueError, match="dense|paged"):
             conf(kv_layout="dense", **knob, **KNOBS).resolve(c)
+
+
+# ---------------------------------------------------------------------------
+# the serve steps under a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+#: |logits(mesh) - logits(one device)| <= SHARD_LOGIT_TOL * max|logits|:
+#: the row-parallel products add their shards' partials in another order
+SHARD_LOGIT_TOL = 1e-5
+#: the reference's mesh cells (tests/test_sharding.py): its reduced
+#: configs at d_model 64, vocabulary 512, 8 rows of a 64-token cache
+MESH = (2, 4)
+MESH_B, MESH_S = 8, 64
+#: decode: the token after a PROMPT-token prefill (its write lands in the
+#: third of the four sequence blocks)
+PROMPT = 40
+MESH_CELLS = [("granite-3-8b", "decode", None),
+              ("olmoe-1b-7b", "decode", None),
+              ("xlstm-350m", "decode", None),
+              ("granite-3-8b", "prefill", False),
+              ("granite-3-8b", "prefill", True),
+              ("whisper-small", "prefill", None)]
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch,kind,cp", MESH_CELLS,
+                         ids=[f"{a}-{k}" + ("" if c is None else
+                                            f"-cp{int(c)}")
+                              for a, k, c in MESH_CELLS])
+def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
+    jcfg = reduced(get_config(arch), d_model=64, vocab=512)
+    tcfg = treduced(tget_config(arch), d_model=64, vocab=512)
+    jp = (jed.encdec_init if jcfg.enc_dec else jlm.lm_init)(
+        jax.random.PRNGKey(0), jcfg)
+    jinit = jed.encdec_init_caches if jcfg.enc_dec else jlm.init_caches
+    jrt = JRuntime(impl="ref", q_chunk=1024)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(1, 512, (MESH_B, MESH_S)).astype(np.int32)
+    frames = (rng.standard_normal((MESH_B, jcfg.enc_seq_len, 64))
+              .astype(np.float32) if jcfg.enc_dec else None)
+    mesh = make_host_mesh(*MESH, ["cpu"] * 8)
+    bundle = build_serve_step(tcfg, ShapeConfig("t", MESH_S, MESH_B, kind),
+                              mesh, quantized=False, prefill_cp=cp,
+                              dtype=torch.float32)
+    assert bundle.meta["context_parallel"] is bool(cp)
+    # the forward reads the caches' cut from their specs, and nothing else
+    assert bundle.rt.decode_seq_axis == (
+        "model" if any(k in ("k", "v") for _, k, *_ in bundle.cache_specs)
+        else None)
+    assert make_runtime(tcfg, mesh, None).decode_seq_axis is None
+    jc = jinit(jcfg, MESH_B, MESH_S, dtype=jnp.float32)
+    ops.reset_op_calls()
+    if kind == "prefill":
+        inputs = (tokens,) if frames is None else (frames, tokens)
+        if jcfg.enc_dec:
+            want, jc = jed.encdec_prefill(jp, jnp.asarray(frames),
+                                          jnp.asarray(tokens), jc, jcfg, jrt)
+        else:
+            want, jc = jlm.lm_prefill(jp, jnp.asarray(tokens), jc, jcfg, jrt)
+        args = bundle.place(params_from_reference(jp), *inputs)
+
+        def run():
+            return bundle.fn(*args, bundle.init_caches())
+    else:
+        _, jc0 = jlm.lm_prefill(jp, jnp.asarray(tokens[:, :PROMPT]), jc,
+                                jcfg, jrt)
+        want, jc = jlm.lm_decode_step(jp, jnp.asarray(tokens[:, PROMPT]),
+                                      jnp.asarray(PROMPT), jc0, jcfg, jrt)
+        before = params_from_reference(jc0)
+        args = bundle.place(params_from_reference(jp), tokens[:, PROMPT],
+                            PROMPT)
+
+        def run():
+            grid = shard_dense_caches(before, bundle.cache_specs, mesh)
+            return bundle.fn(*args, grid)
+    got, grid = run()
+    again, _ = run()
+    assert torch.equal(got, again)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= \
+        SHARD_LOGIT_TOL * np.abs(want).max()
+    for (path, g), (_, w) in zip(_leaves(bundle.gather_caches(grid)),
+                                 _leaves(params_from_reference(jc))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
+                                   err_msg=str(path))
+    # every step on the CPU: the plain versions, no kernel
+    assert ops.op_calls() == {}
+    if kind == "decode" and "attn" in tcfg.pattern[0]:
+        # the token's K lands in the one sequence block holding PROMPT
+        s_blk = MESH_S // MESH[1]
+        specs = bundle.cache_specs
+        start = shard_dense_caches(before, specs, mesh)
+        for d in range(MESH[0]):
+            for m in range(MESH[1]):
+                changed = not torch.equal(grid[d][m][0]["k"],
+                                          start[d][m][0]["k"])
+                assert changed is (m == PROMPT // s_blk), (d, m)

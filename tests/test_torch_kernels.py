@@ -531,6 +531,28 @@ def test_cuda_flash_kernel_matches_plain_version(cuda):
                 assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all()
 
 
+@pytest.mark.gpu
+def test_cuda_flash_kernel_query_offset_matches_plain_version(cuda):
+    """The causal query offset of a context-parallel shard: 128 rows of
+    gemma-2b's 8 query heads over its KV head of 256, and 4 heads of 64
+    over 2, at offsets 0, S/4 and 3S/4 of S = 512 keys; a rerun
+    bit-identical."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    skv, sq = 512, 128
+    for dh, hkv, rep in ((256, 1, 8), (64, 2, 2)):
+        q = torch.randn((2, hkv * rep, sq, dh), generator=gen, device=cuda)
+        k, v = (torch.randn((2, hkv, skv, dh), generator=gen, device=cuda)
+                for _ in range(2))
+        for off in (0, skv // 4, 3 * skv // 4):
+            got = flash_attention_cuda(q, k, v, causal=True, q_offset=off)
+            want = ref.flash_attention_ref(q, k, v, causal=True, q_chunk=sq,
+                                           q_offset=off)
+            assert _attn_close(got, want)
+            assert torch.equal(got, flash_attention_cuda(
+                q, k, v, causal=True, q_offset=off))
+
+
 def _attn_close(got, want) -> bool:
     return bool(((got - want).abs() <= 1e-4 * (1 + want.abs())).all())
 

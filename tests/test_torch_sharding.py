@@ -18,11 +18,15 @@
   (the row-parallel sums add in another order), each shard holds exactly
   the unsharded codes and scales of its slice, and the prefix cache keeps
   the one-shard tokens.
-* ``ShardingPolicy.serving_dim`` cuts the dim the JAX tp policy shards,
+* The widths the port once refused (qwen2-vl-2b's 12 query heads over 2
+  KV heads at 4 shards, whisper-small's 12 heads at 8, olmoe-1b-7b and a
+  vocabulary of 515 at 3) serve the reference's one-device greedy tokens
+  and bills, cut unevenly where a count does not divide.
+* ``ShardingPolicy.serving_cut`` cuts the dim the JAX tp policy shards,
   for every leaf of every bundled config (plain and sp2_4-quantized
-  params) at model widths 2, 4 and 8, except at the named departures; ``pool_spec`` is the reference's
-  pool spec for every config; ``plan_shard_budget`` gives the
-  reference's numbers.
+  params) at model widths 2, 4 and 8, refusing none, except at the
+  named departures; ``pool_spec`` is the reference's pool spec for
+  every config; ``plan_shard_budget`` gives the reference's numbers.
 * ``ServeEngine.metrics()`` has the reference's keys plus ``device``, and
   the same per-shard values, on both layouts and in every page dtype.
 """
@@ -425,28 +429,33 @@ def test_devices_and_mesh(monkeypatch, workload):
 
 
 def test_other_patterns_raise_naming_the_roadmap():
-    """Every pattern resolves at shards=2; what the port's forward still
-    cannot cut raises naming the ROADMAP.md item: KV heads that neither
-    split nor sit one per shard's query heads (qwen2-vl-2b at 4 shards),
-    experts or a vocabulary and d_model that do not split, and a training
-    loss under a mesh."""
+    """Every pattern resolves at shards=2, and the cuts the port refused
+    before resolve at the reference's widths (qwen2-vl-2b's 2 KV heads at
+    4 shards computed whole on each, olmoe's 64 experts and a vocabulary
+    and d_model that do not split at 3, unevenly); what still raises
+    names the ROADMAP.md item: a training loss under a mesh, and a train
+    step from ``launch.steps``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serve_step
     for arch in ("olmoe-1b-7b", "xlstm-350m", "jamba-1.5-large-398b",
                  "whisper-small"):
         assert ServeConfig(shards=2).resolve(
             reduced(get_config(arch))).shards == 2
-    match = "ROADMAP.md: multi-device and drivers"
     qwen = get_config("qwen2-vl-2b")
-    with pytest.raises(NotImplementedError, match=match):
-        ShardingPolicy(qwen, make_serving_mesh(4, ["meta"] * 4)).serving_dim(
-            ["stack", "slots", "0", "attn", "wk", "w"],
-            (qwen.n_periods, qwen.d_model, qwen.n_kv_heads * qwen.dh))
+    assert ShardingPolicy(qwen, make_serving_mesh(4, ["meta"] * 4)) \
+        .serving_cut(["stack", "slots", "0", "attn", "wk", "w"],
+                     (qwen.n_periods, qwen.d_model,
+                      qwen.n_kv_heads * qwen.dh)) is None
     olmoe = get_config("olmoe-1b-7b")
     three = ShardingPolicy(olmoe, make_serving_mesh(3, ["meta"] * 3))
-    with pytest.raises(NotImplementedError, match="64 experts"):
-        three.serving_dim(["stack", "slots", "0", "moe", "gate"],
-                          (olmoe.n_periods, 64, olmoe.d_model, olmoe.d_ff))
-    with pytest.raises(NotImplementedError, match="vocab 50305"):
-        three.serving_dim(["embed", "table"], (50305, 2050))
+    assert three.serving_cut(
+        ["stack", "slots", "0", "moe", "gate"],
+        (olmoe.n_periods, 64, olmoe.d_model, olmoe.d_ff)) == \
+        (1, ((0, 22), (22, 21), (43, 21)))
+    assert three.serving_cut(["embed", "table"], (50305, 2050)) == \
+        (0, ((0, 16769), (16769, 16768), (33537, 16768)))
+    match = "ROADMAP.md: multi-device and drivers"
     cfg = dataclasses.replace(reduced(get_config("gemma-2b")), vocab_size=32)
     params = lm_mod.lm_init(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
@@ -455,17 +464,87 @@ def test_other_patterns_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match=match):
         lm_mod.lm_loss(params, batch, cfg, Runtime(
             device="cpu", mesh=make_serving_mesh(2, ["cpu", "cpu"])))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        build_serve_step(cfg, ShapeConfig("t", 8, 2, "train"),
+                         make_host_mesh(1, 2, ["cpu", "cpu"]))
 
 
-def test_heads_the_forward_cannot_cut_raise():
-    """qwen2-vl-2b's 2 KV heads under 4 shards of 3 query heads each: the
-    KV heads neither split nor sit one per shard's query heads."""
-    cfg = get_config("qwen2-vl-2b")
-    policy = ShardingPolicy(cfg, make_serving_mesh(4, ["meta"] * 4))
-    with pytest.raises(NotImplementedError, match="KV heads"):
-        policy.serving_dim(["stack", "slots", "0", "attn", "wk", "w"],
-                           (cfg.n_periods, cfg.d_model,
-                            cfg.n_kv_heads * cfg.dh))
+#: the widths the port once refused, each at a reduced config that keeps
+#: the reason: qwen2-vl-2b's 12 query heads over 2 KV heads (4 shards: 3
+#: heads each, both KV heads computed whole and the pools replicated),
+#: whisper-small's 12 heads at 8 shards (groups of 2, 2, 2, 2, 1, 1, 1,
+#: 1), olmoe-1b-7b at 3 (8 experts as 3, 3, 2; 4 heads as 2, 1, 1; a
+#: vocabulary of 512 and d_model 64, neither divisible by 3: the table
+#: and head cut unevenly) and gemma-2b with a vocabulary of 515 at 3 (sp2_4
+#: FFN columns cut on even boundaries as 44, 42, 42). arch -> (shards,
+#: layers, vocab, weights, replaced fields)
+WIDTHS = {
+    "qwen2-vl-2b": (4, 2, 512, "sp2_4",
+                    dict(n_heads=12, n_kv_heads=2, head_dim=32)),
+    "whisper-small": (8, 2, 513, None,
+                      dict(n_heads=12, n_kv_heads=12, head_dim=16)),
+    "olmoe-1b-7b": (3, 2, 512, "sp2_4", {}),
+    "gemma-2b": (3, 1, 515, "sp2_4", {}),
+}
+
+
+@pytest.mark.parametrize("arch", list(WIDTHS))
+def test_uneven_widths_match_reference(monkeypatch, arch):
+    """Each of WIDTHS served by the port's paged engine at its width
+    (``REPRO_FORCE_DEVICE_COUNT``): the reference's one-device greedy
+    tokens, the bills a shard count does not change equal to the
+    reference's, one shard's bills equal to the reference's planner at
+    that width, the shards' head groups as ``planner.shard_heads`` cuts
+    them, and no kernel launched (CPU tensors)."""
+    shards, layers, vocab, weights, fields = WIDTHS[arch]
+    monkeypatch.setenv(hostdev.FORCE_ENV, str(shards))
+    jcfg = dataclasses.replace(jreduced(jget_config(arch), n_layers=layers,
+                                        vocab=vocab), **fields)
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=layers,
+                                      vocab=vocab), **fields)
+    jp = (jed.encdec_init if jcfg.enc_dec else jlm.lm_init)(
+        jax.random.PRNGKey(1), jcfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32)
+               for n in FAMILY_LENS]
+    frames = _family_frames(jcfg, len(prompts))
+    jeng = JServeEngine(jp, jcfg, JServeConfig(**FAMILY_KNOBS,
+                                               quantize=weights),
+                        rt=JRuntime(impl="ref", q_chunk=16))
+    ops.reset_op_calls()
+    eng = ServeEngine(params_from_reference(jp), cfg,
+                      ServeConfig(**FAMILY_KNOBS, quantize=weights,
+                                  shards=shards), rt=_rt(False))
+    for e, req in ((jeng, JRequest), (eng, Request)):
+        for i, (p, f) in enumerate(zip(prompts, frames)):
+            e.submit(req(rid=i, prompt=p, max_new_tokens=FAMILY_NEW,
+                         frames=f))
+    want = {r.rid: list(r.output) for r in jeng.run()}
+    assert {r.rid: list(r.output) for r in eng.run()} == want
+    assert ops.op_calls() == {}
+    m, jm = eng.metrics(), jeng.metrics()
+    assert m["shards"] == shards
+    for key in SHARED_BILLS:
+        assert m.get(key) == jm.get(key), key
+    dcfg = jeng._decode_cfg
+    budget = jplanner.plan_shard_budget(
+        dcfg.n_kv_heads, dcfg.dh, shards=shards, page_size=jm["page_size"],
+        n_pages=jm["n_pages"], n_layers=jeng._paged_layers(),
+        slab_bytes=jm["slab_bytes_per_seq"],
+        act_bytes=jeng.kv_cache_dtype.itemsize, kv_scheme=None)
+    assert (m["kv_sharded"], m["kv_heads_per_shard"],
+            m["pool_bytes_per_shard"]) == (
+        budget.kv_sharded, budget.kv_heads_per_shard, budget.pool_bytes)
+    groups = planner.shard_heads(cfg.n_heads, cfg.n_kv_heads, shards)
+    stack = "dec_stack" if cfg.enc_dec else "stack"
+    for g, p in zip(groups, eng.params):
+        attn = p[stack]["slots"][0]["attn"]
+        assert attn["wq"]["w"].shape[-1] == g.nq * cfg.dh
+        assert attn["wo"]["w"].shape[-2] == g.nq * cfg.dh
+        assert attn["wk"]["w"].shape[-1] == cfg.dh * (
+            g.nkv if m["kv_sharded"] else cfg.n_kv_heads)
+    assert sum(p["embed"]["table"].numel() for p in eng.params) == \
+        cfg.vocab_size * cfg.d_model
 
 
 # -- the policy against the reference's ----------------------------------------
@@ -556,19 +635,21 @@ RECURRENT = {"mamba", "mlstm", "slstm"}
 
 @pytest.mark.parametrize("width", [2, 4, 8])
 def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
-    """``serving_dim`` against the JAX tp policy (fsdp off, as the
+    """``serving_cut``'s dim against the JAX tp policy (fsdp off, as the
     reference's serving engine builds it), leaf for leaf of every bundled
     config, plain and sp2_4 (a QuantizedTensor: the dim of its logical
     shape against the spec of its codes, and a column or expert cut of its
     scales against theirs). The two rules differ only where the port's
     forward forces it, each departure named: K/V projections whose KV
     heads do not split are computed whole on every shard (the reference
-    may cut gemma-2b's one KV head), the bias of a column-parallel
+    may cut gemma-2b's one KV head, qwen2-vl-2b's two at 4 and 8 shards,
+    whisper-small's twelve at 8), the bias of a column-parallel
     projection is cut with its heads (the reference replicates it: any
     placement is correct under GSPMD), a recurrent mixer's projections
     stay whole (the mixer runs whole on every shard against replicated
-    slabs, where GSPMD cuts them by columns and rows), and a leaf the
-    port's forward cannot cut raises. The MoE's experts, its router, the
+    slabs, where GSPMD cuts them by columns and rows). Where the heads do
+    not divide the port cuts the same dim in head groups (GSPMD pads);
+    no leaf is refused at any width. The MoE's experts, its router, the
     d-cut table and head of a vocabulary that does not split (whisper-small,
     granite-3-8b) and the encoder's leaves agree with the reference. Then
     ``pool_spec`` against the reference's ``paged_state_specs`` for every
@@ -585,7 +666,8 @@ def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
             qt = isinstance(leaf, QuantizedTensor)
             shape = leaf.logical_shape if qt else tuple(leaf.shape)
             try:
-                dim = pol.serving_dim(list(path), shape)
+                leaf_cut = pol.serving_cut(list(path), shape)
+                dim = None if leaf_cut is None else leaf_cut[0]
             except NotImplementedError:
                 refused.append((arch, path))
                 continue
@@ -603,7 +685,7 @@ def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
                 continue
             if got != ref:
                 assert path[-2] in ("wk", "wv") and dim is None \
-                    and not pol.kv_sharded and cfg.n_kv_heads == 1, \
+                    and not pol.kv_sharded, \
                     (arch, quantized, path, got, ref)
                 whole_kv.append((arch, path))
                 continue
@@ -634,7 +716,7 @@ def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
     assert ("gemma-2b", ("stack", "slots", "0", "attn", "wk", "w")) \
         in whole_kv
     assert ("qwen2-vl-2b", ("stack", "slots", "0", "attn", "wq", "b")) \
-        in bias_cut or width == 8
+        in bias_cut
     for arch, mixer, proj in (("xlstm-350m", "mlstm", "in_proj"),
                               ("xlstm-350m", "slstm", "w_in"),
                               ("jamba-1.5-large-398b", "mamba", "in_proj")):
@@ -646,9 +728,8 @@ def test_serving_cut_is_the_reference_tp_spec(param_shapes, width):
                        ("whisper-small", "table"), ("whisper-small", "head"),
                        ("granite-3-8b", "table"), ("granite-3-8b", "head")):
         assert (arch, leaf) in cut, (arch, leaf)
-    if width == 2:
-        # every bundled config cuts whole at two shards
-        assert not refused, refused[:5]
+    # every bundled config cuts whole at every width
+    assert not refused, refused[:5]
 
 
 def test_shard_budget_equals_reference():
