@@ -165,6 +165,16 @@ Phases, each printing JSON lines:
               max_memory_allocated, and every flash launch through the
               Function at a shape checked in phase 3; the Function's
               forward timed over a training step;
+     train_mesh  gemma-2b's train step (``launch.steps.build_train_step``)
+              at full width and depth under mesh (data 2, model 4) on the
+              one card (``REPRO_FORCE_DEVICE_COUNT`` = 8), f32, remat
+              full: fsdp (8 x 256 tokens, adamw) and tp (4 x 256, adamw_q8,
+              2 microbatches), 2 steps each beside the one-device step
+              from the same weights: each loss within E2E_RTOL, the
+              update per leaf, AdamW-Q8's scales per device, host ms,
+              max_memory_allocated, per-device bytes of params and
+              optimizer state, flash launches per step by shape (every
+              one checked in ``train_mesh_kernel_phase``);
      serve_sharded  tensor-parallel serving on the one card
               (``REPRO_FORCE_DEVICE_COUNT=2``, set here for this phase
               only, lists it twice):
@@ -257,6 +267,7 @@ import gc
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -3258,6 +3269,347 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
             "share_of_bound": bound / device_ms if device_ms else None}
 
 
+# -- phase 5: the train step under a (data, model) mesh ------------------------
+
+#: the train_mesh cells: (name, global batch, build_train_step's knobs).
+#: fsdp: 8 rows, one per device, AdamW; tp: 4 rows (they do not cover 8
+#: devices): tensor-parallel over model, FSDP over data, AdamW-Q8 and 2
+#: microbatches of 2 rows (one per data group) passed explicitly
+TRAIN_MESH_CELLS = (("fsdp", 8, {}),
+                    ("tp", 4, {"optimizer": "adamw_q8", "accum_steps": 2}))
+TRAIN_MESH_SEQ, TRAIN_MESH_STEPS = 256, 2
+#: train_mesh's limits against one device, each leaf's relative difference
+#: in norm: the AdamW update after the steps (fsdp; 1.7e-3 to 4.6e-3
+#: measured on an H100: AdamW's first steps turn f32-level gradient
+#: differences into steps of either sign), and AdamW-Q8's per-row scales
+#: after the first step (tp): from zero moments they are max |(1 - b1) g|
+#: and max (1 - b2) g^2 of each row, so they hold the gradients of every
+#: block to one device's (a block's own max instead of its row's, where
+#: fsdp cuts the last dim 8 ways, parts by tens of percent)
+TRAIN_MESH_UPDATE_RTOL = 2e-2
+TRAIN_MESH_SCALE_RTOL = 1e-2
+
+
+def _train_mesh_flash_shapes() -> tuple:
+    """(what, (B, Hq, Hkv, S, dh)) of every flash launch of train_mesh
+    (gemma-2b, causal, S = TRAIN_MESH_SEQ): one fsdp device's row, one tp
+    shard's row of its 2 query heads over the one KV head (a data group's
+    share of a 2-row microbatch), and the one-device steps beside them
+    (8 rows; 2 rows per microbatch)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma-2b")
+    h, kv, s, dh = cfg.n_heads, cfg.n_kv_heads, TRAIN_MESH_SEQ, cfg.dh
+    return (("fsdp device", (1, h, kv, s, dh)),
+            ("fsdp one device", (8, h, kv, s, dh)),
+            ("tp shard", (1, h // MESH[1], kv, s, dh)),
+            ("tp one device", (2, h, kv, s, dh)))
+
+
+def train_mesh_kernel_phase(torch, np) -> tuple[dict, set]:
+    """Kernel 4's forward at every shape of ``_train_mesh_flash_shapes``
+    against its plain version, twice (bit-identical), before train_mesh
+    launches it there. Returns the worst errors and the checked keys."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    checked: set = set()
+    worst: dict = {}
+    for what, (b, hq, hkv, s, dh) in _train_mesh_flash_shapes():
+        q, k, v = _train_flash_inputs(torch, gen, b, hq, hkv, s, s, dh)
+        _, rec = _check_launch(torch, "flash_attention", flash_attention_cuda,
+                               _flash_plain, (q, k, v), {"causal": True},
+                               checked, worst)
+        emit({"phase": "kernel", "kernel": "flash_attention",
+              "for": "train_mesh", "what": what, "B": b, "Hq": hq,
+              "Hkv": hkv, "Sq": s, "Skv": s, "dh": dh, "causal": True,
+              **rec})
+    return worst, checked
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.nn.layers import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "numel"))
+
+
+def _train_mesh_batches(torch, vocab: int, b: int) -> list:
+    gen = torch.Generator().manual_seed(61 + b)
+    return [{k: torch.randint(0, vocab, (b, TRAIN_MESH_SEQ), generator=gen,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+            for _ in range(TRAIN_MESH_STEPS)]
+
+
+def _counted_step(torch, name, run, checked) -> tuple:
+    """One train step (``run()``) with the counts set to 0 just before
+    and read just after: (its output, host ms, flash launches by shape);
+    every launch through ``FlashAttentionFn`` (the period checkpoints
+    recompute each forward once in the backward: as many Function
+    forwards as launches, half as many backwards), at a shape a kernel
+    phase checked, no plain version run."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import FUNCTION_CALLS
+    rec = _ShapeRecorder(torch, ("flash_attention",))
+    with rec:
+        torch.cuda.synchronize()
+        ops.reset_op_calls()
+        FUNCTION_CALLS.clear()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, plain, fn = (ops.op_calls(), ops.ref_calls(),
+                               dict(FUNCTION_CALLS))
+    n = launches.get("flash_attention", 0)
+    require(n > 0 and launches == {"flash_attention": n} and not plain
+            and fn.get("forward") == n and 2 * fn.get("backward", 0) == n,
+            f"{name}: launches {launches}, Function calls {fn}, plain "
+            f"{plain}")
+    unchecked = sorted(rec.keys - checked)
+    require(not unchecked, f"{name}: flash launches at shapes the kernel "
+                           f"phases never held to the plain version: "
+                           f"{unchecked}")
+    return out, ms, [[*k, c] for k, c in sorted(rec.counts.items())]
+
+
+def train_mesh_phase(torch, np, card: str, checked: set) -> dict:
+    """gemma-2b's train step at its published width and depth (18 layers,
+    d_model 2048, vocab 256000; 2.51B params, so ``make_policy`` turns
+    FSDP on) under a (data 2, model 4) mesh on the one card
+    (``launch.steps.build_train_step``; ``REPRO_FORCE_DEVICE_COUNT`` = 8:
+    eight devices run one after another, so this tests correctness and
+    host cost, not speed), f32 weights from a seed, remat ``full``, in the
+    TRAIN_MESH_CELLS, each beside the port's one-device step
+    (``make_grad_accum_step`` over ``lm_loss``) from the same weights on
+    the same batches, which runs first and is moved to the host and freed:
+    TRAIN_MESH_STEPS steps; each step's loss within E2E_RTOL of the
+    one-device step's; per leaf the relative difference of the update
+    (the params after the steps less the initial ones), within
+    TRAIN_MESH_UPDATE_RTOL under AdamW; AdamW-Q8's per-row scales and
+    codes on every device against one device's after the first step (the
+    scales within TRAIN_MESH_SCALE_RTOL) and after the last; host ms per
+    step; max_memory_allocated; per-device bytes of params and optimizer
+    state against one device's; flash launches per step by shape, each
+    checked (``_counted_step``); the host's peak resident bytes. The host
+    holds only one device's update (the weights are remade from their
+    seed on the card where they are needed again)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.hostdev import device_list
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.nn.layers import tree_at, tree_map
+    from repro_torch.runtime import Runtime
+    from repro_torch.training import make_grad_accum_step, make_optimizer
+
+    cfg = get_config("gemma-2b")
+    mesh = make_host_mesh(*MESH, device_list())
+    out = {"launches": {}, "cells": {}}
+    for cell, b, knobs in TRAIN_MESH_CELLS:
+        t_cell = time.perf_counter()
+        bundle = build_train_step(
+            cfg, ShapeConfig("train_mesh", TRAIN_MESH_SEQ, b, "train"), mesh,
+            dtype=torch.float32, **knobs)
+        require(bundle.meta["parallelism"] == cell,
+                f"train_mesh {cell}: meta {bundle.meta}")
+        batches = _train_mesh_batches(torch, cfg.vocab_size, b)
+        opt = make_optimizer(bundle.meta["optimizer"], lr=1e-4,
+                             weight_decay=0.01)
+
+        # the one-device step first; its update moves to the host
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = _train_mesh_params(torch, cfg)
+        state = opt.init(params)
+        one_bytes = _tree_bytes(params) + _tree_bytes(state)
+        step = make_grad_accum_step(
+            lambda p, bt, rt: lm_loss(p, bt, cfg, rt), opt,
+            accum_steps=bundle.meta["accum_steps"], rt=Runtime())
+        one, q8_first = [], None
+        for bt in batches:
+            params, state, _, m, ms = _timed(torch, lambda bt=bt: step(
+                params, state, None, {k: v.cuda() for k, v in bt.items()}))
+            one.append({"loss": float(m["loss"]), "host_ms": ms,
+                        "gnorm": float(m["gnorm"])})
+            if q8_first is None and bundle.meta["optimizer"] == "adamw_q8":
+                q8_first = {(name,) + path: x.cpu()
+                            for name in ("mu", "nu")
+                            for path, x in _paths(state[name])}
+        one_mem = torch.cuda.max_memory_allocated()
+        init = _train_mesh_params(torch, cfg)
+        delta_one = tree_map(lambda path, x: (x - tree_at(init, path)).cpu(),
+                             params)
+        scales_one = None
+        if bundle.meta["optimizer"] == "adamw_q8":
+            scales_one = {(name,) + path: q.cpu() for name in ("mu", "nu")
+                          for path, q in _paths(state[name])
+                          if path[-1] == "scale"}
+        del params, state, step
+        _free(torch)
+
+        # the mesh step from the same weights
+        grid, ostate = bundle.place(init)
+        del init
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        per_device = [[_tree_bytes(p) + _tree_bytes(o)
+                       for p, o in zip(prow, orow)]
+                      for prow, orow in zip(grid, ostate)]
+        steps = []
+        for i, bt in enumerate(batches):
+            (grid, ostate, m), ms, shapes = _counted_step(
+                torch, f"train_mesh {cell} step {i + 1}",
+                lambda bt=bt: bundle.fn(grid, ostate, bt), checked)
+            loss, want = float(m["loss"]), one[i]["loss"]
+            require(math.isfinite(loss)
+                    and abs(loss - want) <= E2E_RTOL * abs(want),
+                    f"train_mesh {cell} step {i + 1}: loss {loss} against "
+                    f"one device's {want}")
+            steps.append({"loss": loss, "one_device_loss": want,
+                          "rel_diff": abs(loss - want) / abs(want),
+                          "host_ms": ms,
+                          "one_device_host_ms": one[i]["host_ms"],
+                          "gnorm": float(m["gnorm"]),
+                          "one_device_gnorm": one[i]["gnorm"],
+                          "flash_launches_by_shape": shapes})
+            if i == 0 and q8_first is not None:
+                q8 = _q8_against(ostate, q8_first, bundle.specs["opt"],
+                                 mesh.shape)
+                del q8_first
+                steps[0]["q8"] = q8
+                require(q8["scale_rel_diff_max"] <= TRAIN_MESH_SCALE_RTOL,
+                        f"train_mesh {cell} step 1: AdamW-Q8 scales "
+                        f"{q8['scale_rel_diff_max']} from one device's "
+                        f"(limit {TRAIN_MESH_SCALE_RTOL})")
+        mesh_mem = torch.cuda.max_memory_allocated()
+        whole, init = bundle.gather(grid, device="cuda"), \
+            _train_mesh_params(torch, cfg)
+        update = {}
+        for path, got in _paths(whole):
+            d_one = tree_at(delta_one, path).cuda()
+            d_mesh = got - tree_at(init, path)
+            update["/".join(map(str, path))] = float(
+                (d_mesh - d_one).norm() / max(float(d_one.norm()), 1e-30))
+        del whole, init
+        if bundle.meta["optimizer"] == "adamw":
+            require(max(update.values()) <= TRAIN_MESH_UPDATE_RTOL,
+                    f"train_mesh {cell}: update {max(update.values())} "
+                    f"from one device's (limit {TRAIN_MESH_UPDATE_RTOL})")
+        rec = {"phase": "train_mesh", "cell": cell, "card": card,
+               "arch": cfg.name, "mesh": list(MESH), "batch": b,
+               "seq": TRAIN_MESH_SEQ, "meta": bundle.meta, "steps": steps,
+               "update_rel_diff_by_leaf": update,
+               "update_rel_diff_max": max(update.values()),
+               "max_memory_allocated": mesh_mem,
+               "one_device_max_memory_allocated": one_mem,
+               "per_device_state_bytes": per_device,
+               "one_device_state_bytes": one_bytes,
+               "per_device_share": max(max(r) for r in per_device)
+               / one_bytes,
+               "host_max_rss_bytes": resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss * 1024,
+               "tol_loss_rel": E2E_RTOL,
+               "tol_update_rel": TRAIN_MESH_UPDATE_RTOL,
+               "tol_q8_scale_rel_step_1": TRAIN_MESH_SCALE_RTOL}
+        if scales_one is not None:
+            rec["q8_after_steps"] = _q8_against(ostate, scales_one,
+                                                bundle.specs["opt"],
+                                                mesh.shape)
+        rec["seconds"] = time.perf_counter() - t_cell
+        emit(rec)
+        out["cells"][cell] = rec
+        out["launches"][f"train_mesh {cell}"] = {
+            "flash_attention": sum(c[-1] for s in steps
+                                   for c in s["flash_launches_by_shape"])}
+        del grid, ostate, delta_one
+        _free(torch)
+    out["timing"] = _train_mesh_flash_timing(torch)
+    return out
+
+
+def _q8_against(ostate, one: dict, layouts: dict, sizes: dict) -> dict:
+    """AdamW-Q8's moments on every device (``ostate``: ``grid[d][m]``)
+    against one device's (``one``: {("mu" | "nu", *path, "codes" |
+    "scale"): the whole tensor on the host}), each distinct block once
+    (by ``layouts``, the train step's own): per leaf the scales' relative
+    difference in norm, their largest elementwise relative difference,
+    and the share of the codes held in ``one`` that differ."""
+    seen, sums, worst, flips, total = set(), {}, 0.0, 0, 0
+    for d, row in enumerate(ostate):
+        for m, o in enumerate(row):
+            for name in ("mu", "nu"):
+                for path, blk in _paths(o[name]):
+                    key = (name,) + path
+                    if key not in one:
+                        continue
+                    lay = layouts[key]
+                    if (key, lay.block_key(d, m, sizes)) in seen:
+                        continue
+                    seen.add((key, lay.block_key(d, m, sizes)))
+                    want = one[key][lay.index(d, m, sizes)].to(blk.device)
+                    if path[-1] == "codes":
+                        flips += int((blk != want).sum())
+                        total += blk.numel()
+                        continue
+                    a, b = sums.get(key[:-1], (0.0, 0.0))
+                    sums[key[:-1]] = (a + float(((blk - want) ** 2).sum()),
+                                      b + float((want ** 2).sum()))
+                    worst = max(worst, float(
+                        ((blk - want).abs()
+                         / want.abs().clamp(min=1e-30)).max()))
+    by_leaf = {"/".join(map(str, k)): (a / max(b, 1e-60)) ** 0.5
+               for k, (a, b) in sums.items()}
+    out = {"scale_rel_diff_max": max(by_leaf.values()),
+           "scale_elem_rel_diff_max": worst,
+           "scale_rel_diff_by_leaf": by_leaf}
+    if total:
+        out["codes_differing_share"] = flips / total
+    return out
+
+
+def _train_mesh_params(torch, cfg):
+    """train_mesh's initial weights, f32 on the card, from their seed."""
+    from repro_torch.models.lm import lm_init
+    return lm_init(torch.Generator(device="cuda").manual_seed(71), cfg,
+                   device="cuda")
+
+
+def _timed(torch, run):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return (*res, (time.perf_counter() - t0) * 1e3)
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _train_mesh_flash_timing(torch) -> dict:
+    """The flash kernel at train_mesh's mesh shapes, 18 launches each
+    (one device's forward over gemma-2b's layers) inside
+    ``FlashAttentionFn``, beside its plain version, SDPA and the bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    out = {}
+    for what, (b, hq, hkv, s, dh) in _train_mesh_flash_shapes():
+        if "one device" in what:
+            continue
+        out[what] = _flash_shape_timing(
+            torch, gen, b=b, hq=hq, hkv=hkv, sq=s, skv=s, dh=dh, causal=True,
+            layers=18, grad=True,
+            per=f"train_mesh {what}: 18 forward launches under "
+                f"FlashAttentionFn, causal, {b} x {s} tokens, {hq} query "
+                f"heads over {hkv} KV head of {dh}")
+    return out
+
+
 # -- phase 5: tensor-parallel serving, the replica router, the CLI ------------
 
 #: the ops a sharded engine launches: kernels 1, 2, 3, 5 and 6
@@ -3822,7 +4174,7 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
         require(torch.equal(runs[0][0][0], got),
                 f"serve_mesh {name}: a rerun changed the logits")
         err = _rel_err(torch, got, want)
-        c_err = _caches_err(torch, bundle.gather_caches(grid, "cuda"),
+        c_err = _caches_err(torch, bundle.gather(grid, "cuda"),
                             want_c)
         offsets = sorted({r[4] for r in by_shape
                           if r[0] == "flash_attention"})
@@ -3855,7 +4207,7 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
         dtype=f32)
     require(bundle.rt.decode_seq_axis == "model",
             "serve_mesh decode: the cache is not sequence-sharded")
-    grid = shard_dense_caches(one_c, bundle.cache_specs, mesh)
+    grid = shard_dense_caches(one_c, bundle.specs, mesh)
     placed, = bundle.place(params)
     steps, total = [], {}
     for i in range(MESH_DECODE_STEPS):
@@ -3872,7 +4224,7 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
                       "logits_max_rel_err": _rel_err(torch, got, want)})
         for op, n in launches.items():
             total[op] = total.get(op, 0) + n
-    c_err = _caches_err(torch, bundle.gather_caches(grid, "cuda"), one_c)
+    c_err = _caches_err(torch, bundle.gather(grid, "cuda"), one_c)
     errs = [st["logits_max_rel_err"] for st in steps]
     ok = max(errs) <= E2E_RTOL and c_err <= E2E_RTOL * max(
         t.abs().max().item() for c in one_c for t in c.values())
@@ -4914,6 +5266,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     # whisper's shapes and the training step's, timed in their phases
     flash["whisper"] = whisper["timing"]["flash_attention"]
     flash["train_function"] = training["timing"]
+    flash["train_mesh"] = training["mesh"]["timing"]
     spx["whisper_encoder_pass"] = whisper["timing"]["spx_matmul"]
     ragged["whisper_decode_tick"] = whisper["timing"]["paged_decode_ragged"]
     # one shard's shapes at shards=2, timed in serve_sharded, with their
@@ -5008,7 +5361,8 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                "serve_whisper dense": whisper["dense_launches"],
 
                **{f"train {run}": n
-                  for run, n in training["launches"].items()}}
+                  for run, n in training["launches"].items()},
+               **training["mesh"]["launches"]}
     rows = []
     for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
                   bf16_one, f16, f16_one):
@@ -5507,9 +5861,9 @@ def main() -> int:
               "tensor_core_instructions": _sass_counts(cuda_lib)})
         worst, checked = kernel_phase(torch, np)
         for phase in (family_kernel_phase, whisper_kernel_phase,
-                      train_kernel_phase, sharded_kernel_phase,
-                      tier_kernel_phase, wide_kernel_phase,
-                      mesh_kernel_phase):
+                      train_kernel_phase, train_mesh_kernel_phase,
+                      sharded_kernel_phase, tier_kernel_phase,
+                      wide_kernel_phase, mesh_kernel_phase):
             more_worst, more_checked = phase(torch, np)
             for name, err in more_worst.items():
                 worst[name] = max(worst[name], err)
@@ -5525,6 +5879,11 @@ def main() -> int:
         whisper = serve_whisper_phase(torch, np, info["nvidia_smi"], checked)
         shard_runs["whisper-small"] = whisper.pop("sharded")
         training = train_phase(torch, np, info["nvidia_smi"], checked)
+        # the train step under a (data, model) mesh: eight devices, the one
+        # card listed eight times
+        with _forced_shards(MESH[0] * MESH[1]):
+            training["mesh"] = train_mesh_phase(torch, np,
+                                                info["nvidia_smi"], checked)
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
         mlp["experiments"] = paper_experiments_phase(

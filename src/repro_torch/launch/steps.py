@@ -1,5 +1,6 @@
-"""The serve steps under a ``(data, model)`` mesh: the reference's
-``repro.launch.steps`` for prefill and decode.
+"""The train and serve steps under a ``(data, model)`` mesh: the
+reference's ``repro.launch.steps`` (``build_step`` dispatches on
+``shape.kind``).
 
 ``build_serve_step`` wraps ``lm_prefill``/``lm_decode_step`` (or the
 encoder-decoder's ``encdec_prefill``/``encdec_decode_step``) for a
@@ -17,8 +18,11 @@ gathered, the flash kernel's causal offset), and decode attends the
 sequence-sharded cache shard by shard with one merge. The logits come
 back as one (B, V) tensor on the mesh's first device.
 
-Training under a mesh (``build_train_step``) is still to be ported
-(ROADMAP.md, Queue 1 item 3).
+``build_train_step`` is the reference's train step: FSDP or
+tensor-parallel storage of the params and the optimizer state
+(``sharding.param_specs``/``opt_specs``), each device computing with its
+gathered weights, the sharded AdamW or AdamW-Q8 update, microbatches, and
+the stack's remat (its docstring has the step).
 """
 from __future__ import annotations
 
@@ -30,13 +34,21 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
-from repro_torch.nn.layers import quantize_params
+from repro_torch.nn.layers import (quantize_params, tree_at, tree_leaves,
+                                   tree_map)
 from repro_torch.runtime import Runtime
-from repro_torch.sharding import (ShardingPolicy, gather_dense_caches,
-                                  kv_seq_axis, shard_dense_caches,
+from repro_torch.sharding import (ShardingPolicy, gather_blocks,
+                                  gather_dense_caches, gathered_view,
+                                  kv_seq_axis, make_policy, place_blocks,
+                                  reduce_copies, shard_dense_caches,
                                   shard_params)
+from repro_torch.training.optimizer import make_optimizer
 
-__all__ = ["StepBundle", "build_serve_step", "make_runtime", "SERVE_SCHEME"]
+__all__ = ["StepBundle", "build_step", "build_train_step",
+           "build_serve_step", "make_runtime", "SERVE_SCHEME",
+           "GIANT_PARAMS"]
+
+GIANT_PARAMS = 30e9    # above this: 8-bit AdamW moments, 8 microbatches
 
 SERVE_SCHEME = "sp2_4"      # the paper's 4-bit SP2 for weight-only serving
 #: the reference's ceiling for the context-parallel prefill's default
@@ -45,19 +57,21 @@ CP_MAX_PARAMS = 30e9
 
 @dataclasses.dataclass
 class StepBundle:
-    """One serve step on a mesh. ``fn(*args)`` takes the placed arguments
-    (``place``'s output; caches from ``init_caches`` or an earlier step)
-    and returns (logits (B, V) on the mesh's first device, the caches,
-    written in place). ``cache_specs``: the caches' layout, {path: spec}
-    (``ShardingPolicy.cache_specs``); ``gather_caches`` reassembles their
-    blocks into whole trees."""
+    """One step on a mesh. ``place`` cuts whole trees into the
+    ``grid[d][m]`` blocks ``fn`` takes, by ``specs``; ``gather`` joins
+    blocks back into whole trees. A serve step: ``fn(*args)`` takes
+    ``place``'s output and the caches (``init_caches`` or an earlier
+    step's) and returns (logits (B, V) on the mesh's first device, the
+    caches, written in place); ``specs`` is the caches' layout, {path:
+    spec} (``ShardingPolicy.cache_specs``), ``gather(grid)`` the whole
+    caches. A train step: see ``build_train_step``."""
     fn: Callable
-    cache_specs: dict
+    specs: dict
     meta: dict
     rt: Runtime
     place: Callable
-    init_caches: Callable
-    gather_caches: Callable
+    gather: Callable
+    init_caches: Callable | None = None
 
 
 def make_runtime(cfg: ArchConfig, mesh, shape: ShapeConfig | None, *,
@@ -96,6 +110,202 @@ def _place_params(params, policy: ShardingPolicy, mesh, quantized: bool):
     return grid
 
 
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+def _zero_blocks(meta_state, layouts: dict, mesh) -> list:
+    """``grid[d][m]``: every device's zero block of each tensor leaf of an
+    optimizer state made on ``meta`` (every optimizer starts at zero)."""
+    sizes = mesh.shape
+
+    def take(d, m, dev):
+        def leaf(path, x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return torch.zeros(layouts[path].block_shape(d, m, sizes),
+                               dtype=x.dtype, device=dev)
+        return tree_map(leaf, meta_state)
+    return [[take(d, m, dev) for m, dev in enumerate(row)]
+            for d, row in enumerate(mesh.grid)]
+
+
+def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float):
+    """``clip_by_global_norm`` over blocks: the norm sums every leaf's
+    distinct blocks (a copy counted once, from its first device) in device
+    order, leaf after leaf; each block is scaled by the one factor.
+    Returns (grads, the norm before clipping) on the first device."""
+    sizes, dev0 = mesh.shape, mesh.devices[0]
+    coords = [(d, m) for d, row in enumerate(mesh.grid)
+              for m in range(len(row))]
+    total = torch.zeros((), dtype=torch.float32, device=dev0)
+
+    def square(path, _):
+        nonlocal total
+        seen, part = set(), None
+        for d, m in coords:
+            key = layouts[path].block_key(d, m, sizes)
+            if key in seen:
+                continue
+            seen.add(key)
+            g = tree_at(grads[d][m], path)
+            s = torch.sum(torch.square(g.to(torch.float32))).to(dev0)
+            part = s if part is None else part + s
+        total = total + part
+    tree_map(square, grads[0][0])
+    gnorm = torch.sqrt(total)
+    factor = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    return [[tree_map(lambda _, g: (g.to(torch.float32)
+                                    * factor.to(g.device)).to(g.dtype), t)
+             for t in row] for row in grads], gnorm
+
+
+def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
+                     impl: str = "auto", remat: str = "full",
+                     optimizer: str | None = None,
+                     accum_steps: int | None = None,
+                     dtype=torch.bfloat16) -> StepBundle:
+    """The train step of ``cfg`` over ``mesh`` (a ``HostMesh``) at
+    ``shape.global_batch`` rows of ``shape.seq_len`` tokens, with the
+    reference's choices: above ``GIANT_PARAMS`` (read at call time)
+    ``adamw_q8``, 8 microbatches and bf16 gradient accumulators, else
+    ``adamw``, one batch and f32 (``optimizer`` and ``accum_steps``
+    override); ``fsdp`` where the model is not giant and the batch
+    divides the devices, else ``tp`` (FSDP over ``data`` by
+    ``make_policy``'s default); ``remat`` (``none | full | dots``) of the
+    stack. ``dtype``: the params'.
+
+    ``place(params, opt_state=None)`` cuts a whole param tree (cast to
+    ``dtype``) and optimizer state (zeros when None) into ``grid[d][m]``
+    blocks by ``specs`` ({"params": {path: Layout}, "opt": {path:
+    Layout}}: ``ShardingPolicy.param_layouts``/``opt_layouts``, each
+    ``Layout.spec`` the reference's ``param_specs``/``opt_specs``), the
+    layouts the step itself reads; ``fn(params, opt_state,
+    batch)`` takes one step on them, in place, and returns (params,
+    opt_state, metrics: ``ce``, ``aux`` for a decoder-only model, ``z``,
+    ``loss``, ``gnorm``); ``gather(params, opt_state=None, device)``
+    joins the blocks back into whole trees.
+
+    The step: each microbatch's loss (``lm_loss`` / ``encdec_loss`` under
+    the mesh: each device computes with ``sharding.gathered_view``s of
+    the blocks, the batch's rows over every device under fsdp, over the
+    data groups under tp) and its gradient by autograd, which sums each
+    block's gradient over the devices that gathered it (the
+    reduce-scatter); the gradients of copies summed in device order
+    (``reduce_copies``: the all-reduce); accumulated in f32, or bf16 for a
+    giant, and divided by ``accum_steps``; clipped to global norm 1.0
+    (``_clip_blocks``); then each device's blocks updated
+    (``Optimizer.update_blocks``)."""
+    giant = cfg.param_count_estimate() > GIANT_PARAMS
+    opt_name = optimizer or ("adamw_q8" if giant else "adamw")
+    if accum_steps is None:
+        accum_steps = 8 if giant else 1
+    acc_dtype = torch.bfloat16 if giant else torch.float32
+    opt = make_optimizer(opt_name, lr=1e-4, weight_decay=0.01)
+    n_dev = mesh.shape["data"] * mesh.shape["model"]
+    parallelism = ("fsdp" if not giant and shape.global_batch % n_dev == 0
+                   else "tp")
+    policy = make_policy(cfg, mesh, parallelism=parallelism)
+    rt = make_runtime(cfg, mesh, shape, impl=impl).replace(
+        data_axes=policy.data_axes, remat=remat)
+    loss_fn = ed.encdec_loss if cfg.enc_dec else lm_mod.lm_loss
+    init = ed.encdec_init if cfg.enc_dec else lm_mod.lm_init
+    meta_params = init(torch.Generator(), cfg, dtype=dtype, device="meta")
+    meta_opt = opt.init(meta_params)
+    p_lay = policy.param_layouts(meta_params)
+    o_lay = policy.opt_layouts(meta_opt)
+    sizes, cols = mesh.shape, mesh.shape["model"]
+    devs = mesh.devices
+
+    def where(path, k):
+        lay = o_lay[path]
+        return lay.index(k // cols, k % cols, sizes), lay.shape
+
+    def place(params, opt_state=None):
+        params = tree_map(lambda _, x: torch.as_tensor(x).to(dtype)
+                          if torch.as_tensor(x).is_floating_point()
+                          else torch.as_tensor(x), params)
+        grid = place_blocks(params, p_lay, mesh)
+        if opt_state is None:
+            return grid, _zero_blocks(meta_opt, o_lay, mesh)
+        return grid, place_blocks(opt_state, o_lay, mesh)
+
+    def gather(params, opt_state=None, device="cpu"):
+        whole = gather_blocks(params, p_lay, mesh, device)
+        if opt_state is None:
+            return whole
+        return whole, gather_blocks(opt_state, o_lay, mesh, device)
+
+    def grads_of(params, batch):
+        """(loss, metrics, the reduced gradient grid) of one batch."""
+        live = [[tree_map(lambda _, x: x.detach().requires_grad_(True), t)
+                 for t in row] for row in params]
+        views = [[gathered_view(live, p_lay, policy, d, m, dev)
+                  for m, dev in enumerate(row)]
+                 for d, row in enumerate(mesh.grid)]
+        leaves = [leaf for row in live for t in row
+                  for leaf in tree_leaves(t)]
+        with torch.enable_grad():
+            loss, metrics = loss_fn(views, batch, cfg, rt)
+            gs = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        grads = [[tree_map(lambda _, x: next(gs), t) for t in row]
+                 for row in live]
+        grads = reduce_copies(grads, p_lay, mesh)
+        # a block no device read (none on the bundled configs) takes zeros
+        grads = [[tree_map(lambda path, g, t=t: torch.zeros_like(
+            tree_at(t, path)) if g is None else g, g_t)
+            for g_t, t in zip(g_row, p_row)]
+            for g_row, p_row in zip(grads, params)]
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
+
+    def train_step(params, opt_state, batch):
+        batch = {k: torch.as_tensor(v).to(devs[0]) for k, v in batch.items()}
+        if accum_steps == 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            mb = batch["tokens"].shape[0] // accum_steps
+            acc, losses, ms = None, [], []
+            for i in range(accum_steps):
+                loss_i, m_i, g = grads_of(
+                    params, {k: v[i * mb:(i + 1) * mb]
+                             for k, v in batch.items()})
+                if acc is None:
+                    acc = [[tree_map(lambda _, x: torch.zeros(
+                        x.shape, dtype=acc_dtype, device=x.device), t)
+                        for t in row] for row in g]
+                for a_row, g_row in zip(acc, g):
+                    for a_t, t in zip(a_row, g_row):
+                        tree_map(lambda path, a, t=t: a.add_(
+                            tree_at(t, path).to(acc_dtype)), a_t)
+                del g
+                losses.append(loss_i)
+                ms.append(m_i)
+            grads = [[tree_map(lambda _, a: a.div_(accum_steps), t)
+                      for t in row] for row in acc]
+            loss = torch.stack(losses).mean()
+            metrics = {k: torch.stack([m[k] for m in ms]).mean()
+                       for k in ms[0]}
+        grads, gnorm = _clip_blocks(grads, p_lay, mesh, 1.0)
+        flat = [t for row in params for t in row]
+        new_p, new_o = opt.update_blocks(
+            flat, [t for row in grads for t in row],
+            [t for row in opt_state for t in row], where)
+        params = [new_p[d * cols:(d + 1) * cols]
+                  for d in range(sizes["data"])]
+        opt_state = [new_o[d * cols:(d + 1) * cols]
+                     for d in range(sizes["data"])]
+        return params, opt_state, dict(metrics, loss=loss, gnorm=gnorm)
+
+    meta = {"kind": "train", "optimizer": opt_name, "fsdp": policy.fsdp,
+            "parallelism": parallelism, "remat": remat,
+            "accum_steps": accum_steps,
+            "accum_dtype": str(acc_dtype).replace("torch.", "")}
+    return StepBundle(
+        fn=train_step, specs={"params": p_lay, "opt": o_lay}, meta=meta,
+        rt=rt, place=place, gather=gather)
+
+
 def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      impl: str = "auto", quantized: bool = True,
                      kv_quant: bool = False, prefill_cp: bool | None = None,
@@ -110,9 +320,7 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     the dense caches' (bf16 as the reference's); ``kv_quant`` codes them
     (``Runtime.kv_scheme``'s default codebook)."""
     if shape.kind == "train":
-        raise NotImplementedError(
-            "build_train_step: training under a mesh (ROADMAP.md, Queue 1 "
-            "item 3)")
+        raise ValueError("a train step: build_train_step (or build_step)")
     b, s = shape.global_batch, shape.seq_len
     m = mesh.shape["model"]
     if prefill_cp is None:
@@ -162,5 +370,13 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             return mod(params, token, pos, caches, cfg, rt)
 
     return StepBundle(
-        fn=torch.no_grad()(step), cache_specs=c_specs, meta=meta, rt=rt,
-        place=place, init_caches=init_caches, gather_caches=gather_caches)
+        fn=torch.no_grad()(step), specs=c_specs, meta=meta, rt=rt,
+        place=place, gather=gather_caches, init_caches=init_caches)
+
+
+def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh, **kw) -> StepBundle:
+    """``build_train_step`` for ``shape.kind == "train"``, else
+    ``build_serve_step``."""
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, mesh, **kw)
+    return build_serve_step(cfg, shape, mesh, **kw)

@@ -28,16 +28,17 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
-                                   tree_index)
+                                   sharded_embedding_apply, tree_index)
 from repro_torch.nn.transformer import (_cross_kv, slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
+                                        stack_apply_rows,
                                         stack_decode, stack_init,
                                         stack_prefill)
 from repro_torch.runtime import Runtime, resolve_device
-from repro_torch.sharding import refuse_training_mesh
+from repro_torch.sharding import whole
 
 from .lm import (Z_WEIGHT, _default_positions, _paged_forward, _paged_head,
-                 chunked_ce, mesh_apply, mesh_embed)
+                 chunked_ce, mesh_apply, mesh_embed, mesh_head_w, mesh_loss)
 
 __all__ = ["encdec_init", "encdec_loss", "encdec_encode", "encdec_prefill",
            "encdec_decode_step", "encdec_init_caches", "enc_cfg", "dec_cfg",
@@ -93,7 +94,10 @@ def encdec_encode(params, frames: torch.Tensor, cfg: ArchConfig,
     if rt.mesh is None:
         stack, norm = params["enc_stack"], params["enc_norm"]
     else:
-        stack, norm = [p["enc_stack"] for p in params], params[0]["enc_norm"]
+        stack = [p["enc_stack"] for p in params]
+        norm = whole(params[0]["enc_norm"])
+        frames = frames.to(rt.mesh.devices[0])
+        pos = pos.to(frames.device)
     h, _ = stack_apply(stack, frames, pos, enc_cfg(cfg), rt, causal=False)
     return norm_apply(cfg.norm, norm, h)
 
@@ -101,17 +105,53 @@ def encdec_encode(params, frames: torch.Tensor, cfg: ArchConfig,
 def encdec_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, S), "labels":
     (B, S)}. Returns (scalar loss, {"ce", "z"}): cross-entropy plus
-    ``Z_WEIGHT`` x the z-loss."""
-    refuse_training_mesh(rt)
+    ``Z_WEIGHT`` x the z-loss. Under ``rt.mesh`` as ``lm.lm_loss``: a
+    ``ServingMesh`` runs encoder and decoder tensor-parallel over its
+    shards, a ``HostMesh`` is the train step's (``lm.mesh_loss``)."""
+    if rt.mesh is not None and hasattr(rt.mesh, "grid"):
+        return mesh_loss(params, batch, cfg, rt, rows=_encdec_rows,
+                         group_loss=encdec_loss)
     enc_out = encdec_encode(params, batch["frames"], cfg, rt)
-    tokens = batch["tokens"]
+    tokens = batch["tokens"].to(enc_out.device)
     pos = _default_positions(cfg, *tokens.shape, tokens.device)
-    x = embedding_apply(params["embed"], tokens)
-    h, _ = stack_apply(params["dec_stack"], x, pos, dec_cfg(cfg), rt,
-                       enc_out=enc_out)
-    h = norm_apply(cfg.norm, params["final_norm"], h)
-    ce, z = chunked_ce(h, params["head"]["w"], batch["labels"])
+    if rt.mesh is None:
+        x = embedding_apply(params["embed"], tokens)
+        stack, norm, w = (params["dec_stack"], params["final_norm"],
+                          params["head"]["w"])
+    else:
+        devs = rt.mesh.devices
+        x = sharded_embedding_apply([whole(p["embed"]) for p in params],
+                                    tokens, devs, cfg.vocab_size)
+        stack = [p["dec_stack"] for p in params]
+        norm = whole(params[0]["final_norm"])
+        w = mesh_head_w([whole(p["head"]["w"]) for p in params], devs[0])
+    h, _ = stack_apply(stack, x, pos, dec_cfg(cfg), rt, enc_out=enc_out)
+    h = norm_apply(cfg.norm, norm, h)
+    ce, z = chunked_ce(h, w, batch["labels"].to(h.device))
     return ce + Z_WEIGHT * z, {"ce": ce, "z": z}
+
+
+def _encdec_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime):
+    """The encoder-decoder's rows over several devices (``mesh_loss``'s
+    fsdp): each device encodes its rows' frames and decodes its rows;
+    each device's (ce, z) means, and no aux loss."""
+    def pos(t):
+        b, s = t.shape[:2]
+        return torch.arange(s, device=t.device).expand(b, s)
+    frames = [b["frames"] for b in batches]
+    hs, _ = stack_apply_rows([v["enc_stack"] for v in views], frames,
+                             [pos(f) for f in frames], enc_cfg(cfg), rt,
+                             causal=False)
+    enc_outs = [norm_apply(cfg.norm, whole(v["enc_norm"]), h)
+                for v, h in zip(views, hs)]
+    xs = [embedding_apply(whole(v["embed"]), b["tokens"])
+          for v, b in zip(views, batches)]
+    hs, _ = stack_apply_rows([v["dec_stack"] for v in views], xs,
+                             [pos(b["tokens"]) for b in batches],
+                             dec_cfg(cfg), rt, enc_outs=enc_outs)
+    return [chunked_ce(norm_apply(cfg.norm, whole(v["final_norm"]), h),
+                       whole(v["head"]["w"]), b["labels"])
+            for v, h, b in zip(views, hs, batches)], None
 
 
 # -- dense serving ------------------------------------------------------------

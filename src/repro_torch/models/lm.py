@@ -22,7 +22,10 @@ slices of it (``sharded_logits``), all joined or summed in shard order
 on the first shard's device. Under a ``HostMesh`` (the serve steps of
 ``launch.steps``) ``lm_prefill`` and ``lm_decode_step`` take
 ``grid[d][m]`` trees and run each data group's rows over its model
-shards the same way (``mesh_apply``).
+shards the same way (``mesh_apply``). ``lm_loss`` runs tensor-parallel
+under a ``ServingMesh`` and is the train step's loss under a ``HostMesh``
+(``mesh_loss``: each device's rows under fsdp, each data group's
+tensor-parallel under tp).
 """
 from __future__ import annotations
 
@@ -36,11 +39,11 @@ from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    tree_leaves, tree_map)
 from repro_torch.nn.transformer import (slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
-                                        stack_decode, stack_init,
-                                        stack_paged, stack_prefill,
-                                        stack_prefill_cp)
+                                        stack_apply_rows, stack_decode,
+                                        stack_init, stack_paged,
+                                        stack_prefill, stack_prefill_cp)
 from repro_torch.runtime import Runtime, resolve_device
-from repro_torch.sharding import refuse_training_mesh
+from repro_torch.sharding import whole
 
 __all__ = ["lm_init", "lm_loss", "lm_logits", "chunked_ce", "init_caches",
            "lm_prefill", "lm_decode_step", "paged_init_caches",
@@ -83,6 +86,13 @@ def _head_w(params: dict, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"]["table"].T
     return params["head"]["w"]
+
+
+def _view_head_w(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """``_head_w`` of a tree whose leaves may be ``GatheredLeaf``s."""
+    if cfg.tie_embeddings:
+        return whole(params["embed"]["table"]).T
+    return whole(params["head"]["w"])
 
 
 def _head(params: dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -144,21 +154,137 @@ def _backbone(params, cfg: ArchConfig, tokens, positions, rt: Runtime):
     return norm_apply(cfg.norm, params["final_norm"], h), aux
 
 
+def _tp_backbone(ps: list, cfg: ArchConfig, tokens, positions, rt: Runtime):
+    """``_backbone`` tensor-parallel over the shards of ``rt.mesh``: the
+    lookup over the shards' slices of the table, the sharded stack, the
+    final norm from shard 0, on the first shard's device."""
+    devs = rt.mesh.devices
+    x = sharded_embedding_apply([whole(p["embed"]) for p in ps],
+                                tokens.to(devs[0]), devs, cfg.vocab_size)
+    h, aux = stack_apply([p["stack"] for p in ps], x,
+                         positions.to(devs[0]), cfg, rt)
+    return norm_apply(cfg.norm, whole(ps[0]["final_norm"]), h), aux
+
+
+def mesh_head_w(ws: list, dev) -> torch.Tensor:
+    """The whole (D, V) head on ``dev`` from the shards' slices ``ws``
+    (each (D, V_s) where the vocabulary splits, (D_s, V) where the head is
+    cut on d), joined in shard order: the loss head of a tensor-parallel
+    loss, whose ``chunked_ce`` takes the whole vocabulary's logits."""
+    d = ws[0].shape[0]
+    vocab_split = all(w.shape[0] == d for w in ws)
+    return torch.cat([w.to(dev) for w in ws], dim=-1 if vocab_split else 0)
+
+
 def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
     """batch: {"tokens": (B, S), "labels": (B, S), optional "positions"}.
     Returns (scalar loss, {"ce", "aux", "z"}): cross-entropy plus
     ``AUX_WEIGHT`` x the MoE load-balance loss plus ``Z_WEIGHT`` x the
     z-loss. Differentiable: on the card the attention runs the flash
-    kernel inside its ``autograd.Function``."""
-    refuse_training_mesh(rt)
+    kernel inside its ``autograd.Function``. Under ``rt.mesh``: a
+    ``ServingMesh`` runs it tensor-parallel over its shards (``params``
+    one tree per shard, as ``sharding.serving_cut`` cuts them; the loss
+    head whole on the first shard's device); a ``HostMesh`` is the train
+    step's (``launch.steps.build_train_step``, ``mesh_loss``)."""
+    if rt.mesh is not None and hasattr(rt.mesh, "grid"):
+        return mesh_loss(params, batch, cfg, rt, rows=_lm_rows,
+                         group_loss=lm_loss)
     tokens = batch["tokens"]
     positions = batch.get("positions")
     if positions is None:
         positions = _default_positions(cfg, *tokens.shape, tokens.device)
-    h, aux = _backbone(params, cfg, tokens, positions, rt)
-    ce, z = chunked_ce(h, _head_w(params, cfg), batch["labels"])
+    if rt.mesh is None:
+        h, aux = _backbone(params, cfg, tokens, positions, rt)
+        w = _head_w(params, cfg)
+    else:
+        h, aux = _tp_backbone(params, cfg, tokens, positions, rt)
+        w = mesh_head_w([_view_head_w(p, cfg) for p in params], h.device)
+    ce, z = chunked_ce(h, w, batch["labels"].to(h.device))
     loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
     return loss, {"ce": ce, "aux": aux, "z": z}
+
+
+def _lm_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime):
+    """The LM's rows over several devices (``mesh_loss``'s fsdp): each
+    device's (ce, z) means over its rows, and the aux loss."""
+    xs, pos = [], []
+    for v, b in zip(views, batches):
+        xs.append(embedding_apply(whole(v["embed"]), b["tokens"]))
+        p = b.get("positions")
+        pos.append(p if p is not None else _default_positions(
+            cfg, *b["tokens"].shape, b["tokens"].device))
+    hs, aux = stack_apply_rows([v["stack"] for v in views], xs, pos, cfg, rt)
+    out = []
+    for v, h, b in zip(views, hs, batches):
+        h = norm_apply(cfg.norm, whole(v["final_norm"]), h)
+        out.append(chunked_ce(h, _view_head_w(v, cfg), b["labels"]))
+    return out, aux
+
+
+def _row_slices(b: int, n: int) -> list:
+    """The rows each of ``n`` parts runs: b / n each where n divides b;
+    else the first part runs all b and the others none (they would
+    compute the same rows, so the gradient is taken once)."""
+    if n > 1 and b % n == 0:
+        per = b // n
+        return [slice(k * per, (k + 1) * per) for k in range(n)]
+    return [slice(0, b)]
+
+
+def mesh_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime, *, rows,
+              group_loss):
+    """The train step's loss under ``rt.mesh`` (a ``HostMesh``; the
+    reference's loss under its mesh): ``params`` is ``grid[d][m]``, the
+    tree each device computes with (``sharding.gathered_view``: whole
+    under fsdp, its model shard under tp). ``"model"`` in
+    ``rt.data_axes`` (fsdp): every device runs its rows of the batch
+    (``rows(views, batches, cfg, rt)`` -> each device's (ce, z) means and
+    the aux loss or None); else each data group runs its rows (over
+    ``rt.data_axes``, where the batch divides) tensor-parallel over its
+    model shards (``group_loss`` under the group's ``ServingMesh``). ce
+    and z are means over the global batch. A MoE's aux loss under tp is
+    the reference's: each group routes its own tokens, the value reported
+    is group 0's (the reference's ``P()`` output, read from device 0) and
+    its gradient is the mean over the groups'."""
+    mesh = rt.mesh
+    b = batch["tokens"].shape[0]
+    ce = z = aux = None
+
+    def add(total, part, sl):
+        part = part * ((sl.stop - sl.start) / b)
+        return part if total is None else total + part.to(total.device)
+
+    if "model" in rt.data_axes:
+        devs = mesh.devices
+        slices = _row_slices(b, len(devs))
+        cols = mesh.shape["model"]
+        views = [params[k // cols][k % cols] for k in range(len(slices))]
+        batches = [{key: t[sl].to(dev) for key, t in batch.items()}
+                   for sl, dev in zip(slices, devs)]
+        parts, aux = rows(views, batches, cfg, rt.replace(mesh=None))
+        for (c, zz), sl in zip(parts, slices):
+            ce, z = add(ce, c, sl), add(z, zz, sl)
+    else:
+        slices = _row_slices(b, mesh.shape["data"] if rt.data_axes else 1)
+        auxes = []
+        for d, sl in enumerate(slices):
+            row = mesh.row(d)
+            _, m = group_loss(params[d], {key: t[sl].to(row.devices[0])
+                                          for key, t in batch.items()},
+                              cfg, rt.replace(mesh=row))
+            ce, z = add(ce, m["ce"], sl), add(z, m["z"], sl)
+            if "aux" in m:
+                auxes.append(m["aux"].to(ce.device))
+        if auxes:
+            mean = sum(auxes) / len(auxes)
+            aux = auxes[0].detach() + (mean - mean.detach())
+    loss = ce + Z_WEIGHT * z
+    metrics = {"ce": ce}
+    if aux is not None:
+        loss = loss + AUX_WEIGHT * aux
+        metrics["aux"] = aux
+    metrics["z"] = z
+    return loss, metrics
 
 
 def lm_logits(params, tokens, cfg: ArchConfig, rt: Runtime, positions=None):

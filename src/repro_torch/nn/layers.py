@@ -18,7 +18,7 @@ from repro_torch.runtime import Runtime
 __all__ = ["dense_init", "dense_apply", "embedding_init", "embedding_apply",
            "rmsnorm_init", "rmsnorm_apply", "layernorm_init",
            "layernorm_apply", "norm_init", "norm_apply", "quantize_params",
-           "tree_map", "tree_index", "shard_sum",
+           "tree_map", "tree_at", "tree_index", "shard_sum",
            "sharded_embedding_apply", "sharded_logits"]
 
 
@@ -174,6 +174,14 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(lambda _, leaf: out.append(leaf), tree)
     return out
+
+
+def tree_at(tree, path: tuple):
+    """The subtree (or leaf) at ``path``, a tuple of keys as ``tree_map``
+    gives them."""
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def tree_index(tree, i: int):

@@ -172,7 +172,12 @@ def moe_apply_sharded(ps: list, x: torch.Tensor, *, top_k: int,
     device does and runs its own experts; the partial outputs, in the
     activation dtype, are summed in shard order (``shard_sum``, where the
     reference ``psum``s). A shared expert is a tensor-parallel MLP. x:
-    (B, S, D) on the first shard's device. Returns (y, aux_loss) there."""
+    (B, S, D) on the first shard's device. Returns (y, aux_loss) there;
+    every shard routes the same tokens through the same router, so each
+    computes the same aux loss and shard 0's is the group's (the
+    reference's ``shard_map`` yields each data group's own; the train
+    step combines the groups' as the reference does,
+    ``models.lm.mesh_loss``)."""
     b, s, d = x.shape
     parts, aux, e0 = [], None, 0
     for p, dev in zip(ps, rt.mesh.devices):

@@ -23,11 +23,17 @@ by its columns, the MoE by experts, and each recurrent mixer whole on
 every shard (``stack_paged``); so do the prefill and decode modes of the
 serve steps (``launch.steps``, one data group's model shards), against
 dense caches held as one block per shard, and ``stack_prefill_cp`` runs
-the context-parallel prefill.
+the context-parallel prefill. The train mode runs one data group of the
+train step's ``tp`` the same way, and ``stack_apply_rows`` its ``fsdp``
+(each device's rows, a MoE's rows joined); both checkpoint each period,
+and each slot of a longer pattern, under ``Runtime.remat``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime, planner
@@ -44,7 +50,8 @@ from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 from .moe import moe_apply, moe_apply_sharded, moe_init
 from .rotary import apply_rope
 
-__all__ = ["stack_init", "stack_apply", "stack_prefill", "stack_decode",
+__all__ = ["stack_init", "stack_apply", "stack_apply_rows", "stack_prefill",
+           "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
            "SLOT_KINDS"]
 
@@ -282,10 +289,17 @@ def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
     reference's pool spec keeps them, each shard stepping its own copy of
     the slab region the same way, so the copies stay identical, and shard
     0's output joins the residual stream (``paged_ctx``: per-shard
-    lists). The serve steps' prefill and decode: the state, cut over the
+    lists). Train mode (the train step's ``tp``): the mixer runs once,
+    from shard 0's copy. The serve steps' prefill and decode: the state,
+    cut over the
     shards as ``sharding.cache_spec`` lays it out, is joined on the first
     shard's device, the mixer runs there once, and each shard keeps its
     block of the new state."""
+    if mode == "train":
+        # once, from shard 0's copy: the copies take one gradient (the
+        # train step sums it over the devices that hold a copy)
+        return _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=None,
+                          paged_ctx=None)
     if mode in ("prefill", "decode"):
         state = _join_state(cache, mixer, cfg, len(ps))
         y, _ = _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=state,
@@ -379,26 +393,30 @@ def _attn_mesh(ps: list, h, positions, pos, caches: list, cfg: ArchConfig,
 
 def _cross_mesh(ps: list, hx, positions, cfg: ArchConfig, rt: Runtime, *,
                 mode: str, caches: list, pos, enc_out):
-    """The xdec slot's cross-attention in the serve steps, tensor-parallel
-    by heads: prefill projects each shard's KV heads of the encoder
-    output, attends them and writes every KV head into the cross blocks
-    (cut on the encoder's sequence where ``cache_specs`` cut them: a block
-    shorter than ``enc_seq_len``); decode joins each shard's KV heads
+    """The xdec slot's cross-attention tensor-parallel by heads (the serve
+    steps, and the train step's ``tp``): train and prefill project each
+    shard's KV heads of the encoder output and attend them, prefill also
+    writes every KV head into the cross blocks (cut on the encoder's
+    sequence where ``cache_specs`` cut them: a block shorter than
+    ``enc_seq_len``); decode joins each shard's KV heads
     from the blocks and attends them at ``pos``. Each shard's ``wo``
     partial summed in shard order."""
     devs, dh, n = rt.mesh.devices, cfg.dh, len(ps)
-    seq = caches[0]["xk"].shape[2] < cfg.enc_seq_len
     heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                  head_dim=dh, rope_theta=cfg.rope_theta, rt=rt)
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         kvs = [_cross_kv(p, enc_out.to(dev), p["wk"]["w"].shape[-1] // dh,
                          dh, rt) for p, dev in zip(ps, devs)]
-        for key, i in (("xk", 0), ("xv", 1)):
-            whole = gather_kv([kv[i] for kv in kvs], cfg.n_kv_heads, devs[0])
-            _write_blocks([c[key] for c in caches], whole.transpose(1, 2),
-                          rt, seq)
+        if mode == "prefill":
+            seq = caches[0]["xk"].shape[2] < cfg.enc_seq_len
+            for key, i in (("xk", 0), ("xv", 1)):
+                whole = gather_kv([kv[i] for kv in kvs], cfg.n_kv_heads,
+                                  devs[0])
+                _write_blocks([c[key] for c in caches],
+                              whole.transpose(1, 2), rt, seq)
         return attn_apply_dense_sharded(ps, hx, positions, causal=False,
                                         cross_kv=kvs, **heads)
+    seq = caches[0]["xk"].shape[2] < cfg.enc_seq_len
     b = hx.shape[0]
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=hx.device),
                                (b,)).long()
@@ -501,12 +519,24 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
     'prefill' | 'decode' | 'paged'. Paged mode takes ``paged_ctx =
     (ctx_len, block_table, n_valid, state_idx, slab_rows)``; an xdec slot
     takes ``enc_out`` in the train and prefill modes. ``tp`` runs the
-    slot tensor-parallel over ``rt.mesh`` (the paged mode, and the train
-    mode of an encoder): ``p`` is then a shard view (``_shard_view``),
-    ``cache`` and each entry of ``paged_ctx`` per-shard lists. Returns (x,
-    cache, aux) with aux the MoE load-balance loss (0 elsewhere)."""
+    slot tensor-parallel over ``rt.mesh``: ``p`` is then a shard view
+    (``_shard_view``), ``cache`` and each entry of ``paged_ctx``
+    per-shard lists. Returns (x, cache, aux) with aux the MoE
+    load-balance loss (0 elsewhere)."""
     mixer, ffn = _parse_slot(slot)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, cache = _mixer_apply(mixer, p, x, positions, cfg, rt, mode=mode,
+                            cache=cache, pos=pos, enc_out=enc_out,
+                            causal=causal, paged_ctx=paged_ctx, fused=fused,
+                            tp=tp)
+    x, aux = _ffn_apply(ffn, p, x, cfg, rt, tp=tp)
+    return x, cache, aux
+
+
+def _mixer_apply(mixer: str, p: dict, x, positions, cfg: ArchConfig,
+                 rt: Runtime, *, mode: str, cache, pos, enc_out, causal,
+                 paged_ctx, fused, tp):
+    """A slot's mixer sublayer (and an xdec slot's cross-attention) with
+    its residual: (x, cache)."""
     h = norm_apply(cfg.norm, p["norm1"], x)
     if mixer in ("attn", "xdec"):
         heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -542,7 +572,14 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
         recurrent = _recurrent_sharded if tp else _recurrent
         y, cache = recurrent(p[mixer], h, cfg, rt, mixer, mode=mode,
                              cache=cache, paged_ctx=paged_ctx)
-    x = x + y
+    return x + y, cache
+
+
+def _ffn_apply(ffn, p: dict, x, cfg: ArchConfig, rt: Runtime, *,
+               tp: bool = False):
+    """A slot's FFN sublayer with its residual: (x, aux), aux the MoE's
+    load-balance loss (0 elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "dense":
         h = norm_apply(cfg.norm, p["norm2"], x)
         mlp = mlp_apply_sharded if tp else mlp_apply
@@ -553,7 +590,7 @@ def _slot_apply(slot: str, p: dict, x, positions, cfg: ArchConfig,
         y, aux = moe(p["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
                      capacity_factor=cfg.capacity_factor, rt=rt)
         x = x + y
-    return x, cache, aux
+    return x, aux
 
 
 def _periods(params: dict, cfg: ArchConfig, caches=None):
@@ -583,22 +620,127 @@ def _tp_periods(params: list, cfg: ArchConfig, caches=None):
                [c for _, _, c in per_shard])
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` remat policy: save the outputs of plain matmuls (no
+    batch dims, the reference's ``dots_with_no_batch_dims_saveable``),
+    recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, rt: Runtime, *, policy: bool = True):
+    """``fn`` under ``rt.remat`` where autograd records: ``full``
+    checkpoints it (its inputs saved, its forward recomputed in the
+    backward), ``dots`` also saves its matmul outputs (with ``policy``:
+    the period level, as the reference's policy applies there)."""
+    if rt.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if rt.remat == "dots" and policy:
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, **kw)
+
+
+def _train_periods(cfg: ArchConfig, rt: Runtime, run_slot, x):
+    """x through every (period, slot) of the train-mode stack:
+    ``run_slot(j, i, x)`` -> (x, aux) runs slot j of period i (and reads
+    its params there, so a gather in that read runs inside the
+    checkpointed region). Under ``rt.remat`` each period is checkpointed,
+    and each slot too where the pattern has more than one (the
+    reference's hierarchical remat: the backward's recompute keeps one
+    slot live). Returns (x, the sum of the aux losses)."""
+    aux = None
+    n_slots = len(cfg.pattern)
+    for i in range(cfg.n_periods):
+        def period(x, i=i):
+            total = None
+            for j in range(n_slots):
+                slot = functools.partial(run_slot, j, i)
+                if n_slots > 1:
+                    slot = _remat(slot, rt, policy=False)
+                x, a = slot(x)
+                total = a if total is None else total + a
+            return x, total
+        x, a = _remat(period, rt)(x)
+        aux = a if aux is None else aux + a.to(aux.device)
+    return x, aux
+
+
 def stack_apply(params, x: torch.Tensor, positions, cfg: ArchConfig,
                 rt: Runtime, enc_out=None, causal: bool = True):
-    """Train-mode stack (differentiable under autograd). Returns (x, aux)
-    with aux the sum of the MoE load-balance losses. ``enc_out``: the
-    encoder output an xdec slot cross-attends. Under ``rt.mesh`` (an
-    enc-dec model's encoder in a sharded serving engine) ``params`` holds
-    one stack per shard and every slot runs tensor-parallel; x and the
-    result stay on the first shard's device."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """Train-mode stack (differentiable under autograd), checkpointed
+    under ``rt.remat``. Returns (x, aux) with aux the sum of the MoE
+    load-balance losses. ``enc_out``: the encoder output an xdec slot
+    cross-attends. Under ``rt.mesh`` (a ``ServingMesh``: an enc-dec
+    model's encoder in a sharded serving engine, one data group of the
+    train step's ``tp``) ``params`` holds one stack per shard and every
+    slot runs tensor-parallel; x and the result stay on the first shard's
+    device. A stack's leaves may be ``sharding.GatheredLeaf``s (the train
+    step's FSDP): each period's weights are gathered where they are read,
+    inside the period's checkpoint."""
     tp = rt.mesh is not None
-    periods = _tp_periods(params, cfg) if tp else _periods(params, cfg)
-    for slot, sp, _ in periods:
-        x, _, a = _slot_apply(slot, sp, x, positions, cfg, rt, mode="train",
-                              enc_out=enc_out, causal=causal, tp=tp)
-        aux = aux + a
-    return x, aux
+
+    def run(j, i, x):
+        if tp:
+            sp = _shard_view([tree_index(p["slots"][j], i) for p in params])
+        else:
+            sp = tree_index(params["slots"][j], i)
+        x, _, a = _slot_apply(cfg.pattern[j], sp, x, positions, cfg, rt,
+                              mode="train", enc_out=enc_out, causal=causal,
+                              tp=tp)
+        return x, a
+    return _train_periods(cfg, rt, run, x)
+
+
+def stack_apply_rows(stacks: list, xs: list, positions: list,
+                     cfg: ArchConfig, rt: Runtime, enc_outs=None,
+                     causal: bool = True):
+    """The train-mode stack over the rows of several devices (the train
+    step's ``fsdp``): device k runs its rows ``xs[k]`` through its own
+    copy of the weights (``stacks[k]``, ``GatheredLeaf``s that gather
+    each period where it is read) and ``positions[k]`` (and
+    ``enc_outs[k]``); a MoE layer, whose routing, capacity and aux loss
+    the reference takes over every token of the global batch, joins the
+    rows of every device in device order on the first, dispatches them
+    once and hands each device its rows back. Checkpointed under
+    ``rt.remat`` as ``stack_apply``. Returns (each device's rows, aux) with
+    aux on the first device."""
+    def run(j, i, xs):
+        mixer, ffn = _parse_slot(cfg.pattern[j])
+        sps = [_index_slot(s["slots"][j], i, moe=k == 0)
+               for k, s in enumerate(stacks)]
+        xs = [_mixer_apply(mixer, sp, x, pos, cfg, rt, mode="train",
+                           cache=None, pos=None, causal=causal,
+                           enc_out=None if enc_outs is None else enc_outs[k],
+                           paged_ctx=None, fused=False, tp=False)[0]
+              for k, (sp, x, pos) in enumerate(zip(sps, xs, positions))]
+        if ffn != "moe":
+            outs = [_ffn_apply(ffn, sp, x, cfg, rt) for sp, x in zip(sps, xs)]
+            return [o[0] for o in outs], outs[0][1]
+        dev0 = xs[0].device
+        h = torch.cat([norm_apply(cfg.norm, sp["norm2"], x).to(dev0)
+                       for sp, x in zip(sps, xs)])
+        y, aux = moe_apply(sps[0]["moe"], h, top_k=cfg.top_k,
+                           n_experts=cfg.n_experts,
+                           capacity_factor=cfg.capacity_factor, rt=rt)
+        out, lo = [], 0
+        for x in xs:
+            out.append(x + y[lo:lo + x.shape[0]].to(x.device))
+            lo += x.shape[0]
+        return out, aux
+    return _train_periods(cfg, rt, run, xs)
+
+
+def _index_slot(slot_params: dict, i: int, *, moe: bool) -> dict:
+    """Period ``i`` of one slot's params; the MoE's only with ``moe``
+    (the rows' MoE runs on the first device)."""
+    return {k: tree_index(v, i) for k, v in slot_params.items()
+            if moe or k != "moe"}
 
 
 def stack_prefill(params, x: torch.Tensor, positions, cfg: ArchConfig,

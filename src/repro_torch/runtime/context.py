@@ -15,9 +15,16 @@
              sequence is cut over (sequence-sharded decode), or None: the
              cut that ``ShardingPolicy.cache_specs`` gave the caches
   data_axes  the batch's axes (a tuple): empty where the batch does not
-             divide the data axis and every data group runs all of it
+             divide the data axis and every data group runs all of it;
+             ``("data", "model")`` under the train step's ``fsdp``, the
+             rows over every device
   attn_cp    context-parallel prefill: queries sequence-sharded over the
              model axis, K/V gathered
+  remat      the train-mode stack's rematerialization (``nn.transformer``):
+             ``none``; ``full`` checkpoints each period (and each slot of
+             a pattern of more than one) and recomputes it in the
+             backward; ``dots`` saves the matmul outputs in the period's
+             recompute (the reference's ``dots_with_no_batch_dims``)
 The mesh fields are read only under a ``HostMesh``; with ``mesh`` None
 they change nothing.
 """
@@ -54,11 +61,14 @@ class Runtime:
     decode_seq_axis: Optional[str] = None
     data_axes: tuple = ("data",)
     attn_cp: bool = False
+    remat: str = "none"
 
     def __post_init__(self):
         if not isinstance(self.data_axes, tuple):
             object.__setattr__(self, "data_axes",
                                tuple(self.data_axes or ()))
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat {self.remat!r}: none, full or dots")
 
     def replace(self, **kw) -> "Runtime":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,7 @@
-"""Tensor-parallel serving: where each leaf of a param tree and of the
-paged pools is cut over the ``model`` axis, and the cutting.
+"""Where each leaf of a param tree, an optimizer state and the caches is
+cut over a mesh, and the cutting: tensor-parallel serving over the
+``model`` axis, the serve steps and the train step over ``(data,
+model)``.
 
 ``ShardingPolicy`` holds the reference's tensor-parallel rules
 (``repro.sharding``) as far as the port's serving engine runs them:
@@ -31,43 +33,59 @@ The serve steps (``launch.steps``) add the reference's ``replicated``
 parallelism (every leaf whole: the context-parallel prefill's weights),
 ``cache_spec`` (the dense caches' sequence over ``model``, the batch over
 ``data``) and ``shard_dense_caches`` / ``gather_dense_caches``.
+
+The train step (``launch.steps.build_train_step``) adds the reference's
+training storage: ``fsdp`` (ZeRO-3: every weight cut over ``("data",
+"model")``, the batch over every device) and ``tp`` with FSDP over
+``data`` (``make_policy``'s default above ``FSDP_ABOVE`` params),
+``param_specs`` and ``opt_specs`` (the reference's leaf for leaf; under
+``tp`` the model axis on ``serving_cut``'s dim), each leaf's ``Layout``
+(its blocks' ranges), ``place_blocks`` / ``gather_blocks`` (a tree cut
+into ``grid[d][m]`` blocks and joined back), ``gathered_view`` (the
+weights a device computes with, ``GatheredLeaf``s that gather its blocks
+where they are read: per period inside the stack's checkpoints) and
+``reduce_copies`` (the gradients of blocks held by several devices summed
+in device order).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantized import QuantizedTensor
-from repro_torch.nn.layers import tree_map
+from repro_torch.nn.layers import tree_at, tree_map
 from repro_torch.runtime.planner import (kv_heads_split, shard_heads,
                                          split_ranges)
 
-__all__ = ["ShardingPolicy", "kv_seq_axis", "shard_params",
-           "shard_paged_state", "shard_dense_caches", "gather_dense_caches",
-           "state_cut_dim", "refuse_training_mesh", "SHARDED_REST"]
+__all__ = ["ShardingPolicy", "Layout", "make_policy", "kv_seq_axis",
+           "shard_params", "shard_paged_state", "shard_dense_caches",
+           "gather_dense_caches", "place_blocks", "gather_blocks",
+           "gathered_view", "reduce_copies", "GatheredLeaf", "whole",
+           "state_cut_dim", "SHARDED_REST"]
 
-#: the ROADMAP.md item that ports what sharded serving still lacks
+#: the ROADMAP.md queue a cut the port cannot make names (Queue 1: what
+#: is left of the reference's multi-device modules)
 SHARDED_REST = "multi-device and drivers (the rest)"
 
 #: replicated regardless of size
 _REPLICATED = {"norm1", "norm2", "norm_x", "final_norm", "enc_norm", "router",
                "conv_w", "conv_b", "A_log", "D", "out_norm_g", "r", "b", "g"}
+#: the reference's Megatron alternation: row-parallel (input dim over
+#: model) and column-parallel (output dim over model) projections
+_ROW_PARALLEL = {"wo", "down", "down_proj", "out_proj"}
+_COL_PARALLEL = {"wq", "wk", "wv", "up", "gate", "in_proj", "w_in", "x_proj",
+                 "dt_proj", "w_gates", "head"}
+#: optimizer-state keys that ``opt_specs`` strips to find the param
+_MOMENTS = ("mu", "nu", "m", "v", "ef")
 #: the recurrent mixers, whose leaves every shard holds whole
 _RECURRENT = {"mamba", "mlstm", "slstm"}
 #: leaf keys of the paged state cache's head-sharded pools
 _POOL_KEYS = ("kp", "vp", "xk", "xv")
 
 Spec = tuple
-
-
-def refuse_training_mesh(rt) -> None:
-    """Raise for a training loss under ``rt.mesh``: the port's mesh is a
-    serving engine's; training under a mesh is still to be ported."""
-    if rt.mesh is not None:
-        raise NotImplementedError(
-            f"training under a mesh (ROADMAP.md: {SHARDED_REST})")
 
 
 def _div(n: int, k: int) -> bool:
@@ -88,10 +106,13 @@ def _keys(path) -> list[str]:
 
 
 class ShardingPolicy:
-    """The cut of a serving engine or a serve step over ``mesh`` (which
-    needs only ``shape``, a dict of axis sizes with ``model`` and,
-    for the serve steps, ``data``). ``parallelism``: ``tp`` (the
-    tensor-parallel cut, ``serving_cut``) or ``replicated`` (every leaf
+    """The cut of a serving engine, a serve step or a train step over
+    ``mesh`` (which needs only ``shape``, a dict of axis sizes with
+    ``model`` and, for the steps, ``data``). ``parallelism``: ``tp`` (the
+    tensor-parallel cut, ``serving_cut``; with ``fsdp`` the train step
+    also cuts a second dim of each weight over ``data``), ``fsdp`` (the
+    train step's ZeRO-3: the batch over every device, each weight cut over
+    ``("data", "model")``, no model axis) or ``replicated`` (every leaf
     whole on every shard: the context-parallel prefill's weights, the
     reference's ``replicated`` mode). ``kv_sharded``: whether the KV
     heads split over the shards (``planner.kv_heads_split``); else the K/V
@@ -99,20 +120,34 @@ class ShardingPolicy:
 
     model_axis = "model"
 
-    def __init__(self, cfg: ArchConfig, mesh, *, parallelism: str = "tp"):
-        if parallelism not in ("tp", "replicated"):
-            raise NotImplementedError(
-                f"parallelism {parallelism!r}: the port's policy cuts "
-                f"serving weights only (ROADMAP.md: {SHARDED_REST})")
+    def __init__(self, cfg: ArchConfig, mesh, *, fsdp: bool = False,
+                 parallelism: str = "tp"):
+        if parallelism not in ("tp", "fsdp", "replicated"):
+            raise ValueError(f"unknown parallelism {parallelism!r}")
         self.cfg = cfg
         self.parallelism = parallelism
         axes = dict(mesh.shape)
+        self.axes = axes
         self.mesh_model = axes["model"]
         self.n_data = axes.get("data", 1)
-        # replicated (the context-parallel prefill's weights): every shard
-        # holds every leaf whole
+        # replicated (the context-parallel prefill's weights) and fsdp:
+        # no weight is cut over the model axis
         self.n_model = self.mesh_model if parallelism == "tp" else 1
         self.kv_sharded = kv_heads_split(cfg.n_kv_heads, self.n_model)
+        # the reference's axes (``repro.sharding.ShardingPolicy``): under
+        # fsdp the batch and the weights over every axis; under tp with
+        # fsdp the weights' second cut over data only
+        self.fsdp = (fsdp or parallelism == "fsdp") \
+            and parallelism != "replicated"
+        if parallelism == "fsdp":
+            self.data_axes = ("data", "model")
+            self.fsdp_axes = ("data", "model")
+        else:
+            self.data_axes = ("data",)
+            self.fsdp_axes = ("data",) if self.fsdp else ()
+        self.n_fsdp = 1
+        for a in self.fsdp_axes:
+            self.n_fsdp *= axes[a]
 
     def pool_spec(self, keys: list[str], shape: tuple) -> Spec:
         """Spec of one leaf of the paged state cache: the token K/V pools
@@ -200,6 +235,159 @@ class ShardingPolicy:
             return None
         need(False, f"no serving cut for {'/'.join(keys)}")
 
+    # -- the train step's storage (``launch.steps.build_train_step``) --------
+
+    def _fsdp_entry(self):
+        return (self.fsdp_axes if len(self.fsdp_axes) > 1
+                else self.fsdp_axes[0])
+
+    def _ref_spec(self, keys: list[str], shape: tuple) -> list:
+        """The reference's spec of one param leaf
+        (``repro.sharding.ShardingPolicy._weight_spec`` and ``_tp_spec``),
+        leaf for leaf: the table on its vocabulary or d over the model
+        axis, else over the FSDP axes; the replicated names whole; the
+        MoE's expert dim over the model axis and its largest remaining
+        dim that divides over the FSDP axes; every other weight
+        row-parallel (``wo``, ``down``), column-parallel, or on the larger
+        of its last two dims over the model axis, and the larger remaining
+        of those two that divides over the FSDP axes."""
+        nd, names = len(shape), set(keys)
+        model = self.model_axis if self.parallelism == "tp" else None
+        spec: list = [None] * nd
+        if "table" in names:
+            if self.n_model > 1 and _div(shape[-2], self.n_model):
+                spec[-2] = model
+            elif self.n_model > 1 and _div(shape[-1], self.n_model):
+                spec[-1] = model
+            elif self.fsdp and _div(shape[-2], self.n_fsdp):
+                spec[-2] = self._fsdp_entry()
+            elif self.fsdp and _div(shape[-1], self.n_fsdp):
+                spec[-1] = self._fsdp_entry()
+            return spec
+        if "router" in names or (names & _REPLICATED and "moe" not in names) \
+                or nd < 2:
+            return spec
+        if "moe" in names and nd >= 3 and not names & _REPLICATED:
+            for i, size in enumerate(shape):
+                if size == self.cfg.n_experts and _div(size, self.n_model):
+                    spec[i] = model
+                    break
+            else:
+                return self._ref_tp_spec(keys, shape, model)
+            if self.fsdp:
+                cands = [(size, i) for i, size in enumerate(shape)
+                         if spec[i] is None and _div(size, self.n_fsdp)]
+                if cands:
+                    spec[max(cands)[1]] = self._fsdp_entry()
+            return spec
+        return self._ref_tp_spec(keys, shape, model)
+
+    def _ref_tp_spec(self, keys: list[str], shape: tuple, model) -> list:
+        nd, names = len(shape), set(keys)
+        spec: list = [None] * nd
+        tp_dim = None
+        if names & _ROW_PARALLEL and nd >= 2:
+            tp_dim = nd - 2
+        elif names & _COL_PARALLEL:
+            tp_dim = nd - 1
+        if tp_dim is not None and not _div(shape[tp_dim], self.n_model):
+            tp_dim = None
+        if tp_dim is None:
+            cands = [(size, i) for i, size in enumerate(shape[-2:],
+                                                        start=nd - 2)
+                     if _div(size, self.n_model)]
+            if cands:
+                tp_dim = max(cands)[1]
+        if tp_dim is not None:
+            spec[tp_dim] = model
+        if self.fsdp and nd >= 2:
+            cands = [(size, i) for i, size in enumerate(shape)
+                     if spec[i] is None and i >= nd - 2
+                     and _div(size, self.n_fsdp)]
+            if cands:
+                spec[max(cands)[1]] = self._fsdp_entry()
+        return spec
+
+    def param_layout(self, keys: list[str], shape: tuple) -> "Layout":
+        """Where the train step stores one param leaf. ``fsdp``: the
+        reference's spec exactly. ``tp``: the model axis on
+        ``serving_cut``'s dim and ranges (the forward's cut, with its
+        named departures from the reference: K/V whole where the KV heads
+        do not split, recurrent mixers whole, q/k/v biases cut with their
+        heads, uneven cuts where a count does not divide), the FSDP axis
+        on the reference's FSDP dim (a gathered weight is the same
+        whatever the cut); a table cut over the model axis is cut over
+        nothing else, as the reference's. ``replicated``: whole."""
+        nd = len(shape)
+        if self.parallelism == "replicated":
+            return Layout((None,) * nd, (None,) * nd, tuple(shape))
+        spec = self._ref_spec(keys, shape)
+        ranges: list = [None] * nd
+        if self.parallelism == "tp":
+            spec = [None if e == self.model_axis else e for e in spec]
+            cut = self.serving_cut(keys, shape)
+            if cut is not None:
+                spec[cut[0]] = self.model_axis  # an FSDP cut there gives way
+                ranges[cut[0]] = cut[1]
+                if "table" in keys:
+                    spec = [e if e == self.model_axis else None
+                            for e in spec]
+        return self._layout(spec, ranges, shape)
+
+    def opt_layout(self, keys: list[str], shape: tuple) -> "Layout":
+        """Where the train step stores one optimizer-state leaf (the
+        reference's ``opt_specs``): a moment, or the codes of an 8-bit
+        one, follows its param (``mu``/``nu``/``m``/``v``/``ef`` and
+        ``codes`` stripped from the path); the per-row scale of an 8-bit
+        moment, (..., 1), takes the reference's spec of its own shape
+        (its rows may be cut otherwise than its codes: the update joins
+        the scale whole, ``training.optimizer``); scalars replicate."""
+        keys = [k for k in keys if k not in _MOMENTS]
+        if keys[-1] == "scale" and self.parallelism != "replicated":
+            return self._layout(self._ref_spec(keys, shape),
+                                [None] * len(shape), shape)
+        return self.param_layout([k for k in keys if k != "codes"], shape)
+
+    def _layout(self, spec: list, ranges: list, shape: tuple) -> "Layout":
+        """``spec`` with the even ranges of every cut ``ranges`` leaves
+        open."""
+        out = []
+        for dim, entry in enumerate(spec):
+            if entry is None or ranges[dim] is not None:
+                out.append(ranges[dim])
+                continue
+            n = 1
+            for a in _axes_of(entry):
+                n *= self.axes[a]
+            out.append(split_ranges(shape[dim], n))
+        return Layout(tuple(spec), tuple(out), tuple(shape))
+
+    def param_specs(self, params: Any) -> dict:
+        """{path: spec} of every leaf of a param tree (tensors or meta
+        tensors), the reference's ``param_specs`` as ``param_layout``
+        stores them."""
+        return {path: lay.spec
+                for path, lay in self.param_layouts(params).items()}
+
+    def opt_specs(self, opt_state: Any) -> dict:
+        """{path: spec} of every leaf of an optimizer state."""
+        return {path: lay.spec
+                for path, lay in self.opt_layouts(opt_state).items()}
+
+    def param_layouts(self, params: Any) -> dict:
+        out = {}
+        tree_map(lambda path, x: out.__setitem__(
+            path, self.param_layout(_keys(path), tuple(x.shape))), params)
+        return out
+
+    def opt_layouts(self, opt_state: Any) -> dict:
+        out = {}
+        tree_map(lambda path, x: out.__setitem__(
+            path, self.opt_layout(_keys(path), tuple(getattr(x, "shape",
+                                                              ())))),
+                 opt_state)
+        return out
+
     # -- the serve steps' layouts (``launch.steps``) -------------------------
 
     def _batch_axes(self, b: int):
@@ -240,6 +428,19 @@ class ShardingPolicy:
         return out
 
 
+#: above this many params ``make_policy`` turns FSDP on by default
+FSDP_ABOVE = 2e9
+
+
+def make_policy(cfg: ArchConfig, mesh, **kw) -> ShardingPolicy:
+    """The reference's ``make_policy``: under ``tp``, FSDP over ``data``
+    by default above ``FSDP_ABOVE`` params (the 8-15B dense configs and
+    the giants do not fit otherwise)."""
+    if kw.get("parallelism") != "fsdp" and "fsdp" not in kw:
+        kw["fsdp"] = cfg.param_count_estimate() > FSDP_ABOVE
+    return ShardingPolicy(cfg, mesh, **kw)
+
+
 def kv_seq_axis(specs: dict):
     """The axis ``specs`` (``ShardingPolicy.cache_specs`` of the dense
     caches) cuts the self-attention K/V's sequence over, or None: what
@@ -247,6 +448,184 @@ def kv_seq_axis(specs: dict):
     axes = {spec[3] for path, spec in specs.items()
             if str(path[1]) in ("k", "v")}
     return axes.pop() if len(axes) == 1 else None
+
+
+# -- the train step's blocks ---------------------------------------------------
+
+def _axes_of(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a leaf of the train step lives on a ``(data, model)`` mesh:
+    ``spec`` per dim None, an axis, or a tuple of axes (cut over their
+    devices together, the first axis major: ``("data", "model")`` block
+    ``d * M + m``); ``ranges`` per cut dim the (start, size) of each
+    block, uneven where ``serving_cut`` cuts unevenly; ``shape`` the
+    whole leaf's."""
+    spec: Spec
+    ranges: tuple
+    shape: tuple
+
+    def coord(self, axes: tuple, d: int, m: int, sizes: dict) -> int:
+        idx = 0
+        for a in axes:
+            idx = idx * sizes[a] + (d if a == "data" else m)
+        return idx
+
+    def index(self, d: int, m: int, sizes: dict) -> tuple:
+        """The slices of device (d, m)'s block of the whole leaf."""
+        out = []
+        for entry, rng in zip(self.spec, self.ranges):
+            if entry is None:
+                out.append(slice(None))
+                continue
+            start, size = rng[self.coord(_axes_of(entry), d, m, sizes)]
+            out.append(slice(start, start + size))
+        return tuple(out)
+
+    def block_shape(self, d: int, m: int, sizes: dict) -> tuple:
+        return tuple(len(range(*s.indices(n)))
+                     for s, n in zip(self.index(d, m, sizes), self.shape))
+
+    def block_key(self, d: int, m: int, sizes: dict) -> tuple:
+        """Equal for the devices that hold the same block (copies)."""
+        return tuple((s.start, s.stop) for s in self.index(d, m, sizes))
+
+
+def place_blocks(tree: Any, layouts: dict, mesh) -> list:
+    """``grid[d][m]``: a copy of device (d, m)'s block of every tensor
+    leaf of ``tree`` (whole, on any device) on that device, by
+    ``layouts`` ({path: Layout}); other leaves (an optimizer's step
+    count) as they are."""
+    sizes = mesh.shape
+
+    def take(d, m, dev):
+        def leaf(path, x):
+            if not isinstance(x, torch.Tensor):
+                return x
+            return _copy_to(x[layouts[path].index(d, m, sizes)], dev)
+        return tree_map(leaf, tree)
+    return [[take(d, m, dev) for m, dev in enumerate(row)]
+            for d, row in enumerate(mesh.grid)]
+
+
+def gather_blocks(grid: list, layouts: dict, mesh, device="cpu") -> Any:
+    """``place_blocks``'s inverse: every leaf whole on ``device``, each
+    block written where ``layouts`` puts it (a copy over an axis from its
+    last device, all copies equal)."""
+    sizes = mesh.shape
+
+    def whole(path, first):
+        if not isinstance(first, torch.Tensor):
+            return first
+        lay = layouts[path]
+        out = torch.empty(lay.shape, dtype=first.dtype, device=device)
+        for d, row in enumerate(grid):
+            for m, tree in enumerate(row):
+                out[lay.index(d, m, sizes)] = tree_at(tree, path).detach() \
+                    .to(device)
+        return out
+    return tree_map(whole, grid[0][0])
+
+
+class GatheredLeaf:
+    """A stored leaf as device (d, m) computes with it: its blocks over
+    the FSDP axes joined on that device (differentiably: each block's
+    gradient flows back to it, summed over the readers, the
+    reduce-scatter), its own block where the leaf is not cut over them.
+    Indexing gathers one period of a stacked leaf (only that period's
+    slices move, inside the checkpointed region that reads it);
+    ``whole()`` gathers it all."""
+
+    def __init__(self, blocks: list, dim, device):
+        self.blocks, self.dim, self.device = blocks, dim, device
+
+    def whole(self) -> torch.Tensor:
+        if self.dim is None:
+            return self.blocks[0].to(self.device)
+        return torch.cat([b.to(self.device) for b in self.blocks], self.dim)
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if self.dim is None:
+            return self.blocks[0][i].to(self.device)
+        if self.dim == 0:
+            for b in self.blocks:
+                if i < b.shape[0]:
+                    return b[i].to(self.device)
+                i -= b.shape[0]
+            raise IndexError(i)
+        return torch.cat([b[i].to(self.device) for b in self.blocks],
+                         self.dim - 1)
+
+
+def whole(tree: Any) -> Any:
+    """``tree`` (a leaf or a nest) with every ``GatheredLeaf`` gathered
+    whole; tensors as they are."""
+    return tree_map(lambda _, x: x.whole() if isinstance(x, GatheredLeaf)
+                    else x, tree)
+
+
+def gathered_view(grid: list, layouts: dict, policy: ShardingPolicy, d: int,
+                  m: int, device) -> Any:
+    """The tree device (d, m) computes with, of ``GatheredLeaf``s over
+    the blocks of ``grid`` (the train step's live params): under ``fsdp``
+    every leaf whole, under ``tp`` its model shard whole over ``data``."""
+    sizes = policy.axes
+    fsdp = set(policy.fsdp_axes)
+
+    def leaf(path, _):
+        lay = layouts[path]
+        dim = next((i for i, e in enumerate(lay.spec)
+                    if e is not None and fsdp & set(_axes_of(e))), None)
+
+        def block(dd, mm):
+            return tree_at(grid[dd][mm], path)
+        if dim is None:
+            return GatheredLeaf([block(d, m)], None, device)
+        axes = _axes_of(lay.spec[dim])
+        readers = [(dd, mm) for dd in range(sizes["data"])
+                   for mm in range(sizes["model"])
+                   if ("data" in axes or dd == d)
+                   and ("model" in axes or mm == m)]
+        readers.sort(key=lambda c: lay.coord(axes, *c, sizes))
+        return GatheredLeaf([block(*c) for c in readers], dim, device)
+    return tree_map(leaf, grid[0][0])
+
+
+def reduce_copies(grads: list, layouts: dict, mesh) -> list:
+    """The gradients of every device's blocks (``grads[d][m]``, trees with
+    None where a block was not read) made equal over the devices holding
+    the same block: summed in device order (row-major) and handed to each
+    of them (the all-reduce of a replicated leaf, a copy over an axis).
+    Returns the grid of gradient trees."""
+    sizes = mesh.shape
+    devs = [(d, m, dev) for d, row in enumerate(mesh.grid)
+            for m, dev in enumerate(row)]
+    out = [[None] * len(row) for row in mesh.grid]
+    paths: list = []
+    tree_map(lambda path, _: paths.append(path), grads[0][0])
+    sums: dict = {}
+    for path in paths:
+        lay = layouts[path]
+        groups: dict = {}
+        for d, m, _ in devs:
+            groups.setdefault(lay.block_key(d, m, sizes), []).append((d, m))
+        for members in groups.values():
+            total = None
+            for d, m in members:
+                g = tree_at(grads[d][m], path)
+                if g is not None:
+                    total = g if total is None else total + g.to(total.device)
+            for d, m in members:
+                sums[d, m, path] = total
+    for d, m, dev in devs:
+        def leaf(path, x, d=d, m=m, dev=dev):
+            g = sums[d, m, path]
+            return None if g is None else g.to(dev)
+        out[d][m] = tree_map(leaf, grads[d][m])
+    return out
 
 
 # -- cutting trees into shards ------------------------------------------------

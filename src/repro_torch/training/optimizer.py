@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import spx
-from repro_torch.nn.layers import tree_leaves, tree_map
+from repro_torch.nn.layers import tree_at, tree_leaves, tree_map
 
 __all__ = ["Optimizer", "make_optimizer", "global_norm",
            "clip_by_global_norm"]
@@ -35,6 +35,21 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]   # (params, grads, state) ->
                                                # (params, state)
+    #: the update of a tree stored in blocks over devices (the train step's
+    #: FSDP and tensor-parallel storage): (params, grads, states, where)
+    #: -> (params, states), each a list of one tree per device, ``where(path,
+    #: k)`` the slices of device k's block of the state leaf at ``path`` in
+    #: the whole leaf and that leaf's shape. Elementwise optimizers update
+    #: each device's blocks alone
+    update_blocks: Callable | None = None
+
+    def __post_init__(self):
+        if self.update_blocks is None:
+            def each(params, grads, states, where):
+                out = [self.update(p, g, s)
+                       for p, g, s in zip(params, grads, states)]
+                return [o[0] for o in out], [o[1] for o in out]
+            object.__setattr__(self, "update_blocks", each)
 
 
 def _zeros_f32(params):
@@ -158,16 +173,6 @@ def _q8_state(p) -> dict:
                                  device=p.device)}
 
 
-def _q8_write(q: dict, x: torch.Tensor, levels: np.ndarray) -> None:
-    """Quantize ``x`` into ``q`` in place: scale = max |x| over the last
-    dim (at least 1e-20), codes the nearest levels."""
-    scale = (torch.amax(torch.abs(x), dim=-1, keepdim=True) if x.ndim
-             else torch.abs(x))
-    scale = torch.clamp(scale, min=1e-20)
-    q["codes"].copy_(spx.quantize_to_codes(x, levels, scale))
-    q["scale"].copy_(scale)
-
-
 def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
               weight_decay: float = 0.0) -> Optimizer:
     m_levels = spx.scheme_levels(_MOM_SCHEME)
@@ -187,36 +192,134 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "mu": tree_map(lambda _, p: _q8_state(p), params),
                 "nu": tree_map(lambda _, p: _q8_state(p), params)}
 
-    def upd_slice(p, g, mq, vq, c1, c2):
+    def moments(p, g, mq, vq, m_scale, v_scale):
+        """The new f32 moments of one leaf (or slice) from its 8-bit ones
+        (each scale: the rows' (..., 1))."""
         g = g.to(torch.float32)
         m = b1 * spx.dequantize_codes(mq["codes"], lut(m_levels, p.device),
-                                      mq["scale"]) + (1 - b1) * g
+                                      m_scale) + (1 - b1) * g
         v = b2 * spx.dequantize_codes(vq["codes"], lut(v_levels, p.device),
-                                      vq["scale"]) + (1 - b2) * g * g
+                                      v_scale) + (1 - b2) * g * g
+        return m, v
+
+    def step_param(p, m, v, c1, c2):
         u = (m / c1) / (torch.sqrt(v / c2) + eps)
         if weight_decay:
             u = u + weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * u).to(p.dtype))
-        _q8_write(mq, m, m_levels)
-        _q8_write(vq, v, v_levels)
+
+    def sliced(p) -> bool:
+        return p.ndim >= 3 and p.shape[0] > 1 and p.numel() > _SLICE_ABOVE
+
+    def take(x, i):
+        if i is None:
+            return x
+        if isinstance(x, dict):
+            return {key: t[i] for key, t in x.items()}
+        return x[i]
+
+    def update_leaf(path, ps, gs, qs, where, c1, c2):
+        """One leaf over its blocks ``ps`` (one per device)."""
+        n, dev0 = len(ps), ps[0].device
+        cpath = ("mu",) + path + ("codes",)
+        # the scales joined whole: their own layout may cut the rows
+        # otherwise than the codes
+        old, new = {}, {}
+        for name in ("mu", "nu"):
+            if n == 1:      # the whole leaf: its scale read and written
+                old[name] = new[name] = qs[name][0]["scale"]
+                continue
+            spath = (name,) + path + ("scale",)
+            whole = torch.empty(where(spath, 0)[1], dtype=torch.float32,
+                                device=dev0)
+            for k in range(n):
+                whole[where(spath, k)[0]] = qs[name][k]["scale"].to(dev0)
+            old[name] = whole
+            new[name] = torch.zeros_like(whole)
+
+        def parts(k):
+            """(index into the block or None, the rows' slices in the
+            whole scale) of each part of device k's block."""
+            rows = where(cpath, k)[0][:-1]
+            tail = (slice(None),)
+            if not sliced(ps[k]):
+                yield None, rows + tail
+                return
+            lo = rows[0].start or 0
+            for i in range(ps[k].shape[0]):
+                yield i, (lo + i,) + rows[1:] + tail
+
+        def moments_at(k, i, rows):
+            dev = ps[k].device
+            return moments(take(ps[k], i), take(gs[k], i),
+                           take(qs["mu"][k], i), take(qs["nu"][k], i),
+                           old["mu"][rows].to(dev), old["nu"][rows].to(dev))
+
+        # where a block cuts the last dim, its rows' scales are the max
+        # over every block of those rows (the all-reduce max), taken in a
+        # first pass that recomputes the moments instead of holding them
+        whole_rows = all(x.ndim == 0 or x.shape[-1] == where(cpath, k)[1][-1]
+                         for k, x in enumerate(ps))
+        if not whole_rows:
+            for k in range(n):
+                for i, rows in parts(k):
+                    for name, x in zip(("mu", "nu"), moments_at(k, i, rows)):
+                        amax = torch.amax(torch.abs(x), dim=-1,
+                                          keepdim=True).to(dev0)
+                        new[name][rows] = torch.maximum(new[name][rows],
+                                                        amax)
+            for name in ("mu", "nu"):
+                new[name].clamp_(min=1e-20)
+        for k in range(n):
+            for i, rows in parts(k):
+                m, v = moments_at(k, i, rows)
+                step_param(take(ps[k], i), m, v, c1, c2)
+                for name, x, levels in (("mu", m, m_levels),
+                                        ("nu", v, v_levels)):
+                    if whole_rows:
+                        scale = torch.clamp(torch.amax(
+                            torch.abs(x), dim=-1, keepdim=True), min=1e-20)
+                        new[name][rows] = scale.to(dev0)
+                    else:
+                        scale = new[name][rows].to(x.device)
+                    take(qs[name][k], i)["codes"].copy_(
+                        spx.quantize_to_codes(x, levels, scale))
+        if n == 1:
+            return
+        for name in ("mu", "nu"):
+            spath = (name,) + path + ("scale",)
+            for k in range(n):
+                qs[name][k]["scale"].copy_(new[name][where(spath, k)[0]])
 
     @torch.no_grad()
-    def update(params, grads, state):
-        step = state["step"] + 1
+    def update_blocks(params, grads, states, where):
+        """Each scale is the max of |x| over the whole last dim of its
+        row, so the codes and scales of blocks are the one-device update's;
+        a large stacked block is taken a leading-axis slice at a time, so
+        its f32 moments exist only per slice (the reference's
+        ``lax.map``)."""
+        step = states[0]["step"] + 1
         c1, c2 = _bias_corrections(step, b1, b2)
-        for p, g, mq, vq in zip(tree_leaves(params),
-                                _per_leaf(params, grads),
-                                _per_leaf(params, state["mu"]),
-                                _per_leaf(params, state["nu"])):
-            if p.ndim >= 3 and p.shape[0] > 1 and p.numel() > _SLICE_ABOVE:
-                for i in range(p.shape[0]):
-                    upd_slice(p[i], g[i], {k: t[i] for k, t in mq.items()},
-                              {k: t[i] for k, t in vq.items()}, c1, c2)
-            else:
-                upd_slice(p, g, mq, vq, c1, c2)
-        return params, {"step": step, "mu": state["mu"], "nu": state["nu"]}
+        paths: list = []
+        tree_map(lambda path, _: paths.append(path), params[0])
+        for path in paths:
+            update_leaf(path, [tree_at(t, path) for t in params],
+                        [tree_at(t, path) for t in grads],
+                        {name: [tree_at(st[name], path) for st in states]
+                         for name in ("mu", "nu")}, where, c1, c2)
+        return params, [{"step": step, "mu": st["mu"], "nu": st["nu"]}
+                        for st in states]
 
-    return Optimizer("adamw_q8", init, update)
+    def update(params, grads, state):
+        """``update_blocks`` over one block: the whole tree."""
+        def where(path, _):
+            shape = tuple(tree_at(state, path).shape)
+            return (slice(None),) * len(shape), shape
+        (params,), (state,) = update_blocks([params], [grads], [state],
+                                            where)
+        return params, state
+
+    return Optimizer("adamw_q8", init, update, update_blocks)
 
 
 def make_optimizer(name: str, lr: float, **kw) -> Optimizer:

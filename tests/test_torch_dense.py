@@ -63,6 +63,17 @@ LENS = (33, 1, 12, 20, 5)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU tests run small shapes, where torch's intra-op
+    threads mostly spin: one thread for this file's tests (the suite's
+    workers share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _fresh_jax_caches():
     """Drop this module's compiled JAX steps when it ends: a later module
     on the same worker (tests/test_fused_decode.py) counts the compiles
@@ -400,7 +411,7 @@ def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
     assert bundle.meta["context_parallel"] is bool(cp)
     # the forward reads the caches' cut from their specs, and nothing else
     assert bundle.rt.decode_seq_axis == (
-        "model" if any(k in ("k", "v") for _, k, *_ in bundle.cache_specs)
+        "model" if any(k in ("k", "v") for _, k, *_ in bundle.specs)
         else None)
     assert make_runtime(tcfg, mesh, None).decode_seq_axis is None
     jc = jinit(jcfg, MESH_B, MESH_S, dtype=jnp.float32)
@@ -426,7 +437,7 @@ def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
                             PROMPT)
 
         def run():
-            grid = shard_dense_caches(before, bundle.cache_specs, mesh)
+            grid = shard_dense_caches(before, bundle.specs, mesh)
             return bundle.fn(*args, grid)
     got, grid = run()
     again, _ = run()
@@ -435,7 +446,7 @@ def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
     assert got.shape == want.shape
     assert np.abs(got.numpy() - want).max() <= \
         SHARD_LOGIT_TOL * np.abs(want).max()
-    for (path, g), (_, w) in zip(_leaves(bundle.gather_caches(grid)),
+    for (path, g), (_, w) in zip(_leaves(bundle.gather(grid)),
                                  _leaves(params_from_reference(jc))):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
                                    err_msg=str(path))
@@ -444,7 +455,7 @@ def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
     if kind == "decode" and "attn" in tcfg.pattern[0]:
         # the token's K lands in the one sequence block holding PROMPT
         s_blk = MESH_S // MESH[1]
-        specs = bundle.cache_specs
+        specs = bundle.specs
         start = shard_dense_caches(before, specs, mesh)
         for d in range(MESH[0]):
             for m in range(MESH[1]):

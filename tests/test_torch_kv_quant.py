@@ -47,6 +47,17 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU tests run small shapes, where torch's intra-op
+    threads mostly spin: one thread for this file's tests (the suite's
+    workers share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _fresh_jax_caches():
     """Drop this module's compiled JAX steps when it ends: a later module
     on the same worker (tests/test_fused_decode.py) counts the compiles

@@ -47,6 +47,17 @@ CPU = Runtime(device="cpu")
 JRT = JRuntime(impl="interpret")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU tests run small shapes, where torch's intra-op
+    threads mostly spin: one thread for this file's tests (the suite's
+    workers share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_make_dataset_is_bit_identical():
     for n, seed in ((64, 7), (10, 0)):
         x, y = make_dataset(n, seed=seed)

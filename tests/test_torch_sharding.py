@@ -52,6 +52,8 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeConfig as JServeConfig
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro.sharding import ShardingPolicy as JShardingPolicy
+from repro import training as jtr
+from repro_torch import training as ttr
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.quantized import QuantizedTensor
 from repro_torch.interop import params_from_reference
@@ -59,6 +61,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import hostdev
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models import lm as lm_mod
+from repro_torch.nn.layers import tree_leaves, tree_map
 from repro_torch.runtime import Runtime, planner
 from repro_torch.serving import Request, ServeConfig, ServeEngine
 from repro_torch.serving.kv_cache import kv_bytes_per_token
@@ -72,6 +75,17 @@ NEW = 6
 #: the row-parallel wo/down products and the embedding sum add their
 #: halves in another order than one device's f32 matmul
 SHARD_LOGIT_TOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU tests run small shapes, where torch's intra-op
+    threads mostly spin: one thread for this file's tests (the suite's
+    workers share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -432,12 +446,14 @@ def test_other_patterns_raise_naming_the_roadmap():
     """Every pattern resolves at shards=2, and the cuts the port refused
     before resolve at the reference's widths (qwen2-vl-2b's 2 KV heads at
     4 shards computed whole on each, olmoe's 64 experts and a vocabulary
-    and d_model that do not split at 3, unevenly); what still raises
-    names the ROADMAP.md item: a training loss under a mesh, and a train
-    step from ``launch.steps``."""
+    and d_model that do not split at 3, unevenly). What raised before and
+    runs now: a training loss under a serving mesh runs tensor-parallel
+    over its shards and equals the one-device loss, and a train shape
+    handed to ``build_serve_step`` points to ``build_train_step``, which
+    takes it."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.launch.steps import build_serve_step, build_step
     for arch in ("olmoe-1b-7b", "xlstm-350m", "jamba-1.5-large-398b",
                  "whisper-small"):
         assert ServeConfig(shards=2).resolve(
@@ -455,18 +471,25 @@ def test_other_patterns_raise_naming_the_roadmap():
         (1, ((0, 22), (22, 21), (43, 21)))
     assert three.serving_cut(["embed", "table"], (50305, 2050)) == \
         (0, ((0, 16769), (16769, 16768), (33537, 16768)))
-    match = "ROADMAP.md: multi-device and drivers"
     cfg = dataclasses.replace(reduced(get_config("gemma-2b")), vocab_size=32)
     params = lm_mod.lm_init(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=match):
-        lm_mod.lm_loss(params, batch, cfg, Runtime(
-            device="cpu", mesh=make_serving_mesh(2, ["cpu", "cpu"])))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    batch = {"tokens": torch.arange(8, dtype=torch.int32).reshape(2, 4),
+             "labels": torch.arange(8, dtype=torch.int32).reshape(2, 4)}
+    mesh = make_serving_mesh(2, ["cpu", "cpu"])
+    pol = ShardingPolicy(cfg, mesh)
+    from repro_torch.sharding import shard_params
+    got, gm = lm_mod.lm_loss(shard_params(params, pol, mesh), batch, cfg,
+                             Runtime(device="cpu", mesh=mesh))
+    want, wm = lm_mod.lm_loss(params, batch, cfg, Runtime(device="cpu"))
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    assert set(gm) == set(wm)
+    with pytest.raises(ValueError, match="build_train_step"):
         build_serve_step(cfg, ShapeConfig("t", 8, 2, "train"),
                          make_host_mesh(1, 2, ["cpu", "cpu"]))
+    assert build_step(cfg, ShapeConfig("t", 8, 2, "train"),
+                      make_host_mesh(1, 2, ["cpu", "cpu"]),
+                      dtype=torch.float32).meta["kind"] == "train"
 
 
 #: the widths the port once refused, each at a reduced config that keeps
@@ -782,3 +805,275 @@ def test_metric_keys_and_shard_values_are_the_references(workload, layout,
                 "pool_bytes_per_shard", "peak_kv_bytes_per_shard",
                 "peak_kv_bytes", "kv_cache_dtype"):
         assert m.get(key) == jm.get(key), key
+
+
+# -- the train step's storage: the reference's param and optimizer specs -------
+
+def _drop_model(spec) -> tuple:
+    return tuple(None if e == "model" else e for e in spec)
+
+
+@pytest.mark.parametrize("parallelism", ["fsdp", "tp"])
+def test_train_specs_are_the_references(param_shapes, parallelism):
+    """``param_specs`` and ``opt_specs`` (AdamW's moments, AdamW-Q8's codes
+    and per-row scales) against the reference's at mesh (2, 4), leaf for
+    leaf of every bundled config, under ``fsdp`` and under ``tp`` with
+    FSDP over data. Under fsdp they are equal everywhere. Under tp the
+    FSDP axis is the reference's on every leaf, and the model axis departs
+    only where the port's forward cuts otherwise
+    (``test_serving_cut_is_the_reference_tp_spec``), each departure named:
+    K/V projections whose KV heads do not split stay whole over model
+    (gemma-2b, qwen2-vl-2b), q/k/v biases are cut with their heads
+    (qwen2-vl-2b, qwen2.5-14b), recurrent mixers stay whole (xlstm-350m,
+    jamba)."""
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4})
+    agree, whole_kv, bias_cut, whole_recurrent = 0, set(), set(), set()
+    for (arch, quantized), (sds, tree) in param_shapes.items():
+        if quantized:
+            continue
+        kw = dict(parallelism=parallelism, fsdp=True)
+        jpol = JShardingPolicy(jget_config(arch), mesh, **kw)
+        pol = ShardingPolicy(get_config(arch), mesh, **kw)
+        pairs = [(_jax_flat(jpol.param_specs(sds)), pol.param_specs(tree))]
+        for name in ("adamw", "adamw_q8"):
+            jst = jax.eval_shape(jtr.make_optimizer(name, lr=1e-4).init, sds)
+            pairs.append((_jax_flat(jpol.opt_specs(sds, jst)),
+                          pol.opt_specs(ttr.make_optimizer(
+                              name, lr=1e-4).init(tree))))
+        for want, got in pairs:
+            got = {tuple(map(str, k)): v for k, v in got.items()}
+            assert set(got) == set(want), arch
+            for path, ref in want.items():
+                spec = got[path]
+                if spec == ref:
+                    agree += 1
+                    continue
+                assert parallelism == "tp", (arch, path, spec, ref)
+                names = set(path)
+                leaf = path[-3] if path[-1] == "codes" else path[-2]
+                if "b" in (path[-1], path[-2]) and not any(ref):
+                    assert _drop_model(spec) == ref, (arch, path)
+                    bias_cut.add((arch, leaf))
+                elif names & RECURRENT:
+                    assert spec == _drop_model(ref), (arch, path)
+                    whole_recurrent.add((arch, leaf))
+                else:
+                    assert leaf in ("wk", "wv") and spec == _drop_model(ref) \
+                        and not pol.kv_sharded, (arch, path, spec, ref)
+                    whole_kv.add((arch, leaf))
+    assert agree > 1000
+    if parallelism == "tp":
+        assert whole_kv == {(a, p) for a in ("gemma-2b", "qwen2-vl-2b")
+                            for p in ("wk", "wv")}
+        assert {a for a, _ in bias_cut} == {"qwen2-vl-2b", "qwen2.5-14b"}
+        assert {a for a, _ in whole_recurrent} == {"xlstm-350m",
+                                                   "jamba-1.5-large-398b"}
+
+
+def test_policy_specs_divisible():
+    """The reference's ``test_policy_specs_divisible`` on the port's
+    ``make_policy`` (tp, FSDP by size) at mesh (2, 4): every block of
+    every leaf of granite-3-8b, kimi-k2-1t-a32b and jamba-1.5-large-398b
+    (on ``meta``) is the same size, each cut dividing its dim."""
+    from repro_torch.sharding import make_policy
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4})
+    for arch in ("granite-3-8b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b"):
+        cfg = get_config(arch)
+        params = lm_mod.lm_init(torch.Generator(), cfg, device="meta")
+        pol = make_policy(cfg, mesh)
+        assert pol.fsdp
+        for path, lay in pol.param_layouts(params).items():
+            for dim, (entry, ranges) in enumerate(zip(lay.spec, lay.ranges)):
+                if entry is None:
+                    continue
+                n = 1
+                for a in (entry if isinstance(entry, tuple) else (entry,)):
+                    n *= mesh.shape[a]
+                assert lay.shape[dim] % n == 0, (arch, path, lay)
+                assert {size for _, size in ranges} == \
+                    {lay.shape[dim] // n}, (arch, path)
+
+
+@pytest.mark.parametrize("name,parallelism,sliced", [
+    ("adamw", "fsdp", False), ("adamw_q8", "fsdp", False),
+    ("adamw_q8", "fsdp", True), ("adamw_q8", "tp", False)],
+    ids=["adamw-fsdp", "q8-fsdp", "q8-fsdp-sliced", "q8-tp"])
+def test_sharded_optimizers_match_one_device(monkeypatch, name, parallelism,
+                                             sliced):
+    """The same gradients, cut into the train step's blocks at mesh (2, 4)
+    by ``param_specs``/``opt_specs``, through ``update_blocks`` over three
+    steps against ``update`` on the whole trees (reduced gemma-2b): params
+    within UPDATE_RTOL of each leaf's largest update (they are equal), and
+    AdamW-Q8's codes and scales bit-equal: each block's rows take the max
+    over the whole last dim, which FSDP cuts (the FFN's 128 columns over 8
+    devices), so every block quantizes the one-device values. ``sliced``:
+    the per-slice update of large stacked leaves, threshold lowered."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import (gather_blocks, make_policy,
+                                      place_blocks)
+    from repro_torch.training import optimizer as topt
+    if sliced:
+        monkeypatch.setattr(topt, "_SLICE_ABOVE", 0)
+    cfg = reduced(get_config("gemma-2b"), d_model=64, vocab=512, n_layers=2)
+    mesh = make_host_mesh(2, 4, ["cpu"] * 8)
+    pol = make_policy(cfg, mesh, parallelism=parallelism, fsdp=True)
+    params = lm_mod.lm_init(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    opt = ttr.make_optimizer(name, lr=1e-2, weight_decay=0.01)
+    p_lay = pol.param_layouts(params)
+    state = opt.init(params)
+    o_lay = pol.opt_layouts(state)
+    assert any(lay.spec[-1] is not None for lay in p_lay.values())
+    grid = [t for row in place_blocks(params, p_lay, mesh) for t in row]
+    ostate = [t for row in place_blocks(state, o_lay, mesh) for t in row]
+    whole = tree_map(lambda _, x: x.clone(), params)
+    gen = torch.Generator().manual_seed(1)
+
+    def where(path, k):
+        lay = o_lay[path]
+        return lay.index(k // 4, k % 4, mesh.shape), lay.shape
+    for _ in range(3):
+        grads = tree_map(
+            lambda _, p: torch.randn(p.shape, generator=gen) * 1e-2, params)
+        before = tree_map(lambda _, x: x.clone(), whole)
+        whole, state = opt.update(whole, grads, state)
+        gblocks = [t for row in place_blocks(grads, p_lay, mesh)
+                   for t in row]
+        grid, ostate = opt.update_blocks(grid, gblocks, ostate, where)
+    got = gather_blocks([grid[:4], grid[4:]], p_lay, mesh)
+    for g, w, b in zip(tree_leaves(got), tree_leaves(whole),
+                       tree_leaves(before)):
+        tol = 1e-5 * (w - b).abs().max() + torch.finfo(torch.float32).eps
+        assert (g - w).abs().max() <= tol
+    got_state = gather_blocks([ostate[:4], ostate[4:]], o_lay, mesh)
+    assert got_state["step"] == state["step"] == 3
+    for g, w in zip(tree_leaves(got_state), tree_leaves(state)):
+        if isinstance(w, torch.Tensor):
+            assert torch.equal(g, w) if name == "adamw_q8" else \
+                (g - w).abs().max() <= 1e-6 * max(w.abs().max(), 1e-30)
+
+
+# -- the train step's tensor-parallel paths against the reference -------------
+
+def _one_by_one():
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+
+
+def _train_batch(cfg, b, s=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+def test_giant_path_matches_reference(monkeypatch):
+    """``GIANT_PARAMS`` patched to 0 in both packages, reduced granite-3-8b
+    at batch 16: the reference's meta (``tp``, ``adamw_q8``) and the port's
+    8 microbatches of 2 rows (one per data group) with bf16 gradient
+    accumulators; the loss, ce and z within LOSS_RTOL of the reference's
+    step on a 1x1 mesh."""
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.launch import steps as jsteps
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(jsteps, "GIANT_PARAMS", 0)
+    monkeypatch.setattr(tsteps, "GIANT_PARAMS", 0)
+    jcfg = jreduced(jget_config("granite-3-8b"), d_model=64, vocab=512)
+    cfg = reduced(get_config("granite-3-8b"), d_model=64, vocab=512)
+    jp = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
+    batch = _train_batch(cfg, 16)
+    mesh = _one_by_one()
+    jb = jsteps.build_train_step(jcfg, JShapeConfig("t", 32, 16, "train"),
+                                 mesh, dtype=jnp.float32)
+    with mesh:
+        _, _, jm = jax.jit(jb.fn)(
+            jp, jtr.make_optimizer("adamw_q8", lr=1e-4).init(jp),
+            {k: jnp.asarray(v) for k, v in batch.items()})
+    b = tsteps.build_train_step(cfg, ShapeConfig("t", 32, 16, "train"),
+                                make_host_mesh(2, 4, ["cpu"] * 8),
+                                dtype=torch.float32)
+    assert {k: b.meta[k] for k in jb.meta} == jb.meta
+    assert (b.meta["parallelism"], b.meta["optimizer"],
+            b.meta["accum_steps"], b.meta["accum_dtype"]) == \
+        ("tp", "adamw_q8", 8, "bfloat16")
+    seen = []
+    clip = tsteps._clip_blocks
+
+    def spy(grads, *a):
+        seen.extend({g.dtype for g in tree_leaves(grads)})
+        return clip(grads, *a)
+    monkeypatch.setattr(tsteps, "_clip_blocks", spy)
+    grid, opt = b.place(params_from_reference(jp))
+    _, _, m = b.fn(grid, opt, {k: torch.as_tensor(v)
+                               for k, v in batch.items()})
+    assert set(seen) == {torch.bfloat16}
+    for k in ("loss", "ce", "z"):
+        assert abs(float(m[k]) - float(jm[k])) <= 1e-5 * abs(float(jm[k])), k
+
+
+def test_moe_aux_under_tp_is_the_references():
+    """olmoe-1b-7b (reduced) under ``tp`` at mesh (2, 4), batch 4 (rows do
+    not cover 8 devices): each data group routes its own 2 rows over its 4
+    shards' experts. The reference (measured on an 8-device host mesh:
+    ``repro.nn.moe``'s ``shard_map`` with ``out_specs=P()`` and
+    ``check_vma=False``) reports group 0's aux loss, and its gradient is
+    the mean of the two groups' (the router's gradient within 7e-7 of
+    it). Pinned here against the reference's one-device functions: aux
+    and the loss as group 0's, ce and z over the whole batch (LOSS_RTOL),
+    and the SGD update of the router as the one from ce + z + the mean aux
+    (GRAD_RTOL of its largest), which the global aux's gradient misses."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    jcfg = jreduced(jget_config("olmoe-1b-7b"), d_model=64, vocab=512)
+    cfg = reduced(get_config("olmoe-1b-7b"), d_model=64, vocab=512)
+    jp = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
+    batch = _train_batch(cfg, 4, seed=2)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jrt = JRuntime(impl="ref")
+    halves = [{k: v[sl] for k, v in jb.items()}
+              for sl in (slice(0, 2), slice(2, 4))]
+
+    def parts(p):
+        """ce + z over the batch (one term: the loss head rounds its
+        cotangents to bf16), the whole batch's aux, each half's."""
+        _, m = jlm.lm_loss(p, jb, jcfg, jrt)
+        return jnp.stack([m["ce"] + jlm.Z_WEIGHT * m["z"], m["aux"]]
+                         + [jlm.lm_loss(p, h, jcfg, jrt)[1]["aux"]
+                            for h in halves]), m
+    (values, whole), jac = jax.jit(lambda p: (
+        parts(p), jax.jacrev(lambda q: parts(q)[0])(p)))(jp)
+
+    def objective(weights):
+        """The SGD update of the router from the gradient of ``weights``
+        . parts, clipped over every leaf."""
+        g = jax.tree_util.tree_map(
+            lambda j: jnp.tensordot(jnp.asarray(weights, jnp.float32), j,
+                                    axes=1), jac)
+        g, _ = jtr.clip_by_global_norm(g, 1.0)
+        return -1e-4 * np.asarray(
+            g["stack"]["slots"][0]["moe"]["router"]["w"])
+    ce, z, aux0 = float(whole["ce"]), float(whole["z"]), float(values[2])
+    b = build_train_step(cfg, ShapeConfig("t", 32, 4, "train"),
+                         make_host_mesh(2, 4, ["cpu"] * 8), optimizer="sgd",
+                         dtype=torch.float32)
+    assert b.meta["parallelism"] == "tp"
+    grid, opt = b.place(params_from_reference(jp))
+    grid, _, m = b.fn(grid, opt, {k: torch.as_tensor(v)
+                                  for k, v in batch.items()})
+    want_loss = ce + jlm.Z_WEIGHT * z + jlm.AUX_WEIGHT * aux0
+    for got, want in ((m["aux"], aux0), (m["ce"], ce), (m["z"], z),
+                      (m["loss"], want_loss)):
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    old = np.asarray(jp["stack"]["slots"][0]["moe"]["router"]["w"])
+    new = b.gather(grid)["stack"]["slots"][0]["moe"]["router"]["w"].numpy()
+    a = jlm.AUX_WEIGHT
+    want = objective([1.0, 0.0, a / 2, a / 2])
+    tol = GRAD_RTOL_MESH * np.abs(want).max() + np.spacing(np.abs(new))
+    assert (np.abs((new - old) - want) <= tol).all()
+    assert (np.abs(objective([1.0, a, 0.0, 0.0]) - want) > tol).any()
+
+
+#: an update's gradient against one device's (f32 sums in other orders)
+GRAD_RTOL_MESH = 1e-4

@@ -56,6 +56,17 @@ GRAD_RTOL = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU tests run small shapes, where torch's intra-op
+    threads mostly spin: one thread for this file's tests (the suite's
+    workers share the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _fresh_jax_caches():
     yield
     jax.clear_caches()
@@ -767,3 +778,224 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "gemma-2b", "--reduced", "--steps", "1"])
+
+
+# -- the train step under a (data, model) mesh --------------------------------
+
+#: the reference's sharded train cells (tests/test_sharding.py), reduced as
+#: it reduces them
+MESH_ARCHS = ("granite-3-8b", "olmoe-1b-7b", "jamba-1.5-large-398b",
+              "xlstm-350m", "whisper-small", "qwen2-vl-2b")
+MESH_B, MESH_S = 8, 32
+
+
+def _mesh_cfgs(arch):
+    j = reduced(get_config(arch), d_model=64, vocab=512)
+    t = treduced(tget_config(arch), d_model=64, vocab=512)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    return j, t
+
+
+def _host_mesh():
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(2, 4, ["cpu"] * 8)
+
+
+def _mesh_inputs(jcfg, b=MESH_B, seed=1):
+    """The reference's params (f32, seed 0) and a batch of ``b`` rows."""
+    init = jed.encdec_init if jcfg.enc_dec else jlm.lm_init
+    jp = init(jax.random.PRNGKey(0), jcfg)
+    return jp, _batch(jcfg, b=b, s=MESH_S, seed=seed, frames=jcfg.enc_dec)
+
+
+def _f32_ce_jax(h, w, labels, **_):
+    """``chunked_ce``'s mean cross-entropy and z-loss with f32 operands."""
+    logits = jnp.einsum("bsd,dv->bsv", h, w.astype(h.dtype))
+    lse = jax.nn.logsumexp(logits, axis=-1)
+    true = jnp.take_along_axis(logits, labels[..., None], axis=-1)[..., 0]
+    return jnp.sum(lse - true) / labels.size, jnp.sum(lse * lse) / labels.size
+
+
+def _f32_ce_torch(h, w, labels, **_):
+    logits = torch.einsum("bsd,dv->bsv", h, w.to(h.dtype))
+    lse = torch.logsumexp(logits, dim=-1)
+    true = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (torch.sum(lse - true) / labels.numel(),
+            torch.sum(lse * lse) / labels.numel())
+
+
+def _f32_heads(mp):
+    """The loss head of both packages' ``lm_loss``/``encdec_loss`` (and
+    the mesh's per-device heads) made one f32 cross-entropy.
+    ``chunked_ce`` rounds its operands to bf16, and where the packages'
+    f32 sums of h straddle a rounding boundary (other orders: the mesh's
+    devices, XLA's fusions) the head's cotangents land a bf16 step apart
+    and reach every leaf: up to 1.8e-2 of a leaf's update norm here, so a
+    step could not be held to GRAD_RTOL. ``chunked_ce`` itself is held to
+    the reference with that allowance
+    (``test_chunked_ce_value_and_grad_match_reference``)."""
+    for mod in (jlm, jed):
+        mp.setattr(mod, "chunked_ce", _f32_ce_jax)
+    for mod in (tlm, ted):
+        mp.setattr(mod, "chunked_ce", _f32_ce_torch)
+
+
+def _reference_sgd_step(jcfg, jp, batch):
+    """The reference's ``build_train_step`` with ``sgd`` on a 1x1 CPU
+    mesh (f32, one jitted step from ``jp``; the f32 loss head in place):
+    (metrics, the new params by path)."""
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.launch import steps as jsteps
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                             ("data", "model"))
+    b = jsteps.build_train_step(
+        jcfg, JShapeConfig("t", MESH_S, len(batch["tokens"]), "train"), mesh,
+        remat="none", optimizer="sgd", dtype=jnp.float32)
+    opt = jtr.make_optimizer("sgd", lr=1e-4)
+    with mesh:
+        new, _, m = jax.jit(b.fn)(
+            jp, opt.init(jp), {k: jnp.asarray(v) for k, v in batch.items()})
+    return {k: float(v) for k, v in m.items()}, _flat_jax(new)
+
+
+def _mesh_step_matches(b, jcfg, jp, batch, monkeypatch):
+    """One SGD step of bundle ``b`` from ``jp`` against
+    ``_reference_sgd_step``, both with the f32 loss head: ce, aux, z and
+    the loss within LOSS_RTOL, the global norm within GRAD_RTOL, and
+    every leaf's update within GRAD_RTOL of the leaf's largest update plus
+    the f32 rounding of either parameter (half a step of each)."""
+    _f32_heads(monkeypatch)
+    jm, new = _reference_sgd_step(jcfg, jp, batch)
+    grid, opt = b.place(params_from_reference(jp))
+    grid, _, m = b.fn(grid, opt, {k: torch.as_tensor(v)
+                                  for k, v in batch.items()})
+    assert set(m) == set(jm)
+    for k in ("ce", "aux", "z", "loss"):
+        if k in jm:
+            assert abs(float(m[k]) - jm[k]) <= LOSS_RTOL * max(abs(jm[k]),
+                                                               1e-6), k
+    assert abs(float(m["gnorm"]) - jm["gnorm"]) <= GRAD_RTOL * jm["gnorm"]
+    got, old = _flat_torch(b.gather(grid)), _flat_jax(jp)
+    assert set(got) == set(new)
+    for path, w in new.items():
+        step = np.abs(w - old[path]).max()
+        tol = GRAD_RTOL * step + np.spacing(np.maximum(np.abs(w),
+                                                       np.abs(got[path])))
+        assert (np.abs(got[path] - w) <= tol).all(), \
+            (path, np.abs(got[path] - w).max(), step)
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_train_step_on_mesh_matches_reference(monkeypatch, arch):
+    """``build_train_step`` at mesh (2, 4), batch 8 (so ``fsdp``: one row
+    per device), f32, against the reference's ``build_train_step`` on a
+    1x1 mesh from the same params: ``meta`` carries the reference's keys
+    and values; then one step with ``sgd`` (linear in the gradient: each
+    leaf's update is its clipped gradient) held to the reference's
+    (``_mesh_step_matches``: the metrics, the global norm, every leaf's
+    update; the MoE's rows routed together as the reference's)."""
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.launch import steps as jsteps
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    jcfg, tcfg = _mesh_cfgs(arch)
+    jp, batch = _mesh_inputs(jcfg)
+    mesh = _host_mesh()
+    shape = ShapeConfig("t", MESH_S, MESH_B, "train")
+    jmeta = jsteps.build_train_step(
+        jcfg, JShapeConfig("t", MESH_S, MESH_B, "train"),
+        jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                          ("data", "model")), dtype=jnp.float32).meta
+    meta = build_train_step(tcfg, shape, mesh, dtype=torch.float32).meta
+    assert {k: meta[k] for k in jmeta} == jmeta
+    assert meta["parallelism"] == "fsdp"
+    sgd = build_train_step(tcfg, shape, mesh, remat="none", optimizer="sgd",
+                           dtype=torch.float32)
+    _mesh_step_matches(sgd, jcfg, jp, batch, monkeypatch)
+
+
+def _gemma_mesh_step(remat="full", b=MESH_B, **kw):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    _, tcfg = _mesh_cfgs("gemma-2b")
+    return tcfg, build_train_step(tcfg, ShapeConfig("t", MESH_S, b, "train"),
+                                  _host_mesh(), remat=remat,
+                                  dtype=torch.float32, **kw)
+
+
+@pytest.mark.parametrize("b", [8, 4], ids=["fsdp", "tp"])
+def test_mesh_step_keeps_copies_identical_and_remat_changes_nothing(b):
+    """Two steps of reduced gemma-2b at mesh (2, 4) under ``fsdp`` (batch
+    8) and ``tp`` (batch 4: tensor-parallel over model, the batch over
+    data): every block held by more than one device (the norms, the K/V
+    of the one KV head over the model axis, the table over data) is
+    bit-identical on each after both steps, params and moments; and
+    ``remat`` none, full and dots give bit-identical params, moments and
+    metrics (the checkpointed forward recomputes the same values)."""
+    results = {}
+    batch = {k: torch.as_tensor(v) for k, v in
+             _batch(_mesh_cfgs("gemma-2b")[0], b=b, s=MESH_S).items()}
+    for remat in ("none", "full", "dots"):
+        tcfg, bundle = _gemma_mesh_step(remat, b=b)
+        assert bundle.meta["parallelism"] == ("fsdp" if b == 8 else "tp")
+        params = tlm.lm_init(torch.Generator().manual_seed(4), tcfg,
+                             device="cpu")
+        grid, opt = bundle.place(params)
+        for _ in range(2):
+            grid, opt, m = bundle.fn(grid, opt, batch)
+        results[remat] = (grid, opt, m)
+        for trees, specs in ((grid, bundle.specs["params"]),
+                             ([[o["mu"] for o in row] for row in opt],
+                              {p[1:]: s for p, s in
+                               bundle.specs["opt"].items()
+                               if p[0] == "mu"})):
+            copies = 0
+            for path, lay in specs.items():
+                axes = {a for e in lay.spec if e is not None
+                        for a in (e if isinstance(e, tuple) else (e,))}
+                leaves = {}
+                for d, row in enumerate(trees):
+                    for mm, t in enumerate(row):
+                        x = t
+                        for k in path:
+                            x = x[k]
+                        key = (d if "data" in axes else None,
+                               mm if "model" in axes else None)
+                        leaves.setdefault(key, []).append(x)
+                for group in leaves.values():
+                    copies += len(group) > 1
+                    for x in group[1:]:
+                        assert torch.equal(x, group[0]), path
+            assert copies > 0
+    base = results["none"]
+    for remat in ("full", "dots"):
+        grid, opt, m = results[remat]
+        for a, c in zip(tree_leaves(grid), tree_leaves(base[0])):
+            assert torch.equal(a, c), remat
+        for a, c in zip(tree_leaves(opt), tree_leaves(base[1])):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, c), remat
+        assert {k: float(v) for k, v in m.items()} == \
+            {k: float(v) for k, v in base[2].items()}
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small",
+                                  "qwen2-vl-2b"])
+def test_tp_step_matches_one_device(monkeypatch, arch):
+    """``tp`` (batch 4 at mesh (2, 4): each data group's 2 rows
+    tensor-parallel over its 4 model shards) on the patterns it cuts
+    otherwise than the dense one: xlstm-350m's recurrent mixers, run once
+    from shard 0's copy whole; whisper-small's encoder and cross-attention
+    (the head cut on d: its vocabulary does not split); qwen2-vl-2b's
+    M-RoPE and q/k/v biases cut with their heads. One ``sgd`` step held
+    to the reference's one-device step (``_mesh_step_matches``: the
+    metrics, the global norm and every leaf's update)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_train_step
+    jcfg, tcfg = _mesh_cfgs(arch)
+    jp, batch = _mesh_inputs(jcfg, b=4)
+    b = build_train_step(tcfg, ShapeConfig("t", MESH_S, 4, "train"),
+                         _host_mesh(), remat="none", optimizer="sgd",
+                         dtype=torch.float32)
+    assert b.meta["parallelism"] == "tp"
+    _mesh_step_matches(b, jcfg, jp, batch, monkeypatch)
