@@ -174,7 +174,8 @@ Phases, each printing JSON lines:
               update per leaf, AdamW-Q8's scales per device, host ms,
               max_memory_allocated, per-device bytes of params and
               optimizer state, flash launches per step by shape (every
-              one checked in ``train_mesh_kernel_phase``);
+              one checked in ``train_mesh_kernel_phase``), the collective
+              counters of each step;
      serve_sharded  tensor-parallel serving on the one card
               (``REPRO_FORCE_DEVICE_COUNT=2``, set here for this phase
               only, lists it twice):
@@ -207,7 +208,17 @@ Phases, each printing JSON lines:
               each beside the one-device step: host ms,
               max_memory_allocated, launches by kernel and by shape
               (every one checked), logits and caches within E2E_RTOL,
-              prefill reruns bit-identical, no plain version run;
+              prefill reruns bit-identical, no plain version run; the
+              weights stored as the reference's ``make_policy`` cuts them
+              (FSDP over data: 2.51B params); per-device bytes of weights
+              and cache blocks, the collective counters of a step;
+     dryrun   the dry run (``launch.dryrun.dry_report``, on ``meta``, no
+              card) of the five train_mesh and serve_mesh cells at the
+              same shapes and knobs: per-device state bytes and every
+              device's collective counters equal to the card's; the train
+              cells' mesh peak of live storage within DRYRUN_MEM_RTOL of
+              max_memory_allocated (the serve cells' printed, no gate);
+              the phase within DRYRUN_SECONDS;
      router   ``ReplicaRouter`` over 2 replicas sharing the card: the 8
               requests land [0, 1, 0, 1, ...] and give the paged engine's
               tokens; every launch at a shape ``tier_kernel_phase``
@@ -3326,8 +3337,13 @@ def train_mesh_kernel_phase(torch, np) -> tuple[dict, set]:
 
 
 def _tree_bytes(tree) -> int:
+    """The bytes of a tree's tensors (a QuantizedTensor's codes and
+    scale)."""
     from repro_torch.nn.layers import tree_leaves
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+    leaves = []
+    for t in tree_leaves(tree):
+        leaves += [t.codes, t.scale] if hasattr(t, "codes") else [t]
+    return sum(t.numel() * t.element_size() for t in leaves
                if hasattr(t, "numel"))
 
 
@@ -3340,11 +3356,13 @@ def _train_mesh_batches(torch, vocab: int, b: int) -> list:
 
 def _counted_step(torch, name, run, checked) -> tuple:
     """One train step (``run()``) with the counts set to 0 just before
-    and read just after: (its output, host ms, flash launches by shape);
-    every launch through ``FlashAttentionFn`` (the period checkpoints
-    recompute each forward once in the backward: as many Function
-    forwards as launches, half as many backwards), at a shape a kernel
-    phase checked, no plain version run."""
+    and read just after: (its output, host ms, flash launches by shape,
+    the collective counters by device); every launch through
+    ``FlashAttentionFn`` (the period checkpoints recompute each forward
+    once in the backward: as many Function forwards as launches, half as
+    many backwards), at a shape a kernel phase checked, no plain version
+    run."""
+    from repro_torch import collectives
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import FUNCTION_CALLS
     rec = _ShapeRecorder(torch, ("flash_attention",))
@@ -3352,12 +3370,14 @@ def _counted_step(torch, name, run, checked) -> tuple:
         torch.cuda.synchronize()
         ops.reset_op_calls()
         FUNCTION_CALLS.clear()
+        collectives.reset_counts()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches, plain, fn = (ops.op_calls(), ops.ref_calls(),
                                dict(FUNCTION_CALLS))
+        counts = collectives.counts()
     n = launches.get("flash_attention", 0)
     require(n > 0 and launches == {"flash_attention": n} and not plain
             and fn.get("forward") == n and 2 * fn.get("backward", 0) == n,
@@ -3367,7 +3387,7 @@ def _counted_step(torch, name, run, checked) -> tuple:
     require(not unchecked, f"{name}: flash launches at shapes the kernel "
                            f"phases never held to the plain version: "
                            f"{unchecked}")
-    return out, ms, [[*k, c] for k, c in sorted(rec.counts.items())]
+    return out, ms, [[*k, c] for k, c in sorted(rec.counts.items())], counts
 
 
 def train_mesh_phase(torch, np, card: str, checked: set) -> dict:
@@ -3456,7 +3476,7 @@ def train_mesh_phase(torch, np, card: str, checked: set) -> dict:
                       for prow, orow in zip(grid, ostate)]
         steps = []
         for i, bt in enumerate(batches):
-            (grid, ostate, m), ms, shapes = _counted_step(
+            (grid, ostate, m), ms, shapes, counts = _counted_step(
                 torch, f"train_mesh {cell} step {i + 1}",
                 lambda bt=bt: bundle.fn(grid, ostate, bt), checked)
             loss, want = float(m["loss"]), one[i]["loss"]
@@ -3470,7 +3490,8 @@ def train_mesh_phase(torch, np, card: str, checked: set) -> dict:
                           "one_device_host_ms": one[i]["host_ms"],
                           "gnorm": float(m["gnorm"]),
                           "one_device_gnorm": one[i]["gnorm"],
-                          "flash_launches_by_shape": shapes})
+                          "flash_launches_by_shape": shapes,
+                          "collectives": counts})
             if i == 0 and q8_first is not None:
                 q8 = _q8_against(ostate, q8_first, bundle.specs["opt"],
                                  mesh.shape)
@@ -3503,6 +3524,7 @@ def train_mesh_phase(torch, np, card: str, checked: set) -> dict:
                "one_device_max_memory_allocated": one_mem,
                "per_device_state_bytes": per_device,
                "one_device_state_bytes": one_bytes,
+               "knobs": {k: v for k, v in knobs.items()},
                "per_device_share": max(max(r) for r in per_device)
                / one_bytes,
                "host_max_rss_bytes": resource.getrusage(
@@ -4077,28 +4099,40 @@ def mesh_kernel_phase(torch, np) -> tuple[dict, set]:
     return worst, checked
 
 
-def _mesh_run(torch, name, run, checked) -> tuple:
+def _mesh_run(torch, name, run, checked, counts=None) -> tuple:
     """One serve step (``run()``) with every launch recorded: (its
     output, host ms, max_memory_allocated, launches by op, launches by
     shape); every launch at a shape the kernel phases checked, no plain
-    version run."""
+    version run. ``counts``: a dict to fill with the collective counters
+    by device, set to 0 just before the step and read just after."""
+    from repro_torch import collectives
     from repro_torch.kernels import ops
     rec = _ShapeRecorder(torch, SHARDED_OPS + ("flash_attention",))
     with rec:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_op_calls()
+        collectives.reset_counts()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         launches, plain = ops.op_calls(), ops.ref_calls()
+        if counts is not None:
+            counts.update(collectives.counts())
     require(not plain, f"{name}: plain versions ran on the card: {plain}")
     unchecked = sorted(rec.keys - checked)
     require(not unchecked, f"{name}: launches at shapes the kernel phases "
                            f"never held to the plain version: {unchecked}")
     by_shape = [[*k, n] for k, n in sorted(rec.counts.items())]
     return out, ms, torch.cuda.max_memory_allocated(), launches, by_shape
+
+
+def _serve_state_bytes(weights, caches) -> list:
+    """[[device (d, m)'s bytes of its stored weights and cache blocks]]
+    (a whole weight shared by the devices counted on each)."""
+    return [[_tree_bytes(w) + _tree_bytes(c) for w, c in zip(wr, cr)]
+            for wr, cr in zip(weights, caches)]
 
 
 def _rel_err(torch, got, want) -> float:
@@ -4167,9 +4201,12 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
         # a prefill writes every position of its cache: the rerun may
         # reuse the blocks
         grid = bundle.init_caches()
+        per_device = _serve_state_bytes(args[0], grid)
+        counts: dict = {}
         runs = [_mesh_run(torch, f"serve_mesh {name}",
-                          lambda: bundle.fn(*args, grid), checked)
-                for _ in range(2)]
+                          lambda: bundle.fn(*args, grid), checked,
+                          counts if i == 0 else None)
+                for i in range(2)]
         (got, grid), ms, mem, launches, by_shape = runs[1]
         require(torch.equal(runs[0][0][0], got),
                 f"serve_mesh {name}: a rerun changed the logits")
@@ -4186,7 +4223,8 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
             flash_q_offsets=offsets, logits_max_rel_err=err,
             caches_max_abs_err=c_err, caches_peak=max(
                 t.abs().max().item() for c in want_c for t in c.values()),
-            bit_identical_rerun=True)
+            bit_identical_rerun=True, per_device_state_bytes=per_device,
+            collectives=counts)
         ok = err <= E2E_RTOL and c_err <= E2E_RTOL * line["caches_peak"]
         if cp:
             ok = ok and offsets == list(_cp_offsets())
@@ -4194,6 +4232,9 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
         require(ok, f"serve_mesh {name}: logits {err}, caches {c_err}, "
                     f"flash offsets {offsets}")
         out["launches"][f"serve_mesh {name}"] = launches
+        out[name] = {"per_device_state_bytes": per_device,
+                     "collectives": counts, "max_memory_allocated": mem,
+                     "prefill_cp": cp}
         del args, runs, grid, got, bundle
         _free(torch)
     del want, want_c
@@ -4209,7 +4250,8 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
             "serve_mesh decode: the cache is not sequence-sharded")
     grid = shard_dense_caches(one_c, bundle.specs, mesh)
     placed, = bundle.place(params)
-    steps, total = [], {}
+    per_device = _serve_state_bytes(placed, grid)
+    steps, total, counts = [], {}, {}
     for i in range(MESH_DECODE_STEPS):
         pos = MESH_PROMPT + i
         tok = tokens[:, pos]
@@ -4218,7 +4260,8 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
                 params, tok, pos, one_c, cfg, one_rt), checked)
         (got, grid), ms, mem, launches, by_shape = _mesh_run(
             torch, "serve_mesh decode", lambda: bundle.fn(
-                placed, tok, torch.tensor(pos), grid), checked)
+                placed, tok, torch.tensor(pos), grid), checked,
+            counts if i == 0 else None)
         steps.append({"pos": pos, "ms": ms, "one_device_ms": one_ms,
                       "max_memory_allocated": mem,
                       "logits_max_rel_err": _rel_err(torch, got, want)})
@@ -4241,11 +4284,110 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
                                  for op, n in total.items()},
               launches_by_shape_last_step=by_shape, steps=steps,
               logits_max_rel_err=max(errs), caches_max_abs_err=c_err,
+              per_device_state_bytes=per_device, collectives_step_1=counts,
               ok=ok))
     require(ok, f"serve_mesh decode: logits {max(errs)}, caches {c_err}")
     out["launches"]["serve_mesh decode"] = total
+    out["decode"] = {"per_device_state_bytes": per_device,
+                     "collectives": counts,
+                     "max_memory_allocated": max(st["max_memory_allocated"]
+                                                 for st in steps)}
     del grid, placed, one_c, bundle
     _free(torch)
+    return out
+
+
+#: the dry run's memory gate: its mesh peak of live storage within this
+#: share of the card's max_memory_allocated on the train_mesh cells
+DRYRUN_MEM_RTOL = 0.2
+#: the dryrun phase's time limit, seconds
+DRYRUN_SECONDS = 120
+
+
+def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
+                 card: str) -> dict:
+    """The dry run (``launch.dryrun.dry_report``, on ``meta``: no card)
+    of every train_mesh cell and serve_mesh step, full-width gemma-2b at
+    the same mesh, shape and knobs, held to what the card run measured:
+    each device's params and optimizer state (serve: weights and cache
+    blocks) equal to the card's ``per_device_state_bytes``; every
+    device's collective counters equal to those read during the card's
+    step (its first); for the train cells the mesh peak of live storage
+    within DRYRUN_MEM_RTOL of the card's max_memory_allocated (the serve
+    steps' plain ``spx_matmul`` dequantizes whole weights, which the
+    kernel never holds: both numbers printed, no gate); the whole phase
+    within DRYRUN_SECONDS."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import dry_report
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config("gemma-2b")
+    mesh = make_host_mesh(*MESH, ["meta"] * (MESH[0] * MESH[1]))
+    t_phase = time.perf_counter()
+    cells = []
+    for cell, b, knobs in TRAIN_MESH_CELLS:
+        rec = train_mesh["cells"][cell]
+        cells.append((f"train_mesh {cell}", ShapeConfig(
+            "train_mesh", TRAIN_MESH_SEQ, b, "train"),
+            dict(knobs, dtype=torch.float32), ("params", "opt_state"),
+            rec["per_device_state_bytes"], rec["steps"][0]["collectives"],
+            rec["max_memory_allocated"], True))
+    for step, kind, cp in (("prefill-tp", "prefill", False),
+                           ("prefill-cp", "prefill", True),
+                           ("decode", "decode", None)):
+        rec = serve_mesh[step]
+        knobs = dict(dtype=torch.float32, param_dtype=torch.float32)
+        if cp is not None:
+            knobs["prefill_cp"] = cp
+        cells.append((f"serve_mesh {step}", ShapeConfig(
+            step, MESH_SEQ, MESH_BATCH, kind), knobs, ("params", "caches"),
+            rec["per_device_state_bytes"], rec["collectives"],
+            rec["max_memory_allocated"], False))
+    out = {}
+    for name, shape, knobs, parts, state, counts, card_mem, gate in cells:
+        t0 = time.perf_counter()
+        rep = dry_report(cfg, shape, mesh, **knobs)
+        by_dev = rep["argument_by_device"]
+        dry_state = [[sum(by_dev[p][d][m] for p in parts)
+                      for m in range(MESH[1])] for d in range(MESH[0])]
+        peak = rep["memory"]["mesh_peak_bytes"]
+        mem_rel = peak / card_mem - 1
+        line = {"phase": "dryrun", "cell": name, "card": card,
+                "arch": cfg.name, "mesh": list(MESH),
+                "meta": {k: v for k, v in rep["meta"].items()},
+                "per_device_state_bytes": dry_state,
+                "card_per_device_state_bytes": state,
+                "state_equal": dry_state == state,
+                "collectives_busiest": rep["collectives"]["busiest"],
+                "collectives_mean": rep["collectives"]["mean"],
+                "collectives_equal": rep["collectives"]["by_device"]
+                == counts,
+                "mesh_peak_bytes": peak,
+                "card_max_memory_allocated": card_mem,
+                "mesh_peak_rel_to_card": mem_rel,
+                "memory_gated": gate, "tol_mem_rel": DRYRUN_MEM_RTOL,
+                "memory": rep["memory"], "flops": rep["cost"]["flops"],
+                "departures": rep["departures"], "uneven": rep["uneven"],
+                "build_s": rep["build_s"], "run_s": rep["run_s"],
+                "seconds": time.perf_counter() - t0}
+        emit(line)
+        require(line["state_equal"],
+                f"dryrun {name}: per-device state {dry_state} against the "
+                f"card's {state}")
+        require(line["collectives_equal"],
+                f"dryrun {name}: collectives {rep['collectives']['by_device']}"
+                f" against the card's {counts}")
+        if gate:
+            require(abs(mem_rel) <= DRYRUN_MEM_RTOL,
+                    f"dryrun {name}: mesh peak {peak} against the card's "
+                    f"{card_mem} ({mem_rel:+.3f})")
+        out[name] = line
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dryrun", "cell": "all", "seconds": seconds,
+          "limit_s": DRYRUN_SECONDS})
+    require(seconds <= DRYRUN_SECONDS,
+            f"dryrun: {seconds:.1f} s (limit {DRYRUN_SECONDS})")
     return out
 
 
@@ -5911,6 +6053,8 @@ def main() -> int:
             mesh = serve_mesh_phase(torch, np, eng.params,
                                     info["nvidia_smi"], checked)
         new_launches.update(mesh["launches"])
+        # the dry run of the same mesh steps on meta, held to the card's
+        dryrun_phase(torch, training["mesh"], mesh, info["nvidia_smi"])
         sharded["families"] = {name: run["timing"]
                                for name, run in shard_runs.items()}
         new_launches["router"] = router_phase(torch, np, eng.params,

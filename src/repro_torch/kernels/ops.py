@@ -80,9 +80,14 @@ def spx_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
 
 @registry.register("flash_attention", "ref")
 def _flash_attention_ref(q, k, v, *, causal, q_chunk, q_offset=0):
+    """The plain version; where autograd records, each query chunk
+    checkpointed as the reference's (``ref.flash_attention_ref``'s
+    ``remat``)."""
     _REF_CALLS["flash_attention"] += 1
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
-                                   q_offset=q_offset)
+                                   q_offset=q_offset, remat=remat)
 
 
 @registry.register("flash_attention", "cuda")

@@ -5,6 +5,7 @@ attention of ``repro.nn.attention``)."""
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import spx
 
@@ -213,13 +214,17 @@ def paged_decode_split_ref(q, k_pages, v_pages, block_table, ctx_len,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int,
-                        q_offset: int = 0):
+                        q_offset: int = 0, remat: bool = False):
     """The flash kernel's function in plain PyTorch: the reference's
     chunked attention (``repro.nn.attention._chunked_attention``), which
     is ``repro.kernels.ref.attention_ref`` computed ``q_chunk`` query rows
     at a time (one chunk when Sq is not a multiple). q: (B, Hq, Sq, dh); k/v:
     (B, Hkv, Skv, dh), GQA repeated here; query row i sits at position
-    ``q_offset + i`` under the causal mask. Returns (B, Hq, Sq, dh)."""
+    ``q_offset + i`` under the causal mask. Returns (B, Hq, Sq, dh).
+    ``remat`` (training): each chunk checkpointed as the reference's
+    ``jax.checkpoint`` chunk, its scores and probabilities recomputed in
+    the backward and its output product kept (``_keep_output_product``),
+    never the (B, Hq, cq, Skv) probabilities of every chunk at once."""
     b, hq, sq, dh = q.shape
     rep = hq // k.shape[1]
     if rep > 1:
@@ -229,16 +234,42 @@ def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int,
     if sq % cq:
         cq = sq
     kv_pos = torch.arange(k.shape[2], device=q.device)
-    outs = []
-    for i in range(sq // cq):
-        q_i = q[:, :, i * cq:(i + 1) * cq].to(torch.float32)
-        s = torch.einsum("bhqd,bhkd->bhqk", q_i,
+
+    def chunk(q_i, k, v, i):
+        s = torch.einsum("bhqd,bhkd->bhqk", q_i.to(torch.float32),
                          k.to(torch.float32)) * (dh ** -0.5)
         if causal:
             q_pos = q_offset + i * cq + torch.arange(cq, device=q.device)
             s = torch.where(q_pos[:, None] >= kv_pos[None, :], s,
                             torch.full_like(s, _NEG))
         p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bhqk,bhkd->bhqd", p,
-                                 v.to(torch.float32)).to(q.dtype))
+        return torch.einsum("bhqk,bhkd->bhqd", p,
+                            v.to(torch.float32)).to(q.dtype)
+
+    outs = []
+    for i in range(sq // cq):
+        args = (q[:, :, i * cq:(i + 1) * cq], k, v, i)
+        if remat:
+            outs.append(torch.utils.checkpoint.checkpoint(
+                chunk, *args, use_reentrant=False,
+                context_fn=_keep_output_product))
+        else:
+            outs.append(chunk(*args))
     return torch.cat(outs, dim=2)
+
+
+def _keep_output_product():
+    """The selective checkpoint of one attention chunk: the second product
+    (probabilities by V) saved, the rest recomputed in the backward (JAX
+    drops that product's recompute: nothing reads it)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    seen = {False: 0, True: 0}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in (torch.ops.aten.bmm.default, torch.ops.aten.mm.default):
+            seen[ctx.is_recompute] += 1
+            if seen[ctx.is_recompute] % 2 == 0:
+                return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return create_selective_checkpoint_contexts(policy)

@@ -6,14 +6,18 @@ reference's ``repro.launch.steps`` (``build_step`` dispatches on
 encoder-decoder's ``encdec_prefill``/``encdec_decode_step``) for a
 ``launch.mesh.HostMesh``. Where the reference hands jit ``in_shardings``
 and ``out_shardings``, the port places real tensors: ``StepBundle.place``
-quantizes the weights (``quantized``: the paper's sp2_4) and cuts them
-per device (``ShardingPolicy.serving_cut`` per data group, or every leaf
-whole under the ``replicated`` policy of the context-parallel prefill),
-and ``init_caches`` lays the dense caches out by
-``ShardingPolicy.cache_spec`` (sequence over ``model``, batch over
-``data``). ``fn`` runs the step on those tensors: each data group takes
-its rows of the batch, its model shards run the forward tensor-parallel,
-or context-parallel (``prefill_cp``: queries sequence-sharded, K/V
+quantizes the weights (``quantized``: the paper's sp2_4) and stores them
+per device by the reference's ``make_policy`` (``ShardingPolicy.
+stored_layouts``: the model axis on ``serving_cut``, above
+``sharding.FSDP_ABOVE`` params each stored leaf also cut over the data
+axes; every leaf whole under the ``replicated`` policy of the
+context-parallel prefill), and ``init_caches`` lays the dense caches out
+by ``ShardingPolicy.cache_spec`` (sequence over ``model``, batch over the
+data axes). ``fn`` runs the step on those tensors: each device reads its
+weights through ``sharding.gathered_view`` (a gather over the data axes
+per period, where they are used), each data group takes its rows of the
+batch, its model shards run the forward tensor-parallel, or
+context-parallel (``prefill_cp``: queries sequence-sharded, K/V
 gathered, the flash kernel's causal offset), and decode attends the
 sequence-sharded cache shard by shard with one merge. The logits come
 back as one (B, V) tensor on the mesh's first device.
@@ -31,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm as lm_mod
@@ -40,8 +45,7 @@ from repro_torch.runtime import Runtime
 from repro_torch.sharding import (ShardingPolicy, gather_blocks,
                                   gather_dense_caches, gathered_view,
                                   kv_seq_axis, make_policy, place_blocks,
-                                  reduce_copies, shard_dense_caches,
-                                  shard_params)
+                                  reduce_copies, shard_dense_caches)
 from repro_torch.training.optimizer import make_optimizer
 
 __all__ = ["StepBundle", "build_step", "build_train_step",
@@ -63,8 +67,10 @@ class StepBundle:
     ``place``'s output and the caches (``init_caches`` or an earlier
     step's) and returns (logits (B, V) on the mesh's first device, the
     caches, written in place); ``specs`` is the caches' layout, {path:
-    spec} (``ShardingPolicy.cache_specs``), ``gather(grid)`` the whole
-    caches. A train step: see ``build_train_step``."""
+    spec} (``ShardingPolicy.cache_specs``), ``layouts`` the stored
+    weights', ``gather(grid)`` the whole caches. A train step: see
+    ``build_train_step``. ``policy``: the ``ShardingPolicy`` it cuts
+    by."""
     fn: Callable
     specs: dict
     meta: dict
@@ -72,42 +78,37 @@ class StepBundle:
     place: Callable
     gather: Callable
     init_caches: Callable | None = None
+    #: a serve step's stored weights, {path: Layout}
+    #: (``ShardingPolicy.stored_layouts``), filled by ``place``
+    layouts: dict | None = None
+    policy: ShardingPolicy | None = None
 
 
 def make_runtime(cfg: ArchConfig, mesh, shape: ShapeConfig | None, *,
                  impl: str = "auto", cache_specs: dict | None = None
                  ) -> Runtime:
     """The reference's ``make_runtime`` for a ``HostMesh``: the batch over
-    data where it divides, and the dense caches' sequence cut where
-    ``cache_specs`` (``ShardingPolicy.cache_specs`` of the caches the step
-    runs against) cuts it (``decode_seq_axis``; without them the caches
-    are whole on every shard, the reference's local decode)."""
+    ``("pod", "data")`` (those the mesh has), or, where their devices do
+    not divide it, over each of them that does (none at ``long_500k``'s
+    one row); and the dense caches' sequence cut where ``cache_specs``
+    (``ShardingPolicy.cache_specs`` of the caches the step runs against)
+    cuts it (``decode_seq_axis``; without them the caches are whole on
+    every shard, the reference's local decode)."""
     data_axes: tuple = ()
     if mesh is not None:
-        data_axes = ("data",)
-        if shape is not None and shape.global_batch % mesh.shape["data"]:
-            data_axes = ()
+        axes = mesh.shape
+        data_axes = tuple(a for a in ("pod", "data") if a in axes)
+        if shape is not None:
+            n = 1
+            for a in data_axes:
+                n *= axes[a]
+            if shape.global_batch % n:
+                data_axes = tuple(a for a in data_axes
+                                  if shape.global_batch % axes[a] == 0)
     device = "cuda" if mesh is None else str(mesh.devices[0])
     return Runtime(impl=impl, q_chunk=1024, mesh=mesh, device=device,
                    decode_seq_axis=kv_seq_axis(cache_specs or {}),
                    data_axes=data_axes)
-
-
-def _place_params(params, policy: ShardingPolicy, mesh, quantized: bool):
-    """``grid[d][m]``: the param tree of every device, quantized first and
-    then cut per data group (whole on every device under the
-    ``replicated`` policy); rows over the same devices share one
-    placement."""
-    if quantized:
-        params = quantize_params(params, SERVE_SCHEME)
-    rows: dict = {}
-    grid = []
-    for d in range(mesh.shape["data"]):
-        row = mesh.row(d)
-        if row.devices not in rows:
-            rows[row.devices] = shard_params(params, policy, row)
-        grid.append(rows[row.devices])
-    return grid
 
 
 # ---------------------------------------------------------------------------
@@ -133,25 +134,27 @@ def _zero_blocks(meta_state, layouts: dict, mesh) -> list:
 def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float):
     """``clip_by_global_norm`` over blocks: the norm sums every leaf's
     distinct blocks (a copy counted once, from its first device) in device
-    order, leaf after leaf; each block is scaled by the one factor.
-    Returns (grads, the norm before clipping) on the first device."""
-    sizes, dev0 = mesh.shape, mesh.devices[0]
+    order, leaf after leaf (an all-reduce of each leaf's sum); each block
+    is scaled by the one factor. Returns (grads, the norm before clipping)
+    on the first device."""
+    sizes, dev0, cols = mesh.shape, mesh.devices[0], mesh.shape["model"]
     coords = [(d, m) for d, row in enumerate(mesh.grid)
               for m in range(len(row))]
     total = torch.zeros((), dtype=torch.float32, device=dev0)
 
     def square(path, _):
         nonlocal total
-        seen, part = set(), None
+        seen, parts = set(), []
         for d, m in coords:
             key = layouts[path].block_key(d, m, sizes)
             if key in seen:
                 continue
             seen.add(key)
             g = tree_at(grads[d][m], path)
-            s = torch.sum(torch.square(g.to(torch.float32))).to(dev0)
-            part = s if part is None else part + s
-        total = total + part
+            parts.append(torch.sum(torch.square(g.to(torch.float32)))
+                         .to(dev0))
+        total = total + collectives.all_reduce(
+            parts, [d * cols + m for d, m in coords])
     tree_map(square, grads[0][0])
     gnorm = torch.sqrt(total)
     factor = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
@@ -163,7 +166,7 @@ def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float):
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      impl: str = "auto", remat: str = "full",
                      optimizer: str | None = None,
-                     accum_steps: int | None = None,
+                     accum_steps: int | None = None, unroll: bool = False,
                      dtype=torch.bfloat16) -> StepBundle:
     """The train step of ``cfg`` over ``mesh`` (a ``HostMesh``) at
     ``shape.global_batch`` rows of ``shape.seq_len`` tokens, with the
@@ -173,7 +176,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     override); ``fsdp`` where the model is not giant and the batch
     divides the devices, else ``tp`` (FSDP over ``data`` by
     ``make_policy``'s default); ``remat`` (``none | full | dots``) of the
-    stack. ``dtype``: the params'.
+    stack. ``unroll``: the reference's cost variant, one microbatch and
+    remat ``none`` (the port's loops are always unrolled). ``dtype``: the
+    params'.
 
     ``place(params, opt_state=None)`` cuts a whole param tree (cast to
     ``dtype``) and optimizer state (zeros when None) into ``grid[d][m]``
@@ -201,8 +206,10 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     if accum_steps is None:
         accum_steps = 8 if giant else 1
     acc_dtype = torch.bfloat16 if giant else torch.float32
+    if unroll:
+        accum_steps, remat = 1, "none"
     opt = make_optimizer(opt_name, lr=1e-4, weight_decay=0.01)
-    n_dev = mesh.shape["data"] * mesh.shape["model"]
+    n_dev = len(mesh.devices)
     parallelism = ("fsdp" if not giant and shape.global_batch % n_dev == 0
                    else "tp")
     policy = make_policy(cfg, mesh, parallelism=parallelism)
@@ -240,7 +247,13 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         """(loss, metrics, the reduced gradient grid) of one batch."""
         live = [[tree_map(lambda _, x: x.detach().requires_grad_(True), t)
                  for t in row] for row in params]
-        views = [[gathered_view(live, p_lay, policy, d, m, dev)
+        # fsdp: every device's rows run in one checkpointed region per
+        # period, so a shared period slice takes its readers' gradients
+        # at once; under tp the data groups run (and recompute) apart, and
+        # a shared slice would hold its partial gradient until the last
+        # group's backward reached it
+        periods = {} if parallelism == "fsdp" else None
+        views = [[gathered_view(live, p_lay, policy, d, m, dev, periods)
                   for m, dev in enumerate(row)]
                  for d, row in enumerate(mesh.grid)]
         leaves = [leaf for row in live for t in row
@@ -292,9 +305,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             flat, [t for row in grads for t in row],
             [t for row in opt_state for t in row], where)
         params = [new_p[d * cols:(d + 1) * cols]
-                  for d in range(sizes["data"])]
+                  for d in range(len(mesh.grid))]
         opt_state = [new_o[d * cols:(d + 1) * cols]
-                     for d in range(sizes["data"])]
+                     for d in range(len(mesh.grid))]
         return params, opt_state, dict(metrics, loss=loss, gnorm=gnorm)
 
     meta = {"kind": "train", "optimizer": opt_name, "fsdp": policy.fsdp,
@@ -303,12 +316,13 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             "accum_dtype": str(acc_dtype).replace("torch.", "")}
     return StepBundle(
         fn=train_step, specs={"params": p_lay, "opt": o_lay}, meta=meta,
-        rt=rt, place=place, gather=gather)
+        rt=rt, place=place, gather=gather, policy=policy)
 
 
 def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                      impl: str = "auto", quantized: bool = True,
                      kv_quant: bool = False, prefill_cp: bool | None = None,
+                     unroll: bool = False,
                      dtype=torch.bfloat16) -> StepBundle:
     """A prefill or decode step (``shape.kind``) of ``cfg`` over ``mesh``
     (a ``HostMesh``) at ``shape.global_batch`` rows and a
@@ -316,9 +330,17 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     reference's default: context-parallel for a prefill of at most
     CP_MAX_PARAMS params whose batch and length are multiples of 16,
     never for an encoder-decoder model; it runs only where the length
-    divides the model axis (else the tensor-parallel prefill). ``dtype``:
-    the dense caches' (bf16 as the reference's); ``kv_quant`` codes them
-    (``Runtime.kv_scheme``'s default codebook)."""
+    divides the model axis (else the tensor-parallel prefill). The
+    weights are stored by the reference's policy: ``make_policy`` (FSDP
+    above ``sharding.FSDP_ABOVE`` params), or ``replicated`` for the
+    context-parallel prefill. ``dtype``: the dense caches' (bf16 as the
+    reference's); ``kv_quant`` codes them (``Runtime.kv_scheme``'s
+    default codebook). ``unroll`` (the reference's cost variant) changes
+    nothing here: the port's loops are always unrolled.
+
+    On ``meta`` (the dry run, ``launch.dryrun``) ``place`` takes meta
+    params and quantizes them to meta codes and scales, and
+    ``init_caches(device)`` makes the caches there."""
     if shape.kind == "train":
         raise ValueError("a train step: build_train_step (or build_step)")
     b, s = shape.global_batch, shape.seq_len
@@ -328,8 +350,8 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                       and cfg.param_count_estimate() <= CP_MAX_PARAMS
                       and s % 16 == 0 and b % 16 == 0 and not cfg.enc_dec)
     cp = shape.kind == "prefill" and prefill_cp and s % m == 0
-    policy = ShardingPolicy(cfg, mesh,
-                            parallelism="replicated" if cp else "tp")
+    policy = (ShardingPolicy(cfg, mesh, parallelism="replicated") if cp
+              else make_policy(cfg, mesh))
     init = ed.encdec_init_caches if cfg.enc_dec else lm_mod.init_caches
     c_specs = policy.cache_specs(init(cfg, b, s, dtype=dtype,
                                       kv_quant=kv_quant, device="meta"))
@@ -337,22 +359,30 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
                       cache_specs=c_specs).replace(kv_quant=kv_quant,
                                                    attn_cp=cp)
     dev0 = mesh.devices[0]
+    layouts: dict = {}
 
     def place(params, *inputs):
-        return (_place_params(params, policy, mesh, quantized),
+        """(the stored weights, ``grid[d][m]``, then ``inputs`` on the
+        mesh's first device)."""
+        if quantized:
+            params = quantize_params(params, SERVE_SCHEME)
+        layouts.clear()
+        layouts.update(policy.stored_layouts(params))
+        return (place_blocks(params, layouts, mesh, share=True),
                 *(torch.as_tensor(t).to(dev0) for t in inputs))
 
-    def init_caches():
+    def init_caches(device="cpu"):
         return shard_dense_caches(init(cfg, b, s, dtype=dtype,
-                                       kv_quant=kv_quant, device="cpu"),
+                                       kv_quant=kv_quant, device=device),
                                   c_specs, mesh)
 
     def gather_caches(grid, device="cpu"):
-        return gather_dense_caches(grid, c_specs, device)
+        return gather_dense_caches(grid, c_specs, device, mesh.shape)
 
     meta = {"kind": shape.kind, "quantized": quantized,
             "kv_quant": kv_quant, "prefill_cp": prefill_cp,
             "context_parallel": cp, "parallelism": policy.parallelism,
+            "fsdp": policy.fsdp, "fsdp_axes": policy.fsdp_axes,
             "decode_seq_axis": rt.decode_seq_axis,
             "data_axes": rt.data_axes}
     if shape.kind == "prefill":
@@ -369,9 +399,18 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         def step(params, token, pos, caches):
             return mod(params, token, pos, caches, cfg, rt)
 
+    @torch.no_grad()
+    def run(grid, *args):
+        periods: dict = {}
+        views = [[gathered_view(grid, layouts, policy, d, k, dev, periods)
+                  for k, dev in enumerate(row)]
+                 for d, row in enumerate(mesh.grid)]
+        return step(views, *args)
+
     return StepBundle(
-        fn=torch.no_grad()(step), specs=c_specs, meta=meta, rt=rt,
-        place=place, gather=gather_caches, init_caches=init_caches)
+        fn=run, specs=c_specs, meta=meta, rt=rt, place=place,
+        gather=gather_caches, init_caches=init_caches, layouts=layouts,
+        policy=policy)
 
 
 def build_step(cfg: ArchConfig, shape: ShapeConfig, mesh, **kw) -> StepBundle:

@@ -119,12 +119,11 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
         stack, norm, w = (params["dec_stack"], params["final_norm"],
                           params["head"]["w"])
     else:
-        devs = rt.mesh.devices
         x = sharded_embedding_apply([whole(p["embed"]) for p in params],
-                                    tokens, devs, cfg.vocab_size)
+                                    tokens, rt.mesh, cfg.vocab_size)
         stack = [p["dec_stack"] for p in params]
         norm = whole(params[0]["final_norm"])
-        w = mesh_head_w([whole(p["head"]["w"]) for p in params], devs[0])
+        w = mesh_head_w([whole(p["head"]["w"]) for p in params], rt.mesh)
     h, _ = stack_apply(stack, x, pos, dec_cfg(cfg), rt, enc_out=enc_out)
     h = norm_apply(cfg.norm, norm, h)
     ce, z = chunked_ce(h, w, batch["labels"].to(h.device))

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import collectives
 from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
@@ -160,20 +161,22 @@ def _tp_backbone(ps: list, cfg: ArchConfig, tokens, positions, rt: Runtime):
     final norm from shard 0, on the first shard's device."""
     devs = rt.mesh.devices
     x = sharded_embedding_apply([whole(p["embed"]) for p in ps],
-                                tokens.to(devs[0]), devs, cfg.vocab_size)
+                                tokens.to(devs[0]), rt.mesh, cfg.vocab_size)
     h, aux = stack_apply([p["stack"] for p in ps], x,
                          positions.to(devs[0]), cfg, rt)
     return norm_apply(cfg.norm, whole(ps[0]["final_norm"]), h), aux
 
 
-def mesh_head_w(ws: list, dev) -> torch.Tensor:
-    """The whole (D, V) head on ``dev`` from the shards' slices ``ws``
-    (each (D, V_s) where the vocabulary splits, (D_s, V) where the head is
-    cut on d), joined in shard order: the loss head of a tensor-parallel
-    loss, whose ``chunked_ce`` takes the whole vocabulary's logits."""
+def mesh_head_w(ws: list, mesh) -> torch.Tensor:
+    """The whole (D, V) head on the first shard's device of ``mesh`` from
+    the shards' slices ``ws`` (each (D, V_s) where the vocabulary splits,
+    (D_s, V) where the head is cut on d), joined in shard order (an
+    all-gather over the shards): the loss head of a tensor-parallel loss,
+    whose ``chunked_ce`` takes the whole vocabulary's logits."""
     d = ws[0].shape[0]
     vocab_split = all(w.shape[0] == d for w in ws)
-    return torch.cat([w.to(dev) for w in ws], dim=-1 if vocab_split else 0)
+    return collectives.all_gather(ws, -1 if vocab_split else 0,
+                                  mesh.devices[0], mesh.ids)
 
 
 def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
@@ -198,7 +201,7 @@ def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
         w = _head_w(params, cfg)
     else:
         h, aux = _tp_backbone(params, cfg, tokens, positions, rt)
-        w = mesh_head_w([_view_head_w(p, cfg) for p in params], h.device)
+        w = mesh_head_w([_view_head_w(p, cfg) for p in params], rt.mesh)
     ce, z = chunked_ce(h, w, batch["labels"].to(h.device))
     loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
     return loss, {"ce": ce, "aux": aux, "z": z}
@@ -221,14 +224,32 @@ def _lm_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime):
     return out, aux
 
 
-def _row_slices(b: int, n: int) -> list:
-    """The rows each of ``n`` parts runs: b / n each where n divides b;
-    else the first part runs all b and the others none (they would
-    compute the same rows, so the gradient is taken once)."""
-    if n > 1 and b % n == 0:
-        per = b // n
-        return [slice(k * per, (k + 1) * per) for k in range(n)]
-    return [slice(0, b)]
+def _row_groups(mesh, data_axes: tuple, b: int) -> list:
+    """(row, its slice of the batch) of every mesh row that runs rows of
+    ``b`` split over ``data_axes`` (pod-major), the first row of each
+    group: b / n rows each where the n groups divide b, else the first
+    row runs all b and the others none (they would compute the same rows,
+    so the gradient is taken once)."""
+    sizes, n = mesh.shape, 1
+    for a in data_axes:
+        n *= sizes[a]
+    if n <= 1 or b % n:
+        return [(0, slice(0, b))]
+    per, seen, out = b // n, set(), []
+    for r in range(len(mesh.grid)):
+        g = _group(mesh, r, data_axes)
+        if g not in seen:
+            seen.add(g)
+            out.append((r, slice(g * per, (g + 1) * per)))
+    return out
+
+
+def _group(mesh, r: int, data_axes: tuple) -> int:
+    """Row ``r``'s index among the groups of ``data_axes``."""
+    sizes, at, g = mesh.shape, mesh.coords(r), 0
+    for a in data_axes:
+        g = g * sizes[a] + at[a]
+    return g
 
 
 def mesh_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime, *, rows,
@@ -248,36 +269,44 @@ def mesh_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime, *, rows,
     its gradient is the mean over the groups'."""
     mesh = rt.mesh
     b = batch["tokens"].shape[0]
-    ce = z = aux = None
+    ces, zs, members = [], [], []
+    aux = None
 
-    def add(total, part, sl):
-        part = part * ((sl.stop - sl.start) / b)
-        return part if total is None else total + part.to(total.device)
+    def weigh(part, sl):
+        return part * ((sl.stop - sl.start) / b)
 
     if "model" in rt.data_axes:
         devs = mesh.devices
-        slices = _row_slices(b, len(devs))
+        n = len(devs)
+        per = b // n if n > 1 and b % n == 0 else b
+        slices = [slice(k * per, (k + 1) * per) for k in range(b // per)]
         cols = mesh.shape["model"]
         views = [params[k // cols][k % cols] for k in range(len(slices))]
         batches = [{key: t[sl].to(dev) for key, t in batch.items()}
                    for sl, dev in zip(slices, devs)]
         parts, aux = rows(views, batches, cfg, rt.replace(mesh=None))
         for (c, zz), sl in zip(parts, slices):
-            ce, z = add(ce, c, sl), add(z, zz, sl)
+            ces.append(weigh(c, sl))
+            zs.append(weigh(zz, sl))
+        members = range(len(slices))
     else:
-        slices = _row_slices(b, mesh.shape["data"] if rt.data_axes else 1)
         auxes = []
-        for d, sl in enumerate(slices):
-            row = mesh.row(d)
-            _, m = group_loss(params[d], {key: t[sl].to(row.devices[0])
+        for r, sl in _row_groups(mesh, rt.data_axes, b):
+            row = mesh.row(r)
+            _, m = group_loss(params[r], {key: t[sl].to(row.devices[0])
                                           for key, t in batch.items()},
                               cfg, rt.replace(mesh=row))
-            ce, z = add(ce, m["ce"], sl), add(z, m["z"], sl)
+            ces.append(weigh(m["ce"], sl))
+            zs.append(weigh(m["z"], sl))
+            members.append(row.first)
             if "aux" in m:
-                auxes.append(m["aux"].to(ce.device))
+                auxes.append(m["aux"].to(ces[0].device))
         if auxes:
             mean = sum(auxes) / len(auxes)
             aux = auxes[0].detach() + (mean - mean.detach())
+    # the loss over the devices that ran rows: an all-reduce of each term
+    ce = collectives.all_reduce(ces, members)
+    z = collectives.all_reduce(zs, members)
     loss = ce + Z_WEIGHT * z
     metrics = {"ce": ce}
     if aux is not None:
@@ -359,27 +388,32 @@ def mesh_apply(params, tokens, caches, cfg: ArchConfig, rt: Runtime, body,
     follow. Returns the logits (B, V) on the mesh's first device, side by
     side where the batch split, and the caches."""
     head_w = head_w or (lambda p: _head_w(p, cfg))
-    n, b = rt.mesh.shape["data"], tokens.shape[0]
-    per = b // n if rt.data_axes else b
-    outs = []
-    for d in range(n):
-        lo = d * per if per < b else 0
-        rows = slice(lo, lo + per)
-        rt_d = rt.replace(mesh=rt.mesh.row(d))
+    mesh, b = rt.mesh, tokens.shape[0]
+    n = 1
+    for a in rt.data_axes:
+        n *= mesh.shape[a]
+    per = b // n
+    outs = {}
+    for d in range(len(mesh.grid)):
+        g = _group(mesh, d, rt.data_axes)
+        rows = slice(g * per, (g + 1) * per)
+        rt_d = rt.replace(mesh=mesh.row(d))
         h, heads = body(params[d], tokens[rows], rows, rt_d, caches[d])
-        ps, devs = params[d][heads], rt_d.mesh.devices[heads]
-        h = norm_apply(cfg.norm, ps[0]["final_norm"], h.to(devs[0]))
-        outs.append(sharded_logits([head_w(p) for p in ps], h[:, 0], devs)
-                    .to(rt.mesh.devices[0]))
-    return (torch.cat(outs) if per < b else outs[0]), caches
+        ps = [whole({k: p[k] for k in ("final_norm", "embed", "head")
+                     if k in p}) for p in params[d][heads]]
+        sub = rt_d.mesh.part(heads)
+        h = norm_apply(cfg.norm, ps[0]["final_norm"], h.to(sub.devices[0]))
+        logits = sharded_logits([head_w(p) for p in ps], h[:, 0], sub)
+        outs.setdefault(g, logits.to(mesh.devices[0]))
+    return torch.cat([outs[g] for g in sorted(outs)]), caches
 
 
 def mesh_embed(ps: list, tokens, cfg: ArchConfig, rt: Runtime):
     """``tokens`` embedded over the shards' slices of the table, on the
     first shard's device."""
-    devs = rt.mesh.devices
-    return sharded_embedding_apply([p["embed"] for p in ps],
-                                   tokens.to(devs[0]), devs, cfg.vocab_size)
+    return sharded_embedding_apply([whole(p["embed"]) for p in ps],
+                                   tokens.to(rt.mesh.devices[0]), rt.mesh,
+                                   cfg.vocab_size)
 
 
 def _mesh_prefill(params, tokens, positions, caches, cfg: ArchConfig,
@@ -396,7 +430,7 @@ def _mesh_prefill(params, tokens, positions, caches, cfg: ArchConfig,
         devs = rt_d.mesh.devices
         s_loc = tok.shape[1] // len(devs)
         spans = [slice(m * s_loc, (m + 1) * s_loc) for m in range(len(devs))]
-        xs = [embedding_apply(p["embed"], tok[:, sp].to(dev))
+        xs = [embedding_apply(whole(p["embed"]), tok[:, sp].to(dev))
               for p, dev, sp in zip(ps, devs, spans)]
         pos = [positions[rows][..., sp].to(dev)
                for dev, sp in zip(devs, spans)]
@@ -455,7 +489,7 @@ def _paged_forward(params, tokens, ctx_len, block_table, n_valid,
         layers, final_norm = params[stack], params["final_norm"]
     else:
         x = sharded_embedding_apply([p["embed"] for p in params], tokens,
-                                    rt.mesh.devices, cfg.vocab_size)
+                                    rt.mesh, cfg.vocab_size)
         layers = [p[stack] for p in params]
         final_norm = params[0]["final_norm"]
     h, caches = stack_paged(layers, x, ctx_len, block_table, n_valid,
@@ -470,8 +504,7 @@ def _paged_head(params, cfg: ArchConfig, h, rt: Runtime) -> torch.Tensor:
     first shard's device)."""
     if rt.mesh is None:
         return _head(params, cfg, h)
-    return sharded_logits([_head_w(p, cfg) for p in params], h,
-                          rt.mesh.devices)
+    return sharded_logits([_head_w(p, cfg) for p in params], h, rt.mesh)
 
 
 def lm_paged_step(params, tokens, ctx_len, block_table, n_valid, state_idx,

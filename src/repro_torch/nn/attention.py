@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.core import spx
 from repro_torch.kernels import ops
 from repro_torch.runtime import Runtime, planner
@@ -40,7 +41,8 @@ __all__ = ["attn_init", "attn_apply_dense", "attention_core",
            "attn_paged_step", "attn_paged_step_sharded",
            "attn_apply_dense_sharded", "attn_apply_dense_cp",
            "attn_decode_step_sharded", "decode_attention_sharded",
-           "head_segments", "gather_kv", "pool_view", "table_view",
+           "head_segments", "own_cols", "gather_kv", "pool_view",
+           "table_view",
            "quantize_kv", "dequantize_kv", "kv_lut"]
 
 _NEG = -1e30
@@ -148,43 +150,63 @@ def attn_apply_dense(p: dict, x: torch.Tensor, positions, *, n_heads: int,
                      n_kv_heads: int, head_dim: int, causal: bool = True,
                      rope_theta: float = 10000.0, mrope_sections=None,
                      rt: Runtime, kv_out: bool = False, cross_kv=None,
-                     segments=None):
+                     segments=None, out_cols=None):
     """Full attention sublayer (projections, rope, core, output
     projection). Returns y, or (y, (k, v)) with k/v (B, S, Hkv, dh) roped
     when ``kv_out``. ``cross_kv``: (k, v) each (B, S_enc, Hkv, dh), the
     enc-dec decoder's cross-attention: q alone is projected and roped
     (M-RoPE leaves it unroped, as the reference does), K/V are taken as
     given and the attention is not causal. ``segments``: a tensor-parallel
-    shard's pieces (``head_segments``)."""
+    shard's pieces (``head_segments``); ``out_cols``: the (start, size) of
+    the attention output's columns its ``wo`` rows take (``own_cols``),
+    every column when None."""
     b, s, _ = x.shape
     if cross_kv is not None:
         q = dense_apply(p["wq"], x, rt).reshape(b, s, n_heads, head_dim)
         if mrope_sections is None:
             q = apply_rope(q, positions, theta=rope_theta)
         o = _cross_attention(q, cross_kv, rt, segments)
-        return dense_apply(p["wo"], o.transpose(1, 2).reshape(
-            b, s, n_heads * head_dim), rt)
+        return dense_apply(p["wo"], _take_cols(o.transpose(1, 2).reshape(
+            b, s, n_heads * head_dim), out_cols), rt)
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim, rt)
     if positions is not None:
         q, k = _apply_positional(q, k, positions, rope_theta, mrope_sections)
     o = attention_core(q.transpose(1, 2), k.transpose(1, 2),
                        v.transpose(1, 2), causal=causal, rt=rt,
                        segments=segments)
-    y = dense_apply(p["wo"], o.transpose(1, 2).reshape(b, s,
-                                                       n_heads * head_dim),
-                    rt)
+    y = dense_apply(p["wo"], _take_cols(
+        o.transpose(1, 2).reshape(b, s, n_heads * head_dim), out_cols), rt)
     if kv_out:
         return y, (k, v)
     return y
 
 
-def gather_kv(parts: list, n_kv_heads: int, dev0):
-    """All KV heads of a tensor-parallel projection on ``dev0``: the
-    shards' head cuts (..., Hkv_s, dh) side by side in shard order, or the
-    first shard's where every shard computed them whole."""
+def _take_cols(o, cols):
+    """``o``'s last-dim columns ``cols`` = (start, size), all when None."""
+    return o if cols is None else o[..., cols[0]:cols[0] + cols[1]]
+
+
+def own_cols(n_heads: int, n_kv_heads: int, shards: int, s: int,
+             head_dim: int):
+    """The (start, size) of shard ``s``'s attention output (its query
+    heads' ``nq * head_dim`` columns) that its ``wo`` rows take: None (all
+    of them) unless the shard shares its head with others
+    (``planner.HeadGroup.out_rows``)."""
+    grp = planner.shard_heads(n_heads, n_kv_heads, shards)[s]
+    if grp.parts == 1:
+        return None
+    lo, size = grp.out_rows(head_dim)
+    return lo - grp.q0 * head_dim, size
+
+
+def gather_kv(parts: list, n_kv_heads: int, mesh):
+    """All KV heads of a tensor-parallel projection on the first shard's
+    device of ``mesh``: the shards' head cuts (..., Hkv_s, dh) side by
+    side in shard order (an all-gather over its shards), or the first
+    shard's where every shard computed them whole."""
     if parts[0].shape[-2] == n_kv_heads:
         return parts[0]
-    return torch.cat([t.to(dev0) for t in parts], dim=-2)
+    return collectives.all_gather(parts, -2, mesh.devices[0], mesh.ids)
 
 
 def attn_apply_dense_sharded(ps: list, x: torch.Tensor, positions, *,
@@ -201,7 +223,7 @@ def attn_apply_dense_sharded(ps: list, x: torch.Tensor, positions, *,
     the KV heads its ``wk`` holds. ``kv_out``: also every KV head's roped
     (k, v), each (B, S, Hkv, dh), on the first shard's device
     (``gather_kv``)."""
-    n, dev0 = len(ps), rt.mesh.devices[0]
+    n = len(ps)
     parts, ks, vs = [], [], []
     for s, (p, dev) in enumerate(zip(ps, rt.mesh.devices)):
         out = attn_apply_dense(
@@ -210,16 +232,17 @@ def attn_apply_dense_sharded(ps: list, x: torch.Tensor, positions, *,
             n_kv_heads=p["wk"]["w"].shape[-1] // head_dim,
             head_dim=head_dim, rt=rt, kv_out=kv_out,
             cross_kv=None if cross_kv is None else cross_kv[s],
-            segments=head_segments(n_heads, n_kv_heads, n, s), **kw)
+            segments=head_segments(n_heads, n_kv_heads, n, s),
+            out_cols=own_cols(n_heads, n_kv_heads, n, s, head_dim), **kw)
         if kv_out:
             out, (k, v) = out
             ks.append(k)
             vs.append(v)
         parts.append(out)
-    y = shard_sum(parts)
+    y = shard_sum(parts, rt.mesh)
     if kv_out:
-        return y, (gather_kv(ks, n_kv_heads, dev0),
-                   gather_kv(vs, n_kv_heads, dev0))
+        return y, (gather_kv(ks, n_kv_heads, rt.mesh),
+                   gather_kv(vs, n_kv_heads, rt.mesh))
     return y
 
 
@@ -243,10 +266,13 @@ def attn_apply_dense_cp(ps: list, xs: list, positions: list, *,
         qs.append(q)
         ks.append(k)
         vs.append(v)
-    ys = []
+    ys, ids = [], rt.mesh.ids
     for m, (p, q, dev) in enumerate(zip(ps, qs, rt.mesh.devices)):
-        k = torch.cat([t.to(dev) for t in ks], dim=1).transpose(1, 2)
-        v = torch.cat([t.to(dev) for t in vs], dim=1).transpose(1, 2)
+        # every shard gathers the K/V rows of all of them: one all-gather
+        # of each, counted on every shard once (at shard 0's)
+        members = ids if m == 0 else ()
+        k = collectives.all_gather(ks, 1, dev, members).transpose(1, 2)
+        v = collectives.all_gather(vs, 1, dev, members).transpose(1, 2)
         b, s_loc = q.shape[:2]
         o = attention_core(q.transpose(1, 2), k, v, causal=causal, rt=rt,
                            q_offset=m * s_loc)
@@ -376,11 +402,13 @@ def _local_flash_decode(q, k_cache, v_cache, k_new, v_new, pos, *,
     return out.to(q.dtype), k_cache, v_cache
 
 
-def merge_decode_stats(parts: list, dev0) -> torch.Tensor:
-    """The sequence shards' partials ``(m, l, o)`` merged on ``dev0`` in
-    shard order: the reference's ``pmax``/``psum`` merge (``m_g`` the
-    largest ``m``, each part rescaled by ``exp(m - m_g)``, ``o / max(l,
-    1e-30)``), its sums added in a fixed order."""
+def merge_decode_stats(parts: list, mesh) -> torch.Tensor:
+    """The sequence shards' partials ``(m, l, o)`` merged in shard order
+    on the first shard's device of ``mesh``: the reference's
+    ``pmax``/``psum`` merge (``m_g`` the largest ``m``, each part rescaled
+    by ``exp(m - m_g)``, ``o / max(l, 1e-30)``), its sums added in a fixed
+    order; counted as its three all-reduces over the shards."""
+    dev0 = mesh.devices[0]
     parts = [tuple(t.to(dev0) for t in part) for part in parts]
     m_g = parts[0][0]
     for m, _, _ in parts[1:]:
@@ -390,18 +418,21 @@ def merge_decode_stats(parts: list, dev0) -> torch.Tensor:
         corr = torch.exp(m - m_g)
         l_g = l * corr if l_g is None else l_g + l * corr
         o_g = o * corr if o_g is None else o_g + o * corr
+    for t in (m_g, l_g, o_g):
+        collectives.note("all-reduce", mesh.ids, collectives.nbytes(t))
     return o_g / torch.clamp(l_g, min=1e-30)
 
 
 def decode_attention_sharded(q, k_caches: list, v_caches: list, k_new,
-                             v_new, pos, *, rt: Runtime, devices):
+                             v_new, pos, *, rt: Runtime):
     """``decode_attention`` over a cache cut on its sequence: block ``m``
     (B, Hkv, S/n, dh) of ``k_caches``/``v_caches`` holds positions [m S/n,
-    (m + 1) S/n) on ``devices[m]``. The new token is written only into
-    the block that holds ``pos``; each block computes its partials for
-    every query head (``_decode_stats``), merged in shard order
-    (``merge_decode_stats``). q, k_new, v_new, pos on ``devices[0]``.
-    Returns out (B, Hq, dh) there."""
+    (m + 1) S/n) on shard m of ``rt.mesh``. The new token is written only
+    into the block that holds ``pos``; each block computes its partials
+    for every query head (``_decode_stats``), merged in shard order
+    (``merge_decode_stats``). q, k_new, v_new, pos on the first shard's
+    device. Returns out (B, Hq, dh) there."""
+    devices = rt.mesh.devices
     first = k_caches[0]["codes"] if isinstance(k_caches[0], dict) \
         else k_caches[0]
     s_loc = first.shape[2]
@@ -411,7 +442,7 @@ def decode_attention_sharded(q, k_caches: list, v_caches: list, k_new,
         _write_token(kc, vc, k_new.to(dev), v_new.to(dev), pd, m * s_loc,
                      rt.kv_scheme)
         parts.append(_decode_stats(qd, kc, vc, pd, m * s_loc, rt.kv_scheme))
-    return merge_decode_stats(parts, devices[0]).to(q.dtype)
+    return merge_decode_stats(parts, rt.mesh).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, k_new, v_new, pos, *, rt: Runtime):
@@ -471,7 +502,7 @@ def attn_decode_step_sharded(ps: list, x: torch.Tensor, pos, k_blocks: list,
     token and the first one attends); each shard's ``wo`` rows take its
     heads' output, summed in shard order. x: (B, 1, D) on the first
     shard's device; pos: scalar or (B,). Returns y (B, 1, D) there."""
-    n, devs = len(ps), rt.mesh.devices
+    n, devs, ids = len(ps), rt.mesh.devices, rt.mesh.ids
     groups = planner.shard_heads(n_heads, n_kv_heads, n)
     b = x.shape[0]
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device),
@@ -484,15 +515,16 @@ def attn_decode_step_sharded(ps: list, x: torch.Tensor, pos, k_blocks: list,
         q, k = _apply_positional(
             q, k, _text_positions(pos_b.to(dev)[:, None], mrope_sections),
             rope_theta, mrope_sections)
-        qs.append(q[:, 0].to(devs[0]))
+        if g.part == 0:     # a shared head's queries from its first shard
+            qs.append(q[:, 0])
         ks.append(k[:, 0])
         vs.append(v[:, 0])
-    q = torch.cat(qs, dim=1)
-    k = gather_kv(ks, n_kv_heads, devs[0])
-    v = gather_kv(vs, n_kv_heads, devs[0])
+    q = collectives.all_gather(qs, 1, devs[0], ids)
+    k = gather_kv(ks, n_kv_heads, rt.mesh)
+    v = gather_kv(vs, n_kv_heads, rt.mesh)
     if rt.decode_seq_axis is not None:
         out = decode_attention_sharded(q, k_blocks, v_blocks, k, v, pos_b,
-                                       rt=rt, devices=devs)
+                                       rt=rt)
     else:
         for kb, vb, dev in zip(k_blocks, v_blocks, devs):
             _write_token(kb, vb, k.to(dev), v.to(dev), pos_b.to(dev), 0,
@@ -501,9 +533,10 @@ def attn_decode_step_sharded(ps: list, x: torch.Tensor, pos, k_blocks: list,
                                 rt.kv_scheme)
         out = (o / torch.clamp(l, min=1e-30)).to(q.dtype)
     return shard_sum([
-        dense_apply(p["wo"], out[:, g.q0:g.q0 + g.nq].to(dev).reshape(
-            b, 1, g.nq * head_dim), rt)
-        for g, p, dev in zip(groups, ps, devs)])
+        dense_apply(p["wo"], _take_cols(
+            out[:, g.q0:g.q0 + g.nq].to(dev).reshape(b, 1, g.nq * head_dim),
+            own_cols(n_heads, n_kv_heads, n, s, head_dim)), rt)
+        for s, (g, p, dev) in enumerate(zip(groups, ps, devs))], rt.mesh)
 
 
 # -- paged KV cache: chunked prefill and the fused decode tick ----------------
@@ -727,5 +760,6 @@ def attn_paged_step_sharded(ps: list, x: torch.Tensor, ctx_len: list,
                           ctx, nv, positions, rt=rt, fused=fused)
             for qa, qn, ka, g in head_segments(n_heads, n_kv_heads, n, s)],
             dim=-1)
-        parts.append(dense_apply(p["wo"], o, rt))
-    return shard_sum(parts), caches
+        parts.append(dense_apply(p["wo"], _take_cols(o, own_cols(
+            n_heads, n_kv_heads, n, s, head_dim)), rt))
+    return shard_sum(parts, rt.mesh), caches

@@ -11,6 +11,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.core.quantized import QuantizedTensor, quantize_weight
 from repro_torch.kernels import ops
 from repro_torch.runtime import Runtime
@@ -57,19 +58,17 @@ def embedding_apply(p: dict, ids: torch.Tensor) -> torch.Tensor:
 
 # -- tensor parallelism: the ordered reduction, the lookup and the head ------
 
-def shard_sum(parts: list) -> torch.Tensor:
+def shard_sum(parts: list, mesh) -> torch.Tensor:
     """The shards' partial products (of a row-parallel ``wo`` or ``down``,
-    of the experts of an expert-parallel MoE, of the vocab-parallel lookup
-    or of a d-cut head) summed in fixed shard order on the first shard's
-    device: the same sum on every run, whatever the devices. The caller
+    of the vocab-parallel lookup or of a d-cut head) summed in fixed shard
+    order on the first shard's device: the same sum on every run,
+    whatever the devices (an all-reduce over the shards of ``mesh``, a
+    ``launch.mesh.ServingMesh``, counted by ``collectives``). The caller
     hands the result on to each shard."""
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part.to(total.device)
-    return total
+    return collectives.all_reduce(parts, mesh.ids)
 
 
-def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices,
+def sharded_embedding_apply(ps: list, ids: torch.Tensor, mesh,
                             vocab: int) -> torch.Tensor:
     """The lookup over the shards' slices of a (``vocab``, D) table, each
     id's row exact. Vocab-parallel (the rows split): shard s holds rows
@@ -77,13 +76,15 @@ def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices,
     elsewhere), the rows summed in shard order on the first shard's
     device. d-cut (a vocabulary that does not split: every shard holds
     all rows, its slice of the columns): each shard gathers its columns,
-    put side by side in shard order there."""
-    dev0 = devices[0]
+    put side by side in shard order there (an all-gather). ``ps[s]`` is
+    on shard s of ``mesh``."""
+    dev0 = mesh.devices[0]
     if ps[0]["table"].shape[0] == vocab:
-        return torch.cat([embedding_apply(p, ids.to(dev)).to(dev0)
-                          for p, dev in zip(ps, devices)], dim=-1)
+        parts = [embedding_apply(p, ids.to(dev)).to(dev0)
+                 for p, dev in zip(ps, mesh.devices)]
+        return collectives.all_gather(parts, -1, dev0, mesh.ids)
     parts, lo = [], 0
-    for p, dev in zip(ps, devices):
+    for p, dev in zip(ps, mesh.devices):
         table = p["table"]
         v = table.shape[0]
         local = ids.to(dev).long() - lo
@@ -93,28 +94,30 @@ def sharded_embedding_apply(ps: list, ids: torch.Tensor, devices,
                                  torch.zeros((), dtype=rows.dtype,
                                              device=dev)))
         lo += v
-    return shard_sum(parts)
+    return shard_sum(parts, mesh)
 
 
-def sharded_logits(ws: list, h: torch.Tensor, devices) -> torch.Tensor:
+def sharded_logits(ws: list, h: torch.Tensor, mesh) -> torch.Tensor:
     """Vocabulary logits of h (..., D) over the shards' slices ``ws`` of
     the (D, V) head (the tied table's transpose or the untied head), plain
     products outside any kernel. Column slices (the vocabulary splits):
     each shard's logits over its vocabulary, joined in shard order on the
     first shard's device. Row slices (it does not: the head is cut on d):
     each shard multiplies its columns of h, and the partial logits are
-    summed in shard order (``shard_sum``)."""
-    dev0 = devices[0]
+    summed in shard order (``shard_sum``). ``ws[s]`` is on shard s of
+    ``mesh``."""
+    dev0 = mesh.devices[0]
     if ws[0].shape[0] == h.shape[-1]:
-        return torch.cat([torch.matmul(h.to(dev), w.to(h.dtype)).to(dev0)
-                          for w, dev in zip(ws, devices)], dim=-1)
+        parts = [torch.matmul(h.to(dev), w.to(h.dtype)).to(dev0)
+                 for w, dev in zip(ws, mesh.devices)]
+        return collectives.all_gather(parts, -1, dev0, mesh.ids)
     parts, lo = [], 0
-    for w, dev in zip(ws, devices):
+    for w, dev in zip(ws, mesh.devices):
         rows = w.shape[0]
         parts.append(torch.matmul(h[..., lo:lo + rows].to(dev),
                                   w.to(h.dtype)))
         lo += rows
-    return shard_sum(parts)
+    return shard_sum(parts, mesh)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> dict:

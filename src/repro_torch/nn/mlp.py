@@ -61,4 +61,5 @@ def mlp_apply_sharded(ps: list, x: torch.Tensor, *, variant: str = "swiglu",
     rows of ``down``, so its output is a partial sum; the partials are
     summed in shard order on the first shard's device (``shard_sum``)."""
     return shard_sum([mlp_apply(p, x.to(dev), variant=variant, act=act,
-                                rt=rt) for p, dev in zip(ps, rt.mesh.devices)])
+                                rt=rt) for p, dev in zip(ps, rt.mesh.devices)],
+                     rt.mesh)

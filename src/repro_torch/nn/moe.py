@@ -29,10 +29,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.core.quantized import QuantizedTensor, dequantize
 from repro_torch.runtime import Runtime
 
-from .layers import dense_init, shard_sum
+from .layers import dense_init
 from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_sharded", "expert_capacity"]
@@ -140,7 +141,8 @@ def _moe_local(x, router_w, gate_w, up_w, down_w, *, top_k: int,
     per = max(1, EXPERT_BLOCK_ELEMS // (d * gate_w.shape[-1]))
     y_e = torch.cat([_experts(xg[lo:lo + per], gate_w[lo:lo + per],
                               up_w[lo:lo + per], down_w[lo:lo + per])
-                     for lo in range(0, e_loc, per)])        # (E_loc, C, D)
+                     for lo in range(0, e_loc, per)]
+                    or [xg])                                 # (E_loc, C, D)
 
     # combine in the activation dtype: each token's kept assignments added
     # into zeros in ascending expert order, the order of the reference's
@@ -170,8 +172,10 @@ def moe_apply_sharded(ps: list, x: torch.Tensor, *, top_k: int,
     s holds experts [s * E / n, (s + 1) * E / n) and the replicated
     router (``sharding.shard_params``), routes every token of x as one
     device does and runs its own experts; the partial outputs, in the
-    activation dtype, are summed in shard order (``shard_sum``, where the
-    reference ``psum``s). A shared expert is a tensor-parallel MLP. x:
+    activation dtype, are summed in shard order (where the reference
+    ``psum``s; the dispatch and this combine are counted as
+    ``all-to-all``, ``collectives``). A shared expert is a tensor-parallel
+    MLP. x:
     (B, S, D) on the first shard's device. Returns (y, aux_loss) there;
     every shard routes the same tokens through the same router, so each
     computes the same aux loss and shard 0's is the group's (the
@@ -180,6 +184,8 @@ def moe_apply_sharded(ps: list, x: torch.Tensor, *, top_k: int,
     ``models.lm.mesh_loss``)."""
     b, s, d = x.shape
     parts, aux, e0 = [], None, 0
+    # the dispatch: every token to every expert shard
+    collectives.note("all-to-all", rt.mesh.ids, collectives.nbytes(x))
     for p, dev in zip(ps, rt.mesh.devices):
         y, a = _moe_local(x.to(dev).reshape(b * s, d), p["router"]["w"],
                           p["gate"], p["up"], p["down"], top_k=top_k,
@@ -188,7 +194,8 @@ def moe_apply_sharded(ps: list, x: torch.Tensor, *, top_k: int,
         parts.append(y)
         aux = a if aux is None else aux
         e0 += p["gate"].shape[0]
-    y = shard_sum(parts).reshape(b, s, d)
+    y = collectives.all_reduce(parts, rt.mesh.ids,
+                               "all-to-all").reshape(b, s, d)
     if "shared" in ps[0]:
         y = y + mlp_apply_sharded([p["shared"] for p in ps], x,
                                   variant="swiglu", rt=rt)

@@ -47,7 +47,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, *,
     # the position stream of each frequency: (B, dh/2, S)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))
+        torch.tensor(sections, device=x.device), output_size=dh // 2)
     pos = positions.to(torch.float32)[:, sec_id, :]
     ang = pos.transpose(1, 2) * inv[None, None, :]          # (B, S, dh/2)
     cos = torch.cos(ang)[:, :, None, :]

@@ -35,6 +35,7 @@ import functools
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import collectives
 from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime, planner
 from repro_torch.sharding import state_cut_dim
@@ -44,7 +45,7 @@ from .attention import (attention_core, attn_apply_dense,
                         attn_apply_dense_cp, attn_apply_dense_sharded,
                         attn_decode_step, attn_decode_step_sharded,
                         attn_init, attn_paged_step, attn_paged_step_sharded,
-                        gather_kv, head_segments, quantize_kv)
+                        gather_kv, head_segments, own_cols, quantize_kv)
 from .layers import dense_apply, norm_apply, norm_init, shard_sum, tree_index
 from .mlp import mlp_apply, mlp_apply_sharded, mlp_init
 from .moe import moe_apply, moe_apply_sharded, moe_init
@@ -143,14 +144,16 @@ def _cross_kv(p_attn: dict, enc_out: torch.Tensor, n_kv_heads: int,
 
 
 def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
-                 cfg: ArchConfig, rt: Runtime, n_heads: int, segments=None):
+                 cfg: ArchConfig, rt: Runtime, n_heads: int, segments=None,
+                 out_cols=None):
     """Cross-attention of a paged chunk against the shared cross region:
     row b reads entry ``state_idx[b, 1]`` (clamped where it is the
     sentinel: such a row's output is never read), q is roped at the
     row's absolute positions ``ctx_len + i``, K/V are unroped and the
     attention spans every encoder frame. Entries are only read here.
     ``n_heads``: the query heads ``p_x`` projects (one shard's under
-    ``rt.mesh``, attending its ``segments``)."""
+    ``rt.mesh``, attending its ``segments``, its ``wo`` rows taking the
+    output's ``out_cols``)."""
     b, c, _ = hx.shape
     n_cross = cache["xk"].shape[0]
     idx = torch.clamp(state_idx[:, 1].long(), 0, max(n_cross - 1, 0))
@@ -161,8 +164,10 @@ def _paged_cross(p_x: dict, hx, cache: dict, ctx_len, state_idx,
     o = attention_core(q.transpose(1, 2), cache["xk"][idx].to(q.dtype),
                        cache["xv"][idx].to(q.dtype), causal=False, rt=rt,
                        segments=segments)
-    return dense_apply(p_x["wo"], o.transpose(1, 2).reshape(
-        b, c, n_heads * cfg.dh), rt)
+    o = o.transpose(1, 2).reshape(b, c, n_heads * cfg.dh)
+    if out_cols is not None:
+        o = o[..., out_cols[0]:out_cols[0] + out_cols[1]]
+    return dense_apply(p_x["wo"], o, rt)
 
 
 def _paged_cross_sharded(ps: list, hx, caches: list, ctx_len: list,
@@ -176,9 +181,10 @@ def _paged_cross_sharded(ps: list, hx, caches: list, ctx_len: list,
     groups = planner.shard_heads(cfg.n_heads, cfg.n_kv_heads, n)
     return shard_sum([
         _paged_cross(p, hx.to(dev), c, cl, si, cfg, rt, groups[s].nq,
-                     head_segments(cfg.n_heads, cfg.n_kv_heads, n, s))
+                     head_segments(cfg.n_heads, cfg.n_kv_heads, n, s),
+                     own_cols(cfg.n_heads, cfg.n_kv_heads, n, s, cfg.dh))
         for s, (p, c, cl, si, dev) in enumerate(zip(
-            ps, caches, ctx_len, state_idx, rt.mesh.devices))])
+            ps, caches, ctx_len, state_idx, rt.mesh.devices))], rt.mesh)
 
 
 def _cross_sublayer(p: dict, x, positions, cfg: ArchConfig, rt: Runtime, *,
@@ -301,7 +307,7 @@ def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
         return _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=None,
                           paged_ctx=None)
     if mode in ("prefill", "decode"):
-        state = _join_state(cache, mixer, cfg, len(ps))
+        state = _join_state(cache, mixer, cfg, rt.mesh)
         y, _ = _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=state,
                           paged_ctx=None)
         _split_state(cache, state, mixer, cfg, len(ps))
@@ -323,15 +329,17 @@ def _state_dims(mixer: str, cfg: ArchConfig, b: int, m: int) -> dict:
         (k, state_cut_dim(tuple(v.shape), m)) for k, v in leaves.items())}
 
 
-def _join_state(blocks: list, mixer: str, cfg: ArchConfig, m: int) -> dict:
+def _join_state(blocks: list, mixer: str, cfg: ArchConfig, mesh) -> dict:
     """A recurrent state whole on the first block's device, from each
-    shard's block of it."""
+    shard's block of it (an all-gather over the shards of ``mesh`` where
+    it is cut)."""
     dev0 = next(iter(blocks[0].values())).device
     b = next(iter(blocks[0].values())).shape[0]
     out = {}
-    for k, d in _state_dims(mixer, cfg, b, m).items():
+    for k, d in _state_dims(mixer, cfg, b, mesh.size).items():
         out[k] = (blocks[0][k].clone() if d is None else
-                  torch.cat([c[k].to(dev0) for c in blocks], dim=d))
+                  collectives.all_gather([c[k] for c in blocks], d, dev0,
+                                         mesh.ids))
     return out
 
 
@@ -360,13 +368,6 @@ def _write_blocks(blocks: list, val, rt: Runtime, seq_sharded: bool) -> None:
         part = val[:, :, lo:min(s, lo + leaf.shape[2])]
         if part.shape[2]:
             _write_prefix(blk, part.to(leaf.device), rt)
-
-
-def _join_blocks(blocks: list, dev, seq_sharded: bool):
-    """A dense cache (B, Hkv, S, dh) whole on ``dev`` from its blocks."""
-    if not seq_sharded:
-        return blocks[0].to(dev)
-    return torch.cat([t.to(dev) for t in blocks], dim=2)
 
 
 def _attn_mesh(ps: list, h, positions, pos, caches: list, cfg: ArchConfig,
@@ -411,7 +412,7 @@ def _cross_mesh(ps: list, hx, positions, cfg: ArchConfig, rt: Runtime, *,
             seq = caches[0]["xk"].shape[2] < cfg.enc_seq_len
             for key, i in (("xk", 0), ("xv", 1)):
                 whole = gather_kv([kv[i] for kv in kvs], cfg.n_kv_heads,
-                                  devs[0])
+                                  rt.mesh)
                 _write_blocks([c[key] for c in caches],
                               whole.transpose(1, 2), rt, seq)
         return attn_apply_dense_sharded(ps, hx, positions, causal=False,
@@ -425,7 +426,12 @@ def _cross_mesh(ps: list, hx, positions, cfg: ArchConfig, rt: Runtime, *,
     for s, dev in enumerate(devs):
         kv = []
         for key in ("xk", "xv"):
-            t = _join_blocks([c[key] for c in caches], dev, seq)
+            # each shard joins the blocks where they are cut on the
+            # encoder's sequence (an all-gather): counted on every shard
+            # once, at shard 0's
+            t = (collectives.all_gather([c[key] for c in caches], 2, dev,
+                                        rt.mesh.ids if s == 0 else ())
+                 if seq else caches[0][key].to(dev))
             if split:
                 g = t.shape[1] // n
                 t = t[:, s * g:(s + 1) * g]
@@ -471,12 +477,15 @@ def stack_prefill_cp(params: list, xs: list, positions: list,
                 head_dim=cfg.dh, rope_theta=cfg.rope_theta,
                 mrope_sections=cfg.mrope_sections, rt=rt)
             for key, i in (("k", 0), ("v", 1)):
+                # no collective: each cache block (cut as the rows are)
+                # takes back its own shard's rows, or, whole, the rows
+                # every shard already gathered
                 whole = torch.cat([kv[i].to(devs[0]) for kv in kvs], dim=1)
                 _write_blocks([c[key] for c in blocks],
                               whole.transpose(1, 2), rt, seq)
         else:
-            state = _join_state(blocks, mixer, cfg, len(devs))
-            y, _ = _recurrent(sps[0][mixer], _join_rows(hs, devs[0]), cfg,
+            state = _join_state(blocks, mixer, cfg, rt.mesh)
+            y, _ = _recurrent(sps[0][mixer], _join_rows(hs, rt.mesh), cfg,
                               rt, mixer, mode="prefill", cache=state,
                               paged_ctx=None)
             _split_state(blocks, state, mixer, cfg, len(devs))
@@ -489,7 +498,7 @@ def stack_prefill_cp(params: list, xs: list, positions: list,
             ys = [mlp_apply(sp["mlp"], h, variant=cfg.mlp_variant,
                             act=cfg.act, rt=rt) for sp, h in zip(sps, hs)]
         else:
-            y, _ = moe_apply(sps[0]["moe"], _join_rows(hs, devs[0]),
+            y, _ = moe_apply(sps[0]["moe"], _join_rows(hs, rt.mesh),
                              top_k=cfg.top_k, n_experts=cfg.n_experts,
                              capacity_factor=cfg.capacity_factor, rt=rt)
             ys = _split_rows(y, xs)
@@ -497,8 +506,10 @@ def stack_prefill_cp(params: list, xs: list, positions: list,
     return xs
 
 
-def _join_rows(parts: list, dev):
-    return torch.cat([t.to(dev) for t in parts], dim=1)
+def _join_rows(parts: list, mesh):
+    """The shards' rows (B, S_m, D) joined on the first shard's device of
+    ``mesh``: an all-gather over its shards."""
+    return collectives.all_gather(parts, 1, mesh.devices[0], mesh.ids)
 
 
 def _split_rows(y, like: list) -> list:
@@ -723,8 +734,9 @@ def stack_apply_rows(stacks: list, xs: list, positions: list,
             outs = [_ffn_apply(ffn, sp, x, cfg, rt) for sp, x in zip(sps, xs)]
             return [o[0] for o in outs], outs[0][1]
         dev0 = xs[0].device
-        h = torch.cat([norm_apply(cfg.norm, sp["norm2"], x).to(dev0)
-                       for sp, x in zip(sps, xs)])
+        h = collectives.all_gather(
+            [norm_apply(cfg.norm, sp["norm2"], x) for sp, x in zip(sps, xs)],
+            0, dev0, range(len(xs)))
         y, aux = moe_apply(sps[0]["moe"], h, top_k=cfg.top_k,
                            n_experts=cfg.n_experts,
                            capacity_factor=cfg.capacity_factor, rt=rt)

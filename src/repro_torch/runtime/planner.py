@@ -171,11 +171,25 @@ def split_ranges(n: int, parts: int, granule: int = 1) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class HeadGroup:
     """One shard's heads: query heads ``[q0, q0 + nq)`` (``split_ranges``
-    over the shards) and the KV heads ``[kv0, kv0 + nkv)`` they read."""
+    over the shards) and the KV heads ``[kv0, kv0 + nkv)`` they read.
+    Where the shards outnumber the query heads a head is shared by
+    ``parts`` shards: each computes it whole and this one, ``part``,
+    takes its slice of the head's output (``out_rows``)."""
     q0: int
     nq: int
     kv0: int
     nkv: int
+    part: int = 0
+    parts: int = 1
+
+    def out_rows(self, dh: int) -> tuple:
+        """(start, size) of the attention output's columns, and of the
+        ``wo`` rows, this shard takes: its heads', or its slice
+        (``split_ranges`` of ``dh``) of its shared head's."""
+        if self.parts == 1:
+            return self.q0 * dh, self.nq * dh
+        lo, size = split_ranges(dh, self.parts)[self.part]
+        return self.q0 * dh + lo, size
 
 
 @functools.lru_cache(maxsize=256)
@@ -183,13 +197,16 @@ def shard_heads(n_heads: int, n_kv_heads: int, shards: int) -> tuple:
     """The ``HeadGroup`` of every shard: ``n_heads`` query heads split as
     evenly as they go (12 over 8: 2, 2, 2, 2, 1, 1, 1, 1), each shard
     reading the KV heads of its queries (query head ``h`` reads KV head
-    ``h // (n_heads // n_kv_heads)``). Raises where a shard would hold no
-    query head."""
-    if n_heads < shards:
-        raise ValueError(f"{n_heads} query heads cannot cover {shards} "
-                         "shards")
+    ``h // (n_heads // n_kv_heads)``). Where the shards outnumber the
+    heads, the shards split over the heads instead (16 over 12: 2, 2, 2,
+    2, 1, ..., 1 shards to a head), each shard of a head one ``part``."""
     rep = n_heads // n_kv_heads
     out = []
+    if n_heads < shards:
+        for h, (_, ns) in enumerate(split_ranges(shards, n_heads)):
+            out.extend(HeadGroup(h, 1, h // rep, 1, part, ns)
+                       for part in range(ns))
+        return tuple(out)
     for q0, nq in split_ranges(n_heads, shards):
         kv0 = q0 // rep
         out.append(HeadGroup(q0, nq, kv0, (q0 + nq - 1) // rep + 1 - kv0))

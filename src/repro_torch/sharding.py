@@ -31,8 +31,14 @@ unsharded codes and scales of its slice.
 
 The serve steps (``launch.steps``) add the reference's ``replicated``
 parallelism (every leaf whole: the context-parallel prefill's weights),
-``cache_spec`` (the dense caches' sequence over ``model``, the batch over
-``data``) and ``shard_dense_caches`` / ``gather_dense_caches``.
+``stored_layouts`` (the weights stored as ``make_policy`` cuts the
+reference's quantized params: above ``FSDP_ABOVE`` params each codes and
+scale leaf also cut over data), ``cache_spec`` (the dense caches'
+sequence over ``model``, the batch over the data axes) and
+``shard_dense_caches`` / ``gather_dense_caches``. On a mesh with a
+``pod`` axis the rows are pod-major (``axis_coords``); the data axes are
+``("pod", "data")`` and FSDP spans the pods only for a model above
+``POD_FSDP_ABOVE`` params, as the reference's.
 
 The train step (``launch.steps.build_train_step``) adds the reference's
 training storage: ``fsdp`` (ZeRO-3: every weight cut over ``("data",
@@ -54,6 +60,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import collectives
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.quantized import QuantizedTensor
 from repro_torch.nn.layers import tree_at, tree_map
@@ -63,8 +70,9 @@ from repro_torch.runtime.planner import (kv_heads_split, shard_heads,
 __all__ = ["ShardingPolicy", "Layout", "make_policy", "kv_seq_axis",
            "shard_params", "shard_paged_state", "shard_dense_caches",
            "gather_dense_caches", "place_blocks", "gather_blocks",
-           "gathered_view", "reduce_copies", "GatheredLeaf", "whole",
-           "state_cut_dim", "SHARDED_REST"]
+           "gathered_view", "reduce_copies", "GatheredLeaf",
+           "GatheredQuantized", "whole", "state_cut_dim", "spec_layout",
+           "axis_coords", "SHARDED_REST", "FSDP_ABOVE", "POD_FSDP_ABOVE"]
 
 #: the ROADMAP.md queue a cut the port cannot make names (Queue 1: what
 #: is left of the reference's multi-device modules)
@@ -129,22 +137,33 @@ class ShardingPolicy:
         axes = dict(mesh.shape)
         self.axes = axes
         self.mesh_model = axes["model"]
-        self.n_data = axes.get("data", 1)
         # replicated (the context-parallel prefill's weights) and fsdp:
         # no weight is cut over the model axis
         self.n_model = self.mesh_model if parallelism == "tp" else 1
         self.kv_sharded = kv_heads_split(cfg.n_kv_heads, self.n_model)
         # the reference's axes (``repro.sharding.ShardingPolicy``): under
-        # fsdp the batch and the weights over every axis; under tp with
-        # fsdp the weights' second cut over data only
+        # fsdp the batch over every axis and the weights over (data,
+        # model), so each pod holds a copy; under tp the batch over (pod,
+        # data) and the weights' second cut over data, or over (pod, data)
+        # for a model above POD_FSDP_ABOVE params
         self.fsdp = (fsdp or parallelism == "fsdp") \
             and parallelism != "replicated"
+        present = tuple(a for a in ("pod", "data") if a in axes)
         if parallelism == "fsdp":
-            self.data_axes = ("data", "model")
+            self.data_axes = present + ("model",)
             self.fsdp_axes = ("data", "model")
+        elif parallelism == "replicated":
+            self.data_axes, self.fsdp_axes = present, ()
         else:
-            self.data_axes = ("data",)
-            self.fsdp_axes = ("data",) if self.fsdp else ()
+            # the axes FSDP would take (the reference names them also
+            # where ``fsdp`` is off; no leaf is then cut over them)
+            self.data_axes = present
+            giant = cfg.param_count_estimate() > POD_FSDP_ABOVE
+            self.fsdp_axes = (present if "pod" in axes and giant
+                              else ("data",))
+        self.n_data = 1
+        for a in self.data_axes:
+            self.n_data *= axes[a]
         self.n_fsdp = 1
         for a in self.fsdp_axes:
             self.n_fsdp *= axes[a]
@@ -170,7 +189,10 @@ class ShardingPolicy:
         held to what this forward can cut, uneven where a count does not
         divide (``planner.split_ranges``): query heads split into head
         groups (``planner.shard_heads``: 12 over 8 as 2, 2, 2, 2, 1, 1, 1,
-        1), the q columns, the ``wo`` rows and the q bias with them; K/V
+        1), the q columns, the ``wo`` rows and the q bias with them; where
+        the shards outnumber the query heads, each head is shared by a
+        group of shards, each holding the head's q columns whole and its
+        own slice of the head's ``wo`` rows (``HeadGroup.out_rows``); K/V
         heads split when they divide (``kv_sharded``) and are computed
         whole on every shard otherwise, as their pools replicate (each
         shard then reads the KV heads its queries need); the vocabulary
@@ -219,11 +241,10 @@ class ShardingPolicy:
                     return None
                 return nd - 1, tuple((g.kv0 * dh, g.nkv * dh)
                                      for g in groups)
-            heads = tuple((g.q0 * dh, g.nq * dh) for g in groups)
             if proj == "wq":
-                return nd - 1, heads
+                return nd - 1, tuple((g.q0 * dh, g.nq * dh) for g in groups)
             need(keys[-1] == "w", f"a bias on the row-parallel {proj}")
-            return nd - 2, heads
+            return nd - 2, tuple(g.out_rows(dh) for g in groups)
         ffn = "mlp" if "mlp" in names else "shared"
         if ffn in names:
             proj = keys[keys.index(ffn) + 1]
@@ -308,7 +329,8 @@ class ShardingPolicy:
                 spec[max(cands)[1]] = self._fsdp_entry()
         return spec
 
-    def param_layout(self, keys: list[str], shape: tuple) -> "Layout":
+    def param_layout(self, keys: list[str], shape: tuple,
+                     cut=False) -> "Layout":
         """Where the train step stores one param leaf. ``fsdp``: the
         reference's spec exactly. ``tp``: the model axis on
         ``serving_cut``'s dim and ranges (the forward's cut, with its
@@ -317,7 +339,10 @@ class ShardingPolicy:
         heads, uneven cuts where a count does not divide), the FSDP axis
         on the reference's FSDP dim (a gathered weight is the same
         whatever the cut); a table cut over the model axis is cut over
-        nothing else, as the reference's. ``replicated``: whole."""
+        nothing else, as the reference's. ``replicated``: whole. ``cut``:
+        the model cut of a stored leaf given in place of
+        ``serving_cut``'s (a QuantizedTensor's codes or scale,
+        ``stored_layouts``)."""
         nd = len(shape)
         if self.parallelism == "replicated":
             return Layout((None,) * nd, (None,) * nd, tuple(shape))
@@ -325,7 +350,8 @@ class ShardingPolicy:
         ranges: list = [None] * nd
         if self.parallelism == "tp":
             spec = [None if e == self.model_axis else e for e in spec]
-            cut = self.serving_cut(keys, shape)
+            if cut is False:
+                cut = self.serving_cut(keys, shape)
             if cut is not None:
                 spec[cut[0]] = self.model_axis  # an FSDP cut there gives way
                 ranges[cut[0]] = cut[1]
@@ -388,13 +414,47 @@ class ShardingPolicy:
                  opt_state)
         return out
 
+    # -- the serve steps' storage (``launch.steps.build_serve_step``) -------
+
+    def stored_layouts(self, params: Any) -> dict:
+        """The ``Layout`` of every stored leaf of a serving param tree: a
+        tensor's ``param_layout``; a QuantizedTensor's codes and scale
+        each its own, keyed ``path + ("codes",)`` and ``path +
+        ("scale",)``, as the reference's ``param_specs`` cut its quantized
+        params: the model axis on ``serving_cut``'s cut of the logical
+        weight (the codes' columns on whole packed bytes, the scales' with
+        their columns or experts; a row cut keeps every scale), the FSDP
+        axes on the reference's FSDP dim of the stored leaf itself."""
+        out = {}
+
+        def leaf(path, x):
+            keys = _keys(path)
+            if not isinstance(x, QuantizedTensor):
+                out[path] = self.param_layout(keys, tuple(x.shape))
+                return
+            cut = (self.serving_cut(keys, x.logical_shape)
+                   if self.parallelism == "tp" else None)
+            for name, t in (("codes", x.codes), ("scale", x.scale)):
+                shape = tuple(t.shape)
+                out[path + (name,)] = self.param_layout(
+                    keys, shape, _stored_cut(cut, name, x, keys, shape))
+        tree_map(leaf, params)
+        return out
+
     # -- the serve steps' layouts (``launch.steps``) -------------------------
 
     def _batch_axes(self, b: int):
-        """The data axis where it divides the batch, else None (every data
-        group runs the whole batch): the reference's largest dividing
-        prefix of the data axes, over the port's one data axis."""
-        return "data" if _div(b, self.n_data) else None
+        """The data axes the batch is cut over: the reference's, each axis
+        of ``data_axes`` (pod first) that divides what the axes before it
+        left; None where none does (every row runs the whole batch)."""
+        out, rem = [], b
+        for a in self.data_axes:
+            if rem % self.axes[a] == 0:
+                out.append(a)
+                rem //= self.axes[a]
+        if not out:
+            return None
+        return tuple(out) if len(out) > 1 else out[0]
 
     def cache_spec(self, keys: list[str], shape: tuple) -> Spec:
         """Spec of one leaf of the dense serving caches
@@ -430,6 +490,9 @@ class ShardingPolicy:
 
 #: above this many params ``make_policy`` turns FSDP on by default
 FSDP_ABOVE = 2e9
+#: above this many params tp's FSDP also spans the pod axis (the
+#: reference's giants, jamba-1.5-large-398b and kimi-k2-1t-a32b)
+POD_FSDP_ABOVE = 100e9
 
 
 def make_policy(cfg: ArchConfig, mesh, **kw) -> ShardingPolicy:
@@ -439,6 +502,23 @@ def make_policy(cfg: ArchConfig, mesh, **kw) -> ShardingPolicy:
     if kw.get("parallelism") != "fsdp" and "fsdp" not in kw:
         kw["fsdp"] = cfg.param_count_estimate() > FSDP_ABOVE
     return ShardingPolicy(cfg, mesh, **kw)
+
+
+def _stored_cut(cut, name: str, x: QuantizedTensor, keys, shape: tuple):
+    """``serving_cut``'s cut of a QuantizedTensor's logical weight as the
+    cut of its ``codes`` or ``scale`` (of ``shape``): packed columns in
+    whole bytes, the scales' where they have that dim, else None."""
+    if cut is None:
+        return None
+    dim, ranges = cut
+    if name == "scale":
+        return cut if shape[dim] > 1 else None
+    if x.packed and dim == x.ndim - 1:
+        if any(start % 2 or size % 2 for start, size in ranges):
+            raise ValueError(f"{'/'.join(keys)}: a cut {ranges} would cut "
+                             "a packed byte")
+        return dim, tuple((start // 2, size // 2) for start, size in ranges)
+    return cut
 
 
 def kv_seq_axis(specs: dict):
@@ -456,22 +536,31 @@ def _axes_of(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def axis_coords(d: int, m: int, sizes: dict) -> dict:
+    """Device (row ``d``, shard ``m``)'s coordinate on each axis of a mesh
+    of axis ``sizes`` (``launch.mesh.HostMesh``: rows pod-major)."""
+    return {"pod": d // sizes["data"], "data": d % sizes["data"],
+            "model": m}
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """Where a leaf of the train step lives on a ``(data, model)`` mesh:
+    """Where a leaf of a step lives on a ``(pod,) data x model`` mesh:
     ``spec`` per dim None, an axis, or a tuple of axes (cut over their
     devices together, the first axis major: ``("data", "model")`` block
     ``d * M + m``); ``ranges`` per cut dim the (start, size) of each
-    block, uneven where ``serving_cut`` cuts unevenly; ``shape`` the
-    whole leaf's."""
+    block, uneven where ``serving_cut`` cuts unevenly (or overlapping,
+    where shards share a head); ``shape`` the whole leaf's. A device is
+    (row ``d``, shard ``m``), its rows pod-major."""
     spec: Spec
     ranges: tuple
     shape: tuple
 
     def coord(self, axes: tuple, d: int, m: int, sizes: dict) -> int:
+        at = axis_coords(d, m, sizes)
         idx = 0
         for a in axes:
-            idx = idx * sizes[a] + (d if a == "data" else m)
+            idx = idx * sizes[a] + at[a]
         return idx
 
     def index(self, d: int, m: int, sizes: dict) -> tuple:
@@ -493,19 +582,53 @@ class Layout:
         """Equal for the devices that hold the same block (copies)."""
         return tuple((s.start, s.stop) for s in self.index(d, m, sizes))
 
+    def block_bytes(self, d: int, m: int, sizes: dict, itemsize: int) -> int:
+        n = itemsize
+        for size in self.block_shape(d, m, sizes):
+            n *= size
+        return n
 
-def place_blocks(tree: Any, layouts: dict, mesh) -> list:
+
+def spec_layout(spec: Spec, shape: tuple, sizes: dict) -> Layout:
+    """``spec`` (every cut dividing its dim) as a ``Layout`` of even
+    blocks."""
+    ranges = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            ranges.append(None)
+            continue
+        n = 1
+        for a in _axes_of(entry):
+            n *= sizes[a]
+        ranges.append(split_ranges(shape[dim], n))
+    return Layout(tuple(spec), tuple(ranges), tuple(shape))
+
+
+def place_blocks(tree: Any, layouts: dict, mesh, share: bool = False) -> list:
     """``grid[d][m]``: a copy of device (d, m)'s block of every tensor
     leaf of ``tree`` (whole, on any device) on that device, by
-    ``layouts`` ({path: Layout}); other leaves (an optimizer's step
-    count) as they are."""
+    ``layouts`` ({path: Layout}); a QuantizedTensor's codes and scale each
+    by its own (``ShardingPolicy.stored_layouts``); other leaves (an
+    optimizer's step count) as they are. ``share``: a block that is the
+    whole leaf, already contiguous on the device, is that leaf (read-only
+    serving weights), not a copy."""
     sizes = mesh.shape
+
+    def block(lay, x, d, m, dev):
+        if share and all(e is None for e in lay.spec):
+            return _place(x, dev)
+        return _copy_to(x[lay.index(d, m, sizes)], dev)
 
     def take(d, m, dev):
         def leaf(path, x):
+            if isinstance(x, QuantizedTensor):
+                return QuantizedTensor(
+                    block(layouts[path + ("codes",)], x.codes, d, m, dev),
+                    block(layouts[path + ("scale",)], x.scale, d, m, dev),
+                    x.scheme, x.packed)
             if not isinstance(x, torch.Tensor):
                 return x
-            return _copy_to(x[layouts[path].index(d, m, sizes)], dev)
+            return block(layouts[path], x, d, m, dev)
         return tree_map(leaf, tree)
     return [[take(d, m, dev) for m, dev in enumerate(row)]
             for d, row in enumerate(mesh.grid)]
@@ -531,66 +654,132 @@ def gather_blocks(grid: list, layouts: dict, mesh, device="cpu") -> Any:
 
 
 class GatheredLeaf:
-    """A stored leaf as device (d, m) computes with it: its blocks over
-    the FSDP axes joined on that device (differentiably: each block's
-    gradient flows back to it, summed over the readers, the
-    reduce-scatter), its own block where the leaf is not cut over them.
-    Indexing gathers one period of a stacked leaf (only that period's
-    slices move, inside the checkpointed region that reads it);
-    ``whole()`` gathers it all."""
+    """A stored leaf as device (d, m) (mesh index ``reader``) computes
+    with it: its blocks over the FSDP axes joined on that device
+    (``collectives.Gather``, differentiably: each block's gradient flows
+    back to it, summed over the readers, the reduce-scatter), its own
+    block (``blocks[own]``) where the leaf is not cut over them. Indexing
+    gathers one period of a stacked leaf (only that period's slices move,
+    inside the checkpointed region that reads it); ``whole()`` gathers it
+    all. ``periods``: a dict the devices of one step share, in which each
+    block's period is sliced once for all its readers (one slice, and in
+    the backward one slice's gradient, per block and period, not per
+    reader; the readers' gradients meet in it). On ``meta`` a shared
+    ``periods`` also joins each gather once for all its readers
+    (``collectives.MetaJoin``/``MetaRead``: the same counts and copies,
+    O(devices) ops where a gather per reader is O(devices^2))."""
 
-    def __init__(self, blocks: list, dim, device):
+    def __init__(self, blocks: list, dim, device, reader: int = 0,
+                 own: int = 0, periods: dict | None = None):
         self.blocks, self.dim, self.device = blocks, dim, device
+        self.reader, self.own, self.periods = reader, own, periods
+
+    def _period(self, b: torch.Tensor, i: int) -> torch.Tensor:
+        if self.periods is None:
+            return b[i]
+        key = (id(b), i)
+        if key not in self.periods:
+            self.periods[key] = (b, b[i])   # b kept: its id stays its own
+        return self.periods[key][1]
+
+    def _join(self, blocks: list, dim: int) -> torch.Tensor:
+        own = collectives.nbytes(blocks[self.own])
+        if self.periods is None or blocks[0].device.type != "meta":
+            return collectives.Gather.apply(dim, self.device, self.reader,
+                                            own, *blocks)
+        key = ("join", dim, *map(id, blocks))
+        if key not in self.periods:
+            self.periods[key] = (blocks, collectives.MetaJoin.apply(
+                dim, *blocks))
+        return collectives.MetaRead.apply(self.periods[key][1], self.device,
+                                          self.reader, own, len(blocks))
 
     def whole(self) -> torch.Tensor:
         if self.dim is None:
             return self.blocks[0].to(self.device)
-        return torch.cat([b.to(self.device) for b in self.blocks], self.dim)
+        return self._join(self.blocks, self.dim)
 
     def __getitem__(self, i: int) -> torch.Tensor:
         if self.dim is None:
-            return self.blocks[0][i].to(self.device)
+            return self._period(self.blocks[0], i).to(self.device)
         if self.dim == 0:
-            for b in self.blocks:
+            for k, b in enumerate(self.blocks):
                 if i < b.shape[0]:
-                    return b[i].to(self.device)
+                    piece = b[i]
+                    if k != self.own:
+                        collectives.note("all-gather", (self.reader,),
+                                         collectives.nbytes(piece), 2)
+                    return piece.to(self.device)
                 i -= b.shape[0]
             raise IndexError(i)
-        return torch.cat([b[i].to(self.device) for b in self.blocks],
-                         self.dim - 1)
+        return self._join([self._period(b, i) for b in self.blocks],
+                          self.dim - 1)
+
+
+class GatheredQuantized:
+    """A stored QuantizedTensor as one device computes with it: its codes
+    and scale each a ``GatheredLeaf``; indexing and ``whole()`` give
+    QuantizedTensors."""
+
+    def __init__(self, codes: GatheredLeaf, scale: GatheredLeaf, scheme: str,
+                 packed: bool):
+        self.codes, self.scale = codes, scale
+        self.scheme, self.packed = scheme, packed
+
+    def whole(self) -> QuantizedTensor:
+        return QuantizedTensor(self.codes.whole(), self.scale.whole(),
+                               self.scheme, self.packed)
+
+    def __getitem__(self, i: int) -> QuantizedTensor:
+        return QuantizedTensor(self.codes[i], self.scale[i], self.scheme,
+                               self.packed)
 
 
 def whole(tree: Any) -> Any:
-    """``tree`` (a leaf or a nest) with every ``GatheredLeaf`` gathered
-    whole; tensors as they are."""
-    return tree_map(lambda _, x: x.whole() if isinstance(x, GatheredLeaf)
+    """``tree`` (a leaf or a nest) with every ``GatheredLeaf`` (and
+    ``GatheredQuantized``) gathered whole; tensors as they are."""
+    return tree_map(lambda _, x: x.whole()
+                    if isinstance(x, (GatheredLeaf, GatheredQuantized))
                     else x, tree)
 
 
 def gathered_view(grid: list, layouts: dict, policy: ShardingPolicy, d: int,
-                  m: int, device) -> Any:
+                  m: int, device, periods: dict | None = None) -> Any:
     """The tree device (d, m) computes with, of ``GatheredLeaf``s over
-    the blocks of ``grid`` (the train step's live params): under ``fsdp``
-    every leaf whole, under ``tp`` its model shard whole over ``data``."""
+    the blocks of ``grid`` (the train step's live params, or the serve
+    steps' stored ones, whose QuantizedTensors give
+    ``GatheredQuantized``s): under ``fsdp`` every leaf whole, under
+    ``tp`` its model shard whole over the FSDP axes, under
+    ``replicated`` its own block. ``periods``: the step's shared period
+    slices (``GatheredLeaf``)."""
     sizes = policy.axes
     fsdp = set(policy.fsdp_axes)
+    cols = sizes["model"]
+    at = axis_coords(d, m, sizes)
+    others = [(dd, mm) for dd in range(len(grid)) for mm in range(cols)]
 
-    def leaf(path, _):
-        lay = layouts[path]
+    def gathered(lay, take):
         dim = next((i for i, e in enumerate(lay.spec)
                     if e is not None and fsdp & set(_axes_of(e))), None)
-
-        def block(dd, mm):
-            return tree_at(grid[dd][mm], path)
         if dim is None:
-            return GatheredLeaf([block(d, m)], None, device)
+            return GatheredLeaf([take(d, m)], None, device, d * cols + m,
+                                periods=periods)
         axes = _axes_of(lay.spec[dim])
-        readers = [(dd, mm) for dd in range(sizes["data"])
-                   for mm in range(sizes["model"])
-                   if ("data" in axes or dd == d)
-                   and ("model" in axes or mm == m)]
+        readers = [c for c in others
+                   if all(a in axes or axis_coords(*c, sizes)[a] == at[a]
+                          for a in at if a in sizes)]
         readers.sort(key=lambda c: lay.coord(axes, *c, sizes))
-        return GatheredLeaf([block(*c) for c in readers], dim, device)
+        return GatheredLeaf([take(*c) for c in readers], dim, device,
+                            d * cols + m, readers.index((d, m)), periods)
+
+    def leaf(path, x):
+        if isinstance(x, QuantizedTensor):
+            return GatheredQuantized(*(
+                gathered(layouts[path + (name,)], lambda dd, mm, name=name:
+                         getattr(tree_at(grid[dd][mm], path), name))
+                for name in ("codes", "scale")), x.scheme, x.packed)
+        return gathered(layouts[path],
+                        lambda dd, mm: tree_at(grid[dd][mm], path))
     return tree_map(leaf, grid[0][0])
 
 
@@ -598,8 +787,9 @@ def reduce_copies(grads: list, layouts: dict, mesh) -> list:
     """The gradients of every device's blocks (``grads[d][m]``, trees with
     None where a block was not read) made equal over the devices holding
     the same block: summed in device order (row-major) and handed to each
-    of them (the all-reduce of a replicated leaf, a copy over an axis).
-    Returns the grid of gradient trees."""
+    of them (the all-reduce of a replicated leaf, a copy over an axis:
+    across pods, the cross-pod all-reduce). Returns the grid of gradient
+    trees."""
     sizes = mesh.shape
     devs = [(d, m, dev) for d, row in enumerate(mesh.grid)
             for m, dev in enumerate(row)]
@@ -607,17 +797,18 @@ def reduce_copies(grads: list, layouts: dict, mesh) -> list:
     paths: list = []
     tree_map(lambda path, _: paths.append(path), grads[0][0])
     sums: dict = {}
+    cols = sizes["model"]
     for path in paths:
         lay = layouts[path]
         groups: dict = {}
         for d, m, _ in devs:
             groups.setdefault(lay.block_key(d, m, sizes), []).append((d, m))
         for members in groups.values():
-            total = None
-            for d, m in members:
-                g = tree_at(grads[d][m], path)
-                if g is not None:
-                    total = g if total is None else total + g.to(total.device)
+            parts = [g for g in (tree_at(grads[d][m], path)
+                                 for d, m in members) if g is not None]
+            total = (collectives.all_reduce(
+                parts, [d * cols + m for d, m in members]) if parts
+                else None)
             for d, m in members:
                 sums[d, m, path] = total
     for d, m, dev in devs:
@@ -705,47 +896,38 @@ def shard_paged_state(caches: Any, policy: ShardingPolicy, mesh) -> list:
 
 # -- the serve steps' dense caches -------------------------------------------
 
-def _spec_slice(x: torch.Tensor, spec: Spec, d: int, m: int, mesh):
-    """Data group ``d``, model shard ``m``'s block of ``x`` under
-    ``spec``."""
-    for dim, axis in enumerate(spec):
-        if axis is not None:
-            n = mesh.shape[axis]
-            size = x.shape[dim] // n
-            x = _cut(x, dim, (d if axis == "data" else m) * size, size)
-    return x
-
-
 def shard_dense_caches(caches: Any, specs: dict, mesh) -> list:
     """The dense serving caches cut over a ``HostMesh`` by ``specs``
     (``ShardingPolicy.cache_specs`` of the whole caches):
-    ``grid[d][m]``, a copy of data group ``d``, model shard ``m``'s block
-    of every leaf, on its device."""
-    return [[tree_map(lambda path, x: _copy_to(
-        _spec_slice(x, specs[path], d, m, mesh), dev), caches)
+    ``grid[d][m]``, a copy of row ``d``, model shard ``m``'s block of
+    every leaf, on its device."""
+    sizes = mesh.shape
+    return [[tree_map(lambda path, x: _copy_to(x[spec_layout(
+        specs[path], tuple(x.shape), sizes).index(d, m, sizes)], dev),
+        caches)
         for m, dev in enumerate(row)] for d, row in enumerate(mesh.grid)]
 
 
-def gather_dense_caches(grid: list, specs: dict, device="cpu") -> Any:
+def gather_dense_caches(grid: list, specs: dict, device="cpu",
+                        sizes: dict | None = None) -> Any:
     """``shard_dense_caches``'s inverse: every leaf reassembled on
-    ``device`` from the blocks of ``grid``, joined in group and shard
-    order (a replicated axis read from its first group or shard)."""
+    ``device`` from the blocks of ``grid`` (a mesh of axis ``sizes``, by
+    default ``data`` x ``model`` of the grid's rows and shards), each
+    block written where its spec puts it (a copy from its last device,
+    all copies equal)."""
+    sizes = sizes or {"data": len(grid), "model": len(grid[0])}
 
-    def whole(path, _):
+    def whole(path, first):
         spec = specs[path]
-
-        def block(d, m):
-            x = grid[d][m]
-            for k in path:
-                x = x[k]
-            return x.to(device)
-
-        def join(axis, parts):
-            if axis not in spec:
-                return parts[0]
-            return torch.cat(parts, spec.index(axis))
-        return join("data", [join("model", [block(d, m)
-                                            for m in range(len(row))])
-                             for d, row in enumerate(grid)])
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            for a in _axes_of(entry) if entry is not None else ():
+                shape[dim] *= sizes[a]
+        lay = spec_layout(spec, tuple(shape), sizes)
+        out = torch.empty(shape, dtype=first.dtype, device=device)
+        for d, row in enumerate(grid):
+            for m, tree in enumerate(row):
+                out[lay.index(d, m, sizes)] = tree_at(tree, path).to(device)
+        return out
     return tree_map(whole, grid[0][0])
 

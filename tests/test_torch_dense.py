@@ -462,3 +462,71 @@ def test_serve_step_on_mesh_matches_reference(arch, kind, cp):
                 changed = not torch.equal(grid[d][m][0]["k"],
                                           start[d][m][0]["k"])
                 assert changed is (m == PROMPT // s_blk), (d, m)
+
+
+#: (kind, quantized): the serve step's FSDP storage against the reference
+FSDP_CELLS = [("prefill", False), ("prefill", True), ("decode", False),
+              ("decode", True)]
+
+
+@pytest.mark.parametrize("kind,quantized", FSDP_CELLS,
+                         ids=[f"{k}-{'q' if q else 'f32'}"
+                              for k, q in FSDP_CELLS])
+def test_fsdp_serve_step_matches_reference(monkeypatch, kind, quantized):
+    """The serve step's storage above ``FSDP_ABOVE`` params (patched to 0:
+    reduced granite-3-8b, two layers) at mesh (2, 4): every stored leaf
+    the reference's policy cuts over ``data`` is stored so and read
+    through a gather per period; with sp2_4 weights the codes are cut on
+    whole packed bytes (``wo``'s and ``down``'s over ``data`` on their
+    packed last dim). The tensor-parallel prefill, and the decode after a
+    PROMPT-token prefill, give the reference's one-device logits (on the
+    reference's quantized weights where ``quantized``) within
+    SHARD_LOGIT_TOL of their peak, and its caches."""
+    from repro_torch import sharding as tsh
+    monkeypatch.setattr(tsh, "FSDP_ABOVE", 0)
+    jcfg = reduced(get_config("granite-3-8b"), d_model=64, vocab=512,
+                   n_layers=2)
+    tcfg = treduced(tget_config("granite-3-8b"), d_model=64, vocab=512,
+                    n_layers=2)
+    jp = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
+    jw = jquantize(jp, "sp2_4") if quantized else jp
+    jrt = JRuntime(impl="ref", q_chunk=1024)
+    tokens = np.random.default_rng(5).integers(
+        1, 512, (MESH_B, MESH_S)).astype(np.int32)
+    mesh = make_host_mesh(*MESH, ["cpu"] * 8)
+    bundle = build_serve_step(tcfg, ShapeConfig("t", MESH_S, MESH_B, kind),
+                              mesh, quantized=quantized, prefill_cp=False,
+                              dtype=torch.float32)
+    assert bundle.meta["fsdp"] is True
+    assert bundle.meta["context_parallel"] is False
+    jc = jlm.init_caches(jcfg, MESH_B, MESH_S, dtype=jnp.float32)
+    if kind == "prefill":
+        want, jc = jlm.lm_prefill(jw, jnp.asarray(tokens), jc, jcfg, jrt)
+        args = bundle.place(params_from_reference(jp), tokens)
+        got, grid = bundle.fn(*args, bundle.init_caches())
+    else:
+        _, jc0 = jlm.lm_prefill(jw, jnp.asarray(tokens[:, :PROMPT]), jc,
+                                jcfg, jrt)
+        want, jc = jlm.lm_decode_step(jw, jnp.asarray(tokens[:, PROMPT]),
+                                      jnp.asarray(PROMPT), jc0, jcfg, jrt)
+        args = bundle.place(params_from_reference(jp), tokens[:, PROMPT],
+                            PROMPT)
+        got, grid = bundle.fn(*args, shard_dense_caches(
+            params_from_reference(jc0), bundle.specs, mesh))
+    data_cut = {path for path, lay in bundle.layouts.items()
+                if any(e is not None and "data" in
+                       (e if isinstance(e, tuple) else (e,))
+                       for e in lay.spec)}
+    assert any("attn" in path and "wq" in path for path in data_cut)
+    if quantized:
+        packed = {path[-3] for path in data_cut if path[-1] == "codes"
+                  and bundle.layouts[path].spec[-1] == "data"}
+        assert packed == {"wo", "down"}
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= \
+        SHARD_LOGIT_TOL * np.abs(want).max()
+    for (path, g), (_, w) in zip(_leaves(bundle.gather(grid)),
+                                 _leaves(params_from_reference(jc))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
+                                   err_msg=str(path))

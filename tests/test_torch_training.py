@@ -999,3 +999,44 @@ def test_tp_step_matches_one_device(monkeypatch, arch):
                          dtype=torch.float32)
     assert b.meta["parallelism"] == "tp"
     _mesh_step_matches(b, jcfg, jp, batch, monkeypatch)
+
+
+#: the pod axis at its smallest, mesh (pod 2, data 1, model 2): (name,
+#: batch, giant). ``fsdp``: 4 rows over (pod, data, model), the weights
+#: cut over (data, model) only, a copy in each pod (the cross-pod sum of
+#: their gradients: ``reduce_copies``); ``tp``: 2 rows over (pod, data),
+#: each pod's row tensor-parallel; ``tp-pod-fsdp``: the same with FSDP
+#: over (pod, data), the rule of a model above ``POD_FSDP_ABOVE`` params
+#: (that bound and ``FSDP_ABOVE`` patched to 0)
+POD_CELLS = [("fsdp", 4, False), ("tp", 2, False), ("tp-pod-fsdp", 2, True)]
+
+
+@pytest.mark.parametrize("name,b,giant", POD_CELLS,
+                         ids=[c[0] for c in POD_CELLS])
+def test_pod_mesh_step_matches_reference(monkeypatch, name, b, giant):
+    """``build_train_step`` of reduced gemma-2b on a (pod, data, model)
+    mesh: one ``sgd`` step held to the reference's one-device step
+    (``_mesh_step_matches``: the metrics, the global norm, every leaf's
+    update), so a cross-pod gradient dropped, doubled or wrongly weighted
+    fails; the layouts put ``pod`` where the reference's rules do."""
+    from repro_torch import sharding as tsh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+    if giant:
+        monkeypatch.setattr(tsh, "FSDP_ABOVE", 0)
+        monkeypatch.setattr(tsh, "POD_FSDP_ABOVE", 0)
+    jcfg, tcfg = _mesh_cfgs("gemma-2b")
+    jp, batch = _mesh_inputs(jcfg, b=b)
+    mesh = make_host_mesh(1, 2, ["cpu"] * 4, pod=2)
+    bundle = build_train_step(tcfg, ShapeConfig("t", MESH_S, b, "train"),
+                              mesh, remat="none", optimizer="sgd",
+                              dtype=torch.float32)
+    assert bundle.meta["parallelism"] == name.split("-")[0]
+    assert bundle.meta["fsdp"] is (name != "tp")
+    pod_cut = {path for path, lay in bundle.specs["params"].items()
+               if any(e is not None and "pod" in
+                      (e if isinstance(e, tuple) else (e,))
+                      for e in lay.spec)}
+    assert bool(pod_cut) is giant
+    _mesh_step_matches(bundle, jcfg, jp, batch, monkeypatch)

@@ -73,6 +73,7 @@ SHARDS: dict[str, list[str]] = {
     "system-training": [
         "tests/test_sharding.py",
         "tests/test_system.py",
+        "tests/test_torch_dryrun.py",
         "tests/test_torch_training.py",
         "tests/test_training.py",
     ],
