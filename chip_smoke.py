@@ -17,7 +17,8 @@ Phases, each printing JSON lines:
               and 2048, and the Q-network's (4, 64) and (64, 64) at M = 1
               and 64, the ragged decode kernel at a w = 5 verify window
               that crosses a page boundary, kernels 2 and 5 over bf16 and
-              f16 pages (page sizes 32 and 16, up to 2048 tokens, each
+              f16 pages (the tensor-core kernel: head dims 32 to 256, page
+              sizes 32 and 16, w in {1, 5, 8}, contexts 0 to 2048, each
               slot within BF16_ATTN_RTOL / F16_ATTN_RTOL of its own peak;
               on f16 pages also a case whose probabilities are all f16
               subnormals, within 1e-5), flash attention up to 2048
@@ -105,7 +106,7 @@ Phases, each printing JSON lines:
                 paged-f16, unfused-f16
                         ``ServeConfig(kv_cache_dtype="float16")`` on the
                         fused and the unfused tick (kernels 2 and 5's
-                        ``F16Page`` instance), held to the f32-page engine
+                        ``F16Mma`` instance), held to the f32-page engine
                         up to a near-tie (F16_E2E_RTOL).
               Every kernel of each path must launch, as often per tick or
               per request as the path says, and no plain version may run;
@@ -647,87 +648,110 @@ HALF_PAGES = {"bfloat16": ("_bf16", BF16_ATTN_RTOL),
               "float16": ("_f16", F16_ATTN_RTOL)}
 
 
+#: the 16-bit kernel's checks: contexts (positions before the window) of
+#: the slots beside a full table (300: some ranks of a larger cluster busy,
+#: the others only at its barriers), and the block tables' widths (the
+#: decode tick's 256 tokens, the long context's 2048: two cluster sizes)
+HALF_CONTEXTS = (0, 1, 15, 16, 17, 49, 300)
+HALF_TABLES = (256, 2048)
+
+
 def _half_kernel_checks(torch, gen, dtype) -> dict:
-    """Kernels 2 and 5 over bf16 or f16 pages (``dtype``: the ``Bf16Page``
-    or ``F16Page`` instance) at gemma-2b's heads (4 slots, 1 KV head of
-    256, rep 8), at the half-width engine's page size (32 tokens) and at
-    16: W = 1 and a W = 5 verify window that crosses a page boundary, an
-    empty slot, and block tables of 256 and 2048 tokens (several splits).
-    Each launch twice: the second must be bit-identical."""
+    """Kernels 2 and 5 over bf16 or f16 pages (``dtype``; the tensor-core
+    kernel ``paged_decode_mma_kernel``) at every head dim the port serves
+    (32, 64, 128 over 2 KV heads, gemma-2b's one of 256), page sizes 16
+    and 32, windows w in {1, 5, 8} under rep 8 (8 to 64 rows: up to 8
+    row groups), block tables of 256 and 2048 tokens: slots with
+    contexts 0, 1, 15, 16, 17, 49, 300 (within the table) and a full
+    table, a partial window and an empty slot; the single-token mode at
+    ctx_len 0, 1, 15, 16, 17, 49, 300 and the full table. Each launch twice: the second must be
+    bit-identical. Each slot within the page dtype's tolerance of its own
+    largest plain output; masked rows and empty slots exact zeros."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (
-        decode_splits, paged_attention_cuda, paged_decode_ragged_cuda)
-    from repro_torch.runtime import planner
+        cluster_used, decode_cluster, paged_attention_cuda,
+        paged_decode_ragged_cuda)
 
     suffix, tol = HALF_PAGES[str(dtype).removeprefix("torch.")]
     ragged_name, single_name = ("paged_decode_ragged" + suffix,
                                 "paged_attention" + suffix)
-    b, hkv, rep, dh = 4, 1, 8, 256
+    rep = 8
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {ragged_name: 0.0, single_name: 0.0}
-    half_ps = planner.plan_kv_pages(dh, act_bytes=2).page_size
-    for ps in (half_ps, 16):
-        for tokens in (256, 2048):
-            mp = tokens // ps
-            n_pages = 1 + b * mp
-            kp, vp = (t.to(dtype) for t in
-                      _rand_pools(torch, gen, n_pages, hkv, ps, dh))
-            bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
-                :b * mp].reshape(b, mp) + 1).to(torch.int32)
-            for w, qlens, ctx_l in (
-                    (1, [0, 1, 1, 1], [0, ps - 1, ps + 1, tokens - 1]),
-                    (5, [0, 5, 3, 5], [0, ps - 2, 2 * ps - 3, tokens - 5])):
-                q = torch.randn((b, hkv, rep * w, dh), generator=gen,
-                                device="cuda")
-                ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
-                qn = torch.tensor(qlens, dtype=torch.int32, device="cuda")
-                got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
-                again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
-                want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn,
+    for dh in (32, 64, 128, 256):
+        hkv = 2 if dh < 256 else 1
+        for ps in (16, 32):
+            for tokens in HALF_TABLES:
+                mp = tokens // ps
+                rec = {}
+                contexts = [c for c in HALF_CONTEXTS if c + 8 <= tokens]
+                for w in (1, 5, 8):
+                    ctx_l = contexts + [tokens - w, tokens - w, 0]
+                    qlens = [w] * len(contexts) + [max(1, w - 2), w, 0]
+                    b = len(ctx_l)
+                    n_pages = 1 + b * mp
+                    kp, vp = (t.to(dtype) for t in _rand_pools(
+                        torch, gen, n_pages, hkv, ps, dh))
+                    bt = (torch.randperm(n_pages - 1, generator=gen,
+                                         device="cuda")[:b * mp]
+                          .reshape(b, mp) + 1).to(torch.int32)
+                    ctx = torch.tensor(ctx_l, dtype=torch.int32,
+                                       device="cuda")
+                    qn = torch.tensor(qlens, dtype=torch.int32, device="cuda")
+                    q = torch.randn((b, hkv, rep * w, dh), generator=gen,
+                                    device="cuda")
+                    got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn,
                                                    w=w)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                peak = want.abs().max().item()
-                rows_off = torch.arange(rep * w, device="cuda") % w \
-                    >= qn[:, None]
-                zeros = bool((got.permute(0, 2, 1, 3)[rows_off] == 0).all())
-                same = bool(torch.equal(got, again))
-                rel = _slot_rel_err(torch, got, want)
-                ok = (bool(torch.isfinite(got).all()) and zeros and same
-                      and rel <= tol)
+                    again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn,
+                                                     w=w)
+                    want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx,
+                                                       qn, w=w)
+                    torch.cuda.synchronize()
+                    rows_off = torch.arange(rep * w, device="cuda") % w \
+                        >= qn[:, None]
+                    rec[f"w={w}"] = {
+                        "cluster": cluster_used(dtype, dh, decode_cluster(
+                            b, hkv, rep * w, mp, ps, sms)),
+                        "max_abs_err": (got - want).abs().max().item(),
+                        "max_slot_rel_err": _slot_rel_err(torch, got, want),
+                        "masked_rows_exact_zero": bool(
+                            (got.permute(0, 2, 1, 3)[rows_off] == 0).all()),
+                        "bit_identical_rerun": bool(torch.equal(got, again)),
+                        "finite": bool(torch.isfinite(got).all())}
+                    if w == 1:
+                        ctx1_l = contexts + [tokens]
+                        ctx1 = torch.tensor(ctx1_l, dtype=torch.int32,
+                                            device="cuda")
+                        q1 = q[:len(ctx1_l)].contiguous()
+                        bt1 = bt[:len(ctx1_l)].contiguous()
+                        got = paged_attention_cuda(q1, kp, vp, bt1, ctx1)
+                        again = paged_attention_cuda(q1, kp, vp, bt1, ctx1)
+                        want = ref.paged_attention_ref(q1, kp, vp, bt1, ctx1)
+                        torch.cuda.synchronize()
+                        rec["single"] = {
+                            "ctx_len": ctx1_l,
+                            "max_abs_err": (got - want).abs().max().item(),
+                            "max_slot_rel_err": _slot_rel_err(torch, got,
+                                                              want),
+                            "masked_rows_exact_zero": bool(
+                                (got[0] == 0).all()),
+                            "bit_identical_rerun": bool(
+                                torch.equal(got, again)),
+                            "finite": bool(torch.isfinite(got).all())}
+                ok = all(r["max_slot_rel_err"] <= tol
+                         and r["masked_rows_exact_zero"]
+                         and r["bit_identical_rerun"] and r["finite"]
+                         for r in rec.values())
                 emit({"phase": "kernel", "kernel": ragged_name,
-                      "w": w, "page_size": ps, "ctx_len": ctx_l,
-                      "q_len": qlens,
-                      "splits": decode_splits(b, hkv, rep * w, mp, ps, sms),
-                      "max_abs_err": err, "max_rel_err": err / peak,
-                      "max_slot_rel_err": rel, "tol_slot_rel": tol,
-                      "masked_rows_exact_zero": zeros,
-                      "bit_identical_rerun": same, "ok": ok})
-                require(ok, f"{ragged_name} ps={ps} tokens={tokens} w={w}")
-                worst[ragged_name] = max(worst[ragged_name], err)
-            ctx_l = [0, 1, ps + 1, tokens]
-            ctx = torch.tensor(ctx_l, dtype=torch.int32, device="cuda")
-            q = torch.randn((b, hkv, rep, dh), generator=gen, device="cuda")
-            got = paged_attention_cuda(q, kp, vp, bt, ctx)
-            again = paged_attention_cuda(q, kp, vp, bt, ctx)
-            want = ref.paged_attention_ref(q, kp, vp, bt, ctx)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            peak = want.abs().max().item()
-            zeros = bool((got[0] == 0).all())
-            same = bool(torch.equal(got, again))
-            rel = _slot_rel_err(torch, got, want)
-            ok = (bool(torch.isfinite(got).all()) and zeros and same
-                  and rel <= tol)
-            emit({"phase": "kernel", "kernel": single_name,
-                  "mode": "single-token", "page_size": ps, "ctx_len": ctx_l,
-                  "splits": decode_splits(b, hkv, rep, mp, ps, sms),
-                  "max_abs_err": err, "max_rel_err": err / peak,
-                  "max_slot_rel_err": rel, "tol_slot_rel": tol,
-                  "ctx0_rows_exact_zero": zeros,
-                  "bit_identical_rerun": same, "ok": ok})
-            require(ok, f"{single_name} ps={ps} tokens={tokens}")
-            worst[single_name] = max(worst[single_name], err)
+                      "also": single_name, "dh": dh, "hkv": hkv,
+                      "rep": rep, "page_size": ps, "table_tokens": tokens,
+                      "contexts": contexts + [tokens],
+                      "tol_slot_rel": tol, "cases": rec, "ok": ok})
+                require(ok, f"{ragged_name} dh={dh} ps={ps} "
+                            f"tokens={tokens}")
+                for key, r in rec.items():
+                    name = single_name if key == "single" else ragged_name
+                    worst[name] = max(worst[name], r["max_abs_err"])
     if dtype == torch.float16:
         worst[ragged_name] = max(worst[ragged_name],
                                  _f16_subnormal_check(torch))
@@ -736,9 +760,10 @@ def _half_kernel_checks(torch, gen, dtype) -> dict:
 
 def _f16_subnormal_check(torch) -> float:
     """Kernel 2 over f16 pages whose probabilities are f16 subnormals, at
-    2048 tokens (several splits): every fourth position (the first of each
-    4-token group, so every running max already holds it) scores 12 over
-    the rest and has V = 0, the others score 0 and have V = 1, so each
+    2048 tokens (a cluster of blocks): every fourth position (the first
+    of each 16-token chunk among them, so every running max holds one)
+    scores 12 over the rest and has V = 0, the others score 0 and have
+    V = 1, so each
     output is made of probabilities exp(-12) = 6.1e-6, below f16's normal
     range, alone. Within 1e-5 of the plain version (which rounds them as
     ``Tensor.to(torch.float16)`` does) and nonzero: a kernel that flushed
@@ -1636,7 +1661,7 @@ def serve_f16_phase(torch, np, params) -> dict:
     "float16")``), on the quantized weights of the paged engine and the
     serve phase's 8 requests:
 
-      paged-f16    the fused tick: kernel 2's f16 instance (``F16Page``)
+      paged-f16    the fused tick: kernel 2's f16 instance (``F16Mma``)
                    in every decode tick, kernel 5's in the one-token
                    prefill chunk;
       unfused-f16  ``fused_decode=False``: kernel 5's f16 instance in every
@@ -5127,6 +5152,26 @@ def _device_events(torch, fn):
     return evs, wall
 
 
+def _kernels_per_call(torch, fn, calls: int, reps: int = 5):
+    """Device kernels of any name per call of ``fn`` (which makes
+    ``calls`` calls), and their names: the profiler can drop kernel events
+    from a window, so three windows of ``reps`` runs are traced and the
+    one that saw the most is kept."""
+    fn()
+    best, names = 0, set()
+    for _ in range(3):
+        evs, _ = _device_events(torch, lambda: [fn() for _ in range(reps)])
+        if len(evs) > best:
+            best = len(evs)
+            names = {e.name.replace("(anonymous namespace)::", "")
+                     .removeprefix("void ").split("<")[0].split("(")[0][-48:]
+                     for e in evs}
+    if not best and reps < 50:
+        # a window of a few microsecond launches can come back empty
+        return _kernels_per_call(torch, fn, calls, reps=10 * reps)
+    return best / (reps * calls), sorted(names)
+
+
 def _device_ms(torch, fn, names: tuple, reps: int = 5):
     """Device time of the kernels whose names contain one of ``names``,
     per ``fn()`` call; None when the profiler saw no device time. The
@@ -5726,11 +5771,14 @@ def _half_timing(torch, gen, cfg, m, ctx_tokens, q, dtype):
     half-width page size, each slot ``ctx_tokens`` into its sequence;
     kernel 2 also at ``m`` slots x ``LONG_CTX`` tokens. The library call
     is SDPA over the same K/V, pre-gathered, with q cast to ``dtype``. The
-    byte bound counts half the f32 rows' K/V bytes."""
+    byte bound counts half the f32 rows' K/V bytes. The profiler's device
+    kernels per call of each wrapper at the decode tick must be one (the
+    tensor-core kernel merges its cluster in the same launch)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     paged_decode_ragged_cuda)
+    from repro_torch.kernels.paged_attention import (
+        cluster_used, decode_cluster, paged_attention_cuda,
+        paged_decode_ragged_cuda)
     from repro_torch.runtime import planner
 
     hkv, rep, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.dh
@@ -5796,19 +5844,33 @@ def _half_timing(torch, gen, cfg, m, ctx_tokens, q, dtype):
                 "long_ctx_f32_bound_ms": _f32_bound_ms(nbytes, flops),
                 "long_ctx_library_device_ms": _device_ms(torch, sdpa_tick,
                                                          ("",)),
-                "long_ctx_share_of_bound": bound / dev if dev else None})
+                "long_ctx_share_of_bound": bound / dev if dev else None,
+                "long_ctx_cluster": cluster_used(dtype, dh, decode_cluster(
+                    m, hkv, rep, mp, ps, torch.cuda.get_device_properties(
+                        0).multi_processor_count))})
         else:
+            lib_per_call, lib_names = _kernels_per_call(
+                torch, sdpa_tick, cfg.n_layers)
             lib = {"library_ms": _time_ms(torch, sdpa_tick),
                    "library_device_ms": _device_ms(torch, sdpa_tick, ("",)),
                    "library_call": "scaled_dot_product_attention over "
                                    f"pre-gathered {name} K/V (q cast to "
                                    f"{name})",
+                   "library_kernels_per_call": lib_per_call,
+                   "library_kernel_names": lib_names,
                    "bound_ms": bound, "bound_by": by,
                    "f32_bound_ms": _f32_bound_ms(nbytes, flops)}
+            cluster = cluster_used(dtype, dh, decode_cluster(
+                m, hkv, rep, mp, ps, torch.cuda.get_device_properties(
+                    0).multi_processor_count))
             for row, fn, per in (
                     ("paged_decode_ragged" + suffix, ragged, "decode tick"),
                     ("paged_attention" + suffix, single,
                      "one-token prefill tick")):
+                per_call, names = _kernels_per_call(
+                    torch, lambda fn=fn: fn("cuda"), cfg.n_layers)
+                require(per_call == 1, f"{row}: {per_call} device kernels "
+                                       "per call")
                 rows.append({
                     "name": row,
                     "per": f"{per}: {cfg.n_layers} launches, {m} slots, "
@@ -5817,6 +5879,8 @@ def _half_timing(torch, gen, cfg, m, ctx_tokens, q, dtype):
                     "ms": _time_ms(torch, lambda fn=fn: fn("cuda")),
                     "device_ms": _device_ms(torch, lambda fn=fn: fn("cuda"),
                                             PAGED_KERNELS),
+                    "kernels_per_call": per_call, "kernel_names": names,
+                    "cluster": cluster,
                     "plain_ms": _time_ms(torch, lambda fn=fn: fn("ref")),
                     **lib})
         del pools, gathered
@@ -5824,9 +5888,11 @@ def _half_timing(torch, gen, cfg, m, ctx_tokens, q, dtype):
     return rows
 
 
-#: kernel names of one paged-decode launch: the split kernel and, with
-#: several splits, its merge
-PAGED_KERNELS = ("paged_decode_kernel", "paged_decode_merge_kernel")
+#: kernel names of one paged-decode launch: over f32 and code pages the
+#: split kernel and, with several splits, its merge; over bf16 and f16
+#: pages the one tensor-core kernel
+PAGED_KERNELS = ("paged_decode_kernel", "paged_decode_merge_kernel",
+                 "paged_decode_mma_kernel")
 #: the long context of the timing phase, tokens per slot
 LONG_CTX = 2048
 
@@ -5907,9 +5973,12 @@ def _long_ctx_timing(torch, gen, cfg, m, *, quant: bool) -> dict:
 
 
 def _emit_splits(torch, cfg, m, eng, layers) -> None:
-    """The split counts the wrappers chose at the timing shapes."""
+    """The split counts and the 16-bit kernel's cluster sizes the wrappers
+    chose at the timing shapes."""
     from repro_torch.kernels import spx_matmul as spx_mod
-    from repro_torch.kernels.paged_attention import decode_splits
+    from repro_torch.kernels.paged_attention import (cluster_used,
+                                                     decode_cluster,
+                                                     decode_splits)
     from repro_torch.runtime import planner
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5925,6 +5994,12 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
                           eng.page_size, sms),
         f"code pages, {LONG_CTX // qps} x {qps}":
             decode_splits(m, hkv, rep, LONG_CTX // qps, qps, sms)}
+    hps = planner.plan_kv_pages(dh, act_bytes=2).page_size
+    half = {f"{dtype} pages, {tokens // hps} x {hps}": cluster_used(
+                getattr(torch, dtype), dh, decode_cluster(
+                    m, hkv, rep, tokens // hps, hps, sms))
+            for dtype in ("bfloat16", "float16") for tokens in (256,
+                                                                LONG_CTX)}
     spx_splits = {}
     for name, qt in layers[0].items():
         k, n = qt.logical_shape
@@ -5932,7 +6007,8 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
             spx_splits[f"{name} {k}x{n} M={rows}"] = spx_mod._splits(
                 rows, k, n, sms)
     emit({"phase": "splits", "sms": sms, "slots": m,
-          "paged_decode": paged, "spx_matmul": spx_splits})
+          "paged_decode": paged, "paged_decode_mma_cluster": half,
+          "spx_matmul": spx_splits})
 
 
 def _flash_timing(torch, gen, cfg, s: int = 33):
@@ -5960,8 +6036,9 @@ def _layer_weights(params, i):
 
 def _sass_counts(cuda_lib) -> dict:
     """Warpgroup (HGMMA) and warp (HMMA) tensor-core instructions in each
-    built library's SASS, by cuobjdump; the two tensor-core kernels must
-    have them."""
+    built library's SASS, by cuobjdump; the three tensor-core kernels
+    (spx_matmul's prefill, flash, the 16-bit paged decode) must have
+    them."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     counts = {}
     for name in ("spx_matmul", "flash_attention", "paged_decode"):
@@ -5975,8 +6052,8 @@ def _sass_counts(cuda_lib) -> dict:
                         "HMMA": sass.count("HMMA")}
     if tool.exists():
         require(counts["spx_matmul"]["HGMMA"] > 0, "spx_matmul has no HGMMA")
-        require(counts["flash_attention"]["HMMA"] > 0,
-                "flash_attention has no HMMA")
+        for name in ("flash_attention", "paged_decode"):
+            require(counts[name]["HMMA"] > 0, f"{name} has no HMMA")
     return counts
 
 

@@ -1,6 +1,8 @@
 // Ragged decode-window attention over a paged KV cache, for Hopper (sm_90a),
 // over f32 pages, bf16 pages, f16 pages or SPx-quantized (uint8 codes +
-// f32 scale) pages.
+// f32 scale) pages. Two kernels: paged_decode_kernel (CUDA cores; f32 and
+// code pages) and paged_decode_mma_kernel (tensor cores; bf16 and f16
+// pages).
 //
 // Replaces: src/repro/kernels/paged_attention.py::paged_decode_ragged_pallas
 // and ::paged_decode_ragged_quant_pallas (TPU), and, through the in-kernel
@@ -21,27 +23,27 @@
 // probability before P @ V. In single-token mode (w = 1) the kernel reads
 // ctx_len as "positions < ctx_len attended": ctx = max(ctx_len - 1, 0) and
 // q_len = (ctx_len > 0), so the caller runs no op before the launch.
-// bf16 pages compute what the TPU kernel computes for them: q stays f32,
-// K and V widen to f32, and each probability is rounded to bf16 before
-// P @ V (``pv.astype(v.dtype)``), while the denominator sums the f32
-// probabilities. f16 pages do the same with f16: each probability is
-// rounded to nearest even (``__float2half_rn``, subnormals kept, as
-// ``Tensor.to(torch.float16)`` rounds), since the probabilities of far-off
-// tokens fall below f16's normal range (6.1e-5) and flushing them to zero
-// would depart from the reference. f16 * f16 products are exact in f32.
+// bf16 and f16 pages compute what the TPU kernel computes for them: the
+// score is the f32 dot of q with the widened K, and each probability is
+// rounded to the page's type before P @ V (``pv.astype(v.dtype)``: to
+// nearest even, f16 subnormals kept, as ``Tensor.to`` rounds; the
+// probabilities of far-off tokens fall below f16's normal range, 6.1e-5,
+// and flushing them would depart from the reference), while the
+// denominator sums the f32 probabilities.
 //
 // Bound on the H100: each (slot, KV head) must read its ctx + q_len cached
 // tokens of K and V once (2 * dh * 4 bytes per token in f32, 2 * dh * 2 in
-// bf16, 2 * (dh + 4) in codes + scale) and does 4 * R * dh flops per
-// token; at R <= 64 that is under 16 flops per byte (32 on bf16 pages), so
-// the kernel is bound by the bytes it reads (3.35 TB/s). At serving batch
-// sizes a launch reads a few hundred KB, so what it costs is latency: how
-// many dependent memory round trips and barriers lie on its longest path.
-// bf16 pages halve the bytes but not the instructions per token (the
-// same FMAs and shuffles, plus the widening), so they shorten a launch
-// only where the bytes, not that path, set its time.
+// bf16 or f16, 2 * (dh + 4) in codes + scale) and does 4 * R * dh flops
+// per token: R flops per byte of f32 pages, 2R of 16-bit pages. The
+// CUDA cores give 20 flops per byte at 3.35 TB/s (67 TFLOP/s), the
+// tensor cores 295 (989 TFLOP/s), so on the CUDA cores a verify window
+// (R = rep * w = 40 for gemma at w = 5) is bound by its arithmetic on
+// 16-bit pages, and on the tensor cores every shape the port serves is
+// bound by the bytes it reads. At serving batch sizes a launch reads a
+// few hundred KB, so what it costs is latency: how many dependent memory
+// round trips, barriers and launches lie on its longest path.
 //
-// Design (flash-decoding):
+// paged_decode_kernel (f32 and code pages; flash-decoding):
 //  * Grid (B, Hkv * row groups, splits). A row group is 8 query rows; a
 //    split is a run of split_tokens positions (a multiple of 16) of the
 //    slot's block table. The wrapper picks the split count from the
@@ -57,8 +59,7 @@
 //    8 query rows in registers and loads the same slice of the group's
 //    4 K rows and 4 V rows straight into registers (16-byte loads for f32
 //    at dh >= 128, 8 for codes at dh 256): all 8 loads of a group are in
-//    flight at once, coalesced across the warp (bf16 rows: 16-byte loads
-//    at dh 256, 8 at 128, 4 at 64, 2 at 32), and no page is staged in
+//    flight at once, coalesced across the warp, and no page is staged in
 //    shared memory, so there is no block-wide barrier in the token loop.
 //  * Scores: each lane has 8 x 4 partial dot products; one transposed
 //    butterfly (16 + 8 + 4 + 2 + 1 shuffles) leaves lane L with the full
@@ -74,12 +75,76 @@
 //    combines the splits that start inside the slot's context in a fixed
 //    order, so the result does not depend on scheduling.
 //  * All shared memory is static (at most 33 KB), so no launch sets an
-//    attribute. dh is a template parameter (32, 64, 128, 256); others are
-//    refused.
+//    attribute.
+//
+// paged_decode_mma_kernel (bf16 and f16 pages; one launch per call):
+//  * One thread-block cluster of C blocks (a power of two <= 16, and <=
+//    dh / 4, fixed by the shapes: enough blocks for the card, 2 chunks a
+//    warp at the table's full width) per (slot, KV head, group of 8 query
+//    rows). The slot's live context, read on the device from ctx_len and
+//    q_len, is cut into n 16-token chunks, and A ranks of the cluster
+//    take them: the fewest (a power of two <= C) that give no warp more
+//    than 2. Chunk c goes to warp c mod 4 of rank (c / 4) mod A. A decode
+//    tick's few chunks so stay in one block (A = 1: no cluster barrier,
+//    the other ranks leave at once), and no block works past the context.
+//  * Each warp streams its chunks through its own three shared-memory
+//    stages with 16-byte cp.async, the next chunks' K and V rows in flight
+//    behind the current chunk's MMAs; the page ids of a chunk are loaded
+//    a step before its copies are issued (the first before the slot's
+//    lengths arrive), q is cut into planes while the first copies fly,
+//    and no block-wide barrier lies in the loop.
+//  * Tensor cores, mma.sync.m16n8k16 with f32 accumulation; tokens on
+//    the M side, the group's 8 rows as N. S^T = K Q^T: K's 16 x 16 tiles
+//    by ldmatrix as A, q's planes as B, in 2 * planes independent sums
+//    whose next fragments load ahead of the MMAs. Exact planes of q: on
+//    bf16 pages three bf16 planes, q1 = bf16(q), q2 = bf16(q - q1), q3 =
+//    bf16(q - q1 - q2), whose sum is q (24 bits in three 8-bit pieces)
+//    while the pieces stay normal (|q| above about 2^-100), and a bf16 x
+//    bf16 product is exact in f32: the score is the f32 dot up to the
+//    order of its sums. On f16 pages two f16 planes of q scaled per row by
+//    a power of two 2^e that brings max|q| into [2^14, 2^15): the scale is
+//    exact and undone on the f32 score, it keeps the planes inside f16's
+//    range (65504), and each element's residual is at most 2^-22 |q_d|
+//    plus, where a lower plane falls below f16's normal range, 2^-39
+//    max|q|; f16 x f16 products are exact in f32, f16 K (subnormals too)
+//    is read as it is. The other choice, K split into bf16 hi + lo (exact,
+//    f16's 11 bits in two 8-bit pieces), needs three q planes for six
+//    MMAs per tile and a split of every K fragment in registers; q's
+//    planes are made once per block.
+//  * Online softmax per warp in registers: a thread's score fragment
+//    holds two tokens of the same two rows its O^T fragments hold, so a
+//    row's max takes three shuffles and its rescale none; the f32
+//    probabilities are summed per thread and reduced once at the end.
+//    O^T = V^T P^T: V's tiles by ldmatrix.trans as A, and P, rounded to
+//    the page's type, as B: its 16-bit accumulator layout becomes the B
+//    fragment by two movmatrix.trans. A 16-bit product is exact in f32.
+//  * Merge: each warp's (m, l, O) in its own stages, the block's 4 warps
+//    in warp order (row weights once). With A = 1 the block writes the
+//    output. With A > 1 each rank pushes its (m, l) and each rank's share
+//    of the dh columns into that rank's receive area by remote stores
+//    (after a barrier half, arrived at the start, tells every block runs),
+//    one cluster barrier, and each rank merges its columns over the ranks
+//    in rank order from its own shared memory: reruns are bit-identical
+//    and no partial crosses device memory.
+//  * Shared memory: q's planes, 3 stages x 4 warps of 16 K rows and 16 V
+//    rows (rows padded by 16 bytes, so ldmatrix has no bank conflict) and
+//    the receive area: 224 KB at dh 256.
+//  * What bounds it (tools/kernel_ablation.py on the card): a launch's
+//    fixed path (the launch, the block table and lengths, then K/V: two
+//    dependent memory round trips; one chunk's MMAs and softmax; the
+//    merge and the output's stores) is a few microseconds, against
+//    2.5 us of bytes for 4 slots x 2048 tokens of gemma-2b's head.
+//    Sharing the rows' maxima and P across the warps each round, so that
+//    no O is merged, measured slower: two barriers a round cost more.
+//
+// dh is a template parameter (32, 64, 128, 256); others are refused.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -116,14 +181,10 @@ __device__ __forceinline__ void load_f32(const float* __restrict__ p,
 }
 
 // How a lane loads its dh/32 elements of one page row, and how the raw
-// load becomes floats. F32 rows are the floats; bf16 and f16 rows are E
-// halves of 32-bit words, widened exactly; code rows are E bytes, decoded
-// through the block's LUT. ``round_p`` is what P @ V multiplies V by: the
-// f32 probability, or for bf16 (f16) pages that probability rounded to
-// bf16 (f16).
+// load becomes floats. F32 rows are the floats; code rows are E bytes,
+// decoded through the block's LUT.
 struct F32Page {
   using T = float;
-  __device__ __forceinline__ static float round_p(float p) { return p; }
   template <int E> struct Raw { float v[E]; };
   template <int E>
   __device__ __forceinline__ static Raw<E> load(const float* p) {
@@ -147,72 +208,8 @@ struct F32Page {
   }
 };
 
-struct Bf16Page {
-  using T = uint16_t;           // bf16 bits
-  __device__ __forceinline__ static float round_p(float p) {
-    return __bfloat162float(__float2bfloat16_rn(p));
-  }
-  template <int E> struct Raw { uint32_t w[(E + 1) / 2]; };
-  template <int E>
-  __device__ __forceinline__ static Raw<E> load(const uint16_t* p) {
-    Raw<E> r;
-    if constexpr (E == 8) {
-      const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-      r.w[0] = t.x;
-      r.w[1] = t.y;
-      r.w[2] = t.z;
-      r.w[3] = t.w;
-    } else if constexpr (E == 4) {
-      const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-      r.w[0] = t.x;
-      r.w[1] = t.y;
-    } else if constexpr (E == 2) {
-      r.w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-    } else {
-      r.w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    }
-    return r;
-  }
-  template <int E>
-  __device__ __forceinline__ static Raw<E> zero() {
-    Raw<E> r;
-#pragma unroll
-    for (int i = 0; i < (E + 1) / 2; ++i) r.w[i] = 0u;
-    return r;
-  }
-  // element e is the low (even e) or high (odd e) half of word e / 2; a
-  // bf16 is the top 16 bits of the f32 of the same value
-  template <int E>
-  __device__ __forceinline__ static void decode(const Raw<E>& r,
-                                                float (&v)[E],
-                                                const float*) {
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      v[e] = __uint_as_float(e % 2 ? r.w[e / 2] & 0xFFFF0000u
-                                   : r.w[e / 2] << 16);
-  }
-};
-
-// f16 pages load as bf16 pages do (16-bit words); they differ in how a
-// half widens and in how a probability rounds.
-struct F16Page : Bf16Page {
-  __device__ __forceinline__ static float round_p(float p) {
-    return __half2float(__float2half_rn(p));
-  }
-  template <int E>
-  __device__ __forceinline__ static void decode(const Raw<E>& r,
-                                                float (&v)[E],
-                                                const float*) {
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      v[e] = __half2float(__ushort_as_half(static_cast<unsigned short>(
-          e % 2 ? r.w[e / 2] >> 16 : r.w[e / 2] & 0xFFFFu)));
-  }
-};
-
 struct CodePage {
   using T = uint8_t;
-  __device__ __forceinline__ static float round_p(float p) { return p; }
   template <int E> struct Raw { uint32_t w[(E + 3) / 4]; };
   template <int E>
   __device__ __forceinline__ static Raw<E> load(const uint8_t* p) {
@@ -414,9 +411,9 @@ paged_decode_kernel(const float* __restrict__ q,
     const float corr = expf(m_run - m_new);
     l_run = l_run * corr + sum;
     m_run = m_new;
-    const float pw = Page::round_p(kQuant ? p * my_vs : p);
+    const float pw = kQuant ? p * my_vs : p;
 
-    // acc = acc * corr + (P [* v_scale], rounded as the page type says) @ V
+    // acc = acc * corr + (P [* v_scale]) @ V
 #pragma unroll
     for (int j = 0; j < kTok; ++j) {
       float vf[E];
@@ -583,12 +580,662 @@ int dispatch(const float* q, const typename Page::T* kp,
   return (int)err;
 }
 
+// -- bf16 and f16 pages: tensor cores, one launch ---------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kChunk = 16;         // tokens per MMA tile (the M side)
+constexpr int kStages = 3;         // chunks in flight per warp
+constexpr int kMaxCluster = 16;    // Hopper's largest cluster
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8 x 8 16-bit matrices; lanes 8i .. 8i + 7 address matrix i's rows
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// a cluster barrier in two halves: arrive (no memory order) and wait
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the transpose of an 8 x 8 16-bit matrix held as one fragment
+__device__ __forceinline__ uint32_t movm_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
+}
+
+// The page type's MMA: how q is cut into planes of that type, how two
+// floats pack into a 32-bit pair (rounded to nearest even, low half
+// first), and the m16n8k16 product with f32 accumulation.
+struct Bf16Mma {
+  static constexpr int kPlanes = 3;
+  static constexpr bool kRowScale = false;
+  __device__ __forceinline__ static uint32_t pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xFFFF0000u));
+  }
+  __device__ __forceinline__ static void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+struct F16Mma {
+  static constexpr int kPlanes = 2;
+  static constexpr bool kRowScale = true;
+  __device__ __forceinline__ static uint32_t pack(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  __device__ __forceinline__ static void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <int DH, class H>
+struct MmaTile {
+  static constexpr int kRowB = 2 * DH + 16;          // a padded 16-bit row
+  static constexpr int kQBytes = H::kPlanes * kRows * kRowB;
+  static constexpr int kStageBytes = 2 * kChunk * kRowB;   // K, then V
+  static constexpr int kWarpBytes = kStages * kStageBytes;
+  // the receive area of the cluster's merge: per source rank m, l (2 * 8
+  // floats) and O of this rank's columns (8 * DH / C floats), C <= kMaxC
+  static constexpr int kMaxC = DH / 4 < kMaxCluster ? DH / 4 : kMaxCluster;
+  static constexpr int kRecvO = 2 * kRows * kMaxC;           // floats
+  static constexpr int kRecvOffset = kQBytes + kMmaWarps * kWarpBytes;
+  static constexpr int kSmem = kRecvOffset + 4 * (kRecvO + kRows * DH);
+  static constexpr int kOStride = DH + 4;   // floats; no bank conflict,
+                                            // 16-byte rows
+  static constexpr int kPart = 2 * kRows + kRows * kOStride;  // m, l, O
+  static constexpr int kPartStride = kWarpBytes / 4;   // a warp's stages
+  static_assert(kPart * 4 <= kWarpBytes, "a warp's merge reuses its stages");
+};
+
+constexpr unsigned kNoRow = 0xFFFFFFFFu;
+
+// One chunk's 16 K rows and 16 V rows into a warp's stage: lane i < 16
+// holds the pool row of token i, or kNoRow past the context (zeros are
+// copied instead).
+template <int DH, int ROWB>
+__device__ __forceinline__ void load_chunk(uint32_t ks, uint32_t vs,
+                                           const uint16_t* __restrict__ kp,
+                                           const uint16_t* __restrict__ vp,
+                                           unsigned my_row, int lane) {
+  constexpr int kPieces = DH / 8;                  // 16 bytes each, a row
+  constexpr int kPerLane = kChunk * kPieces / 32;
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int piece = lane + 32 * j;
+    const int t = piece / kPieces, c = piece % kPieces;
+    const unsigned row = __shfl_sync(kFull, my_row, t);
+    const size_t src = (size_t)(row != kNoRow ? row : 0) * DH + c * 8;
+    const int bytes = row != kNoRow ? 16 : 0;
+    cp_async16(ks + t * ROWB + c * 16, kp + src, bytes);
+    cp_async16(vs + t * ROWB + c * 16, vp + src, bytes);
+  }
+}
+
+template <int DH, class H>
+__global__ void __launch_bounds__(kMmaThreads)
+paged_decode_mma_kernel(const float* __restrict__ q,
+                        const uint16_t* __restrict__ kp,
+                        const uint16_t* __restrict__ vp,
+                        const int* __restrict__ block_table,
+                        const int* __restrict__ ctx_len,
+                        const int* __restrict__ q_len,
+                        float* __restrict__ out, int hkv, int rows, int w,
+                        int single, int page_size, int max_pages,
+                        float scale) {
+  using L = MmaTile<DH, H>;
+  constexpr int kRowB = L::kRowB;
+  constexpr int kMt = DH / 16;                  // O^T tiles (16 dh each)
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float s_rs[kRows];                 // each row's score factor
+  __shared__ float s_w[kMmaWarps][kRows];       // the warps' merge weights
+  __shared__ float s_bl[kRows];                 // the block's l
+
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int groups = (rows + kRows - 1) / kRows;
+  const int unit = blockIdx.x / C;
+  const int bh = unit / groups, row0 = (unit % groups) * kRows;
+  const int b = bh / hkv, h = bh % hkv;
+  const size_t qrow0 = (size_t)bh * rows;
+  const int max_tokens = max_pages * page_size;
+  const int* bt = block_table + (size_t)b * max_pages;
+  // chunk c goes to warp c mod 4 of rank (c / 4) mod A: a warp's first
+  // chunk does not depend on A
+  const int first = rank * kMmaWarps + warp;
+  const uint32_t q_pl = smem_u32(smem);
+  const uint32_t stage0 = q_pl + L::kQBytes + warp * L::kWarpBytes;
+
+  // loaded before the slot's lengths arrive: the page ids of this warp's
+  // first chunk (lane i: token i of the chunk)
+  int pg[kStages];
+  {
+    const int t = first * kChunk + lane;
+    pg[0] = lane < kChunk && t < max_tokens ? __ldg(bt + t / page_size) : 0;
+  }
+  int ctx, qn;
+  if (single) {
+    const int c = ctx_len[b];
+    ctx = c > 0 ? c - 1 : 0;
+    qn = c > 0 ? 1 : 0;
+  } else {
+    ctx = ctx_len[b];
+    qn = q_len[b];
+  }
+
+  // this warp's two rows of q (2 warp, 2 warp + 1; zeros past the group)
+  constexpr int kPairs = (DH / 2 + 31) / 32;    // column pairs per lane
+  float2 x[2][kPairs];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = row0 + 2 * warp + k;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int pair = lane + 32 * i;
+      x[k][i] = r < rows && pair < DH / 2
+                    ? __ldg(reinterpret_cast<const float2*>(
+                          q + (qrow0 + r) * DH) + pair)
+                    : make_float2(0.f, 0.f);
+    }
+  }
+
+  // the first chunks' copies go out before q is cut
+  const int attend = min(ctx + qn, max_tokens);
+  const int n_chunks = (attend + kChunk - 1) / kChunk;
+  // the active ranks: the fewest (a power of two <= C) that give no warp
+  // more than 2 chunks; the others only keep the cluster's barriers. The
+  // first half of a barrier tells, before the merge stores into another
+  // block's shared memory, that every block of the cluster runs.
+  int A = 1;
+  while (A < C && 2 * kMmaWarps * A < n_chunks) A *= 2;
+  if (A > 1) cluster_arrive_relaxed();
+  if (rank >= A) {
+    if (A > 1) {
+      cluster_wait();
+      cluster.sync();
+    }
+    return;
+  }
+  const int stride = kMmaWarps * A;
+#pragma unroll
+  for (int j = 1; j < kStages; ++j) {
+    const int t = (first + j * stride) * kChunk + lane;
+    pg[j] = lane < kChunk && t < attend ? __ldg(bt + t / page_size) : 0;
+  }
+  // lane i < 16: the pool row of token i of chunk c (page id pgv)
+  auto pool_row = [&](int c, int pgv) -> unsigned {
+    const int t = c * kChunk + lane;
+    return lane < kChunk && t < attend
+               ? ((unsigned)pgv * hkv + h) * page_size + t % page_size
+               : kNoRow;
+  };
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    const int c = first + j * stride;
+    if (c < n_chunks)
+      load_chunk<DH, kRowB>(stage0 + j * L::kStageBytes,
+                            stage0 + j * L::kStageBytes + kChunk * kRowB, kp,
+                            vp, pool_row(c, pg[j]), lane);
+    cp_async_commit();
+  }
+
+  // q's planes of the warp's two rows
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int n = 2 * warp + k;
+    float rs = scale;
+    if (H::kRowScale) {
+      float mx = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i)
+        mx = fmaxf(mx, fmaxf(fabsf(x[k][i].x), fabsf(x[k][i].y)));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      // mx = f 2^(E - 127), f in [1, 2): 2^(141 - E) brings it into
+      // [2^14, 2^15); both factors are exact powers of two
+      const int biased = (__float_as_int(mx) >> 23) & 0xFF;
+      const int e = mx > 0.f ? min(max(141 - max(biased, 1), -100), 100) : 0;
+      const float up = __int_as_float((127 + e) << 23);
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i)
+        x[k][i] = make_float2(x[k][i].x * up, x[k][i].y * up);
+      rs = scale * __int_as_float((127 - e) << 23);
+    }
+    if (lane == 0) s_rs[n] = rs;
+#pragma unroll
+    for (int p = 0; p < H::kPlanes; ++p)
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int pair = lane + 32 * i;
+        if (pair >= DH / 2) continue;
+        const uint32_t u = H::pack(x[k][i].x, x[k][i].y);
+        const float2 f = H::unpack(u);
+        x[k][i].x -= f.x;
+        x[k][i].y -= f.y;
+        *reinterpret_cast<uint32_t*>(smem + (p * kRows + n) * kRowB +
+                                     4 * pair) = u;
+      }
+  }
+  __syncthreads();                  // q's planes and row factors are written
+
+  // this thread's rows of the score and O^T fragments: n0 = 2 t4 and n0 + 1;
+  // a row attends positions <= its limit (-1: a row past the group or the
+  // window)
+  int limit[2];
+  float rs[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = row0 + 2 * t4 + k;
+    limit[k] = r < rows && r % w < qn ? min(ctx + r % w, attend - 1) : -1;
+    rs[k] = s_rs[2 * t4 + k] * kLog2e;     // scores in log2 units
+  }
+  const uint32_t q_addr = q_pl + (lane & 7) * kRowB + 16 * (lane >> 3);
+  const uint32_t k_lane = (lane & 15) * kRowB + 16 * (lane >> 4);
+  const uint32_t v_lane =
+      ((lane & 7) + 8 * (lane >> 4)) * kRowB + 16 * ((lane >> 3) & 1);
+
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  float o[kMt][4];
+#pragma unroll
+  for (int i = 0; i < kMt; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  int pg_next = 0;
+  {
+    const int t = (first + kStages * stride) * kChunk + lane;
+    if (lane < kChunk && t < attend) pg_next = __ldg(bt + t / page_size);
+  }
+  for (int j = 0, c = first; c < n_chunks; ++j, c += stride) {
+    int pg_after = 0;
+    {
+      const int t = (c + (kStages + 1) * stride) * kChunk + lane;
+      if (lane < kChunk && t < attend) pg_after = __ldg(bt + t / page_size);
+    }
+    const uint32_t ks = stage0 + (j % kStages) * L::kStageBytes;
+    const uint32_t vs = ks + kChunk * kRowB;
+    cp_async_wait<kStages - 1>();
+    __syncwarp();                   // chunk c's rows are in the stage
+
+    // S^T = K Q^T over the planes of q, in 2 * kPlanes independent sums
+    // (a chain of dependent MMAs would wait on each one's latency); the
+    // fragments of the next 32 columns are loaded before this step's MMAs
+    float sp[H::kPlanes][2][4];
+#pragma unroll
+    for (int p = 0; p < H::kPlanes; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[p][0][e] = sp[p][1][e] = 0.f;
+    uint32_t ka[2][2][4], qb[2][H::kPlanes][4];
+    auto load_qk = [&](int kc, int buf) {
+      ldsm4(ka[buf][0], ks + k_lane + 64 * kc);
+      ldsm4(ka[buf][1], ks + k_lane + 64 * kc + 32);
+#pragma unroll
+      for (int p = 0; p < H::kPlanes; ++p)
+        ldsm4(qb[buf][p], q_addr + p * kRows * kRowB + 64 * kc);
+    };
+    load_qk(0, 0);
+#pragma unroll
+    for (int kc = 0; kc < DH / 32; ++kc) {
+      if (kc + 1 < DH / 32) load_qk(kc + 1, (kc + 1) & 1);
+#pragma unroll
+      for (int p = 0; p < H::kPlanes; ++p) {
+        H::mma(sp[p][0], ka[kc & 1][0], qb[kc & 1][p][0], qb[kc & 1][p][1]);
+        H::mma(sp[p][1], ka[kc & 1][1], qb[kc & 1][p][2], qb[kc & 1][p][3]);
+      }
+    }
+    // V's first fragments, loaded while the softmax runs
+    uint32_t va[2][4];
+    ldsm4_t(va[0], vs + v_lane);
+    if (kMt > 1) ldsm4_t(va[1], vs + v_lane + 32);
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[e] = sp[H::kPlanes - 1][0][e] + sp[H::kPlanes - 1][1][e];
+#pragma unroll
+      for (int p = H::kPlanes - 2; p >= 0; --p)
+        s[e] += sp[p][0][e] + sp[p][1][e];
+    }
+
+    // s[e]: token c * 16 + g (+ 8 for e >= 2), row n0 + (e & 1)
+    const int tok = c * kChunk + g;
+    float mx[2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = tok + 8 * (e >> 1) <= limit[e & 1];
+      s[e] = ok ? s[e] * rs[e & 1] : kNegInf;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      mx[k] = fmaxf(s[k], s[k + 2]);
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(kFull, mx[k], 4));
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(kFull, mx[k], 8));
+      mx[k] = fmaxf(mx[k], __shfl_xor_sync(kFull, mx[k], 16));
+    }
+    float corr[2], p[4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float m_new = fmaxf(m_run[k], mx[k]);
+      corr[k] = exp2f(m_run[k] - m_new);
+      m_run[k] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = tok + 8 * (e >> 1) <= limit[e & 1];
+      p[e] = ok ? exp2f(s[e] - m_run[e & 1]) : 0.f;
+    }
+    l_run[0] = l_run[0] * corr[0] + (p[0] + p[2]);
+    l_run[1] = l_run[1] * corr[1] + (p[1] + p[3]);
+
+    // O^T = O^T * corr + V^T P^T, P rounded to the page's type
+    const uint32_t b0 = movm_t(H::pack(p[0], p[1]));
+    const uint32_t b1 = movm_t(H::pack(p[2], p[3]));
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      o[mt][0] *= corr[0];
+      o[mt][1] *= corr[1];
+      o[mt][2] *= corr[0];
+      o[mt][3] *= corr[1];
+      H::mma(o[mt], va[mt & 1], b0, b1);
+      if (mt + 2 < kMt) ldsm4_t(va[mt & 1], vs + v_lane + 32 * (mt + 2));
+    }
+    __syncwarp();                   // the stage is read
+
+    const int c2 = c + kStages * stride;
+    if (c2 < n_chunks)
+      load_chunk<DH, kRowB>(ks, vs, kp, vp, pool_row(c2, pg_next), lane);
+    cp_async_commit();
+    pg_next = pg_after;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    l_run[k] += __shfl_xor_sync(kFull, l_run[k], 4);
+    l_run[k] += __shfl_xor_sync(kFull, l_run[k], 8);
+    l_run[k] += __shfl_xor_sync(kFull, l_run[k], 16);
+  }
+
+  // each warp's (m, l, O) into its own stages (its copies have landed),
+  // then the block's merge in warp order: row n's weights c_j = exp(m_j -
+  // M) computed once
+  float* part = reinterpret_cast<float*>(smem + L::kQBytes);
+  float* mine = part + warp * L::kPartStride;
+  if (g == 0) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      mine[2 * t4 + k] = m_run[k];
+      mine[kRows + 2 * t4 + k] = l_run[k];
+    }
+  }
+  float* mine_o = mine + 2 * kRows;
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+    const int d = mt * 16 + g;
+    mine_o[(2 * t4) * L::kOStride + d] = o[mt][0];
+    mine_o[(2 * t4 + 1) * L::kOStride + d] = o[mt][1];
+    mine_o[(2 * t4) * L::kOStride + d + 8] = o[mt][2];
+    mine_o[(2 * t4 + 1) * L::kOStride + d + 8] = o[mt][3];
+  }
+  __syncthreads();
+  // the block's (m, l, O): with A > 1 each active rank's share of the
+  // columns is pushed into that rank's receive area (slot ``rank``) by
+  // remote stores
+  float* recv = reinterpret_cast<float*>(smem + L::kRecvOffset);
+  const int share = DH / A;
+  if (A > 1) cluster_wait();
+  if (tid < kRows) {
+    float m = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kMmaWarps; ++j)
+      m = fmaxf(m, part[j * L::kPartStride + tid]);
+    float l = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMmaWarps; ++j) {
+      const float cj = exp2f(part[j * L::kPartStride + tid] - m);
+      s_w[j][tid] = cj;
+      l = fmaf(part[j * L::kPartStride + kRows + tid], cj, l);
+    }
+    s_bl[tid] = l;
+    if (A > 1)
+      for (int r = 0; r < A; ++r) {
+        float* dst = cluster.map_shared_rank(recv, r) + 2 * kRows * rank;
+        dst[tid] = m;
+        dst[kRows + tid] = l;
+      }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < kRows * DH / 4; idx += kMmaThreads) {
+    const int n = idx / (DH / 4), d = 4 * (idx % (DH / 4));
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < kMmaWarps; ++j) {
+      const float4 oj = *reinterpret_cast<const float4*>(
+          part + j * L::kPartStride + 2 * kRows + n * L::kOStride + d);
+      const float w = s_w[j][n];
+      a = make_float4(fmaf(oj.x, w, a.x), fmaf(oj.y, w, a.y),
+                      fmaf(oj.z, w, a.z), fmaf(oj.w, w, a.w));
+    }
+    if (A == 1) {
+      if (row0 + n < rows) {
+        const float l = fmaxf(s_bl[n], 1e-30f);
+        *reinterpret_cast<float4*>(out + (qrow0 + row0 + n) * DH + d) =
+            make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+      }
+    } else {
+      const int r = d / share, j = d % share;
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(recv, r) +
+                                 L::kRecvO + (rank * kRows + n) * share +
+                                 j) = a;
+    }
+  }
+  if (A == 1) return;
+
+  // one cluster barrier: every rank's share has landed; rank r merges the
+  // A blocks' (m, l, O) of columns [r * DH / A, (r + 1) * DH / A) in rank
+  // order from its own shared memory
+  cluster.sync();
+  const int quads = share / 4;
+  for (int idx = tid; idx < kRows * quads; idx += kMmaThreads) {
+    const int n = idx / quads, j = 4 * (idx % quads);
+    if (row0 + n >= rows) continue;
+    float m = kNegInf;
+    for (int r = 0; r < A; ++r) m = fmaxf(m, recv[2 * kRows * r + n]);
+    float l = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < A; ++r) {
+      const float cr = exp2f(recv[2 * kRows * r + n] - m);
+      const float4 o_r = *reinterpret_cast<const float4*>(
+          recv + L::kRecvO + (r * kRows + n) * share + j);
+      l = fmaf(recv[2 * kRows * r + kRows + n], cr, l);
+      a = make_float4(fmaf(o_r.x, cr, a.x), fmaf(o_r.y, cr, a.y),
+                      fmaf(o_r.z, cr, a.z), fmaf(o_r.w, cr, a.w));
+    }
+    l = fmaxf(l, 1e-30f);
+    *reinterpret_cast<float4*>(out + (qrow0 + row0 + n) * DH + rank * share +
+                               j) =
+        make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
+  }
+}
+
+template <int DH, class H>
+cudaError_t mma_attributes() {
+  // clusters above 8 blocks and the stages' shared memory need the
+  // kernel's attributes; set once per instance
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_mma_kernel<DH, H>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(paged_decode_mma_kernel<DH, H>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                MmaTile<DH, H>::kSmem);
+  }();
+  return err;
+}
+
+// The cluster size a launch asked for ``want`` (a power of two <= 16)
+// uses: the largest power of two <= min(want, DH / 4) of which the card
+// can hold one cluster (with one block per SM, clusters must fit within a
+// GPC). Asked once per size; deterministic for the card.
+template <int DH, class H>
+int mma_cluster(int want) {
+  static int cache[kMaxCluster + 1] = {};
+  if (cache[want] == 0) {
+    if (mma_attributes<DH, H>() != cudaSuccess) return 1;
+    int s = min(want, DH / 4);        // each rank normalises 4 columns or more
+    for (; s > 1; s /= 2) {
+      int n = 0;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(s);
+      cfg.blockDim = dim3(kMmaThreads);
+      cfg.dynamicSmemBytes = MmaTile<DH, H>::kSmem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = s;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (cudaOccupancyMaxActiveClusters(
+              &n, paged_decode_mma_kernel<DH, H>, &cfg) == cudaSuccess &&
+          n > 0)
+        break;
+    }
+    cudaGetLastError();             // a refused size is no launch error
+    cache[want] = s;
+  }
+  return cache[want];
+}
+
+bool valid_cluster(int c) {
+  return c >= 1 && c <= kMaxCluster && (c & (c - 1)) == 0;
+}
+
+template <int DH, class H>
+cudaError_t launch_mma(const float* q, const uint16_t* kp, const uint16_t* vp,
+                       const int* bt, const int* ctx, const int* qn,
+                       float* out, int B, int hkv, int rows, int w,
+                       int single, int page_size, int max_pages, int cluster,
+                       float scale, cudaStream_t stream) {
+  if (!valid_cluster(cluster)) return cudaErrorInvalidValue;
+  const cudaError_t attr_err = mma_attributes<DH, H>();
+  if (attr_err != cudaSuccess) return attr_err;
+  const int C = mma_cluster<DH, H>(cluster);
+  const int units = B * hkv * ((rows + kRows - 1) / kRows);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(units * C);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = MmaTile<DH, H>::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;     // a cluster of one is a plain grid
+  cudaError_t err = cudaLaunchKernelEx(&cfg, paged_decode_mma_kernel<DH, H>,
+                                       q, kp, vp, bt, ctx, qn, out, hkv, rows,
+                                       w, single, page_size, max_pages,
+                                       scale);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <class H>
+int dispatch_mma(const float* q, const uint16_t* kp, const uint16_t* vp,
+                 const int* bt, const int* ctx, const int* qn, float* out,
+                 int B, int hkv, int rows, int dh, int w, int single,
+                 int page_size, int max_pages, int cluster, float scale,
+                 cudaStream_t stream) {
+#define REPRO_MMA_LAUNCH(D)                                                 \
+  launch_mma<D, H>(q, kp, vp, bt, ctx, qn, out, B, hkv, rows, w, single,    \
+                   page_size, max_pages, cluster, scale, stream)
+  cudaError_t err;
+  switch (dh) {
+    case 32: err = REPRO_MMA_LAUNCH(32); break;
+    case 64: err = REPRO_MMA_LAUNCH(64); break;
+    case 128: err = REPRO_MMA_LAUNCH(128); break;
+    case 256: err = REPRO_MMA_LAUNCH(256); break;
+    default: err = cudaErrorInvalidValue;
+  }
+#undef REPRO_MMA_LAUNCH
+  return (int)err;
+}
+
+template <class H>
+int cluster_used(int dh, int want) {
+  if (!valid_cluster(want)) return 0;
+  switch (dh) {
+    case 32: return mma_cluster<32, H>(want);
+    case 64: return mma_cluster<64, H>(want);
+    case 128: return mma_cluster<128, H>(want);
+    case 256: return mma_cluster<256, H>(want);
+    default: return 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch(es); cudaErrorInvalidValue
-// for a head_dim the kernel is not built for. ``scratch`` holds
+// for a head_dim the kernel is not built for. f32 and code pools
+// (paged_decode_kernel): ``scratch`` holds
 // splits * B * Hkv * rows * (dh + 2) floats when splits > 1 (unused at 1).
 // ``single`` != 0 selects the single-token mode (q_len is then not read).
 int paged_decode_ragged_f32(const float* q, const float* kp, const float* vp,
@@ -603,30 +1250,36 @@ int paged_decode_ragged_f32(const float* q, const float* kp, const float* vp,
                            scale, stream);
 }
 
-// bf16 pools: ``kp``/``vp`` hold bf16 bits; q, out and scratch are f32.
+// bf16 and f16 pools (paged_decode_mma_kernel): ``kp``/``vp`` hold bf16
+// (f16) bits; q and out are f32. ``cluster``: the blocks per cluster asked
+// for, a power of two <= 16 (``paged_decode_cluster`` says which size the
+// card gives). No scratch: the cluster merges in shared memory.
 int paged_decode_ragged_bf16(const float* q, const uint16_t* kp,
                              const uint16_t* vp, const int* block_table,
                              const int* ctx_len, const int* q_len, float* out,
-                             float* scratch, int B, int hkv, int rows, int dh,
-                             int w, int single, int page_size, int max_pages,
-                             int splits, float scale, cudaStream_t stream) {
-  return dispatch<Bf16Page>(q, kp, vp, nullptr, nullptr, nullptr, 0,
-                            block_table, ctx_len, q_len, out, scratch, B,
-                            hkv, rows, dh, w, single, page_size, max_pages,
-                            splits, scale, stream);
+                             int B, int hkv, int rows, int dh, int w,
+                             int single, int page_size, int max_pages,
+                             int cluster, float scale, cudaStream_t stream) {
+  return dispatch_mma<Bf16Mma>(q, kp, vp, block_table, ctx_len, q_len, out,
+                               B, hkv, rows, dh, w, single, page_size,
+                               max_pages, cluster, scale, stream);
 }
 
-// f16 pools: ``kp``/``vp`` hold f16 bits; q, out and scratch are f32.
 int paged_decode_ragged_f16(const float* q, const uint16_t* kp,
                             const uint16_t* vp, const int* block_table,
                             const int* ctx_len, const int* q_len, float* out,
-                            float* scratch, int B, int hkv, int rows, int dh,
-                            int w, int single, int page_size, int max_pages,
-                            int splits, float scale, cudaStream_t stream) {
-  return dispatch<F16Page>(q, kp, vp, nullptr, nullptr, nullptr, 0,
-                           block_table, ctx_len, q_len, out, scratch, B, hkv,
-                           rows, dh, w, single, page_size, max_pages, splits,
-                           scale, stream);
+                            int B, int hkv, int rows, int dh, int w,
+                            int single, int page_size, int max_pages,
+                            int cluster, float scale, cudaStream_t stream) {
+  return dispatch_mma<F16Mma>(q, kp, vp, block_table, ctx_len, q_len, out, B,
+                              hkv, rows, dh, w, single, page_size, max_pages,
+                              cluster, scale, stream);
+}
+
+// The cluster size a bf16 (``f16`` == 0) or f16 launch at head dim ``dh``
+// that asks for ``want`` blocks uses; 0 for arguments no launch takes.
+int paged_decode_cluster(int dh, int f16, int want) {
+  return f16 ? cluster_used<F16Mma>(dh, want) : cluster_used<Bf16Mma>(dh, want);
 }
 
 int paged_decode_ragged_quant_f32(const float* q, const uint8_t* k_codes,

@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written paged-decode kernel
+"""Wrappers of the hand-written paged-decode kernels
 (``csrc/paged_decode.cu``), the Hopper counterpart of
 ``repro/kernels/paged_attention.py``, over f32 pools, bf16 pools, f16
 pools and SPx-quantized (uint8 codes + f32 per-token scale) pools. q and
@@ -15,15 +15,20 @@ itself: row 0 then attends positions ``< ctx_len`` and a row with
 ``ctx_len == 0`` comes back zero, which is the single-token semantics
 exactly, and no PyTorch op runs before the launch.
 
-The sequence is split across blocks (flash-decoding): ``decode_splits``
-picks the split count from the block table's width and the SM count, and
-is cached per shape; a split is a multiple of ``SPLIT_GRANULE`` tokens
+Over f32 and code pools the sequence is split across blocks
+(flash-decoding, ``paged_decode_kernel``): ``decode_splits`` picks the
+split count from the block table's width and the SM count, and is cached
+per shape; a split is a multiple of ``SPLIT_GRANULE`` tokens
 (``split_tokens``). With several splits the wrapper allocates one scratch
-buffer for the partials and the kernel's merge pass combines them in a
-fixed order. Each wrapper keeps its own launch count, and counts a launch
-over bf16 (f16) pools under its own name with ``_bf16`` (``_f16``) added
-(the kernel's bf16 and f16 instances). None falls back to the plain
-version.
+buffer for the partials and a second kernel, the merge pass, combines
+them in a fixed order. Over bf16 and f16 pools one launch of
+``paged_decode_mma_kernel`` (tensor cores) does it all: a thread-block
+cluster of ``decode_cluster`` blocks per (slot, KV head, group of 8
+rows) deals the slot's live context out in ``CHUNK``-token chunks to the
+warps of its ``active_ranks`` blocks and merges them in shared memory,
+in a fixed order; no scratch. Each wrapper keeps its own launch count, and
+counts a launch over bf16 (f16) pools under its own name with ``_bf16``
+(``_f16``) added. None falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ from . import cuda_lib
 
 __all__ = ["paged_decode_ragged_cuda", "paged_attention_cuda",
            "paged_decode_ragged_quant_cuda", "paged_attention_quant_cuda",
-           "decode_splits", "split_tokens", "HEAD_DIMS", "ROW_GROUP",
-           "SPLIT_GRANULE"]
+           "decode_splits", "split_tokens", "decode_cluster", "cluster_used",
+           "active_ranks", "HEAD_DIMS", "ROW_GROUP", "SPLIT_GRANULE",
+           "CHUNK", "MMA_WARPS", "MAX_CLUSTER", "CHUNKS_PER_WARP"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
@@ -47,6 +53,14 @@ ROW_GROUP = 8
 SPLIT_GRANULE = 16
 #: blocks per SM the split count aims at
 BLOCKS_PER_SM = 2
+#: the 16-bit kernel: tokens per chunk (one MMA tile), warps per block, the
+#: largest cluster and the chunks a warp takes before the work spreads
+#: over more of the cluster (its kChunk, kMmaWarps, kMaxCluster and the 2
+#: of its active-rank rule)
+CHUNK = 16
+MMA_WARPS = 4
+MAX_CLUSTER = 16
+CHUNKS_PER_WARP = 2
 
 
 def split_tokens(max_tokens: int, splits: int) -> int:
@@ -72,6 +86,42 @@ def decode_splits(batch: int, hkv: int, rows: int, max_pages: int,
     most = -(-max_tokens // SPLIT_GRANULE)
     splits = max(1, min(want, most))
     return -(-max_tokens // split_tokens(max_tokens, splits))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_cluster(batch: int, hkv: int, rows: int, max_pages: int,
+                   page_size: int, sms: int) -> int:
+    """Blocks per cluster of the 16-bit kernel: the largest power of two
+    <= ``MAX_CLUSTER`` that neither puts more blocks on the card than it
+    has SMs nor gives a warp fewer than ``CHUNKS_PER_WARP`` chunks of a
+    full block table. Of these the kernel keeps busy as many as the slot's
+    live context needs (``active_ranks``); it takes a smaller cluster
+    where the card cannot hold one this large (``cluster_used``)."""
+    units = batch * hkv * -(-rows // ROW_GROUP)
+    chunks = -(-max_pages * page_size // CHUNK)
+    want = max(1, min(MAX_CLUSTER, sms // max(units, 1),
+                      -(-chunks // (MMA_WARPS * CHUNKS_PER_WARP))))
+    return 1 << (want.bit_length() - 1)
+
+
+def active_ranks(n_chunks: int, cluster: int) -> int:
+    """The cluster ranks the 16-bit kernel keeps busy for a slot of
+    ``n_chunks`` live chunks: the fewest (a power of two <= ``cluster``)
+    that give no warp more than ``CHUNKS_PER_WARP`` chunks. The others
+    only keep the cluster's barriers; with one, no barrier runs."""
+    a = 1
+    while a < cluster and MMA_WARPS * CHUNKS_PER_WARP * a < n_chunks:
+        a *= 2
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_used(dtype: torch.dtype, dh: int, want: int) -> int:
+    """The cluster size the card gives a bf16 or f16 launch at head dim
+    ``dh`` that asks for ``want`` blocks: the largest power of two <=
+    min(``want``, ``dh`` / 4) of which it holds one cluster."""
+    return cuda_lib.library("paged_decode").paged_decode_cluster(
+        dh, int(dtype == torch.float16), want)
 
 
 #: the kernel's entry for each dtype of unquantized pools
@@ -150,17 +200,26 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
         _check(name, t, dt, device)
     lib = cuda_lib.library("paged_decode")
     max_pages = block_table.shape[1]
-    splits = decode_splits(b, hkv, rows, max_pages, ps,
-                           cuda_lib.sm_count(device.index or 0))
+    sms = cuda_lib.sm_count(device.index or 0)
     out = torch.empty_like(q)
+    single = q_len is None
+    qn = ctx_len if single else q_len
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if pool_dtype in _SUFFIXES:
+        err = getattr(lib, _ENTRIES[pool_dtype])(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), ctx_len.data_ptr(), qn.data_ptr(),
+            out.data_ptr(), b, hkv, rows, dh, w, int(single), ps, max_pages,
+            decode_cluster(b, hkv, rows, max_pages, ps, sms), dh ** -0.5,
+            stream)
+        cuda_lib.check(lib, err, "paged_decode launch")
+        return out, pool_dtype
+    splits = decode_splits(b, hkv, rows, max_pages, ps, sms)
     scratch = (torch.empty(splits * b * hkv * rows * (dh + 2),
                            dtype=torch.float32, device=device)
                if splits > 1 else out)
-    single = q_len is None
-    qn = ctx_len if single else q_len
     tail = (out.data_ptr(), scratch.data_ptr(), b, hkv, rows, dh, w,
-            int(single), ps, max_pages, splits, dh ** -0.5,
-            torch.cuda.current_stream(device).cuda_stream)
+            int(single), ps, max_pages, splits, dh ** -0.5, stream)
     if quant is None:
         err = getattr(lib, _ENTRIES[pool_dtype])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -9,11 +9,12 @@ import torch.utils.checkpoint
 
 from repro_torch.core import spx
 
-from .paged_attention import split_tokens
+from .paged_attention import CHUNK, MMA_WARPS, active_ranks, split_tokens
 
 __all__ = ["spx_matmul_ref", "paged_attention_ref", "paged_decode_ragged_ref",
            "paged_attention_quant_ref", "paged_decode_ragged_quant_ref",
-           "paged_decode_split_ref", "flash_attention_ref"]
+           "paged_decode_split_ref", "paged_decode_cluster_ref",
+           "flash_attention_ref"]
 
 _NEG = -1e30
 
@@ -48,7 +49,7 @@ def _pv_probs(p, v):
     """The probabilities P @ V multiplies V by: f32, or over f16 pages
     each rounded to f16 (nearest even, subnormals kept: ``Tensor.to``),
     as the TPU kernel's ``pv.astype(v.dtype)`` and the CUDA kernel's
-    ``F16Page`` round them. The sum of the f32 probabilities stays the
+    ``F16Mma`` round them. The sum of the f32 probabilities stays the
     denominator. bf16 pages keep the reference oracle's f32
     probabilities."""
     if v.dtype == torch.float16:
@@ -203,14 +204,94 @@ def paged_decode_split_ref(q, k_pages, v_pages, block_table, ctx_len,
         parts.append((m_z, p.sum(dim=-1, keepdim=True),
                       torch.einsum("bhrk,bhkd->bhrd", p,
                                    v[:, :, t0:t0 + span].to(torch.float32))))
+    _, l_sum, acc = _online_merge(parts)
+    return acc / torch.clamp(l_sum, min=1e-30)
+
+
+def _online_merge(parts):
+    """(m, l, acc) partials merged in their order: ``M = max(m)``, ``c =
+    exp(m - M)``, ``(M, sum(c * l), sum(c * acc))``."""
     m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-    l_sum = torch.zeros_like(m_all)
-    acc = torch.zeros_like(q, dtype=torch.float32)
+    l_sum, acc = torch.zeros_like(m_all), torch.zeros_like(parts[0][2])
     for m_z, l_z, a_z in parts:
         c = torch.exp(m_z - m_all)
         l_sum = l_sum + l_z * c
         acc = acc + a_z * c
-    return acc / torch.clamp(l_sum, min=1e-30)
+    return m_all, l_sum, acc
+
+
+def paged_decode_cluster_ref(q, k_pages, v_pages, block_table, ctx_len,
+                             q_len=None, *, w: int = 1, cluster: int,
+                             round_p: bool = True):
+    """The 16-bit CUDA kernel's (``paged_decode_mma_kernel``) work split in
+    plain PyTorch: ``paged_decode_ragged_ref`` over bf16 or f16 pools,
+    computed per 16-token chunk and merged as the kernel merges, so the
+    formula can be held against the reference on the CPU.
+
+    A slot of ``n`` live chunks (positions ``< min(ctx + q_len, table)``)
+    keeps ``A = active_ranks(n, cluster)`` ranks busy; chunk c (positions
+    ``[16 c, 16 c + 16)``) goes to warp ``c mod 4`` of rank ``(c // 4) mod
+    A``. Each warp runs the online softmax over its chunks in order: ``m``
+    the running max (-1e30 where every position so far is masked), ``l =
+    l * exp(m_old - m) + sum(p)`` over the f32 probabilities, ``acc = acc
+    * exp(m_old - m) + p' @ V`` where ``p'`` is ``p`` rounded to the pool's
+    dtype (``round_p``; f32 with ``round_p`` False). Then each rank merges
+    its 4 warps in warp order, the slot merges its ranks in rank order
+    (``_online_merge``), and the output is ``acc / max(l, 1e-30)``.
+    ``q_len`` None is the single-token mode (as ``paged_decode_split_ref``).
+    Returns (B, Hkv, R, dh) f32."""
+    if q_len is None:
+        w = 1
+        q_len = (ctx_len > 0).to(torch.int32)
+        ctx_len = torch.clamp(ctx_len - 1, min=0)
+    k, v = _gather(k_pages, block_table), _gather(v_pages, block_table)
+    r_rows, dh = q.shape[2], q.shape[3]
+    s = torch.einsum("bhrd,bhkd->bhrk", q.to(torch.float32),
+                     k.to(torch.float32)) * (dh ** -0.5)
+    win = torch.arange(r_rows, device=q.device) % w
+    pos = torch.arange(k.shape[2], device=q.device)
+    ctx = ctx_len.to(q.device).long()
+    qn = q_len.to(q.device).long()
+    row_ok = win[None, None, :, None] < qn[:, None, None, None]
+    mask = (pos[None, None, None, :]
+            <= ctx[:, None, None, None] + win[None, None, :, None]) & row_ok
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    vf = v.to(torch.float32)
+    outs = []
+    for b in range(q.shape[0]):
+        attend = min(int(ctx[b] + qn[b]), k.shape[2])
+        n_chunks = -(-attend // CHUNK)
+        a = active_ranks(n_chunks, cluster)
+        warps = {}
+        for c in range(n_chunks):
+            warps.setdefault(((c // MMA_WARPS) % a, c % MMA_WARPS),
+                             []).append(c)
+        ranks = []
+        for rank in range(a):
+            parts = []
+            for warp in range(MMA_WARPS):
+                m = torch.full(s.shape[1:3] + (1,), _NEG, dtype=torch.float32,
+                               device=q.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros(q.shape[1:], dtype=torch.float32,
+                                  device=q.device)
+                for c in warps.get((rank, warp), []):
+                    span = slice(c * CHUNK, (c + 1) * CHUNK)
+                    s_c, mask_c = s[b, ..., span], mask[b, ..., span]
+                    m_new = torch.maximum(m, s_c.amax(dim=-1, keepdim=True))
+                    corr = torch.exp(m - m_new)
+                    p = torch.where(mask_c, torch.exp(s_c - m_new),
+                                    torch.zeros_like(s_c))
+                    l = l * corr + p.sum(dim=-1, keepdim=True)
+                    pv = p.to(v.dtype).to(torch.float32) if round_p else p
+                    acc = acc * corr + torch.einsum("hrk,hkd->hrd", pv,
+                                                    vf[b, :, span])
+                    m = m_new
+                parts.append((m, l, acc))
+            ranks.append(_online_merge(parts))
+        _, l, acc = _online_merge(ranks)
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    return torch.stack(outs)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int,

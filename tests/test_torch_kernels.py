@@ -246,8 +246,9 @@ def test_f16_pages_plain_versions_match_reference(jx, dh, w):
 
 def f16_subnormal_case(device="cpu", n_tokens=64, dh=32):
     """f16 pages whose probabilities are f16 subnormals: every fourth
-    position (the first of each of the kernel's 4-token groups, so every
-    running max already holds it) scores 12 over the rest and has V = 0;
+    position (the first of each of the kernel's 16-token chunks among
+    them, so every running max already holds one) scores 12 over the
+    rest and has V = 0;
     the others score 0 and have V = 1, so each of their probabilities,
     exp(-12) = 6.1e-6, lies below f16's normal range (6.1e-5) and the
     output, 3 round(exp(-12)) / (1 + 3 exp(-12)), is made of them alone:
@@ -372,6 +373,158 @@ def test_decode_split_rule():
         per = split_tokens(tokens, splits)
         assert per % 16 == 0 and -(-tokens // per) == splits
         assert 1 <= splits <= -(-tokens // 16)
+
+
+#: the 16-bit kernel's probabilities rounded to the page's type, against
+#: the reference's oracle (f32 probabilities) and the Pallas kernel (each
+#: rounded at its page's running max): the per-slot bounds of the
+#: bf16 and f16 plain-version tests
+HALF_SLOT_RTOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2 / 8}
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_paged_decode_cluster_merge_matches_reference(jx, dtype, cluster):
+    """The 16-bit kernel's chunked, cluster-merged formula
+    (``ref.paged_decode_cluster_ref``) against the JAX reference: ragged
+    windows (w = 3, q_len 0..3, an empty slot, contexts of 1 to 253
+    tokens over 16-token pages, so a slot keeps 1 to 2 ranks busy and a
+    warp takes 0 to 2 chunks) and the single-token mode. With f32 probabilities it is the oracle within
+    1e-5; with each probability rounded to the page's type, as the kernel
+    and the Pallas kernel round it, within the per-slot bound of the
+    16-bit plain-version tests of both."""
+    from repro.kernels.paged_attention import (paged_attention_pallas,
+                                               paged_decode_ragged_pallas)
+    rng = np.random.default_rng(29 + cluster + 5 * (dtype == torch.float16))
+    b, hkv, rep, dh, ps, mp, w = 4, 2, 2, 32, 16, 16, 3
+    n_pages = 1 + b * mp
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (n_pages, hkv, ps, dh)).astype(np.float32)).to(dtype)
+        for _ in range(2))
+    bt = rng.permutation(n_pages)[:b * mp].reshape(b, mp).astype(np.int32)
+    ctx = np.asarray([0, 1, 2 * ps + 1 - 2, mp * ps - 3], np.int32)
+    qlen = np.asarray([0, 2, 1, 3], np.int32)
+    q = rng.standard_normal((b, hkv, rep * w, dh)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (q, bt, ctx, qlen)]
+    j = (jx.jnp.asarray(q), _jbf16(jx, kp), _jbf16(jx, vp),
+         jx.jnp.asarray(bt), jx.jnp.asarray(ctx), jx.jnp.asarray(qlen))
+    oracle = np.asarray(jx.ref.paged_decode_ragged_ref(*j, w=w))
+    pallas = np.asarray(paged_decode_ragged_pallas(*j, w=w, interpret=True))
+    tol = HALF_SLOT_RTOL[dtype]
+    exact = ref.paged_decode_cluster_ref(t[0], kp, vp, t[1], t[2], t[3], w=w,
+                                         cluster=cluster,
+                                         round_p=False).numpy()
+    np.testing.assert_allclose(exact, oracle, rtol=1e-5, atol=1e-5)
+    got = ref.paged_decode_cluster_ref(t[0], kp, vp, t[1], t[2], t[3], w=w,
+                                       cluster=cluster).numpy()
+    assert _slot_rel_err(got, oracle) <= tol
+    assert _slot_rel_err(got, pallas) <= tol
+    rows_off = np.arange(rep * w) % w >= qlen[:, None]       # (B, R)
+    assert (got.transpose(0, 2, 1, 3)[rows_off] == 0).all()
+
+    ctx1 = np.asarray([0, 1, ps + 1, mp * ps], np.int32)
+    q1 = np.ascontiguousarray(q[:, :, :rep])
+    j1 = (jx.jnp.asarray(q1), j[1], j[2], j[3], jx.jnp.asarray(ctx1))
+    args = (torch.from_numpy(q1), kp, vp, t[1], torch.from_numpy(ctx1))
+    exact = ref.paged_decode_cluster_ref(*args, cluster=cluster,
+                                         round_p=False).numpy()
+    np.testing.assert_allclose(exact, np.asarray(jx.ref.paged_attention_ref(
+        *j1)), rtol=1e-5, atol=1e-5)
+    got = ref.paged_decode_cluster_ref(*args, cluster=cluster).numpy()
+    assert _slot_rel_err(got, np.asarray(paged_attention_pallas(
+        *j1, interpret=True))) <= tol
+    assert (got[0] == 0).all()
+
+
+def test_decode_cluster_rule():
+    """The 16-bit kernel's cluster size: a power of two, at most 16, no
+    more blocks than SMs, and no block whose warps get fewer than 2
+    16-token chunks of a full block table; of them, the ranks a slot keeps
+    busy: the fewest that give no warp more than 2 of its live chunks."""
+    from repro_torch.kernels.paged_attention import (active_ranks,
+                                                     decode_cluster)
+    # gemma-2b decode tick: 4 slots x 1 KV head x 8 rows, 256-token table
+    assert decode_cluster(4, 1, 8, 8, 32, 132) == 2
+    assert decode_cluster(4, 1, 8, 64, 32, 132) == 16     # 2048 tokens
+    assert decode_cluster(4, 1, 40, 8, 32, 132) == 2      # verify, w = 5
+    assert decode_cluster(64, 8, 64, 16, 16, 132) == 1    # enough blocks
+    assert decode_cluster(4, 1, 8, 0, 16, 132) == 1
+    assert decode_cluster(1, 1, 8, 3, 16, 132) == 1       # 48 tokens
+    for args in ((3, 2, 40, 7, 16, 132), (4, 1, 8, 100, 16, 132),
+                 (2, 1, 8, 33, 32, 114), (1, 1, 1, 128, 16, 132)):
+        c = decode_cluster(*args)
+        units = args[0] * args[1] * -(-args[2] // 8)
+        chunks = -(-args[3] * args[4] // 16)
+        assert 1 <= c <= 16 and c & (c - 1) == 0
+        assert c == 1 or (units * c <= args[5] and 8 * (c - 1) < chunks)
+    # the decode tick's 49 tokens (4 chunks) keep one rank busy: no barrier
+    assert active_ranks(4, 2) == 1 and active_ranks(0, 16) == 1
+    assert [active_ranks(n, 16) for n in (8, 9, 16, 17, 128, 200)] == \
+        [1, 2, 2, 4, 16, 16]
+    assert active_ranks(128, 4) == 4
+
+
+def _q_planes(q, dtype):
+    """The 16-bit kernel's planes of q (B, R, dh) f32, as f64: three bf16
+    planes (bf16 pages), or two f16 planes of q scaled per row by 2^e with
+    max|q| 2^e in [2^14, 2^15) and the scale undone (f16 pages)."""
+    if dtype == torch.bfloat16:
+        return [p.double() for p in _split3(q)]
+    peak = q.abs().amax(-1, keepdim=True)
+    _, ex = torch.frexp(peak)
+    e = torch.where(peak > 0, 15 - ex, torch.zeros_like(ex)).clamp(-100, 100)
+    x = torch.ldexp(q, e.float())
+    hi = x.to(torch.float16).float()
+    lo = (x - hi).to(torch.float16).float()
+    return [torch.ldexp(p.double(), -e.double()) for p in (hi, lo)]
+
+
+@pytest.mark.parametrize("k_range", ["large", "unit", "tiny", "subnormal"])
+@pytest.mark.parametrize("q_scale", [1.0, 1e6, 1e-7])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_half_page_q_planes_reproduce_f32_scores(dtype, q_scale, k_range):
+    """The planes of q the 16-bit kernel multiplies page K by on the
+    tensor cores: each plane times a page value is exact in f32, so the
+    score differs from the exact dot of q and K only by what the planes
+    drop (summed here in f64, itself within 2^-40 of sum |q_d k_d|).
+    bf16: three planes rebuild q exactly. f16: at most 2^-22 of each
+    |q_d| plus 2^-39 of the row's max|q| for each element, over K of
+    magnitude 1e4 (to 4e4, near f16's 65504), around 1, tiny and in f16's
+    subnormal range; q of 1e6 (past f16's range) and 1e-7 (below its
+    normal range) as well. The f32 scores of the planes' products are
+    then within 1e-5 of an f32 dot's (relative to sum |q_d k_d|)."""
+    rng = np.random.default_rng(7)
+    b, r, dh = 3, 8, 256
+    q = torch.from_numpy(rng.standard_normal((b, r, dh)).astype(np.float32))
+    q = q * q_scale
+    q[0, 1] *= 1e-3                          # rows far below the others
+    q[1, 2, ::2] *= 1e-5                     # elements far below the row's
+    mag = {"large": 1e4, "unit": 1.0, "tiny": 1e-3, "subnormal": 3e-6}
+    k = torch.from_numpy((rng.standard_normal((b, 40, dh))
+                          * mag[k_range]).astype(np.float32)).to(dtype)
+    k64 = k.double()
+    assert bool(torch.isfinite(k).all())
+    if dtype == torch.float16 and k_range == "subnormal":
+        assert bool((k.abs() < 6.1e-5).all())
+    exact = q.double() @ k64.transpose(1, 2)
+    planes = _q_planes(q, dtype)
+    got = sum(p @ k64.transpose(1, 2) for p in planes)
+    scale = q.double().abs() @ k64.abs().transpose(1, 2)
+    bound = 2.0 ** -40 * scale
+    if dtype == torch.bfloat16:
+        assert torch.equal(sum(planes), q.double())
+    else:
+        floor = q.double().abs().amax(-1, keepdim=True) * 2.0 ** -39
+        bound = bound + 2.0 ** -22 * scale \
+            + floor * k64.abs().sum(-1)[:, None, :]
+    assert bool(((got - exact).abs() <= bound).all())
+    # the score as f32 sums of the planes' products, against an f32 dot
+    f32 = sum(p.float() @ k.float().transpose(1, 2) for p in planes)
+    dot = q @ k.float().transpose(1, 2)
+    assert bool(((f32.double() - dot.double()).abs()
+                 <= 1e-5 * scale + 1e-30).all())
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -561,8 +714,10 @@ def _attn_close(got, want) -> bool:
 def test_cuda_paged_decode_splits_modes_deterministic(cuda):
     """Contexts that take several splits (up to 2048 tokens, one ending
     one token into a page), ragged q_len at w in {1, 5, 8}, an empty slot,
-    and the in-kernel single-token mode, on f32 and code pages; two
-    launches on the same inputs are bit-identical."""
+    and the in-kernel single-token mode, on f32 and code pages (split
+    kernel and merge) and on bf16 and f16 pages (the tensor-core kernel,
+    up to 16 blocks a cluster; each slot within its page type's bound);
+    two launches on the same inputs are bit-identical."""
     from repro_torch.kernels.paged_attention import (
         paged_attention_cuda, paged_attention_quant_cuda,
         paged_decode_ragged_cuda, paged_decode_ragged_quant_cuda)
@@ -570,13 +725,20 @@ def test_cuda_paged_decode_splits_modes_deterministic(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     b, hkv, rep, dh, tokens = 4, 1, 8, 256, 2048
     lut = kv_lut("spx_8_x3", cuda)
-    for quant, ps in ((False, 16), (True, 32)):
+    for quant, ps in ((False, 16), (True, 32), (torch.bfloat16, 32),
+                      (torch.float16, 16)):
         mp = tokens // ps
         n_pages = 1 + b * mp
         k = torch.randn((n_pages, hkv, ps, dh), generator=gen, device=cuda)
         v = torch.randn((n_pages, hkv, ps, dh), generator=gen, device=cuda)
         bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[
             :b * mp].reshape(b, mp) + 1).to(torch.int32)
+        half = quant in HALF_SLOT_RTOL
+        if half:
+            k, v = k.to(quant), v.to(quant)
+            quant = False
+        close = ((lambda got, want: _slot_rel_err(got.cpu(), want.cpu())
+                  <= HALF_SLOT_RTOL[k.dtype]) if half else _attn_close)
         if quant:
             (kc, ks), (vc, vs) = quantize_kv(k, "spx_8_x3"), \
                 quantize_kv(v, "spx_8_x3")
@@ -603,7 +765,7 @@ def test_cuda_paged_decode_splits_modes_deterministic(cuda):
             got = ragged(q, *pools, ctx_t, qn, *extra, w=w)
             again = ragged(q, *pools, ctx_t, qn, *extra, w=w)
             want = ragged_ref(q, *pools, ctx_t, qn, *extra, w=w)
-            assert _attn_close(got, want), (quant, w)
+            assert close(got, want), (quant, k.dtype, w)
             assert torch.equal(got, again), (quant, w)
             rows_off = torch.arange(rep * w, device=cuda) % w >= qn[:, None]
             assert (got.permute(0, 2, 1, 3)[rows_off] == 0).all()
@@ -613,7 +775,7 @@ def test_cuda_paged_decode_splits_modes_deterministic(cuda):
         got = single(q, *pools, ctx1, *extra)
         again = single(q, *pools, ctx1, *extra)
         want = single_ref(q, *pools, ctx1, *extra)
-        assert _attn_close(got, want) and torch.equal(got, again), quant
+        assert close(got, want) and torch.equal(got, again), (quant, k.dtype)
         assert (got[0] == 0).all()
 
 
@@ -645,57 +807,74 @@ def test_cuda_spx_matmul_ragged_shapes_deterministic(cuda):
 
 
 def _cuda_half_pages_match_plain_version(cuda, dtype, tol, suffix):
-    """Kernels 2 and 5 over ``dtype`` pages at dh in {32, 64, 128, 256}
-    and page sizes 16 and 32, W = 1 and 5, an empty slot, a window across
-    a page boundary, and a context of 2048 tokens that splits: within
-    ``tol`` of the plain version's largest |output| in each slot, masked
-    rows exact zeros, a second launch bit-identical, and every launch
-    counted under the ``suffix`` route."""
+    """Kernels 2 and 5 over ``dtype`` pages (the tensor-core kernel) at dh
+    in {32, 64, 128, 256}, page sizes 16 and 32, w in {1, 5, 8} under rep
+    8 (up to 8 row groups), block tables of 256 and 2048 tokens (two
+    cluster sizes): slots with contexts 0, 1, 15, 16, 17, 49, 300 (within
+    the table: some of a cluster's ranks busy, the others only at its
+    barriers) and a full table, a partial window and an empty slot; the
+    single-token mode at ctx_len 0, 1, 15, 16, 17, 49, 300 and the full
+    table. Within ``tol`` of the
+    plain version's largest |output| in each slot, masked rows exact
+    zeros, a second launch bit-identical, and every launch counted under
+    the ``suffix`` route."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_decode_ragged_cuda)
     gen = torch.Generator(device=cuda).manual_seed(16)
     ops.reset_op_calls()
-    launches = 0
+    ragged_launches = single_launches = 0
+    rep = 8
     for dh in (32, 64, 128, 256):
+        hkv = 2 if dh < 256 else 1
         for ps in (16, 32):
-            for w, mp in ((1, 3), (5, 3), (1, 2048 // ps)):
-                b, hkv, rep = 4, 2 if dh < 256 else 1, 8 if w == 1 else 2
-                n_pages = 1 + b * mp
-                kp, vp = (torch.randn((n_pages, hkv, ps, dh), generator=gen,
-                                      device=cuda).to(dtype)
-                          for _ in range(2))
-                bt = (torch.randperm(n_pages - 1, generator=gen,
-                                     device=cuda)[:b * mp].reshape(b, mp)
-                      + 1).to(torch.int32)
-                top = mp * ps
-                ctx = torch.tensor([0, ps - 2, top - 1 - w, top - w],
-                                   dtype=torch.int32, device=cuda)
-                qn = torch.tensor([0, w, max(1, w - 2), w],
-                                  dtype=torch.int32, device=cuda)
-                q = torch.randn((b, hkv, rep * w, dh), generator=gen,
-                                device=cuda)
-                got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
-                again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn, w=w)
-                want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, qn,
-                                                   w=w)
-                case = (dh, ps, w, mp)
-                assert got.dtype == torch.float32, case
-                assert _slot_rel_err(got.cpu(), want.cpu()) <= tol, case
-                assert torch.equal(got, again), case
-                rows_off = torch.arange(rep * w, device=cuda) % w \
-                    >= qn[:, None]
-                assert (got.permute(0, 2, 1, 3)[rows_off] == 0).all(), case
-                ctx1 = torch.tensor([0, 1, ps + 1, top], dtype=torch.int32,
+            for tokens in (256, 2048):
+                mp = tokens // ps
+                contexts = [c for c in (0, 1, 15, 16, 17, 49, 300)
+                            if c + 8 <= tokens]
+                for w in (1, 5, 8):
+                    ctx_l = contexts + [tokens - w, tokens - w, 0]
+                    qlens = [w] * len(contexts) + [max(1, w - 2), w, 0]
+                    b = len(ctx_l)
+                    n_pages = 1 + b * mp
+                    kp, vp = (torch.randn((n_pages, hkv, ps, dh),
+                                          generator=gen,
+                                          device=cuda).to(dtype)
+                              for _ in range(2))
+                    bt = (torch.randperm(n_pages - 1, generator=gen,
+                                         device=cuda)[:b * mp]
+                          .reshape(b, mp) + 1).to(torch.int32)
+                    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=cuda)
+                    qn = torch.tensor(qlens, dtype=torch.int32, device=cuda)
+                    q = torch.randn((b, hkv, rep * w, dh), generator=gen,
                                     device=cuda)
-                q1 = q[:, :, :rep].contiguous()
-                got = paged_attention_cuda(q1, kp, vp, bt, ctx1)
-                again = paged_attention_cuda(q1, kp, vp, bt, ctx1)
-                want = ref.paged_attention_ref(q1, kp, vp, bt, ctx1)
+                    got = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn,
+                                                   w=w)
+                    again = paged_decode_ragged_cuda(q, kp, vp, bt, ctx, qn,
+                                                     w=w)
+                    want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx,
+                                                       qn, w=w)
+                    case = (dh, ps, tokens, w)
+                    assert got.dtype == torch.float32, case
+                    assert _slot_rel_err(got.cpu(), want.cpu()) <= tol, case
+                    assert torch.equal(got, again), case
+                    rows_off = torch.arange(rep * w, device=cuda) % w \
+                        >= qn[:, None]
+                    assert (got.permute(0, 2, 1, 3)[rows_off] == 0).all(), \
+                        case
+                    ragged_launches += 2
+                ctx1 = torch.tensor(contexts + [tokens],
+                                    dtype=torch.int32, device=cuda)
+                q1 = torch.randn((len(ctx1), hkv, rep, dh), generator=gen,
+                                 device=cuda)
+                bt1 = bt[:len(ctx1)].contiguous()
+                got = paged_attention_cuda(q1, kp, vp, bt1, ctx1)
+                again = paged_attention_cuda(q1, kp, vp, bt1, ctx1)
+                want = ref.paged_attention_ref(q1, kp, vp, bt1, ctx1)
                 assert _slot_rel_err(got.cpu(), want.cpu()) <= tol, case
                 assert torch.equal(got, again) and (got[0] == 0).all(), case
-                launches += 2
-    assert ops.op_calls() == {"paged_decode_ragged" + suffix: launches,
-                              "paged_attention" + suffix: launches}
+                single_launches += 2
+    assert ops.op_calls() == {"paged_decode_ragged" + suffix: ragged_launches,
+                              "paged_attention" + suffix: single_launches}
     with pytest.raises(TypeError, match=str(dtype).replace("torch.", "")):
         # a half K pool beside an f32 V pool
         paged_decode_ragged_cuda(q, kp, vp.float(), bt, ctx, qn, w=w)
@@ -704,15 +883,15 @@ def _cuda_half_pages_match_plain_version(cuda, dtype, tol, suffix):
 @pytest.mark.gpu
 def test_cuda_bf16_pages_match_plain_version(cuda):
     """``_cuda_half_pages_match_plain_version`` on bf16 pages (the
-    ``Bf16Page`` instance), within 1e-2: the kernel rounds each
-    probability to bf16, the plain version does not."""
+    tensor-core kernel's ``Bf16Mma`` instance), within 1e-2: the kernel
+    rounds each probability to bf16, the plain version does not."""
     _cuda_half_pages_match_plain_version(cuda, torch.bfloat16, 1e-2, "_bf16")
 
 
 @pytest.mark.gpu
 def test_cuda_f16_pages_match_plain_version(cuda):
     """``_cuda_half_pages_match_plain_version`` on f16 pages (the
-    ``F16Page`` instance), within F16_SLOT_RTOL: both round each
+    ``F16Mma`` instance), within F16_SLOT_RTOL: both round each
     probability to f16, the kernel at its running max, the plain version
     at the global one. Then the subnormal case at 2048 tokens (split over
     blocks): within 1e-5 of the plain version, which keeps the subnormal

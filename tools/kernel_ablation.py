@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the port's tensor-core kernels goes, by ablation.
 
-    python3 tools/kernel_ablation.py
+    python3 tools/kernel_ablation.py [KERNEL ...]
 
-Runs on one CUDA card. Builds copies of ``spx_matmul.cu`` and
-``flash_attention.cu`` with one stage of the kernel removed (the results
-of those copies are wrong by design), times each beside the full kernel
-with the profiler's device time at the serving path's shapes, and prints
-one JSON line per variant after the card's ``nvidia-smi`` name and power
-limit:
+Runs on one CUDA card. Builds copies of ``spx_matmul.cu``,
+``flash_attention.cu`` and ``paged_decode.cu`` with one stage of the
+kernel removed (the results of those copies are wrong by design), times
+each beside the full kernel with the profiler's device time at the
+serving path's shapes, and prints one JSON line per variant after the
+card's ``nvidia-smi`` name and power limit:
 
   * ``spx_matmul`` prefill tick: gemma-2b's seven projections of 18
     layers, sp2_4 codes (random, from a seed), M = 128 rows; variants
@@ -16,9 +16,18 @@ limit:
     first, without the split of x into bf16 planes;
   * ``flash_attention`` per admitted request: 18 launches, causal, 33
     tokens, 8 query heads over one KV head of 256; variants without the
-    Q K^T MMAs, without the P V MMAs, without the split of each K/V tile.
+    Q K^T MMAs, without the P V MMAs, without the split of each K/V tile;
+  * ``paged_decode_mma_kernel`` (kernels 2 and 5 on bf16 pages) per
+    decode tick: 18 launches, 4 slots x 1 KV head of 256 x 8 rows,
+    32-token pages, 49 tokens of a 256-token table at clusters of 1 and
+    4, and 2048 tokens at 8 and 16; variants without the K/V copies,
+    without the MMAs, with q's first plane alone in Q K^T, without the
+    softmax's exponentials, without the output's stores (a cluster of
+    one), without any merge, without the cluster ranks' merge after their
+    barrier, with nothing after q's planes (the set-up), and with nothing
+    at all (the launch).
 
-Each variant is timed twice, in the order full, variants, variants
+``KERNEL`` names limit the run to those kernels. Each variant is timed twice, in the order full, variants, variants
 reversed, full, so drift between the first and last rounds shows.
 """
 from __future__ import annotations
@@ -54,6 +63,35 @@ FLASH_CUTS = {
                     "    split_rows<DH>(stage + kBkv * DH, kv_pl + 2 * kPlane, "
                     "kPlane, kBkv);\n", ""),
 }
+PAGED_CUTS = {
+    "no_loads": ("    cp_async16(ks + t * ROWB + c * 16, kp + src, bytes);\n"
+                 "    cp_async16(vs + t * ROWB + c * 16, vp + src, bytes);\n",
+                 ""),
+    "no_mma": [("        H::mma(sp[p][0], ka[kc & 1][0], qb[kc & 1][p][0], "
+                "qb[kc & 1][p][1]);\n        H::mma(sp[p][1], ka[kc & 1][1], "
+                "qb[kc & 1][p][2], qb[kc & 1][p][3]);\n", ""),
+               ("      H::mma(o[mt], va[mt & 1], b0, b1);\n", "")],
+    "one_plane": ("      for (int p = 0; p < H::kPlanes; ++p) {\n"
+                  "        H::mma(sp[p][0]",
+                  "      for (int p = 0; p < 1; ++p) {\n        H::mma(sp[p][0]"),
+    "no_exp": [("      corr[k] = exp2f(m_run[k] - m_new);",
+                "      corr[k] = 1.f;"),
+               ("      p[e] = ok ? exp2f(s[e] - m_run[e & 1]) : 0.f;",
+                "      p[e] = ok ? s[e] : 0.f;")],
+    "no_store": ("        *reinterpret_cast<float4*>(out + (qrow0 + row0 + n) * DH "
+                 "+ d) =\n            make_float4(a.x / l, a.y / l, a.z / l, "
+                 "a.w / l);\n",
+                 "        if (a.x == -12345.f) out[0] = l;\n"),
+    "no_merge": ("  // each warp's (m, l, O) into its own stages (its copies "
+                 "have landed),\n", "  return;\n"),
+    "no_cluster_merge": ("  cluster.sync();\n  const int quads",
+                         "  cluster.sync();\n  return;\n  const int quads"),
+    "setup_only": ("  __syncthreads();                  // q's planes and row "
+                   "factors are written\n",
+                   "  __syncthreads();\n  cp_async_wait<0>();\n  return;\n"),
+    "empty": ("  cg::cluster_group cluster = cg::this_cluster();\n",
+              "  cg::cluster_group cluster = cg::this_cluster();\n  return;\n"),
+}
 
 
 def build(name: str, cuts: dict, out_dir: Path) -> dict:
@@ -62,10 +100,14 @@ def build(name: str, cuts: dict, out_dir: Path) -> dict:
     from repro_torch.kernels import cuda_lib
     src = (CSRC / f"{name}.cu").read_text()
     texts = {"full": src}
-    for tag, (old, new) in cuts.items():
-        if old not in src:
-            raise SystemExit(f"{name}.cu: the {tag} cut no longer matches")
-        texts[tag] = src.replace(old, new)
+    for tag, cut in cuts.items():
+        text = src
+        for old, new in cut if isinstance(cut, list) else [cut]:
+            if old not in text:
+                raise SystemExit(f"{name}.cu: the {tag} cut no longer "
+                                 "matches")
+            text = text.replace(old, new)
+        texts[tag] = text
     procs = {}
     for tag, text in texts.items():
         cu = out_dir / f"{name}_{tag}.cu"
@@ -115,8 +157,11 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    spx_libs = build("spx_matmul", SPX_CUTS, out_dir)
-    flash_libs = build("flash_attention", FLASH_CUTS, out_dir)
+    only = sys.argv[1:]
+    spx_libs = (build("spx_matmul", SPX_CUTS, out_dir)
+                if not only or "spx_matmul" in only else {})
+    flash_libs = (build("flash_attention", FLASH_CUTS, out_dir)
+                  if not only or "flash_attention" in only else {})
 
     # spx_matmul: the prefill tick of gemma-2b, M = 128
     m = 128
@@ -166,12 +211,55 @@ def main() -> int:
                                         hq, s, s, dh, 1, dh ** -0.5, stream)
         return run
 
-    for kernel, libs, per, make, key in (
-            ("spx_matmul", spx_libs, "prefill tick: 126 launches, M=128",
+    # the 16-bit paged decode kernel: gemma-2b's decode tick on bf16 pages
+    paged_libs = (build("paged_decode", PAGED_CUTS, out_dir)
+                  if not only or "paged_decode_mma_kernel" in only else {})
+    slots, dh, rep, ps = 4, 256, 8, 32
+    q8 = torch.randn((slots, 1, rep, dh), generator=gen, device="cuda")
+    one = torch.ones((slots,), dtype=torch.int32, device="cuda")
+    o8 = torch.empty_like(q8)
+    paged_cases = {}
+    for tokens, clusters in ((49, (1, 4)), (2048, (8, 16))):
+        mp = max(tokens, 256) // ps
+        pools = [tuple(torch.randn((slots * mp, 1, ps, dh), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(2)) for _ in range(18)]
+        bt = torch.arange(slots * mp, dtype=torch.int32,
+                          device="cuda").reshape(slots, mp)
+        ctx = torch.full((slots,), tokens - 1, dtype=torch.int32,
+                         device="cuda")
+        for c in clusters:
+            paged_cases[(tokens, c)] = (pools, bt, ctx, mp)
+
+    def paged_tick(tokens, c):
+        pools, bt, ctx, mp = paged_cases[(tokens, c)]
+
+        def make(lib):
+            lib.paged_decode_ragged_bf16.argtypes = [P] * 7 + [I] * 9 + [
+                ctypes.c_float, P]
+
+            def run():
+                for kp, vp in pools:
+                    lib.paged_decode_ragged_bf16(
+                        q8.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                        bt.data_ptr(), ctx.data_ptr(), one.data_ptr(),
+                        o8.data_ptr(), slots, 1, rep, dh, 1, 0, ps, mp, c,
+                        dh ** -0.5, stream)
+            return run
+        return make
+
+    runs = [("spx_matmul", spx_libs, "prefill tick: 126 launches, M=128",
              spx_tick, "spx_matmul_kernel"),
             ("flash_attention", flash_libs,
              "admitted request: 18 launches, causal 33 tokens", flash_request,
-             "flash_attention_kernel")):
+             "flash_attention_kernel")]
+    runs += [("paged_decode_mma_kernel", paged_libs,
+              f"decode tick: 18 launches, 4 slots x {tokens} tokens, bf16 "
+              f"pages of {ps}, cluster {c}", paged_tick(tokens, c),
+              "paged_decode_mma_kernel") for tokens, c in paged_cases]
+    for kernel, libs, per, make, key in runs:
+        if only and kernel not in only:
+            continue
         order = list(libs) + list(libs)[::-1]
         times: dict[str, list] = {tag: [] for tag in libs}
         for tag in order:
