@@ -15,7 +15,10 @@ Phases, each printing JSON lines:
               64, 65, 128, 256} (the tensor-core prefill kernel), also at
               the paper MLP's layers (784, 128) and (128, 10) and M = 1024
               and 2048, and the Q-network's (4, 64) and (64, 64) at M = 1
-              and 64, the ragged decode kernel at a w = 5 verify window
+              and 64 (the small-layer kernel; each key's kernel is
+              recorded, and a gate requires the 24 §4 keys on the small
+              kernel and gemma-2b's on the decode and prefill kernels),
+              the ragged decode kernel at a w = 5 verify window
               that crosses a page boundary, kernels 2 and 5 over bf16 and
               f16 pages (the tensor-core kernel: head dims 32 to 256, page
               sizes 32 and 16, w in {1, 5, 8}, contexts 0 to 2048, each
@@ -65,9 +68,10 @@ Phases, each printing JSON lines:
               over 512 keys with causal offsets 0, 128, 256 and 384;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
-              two spx_matmul launches per forward, outputs against the
-              plain version, time per sample at batch 1, 64 and 1024 for
-              the sp2_4 and the f32 torch.matmul arm;
+              two spx_matmul launches per forward, both on the
+              small-layer kernel, outputs against the plain version, time
+              per sample at batch 1, 64 and 1024 for the sp2_4 and the f32
+              torch.matmul arm;
      paper_experiments  the paper's §4 through the port's entry points:
               ``examples.quickstart`` (4 epochs of SGD, then test accuracy
               per scheme, held to tests/test_system.py's bars),
@@ -76,7 +80,8 @@ Phases, each printing JSON lines:
               against batch, §3.1 margins on H100_SXM),
               ``benchmarks.quant_quality`` and ``examples.rl_qlearning``
               (120 episodes, returns per scheme); every quantized arm
-              through spx_matmul, at shapes the kernel phase checked;
+              through spx_matmul's small-layer kernel, at shapes the
+              kernel phase checked on it;
   5. serve    full-width gemma-2b (18 layers, d_model 2048, vocab 256000,
               random weights from a seed, quantized to sp2_4) served three
               ways, each engine answering the same 8 greedy requests of 16
@@ -251,7 +256,10 @@ Phases, each printing JSON lines:
               rows (``prefill_by_M``), flash attention also at a 2048-token
               prompt (``long_prompt``), the ragged paged kernels also at 4
               slots x 2048 tokens (``long_ctx_device_ms``), ``spx_matmul``
-              at the paper MLP's two layers (``paper_mlp_by_M``), the ragged
+              at the paper MLP's two layers at M = 1, 64 and 1024 and the
+              Q-network's at M = 1 (``paper_mlp_by_M``; also the kernels
+              line's ``spx_matmul_small`` row, with each §4 key's kernel
+              instance), the ragged
               kernel at a verify tick of W = 5 (``verify_tick``), kernels 2
               and 5 over bf16 and f16 pages (a decode tick and 4 slots x
               2048 tokens; SDPA over the same K/V), one shard's kernels of
@@ -339,6 +347,27 @@ SPX_RTOL = 1e-4
 ATTN_TOL = 1e-4
 
 
+#: the 24 spx_matmul launch keys (``_launch_key``) of the paper's §4
+#: experiments: the MLP's (784, 128) and (128, 10) at every batch of
+#: Table 1, Fig. 5, quickstart and quant_quality, the Q-network's (4, 64)
+#: and (64, 64) at one state; sp2_4 (16 entries, packed), pot4 (32) and
+#: sp2_8 (256). Each must take the small-layer kernel.
+PAPER_SPX_KEYS = frozenset(
+    [("spx_matmul", True, 16, m, k, n) for k, n in ((784, 128), (128, 10))
+     for m in (1, 8, 64, 256, 1024, 2048)]
+    + [("spx_matmul", True, 16, 1, 4, 64), ("spx_matmul", True, 16, 1, 64, 64)]
+    + [("spx_matmul", False, lut, m, k, n) for lut in (32, 256)
+       for k, n in ((784, 128), (128, 10)) for m in (1024, 2048)]
+    + [("spx_matmul", False, 256, 1, 4, 64),
+       ("spx_matmul", False, 256, 1, 64, 64)])
+#: gemma-2b's projections (K, N), which keep the decode kernel at M <= 8
+#: and the prefill kernel above
+GEMMA_SPX_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+#: the kernel (``skinny``, ``mma``, ``small``) of every spx_matmul launch
+#: key a kernel phase checked
+SPX_PATHS: dict = {}
+
+
 def _rand_pools(torch, gen, n_pages, hkv, ps, dh):
     kp = torch.randn((n_pages, hkv, ps, dh), generator=gen, device="cuda")
     vp = torch.randn((n_pages, hkv, ps, dh), generator=gen, device="cuda")
@@ -354,8 +383,8 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
     from repro_torch.runtime import planner
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    worst = {"spx_matmul": 0.0, "paged_decode_ragged": 0.0,
-             "paged_attention": 0.0}
+    worst = {"spx_matmul": 0.0, "spx_matmul_small": 0.0,
+             "paged_decode_ragged": 0.0, "paged_attention": 0.0}
     # spx_matmul at the serving shapes: q/o (2048, 2048), k/v (2048, 256),
     # gate/up (2048, 16384), down (16384, 2048); decode M = slots, prefill
     # M = slots x chunk
@@ -394,6 +423,22 @@ def kernel_phase(torch, np) -> tuple[dict, set]:
                     worst, SPX_RTOL)
                 emit({"phase": "kernel", "kernel": "spx_matmul",
                       "scheme": scheme, "M": m, "K": k, "N": n, **rec})
+    # the gate: the §4 keys on the small-layer kernel, gemma-2b's on the
+    # decode (M <= 8) and prefill kernels
+    gemma = {key: "skinny" if key[3] <= 8 else "mma"
+             for key in SPX_PATHS if key[4:] in GEMMA_SPX_SHAPES}
+    paper = {key: "small" for key in PAPER_SPX_KEYS}
+    wrong = {key: SPX_PATHS.get(key) for key, path in {**gemma,
+                                                      **paper}.items()
+             if SPX_PATHS.get(key) != path}
+    emit({"phase": "kernel", "kernel": "spx_matmul", "paths_gate": {
+              "paper_keys_on_small": len(paper.keys() - wrong.keys()),
+              "paper_keys": len(paper),
+              "gemma_keys_on_old_kernels": len(gemma.keys() - wrong.keys()),
+              "gemma_keys": len(gemma),
+              "by_kernel": dict(collections.Counter(SPX_PATHS.values()))},
+          "wrong": {str(k): v for k, v in wrong.items()}, "ok": not wrong})
+    require(not wrong, f"spx_matmul keys on the wrong kernel: {wrong}")
 
     # ragged decode at gemma-2b's head shapes: B=4, Hkv=1, rep=8, dh=256
     ps = planner.plan_kv_pages(256).page_size
@@ -860,6 +905,9 @@ def serve_phase(torch, np):
     for op in ("spx_matmul", "paged_decode_ragged", "paged_attention"):
         require(launches.get(op, 0) > 0, f"{op} never launched")
     require(not plain, f"plain versions ran on the card: {plain}")
+    paths = ops.path_calls()
+    require(set(paths) <= {"spx_matmul_skinny", "spx_matmul_mma"},
+            f"gemma-2b's projections left their kernels: {paths}")
     decode_ticks = launches["paged_decode_ragged"] // cfg.n_layers
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -870,6 +918,7 @@ def serve_phase(torch, np):
           "latency_p50_ms": m["latency_p50_ms"], "wall_s": m["wall_s"],
           "model_calls": m["model_calls"], "decode_ticks": decode_ticks,
           "launches": launches, "plain_calls": plain,
+          "spx_matmul_kernels": paths,
           "launches_per_decode_tick": {
               "spx_matmul": launches["spx_matmul"] / m["model_calls"],
               "paged_decode_ragged": launches["paged_decode_ragged"]
@@ -1036,8 +1085,11 @@ def paper_mlp_phase(torch, np, card: str) -> dict:
     out = paper_mlp_apply(qparams, x, rt)
     torch.cuda.synchronize()
     launches, plain = ops.op_calls(), ops.ref_calls()
+    paths = ops.path_calls()
     require(launches == {"spx_matmul": 2},
             f"paper_mlp: launches per forward {launches}")
+    require(paths == {"spx_matmul_small": 2},
+            f"paper_mlp: not on the small-layer kernel: {paths}")
     require(not plain, f"paper_mlp: plain versions ran on the card: {plain}")
     want = paper_mlp_apply(qparams, x, Runtime(impl="ref"))
     dense = paper_mlp_apply(params, x, rt)
@@ -1064,7 +1116,8 @@ def paper_mlp_phase(torch, np, card: str) -> dict:
                      "(sp2_4, min_size=1024)",
           "inputs": "make_dataset(1024, seed=7)",
           "launches_per_forward": launches, "plain_calls": plain,
-          "max_abs_err": err, "max_rel_err": err / peak, "tol_rel": SPX_RTOL,
+          "spx_matmul_kernels": paths, "max_abs_err": err,
+          "max_rel_err": err / peak, "tol_rel": SPX_RTOL,
           "argmax_identical": same_argmax,
           "argmax_agreement_with_f32_weights": float(
               (out.argmax(-1) == dense.argmax(-1)).float().mean()),
@@ -1073,7 +1126,7 @@ def paper_mlp_phase(torch, np, card: str) -> dict:
                 "version")
     ops.reset_op_calls()
     return {"params": qparams, "launches": launches["spx_matmul"],
-            "max_abs_err": err}
+            "small_launches": paths["spx_matmul_small"], "max_abs_err": err}
 
 
 #: the reference's defaults for the §4 experiments
@@ -1097,8 +1150,8 @@ def paper_experiments_phase(torch, np, card: str, checked: set) -> dict:
     must launch ``spx_matmul`` and no plain version may run. Each launch's
     ``_launch_key`` (packed, LUT size, M, K, N) is recorded, and each must
     be one that the kernel phase held against the plain version
-    (``checked``).
-    Returns the launches of all five."""
+    (``checked``), and every launch must take the small-layer kernel.
+    Returns the launches of all five, per op and per spx_matmul kernel."""
     from repro_torch.benchmarks import fig5, quant_quality, table1
     from repro_torch.examples import quickstart, rl_qlearning
     from repro_torch.kernels import ops
@@ -1112,16 +1165,23 @@ def paper_experiments_phase(torch, np, card: str, checked: set) -> dict:
             result = fn()
         torch.cuda.synchronize()
         launches, plain = ops.op_calls(), ops.ref_calls()
+        paths = ops.path_calls()
         require(launches.get("spx_matmul", 0) > 0,
                 f"{name}: spx_matmul never launched")
+        require(paths == {"spx_matmul_small": launches["spx_matmul"]},
+                f"{name}: spx_matmul launches off the small-layer kernel: "
+                f"{paths}")
+        off = sorted(key for key in shapes if SPX_PATHS.get(key) != "small")
+        require(not off, f"{name}: launched at {off}, which the kernel "
+                         "phase did not see on the small-layer kernel")
         require(not plain, f"{name}: plain versions ran on the card: "
                            f"{plain}")
         unchecked = sorted(shapes - checked)
         require(not unchecked, f"{name}: launched at {unchecked}, which the "
                                "kernel phase never held to the plain version")
-        for op, n in launches.items():
+        for op, n in {**launches, **paths}.items():
             total[op] = total.get(op, 0) + n
-        return result, {"launches": launches,
+        return result, {"launches": launches, "spx_matmul_kernels": paths,
                         "spx_matmul_shapes": sorted(shapes),
                         "seconds": time.perf_counter() - t0}
 
@@ -2383,9 +2443,13 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
     pages: of each slot's). The error joins ``worst`` and the launch key of a
     recorded op joins ``checked``. Returns the output and the check's
     numbers."""
+    from repro_torch.kernels import cuda_lib
+    before = collections.Counter(cuda_lib.PATH_LAUNCHES)
     got, again, want = launch(*args, **kw), launch(*args, **kw), \
         plain(*args, **kw)
     torch.cuda.synchronize()
+    path = [k.removeprefix("spx_matmul_") for k, n in
+            (collections.Counter(cuda_lib.PATH_LAUNCHES) - before).items()]
     err = (got - want).abs().max().item()
     peak = want.abs().max().item()
     if tol_rel is None:
@@ -2407,8 +2471,15 @@ def _check_launch(torch, name, launch, plain, args, kw, checked, worst,
     op = name.removesuffix("_bf16").removesuffix("_f16")
     if op in RECORDED_OPS or op in SHARDED_OPS:
         checked.add(_launch_key(op, args, kw))
-    return got, {"max_abs_err": err, "max_rel_err": err / max(peak, 1e-30),
-                 "tol": tol, "bit_identical_rerun": True, "ok": True}
+    rec = {"max_abs_err": err, "max_rel_err": err / max(peak, 1e-30),
+           "tol": tol, "bit_identical_rerun": True, "ok": True}
+    if name == "spx_matmul":
+        require(len(path) == 1, f"spx_matmul at {shapes}: kernels {path}")
+        SPX_PATHS[_launch_key(op, args, kw)] = rec["path"] = path[0]
+        if path[0] == "small":
+            worst["spx_matmul_small"] = max(
+                worst.get("spx_matmul_small", 0.0), err)
+    return got, rec
 
 
 def _flash_plain(q, k, v, *, causal, q_offset=0):
@@ -5368,6 +5439,10 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
         for name, qt in layers[0].items()}
     del dense
     spx["paper_mlp_by_M"] = _paper_mlp_timing(torch, gen, mlp["params"])
+    # the small-layer kernel's row: the paper MLP's forward at M = 1024,
+    # every timed forward beside it, and the instance each §4 key runs
+    small = dict(spx["paper_mlp_by_M"]["M=1024"], name="spx_matmul_small",
+                 by_M=spx["paper_mlp_by_M"], instances=_small_instances(torch))
     # the families' decode ticks, timed in serve_families while each
     # family's weights were on the card
     spx["decode_tick_by_family"] = {
@@ -5505,6 +5580,8 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     meta = {
         "spx_matmul": (src + "spx_matmul.cu",
                        "src/repro/kernels/spx_matmul.py:77"),
+        "spx_matmul_small": (src + "spx_matmul.cu",
+                             "src/repro/kernels/spx_matmul.py:77"),
         "paged_decode_ragged": (src + "paged_decode.cu",
                                 "src/repro/kernels/paged_attention.py:247"),
         "paged_attention": (src + "paged_decode.cu",
@@ -5530,7 +5607,8 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
             src + "paged_decode.cu",
             "src/repro/kernels/paged_attention.py:354"),
     }
-    path_launches = {"paged_decode_ragged_quant": new_launches["quant"],
+    path_launches = {"spx_matmul_small": mlp["experiments"],
+                     "paged_decode_ragged_quant": new_launches["quant"],
                      "paged_attention_quant": new_launches["quant"],
                      "flash_attention": new_launches["dense"],
                      "paged_decode_ragged_bf16": new_launches["paged-bf16"],
@@ -5540,7 +5618,8 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
     # every serving path's run, the paper MLP's forward and the §4
     # experiments (counts set to 0 before each and read after it)
     by_path = {"paged": launches, **new_launches,
-               "paper_mlp": {"spx_matmul": mlp["launches"]},
+               "paper_mlp": {"spx_matmul": mlp["launches"],
+                             "spx_matmul_small": mlp["small_launches"]},
                "paper_experiments": mlp["experiments"],
                **{f"serve_families {name}": f["launches"]
                   for name, f in families.items()},
@@ -5551,7 +5630,7 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                   for run, n in training["launches"].items()},
                **training["mesh"]["launches"]}
     rows = []
-    for entry in (spx, ragged, paged, quant, flash, quant_one, bf16,
+    for entry in (spx, small, ragged, paged, quant, flash, quant_one, bf16,
                   bf16_one, f16, f16_one):
         name = entry["name"]
         source, replaces = meta[name]
@@ -5568,15 +5647,22 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
 
 def _paper_mlp_timing(torch, gen, qparams) -> dict:
     """``spx_matmul`` over the paper MLP's two quantized layers, (784, 128)
-    then (128, 10), at M = 64 and 1024 rows, beside ``torch.matmul`` on the
-    dequantized weights and the two bounds."""
-    from repro_torch.kernels import ref
+    then (128, 10), at M = 1, 64 and 1024 rows, and over the Q-network's,
+    (4, 64) then (64, 64) (sp2_4 codes from a seed), at M = 1, beside
+    ``torch.matmul`` on the dequantized weights, the two bounds and each
+    forward's kernel launches."""
+    from repro_torch.core.quantized import quantize_weight
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spx_matmul import spx_matmul_cuda
-    qts = [qparams[f"l{i}"]["w"] for i in range(2)]
-    dense = [qt.dequantize() for qt in qts]
-    lut = qts[0].lut()
+    mlp = [qparams[f"l{i}"]["w"] for i in range(2)]
+    qnet = [quantize_weight(torch.randn(shape, generator=gen, device="cuda")
+                            * shape[0] ** -0.5, "sp2_4")
+            for shape in ((4, 64), (64, 64))]
     out = {}
-    for m in (64, 1024):
+    for name, m, qts in (("M=1", 1, mlp), ("M=64", 64, mlp),
+                         ("M=1024", 1024, mlp), ("Q-network M=1", 1, qnet)):
+        dense = [qt.dequantize() for qt in qts]
+        lut = qts[0].lut()
         xs = [torch.rand((m, qt.logical_shape[0]), generator=gen,
                          device="cuda") for qt in qts]
 
@@ -5595,8 +5681,12 @@ def _paper_mlp_timing(torch, gen, qparams) -> dict:
             nbytes += m * k * 4 + qt.codes.numel() + n * 4 + 16 * 4 \
                 + m * n * 4
             flops += 2 * m * k * n
-        row = {"per": f"forward: 2 launches, M={m}, (K, N) = (784, 128) "
-                      "and (128, 10)",
+        ops.reset_op_calls()
+        kernel()
+        torch.cuda.synchronize()
+        shapes = " and ".join(str(qt.logical_shape) for qt in qts)
+        row = {"per": f"forward: 2 launches, M={m}, (K, N) = {shapes}",
+               "launches": ops.path_calls(),
                "ms": _time_ms(torch, kernel, reps=50, warmup=5),
                "device_ms": _device_ms(torch, kernel, ("spx_matmul_kernel",),
                                        reps=20),
@@ -5609,7 +5699,27 @@ def _paper_mlp_timing(torch, gen, qparams) -> dict:
         row["bound_ms"], row["bound_by"] = _bound_ms(nbytes, flops)
         row["share_of_bound"] = row["bound_ms"] / row["device_ms"] \
             if row["device_ms"] else None
-        out[f"M={m}"] = row
+        require(row["launches"] == {"spx_matmul_small": 2},
+                f"paper_mlp_by_M {name}: kernels {row['launches']}")
+        out[name] = row
+        del dense
+    ops.reset_op_calls()
+    return out
+
+
+def _small_instances(torch) -> dict:
+    """The small-layer kernel's instance (tile rows, tile columns, 4-bit
+    packed codes) and warps at each §4 launch key, as the planner picks
+    them on this card."""
+    from repro_torch.runtime import planner
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for _, packed, lut, m, k, n in sorted(PAPER_SPX_KEYS):
+        p = planner.plan_spx_launch(m, k, n, packed, lut, sms)
+        out[f"{'packed' if packed else 'unpacked'} lut {lut}, M={m}, "
+            f"K={k}, N={n}"] = (f"spx_matmul_kernel_small<{p.tile_m // 8}, "
+                                f"{p.tile_n // 16}, {str(packed).lower()}>, "
+                                f"{p.warps} warps")
     return out
 
 
@@ -6036,9 +6146,9 @@ def _layer_weights(params, i):
 
 def _sass_counts(cuda_lib) -> dict:
     """Warpgroup (HGMMA) and warp (HMMA) tensor-core instructions in each
-    built library's SASS, by cuobjdump; the three tensor-core kernels
-    (spx_matmul's prefill, flash, the 16-bit paged decode) must have
-    them."""
+    built library's SASS, by cuobjdump; the tensor-core kernels
+    (spx_matmul's prefill: HGMMA, its small-layer kernel, flash, the
+    16-bit paged decode: HMMA) must have them."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     counts = {}
     for name in ("spx_matmul", "flash_attention", "paged_decode"):
@@ -6052,7 +6162,7 @@ def _sass_counts(cuda_lib) -> dict:
                         "HMMA": sass.count("HMMA")}
     if tool.exists():
         require(counts["spx_matmul"]["HGMMA"] > 0, "spx_matmul has no HGMMA")
-        for name in ("flash_attention", "paged_decode"):
+        for name in ("spx_matmul", "flash_attention", "paged_decode"):
             require(counts[name]["HMMA"] > 0, f"{name} has no HMMA")
     return counts
 

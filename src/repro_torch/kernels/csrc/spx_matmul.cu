@@ -85,7 +85,30 @@
 //    through distributed shared memory, so the result is bit-identical
 //    from launch to launch, and no partial sum goes through device memory.
 //    Unsplit blocks store straight from their accumulators.
-//  * Both kernels mask the M, N and K edges themselves: every shape runs.
+//  * Small layers (N <= 128, K <= 1024: the paper's 784-128-10 MLP, the
+//    Q-network), spx_matmul_kernel_small: tiles sized to the layer, so
+//    that a 128-column layer still gives the card dozens of blocks, and no
+//    cluster, TMA or mbarrier on the path. A block owns 8 I rows x 16 J
+//    columns (I, J in 1, 2, 4, chosen by runtime/planner.py) and all of
+//    K; its warps (up to 8, or 16 on tiles of at most 8 x 32) split K in
+//    whole 16-row steps and add their sums in warp
+//    order in shared memory, so no partial sum leaves the block. Each warp
+//    stages its own K rows of x and of the codes by cp.async (16 bytes,
+//    8 for 8-byte code rows), all in flight at once, then waits for them
+//    alone; x's rows are padded and the code rows of a step permuted so
+//    that the fragment loads hit every bank once.
+//    The MMA is mma.sync m16n8k16 with the weights as A and x as B
+//    (out^T = W^T x^T), so a tile is 8 rows of M, not 64: the A fragments
+//    come straight from the codes in registers (4-bit codes by byte
+//    permutes; 8-bit codes through a shared table with a copy per lane,
+//    free of bank conflicts), with K permuted within a step so that a
+//    thread's four K values are four consecutive code rows and one float4
+//    of x. Exactness as below: three bf16 planes of x, and w_lo where the
+//    LUT is not exact in bf16. x past K stages as zeros; rows of x past M
+//    and codes past N or K are not copied (they reach only outputs that
+//    are never stored, or meet x = 0); unaligned code rows (N = 10
+//    packed: 5 bytes) and unaligned x take plain loads.
+//  * All kernels mask the M, N and K edges themselves: every shape runs.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -862,6 +885,348 @@ spx_matmul_kernel_mma(const float* __restrict__ x,
   cluster.sync();               // no block leaves while another reads it
 }
 
+// -- small layers: warp MMAs on tiles sized to the layer ----------------------
+
+constexpr int kSmemMax = 232448;        // a block's shared memory (opt-in)
+constexpr int kTabCopies = 32;          // the 8-bit codes' table, per lane
+
+// BYTES (4, 8 or 16) by cp.async through L1
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(BYTES));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) @ b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int I, int J, bool PACKED>
+struct Small {
+  static constexpr int kBM = 8 * I;                   // rows of M
+  static constexpr int kBN = 16 * J;                  // output columns
+  static constexpr int kRowBytes = PACKED ? kBN / 2 : kBN;  // of a code row
+  static constexpr int kCopy = kRowBytes < 16 ? kRowBytes : 16;  // cp.async
+  static constexpr int kTabBytes = PACKED ? 0 : kLutMax * kTabCopies * 4;
+  // warps over K: 16 where the tile's registers allow 512 threads
+  static constexpr int kMaxWarps = I * J <= 2 ? 16 : 8;
+};
+
+// Where a small-path block keeps what: first (head_bytes) the 8-bit table
+// and the tile's scales; then the codes (the tile's rows, kRowBytes each,
+// row 16 s + 4 t + i at 16 s + 4 i + t) and x ([row][k], rows xs floats
+// apart, xs * 4 = 64 mod 128 bytes); once every warp is done, the warps'
+// sums ([warp][i][j][lane][4]) and the summed tile ([row][column], rows
+// kBN + 4 floats apart) reuse the codes and x.
+struct SmallLayout {
+  int steps, xs, codes_bytes, head_bytes, total;
+};
+constexpr int kScaleBytes = 64 * 4;     // the widest tile's scales
+
+template <int I, int J, bool PACKED>
+__host__ __device__ inline SmallLayout small_layout(int K, int warps) {
+  using S = Small<I, J, PACKED>;
+  SmallLayout l;
+  l.steps = (K + 15) / 16;
+  l.xs = l.steps * 16 + (l.steps % 2 ? 0 : 16);
+  l.codes_bytes = l.steps * 16 * S::kRowBytes;
+  l.head_bytes = S::kTabBytes + kScaleBytes;
+  const int stage = l.codes_bytes + S::kBM * l.xs * 4;
+  const int red = (warps * S::kBN + S::kBN + 4) * S::kBM * 4;
+  l.total = l.head_bytes + (stage > red ? stage : red);
+  return l;
+}
+
+template <int I, int J, bool PACKED>
+__global__ void __launch_bounds__(Small<I, J, PACKED>::kMaxWarps * 32)
+spx_matmul_kernel_small(const float* __restrict__ x,
+                        const uint8_t* __restrict__ codes,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ lut,
+                        float* __restrict__ out, int M, int K, int N,
+                        int lut_size) {
+  using S = Small<I, J, PACKED>;
+  extern __shared__ __align__(16) uint8_t smem_small[];
+  const int warps = blockDim.x >> 5;
+  const SmallLayout L = small_layout<I, J, PACKED>(K, warps);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem_small);
+  float* s_scale =
+      reinterpret_cast<float*>(smem_small + L.head_bytes - kScaleBytes);
+  uint8_t* cs = smem_small + L.head_bytes;
+  float* xs = reinterpret_cast<float*>(cs + L.codes_bytes);
+  float* red = reinterpret_cast<float*>(cs);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * S::kBN, m0 = blockIdx.y * S::kBM;
+  const int row_bytes = PACKED ? N / 2 : N;
+  const int col_byte0 = PACKED ? n0 / 2 : n0;
+  // this warp's K steps of 16 rows
+  const int s_lo = warp * L.steps / warps;
+  const int s_hi = (warp + 1) * L.steps / warps;
+
+  // The LUT's entries, first in flight: for 4-bit codes four a lane
+  // (entries 4 (lane % 4) .. + 3); for 8-bit codes 32 a round per warp,
+  // one a lane.
+  constexpr int kRounds = PACKED ? 1 : kLutMax / 32;
+  constexpr int kLutLoads = PACKED ? 4 : kRounds;
+  float lv[kLutLoads];
+#pragma unroll
+  for (int q = 0; q < kLutLoads; ++q) {
+    const int e = PACKED ? 4 * (lane & 3) + q
+                         : (warp + q * warps) * 32 + lane;
+    lv[q] = e < lut_size ? __ldg(lut + e) : 0.f;
+  }
+
+  // Stage this warp's rows of x and of the code tile, all in flight at
+  // once; x first, so that plain loads of unaligned code rows wait under
+  // its copies. Code row 16 s + 4 t + i goes to row 16 s + 4 i + t: the
+  // four threads t that read row i of their quads read consecutive rows,
+  // so a step's reads hit every bank once. Only what the stored outputs
+  // read is copied: rows of x past M and code
+  // bytes past N feed only outputs that are never stored, and code rows
+  // past K meet x = 0 (a code is an index into a finite table, whatever
+  // its bits).
+  {
+    const int r0 = 16 * s_lo, nr = 16 * (s_hi - s_lo);
+    const bool x_aligned =
+        K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const int chunks = nr / 4;              // of 4 floats, per row of x
+    const int mr = min(S::kBM, M - m0);     // rows of x to copy
+#pragma unroll 4
+    for (int c = lane; c < mr * chunks; c += 32) {
+      const int m = c / chunks, k = r0 + 4 * (c % chunks);
+      float* dst = xs + m * L.xs + k;
+      const float* src = x + (size_t)(m0 + m) * K + k;
+      if (x_aligned && k < K) {
+        cp_async16(dst, src, 16);
+      } else {
+        for (int e = 0; e < 4; ++e) dst[e] = k + e < K ? src[e] : 0.f;
+      }
+    }
+    const int kr = min(nr, K - r0);         // code rows to copy
+    const bool c_aligned =
+        row_bytes % S::kCopy == 0 &&
+        (reinterpret_cast<uintptr_t>(codes) & (S::kCopy - 1)) == 0;
+    // pieces a row: copies of kCopy bytes, or words of plain loads
+    const int per = S::kRowBytes / (c_aligned ? S::kCopy : 4);
+#pragma unroll 4
+    for (int c = lane; c < kr * per; c += 32) {
+      const int r = r0 + c / per, piece = c % per;
+      uint8_t* dst = cs + ((r & ~15) | ((r & 3) << 2) | ((r >> 2) & 3)) *
+                              S::kRowBytes;
+      if (c_aligned) {
+        const int b0 = col_byte0 + piece * S::kCopy;
+        if (b0 < row_bytes)
+          cp_async_ca<S::kCopy>(dst + piece * S::kCopy,
+                                codes + (size_t)r * row_bytes + b0);
+      } else {
+        const int b0 = col_byte0 + 4 * piece;
+        uint32_t v = 0;
+        for (int b = 0; b < 4 && b0 + b < row_bytes; ++b)
+          v |= (uint32_t)codes[(size_t)r * row_bytes + b0 + b] << (8 * b);
+        *reinterpret_cast<uint32_t*>(dst + 4 * piece) = v;
+      }
+    }
+  }
+  for (int i = tid; i < S::kBN && n0 + i < N; i += blockDim.x)
+    cp_async_ca<4>(s_scale + i, scale + n0 + i);
+  cp_async_commit();
+
+  // The LUT as bf16 planes hi = bf16(lut), lo = bf16(lut - hi): 4-bit
+  // codes in registers (Lut16, the same in every lane; the lo test a warp
+  // vote), 8-bit codes in a shared table of
+  // (hi | lo << 16) with one copy per lane: each warp shuffles its 32
+  // entries of a round to every lane's copy (entry e of lane l at word e *
+  // 32 + l); rounds past the LUT write zeros.
+  Lut16 t_hi, t_lo;
+  bool lo;
+  if constexpr (PACKED) {
+    // lane l holds word l % 16 of the two tables: plane (l / 8) % 2 (hi,
+    // lo), byte (l / 4) % 2 (low, high) of entries 4 (l % 4) .. + 3;
+    // every lane gathers the 16 words by shuffles
+    uint32_t word = 0;
+    int any = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(lv[b]);
+      const __nv_bfloat16 l =
+          __float2bfloat16_rn(lv[b] - __bfloat162float(h));
+      const uint32_t lb = __bfloat16_as_ushort(l);
+      const uint32_t e = (lane & 8) ? lb : __bfloat16_as_ushort(h);
+      word |= ((lane & 4) ? e >> 8 : e & 0xFFu) << (8 * b);
+      any |= (lb & 0x7FFF) != 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      t_hi.lo[j] = __shfl_sync(0xFFFFFFFFu, word, j);
+      t_hi.hi[j] = __shfl_sync(0xFFFFFFFFu, word, 4 + j);
+      t_lo.lo[j] = __shfl_sync(0xFFFFFFFFu, word, 8 + j);
+      t_lo.hi[j] = __shfl_sync(0xFFFFFFFFu, word, 12 + j);
+    }
+    lo = __any_sync(0xFFFFFFFFu, any) != 0;
+  } else {
+    uint32_t hl[kRounds];
+    int any = 0;
+#pragma unroll
+    for (int q = 0; q < kRounds; ++q) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(lv[q]);
+      const __nv_bfloat16 l =
+          __float2bfloat16_rn(lv[q] - __bfloat162float(h));
+      const uint32_t lb = __bfloat16_as_ushort(l);
+      hl[q] = __bfloat16_as_ushort(h) | (lb << 16);
+      any |= (lb & 0x7FFF) != 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kRounds; ++q) {
+      const int b = warp + q * warps;       // the round, the same warp-wide
+      if (b >= kRounds) continue;
+      if (32 * b < lut_size) {
+#pragma unroll 8
+        for (int src = 0; src < 32; ++src)
+          tab[(32 * b + src) * kTabCopies + lane] =
+              __shfl_sync(0xFFFFFFFFu, hl[q], src);
+      } else {
+        uint4* z = reinterpret_cast<uint4*>(tab + 32 * b * kTabCopies);
+        for (int u = lane; u < 8 * kTabCopies; u += 32)
+          z[u] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    lo = __syncthreads_or(any) != 0;
+  }
+  cp_async_wait<0>();
+  __syncwarp();               // the warp's stage has landed
+
+  float acc[I][J][4];
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  // A step's K slots 2t, 2t + 1, 2t + 8, 2t + 9 (the fragments' layout)
+  // hold rows 16 s + 4t + 0..3: one float4 of x (B) and one word of each
+  // of four code rows (A), staged at rows 16 s + 4 i + t. A's row g is
+  // output column n0 + 2 (J g + j), row g + 8 the next one: the low and
+  // the high nibble of one code byte.
+#pragma unroll 2
+  for (int s = s_lo; s < s_hi; ++s) {
+    uint32_t b[3][I][2];                  // x's planes, per row tile
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          xs + (8 * i + g) * L.xs + 16 * s + 4 * t);
+      split3(make_float2(v.x, v.y), b[0][i][0], b[1][i][0], b[2][i][0]);
+      split3(make_float2(v.z, v.w), b[0][i][1], b[1][i][1], b[2][i][1]);
+    }
+    const uint8_t* rows_s = cs + (16 * s + t) * S::kRowBytes;
+    // word w of the thread's four rows
+    auto quad = [&](int w) {
+      return make_uint4(
+          *reinterpret_cast<const uint32_t*>(rows_s + 4 * w),
+          *reinterpret_cast<const uint32_t*>(rows_s + 4 * S::kRowBytes +
+                                             4 * w),
+          *reinterpret_cast<const uint32_t*>(rows_s + 8 * S::kRowBytes +
+                                             4 * w),
+          *reinterpret_cast<const uint32_t*>(rows_s + 12 * S::kRowBytes +
+                                             4 * w));
+    };
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      uint32_t a[4], al[4];
+      if constexpr (PACKED) {
+        const int byte = J * g + j;         // of the tile's code row
+        const uint4 v = quad(byte >> 2);
+        const uint32_t sel = (byte & 3) | (((byte & 3) + 4) << 4);
+        const uint32_t c = __byte_perm(__byte_perm(v.x, v.y, sel),
+                                       __byte_perm(v.z, v.w, sel), 0x5410);
+        const uint32_t q0 = nibbles(c, 0), q1 = nibbles(c, 1);
+        const uint2 e0 = lookup4(t_hi, q0), e1 = lookup4(t_hi, q1);
+        a[0] = e0.x;
+        a[1] = e1.x;
+        a[2] = e0.y;
+        a[3] = e1.y;
+        if (lo) {
+          const uint2 f0 = lookup4(t_lo, q0), f1 = lookup4(t_lo, q1);
+          al[0] = f0.x;
+          al[1] = f1.x;
+          al[2] = f0.y;
+          al[3] = f1.y;
+        }
+      } else {
+        const int byte = 2 * (J * g + j);   // column h at byte + h
+        const uint4 v = quad(byte >> 2);
+        const uint32_t rows[4] = {v.x, v.y, v.z, v.w};
+        uint32_t e[4][2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            e[r][h] = tab[((rows[r] >> (8 * ((byte & 3) + h))) & 0xFF) *
+                              kTabCopies + lane];
+        a[0] = __byte_perm(e[0][0], e[1][0], 0x5410);
+        a[1] = __byte_perm(e[0][1], e[1][1], 0x5410);
+        a[2] = __byte_perm(e[2][0], e[3][0], 0x5410);
+        a[3] = __byte_perm(e[2][1], e[3][1], 0x5410);
+        al[0] = __byte_perm(e[0][0], e[1][0], 0x7632);
+        al[1] = __byte_perm(e[0][1], e[1][1], 0x7632);
+        al[2] = __byte_perm(e[2][0], e[3][0], 0x7632);
+        al[3] = __byte_perm(e[2][1], e[3][1], 0x7632);
+      }
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          mma16816(acc[i][j], a, b[p][i][0], b[p][i][1]);
+        if (lo) {
+          mma16816(acc[i][j], al, b[0][i][0], b[0][i][1]);
+          mma16816(acc[i][j], al, b[1][i][0], b[1][i][1]);
+        }
+      }
+    }
+  }
+
+  // The warps' sums, added in warp order in the fragments' order (every
+  // read on its own bank) into a [row][column] tile; then the scale, and
+  // stores along N.
+  __syncthreads();            // every warp is done with the staged tiles
+  float4* red4 = reinterpret_cast<float4*>(red);
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      red4[((warp * I + i) * J + j) * 32 + lane] = make_float4(
+          acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+  __syncthreads();
+  constexpr int kTile = I * J * 128, kStride = S::kBN + 4;
+  float* tile = red + warps * kTile;
+  for (int o = tid; o < kTile; o += blockDim.x) {
+    float sum = 0.f;
+#pragma unroll 4
+    for (int w = 0; w < warps; ++w) sum += red[w * kTile + o];
+    // D's element c of lane l in tile (i, j): row 2 t + c % 2 of the
+    // row tile, column 2 (J g + j) + c / 2 (A's row g or g + 8)
+    const int c = o & 3, l = (o >> 2) & 31, ij = o >> 7;
+    tile[(8 * (ij / J) + 2 * (l & 3) + (c & 1)) * kStride +
+         2 * (J * (l >> 2) + ij % J) + (c >> 1)] = sum;
+  }
+  __syncthreads();
+  for (int q = tid; q < S::kBM * S::kBN; q += blockDim.x) {
+    const int ml = q / S::kBN, nl = q % S::kBN;
+    const int m = m0 + ml, n = n0 + nl;
+    if (m < M && n < N)
+      out[(size_t)m * N + n] = tile[ml * kStride + nl] * s_scale[nl];
+  }
+}
+
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 int skinny_kps(int K, int splits) {
@@ -1090,6 +1455,49 @@ cudaError_t launch_mma(const float* x, const uint8_t* codes,
                                           lut_size, splits, stream);
 }
 
+template <int I, int J, bool PACKED>
+cudaError_t launch_small_as(const float* x, const uint8_t* codes,
+                            const float* scale, const float* lut, float* out,
+                            int M, int K, int N, int lut_size, int warps,
+                            cudaStream_t stream) {
+  using S = Small<I, J, PACKED>;
+  const SmallLayout l = small_layout<I, J, PACKED>(K, warps);
+  if (warps < 1 || warps > S::kMaxWarps || M < 1 || N < 1 ||
+      l.total > kSmemMax)
+    return cudaErrorInvalidValue;
+  // the shared memory above 48 KB needs the kernel's attribute; set once
+  // per instance
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      spx_matmul_kernel_small<I, J, PACKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr_err != cudaSuccess) return attr_err;
+  const dim3 grid(ceil_div(N, S::kBN), ceil_div(M, S::kBM));
+  spx_matmul_kernel_small<I, J, PACKED><<<grid, warps * 32, l.total, stream>>>(
+      x, codes, scale, lut, out, M, K, N, lut_size);
+  return cudaGetLastError();
+}
+
+// the small-path instance of a tile: 8 I rows x 16 J columns, I and J in
+// 1, 2, 4; any other tile is refused
+template <bool PACKED>
+cudaError_t launch_small(const float* x, const uint8_t* codes,
+                         const float* scale, const float* lut, float* out,
+                         int M, int K, int N, int lut_size, int tile_m,
+                         int tile_n, int warps, cudaStream_t stream) {
+#define REPRO_SMALL(TI, TJ)                                                 \
+  if (tile_m == 8 * TI && tile_n == 16 * TJ)                                \
+    return launch_small_as<TI, TJ, PACKED>(x, codes, scale, lut, out, M, K, \
+                                           N, lut_size, warps, stream);
+  REPRO_SMALL(1, 1) REPRO_SMALL(1, 2) REPRO_SMALL(1, 4)
+  REPRO_SMALL(2, 1) REPRO_SMALL(2, 2) REPRO_SMALL(2, 4)
+  REPRO_SMALL(4, 1) REPRO_SMALL(4, 2) REPRO_SMALL(4, 4)
+#undef REPRO_SMALL
+  return cudaErrorInvalidValue;
+}
+
+// the launch plans' paths (runtime/planner.py: plan_spx_launch)
+constexpr int kPathSkinny = 0, kPathMma = 1, kPathSmall = 2;
+
 }  // namespace
 
 extern "C" {
@@ -1104,21 +1512,36 @@ int spx_matmul_splits(int M, int K, int N, int sms) {
 
 // x (M, K) f32, codes (K, N/2) packed or (K, N) uint8, scale (N,) f32,
 // lut (lut_size,) f32, out (M, N) f32; all contiguous, on the device.
-// Returns cudaGetLastError() after the launch.
+// The plan (runtime/planner.py: plan_spx_launch) names the kernel: path 0
+// the decode kernel (M <= 8) with `splits` blocks per cluster, 1 the
+// prefill kernel (M > 8) likewise, 2 the small-layer kernel with its tile
+// (tile_m x tile_n) and warps; a plan the kernels cannot run is refused
+// (cudaErrorInvalidValue) and nothing launches. Returns
+// cudaGetLastError() after the launch.
 int spx_matmul_f32(const float* x, const uint8_t* codes, const float* scale,
                    const float* lut, float* out, int M, int K, int N,
-                   int packed, int lut_size, int splits,
-                   cudaStream_t stream) {
-  cudaError_t err;
+                   int packed, int lut_size, int path, int splits,
+                   int tile_m, int tile_n, int warps, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
 #define REPRO_SKINNY(MT)                                                    \
   launch_skinny<MT>(x, codes, scale, lut, out, M, K, N, packed, lut_size,   \
                     splits, stream)
-  if (M <= 1) err = REPRO_SKINNY(1);
-  else if (M <= 2) err = REPRO_SKINNY(2);
-  else if (M <= 4) err = REPRO_SKINNY(4);
-  else if (M <= kSkinnyMaxM) err = REPRO_SKINNY(8);
-  else err = launch_mma(x, codes, scale, lut, out, M, K, N, packed, lut_size,
-                        splits, stream);
+  if (path == kPathSmall) {
+    err = packed ? launch_small<true>(x, codes, scale, lut, out, M, K, N,
+                                      lut_size, tile_m, tile_n, warps,
+                                      stream)
+                 : launch_small<false>(x, codes, scale, lut, out, M, K, N,
+                                       lut_size, tile_m, tile_n, warps,
+                                       stream);
+  } else if (path == kPathSkinny) {
+    if (M <= 1) err = REPRO_SKINNY(1);
+    else if (M <= 2) err = REPRO_SKINNY(2);
+    else if (M <= 4) err = REPRO_SKINNY(4);
+    else if (M <= kSkinnyMaxM) err = REPRO_SKINNY(8);
+  } else if (path == kPathMma && M > kSkinnyMaxM) {
+    err = launch_mma(x, codes, scale, lut, out, M, K, N, packed, lut_size,
+                     splits, stream);
+  }
 #undef REPRO_SKINNY
   return (int)err;
 }

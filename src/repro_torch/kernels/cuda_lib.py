@@ -9,7 +9,9 @@ the hash of its source and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A failed build raises.
 
 ``LAUNCHES`` counts kernel launches per op. Each wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else. ``PATH_LAUNCHES`` counts them per
+kernel where an op has several (``spx_matmul_skinny``, ``_mma``,
+``_small``).
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "build_all", "library", "check", "build_dir",
-           "sm_count"]
+__all__ = ["LAUNCHES", "PATH_LAUNCHES", "build_all", "library", "check",
+           "build_dir", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,7 +37,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spx_matmul": {
         "spx_matmul_splits": ([_I] * 4, _I),
-        "spx_matmul_f32": ([_P] * 5 + [_I] * 6 + [_P], _I),
+        "spx_matmul_f32": ([_P] * 5 + [_I] * 10 + [_P], _I),
     },
     "paged_decode": {
         "paged_decode_ragged_f32":
@@ -56,6 +58,7 @@ _SIGNATURES = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+PATH_LAUNCHES: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

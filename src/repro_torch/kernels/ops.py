@@ -27,7 +27,7 @@ from .spx_matmul import spx_matmul_cuda
 
 __all__ = ["spx_matmul", "flash_attention", "paged_attention",
            "paged_attention_quant", "paged_decode_ragged", "op_calls",
-           "ref_calls", "reset_op_calls"]
+           "path_calls", "ref_calls", "reset_op_calls"]
 
 _REF_CALLS: collections.Counter = collections.Counter()
 
@@ -42,8 +42,16 @@ def ref_calls() -> dict[str, int]:
     return dict(_REF_CALLS)
 
 
+def path_calls() -> dict[str, int]:
+    """Kernel launches per kernel of an op with several (``spx_matmul``'s
+    ``spx_matmul_skinny``, ``spx_matmul_mma``, ``spx_matmul_small``) since
+    the last ``reset_op_calls()``."""
+    return dict(cuda_lib.PATH_LAUNCHES)
+
+
 def reset_op_calls() -> None:
     cuda_lib.LAUNCHES.clear()
+    cuda_lib.PATH_LAUNCHES.clear()
     _REF_CALLS.clear()
 
 

@@ -3,10 +3,14 @@ the Hopper counterpart of ``repro/kernels/spx_matmul.py``.
 
 The wrapper checks what the kernel takes, allocates the output with
 ``torch.empty``, launches on the current stream, raises on a launch error
-and counts the launch. Both kernels (decode, M <= 8; prefill on the
-tensor cores, M > 8) add their K splits inside a thread-block cluster;
-the cluster size is cached per (M, K, N, SMs). It never falls back to the
-plain version.
+and counts the launch, per op and per kernel (``PATH_LAUNCHES``).
+``planner.plan_spx_launch`` picks the kernel: the small-layer kernel with
+its tile and warps (N <= 128, K <= 1024: the paper's MLP and Q-network),
+else decode (M <= 8) or prefill on the tensor cores (M > 8), which add
+their K splits inside a thread-block cluster of the library's choosing.
+The plan is cached per (M, K, N, packed, LUT size, SMs), and the library
+refuses a plan it cannot run. It never falls back to another kernel or to
+the plain version.
 """
 from __future__ import annotations
 
@@ -14,13 +18,31 @@ import functools
 
 import torch
 
+from repro_torch.runtime import planner
+
 from . import cuda_lib
 
-__all__ = ["spx_matmul_cuda"]
+__all__ = ["spx_matmul_cuda", "PATH_IDS"]
+
+#: the C entry point's number of each path of ``planner.SpxLaunchPlan``
+PATH_IDS = {"skinny": 0, "mma": 1, "small": 2}
+
 
 @functools.lru_cache(maxsize=None)
 def _splits(m: int, k: int, n: int, sms: int) -> int:
     return cuda_lib.library("spx_matmul").spx_matmul_splits(m, k, n, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, k: int, n: int, packed: bool, lut_size: int,
+          sms: int) -> tuple:
+    """The launch's C arguments (path, cluster splits, tile rows, tile
+    columns, warps) and its kernel's count key: the old kernels' splits
+    as the library chooses them, 1 on the small path."""
+    plan = planner.plan_spx_launch(m, k, n, packed, lut_size, sms)
+    splits = 1 if plan.path == "small" else _splits(m, k, n, sms)
+    return ((PATH_IDS[plan.path], splits, plan.tile_m, plan.tile_n,
+             plan.warps), f"spx_matmul_{plan.path}")
 
 
 def _check(name: str, t: torch.Tensor, dtype, device) -> None:
@@ -58,12 +80,14 @@ def spx_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _check("scale", scale, torch.float32, device)
     _check("lut", lut, torch.float32, device)
     lib = cuda_lib.library("spx_matmul")
-    splits = _splits(m, k, n, cuda_lib.sm_count(device.index or 0))
+    plan, kernel = _plan(m, k, n, bool(packed), lut.numel(),
+                         cuda_lib.sm_count(device.index or 0))
     out = torch.empty((m, n), dtype=torch.float32, device=device)
     err = lib.spx_matmul_f32(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), lut.data_ptr(),
-        out.data_ptr(), m, k, n, int(packed),
-        lut.numel(), splits, torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), m, k, n, int(packed), lut.numel(), *plan,
+        torch.cuda.current_stream(device).cuda_stream)
     cuda_lib.check(lib, err, "spx_matmul launch")
     cuda_lib.LAUNCHES["spx_matmul"] += 1
+    cuda_lib.PATH_LAUNCHES[kernel] += 1
     return out

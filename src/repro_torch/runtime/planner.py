@@ -13,6 +13,13 @@ for head_dim 128, 32. Quantized pools (``kv_scheme``) hold a page as codes,
 1 byte per element, plus one f32 scale per token, so the same budget holds
 larger pages: 32 tokens at head_dim 256, 64 at 128.
 
+``plan_spx_launch`` picks the kernel of an ``spx_matmul`` launch
+(``kernels/csrc/spx_matmul.cu``): the small-layer kernel, with its tile
+and warps, where the layer's output tiles cannot fill the card (N <= 128,
+K <= 1024: the paper's MLP and Q-network), else the decode kernel (M <= 8)
+or the tensor-core prefill kernel, whose cluster splits the library
+chooses.
+
 ``plan_seq_pages``, ``plan_resume_pages`` and ``plan_seq_state`` are the
 reference's integer page math, verbatim. ``plan_shard_budget`` is the
 reference's per-shard byte model of a tensor-parallel paged engine; its
@@ -33,7 +40,8 @@ __all__ = ["KVPagePlan", "plan_kv_pages", "plan_seq_pages",
            "plan_resume_pages", "StateReservation", "plan_seq_state",
            "ShardBudget", "kv_heads_split", "plan_shard_budget",
            "split_ranges", "HeadGroup", "shard_heads",
-           "PAGE_PAIR_SMEM_BYTES"]
+           "PAGE_PAIR_SMEM_BYTES", "SpxLaunchPlan", "plan_spx_launch",
+           "spx_small_smem_bytes", "spx_small_max_warps"]
 
 #: shared-memory budget of one K page + one V page of one (slot, KV head)
 PAGE_PAIR_SMEM_BYTES = 32 * 1024
@@ -247,3 +255,100 @@ def plan_shard_budget(n_kv_heads: int, dh: int, *, shards: int = 1,
     return _plan_shard_budget_cached(n_kv_heads, shards, page_size, n_pages,
                                      n_layers, slab_bytes, tok_side,
                                      plan.smem_bytes)
+
+
+# -- spx_matmul launches ------------------------------------------------------
+
+#: rows of x the decode kernel (``_skinny``) takes; above, the prefill one
+SPX_SKINNY_MAX_M = 8
+#: the small-layer kernel's layers: at most this many output columns (two
+#: of its widest tiles) and K rows (the staged tiles fit a block)
+SPX_SMALL_MAX_N = 128
+SPX_SMALL_MAX_K = 1024
+#: its tiles: 8 I rows x 16 J columns, I and J in 1, 2, 4
+_SMALL_TILES = (1, 2, 4)
+
+
+def spx_small_max_warps(tile_m: int, tile_n: int) -> int:
+    """Warps a small-path block may have: 16 on tiles of at most two
+    8 x 16 fragments (their registers allow 512 threads), else 8."""
+    return 16 if tile_m * tile_n <= 2 * 8 * 16 else 8
+
+#: shared memory a block can have on the H100 (opt-in)
+_SMEM_MAX = 232448
+_LUT_MAX, _TAB_COPIES, _SCALE_BYTES = 256, 32, 64 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SpxLaunchPlan:
+    """The kernel of one ``spx_matmul`` launch.
+
+    path    ``"skinny"`` (decode, M <= 8), ``"mma"`` (prefill, tensor
+            cores) or ``"small"`` (layers whose tiles cannot fill the
+            card); the first two split K over a cluster as the library
+            chooses
+    tile_m  small: rows of x per block (8, 16 or 32)
+    tile_n  small: output columns per block (16, 32 or 64)
+    warps   small: warps per block, splitting K in 16-row steps
+    """
+    path: str
+    tile_m: int = 0
+    tile_n: int = 0
+    warps: int = 0
+
+
+def spx_small_smem_bytes(tile_m: int, tile_n: int, k: int, packed: bool,
+                         warps: int) -> int:
+    """Shared memory of a small-path block (``small_layout`` in the CUDA
+    source): the 8-bit codes' table and the tile's scales, then the larger
+    of the staged codes and x (rows padded to 64 mod 128 bytes) and the
+    warps' sums with the summed tile."""
+    steps = -(-k // 16)
+    xs = steps * 16 + (0 if steps % 2 else 16)
+    row_bytes = tile_n // 2 if packed else tile_n
+    stage = steps * 16 * row_bytes + tile_m * xs * 4
+    red = (warps * tile_n + tile_n + 4) * tile_m * 4
+    tab = (0 if packed else _LUT_MAX * _TAB_COPIES * 4) + _SCALE_BYTES
+    return tab + max(stage, red)
+
+
+def plan_spx_launch(m: int, k: int, n: int, packed: bool, lut_size: int,
+                    sms: int) -> SpxLaunchPlan:
+    """The kernel, tile and warps of ``spx_matmul`` on x (m, k) and a
+    (k, n) weight of ``lut_size`` levels (4-bit codes packed two to a byte
+    when ``packed``), on a card of ``sms`` SMs.
+
+    Layers of at most SPX_SMALL_MAX_N columns and SPX_SMALL_MAX_K rows go
+    to the small-layer kernel: its warps split K in 16-row steps (a warp a
+    step, up to ``spx_small_max_warps``; for 8-bit codes at least 8, which
+    share the table's build), and its tile is the largest that still
+    gives the card half a block per SM (or as many blocks as the smallest
+    tile gives, where even that cannot), taller before wider, and none
+    more than half empty: each block decodes its columns' codes once, and
+    reads its rows of x once. Every
+    other layer keeps the decode kernel at M <= 8 and the prefill kernel
+    above."""
+    if not 1 <= lut_size <= _LUT_MAX:
+        raise ValueError(f"spx_matmul: a LUT of {lut_size} entries (1 to "
+                         f"{_LUT_MAX})")
+    if m < 1 or n > SPX_SMALL_MAX_N or k > SPX_SMALL_MAX_K:
+        return SpxLaunchPlan("skinny" if m <= SPX_SKINNY_MAX_M else "mma")
+    steps = -(-k // 16)
+
+    def blocks(i, j):
+        return -(-m // (8 * i)) * -(-n // (16 * j))
+
+    # a warp a step; 8-bit codes at least a warp a 32-entry round of the
+    # shared table each block builds
+    busy = max(1, steps) if packed else max(steps, _LUT_MAX // 32)
+
+    def warps(i, j):
+        return min(spx_small_max_warps(8 * i, 16 * j), busy)
+
+    target = min(max(1, sms // 2), blocks(1, 1))
+    fits = [(i, j) for i in _SMALL_TILES for j in _SMALL_TILES
+            if (i == 1 or 4 * i < m) and (j == 1 or 8 * j < n)
+            and spx_small_smem_bytes(8 * i, 16 * j, k, packed, warps(i, j))
+            <= _SMEM_MAX and blocks(i, j) >= target]
+    i, j = max(fits, key=lambda ij: (ij[0] * ij[1], ij[0]))
+    return SpxLaunchPlan("small", 8 * i, 16 * j, warps(i, j))

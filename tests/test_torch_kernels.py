@@ -562,6 +562,76 @@ def test_page_size_rule(monkeypatch):
     assert planner.plan_kv_pages(256).page_size == 8
 
 
+#: the 24 ``spx_matmul`` launch keys of the paper's §4 experiments (packed,
+#: LUT size, M, K, N): the MLP's (784, 128) and (128, 10) at every batch of
+#: Table 1, Fig. 5, quickstart and quant_quality, the Q-network's (4, 64)
+#: and (64, 64) at one state; sp2_4 (16, packed), pot4 (32) and sp2_8 (256)
+PAPER_SPX_KEYS = tuple(
+    [(True, 16, m, k, n) for k, n in ((784, 128), (128, 10))
+     for m in (1, 8, 64, 256, 1024, 2048)]
+    + [(True, 16, 1, 4, 64), (True, 16, 1, 64, 64)]
+    + [(False, lut, m, k, n) for lut in (32, 256)
+       for k, n in ((784, 128), (128, 10)) for m in (1024, 2048)]
+    + [(False, 256, 1, 4, 64), (False, 256, 1, 64, 64)])
+#: gemma-2b's projections (K, N): q/o, k/v, gate/up, down
+GEMMA_SPX_SHAPES = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+
+
+@pytest.mark.parametrize("key", PAPER_SPX_KEYS,
+                         ids=lambda k: "-".join(map(str, k)))
+def test_spx_plan_sends_paper_keys_to_small_kernel(key):
+    """Every §4 launch key takes the small-layer kernel, with a tile no
+    more than half empty whose blocks fit the card's shared memory."""
+    from repro_torch.runtime import planner
+    packed, lut, m, k, n = key
+    plan = planner.plan_spx_launch(m, k, n, packed, lut, 132)
+    assert plan.path == "small", key
+    assert plan.tile_m in (8, 16, 32) and plan.tile_n in (16, 32, 64)
+    assert plan.tile_m == 8 or plan.tile_m // 2 < m
+    assert plan.tile_n == 16 or plan.tile_n // 2 < n
+    assert 1 <= plan.warps <= planner.spx_small_max_warps(
+        plan.tile_m, plan.tile_n)
+    assert plan.warps <= max(-(-k // 16), 1 if packed else 8)
+    assert planner.spx_small_smem_bytes(plan.tile_m, plan.tile_n, k, packed,
+                                        plan.warps) <= 232448
+
+
+@pytest.mark.parametrize("phase,ms,path", [
+    ("decode", (1, 3, 4, 8), "skinny"),
+    ("prefill", (128, 256, 2048), "mma")])
+def test_spx_plan_keeps_gemma_keys_on_their_kernels(phase, ms, path):
+    """gemma-2b's decode keys stay on the decode kernel and its prefill
+    keys on the tensor-core prefill kernel, sp2_4 and sp2_8 alike; the
+    old kernels take no tile (their cluster splits are the library's)."""
+    from repro_torch.runtime import planner
+    for k, n in GEMMA_SPX_SHAPES:
+        for m in ms:
+            for packed, lut in ((True, 16), (False, 256)):
+                assert planner.plan_spx_launch(m, k, n, packed, lut, 132) \
+                    == planner.SpxLaunchPlan(path), (phase, m, k, n)
+
+
+def test_spx_plan_bounds():
+    """The small kernel's layers end at N = 128 and K = 1024; no rows
+    keep the old rule; a LUT is 1 to 256 entries; the tiles widen as M
+    grows and the card stays half full."""
+    from repro_torch.runtime import planner
+    plan = planner.plan_spx_launch
+    assert plan(64, 1024, 128, True, 16, 132).path == "small"
+    assert plan(64, 1025, 128, True, 16, 132).path == "mma"
+    assert plan(4, 784, 130, True, 16, 132).path == "skinny"
+    assert plan(0, 784, 128, True, 16, 132).path == "skinny"
+    with pytest.raises(ValueError, match="LUT"):
+        plan(1, 784, 128, False, 257, 132)
+    small = [plan(m, 784, 128, True, 16, 132) for m in (1, 64, 1024, 2048)]
+    assert [(p.tile_m, p.tile_n) for p in small] == [
+        (8, 16), (8, 16), (32, 32), (32, 64)]
+    for m in (64, 1024, 2048):
+        p = plan(m, 784, 128, True, 16, 132)
+        assert -(-m // p.tile_m) * -(-128 // p.tile_n) >= min(
+            66, -(-m // 8) * 8)
+
+
 def test_cuda_impl_on_cpu_tensors_raises():
     with pytest.raises(registry.KernelUnavailable, match="CUDA"):
         registry.resolve("spx_matmul", "cuda", torch.device("cpu"))
@@ -1080,6 +1150,41 @@ def test_cuda_spx_matmul_paper_mlp_shapes(cuda):
                 assert (got - want).abs().max() <= 1e-4 * want.abs().max(), \
                     (scheme, k, n, m)
                 assert torch.equal(got, again), (scheme, k, n, m)
+
+
+@pytest.mark.gpu
+def test_cuda_spx_matmul_small_layers(cuda):
+    """The small-layer kernel at the 24 §4 launch keys and at ragged
+    edges: K = 777 and 100 ending in a partial 16-row step, K = 4, N = 10
+    packed (5-byte code rows), odd N unpacked (13, 127), M not a multiple
+    of any tile. Within 1e-4 of the plain version's largest |output|, a
+    second launch bit-identical, every launch on the small kernel."""
+    from repro_torch.core import spx
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    schemes = {16: "sp2_4", 32: "pot4", 256: "sp2_8"}
+    keys = list(PAPER_SPX_KEYS) + [
+        (True, 16, m, k, n) for k, n in ((777, 128), (100, 10), (4, 10))
+        for m in (1, 37, 1000)] + [
+        (False, 256, m, k, n) for k, n in ((777, 13), (100, 127), (4, 13))
+        for m in (3, 65)]
+    ops.reset_op_calls()
+    for packed, lut_size, m, k, n in keys:
+        lut = spx.codebook(spx.scheme_levels(schemes[lut_size]),
+                           device=cuda)
+        assert lut.numel() == lut_size
+        codes = torch.randint(0, 256 if packed else lut_size,
+                              (k, n // 2 if packed else n), generator=gen,
+                              device=cuda, dtype=torch.int32).to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+        x = torch.randn((m, k), generator=gen, device=cuda)
+        got = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+        again = spx_matmul_cuda(x, codes, scale, lut, packed=packed)
+        want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
+        key = (packed, lut_size, m, k, n)
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max(), key
+        assert torch.equal(got, again), key
+    assert ops.path_calls() == {"spx_matmul_small": 2 * len(keys)}
 
 
 @pytest.mark.gpu

@@ -27,6 +27,15 @@ card's ``nvidia-smi`` name and power limit:
     barrier, with nothing after q's planes (the set-up), and with nothing
     at all (the launch).
 
+  * ``spx_small``: the paper MLP's forward, (784, 128) then (128, 10),
+    sp2_4 codes, at M = 1, 64 and 1024, on the decode or prefill kernel
+    (the path the parent tree took) and on the small-layer kernel (the
+    path ``plan_spx_launch`` takes): the old kernels with nothing done
+    (an empty launch), without the MMAs, the decode or the split of x;
+    the small kernel with nothing done, with the staging alone, without
+    the MMAs, without the LUT lookups, without staging x or the codes,
+    without the warps' sums and the stores; also the first layer alone.
+
 ``KERNEL`` names limit the run to those kernels. Each variant is timed twice, in the order full, variants, variants
 reversed, full, so drift between the first and last rounds shows.
 """
@@ -51,6 +60,45 @@ SPX_CUTS = {
                    "  lo = bf16x2_bits(__floats2bfloat162_rn(r.x - mf.x, "
                    "r.y - mf.y));",
                    "  hi = __float_as_uint(v.x);\n  mid = hi;\n  lo = hi;"),
+}
+OLD_SPX_CUTS = {
+    "mma_empty": ("  cg::cluster_group cluster = cg::this_cluster();\n"
+                  "  // two buffers of W's planes",
+                  "  cg::cluster_group cluster = cg::this_cluster();\n"
+                  "  return;\n  // two buffers of W's planes"),
+    "skinny_empty": ("  __shared__ float s_sum[MT * kBlockN];                "
+                     "// the block's sums\n",
+                     "  __shared__ float s_sum[MT * kBlockN];\n  return;\n"),
+}
+SMALL_CUTS = {
+    "small_empty": ("  extern __shared__ __align__(16) uint8_t "
+                    "smem_small[];\n",
+                    "  extern __shared__ __align__(16) uint8_t "
+                    "smem_small[];\n  return;\n"),
+    "small_stage_only": ("  __syncwarp();               // the warp's stage "
+                         "has landed\n",
+                         "  __syncwarp();\n  return;\n"),
+    "small_no_mma": ("          mma16816(acc[i][j], a, b[p][i][0], "
+                     "b[p][i][1]);",
+                     "          acc[i][j][p] += __uint_as_float(a[0] ^ a[1] ^ "
+                     "a[2] ^ a[3] ^ b[p][i][0] ^ b[p][i][1]);"),
+    "small_no_lookup": ("        const uint2 e0 = lookup4(t_hi, q0), e1 = "
+                        "lookup4(t_hi, q1);",
+                        "        const uint2 e0 = make_uint2(q0, q1), e1 = "
+                        "make_uint2(c, q0 ^ q1);"),
+    "small_no_x_stage": ("        cp_async16(dst, src, 16);",
+                         "        (void)src;"),
+    "small_no_code_stage": ("          cp_async_ca<S::kCopy>(dst + piece * "
+                            "S::kCopy,\n                                codes "
+                            "+ (size_t)r * row_bytes + b0);",
+                            "          (void)dst;"),
+    "small_no_epilogue": (
+        "  __syncthreads();            // every warp is done with the staged "
+        "tiles\n",
+        "  float z = 0.f;\n#pragma unroll\n  for (int i = 0; i < I; ++i)\n"
+        "#pragma unroll\n    for (int j = 0; j < J; ++j)\n      z += "
+        "acc[i][j][0] + acc[i][j][1] + acc[i][j][2] + acc[i][j][3];\n"
+        "  if (z == 1.2345f) out[0] = z;\n  return;\n"),
 }
 FLASH_CUTS = {
     "no_qk_mma": ("        mma3(s[2 * jp], ah, al, kh[0], kh[1], kl[0], "
@@ -158,8 +206,13 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     only = sys.argv[1:]
-    spx_libs = (build("spx_matmul", SPX_CUTS, out_dir)
-                if not only or "spx_matmul" in only else {})
+    spx_cuts = {}
+    if not only or "spx_matmul" in only:
+        spx_cuts.update(SPX_CUTS)
+    if not only or "spx_small" in only:
+        spx_cuts.update(OLD_SPX_CUTS, **SMALL_CUTS, **SPX_CUTS)
+    spx_all = build("spx_matmul", spx_cuts, out_dir) if spx_cuts else {}
+    spx_libs = {t: spx_all[t] for t in ("full", *SPX_CUTS) if t in spx_all}
     flash_libs = (build("flash_attention", FLASH_CUTS, out_dir)
                   if not only or "flash_attention" in only else {})
 
@@ -180,7 +233,7 @@ def main() -> int:
 
     def spx_tick(lib):
         lib.spx_matmul_splits.argtypes = [I] * 4
-        lib.spx_matmul_f32.argtypes = [P] * 5 + [I] * 6 + [P]
+        lib.spx_matmul_f32.argtypes = [P] * 5 + [I] * 10 + [P]
         splits = {s: lib.spx_matmul_splits(m, *s, sms) for s in shapes}
 
         def run():
@@ -189,7 +242,8 @@ def main() -> int:
                     lib.spx_matmul_f32(xs[k].data_ptr(), codes.data_ptr(),
                                        scale.data_ptr(), lut.data_ptr(),
                                        outs[n].data_ptr(), m, k, n, 1,
-                                       lut.numel(), splits[(k, n)], stream)
+                                       lut.numel(), 1, splits[(k, n)], 0, 0,
+                                       0, stream)
         return run
 
     # flash_attention: one admitted request of the dense path
@@ -257,6 +311,63 @@ def main() -> int:
               f"decode tick: 18 launches, 4 slots x {tokens} tokens, bf16 "
               f"pages of {ps}, cluster {c}", paged_tick(tokens, c),
               "paged_decode_mma_kernel") for tokens, c in paged_cases]
+    # the paper MLP's two layers on the old kernels and the small one
+    from repro_torch.runtime import planner
+    from repro_torch.kernels.spx_matmul import PATH_IDS
+    paper = [(784, 128), (128, 10)]
+    paper_w = [(torch.randint(0, 256, (k, n // 2), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                .to(torch.uint8),
+                torch.rand((1, n), generator=gen, device="cuda"))
+               for k, n in paper]
+
+    def paper_forward(m, small, layers=2):
+        xs_p = [torch.rand((m, k), generator=gen, device="cuda")
+                for k, _ in paper[:layers]]
+        outs_p = [torch.empty((m, n), device="cuda")
+                  for _, n in paper[:layers]]
+
+        def make(lib):
+            lib.spx_matmul_splits.argtypes = [I] * 4
+            lib.spx_matmul_f32.argtypes = [P] * 5 + [I] * 10 + [P]
+            plans = []
+            for k, n in paper[:layers]:
+                if small:
+                    p = planner.plan_spx_launch(m, k, n, True, 16, sms)
+                    plans.append((PATH_IDS["small"], 1, p.tile_m, p.tile_n,
+                                  p.warps))
+                else:
+                    plans.append((PATH_IDS["skinny" if m <= 8 else "mma"],
+                                  lib.spx_matmul_splits(m, k, n, sms), 0, 0,
+                                  0))
+
+            def run():
+                for (k, n), (codes, scale), x, o, plan in zip(
+                        paper, paper_w, xs_p, outs_p, plans):
+                    err = lib.spx_matmul_f32(
+                        x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
+                        lut.data_ptr(), o.data_ptr(), m, k, n, 1,
+                        lut.numel(), *plan, stream)
+                    if err:
+                        raise SystemExit(f"spx_small: CUDA error {err} at "
+                                         f"{(m, k, n, plan)}")
+            return run
+        return make
+
+    if spx_all and (not only or "spx_small" in only):
+        old_tags = ("full", *OLD_SPX_CUTS, *SPX_CUTS)
+        small_tags = ("full", *SMALL_CUTS)
+        for m in (1, 64, 1024):
+            runs.append(("spx_small", {t: spx_all[t] for t in old_tags},
+                         f"paper MLP forward, M={m}, "
+                         f"{'skinny' if m <= 8 else 'mma'} kernel (parent's "
+                         "path)", paper_forward(m, False), "spx_matmul"))
+            runs.append(("spx_small", {t: spx_all[t] for t in small_tags},
+                         f"paper MLP forward, M={m}, small kernel",
+                         paper_forward(m, True), "spx_matmul"))
+            runs.append(("spx_small", {t: spx_all[t] for t in small_tags},
+                         f"paper MLP layer (784, 128) alone, M={m}, small "
+                         "kernel", paper_forward(m, True, 1), "spx_matmul"))
     for kernel, libs, per, make, key in runs:
         if only and kernel not in only:
             continue
