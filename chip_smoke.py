@@ -65,7 +65,15 @@ Phases, each printing JSON lines:
               weights at the mesh steps' and the one-device steps' M,
               flash attention at a tensor-parallel shard's 2 heads over
               512 tokens and at the context-parallel shards' 128 rows
-              over 512 keys with causal offsets 0, 128, 256 and 384;
+              over 512 keys with causal offsets 0, 128, 256 and 384; and
+              whisper-small's: spx_matmul at its whole weights at M = 3000,
+              896, 24000 and 7168 and at its 4-shard cut at M = 12000 and
+              3584, flash attention at a context-parallel shard's encoder
+              (375 rows over 1500 frames, not causal, at every shard's
+              offset, which must change nothing), decoder (112 over 448
+              keys at offsets 0, 112, 224, 336) and cross-attention (112
+              over 1500), and at the tensor-parallel and one-device
+              steps' heads;
   4. paper_mlp the paper's 784-128-10 sigmoid MLP (§4.1), random weights
               from a seed quantized to sp2_4, on 1024 procedural digits:
               two spx_matmul launches per forward, both on the
@@ -217,10 +225,17 @@ Phases, each printing JSON lines:
               prefill reruns bit-identical, no plain version run; the
               weights stored as the reference's ``make_policy`` cuts them
               (FSDP over data: 2.51B params); per-device bytes of weights
-              and cache blocks, the collective counters of a step;
+              and cache blocks, the collective counters of a step; then
+              full-width whisper-small at the same mesh, 16 rows of 1500
+              frames and a 448-token prompt: the context-parallel
+              prefill (weights whole on every device, both sequences cut
+              into 4 row blocks, 288 flash and 1536 spx_matmul launches),
+              the tensor-parallel prefill and the one-device prefill, the
+              same numbers held and each step's device busy share;
      dryrun   the dry run (``launch.dryrun.dry_report``, on ``meta``, no
-              card) of the five train_mesh and serve_mesh cells at the
-              same shapes and knobs: per-device state bytes and every
+              card) of the five train_mesh and serve_mesh cells and of
+              whisper-small's context-parallel prefill at the same shapes
+              and knobs: per-device state bytes and every
               device's collective counters equal to the card's; the train
               cells' mesh peak of live storage within DRYRUN_MEM_RTOL of
               max_memory_allocated (the serve cells' printed, no gate);
@@ -269,14 +284,18 @@ Phases, each printing JSON lines:
               shards 0 and 4 of 8), flash attention at the
               context-parallel shards' rows with the first and the last
               causal offset beside SDPA with the same mask
-              (``context_parallel``), and the split counts the
+              (``context_parallel``) and at whisper-small's
+              context-parallel shard (``whisper_context_parallel``), each
+              flash row with SDPA's kernels a call and their names, and
+              the split counts the
               wrappers chose (a ``splits`` line); the whisper and training
               rows of the serve_whisper and train phases ride along
               (``whisper_encoder_pass``, ``whisper``,
               ``whisper_decode_tick``, ``train_function``).
 
-Exits non-zero on any failure, and when no CUDA device is visible or the
-package is missing. The last line is the device record.
+A ``clock`` line after each group of phases gives the seconds since the
+start. Exits non-zero on any failure, and when no CUDA device is visible
+or the package is missing. The last line is the device record.
 """
 from __future__ import annotations
 
@@ -3309,7 +3328,8 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
     requiring grad; ``q_offset``: query row i at position q_offset + i
     under the causal mask), beside its plain version, SDPA over K/V
     repeated to the query heads (with an explicit mask of the same rows
-    at an offset), and the two bounds: q read once, the keys and values
+    at an offset; its device kernels a call and their names, as the
+    profiler saw them), and the two bounds: q read once, the keys and values
     the causal rows reach (the first q_offset + sq) read once, out written
     once; 4 * dh flops per (query, key) pair attended."""
     import torch.nn.functional as F
@@ -3361,7 +3381,12 @@ def _flash_shape_timing(torch, gen, *, b, hq, hkv, sq, skv, dh, causal,
     flops = layers * 4 * b * hq * dh * pairs
     bound, by = _bound_ms(nbytes, flops)
     device_ms = _device_ms(torch, kernel, ("flash_attention_kernel",))
+    per_call, _ = _kernels_per_call(torch, kernel, layers)
+    lib_per_call, lib_names = _kernels_per_call(torch, library, layers)
     return {"name": "flash_attention", "per": per,
+            "kernels_per_call": per_call,
+            "library_kernels_per_call": lib_per_call,
+            "library_kernel_names": lib_names,
             "ms": _time_ms(torch, kernel), "device_ms": device_ms,
             "plain_ms": _time_ms(torch, plain, reps=3),
             "library_ms": _time_ms(torch, library),
@@ -4191,8 +4216,77 @@ def mesh_kernel_phase(torch, np) -> tuple[dict, set]:
         emit({"phase": "kernel", "kernel": "flash_attention", **tag,
               "what": what, "b": b, "hq": h, "hkv": hkv, "sq": sq,
               "skv": skv, "dh": dh, "causal": True, "q_offset": off, **rec})
+    _whisper_mesh_kernel_checks(torch, gen, checked, worst)
     ops.reset_op_calls()
     return worst, checked
+
+
+#: whisper-small's serve steps at MESH: MESH_BATCH rows of its 1500
+#: encoder frames and a 448-token decoder prompt (its text context,
+#: arXiv:2212.04356): 375 and 112 rows a context-parallel shard
+WHISPER_MESH_PROMPT = 448
+
+
+def _whisper_mesh_kernel_checks(torch, gen, checked, worst) -> None:
+    """Every launch shape of serve_mesh's whisper-small steps against its
+    plain version, twice: spx_matmul at the whole weights at M = 8 x 375
+    (a context-parallel shard's encoder rows and cross K/V), 8 x 112 (its
+    decoder rows) and the one-device prefill's 16 x 1500 and 16 x 448,
+    and at the 4-shard cut at a data group's 8 x 1500 and 8 x 448 (the
+    tensor-parallel prefill); flash attention at 64 dims a head: the
+    context-parallel encoder shard (12 heads, 375 queries over 1500
+    frames, not causal, at each shard's offset: the kernel ignores it,
+    its output bit-identical at every offset), the decoder shard (112
+    queries over the 448 gathered keys at offsets 0, 112, 224, 336) and
+    its cross-attention (112 over 1500 frames); a tensor-parallel shard's
+    3 heads and the one-device prefill's 12 at the encoder, the decoder
+    and the cross-attention."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    cfg = _whisper_config()
+    rows = MESH_BATCH // MESH[0]
+    enc, dec, n = cfg.enc_seq_len, WHISPER_MESH_PROMPT, MESH[1]
+    tag = {"for": "serve_mesh", "arch": cfg.name, "mesh": list(MESH)}
+    _check_spx_shapes(torch, gen, dict(tag, weights="whole"),
+                      _shard_projection_shapes(torch, cfg, 1),
+                      (rows * enc // n, rows * dec // n, MESH_BATCH * enc,
+                       MESH_BATCH * dec), checked, worst)
+    _check_spx_shapes(torch, gen, dict(tag, weights="tensor-parallel cut"),
+                      _shard_projection_shapes(torch, cfg, n),
+                      (rows * enc, rows * dec), checked, worst)
+    h, dh = cfg.n_heads, cfg.dh
+    cases = [("context-parallel encoder shard", rows, h, enc // n, enc,
+              False, [m * enc // n for m in range(n)]),
+             ("context-parallel decoder shard", rows, h, dec // n, dec,
+              True, [m * dec // n for m in range(n)]),
+             ("context-parallel cross-attention", rows, h, dec // n, enc,
+              False, [0])]
+    for what, hq, b in (("tensor-parallel shard", h // n, rows),
+                        ("one device", h, MESH_BATCH)):
+        cases += [(f"{what} encoder", b, hq, enc, enc, False, [0]),
+                  (f"{what} decoder", b, hq, dec, dec, True, [0]),
+                  (f"{what} cross-attention", b, hq, dec, enc, False, [0])]
+    for what, b, hq, sq, skv, causal, offsets in cases:
+        q = torch.randn((b, hq, sq, dh), generator=gen, device="cuda")
+        kv = tuple(torch.randn((b, hq, skv, dh), generator=gen,
+                               device="cuda") for _ in range(2))
+        first = None
+        for off in offsets:
+            got, rec = _check_launch(
+                torch, "flash_attention", flash_attention_cuda, _flash_plain,
+                (q, *kv), {"causal": causal, "q_offset": off}, checked,
+                worst)
+            if first is None:
+                first = got
+            # not causal: the offset changes nothing, bit for bit
+            same = causal or bool(torch.equal(got, first))
+            require(same, f"flash_attention {what}: q_offset {off} changed "
+                          "a non-causal output")
+            emit({"phase": "kernel", "kernel": "flash_attention", **tag,
+                  "what": what, "b": b, "hq": hq, "hkv": hq, "sq": sq,
+                  "skv": skv, "dh": dh, "causal": causal, "q_offset": off,
+                  "equal_to_offset_0": None if causal else same, **rec})
+        del q, kv, first, got
 
 
 def _mesh_run(torch, name, run, checked, counts=None) -> tuple:
@@ -4390,6 +4484,137 @@ def serve_mesh_phase(torch, np, params, card: str, checked: set) -> dict:
                                                  for st in steps)}
     del grid, placed, one_c, bundle
     _free(torch)
+    whisper = _serve_mesh_whisper(torch, np, card, checked)
+    out["launches"].update(whisper.pop("launches"))
+    out.update(whisper)
+    return out
+
+
+def _serve_mesh_whisper(torch, np, card: str, checked: set) -> dict:
+    """whisper-small at its published width and depth (12 + 12 layers,
+    d_model 768, 12 heads of 64, 1500 encoder frames) in serve_mesh:
+    sp2_4 weights from a seed, f32 dense caches, MESH_BATCH rows of 1500
+    frames and a WHISPER_MESH_PROMPT-token prompt from a seed, at mesh
+    MESH. Three prefills on the same inputs: the context-parallel step
+    (``prefill_cp=True``: weights whole on every device, the encoder's
+    1500 frames and the prompt each cut into 4 row blocks, the K/V
+    gathered, the cross K/V of the encoder's blocks gathered for every
+    decoder block), the tensor-parallel step (``prefill_cp`` None, the
+    reference's default for an encoder-decoder) and the one-device
+    ``encdec_prefill``. Per mesh step, run twice (the rerun
+    bit-identical), then once traced (device busy ms and idle share, the
+    one-device step's too): host ms, max_memory_allocated, per-device
+    bytes of weights and cache blocks, the collective counters, launches
+    by kernel and by shape (every shape checked), the logits within
+    E2E_RTOL of the one-device step's peak and the caches reassembled
+    from their blocks within E2E_RTOL of the one-device caches' peak.
+    The context-parallel step launches flash 288 times (2 data groups x
+    12 layers x 3 attentions x 4 row blocks) and spx_matmul 1536 times
+    (2 x 12 x (6 encoder + 2 cross K/V projections on 4 encoder blocks, 8
+    decoder projections on 4 decoder blocks)). Returns the launches of
+    each step and, by step, what the dryrun phase holds."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import hostdev
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import encdec as ed
+    from repro_torch.runtime import Runtime
+
+    t_phase = time.perf_counter()
+    cfg = _whisper_config()
+    mesh = make_host_mesh(*MESH, hostdev.device_list())
+    params = _whisper_params(torch, cfg, seed=47)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    frames = torch.randn((MESH_BATCH, cfg.enc_seq_len, cfg.d_model),
+                         generator=gen, device="cuda")
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (MESH_BATCH, WHISPER_MESH_PROMPT), generator=gen,
+                           device="cuda")
+    f32 = torch.float32
+
+    def one_prefill():
+        caches = ed.encdec_init_caches(cfg, MESH_BATCH, WHISPER_MESH_PROMPT,
+                                       dtype=f32)
+        with torch.no_grad():
+            return ed.encdec_prefill(params, frames, tokens, caches, cfg,
+                                     Runtime())
+
+    def busy(run) -> dict:
+        """One more run under the profiler: its device busy ms (the union
+        of the kernel intervals) and the idle share of its wall time."""
+        evs, wall = _device_events(torch, run, host_ops=False)
+        b = _busy_us(evs) / 1e3
+        return {"device_busy_ms": b if evs else None, "wall_ms": wall * 1e3,
+                "device_idle_share": 1 - b / (wall * 1e3) if evs else None}
+
+    _free(torch)
+    (want, want_c), one_ms, one_mem, one_launches, _ = _mesh_run(
+        torch, "whisper one-device prefill", one_prefill, checked)
+    one_trace = busy(one_prefill)
+    c_peak = max(t.abs().max().item() for c in want_c for t in c.values())
+    base = {"phase": "serve_mesh", "mesh": list(MESH), "card": card,
+            "arch": cfg.name, "batch": MESH_BATCH,
+            "encoder_frames": cfg.enc_seq_len,
+            "prompt_tokens": WHISPER_MESH_PROMPT, "cache_dtype": "float32",
+            "weights": "sp2_4", "tol_rel": E2E_RTOL,
+            "one_device_ms": one_ms,
+            "one_device_max_memory_allocated": one_mem,
+            "one_device_launches": one_launches, "one_device_trace": one_trace}
+    blocks = MESH[1]
+    want_cp = {"flash_attention": MESH[0] * cfg.n_layers * 3 * blocks,
+               "spx_matmul": MESH[0] * cfg.n_layers * ((6 + 2) * blocks
+                                                       + 8 * blocks)}
+    out = {"launches": {}}
+    for cp in (True, None):
+        name = "prefill-cp" if cp else "prefill-tp"
+        bundle = build_serve_step(
+            cfg, ShapeConfig(name, WHISPER_MESH_PROMPT, MESH_BATCH,
+                             "prefill"), mesh, prefill_cp=cp, dtype=f32)
+        seqs = {"decoder": bool(cp), "encoder": bool(cp)}
+        require(bundle.meta["cp_sequences"] == seqs,
+                f"serve_mesh whisper {name}: meta {bundle.meta}")
+        args = bundle.place(params, frames, tokens)
+        grid = bundle.init_caches()
+        per_device = _serve_state_bytes(args[0], grid)
+        counts: dict = {}
+        runs = [_mesh_run(torch, f"serve_mesh whisper {name}",
+                          lambda: bundle.fn(*args, grid), checked,
+                          counts if i == 0 else None)
+                for i in range(2)]
+        (got, grid), ms, mem, launches, by_shape = runs[1]
+        require(torch.equal(runs[0][0][0], got),
+                f"serve_mesh whisper {name}: a rerun changed the logits")
+        err = _rel_err(torch, got, want)
+        c_err = _caches_err(torch, bundle.gather(grid, "cuda"), want_c)
+        offsets = sorted({(r[3], r[4]) for r in by_shape
+                          if r[0] == "flash_attention"})
+        line = dict(base, step=name, meta={
+            k: v for k, v in bundle.meta.items() if k != "data_axes"},
+            ms=ms, first_run_ms=runs[0][1], max_memory_allocated=mem,
+            launches_per_step=launches, launches_by_shape=by_shape,
+            flash_causal_and_q_offsets=offsets, logits_max_rel_err=err,
+            caches_max_abs_err=c_err, caches_peak=c_peak,
+            bit_identical_rerun=True, per_device_state_bytes=per_device,
+            collectives=counts, trace=busy(lambda: bundle.fn(*args, grid)))
+        ok = err <= E2E_RTOL and c_err <= E2E_RTOL * c_peak
+        if cp:
+            line["launches_expected"] = want_cp
+            ok = ok and all(launches.get(op) == n
+                            for op, n in want_cp.items())
+        emit(dict(line, ok=ok))
+        require(ok, f"serve_mesh whisper {name}: logits {err}, caches "
+                    f"{c_err}, launches {launches}")
+        out["launches"][f"serve_mesh whisper-small {name}"] = launches
+        out[f"whisper-small {name}"] = {
+            "per_device_state_bytes": per_device, "collectives": counts,
+            "max_memory_allocated": mem, "prefill_cp": cp,
+            "launches_by_shape": by_shape}
+        del args, runs, grid, got, bundle
+        _free(torch)
+    del params, want, want_c
+    _free(torch)
+    emit({"phase": "serve_mesh", "arch": cfg.name, "step": "all",
+          "seconds": time.perf_counter() - t_phase, "card": card})
     return out
 
 
@@ -4403,8 +4628,9 @@ DRYRUN_SECONDS = 120
 def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
                  card: str) -> dict:
     """The dry run (``launch.dryrun.dry_report``, on ``meta``: no card)
-    of every train_mesh cell and serve_mesh step, full-width gemma-2b at
-    the same mesh, shape and knobs, held to what the card run measured:
+    of every train_mesh cell and serve_mesh step of full-width gemma-2b,
+    and of serve_mesh's context-parallel whisper-small prefill, at the
+    same mesh, shape and knobs, held to what the card run measured:
     each device's params and optimizer state (serve: weights and cache
     blocks) equal to the card's ``per_device_state_bytes``; every
     device's collective counters equal to those read during the card's
@@ -4424,33 +4650,38 @@ def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
     cells = []
     for cell, b, knobs in TRAIN_MESH_CELLS:
         rec = train_mesh["cells"][cell]
-        cells.append((f"train_mesh {cell}", ShapeConfig(
+        cells.append((f"train_mesh {cell}", cfg, ShapeConfig(
             "train_mesh", TRAIN_MESH_SEQ, b, "train"),
             dict(knobs, dtype=torch.float32), ("params", "opt_state"),
             rec["per_device_state_bytes"], rec["steps"][0]["collectives"],
             rec["max_memory_allocated"], True))
-    for step, kind, cp in (("prefill-tp", "prefill", False),
-                           ("prefill-cp", "prefill", True),
-                           ("decode", "decode", None)):
-        rec = serve_mesh[step]
+    serve = ((cfg, "prefill-tp", "prefill", False, MESH_SEQ),
+             (cfg, "prefill-cp", "prefill", True, MESH_SEQ),
+             (cfg, "decode", "decode", None, MESH_SEQ),
+             (_whisper_config(), "prefill-cp", "prefill", True,
+              WHISPER_MESH_PROMPT))
+    for c, step, kind, cp, seq in serve:
+        key = step if c is cfg else f"{c.name} {step}"
+        rec = serve_mesh[key]
         knobs = dict(dtype=torch.float32, param_dtype=torch.float32)
         if cp is not None:
             knobs["prefill_cp"] = cp
-        cells.append((f"serve_mesh {step}", ShapeConfig(
-            step, MESH_SEQ, MESH_BATCH, kind), knobs, ("params", "caches"),
+        cells.append((f"serve_mesh {key}", c, ShapeConfig(
+            step, seq, MESH_BATCH, kind), knobs, ("params", "caches"),
             rec["per_device_state_bytes"], rec["collectives"],
             rec["max_memory_allocated"], False))
     out = {}
-    for name, shape, knobs, parts, state, counts, card_mem, gate in cells:
+    for (name, c, shape, knobs, parts, state, counts, card_mem,
+         gate) in cells:
         t0 = time.perf_counter()
-        rep = dry_report(cfg, shape, mesh, **knobs)
+        rep = dry_report(c, shape, mesh, **knobs)
         by_dev = rep["argument_by_device"]
         dry_state = [[sum(by_dev[p][d][m] for p in parts)
                       for m in range(MESH[1])] for d in range(MESH[0])]
         peak = rep["memory"]["mesh_peak_bytes"]
         mem_rel = peak / card_mem - 1
         line = {"phase": "dryrun", "cell": name, "card": card,
-                "arch": cfg.name, "mesh": list(MESH),
+                "arch": c.name, "mesh": list(MESH),
                 "meta": {k: v for k, v in rep["meta"].items()},
                 "per_device_state_bytes": dry_state,
                 "card_per_device_state_bytes": state,
@@ -5207,13 +5438,16 @@ def _time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_events(torch, fn):
+def _device_events(torch, fn, host_ops: bool = True):
     """(device kernel events, host wall seconds) of one ``fn()`` run under
-    ``torch.profiler``."""
+    ``torch.profiler`` (``host_ops`` False: the device activity alone,
+    for a run of tens of thousands of host ops)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5226,17 +5460,21 @@ def _device_events(torch, fn):
 def _kernels_per_call(torch, fn, calls: int, reps: int = 5):
     """Device kernels of any name per call of ``fn`` (which makes
     ``calls`` calls), and their names: the profiler can drop kernel events
-    from a window, so three windows of ``reps`` runs are traced and the
-    one that saw the most is kept."""
+    from a window (in a long process it has lost 2 of 90), and a window
+    that lost some sees a fraction of a kernel a call; so windows of
+    ``reps`` runs are traced until one sees a whole number a call (at
+    most six), and the one that saw the most is kept."""
     fn()
     best, names = 0, set()
-    for _ in range(3):
+    for _ in range(6):
         evs, _ = _device_events(torch, lambda: [fn() for _ in range(reps)])
         if len(evs) > best:
             best = len(evs)
             names = {e.name.replace("(anonymous namespace)::", "")
                      .removeprefix("void ").split("<")[0].split("(")[0][-48:]
                      for e in evs}
+        if best and best % (reps * calls) == 0:
+            break
     if not best and reps < 50:
         # a window of a few microsecond launches can come back empty
         return _kernels_per_call(torch, fn, calls, reps=10 * reps)
@@ -5266,6 +5504,22 @@ def _device_ms(torch, fn, names: tuple, reps: int = 5):
     return best[1] / 1e3 / reps if best[1] else None
 
 
+def _busy_us(evs) -> float:
+    """The union of the device kernel events' intervals, microseconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 def trace_phase(torch, np, eng) -> dict:
     """Device busy share and kernel time by name over a serving run of 4
     requests, traced with torch.profiler."""
@@ -5281,17 +5535,7 @@ def trace_phase(torch, np, eng) -> dict:
         eng.run()
 
     evs, wall = _device_events(torch, serve)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:                    # union of the kernel intervals
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = _busy_us(evs)
     by_name: dict[str, float] = {}
     for e in evs:
         key = e.name.replace("(anonymous namespace)::", "")
@@ -5300,9 +5544,9 @@ def trace_phase(torch, np, eng) -> dict:
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
     out = {"phase": "trace", "requests": 4, "new_tokens": NEW_TOKENS,
            "prompt_len": 24, "wall_ms": wall * 1e3,
-           "device_busy_ms": busy / 1e3 if spans else None,
+           "device_busy_ms": busy / 1e3 if evs else None,
            "device_idle_share": 1 - busy / 1e3 / (wall * 1e3)
-           if spans else None,
+           if evs else None,
            "device_ms_by_kernel": top}
     emit(out)
     return out
@@ -5322,7 +5566,7 @@ def _f32_bound_ms(nbytes: float, flops: float) -> float:
 
 
 def timing_phase(torch, np, eng, launches, new_launches, worst,
-                 mlp, families, whisper, training, sharded) -> list:
+                 mlp, families, whisper, training, sharded, mesh) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
@@ -5575,6 +5819,8 @@ def timing_phase(torch, np, eng, launches, new_launches, worst,
                 f"launches, {MESH_BATCH // MESH[0]} rows x {rows} queries "
                 f"at offset {off} over {MESH_SEQ} keys")
         for off in (_cp_offsets()[0], _cp_offsets()[-1])}
+    flash["whisper_context_parallel"] = _whisper_cp_flash_timing(
+        torch, gen, mesh["whisper-small prefill-cp"]["launches_by_shape"])
     _emit_splits(torch, cfg, m, eng, layers)
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -6121,6 +6367,42 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
           "spx_matmul": spx_splits})
 
 
+def _whisper_cp_flash_timing(torch, gen, by_shape) -> dict:
+    """Kernel 4 at the three shapes of one context-parallel shard of
+    serve_mesh's whisper-small prefill, 12 launches each (one a layer):
+    the encoder's 375 rows over 1500 frames (not causal), the decoder's
+    112 rows over the 448 gathered keys at the first and the last causal
+    offset, and the cross-attention's 112 rows over 1500 frames; each
+    with its launches in that step (``by_shape``, the serve_mesh run's)."""
+    cfg = _whisper_config()
+    rows, n = MESH_BATCH // MESH[0], MESH[1]
+    enc, dec, h, dh = (cfg.enc_seq_len, WHISPER_MESH_PROMPT, cfg.n_heads,
+                       cfg.dh)
+    counts = {tuple(r[:5]): r[5] for r in by_shape}
+    out = {}
+    for name, sq, skv, causal, off in (
+            ("encoder", enc // n, enc, False, 0),
+            ("decoder q_offset=0", dec // n, dec, True, 0),
+            (f"decoder q_offset={dec - dec // n}", dec // n, dec, True,
+             dec - dec // n),
+            ("cross-attention", dec // n, enc, False, 0)):
+        row = _flash_shape_timing(
+            torch, gen, b=rows, hq=h, hkv=h, sq=sq, skv=skv, dh=dh,
+            causal=causal, layers=cfg.n_layers, q_offset=off,
+            per=f"whisper-small context-parallel shard, {name}: "
+                f"{cfg.n_layers} launches, {rows} rows x {sq} queries over "
+                f"{skv} keys, {h} heads of {dh}"
+                + (f", causal at offset {off}" if causal else
+                   ", not causal"))
+        # every offset of a non-causal shape is the same launch
+        key = ("flash_attention", (rows, h, sq, dh), (rows, h, skv, dh),
+               causal)
+        row["launches"] = sum(c for k, c in counts.items()
+                              if k[:4] == key and (not causal or k[4] == off))
+        out[name] = row
+    return out
+
+
 def _flash_timing(torch, gen, cfg, s: int = 33):
     """Kernel 4 per admitted request of the dense path: one launch per
     layer over the prompt (the 33-token prompt of the serve phase, or a
@@ -6182,6 +6464,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+
+    def clock(after: str) -> None:
+        """The seconds since the start, after a phase (where a run's time
+        goes, against its limit)."""
+        emit({"phase": "clock", "after": after,
+              "seconds": time.perf_counter() - t_start})
+
     try:
         info = device_phase(torch)
         from repro_torch.kernels import cuda_lib
@@ -6197,6 +6486,7 @@ def main() -> int:
             for name, err in more_worst.items():
                 worst[name] = max(worst[name], err)
             checked |= more_checked
+        clock("kernel phases")
         families = serve_families_phase(torch, np, info["nvidia_smi"],
                                         checked)
         # the shards=2 runs of the families, whisper-small and full-width
@@ -6207,16 +6497,19 @@ def main() -> int:
             torch, np, info["nvidia_smi"], checked)
         whisper = serve_whisper_phase(torch, np, info["nvidia_smi"], checked)
         shard_runs["whisper-small"] = whisper.pop("sharded")
+        clock("serve_families, serve_jamba, serve_whisper")
         training = train_phase(torch, np, info["nvidia_smi"], checked)
         # the train step under a (data, model) mesh: eight devices, the one
         # card listed eight times
         with _forced_shards(MESH[0] * MESH[1]):
             training["mesh"] = train_mesh_phase(torch, np,
                                                 info["nvidia_smi"], checked)
+        clock("train, train_mesh")
         mlp = paper_mlp_phase(torch, np, info["nvidia_smi"])
         worst["spx_matmul"] = max(worst["spx_matmul"], mlp["max_abs_err"])
         mlp["experiments"] = paper_experiments_phase(
             torch, np, info["nvidia_smi"], checked)
+        clock("paper_mlp, paper_experiments")
         eng, launches, paged_m, paged_tokens = serve_phase(torch, np)
         new_launches = serve_new_paths_phase(torch, np, eng.params)
         new_launches.update(serve_modes_phase(torch, np, eng.params,
@@ -6224,6 +6517,7 @@ def main() -> int:
         new_launches.update(serve_bf16_phase(torch, np, eng.params,
                                              paged_tokens))
         new_launches.update(serve_f16_phase(torch, np, eng.params))
+        clock("serve, its paths and page dtypes")
         # two shards on the one card: launch.hostdev lists it twice, for
         # the sharded runs only
         with _forced_shards():
@@ -6240,6 +6534,7 @@ def main() -> int:
             mesh = serve_mesh_phase(torch, np, eng.params,
                                     info["nvidia_smi"], checked)
         new_launches.update(mesh["launches"])
+        clock("serve_sharded, serve_mesh")
         # the dry run of the same mesh steps on meta, held to the card's
         dryrun_phase(torch, training["mesh"], mesh, info["nvidia_smi"])
         sharded["families"] = {name: run["timing"]
@@ -6251,8 +6546,9 @@ def main() -> int:
                                             checked))
         e2e_phase(torch, np, eng)
         trace_phase(torch, np, eng)
+        clock("dryrun, router, serve_cli, e2e, trace")
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,
-                            mlp, families, whisper, training, sharded)
+                            mlp, families, whisper, training, sharded, mesh)
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -133,10 +133,11 @@ def _batch(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     return out
 
 
-def _serve_inputs(cfg: ArchConfig, shape: ShapeConfig) -> tuple:
+def _serve_inputs(cfg: ArchConfig, shape: ShapeConfig, dtype) -> tuple:
     """The serve step's inputs after the weights, on meta, as the
     reference's: (frames,) tokens for a prefill, (token, pos) for a
-    decode."""
+    decode; the frames in ``dtype`` (the step's: bf16 as the
+    reference's)."""
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "decode":
         return (torch.empty((b,), dtype=torch.int32, device="meta"),
@@ -144,7 +145,7 @@ def _serve_inputs(cfg: ArchConfig, shape: ShapeConfig) -> tuple:
     tokens = torch.empty((b, s), dtype=torch.int32, device="meta")
     if cfg.enc_dec:
         return (torch.empty((b, cfg.enc_seq_len, cfg.d_model),
-                            dtype=torch.bfloat16, device="meta"), tokens)
+                            dtype=dtype, device="meta"), tokens)
     return (tokens,)
 
 
@@ -308,7 +309,7 @@ def dry_report(cfg: ArchConfig, shape: ShapeConfig, mesh, *, params=None,
                                                     "ef"))]
         cache_lays = None
     else:
-        inputs = _serve_inputs(cfg, shape)
+        inputs = _serve_inputs(cfg, shape, dtype)
         qparams = (quantize_params(params, SERVE_SCHEME)
                    if bundle.meta["quantized"] else params)
         placed = bundle.place(qparams, *inputs)

@@ -18,8 +18,9 @@ weights through ``sharding.gathered_view`` (a gather over the data axes
 per period, where they are used), each data group takes its rows of the
 batch, its model shards run the forward tensor-parallel, or
 context-parallel (``prefill_cp``: queries sequence-sharded, K/V
-gathered, the flash kernel's causal offset), and decode attends the
-sequence-sharded cache shard by shard with one merge. The logits come
+gathered, the flash kernel's causal offset; a sequence whose length the
+model axis does not divide whole on the first shard), and decode attends
+the sequence-sharded cache shard by shard with one merge. The logits come
 back as one (B, V) tensor on the mesh's first device.
 
 ``build_train_step`` is the reference's train step: FSDP or
@@ -329,11 +330,14 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
     ``shape.seq_len``-token cache. ``prefill_cp`` None takes the
     reference's default: context-parallel for a prefill of at most
     CP_MAX_PARAMS params whose batch and length are multiples of 16,
-    never for an encoder-decoder model; it runs only where the length
-    divides the model axis (else the tensor-parallel prefill). The
-    weights are stored by the reference's policy: ``make_policy`` (FSDP
-    above ``sharding.FSDP_ABOVE`` params), or ``replicated`` for the
-    context-parallel prefill. ``dtype``: the dense caches' (bf16 as the
+    never for an encoder-decoder model by default. Under the
+    context-parallel prefill the weights are stored ``replicated`` and
+    each sequence (an LM's prompt; an encoder-decoder's frames and its
+    decoder prompt apart) runs context-parallel where its length divides
+    the model axis, else whole on each data group's first shard, the
+    reference's per-attention rule (``meta["cp_sequences"]``); otherwise
+    they are stored by ``make_policy`` (FSDP above
+    ``sharding.FSDP_ABOVE`` params). ``dtype``: the dense caches' (bf16 as the
     reference's); ``kv_quant`` codes them (``Runtime.kv_scheme``'s
     default codebook). ``unroll`` (the reference's cost variant) changes
     nothing here: the port's loops are always unrolled.
@@ -349,7 +353,13 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
         prefill_cp = (shape.kind == "prefill"
                       and cfg.param_count_estimate() <= CP_MAX_PARAMS
                       and s % 16 == 0 and b % 16 == 0 and not cfg.enc_dec)
-    cp = shape.kind == "prefill" and prefill_cp and s % m == 0
+    cp = shape.kind == "prefill" and bool(prefill_cp)
+    # the sequences that run context-parallel: those whose length divides
+    # the model axis (the reference's ``attention_core`` rule)
+    lengths = {"decoder": s}
+    if cfg.enc_dec:
+        lengths["encoder"] = cfg.enc_seq_len
+    cp_seqs = {k: cp and n % m == 0 for k, n in sorted(lengths.items())}
     policy = (ShardingPolicy(cfg, mesh, parallelism="replicated") if cp
               else make_policy(cfg, mesh))
     init = ed.encdec_init_caches if cfg.enc_dec else lm_mod.init_caches
@@ -381,7 +391,8 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
 
     meta = {"kind": shape.kind, "quantized": quantized,
             "kv_quant": kv_quant, "prefill_cp": prefill_cp,
-            "context_parallel": cp, "parallelism": policy.parallelism,
+            "context_parallel": any(cp_seqs.values()),
+            "cp_sequences": cp_seqs, "parallelism": policy.parallelism,
             "fsdp": policy.fsdp, "fsdp_axes": policy.fsdp_axes,
             "decode_seq_axis": rt.decode_seq_axis,
             "data_axes": rt.data_axes}

@@ -17,7 +17,11 @@ state cache per shard, as ``models.lm``'s do: the encoder runs
 tensor-parallel, each shard projects the cross K/V of its own KV heads
 into its head-sharded cross region, and the decoder's paged step is
 ``lm._paged_forward`` over ``dec_stack``, with the head over the shards'
-slices of it.
+slices of it. The serve steps' context-parallel prefill
+(``_cp_prefill``) cuts the frames and the prompt into row blocks, one a
+shard, each sequence apart (whole on the first shard where its length
+does not divide the shards), and gathers the cross K/V of the encoder's
+blocks for every decoder block.
 """
 from __future__ import annotations
 
@@ -29,11 +33,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
                                    sharded_embedding_apply, tree_index)
-from repro_torch.nn.transformer import (_cross_kv, slot_init_cache,
+from repro_torch.nn.transformer import (_cross_kv, cp_blocks,
+                                        slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_apply_rows,
                                         stack_decode, stack_init,
-                                        stack_prefill)
+                                        stack_prefill, stack_prefill_cp)
 from repro_torch.runtime import Runtime, resolve_device
 from repro_torch.sharding import whole
 
@@ -175,7 +180,8 @@ def encdec_prefill(params, frames, tokens, caches, cfg: ArchConfig,
     in place. Returns the last position's logits (B, V) and the caches.
     Under ``rt.mesh`` (a ``HostMesh``, ``launch.steps``) per data group
     (``lm.mesh_apply``), encoder and decoder tensor-parallel over its
-    model shards, ``params``/``caches`` ``grid[d][m]`` trees."""
+    model shards, or context-parallel under ``rt.attn_cp``
+    (``_cp_prefill``), ``params``/``caches`` ``grid[d][m]`` trees."""
     if rt.mesh is not None:
         return _mesh_step(params, tokens, caches, cfg, rt, frames=frames)
     enc_out = encdec_encode(params, frames, cfg, rt)
@@ -205,13 +211,12 @@ def _mesh_step(params, tokens, caches, cfg: ArchConfig, rt: Runtime, *,
                frames=None, pos=None):
     """The serve steps' prefill (``frames`` given) or decode (``pos``)
     over each data group's model shards."""
-    if rt.attn_cp:
-        raise NotImplementedError(
-            "context-parallel prefill of an encoder-decoder model")
     dcfg = dec_cfg(cfg)
     pos = None if pos is None else torch.as_tensor(pos)
 
     def body(ps, tok, rows, rt_d, c):
+        if frames is not None and rt_d.attn_cp:
+            return _cp_prefill(ps, tok, frames[rows], c, cfg, rt_d)
         x = mesh_embed(ps, tok, cfg, rt_d)
         stack = [p["dec_stack"] for p in ps]
         if frames is None:
@@ -225,6 +230,32 @@ def _mesh_step(params, tokens, caches, cfg: ArchConfig, rt: Runtime, *,
         return h[:, -1:], slice(None)
     return mesh_apply(params, tokens, caches, cfg, rt, body,
                       head_w=lambda p: p["head"]["w"])
+
+
+def _cp_prefill(ps, tokens, frames, caches, cfg: ArchConfig, rt: Runtime):
+    """One data group's context-parallel prefill (``rt.attn_cp``: every
+    shard holds the whole weights). Shard m takes the frames of its row
+    block of the encoder's sequence and the tokens of its block of the
+    prompt (``cp_blocks``: [m S/n, (m + 1) S/n), or the whole sequence on
+    the first shard where its length does not divide the shards), each
+    with its positions; the encoder runs its blocks not causal, without
+    a cache, and ``enc_norm`` each block; the decoder runs its blocks
+    with the cross-attention over every encoder block
+    (``stack_prefill_cp``). Returns (the last position's hidden rows
+    (B, 1, D), the shard holding them, a slice)."""
+    devs = rt.mesh.devices
+    b, s_enc = frames.shape[:2]
+    xs, pos = cp_blocks(frames, torch.arange(s_enc).expand(b, s_enc), devs)
+    hs = stack_prefill_cp([p["enc_stack"] for p in ps], xs, pos,
+                          enc_cfg(cfg), rt, causal=False)
+    enc_outs = [norm_apply(cfg.norm, whole(p["enc_norm"]), h)
+                for p, h in zip(ps, hs)]
+    toks, pos = cp_blocks(tokens, _default_positions(
+        cfg, *tokens.shape, tokens.device), devs)
+    xs = [embedding_apply(whole(p["embed"]), t) for p, t in zip(ps, toks)]
+    xs = stack_prefill_cp([p["dec_stack"] for p in ps], xs, pos,
+                          dec_cfg(cfg), rt, caches, enc_outs=enc_outs)
+    return xs[-1][:, -1:], slice(len(xs) - 1, len(xs))
 
 
 # -- paged serving (the state cache) ------------------------------------------

@@ -38,7 +38,7 @@ from repro_torch.nn.layers import (dense_init, embedding_apply,
                                    embedding_init, norm_apply, norm_init,
                                    sharded_embedding_apply, sharded_logits,
                                    tree_leaves, tree_map)
-from repro_torch.nn.transformer import (slot_init_cache,
+from repro_torch.nn.transformer import (cp_blocks, slot_init_cache,
                                         slot_init_paged_cache, stack_apply,
                                         stack_apply_rows, stack_decode,
                                         stack_init, stack_paged,
@@ -348,7 +348,8 @@ def lm_prefill(params, tokens, caches, cfg: ArchConfig, rt: Runtime,
     ``launch.steps``) ``params`` and ``caches`` are ``grid[d][m]`` trees
     and the prompt runs per data group (``mesh_apply``),
     tensor-parallel or, under ``rt.attn_cp``, context-parallel over its
-    model shards."""
+    model shards (whole on the first where its length does not divide
+    them)."""
     if positions is None:
         positions = _default_positions(cfg, *tokens.shape[:2],
                                        tokens.device)
@@ -425,18 +426,15 @@ def _mesh_prefill(params, tokens, positions, caches, cfg: ArchConfig,
         return h[:, -1:], slice(None)
 
     def cp(ps, tok, rows, rt_d, c):
-        # shard m embeds and runs the rows [m S/n, (m + 1) S/n); the last
-        # shard holds the last position
-        devs = rt_d.mesh.devices
-        s_loc = tok.shape[1] // len(devs)
-        spans = [slice(m * s_loc, (m + 1) * s_loc) for m in range(len(devs))]
-        xs = [embedding_apply(whole(p["embed"]), tok[:, sp].to(dev))
-              for p, dev, sp in zip(ps, devs, spans)]
-        pos = [positions[rows][..., sp].to(dev)
-               for dev, sp in zip(devs, spans)]
+        # shard m embeds and runs its row block (``cp_blocks``: the rows
+        # [m S/n, (m + 1) S/n), or all of them on the first shard); the
+        # last block holds the last position
+        toks, pos = cp_blocks(tok, positions[rows], rt_d.mesh.devices)
+        xs = [embedding_apply(whole(p["embed"]), t)
+              for p, t in zip(ps, toks)]
         xs = stack_prefill_cp([p["stack"] for p in ps], xs, pos, cfg, rt_d,
                               c)
-        return xs[-1][:, -1:], slice(-1, None)
+        return xs[-1][:, -1:], slice(len(xs) - 1, len(xs))
     return mesh_apply(params, tokens, caches, cfg, rt,
                       cp if rt.attn_cp else tp)
 

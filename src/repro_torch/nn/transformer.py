@@ -23,7 +23,10 @@ by its columns, the MoE by experts, and each recurrent mixer whole on
 every shard (``stack_paged``); so do the prefill and decode modes of the
 serve steps (``launch.steps``, one data group's model shards), against
 dense caches held as one block per shard, and ``stack_prefill_cp`` runs
-the context-parallel prefill. The train mode runs one data group of the
+the context-parallel prefill (an LM's prompt, an encoder's frames, a
+decoder's prompt with its cross-attention: each sequence cut over the
+shards where its length divides them, else whole on the first shard).
+The train mode runs one data group of the
 train step's ``tp`` the same way, and ``stack_apply_rows`` its ``fsdp``
 (each device's rows, a MoE's rows joined); both checkpoint each period,
 and each slot of a longer pattern, under ``Runtime.remat``.
@@ -38,7 +41,6 @@ import torch.utils.checkpoint
 from repro_torch import collectives
 from repro_torch.configs.base import ArchConfig
 from repro_torch.runtime import Runtime, planner
-from repro_torch.sharding import state_cut_dim
 
 from . import ssm
 from .attention import (attention_core, attn_apply_dense,
@@ -52,7 +54,7 @@ from .moe import moe_apply, moe_apply_sharded, moe_init
 from .rotary import apply_rope
 
 __all__ = ["stack_init", "stack_apply", "stack_apply_rows", "stack_prefill",
-           "stack_decode",
+           "stack_prefill_cp", "cp_blocks", "stack_decode",
            "stack_paged", "slot_init_cache", "slot_init_paged_cache",
            "SLOT_KINDS"]
 
@@ -310,7 +312,7 @@ def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
         state = _join_state(cache, mixer, cfg, rt.mesh)
         y, _ = _recurrent(ps[0], h, cfg, rt, mixer, mode=mode, cache=state,
                           paged_ctx=None)
-        _split_state(cache, state, mixer, cfg, len(ps))
+        _split_state(cache, state, mixer, cfg)
         return y, cache
     ys = [_recurrent(p, h.to(dev), cfg, rt, mixer, mode=mode, cache=c,
                      paged_ctx=tuple(t[s] for t in paged_ctx))[0]
@@ -320,13 +322,17 @@ def _recurrent_sharded(ps: list, h, cfg: ArchConfig, rt: Runtime,
 
 # -- the serve steps under a mesh (``launch.steps``) -------------------------
 
-def _state_dims(mixer: str, cfg: ArchConfig, b: int, m: int) -> dict:
+def _state_dims(blocks: list, mixer: str, cfg: ArchConfig) -> dict:
     """The dim of each of a recurrent mixer's state leaves (a period's,
-    (B, ...)) that ``sharding.cache_spec`` cuts over ``m`` model shards,
-    or None."""
-    leaves = _state_leaves(mixer, cfg, (1, b), torch.float32, "meta")
-    return {k: (None if d is None else d - 1) for k, d in (
-        (k, state_cut_dim(tuple(v.shape), m)) for k, v in leaves.items())}
+    (B, ...)) that the shards' ``blocks`` cut (``sharding.cache_spec``:
+    the largest trailing dim the policy's model shards divide, unevenly
+    under the context-parallel prefill's), or None: the dim where a block
+    is not the whole leaf."""
+    b = next(iter(blocks[0].values())).shape[0]
+    leaves = _state_leaves(mixer, cfg, (b,), torch.float32, "meta")
+    return {k: next((i for i, n in enumerate(v.shape)
+                     if any(c[k].shape[i] != n for c in blocks)), None)
+            for k, v in leaves.items()}
 
 
 def _join_state(blocks: list, mixer: str, cfg: ArchConfig, mesh) -> dict:
@@ -334,40 +340,41 @@ def _join_state(blocks: list, mixer: str, cfg: ArchConfig, mesh) -> dict:
     shard's block of it (an all-gather over the shards of ``mesh`` where
     it is cut)."""
     dev0 = next(iter(blocks[0].values())).device
-    b = next(iter(blocks[0].values())).shape[0]
     out = {}
-    for k, d in _state_dims(mixer, cfg, b, mesh.size).items():
+    for k, d in _state_dims(blocks, mixer, cfg).items():
         out[k] = (blocks[0][k].clone() if d is None else
                   collectives.all_gather([c[k] for c in blocks], d, dev0,
                                          mesh.ids))
     return out
 
 
-def _split_state(blocks: list, state: dict, mixer: str, cfg: ArchConfig,
-                 m: int) -> None:
+def _split_state(blocks: list, state: dict, mixer: str,
+                 cfg: ArchConfig) -> None:
     """Write each shard's block of ``state`` back, in place."""
-    b = next(iter(state.values())).shape[0]
-    for k, d in _state_dims(mixer, cfg, b, m).items():
-        for s, c in enumerate(blocks):
+    for k, d in _state_dims(blocks, mixer, cfg).items():
+        lo = 0
+        for c in blocks:
             part = state[k]
             if d is not None:
-                size = part.shape[d] // m
-                part = part.narrow(d, s * size, size)
+                part = part.narrow(d, lo, c[k].shape[d])
+                lo += c[k].shape[d]
             c[k].copy_(part.to(c[k].device))
 
 
 def _write_blocks(blocks: list, val, rt: Runtime, seq_sharded: bool) -> None:
     """Write a prompt's K or V (B, Hkv, S, dh) into positions [0, S) of a
-    dense cache held as one block per shard, in place: block m holds
-    positions [m S_blk, (m + 1) S_blk) where the cache is cut on its
-    sequence, every position otherwise."""
-    s = val.shape[2]
-    for m, blk in enumerate(blocks):
+    dense cache held as one block per shard, in place: where the cache is
+    cut on its sequence each block holds the positions after the blocks
+    before it (as many as it is long: uneven where the shards do not
+    divide the cache), else every position."""
+    s, lo = val.shape[2], 0
+    for blk in blocks:
         leaf = blk["codes"] if isinstance(blk, dict) else blk
-        lo = m * leaf.shape[2] if seq_sharded else 0
-        part = val[:, :, lo:min(s, lo + leaf.shape[2])]
+        start = lo if seq_sharded else 0
+        part = val[:, :, start:min(s, start + leaf.shape[2])]
         if part.shape[2]:
             _write_prefix(blk, part.to(leaf.device), rt)
+        lo += leaf.shape[2]
 
 
 def _attn_mesh(ps: list, h, positions, pos, caches: list, cfg: ArchConfig,
@@ -441,56 +448,78 @@ def _cross_mesh(ps: list, hx, positions, cfg: ArchConfig, rt: Runtime, *,
                                     cross_kv=kvs, **heads)
 
 
-def _cp_periods(params: list, cfg: ArchConfig, caches: list):
+def _cp_periods(params: list, cfg: ArchConfig, caches: list | None):
     """(slot kind, each shard's whole slot params, each shard's cache
-    blocks) of every (period, slot): the context-parallel prefill's
-    walk, every shard holding every weight."""
+    blocks, or Nones without caches) of every (period, slot): the
+    context-parallel prefill's walk, every shard holding every weight."""
+    caches = caches if caches is not None else [None] * len(params)
     for per_shard in zip(*(_periods(p, cfg, c)
                            for p, c in zip(params, caches))):
         yield (per_shard[0][0], [sp for _, sp, _ in per_shard],
                [c for _, _, c in per_shard])
 
 
+def cp_blocks(t: torch.Tensor, positions: torch.Tensor, devs) -> tuple:
+    """``t`` (B, S, ...) and its ``positions`` (..., S) cut into the row
+    blocks of the context-parallel prefill over the shards on ``devs``:
+    [m S/n, (m + 1) S/n) on shard m where the n shards divide S (the
+    reference's ``attention_core`` rule), else one block, the whole
+    sequence on the first shard. Returns (t's blocks, the positions'
+    blocks), each on its shard's device."""
+    s, n = t.shape[1], len(devs)
+    size = s // n if s % n == 0 else s
+    spans = [slice(lo, lo + size) for lo in range(0, s, size)]
+    return ([t[:, sp].to(dev) for sp, dev in zip(spans, devs)],
+            [positions[..., sp].to(dev) for sp, dev in zip(spans, devs)])
+
+
 def stack_prefill_cp(params: list, xs: list, positions: list,
-                     cfg: ArchConfig, rt: Runtime, caches: list) -> list:
+                     cfg: ArchConfig, rt: Runtime, caches: list | None = None,
+                     *, causal: bool = True, enc_outs: list | None = None
+                     ) -> list:
     """The context-parallel prefill (``rt.attn_cp``) over the shards of
     ``rt.mesh``, every shard holding the whole stack (the ``replicated``
-    policy): shard m runs the rows [m S/n, (m + 1) S/n) of the prompt
-    (``xs[m]``, ``positions[m]``) through norms, projections and the dense
-    FFN; the attention gathers K/V and offsets shard m's causal mask by m
-    S/n (``attn_apply_dense_cp``), and its K/V go into the cache blocks; a
-    MoE or a recurrent mixer, whose result depends on the whole sequence,
-    runs once on the rows joined on the first shard's device. Returns
-    each shard's rows."""
+    policy). ``xs`` and ``positions`` hold the row blocks of
+    ``cp_blocks``: one per shard, shard m's rows [m S/n, (m + 1) S/n), or
+    one, the whole sequence on the first shard. Each block runs through
+    norms, projections and the dense FFN on its shard. A self-attention
+    over blocks cut on the shards gathers K/V and offsets shard m's
+    causal mask by m S/n (``attn_apply_dense_cp``; ``causal`` False: an
+    encoder), over one whole block attends on the first shard; its K/V go
+    into the cache blocks (``caches`` None: an encoder, which keeps
+    none). An xdec slot's cross-attention projects the cross K/V of each
+    block of ``enc_outs`` (the encoder's rows, cut or whole), writes them
+    into the cross blocks and lets every query block attend all of them
+    (``_cross_cp``). A MoE or a recurrent mixer, whose result depends on
+    the whole sequence, runs once on the rows joined on the first shard's
+    device. Returns each row block."""
     devs = rt.mesh.devices
     seq = rt.decode_seq_axis is not None
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            "context-parallel prefill of an encoder-decoder model")
     for slot, sps, blocks in _cp_periods(params, cfg, caches):
         mixer, ffn = _parse_slot(slot)
         hs = [norm_apply(cfg.norm, sp["norm1"], x) for sp, x in zip(sps, xs)]
-        if mixer == "attn":
-            ys, kvs = attn_apply_dense_cp(
-                [sp["attn"] for sp in sps], hs, positions,
-                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                head_dim=cfg.dh, rope_theta=cfg.rope_theta,
-                mrope_sections=cfg.mrope_sections, rt=rt)
-            for key, i in (("k", 0), ("v", 1)):
-                # no collective: each cache block (cut as the rows are)
-                # takes back its own shard's rows, or, whole, the rows
-                # every shard already gathered
-                whole = torch.cat([kv[i].to(devs[0]) for kv in kvs], dim=1)
-                _write_blocks([c[key] for c in blocks],
-                              whole.transpose(1, 2), rt, seq)
+        if mixer in ("attn", "xdec"):
+            ys, kvs = _attn_cp(sps, hs, positions, cfg, rt, causal)
+            if blocks[0] is not None:
+                for key, i in (("k", 0), ("v", 1)):
+                    # no collective: each cache block (cut as the rows
+                    # are) takes back its own shard's rows, or, whole,
+                    # the rows every shard already gathered or computed
+                    whole = torch.cat([kv[i].to(devs[0]) for kv in kvs],
+                                      dim=1)
+                    _write_blocks([c[key] for c in blocks],
+                                  whole.transpose(1, 2), rt, seq)
         else:
             state = _join_state(blocks, mixer, cfg, rt.mesh)
-            y, _ = _recurrent(sps[0][mixer], _join_rows(hs, rt.mesh), cfg,
-                              rt, mixer, mode="prefill", cache=state,
+            y, _ = _recurrent(sps[0][mixer], _rows_on_first(hs, rt.mesh),
+                              cfg, rt, mixer, mode="prefill", cache=state,
                               paged_ctx=None)
-            _split_state(blocks, state, mixer, cfg, len(devs))
+            _split_state(blocks, state, mixer, cfg)
             ys = _split_rows(y, xs)
         xs = [x + y for x, y in zip(xs, ys)]
+        if mixer == "xdec":
+            ys = _cross_cp(sps, xs, positions, cfg, rt, blocks, enc_outs)
+            xs = [x + y for x, y in zip(xs, ys)]
         if ffn is None:
             continue
         hs = [norm_apply(cfg.norm, sp["norm2"], x) for sp, x in zip(sps, xs)]
@@ -498,12 +527,68 @@ def stack_prefill_cp(params: list, xs: list, positions: list,
             ys = [mlp_apply(sp["mlp"], h, variant=cfg.mlp_variant,
                             act=cfg.act, rt=rt) for sp, h in zip(sps, hs)]
         else:
-            y, _ = moe_apply(sps[0]["moe"], _join_rows(hs, rt.mesh),
+            y, _ = moe_apply(sps[0]["moe"], _rows_on_first(hs, rt.mesh),
                              top_k=cfg.top_k, n_experts=cfg.n_experts,
                              capacity_factor=cfg.capacity_factor, rt=rt)
             ys = _split_rows(y, xs)
         xs = [x + y for x, y in zip(xs, ys)]
     return xs
+
+
+def _attn_cp(sps: list, hs: list, positions: list, cfg: ArchConfig,
+             rt: Runtime, causal: bool):
+    """A self-attention sublayer of ``stack_prefill_cp``: (each row
+    block's y, each block's roped (k, v), (B, S_block, Hkv, dh))."""
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=cfg.dh, rope_theta=cfg.rope_theta,
+                 mrope_sections=cfg.mrope_sections, rt=rt)
+    if len(hs) == len(sps):
+        return attn_apply_dense_cp([sp["attn"] for sp in sps], hs,
+                                   positions, causal=causal, **heads)
+    y, kv = attn_apply_dense(sps[0]["attn"], hs[0], positions[0],
+                             causal=causal, kv_out=True, **heads)
+    return [y], [kv]
+
+
+def _cross_cp(sps: list, xs: list, positions: list, cfg: ArchConfig,
+              rt: Runtime, blocks: list, enc_outs: list) -> list:
+    """An xdec slot's cross-attention in ``stack_prefill_cp``: each block
+    of the encoder's rows (``enc_outs``, on its shard) projects its
+    cross K/V, which go into the cross cache blocks (cut on the encoder's
+    sequence where ``cache_specs`` cut them: then each block takes back
+    its own shard's rows); every query block attends the whole of them,
+    not causal, on its shard: one all-gather of the K and one of the V
+    (counted on every shard once, at shard 0's) where the encoder's rows
+    are cut, else the first shard's. Returns each query block's y."""
+    devs, ids = rt.mesh.devices, rt.mesh.ids
+    kvs = [_cross_kv(sp["xattn"], e, cfg.n_kv_heads, cfg.dh, rt)
+           for sp, e in zip(sps, enc_outs)]
+    seq = blocks[0]["xk"].shape[2] < cfg.enc_seq_len
+    for key, i in (("xk", 0), ("xv", 1)):
+        whole = torch.cat([kv[i].to(devs[0]) for kv in kvs], dim=1)
+        _write_blocks([c[key] for c in blocks], whole.transpose(1, 2), rt,
+                      seq)
+    ys = []
+    for m, (sp, x, pos) in enumerate(zip(sps, xs, positions)):
+        dev = devs[m]
+        if len(kvs) > 1:
+            kv = tuple(collectives.all_gather([t[i] for t in kvs], 1, dev,
+                                              ids if m == 0 else ())
+                       for i in (0, 1))
+        else:
+            kv = tuple(t.to(dev) for t in kvs[0])
+        hx = norm_apply(cfg.norm, sp["norm_x"], x)
+        ys.append(attn_apply_dense(
+            sp["xattn"], hx, pos, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.dh,
+            rope_theta=cfg.rope_theta, rt=rt, causal=False, cross_kv=kv))
+    return ys
+
+
+def _rows_on_first(parts: list, mesh):
+    """The row blocks (B, S_m, D) whole on the first shard's device: one
+    block as it is, several joined (``_join_rows``)."""
+    return parts[0] if len(parts) == 1 else _join_rows(parts, mesh)
 
 
 def _join_rows(parts: list, mesh):

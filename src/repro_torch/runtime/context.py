@@ -18,8 +18,10 @@
              divide the data axis and every data group runs all of it;
              ``("data", "model")`` under the train step's ``fsdp``, the
              rows over every device
-  attn_cp    context-parallel prefill: queries sequence-sharded over the
-             model axis, K/V gathered
+  attn_cp    context-parallel prefill: every shard holds the whole
+             weights; a sequence whose length divides the model axis runs
+             with its queries sequence-sharded over it and K/V gathered,
+             any other whole on the first shard
   remat      the train-mode stack's rematerialization (``nn.transformer``):
              ``none``; ``full`` checkpoints each period (and each slot of
              a pattern of more than one) and recomputes it in the

@@ -136,10 +136,9 @@ class ShardingPolicy:
         self.parallelism = parallelism
         axes = dict(mesh.shape)
         self.axes = axes
-        self.mesh_model = axes["model"]
         # replicated (the context-parallel prefill's weights) and fsdp:
         # no weight is cut over the model axis
-        self.n_model = self.mesh_model if parallelism == "tp" else 1
+        self.n_model = axes["model"] if parallelism == "tp" else 1
         self.kv_sharded = kv_heads_split(cfg.n_kv_heads, self.n_model)
         # the reference's axes (``repro.sharding.ShardingPolicy``): under
         # fsdp the batch over every axis and the weights over (data,
@@ -461,10 +460,14 @@ class ShardingPolicy:
         (``models.lm.init_caches``, ``encdec_init_caches``), the
         reference's ``cache_specs`` leaf: K/V and cross K/V (P, B, Hkv, S,
         dh), codes and scales alike, cut on their sequence over the model
-        axis where it divides; recurrent states (P, B, ...) on their
-        largest trailing dim that divides; the batch over data where it
-        divides."""
-        m = self.mesh_model
+        axis where the policy's model shards (``n_model``) divide it;
+        recurrent states (P, B, ...) on their largest trailing dim that
+        they divide; the batch over data where it divides. Under
+        ``replicated`` (the context-parallel prefill) ``n_model`` is 1, as
+        the reference's: every K/V is cut on its sequence and every state
+        on its largest trailing dim, unevenly where the model axis does
+        not divide them (``spec_layout``; XLA pads the reference's)."""
+        m = self.n_model
         kv = keys[-1] in ("k", "v", "xk", "xv") or (
             len(keys) >= 2 and keys[-2] in ("k", "v")
             and keys[-1] in ("codes", "scale"))
@@ -590,8 +593,8 @@ class Layout:
 
 
 def spec_layout(spec: Spec, shape: tuple, sizes: dict) -> Layout:
-    """``spec`` (every cut dividing its dim) as a ``Layout`` of even
-    blocks."""
+    """``spec`` as a ``Layout``: each cut's blocks even where its devices
+    divide the dim, else ``split_ranges``' (the first ones one larger)."""
     ranges = []
     for dim, entry in enumerate(spec):
         if entry is None:
@@ -921,8 +924,17 @@ def gather_dense_caches(grid: list, specs: dict, device="cpu",
         spec = specs[path]
         shape = list(first.shape)
         for dim, entry in enumerate(spec):
-            for a in _axes_of(entry) if entry is not None else ():
-                shape[dim] *= sizes[a]
+            if entry is None:
+                continue
+            # the blocks along the cut, one per coordinate on its axes
+            # (uneven where the devices do not divide the dim)
+            along = {}
+            for d, row in enumerate(grid):
+                for m, tree in enumerate(row):
+                    at = axis_coords(d, m, sizes)
+                    along[tuple(at[a] for a in _axes_of(entry))] = \
+                        tree_at(tree, path).shape[dim]
+            shape[dim] = sum(along.values())
         lay = spec_layout(spec, tuple(shape), sizes)
         out = torch.empty(shape, dtype=first.dtype, device=device)
         for d, row in enumerate(grid):

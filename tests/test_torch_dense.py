@@ -16,10 +16,15 @@
   eight CPU devices gives the reference's one-device prefill and decode
   step (the reference's own mesh cells: decode on granite-3-8b,
   olmoe-1b-7b and xlstm-350m, prefill on granite-3-8b with and without
-  the context-parallel prefill and on whisper-small): logits within
-  SHARD_LOGIT_TOL of their largest magnitude, the caches reassembled from
-  their blocks within 1e-5, a rerun bit-identical, and a decode write
-  landing in one sequence block only.
+  the context-parallel prefill and on whisper-small, with and without
+  it): logits within SHARD_LOGIT_TOL of their largest magnitude, the
+  caches reassembled from their blocks within 1e-5, a rerun
+  bit-identical, and a decode write landing in one sequence block only;
+* whisper-small's context-parallel prefill follows the reference's
+  per-attention rule: a sequence whose length does not divide the model
+  axis runs whole (the encoder at 18 frames, or the decoder at 62
+  tokens, over 4 shards), on meshes (2, 4), (2, 2) and (pod 2, data 1,
+  model 2), each against the reference's one-device prefill.
 
 The CUDA kernels are held against these plain versions on the card by
 the ``gpu`` tests of ``tests/test_torch_kernels.py``."""
@@ -375,7 +380,8 @@ MESH_CELLS = [("granite-3-8b", "decode", None),
               ("xlstm-350m", "decode", None),
               ("granite-3-8b", "prefill", False),
               ("granite-3-8b", "prefill", True),
-              ("whisper-small", "prefill", None)]
+              ("whisper-small", "prefill", None),
+              ("whisper-small", "prefill", True)]
 
 
 def _leaves(tree, path=()):
@@ -530,3 +536,123 @@ def test_fsdp_serve_step_matches_reference(monkeypatch, kind, quantized):
                                  _leaves(params_from_reference(jc))):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
                                    err_msg=str(path))
+
+
+#: (encoder frames, prompt tokens, (pod, data, model)) of whisper-small's
+#: context-parallel prefill: one sequence whole and the other cut
+#: (the reference's per-attention rule), then both cut on two more meshes
+CP_WHISPER_CELLS = [(18, 64, (None, 2, 4)), (16, 62, (None, 2, 4)),
+                    (16, 64, (None, 2, 2)), (16, 64, (2, 1, 2))]
+
+
+@pytest.mark.parametrize("s_enc,s,axes", CP_WHISPER_CELLS,
+                         ids=[f"enc{e}-p{p}-" + "x".join(
+                             str(n) for n in a if n)
+                             for e, p, a in CP_WHISPER_CELLS])
+def test_whisper_cp_prefill_per_call_rule(s_enc, s, axes):
+    """``build_serve_step(whisper-small, prefill, prefill_cp=True)`` with
+    the encoder's length and the prompt's set apart (``enc_seq_len``
+    replaced in both packages' reduced configs): each sequence runs
+    context-parallel where its length divides the model axis, else whole
+    on each data group's first shard (``meta["cp_sequences"]``; the
+    plain flash calls count it: one per attention, row block and data
+    group), the weights are stored whole on every device, and the step
+    gives the reference's one-device ``encdec_prefill``: logits within
+    SHARD_LOGIT_TOL of their peak, self and cross caches within 1e-5, a
+    rerun bit-identical, no kernel on the CPU."""
+    pod, data, model = axes
+    jcfg = dataclasses.replace(
+        reduced(get_config("whisper-small"), d_model=64, vocab=512),
+        enc_seq_len=s_enc)
+    tcfg = dataclasses.replace(
+        treduced(tget_config("whisper-small"), d_model=64, vocab=512),
+        enc_seq_len=s_enc)
+    jp = jed.encdec_init(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(1, 512, (MESH_B, s)).astype(np.int32)
+    frames = rng.standard_normal((MESH_B, s_enc, 64)).astype(np.float32)
+    want, jc = jed.encdec_prefill(
+        jp, jnp.asarray(frames), jnp.asarray(tokens),
+        jed.encdec_init_caches(jcfg, MESH_B, s, dtype=jnp.float32), jcfg,
+        JRuntime(impl="ref", q_chunk=1024))
+    n_dev = (pod or 1) * data * model
+    mesh = make_host_mesh(data, model, ["cpu"] * n_dev, pod=pod)
+    bundle = build_serve_step(tcfg, ShapeConfig("t", s, MESH_B, "prefill"),
+                              mesh, quantized=False, prefill_cp=True,
+                              dtype=torch.float32)
+    cut = {"encoder": s_enc % model == 0, "decoder": s % model == 0}
+    assert bundle.meta["cp_sequences"] == cut
+    assert bundle.meta["context_parallel"] is (cut["encoder"]
+                                               or cut["decoder"])
+    assert bundle.meta["parallelism"] == "replicated"
+    args = bundle.place(params_from_reference(jp), frames, tokens)
+    assert all(all(e is None for e in lay.spec)
+               for lay in bundle.layouts.values())
+
+    def run():
+        return bundle.fn(*args, bundle.init_caches())
+    ops.reset_op_calls()
+    got, grid = run()
+    blocks = {k: model if c else 1 for k, c in cut.items()}
+    assert ops.ref_calls()["flash_attention"] == (pod or 1) * data * (
+        blocks["encoder"] + 2 * blocks["decoder"]) * tcfg.n_layers
+    again, _ = run()
+    assert torch.equal(got, again)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= \
+        SHARD_LOGIT_TOL * np.abs(want).max()
+    for (path, g), (_, w) in zip(_leaves(bundle.gather(grid)),
+                                 _leaves(params_from_reference(jc))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
+                                   err_msg=str(path))
+    assert ops.op_calls() == {}
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "olmoe-1b-7b"])
+def test_lm_cp_prefill_runs_whole_where_length_does_not_divide(arch):
+    """An LM's prefill under ``prefill_cp=True`` at a prompt length the
+    model axis does not divide (62 tokens over 4 shards): the weights are
+    stored whole and the caches cut on their sequence all the same,
+    unevenly (16, 16, 15, 15 positions), as the reference's
+    ``replicated`` policy stores them; the prompt runs whole on each data
+    group's first shard (no collective, one plain flash call a layer and
+    data group), and the step gives the reference's one-device
+    ``lm_prefill``: logits within SHARD_LOGIT_TOL of their peak, caches
+    within 1e-5."""
+    from repro_torch import collectives
+    s = 62
+    jcfg = reduced(get_config(arch), d_model=64, vocab=512)
+    tcfg = treduced(tget_config(arch), d_model=64, vocab=512)
+    jp = jlm.lm_init(jax.random.PRNGKey(0), jcfg)
+    tokens = np.random.default_rng(5).integers(
+        1, 512, (MESH_B, s)).astype(np.int32)
+    want, jc = jlm.lm_prefill(
+        jp, jnp.asarray(tokens),
+        jlm.init_caches(jcfg, MESH_B, s, dtype=jnp.float32), jcfg,
+        JRuntime(impl="ref", q_chunk=1024))
+    mesh = make_host_mesh(*MESH, ["cpu"] * 8)
+    bundle = build_serve_step(tcfg, ShapeConfig("t", s, MESH_B, "prefill"),
+                              mesh, quantized=False, prefill_cp=True,
+                              dtype=torch.float32)
+    assert bundle.meta["cp_sequences"] == {"decoder": False}
+    assert bundle.meta["context_parallel"] is False
+    assert bundle.meta["parallelism"] == "replicated"
+    args = bundle.place(params_from_reference(jp), tokens)
+    ops.reset_op_calls()
+    collectives.reset_counts()
+    got, grid = bundle.fn(*args, bundle.init_caches())
+    assert [grid[0][m][0]["k"].shape[3] for m in range(MESH[1])] == \
+        [16, 16, 15, 15]
+    assert collectives.counts() == {}
+    n_attn = sum(slot.startswith("attn") for slot in tcfg.pattern) \
+        * tcfg.n_periods
+    assert ops.ref_calls()["flash_attention"] == MESH[0] * n_attn
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= \
+        SHARD_LOGIT_TOL * np.abs(want).max()
+    for (path, g), (_, w) in zip(_leaves(bundle.gather(grid)),
+                                 _leaves(params_from_reference(jc))):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5,
+                                   err_msg=str(path))
+    assert ops.op_calls() == {}

@@ -54,6 +54,7 @@ from repro_torch.launch import dryrun, hostdev, steps
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import encdec as ted
 from repro_torch.models import lm as lm_mod
+from repro_torch.nn.layers import tree_leaves
 from repro_torch.runtime import Runtime, planner
 from repro_torch.serving import Request, ServeConfig, ServeEngine
 from repro_torch.sharding import make_policy
@@ -209,6 +210,46 @@ def test_serve_step_specs_are_the_references(quantized_shapes, shape):
     assert {"gemma-2b", "qwen2-vl-2b"} <= seen["kv whole"]
     assert {"xlstm-350m", "jamba-1.5-large-398b"} <= seen["recurrent whole"]
     assert "row-cut scale" in seen
+
+
+#: (arch, prompt tokens) of the context-parallel prefill's storage test:
+#: whisper-small, and gemma-2b at a length the model axis does not divide
+CP_STORAGE_CELLS = [("whisper-small", 64), ("gemma-2b", 62)]
+
+
+@pytest.mark.parametrize("arch,s", CP_STORAGE_CELLS,
+                         ids=[f"{a}-{s}" for a, s in CP_STORAGE_CELLS])
+def test_cp_prefill_storage_is_the_references(quantized_shapes, arch, s):
+    """``build_serve_step(..., prefill_cp=True)`` at mesh (2, 4) stores the
+    weights by the reference's ``make_policy(cfg, mesh,
+    parallelism="replicated").param_specs`` of its sp2_4 params, leaf for
+    leaf (codes and scales apart), whatever the prompt's length: every
+    leaf whole, no departure; and lays the caches out by that policy's
+    ``cache_specs`` (each K/V cut on its sequence, gemma-2b's 62
+    positions too); its meta names the sequences that run
+    context-parallel (gemma-2b's 62 tokens do not)."""
+    sds, tree = quantized_shapes[arch]
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    bundle = steps.build_serve_step(
+        cfg, ShapeConfig("t", s, 8, "prefill"),
+        make_host_mesh(2, 4, ["meta"] * 8), prefill_cp=True)
+    assert bundle.meta["parallelism"] == "replicated"
+    want_cp = {"decoder": s % 4 == 0}
+    if cfg.enc_dec:
+        want_cp["encoder"] = cfg.enc_seq_len % 4 == 0
+    assert bundle.meta["cp_sequences"] == want_cp
+    assert bundle.rt.attn_cp is True
+    want = _jax_flat(jmake_policy(jcfg, _mesh(SMALL),
+                                  parallelism="replicated").param_specs(sds))
+    got = {k: lay.spec for k, lay in
+           _str_keys(bundle.policy.stored_layouts(tree)).items()}
+    assert got == want
+    assert all(e is None for spec in got.values() for e in spec)
+    jpol = jmake_policy(jcfg, _mesh(SMALL), parallelism="replicated")
+    want_c = _jax_flat(jpol.cache_specs(_caches_sds(jcfg, 8, s)))
+    assert _str_keys(bundle.specs) == want_c
+    assert all(spec[3] == "model" for path, spec in want_c.items()
+               if path[-1] in ("k", "v", "xk", "xv"))
 
 
 @pytest.mark.parametrize("shape", [SINGLE, MULTI], ids=["16x16", "2x16x16"])
@@ -418,14 +459,18 @@ def key(k):
             return str(getattr(k, attr))
 
 out = {}
-for arch, kind, b in json.loads(sys.argv[1]):
+for arch, kind, b, knobs in json.loads(sys.argv[1]):
     cfg = reduced(get_config(arch), d_model=64, vocab=512)
     mesh = jax.make_mesh((2, 4), ("data", "model"), **mesh_axis_kwargs(2))
     with ambient_mesh(mesh):
-        bundle = build_step(cfg, ShapeConfig("t", 64, b, kind), mesh)
+        bundle = build_step(cfg, ShapeConfig("t", 64, b, kind), mesh,
+                            **knobs)
+        # keep_unused: the encoder-decoder's prefill writes its cross
+        # caches whole without reading them, and jit would drop them from
+        # the arguments the caller still holds
         jfn = jax.jit(bundle.fn, in_shardings=bundle.in_shardings,
                       out_shardings=bundle.out_shardings,
-                      donate_argnums=bundle.donate_argnums)
+                      donate_argnums=bundle.donate_argnums, keep_unused=True)
         mem = jfn.lower(*bundle.args).compile().memory_analysis()
     leaves = {}
     for i, arg in enumerate(bundle.args):
@@ -433,7 +478,7 @@ for arch, kind, b in json.loads(sys.argv[1]):
             n = int(np.prod(x.sharding.shard_shape(x.shape))) \
                 * x.dtype.itemsize
             leaves["/".join([str(i)] + [key(k) for k in path])] = n
-    out[f"{arch}/{kind}/{b}"] = {
+    out[f"{arch}/{kind}/{b}/{json.dumps(knobs)}"] = {
         "argument": mem.argument_size_in_bytes, "leaves": leaves,
         "global": sum(int(np.prod(x.shape)) * x.dtype.itemsize
                       for x in jax.tree_util.tree_leaves(bundle.args)),
@@ -441,14 +486,20 @@ for arch, kind, b in json.loads(sys.argv[1]):
 print("RESULT " + json.dumps(out))
 """
 
-#: (arch, kind, batch) of the XLA cells: gemma-2b's fsdp train (8 rows
-#: over 8 devices), olmoe-1b-7b's train at 4 rows (tp), gemma-2b's prefill
-#: and decode (8 rows of a 64-token cache)
-XLA_CELLS = [("gemma-2b", "train", 8), ("olmoe-1b-7b", "train", 4),
-             ("gemma-2b", "prefill", 8), ("gemma-2b", "decode", 8)]
-#: the index of the batch arguments of each kind (tokens / frames / pos):
-#: the leaves "less the batch"
-_BATCH_ARGS = {"train": {"2"}, "prefill": {"1"}, "decode": {"1", "2"}}
+#: (arch, kind, batch, build_step's knobs) of the XLA cells: gemma-2b's
+#: fsdp train (8 rows over 8 devices), olmoe-1b-7b's train at 4 rows (tp),
+#: gemma-2b's prefill and decode (8 rows of a 64-token cache) and
+#: whisper-small's context-parallel prefill (replicated weights). A
+#: context-parallel cell at a length the model axis does not divide has
+#: no XLA figure: the reference's jit refuses its caches' uneven cut
+XLA_CELLS = [("gemma-2b", "train", 8, {}), ("olmoe-1b-7b", "train", 4, {}),
+             ("gemma-2b", "prefill", 8, {}), ("gemma-2b", "decode", 8, {}),
+             ("whisper-small", "prefill", 8, {"prefill_cp": True})]
+#: the index of the batch arguments of each kind (tokens / frames / pos;
+#: an encoder-decoder's prefill takes frames, then tokens): the leaves
+#: "less the batch"
+_BATCH_ARGS = {"train": {"2"}, "prefill": {"1"}, "decode": {"1", "2"},
+               "prefill-enc-dec": {"1", "2"}}
 
 
 def _ref_leaf(name: str) -> tuple:
@@ -462,9 +513,11 @@ def test_dryrun_argument_bytes_match_xla():
     """The dry report's per-device bytes of params, optimizer state and
     caches (from the port's layouts, on a meta (2, 4) mesh) against XLA's
     ``memory_analysis`` of the reference's compiled steps (an 8-device
-    subprocess), for XLA_CELLS. First: XLA reports one device's bytes of a
-    partitioned program (its argument bytes are each leaf's shard summed,
-    below the arguments' global bytes). Then leaf for leaf: each of the
+    subprocess), for XLA_CELLS (whisper-small's context-parallel prefill
+    among them: every weight whole on each device). First: XLA reports
+    one device's bytes of a partitioned program (its argument bytes are
+    each leaf's shard summed, below the arguments' global bytes). Then
+    leaf for leaf: each of the
     port's leaves is the reference's shard, but at the named departures
     (K/V of one KV head whole on every shard, a row cut keeping every
     scale: ``wo``'s and ``down``'s), whose bytes the report's
@@ -478,23 +531,25 @@ def test_dryrun_argument_bytes_match_xla():
                        env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert r.returncode == 0, r.stderr[-3000:]
     xla = json.loads(r.stdout.split("RESULT ", 1)[1])
-    first = xla["gemma-2b/train/8"]
+    first = xla["gemma-2b/train/8/{}"]
     assert first["argument"] == sum(first["leaves"].values())
     assert first["argument"] < first["global"] / 4
     mesh = make_host_mesh(2, 4, ["meta"] * 8)
     named = set()
-    for arch, kind, b in XLA_CELLS:
-        cell = xla[f"{arch}/{kind}/{b}"]
+    for arch, kind, b, knobs in XLA_CELLS:
+        cell = xla[f"{arch}/{kind}/{b}/{json.dumps(knobs)}"]
         assert cell["argument"] == sum(cell["leaves"].values())
-        rep = dryrun.dry_report(reduced(get_config(arch), d_model=64,
-                                        vocab=512),
-                                ShapeConfig("t", 64, b, kind), mesh)
+        cfg = reduced(get_config(arch), d_model=64, vocab=512)
+        rep = dryrun.dry_report(cfg, ShapeConfig("t", 64, b, kind), mesh,
+                                **knobs)
         assert {k: rep["meta"][k] for k in cell["meta"]} == cell["meta"]
+        args = _BATCH_ARGS[kind + ("-enc-dec" if cfg.enc_dec and
+                                   kind == "prefill" else "")]
         batch = sum(n for name, n in cell["leaves"].items()
-                    if _ref_leaf(name)[0] in _BATCH_ARGS[kind])
+                    if _ref_leaf(name)[0] in args)
         assert rep["memory"]["argument_parts"]["batch"] == batch
         ref = {_ref_leaf(name)[1]: n for name, n in cell["leaves"].items()
-               if _ref_leaf(name)[0] not in _BATCH_ARGS[kind]}
+               if _ref_leaf(name)[0] not in args}
         got = rep["argument_leaves"]
         step = ref.pop("step", 0)
         assert step in (0, 4) and set(got) == set(ref), (arch, kind)
@@ -634,6 +689,59 @@ def test_dryrun_meta_equals_a_real_run(arch, axes, b):
         real["memory"]["argument_bytes"]
     loss = real["metrics"]["loss"]
     assert abs(loss - want) <= GRAD_RTOL * abs(want)
+
+
+#: (encoder frames, all-gathers a layer on each device) of whisper-small's
+#: context-parallel prefill at mesh (2, 4), 64 prompt tokens: both
+#: sequences cut (the encoder's K and V, the decoder's, the cross K and
+#: V), or the encoder whole (the decoder's K and V only)
+CP_COUNT_CELLS = [(16, 6), (18, 2)]
+
+
+@pytest.mark.parametrize("s_enc,gathers", CP_COUNT_CELLS,
+                         ids=[f"enc{e}" for e, _ in CP_COUNT_CELLS])
+def test_dryrun_cp_prefill_equals_a_real_run(s_enc, gathers):
+    """Reduced whisper-small's context-parallel prefill at mesh (2, 4):
+    the dry report on meta against the same step run on eight CPU
+    devices with real weights, frames and tokens: every device's
+    collective counters equal (the K/V gathers, by the reference's name
+    ``all-gather``, ``gathers`` a layer on every device and nothing else)
+    and every device's weights and cache blocks equal in bytes."""
+    from repro_torch import collectives
+    cfg = dataclasses.replace(reduced(get_config("whisper-small"),
+                                      d_model=64, vocab=512),
+                              enc_seq_len=s_enc)
+    shape = ShapeConfig("t", 64, 8, "prefill")
+    knobs = dict(prefill_cp=True, dtype=torch.float32)
+    rep = dryrun.dry_report(cfg, shape, make_host_mesh(2, 4, ["meta"] * 8),
+                            param_dtype=torch.float32, **knobs)
+    bundle = steps.build_serve_step(cfg, shape, make_host_mesh(
+        2, 4, ["cpu"] * 8), **knobs)
+    gen = torch.Generator().manual_seed(3)
+    params = ted.encdec_init(gen, cfg, device="cpu")
+    frames = torch.randn((8, s_enc, 64), generator=gen)
+    tokens = torch.randint(1, 512, (8, 64), generator=gen)
+    placed, *inputs = bundle.place(params, frames, tokens)
+    grid = bundle.init_caches()
+    collectives.reset_counts()
+    bundle.fn(placed, *inputs, grid)
+    real = collectives.counts()
+    assert rep["collectives"]["by_device"] == real
+    assert set(real) == set(range(8))
+    assert all(set(c) == {"all-gather"} and c["all-gather"]["ops"]
+               == gathers * cfg.n_layers for c in real.values())
+
+    def nbytes(tree):
+        out = 0
+        for t in tree_leaves(tree):
+            for x in ((t.codes, t.scale) if hasattr(t, "codes") else (t,)):
+                out += x.numel() * x.element_size()
+        return out
+    by_dev = rep["argument_by_device"]
+    assert [[by_dev["params"][d][m] + by_dev["caches"][d][m]
+             for m in range(4)] for d in range(2)] == \
+        [[nbytes(placed[d][m]) + nbytes(grid[d][m]) for m in range(4)]
+         for d in range(2)]
 
 
 def test_dryrun_cli_writes_the_artifact(monkeypatch, tmp_path, capsys):
