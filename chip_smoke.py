@@ -235,7 +235,8 @@ Phases, each printing JSON lines:
      dryrun   the dry run (``launch.dryrun.dry_report``, on ``meta``, no
               card) of the five train_mesh and serve_mesh cells and of
               whisper-small's context-parallel prefill at the same shapes
-              and knobs: per-device state bytes and every
+              and knobs, every device run and again one representative
+              per symmetric class: per-device state bytes and every
               device's collective counters equal to the card's; the train
               cells' mesh peak of live storage within DRYRUN_MEM_RTOL of
               max_memory_allocated (the serve cells' printed, no gate);
@@ -4637,8 +4638,12 @@ def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
     step (its first); for the train cells the mesh peak of live storage
     within DRYRUN_MEM_RTOL of the card's max_memory_allocated (the serve
     steps' plain ``spx_matmul`` dequantizes whole weights, which the
-    kernel never holds: both numbers printed, no gate); the whole phase
-    within DRYRUN_SECONDS."""
+    kernel never holds: both numbers printed, no gate); each cell again
+    by the class path (``classes=True``: one representative per
+    symmetric class, what the production cells run), its per-device
+    state and every device's collective counters equal to the card's too
+    and its flops to the full run's (the memory gate stays on the full
+    run's mesh-wide peak); the whole phase within DRYRUN_SECONDS."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import dry_report
@@ -4671,13 +4676,27 @@ def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
             rec["per_device_state_bytes"], rec["collectives"],
             rec["max_memory_allocated"], False))
     out = {}
+
+    def state_of(rep, parts):
+        by_dev = rep["argument_by_device"]
+        return [[sum(by_dev[p][d][m] for p in parts)
+                 for m in range(MESH[1])] for d in range(MESH[0])]
     for (name, c, shape, knobs, parts, state, counts, card_mem,
          gate) in cells:
         t0 = time.perf_counter()
         rep = dry_report(c, shape, mesh, **knobs)
-        by_dev = rep["argument_by_device"]
-        dry_state = [[sum(by_dev[p][d][m] for p in parts)
-                      for m in range(MESH[1])] for d in range(MESH[0])]
+        dry_state = state_of(rep, parts)
+        t_class = time.perf_counter()
+        cls = dry_report(c, shape, mesh, classes=True, **knobs)
+        cls_line = {"classes": [[k["representative"], k["units"]]
+                                for k in cls["classes"]],
+                    "state_equal": state_of(cls, parts) == state,
+                    "collectives_equal": cls["collectives"]["by_device"]
+                    == counts,
+                    "flops_equal": cls["cost"] == rep["cost"],
+                    "temp_bytes": cls["memory"]["temp_bytes"],
+                    "temp_over": cls["memory"]["temp_over"],
+                    "seconds": time.perf_counter() - t_class}
         peak = rep["memory"]["mesh_peak_bytes"]
         mem_rel = peak / card_mem - 1
         line = {"phase": "dryrun", "cell": name, "card": card,
@@ -4697,6 +4716,7 @@ def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
                 "memory": rep["memory"], "flops": rep["cost"]["flops"],
                 "departures": rep["departures"], "uneven": rep["uneven"],
                 "build_s": rep["build_s"], "run_s": rep["run_s"],
+                "class_path": cls_line,
                 "seconds": time.perf_counter() - t0}
         emit(line)
         require(line["state_equal"],
@@ -4705,6 +4725,11 @@ def dryrun_phase(torch, train_mesh: dict, serve_mesh: dict,
         require(line["collectives_equal"],
                 f"dryrun {name}: collectives {rep['collectives']['by_device']}"
                 f" against the card's {counts}")
+        require(cls_line["state_equal"] and cls_line["collectives_equal"]
+                and cls_line["flops_equal"],
+                f"dryrun {name}: the class path's per-device state, "
+                f"collectives {cls['collectives']['by_device']} or flops "
+                f"{cls['cost']} against the card's and the full run's")
         if gate:
             require(abs(mem_rel) <= DRYRUN_MEM_RTOL,
                     f"dryrun {name}: mesh peak {peak} against the card's "

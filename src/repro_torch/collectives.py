@@ -20,13 +20,20 @@ of its group (each runs it, as every device runs the reference's
 collective), with the bytes of its result as one device holds it; a group
 of one device moves nothing and counts nothing. ``reset_counts`` and
 ``counts`` read them, as ``kernels.ops.op_calls``.
+
+The dry run's class path (``launch.dryrun``, on ``meta`` only) runs the
+devices of one symmetric class at a time (``Runtime.live``): a move
+whose group holds devices that do not run is counted on the members that
+run (``live``), as large as its whole group makes it, and the parts of
+the others are stand-ins of their shape (``stand_in``).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["KINDS", "reset_counts", "counts", "note", "nbytes",
-           "all_gather", "all_reduce", "Gather", "MetaJoin", "MetaRead"]
+__all__ = ["KINDS", "reset_counts", "counts", "repeat", "note", "nbytes",
+           "all_gather", "all_reduce", "stand_in", "StandInOf", "Gather",
+           "MetaJoin", "MetaRead"]
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
@@ -46,41 +53,88 @@ def counts() -> dict:
             for dev, kinds in sorted(_COUNTS.items())}
 
 
+def repeat(before: dict, times: int) -> None:
+    """The moves counted since ``before`` (a ``counts()``) counted
+    ``times`` times over: work the dry run runs once for ``times``
+    identical repeats (``launch.dryrun``'s fold)."""
+    for dev, kinds in counts().items():
+        for kind, c in kinds.items():
+            was = before.get(dev, {}).get(kind, {"ops": 0, "bytes": 0})
+            n = _COUNTS[dev][kind]
+            n[0] += (times - 1) * (c["ops"] - was["ops"])
+            n[1] += (times - 1) * (c["bytes"] - was["bytes"])
+
+
 def nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def note(kind: str, members, size: int, group: int | None = None) -> None:
+def note(kind: str, members, size: int, group: int | None = None,
+         live=None) -> None:
     """Count one ``kind`` move of ``size`` result bytes on each of
     ``members`` (device indices), where its group (``group`` devices, by
-    default the members) holds more than one device."""
+    default the members) holds more than one device. ``live``: the
+    devices that run (``Runtime.live``); None: every member."""
     members = tuple(members)
     if (len(set(members)) if group is None else group) < 2:
         return
     for dev in members:
+        if live is not None and dev not in live:
+            continue
         c = _COUNTS.setdefault(dev, {}).setdefault(kind, [0, 0])
         c[0] += 1
         c[1] += size
 
 
-def all_gather(parts: list, dim: int, device, members) -> torch.Tensor:
-    """``parts`` side by side on ``device`` along ``dim``, in order."""
+def all_gather(parts: list, dim: int, device, members,
+               live=None) -> torch.Tensor:
+    """``parts`` side by side on ``device`` along ``dim``, in order
+    (``live``: ``note``'s)."""
     out = torch.cat([t.to(device) for t in parts], dim=dim)
-    note("all-gather", members, nbytes(out))
+    note("all-gather", members, nbytes(out), len(set(members)), live)
     return out
 
 
-def all_reduce(parts: list, members, kind: str = "all-reduce"
-               ) -> torch.Tensor:
+def all_reduce(parts: list, members, kind: str = "all-reduce",
+               live=None) -> torch.Tensor:
     """``parts`` summed in order on the first part's device: the same sum
     on every run, whatever the devices. ``kind``: ``all-to-all`` for the
     expert-parallel MoE's combine (each shard's partial output over its
-    experts), counted with its dispatch under that name."""
+    experts), counted with its dispatch under that name. ``live``:
+    ``note``'s; ``parts`` then holds the live members' parts only."""
     total = parts[0]
     for part in parts[1:]:
         total = total + part.to(total.device)
-    note(kind, members, nbytes(total))
+    note(kind, members, nbytes(total), len(set(members)), live)
     return total
+
+
+def stand_in(like: torch.Tensor) -> torch.Tensor:
+    """A ``meta`` tensor of ``like``'s shape and dtype: the part of a
+    device that the class path does not run. Raises off ``meta``: a real
+    run computes every part."""
+    if like.device.type != "meta":
+        raise ValueError("a stand-in part exists only on meta (the dry "
+                         "run's class path)")
+    return torch.empty(like.shape, dtype=like.dtype, device="meta")
+
+
+class StandInOf(torch.autograd.Function):
+    """On ``meta``: the output of work on ``x`` that another class of the
+    dry run's class path runs (``stand_in``'s shape and dtype), keeping
+    ``x`` for the backward as that work would, so that a checkpoint's
+    recompute re-runs what made ``x`` as in the all-devices run; its
+    backward hands ``x`` a stand-in gradient. ``apply(x)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return stand_in(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return stand_in(x)
 
 
 class Gather(torch.autograd.Function):

@@ -71,7 +71,9 @@ class StepBundle:
     spec} (``ShardingPolicy.cache_specs``), ``layouts`` the stored
     weights', ``gather(grid)`` the whole caches. A train step: see
     ``build_train_step``. ``policy``: the ``ShardingPolicy`` it cuts
-    by."""
+    by. On ``meta`` ``fn`` also takes ``live=`` (the dry run's class
+    path: only those mesh devices run, ``Runtime.live``; a train step
+    also ``fold=``)."""
     fn: Callable
     specs: dict
     meta: dict
@@ -132,15 +134,19 @@ def _zero_blocks(meta_state, layouts: dict, mesh) -> list:
             for d, row in enumerate(mesh.grid)]
 
 
-def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float):
+def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float,
+                 live=None):
     """``clip_by_global_norm`` over blocks: the norm sums every leaf's
     distinct blocks (a copy counted once, from its first device) in device
     order, leaf after leaf (an all-reduce of each leaf's sum); each block
     is scaled by the one factor. Returns (grads, the norm before clipping)
-    on the first device."""
+    on the first device. ``live`` (``Runtime.live``): only those devices'
+    blocks exist (None elsewhere), and the sums take theirs."""
     sizes, dev0, cols = mesh.shape, mesh.devices[0], mesh.shape["model"]
-    coords = [(d, m) for d, row in enumerate(mesh.grid)
-              for m in range(len(row))]
+    ids = [d * cols + m for d, row in enumerate(mesh.grid)
+           for m in range(len(row))]
+    coords = [(k // cols, k % cols) for k in ids
+              if live is None or k in live]
     total = torch.zeros((), dtype=torch.float32, device=dev0)
 
     def square(path, _):
@@ -154,14 +160,26 @@ def _clip_blocks(grads: list, layouts: dict, mesh, max_norm: float):
             g = tree_at(grads[d][m], path)
             parts.append(torch.sum(torch.square(g.to(torch.float32)))
                          .to(dev0))
-        total = total + collectives.all_reduce(
-            parts, [d * cols + m for d, m in coords])
-    tree_map(square, grads[0][0])
+        total = total + collectives.all_reduce(parts, ids, live=live)
+    tree_map(square, grads[coords[0][0]][coords[0][1]])
     gnorm = torch.sqrt(total)
     factor = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
-    return [[tree_map(lambda _, g: (g.to(torch.float32)
+    return [[None if t is None else
+             tree_map(lambda _, g: (g.to(torch.float32)
                                     * factor.to(g.device)).to(g.dtype), t)
              for t in row] for row in grads], gnorm
+
+
+def _or_zeros(g, block):
+    return torch.zeros_like(block) if g is None else g
+
+
+def _meta_only(devices) -> None:
+    """The class path (``live``) runs on ``meta`` only: raises for a
+    mesh of real devices, which run every device."""
+    if any(torch.device(d).type != "meta" for d in devices):
+        raise ValueError("live devices (the dry run's class path) run on "
+                         "meta only")
 
 
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
@@ -244,71 +262,102 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             return whole
         return whole, gather_blocks(opt_state, o_lay, mesh, device)
 
-    def grads_of(params, batch):
-        """(loss, metrics, the reduced gradient grid) of one batch."""
+    def grads_of(params, batch, rt, runs):
+        """(loss, metrics, the reduced gradient grid) of one batch, on
+        the devices ``runs`` ((d, m) each; None in the grid elsewhere)."""
         live = [[tree_map(lambda _, x: x.detach().requires_grad_(True), t)
-                 for t in row] for row in params]
+                 if (d, m) in runs else None for m, t in enumerate(row)]
+                for d, row in enumerate(params)]
         # fsdp: every device's rows run in one checkpointed region per
         # period, so a shared period slice takes its readers' gradients
         # at once; under tp the data groups run (and recompute) apart, and
         # a shared slice would hold its partial gradient until the last
         # group's backward reached it
         periods = {} if parallelism == "fsdp" else None
-        views = [[gathered_view(live, p_lay, policy, d, m, dev, periods)
+        # the blocks of the devices that do not run are read as they are
+        src = [[t if g is None else g for t, g in zip(p_row, l_row)]
+               for p_row, l_row in zip(params, live)]
+        views = [[gathered_view(src, p_lay, policy, d, m, dev, periods)
+                  if (d, m) in runs else None
                   for m, dev in enumerate(row)]
                  for d, row in enumerate(mesh.grid)]
-        leaves = [leaf for row in live for t in row
-                  for leaf in tree_leaves(t)]
+        leaves = [leaf for d, m in runs for leaf in tree_leaves(live[d][m])]
         with torch.enable_grad():
             loss, metrics = loss_fn(views, batch, cfg, rt)
             gs = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-        grads = [[tree_map(lambda _, x: next(gs), t) for t in row]
-                 for row in live]
-        grads = reduce_copies(grads, p_lay, mesh)
-        # a block no device read (none on the bundled configs) takes zeros
-        grads = [[tree_map(lambda path, g, t=t: torch.zeros_like(
-            tree_at(t, path)) if g is None else g, g_t)
-            for g_t, t in zip(g_row, p_row)]
-            for g_row, p_row in zip(grads, params)]
+        # a block no device read takes zeros (none on the bundled
+        # configs), before the copies are summed: every copy takes part
+        grads = [[None if t is None else
+                  tree_map(lambda _, x: _or_zeros(next(gs), x), t)
+                  for t in row] for row in live]
+        grads = reduce_copies(grads, p_lay, mesh, rt.live)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
-    def train_step(params, opt_state, batch):
+    def train_step(params, opt_state, batch, live=None, fold=None):
+        """One step. ``live`` (the dry run's class path, ``meta`` only):
+        the devices that run (``Runtime.live``), whole rows under tp.
+        ``fold`` (with ``live``): the dry run's ``fold(times, body)``, which
+        runs ``body`` once and counts its work ``times`` times: the
+        microbatches after the first run the same program on rows of the
+        same shapes, so the second runs for all of them (and the
+        optimizer's repeated slices, ``Optimizer.update_blocks``)."""
         batch = {k: torch.as_tensor(v).to(devs[0]) for k, v in batch.items()}
+        rt_s = rt
+        if live is not None:
+            _meta_only(devs)
+            rt_s = rt.replace(live=frozenset(live))
+        elif fold is not None:
+            raise ValueError("fold runs with live (the dry run's class path)")
+        runs = [(d, m) for d, row in enumerate(mesh.grid)
+                for m in range(len(row))
+                if live is None or d * cols + m in rt_s.live]
         if accum_steps == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(params, batch, rt_s, runs)
         else:
             mb = batch["tokens"].shape[0] // accum_steps
             acc, losses, ms = None, [], []
-            for i in range(accum_steps):
+
+            def micro(i):
+                nonlocal acc
                 loss_i, m_i, g = grads_of(
                     params, {k: v[i * mb:(i + 1) * mb]
-                             for k, v in batch.items()})
+                             for k, v in batch.items()}, rt_s, runs)
                 if acc is None:
-                    acc = [[tree_map(lambda _, x: torch.zeros(
-                        x.shape, dtype=acc_dtype, device=x.device), t)
+                    acc = [[None if t is None else tree_map(
+                        lambda _, x: torch.zeros(
+                            x.shape, dtype=acc_dtype, device=x.device), t)
                         for t in row] for row in g]
-                for a_row, g_row in zip(acc, g):
-                    for a_t, t in zip(a_row, g_row):
-                        tree_map(lambda path, a, t=t: a.add_(
-                            tree_at(t, path).to(acc_dtype)), a_t)
+                for d, m in runs:
+                    tree_map(lambda path, a, t=g[d][m]: a.add_(
+                        tree_at(t, path).to(acc_dtype)), acc[d][m])
                 del g
                 losses.append(loss_i)
                 ms.append(m_i)
-            grads = [[tree_map(lambda _, a: a.div_(accum_steps), t)
+            micro(0)
+            if fold is None:
+                for i in range(1, accum_steps):
+                    micro(i)
+            else:
+                fold(accum_steps - 1, lambda: micro(1))
+                losses += losses[-1:] * (accum_steps - 2)
+                ms += ms[-1:] * (accum_steps - 2)
+            grads = [[None if t is None else
+                      tree_map(lambda _, a: a.div_(accum_steps), t)
                       for t in row] for row in acc]
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
-        grads, gnorm = _clip_blocks(grads, p_lay, mesh, 1.0)
-        flat = [t for row in params for t in row]
+        grads, gnorm = _clip_blocks(grads, p_lay, mesh, 1.0, rt_s.live)
+        flat = [d * cols + m for d, m in runs]
         new_p, new_o = opt.update_blocks(
-            flat, [t for row in grads for t in row],
-            [t for row in opt_state for t in row], where)
-        params = [new_p[d * cols:(d + 1) * cols]
-                  for d in range(len(mesh.grid))]
-        opt_state = [new_o[d * cols:(d + 1) * cols]
-                     for d in range(len(mesh.grid))]
+            [params[d][m] for d, m in runs], [grads[d][m] for d, m in runs],
+            [opt_state[d][m] for d, m in runs],
+            lambda path, k: where(path, flat[k]), fold=fold)
+        params = [list(row) for row in params]
+        opt_state = [list(row) for row in opt_state]
+        for (d, m), p, o in zip(runs, new_p, new_o):
+            params[d][m], opt_state[d][m] = p, o
         return params, opt_state, dict(metrics, loss=loss, gnorm=gnorm)
 
     meta = {"kind": "train", "optimizer": opt_name, "fsdp": policy.fsdp,
@@ -398,25 +447,33 @@ def build_serve_step(cfg: ArchConfig, shape: ShapeConfig, mesh, *,
             "data_axes": rt.data_axes}
     if shape.kind == "prefill":
         if cfg.enc_dec:
-            def step(params, frames, tokens, caches):
+            def step(params, frames, tokens, caches, rt):
                 return ed.encdec_prefill(params, frames, tokens, caches,
                                          cfg, rt)
         else:
-            def step(params, tokens, caches):
+            def step(params, tokens, caches, rt):
                 return lm_mod.lm_prefill(params, tokens, caches, cfg, rt)
     else:
         mod = ed.encdec_decode_step if cfg.enc_dec else lm_mod.lm_decode_step
 
-        def step(params, token, pos, caches):
+        def step(params, token, pos, caches, rt):
             return mod(params, token, pos, caches, cfg, rt)
 
     @torch.no_grad()
-    def run(grid, *args):
+    def run(grid, *args, live=None):
+        """The step; ``live`` (the dry run's class path, ``meta`` only):
+        the devices that run (``Runtime.live``), whole rows."""
+        step_rt = rt
+        if live is not None:
+            _meta_only(mesh.devices)
+            step_rt = rt.replace(live=frozenset(live))
+        cols = len(mesh.grid[0])
         periods: dict = {}
         views = [[gathered_view(grid, layouts, policy, d, k, dev, periods)
+                  if live is None or d * cols + k in step_rt.live else None
                   for k, dev in enumerate(row)]
                  for d, row in enumerate(mesh.grid)]
-        return step(views, *args)
+        return step(views, *args, step_rt)
 
     return StepBundle(
         fn=run, specs=c_specs, meta=meta, rt=rt, place=place,

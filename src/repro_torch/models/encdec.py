@@ -128,31 +128,35 @@ def encdec_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
                                     tokens, rt.mesh, cfg.vocab_size)
         stack = [p["dec_stack"] for p in params]
         norm = whole(params[0]["final_norm"])
-        w = mesh_head_w([whole(p["head"]["w"]) for p in params], rt.mesh)
+        w = mesh_head_w([whole(p["head"]["w"]) for p in params], rt.mesh,
+                        cfg.d_model)
     h, _ = stack_apply(stack, x, pos, dec_cfg(cfg), rt, enc_out=enc_out)
     h = norm_apply(cfg.norm, norm, h)
     ce, z = chunked_ce(h, w, batch["labels"].to(h.device))
     return ce + Z_WEIGHT * z, {"ce": ce, "z": z}
 
 
-def _encdec_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime):
+def _encdec_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime,
+                 members=None):
     """The encoder-decoder's rows over several devices (``mesh_loss``'s
     fsdp): each device encodes its rows' frames and decodes its rows;
-    each device's (ce, z) means, and no aux loss."""
+    each device's (ce, z) means, and no aux loss (``members``:
+    ``stack_apply_rows``')."""
     def pos(t):
         b, s = t.shape[:2]
         return torch.arange(s, device=t.device).expand(b, s)
     frames = [b["frames"] for b in batches]
     hs, _ = stack_apply_rows([v["enc_stack"] for v in views], frames,
                              [pos(f) for f in frames], enc_cfg(cfg), rt,
-                             causal=False)
+                             causal=False, members=members)
     enc_outs = [norm_apply(cfg.norm, whole(v["enc_norm"]), h)
                 for v, h in zip(views, hs)]
     xs = [embedding_apply(whole(v["embed"]), b["tokens"])
           for v, b in zip(views, batches)]
     hs, _ = stack_apply_rows([v["dec_stack"] for v in views], xs,
                              [pos(b["tokens"]) for b in batches],
-                             dec_cfg(cfg), rt, enc_outs=enc_outs)
+                             dec_cfg(cfg), rt, enc_outs=enc_outs,
+                             members=members)
     return [chunked_ce(norm_apply(cfg.norm, whole(v["final_norm"]), h),
                        whole(v["head"]["w"]), b["labels"])
             for v, h, b in zip(views, hs, batches)], None

@@ -167,14 +167,14 @@ def _tp_backbone(ps: list, cfg: ArchConfig, tokens, positions, rt: Runtime):
     return norm_apply(cfg.norm, whole(ps[0]["final_norm"]), h), aux
 
 
-def mesh_head_w(ws: list, mesh) -> torch.Tensor:
+def mesh_head_w(ws: list, mesh, d_model: int) -> torch.Tensor:
     """The whole (D, V) head on the first shard's device of ``mesh`` from
     the shards' slices ``ws`` (each (D, V_s) where the vocabulary splits,
-    (D_s, V) where the head is cut on d), joined in shard order (an
-    all-gather over the shards): the loss head of a tensor-parallel loss,
-    whose ``chunked_ce`` takes the whole vocabulary's logits."""
-    d = ws[0].shape[0]
-    vocab_split = all(w.shape[0] == d for w in ws)
+    (D_s, V) where the head is cut on d: its rows fewer than
+    ``d_model``), joined in shard order (an all-gather over the shards):
+    the loss head of a tensor-parallel loss, whose ``chunked_ce`` takes
+    the whole vocabulary's logits."""
+    vocab_split = all(w.shape[0] == d_model for w in ws)
     return collectives.all_gather(ws, -1 if vocab_split else 0,
                                   mesh.devices[0], mesh.ids)
 
@@ -201,22 +201,26 @@ def lm_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime):
         w = _head_w(params, cfg)
     else:
         h, aux = _tp_backbone(params, cfg, tokens, positions, rt)
-        w = mesh_head_w([_view_head_w(p, cfg) for p in params], rt.mesh)
+        w = mesh_head_w([_view_head_w(p, cfg) for p in params], rt.mesh,
+                        cfg.d_model)
     ce, z = chunked_ce(h, w, batch["labels"].to(h.device))
     loss = ce + AUX_WEIGHT * aux + Z_WEIGHT * z
     return loss, {"ce": ce, "aux": aux, "z": z}
 
 
-def _lm_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime):
+def _lm_rows(views: list, batches: list, cfg: ArchConfig, rt: Runtime,
+             members=None):
     """The LM's rows over several devices (``mesh_loss``'s fsdp): each
-    device's (ce, z) means over its rows, and the aux loss."""
+    device's (ce, z) means over its rows, and the aux loss (``members``:
+    ``stack_apply_rows``')."""
     xs, pos = [], []
     for v, b in zip(views, batches):
         xs.append(embedding_apply(whole(v["embed"]), b["tokens"]))
         p = b.get("positions")
         pos.append(p if p is not None else _default_positions(
             cfg, *b["tokens"].shape, b["tokens"].device))
-    hs, aux = stack_apply_rows([v["stack"] for v in views], xs, pos, cfg, rt)
+    hs, aux = stack_apply_rows([v["stack"] for v in views], xs, pos, cfg, rt,
+                               members=members)
     out = []
     for v, h, b in zip(views, hs, batches):
         h = norm_apply(cfg.norm, whole(v["final_norm"]), h)
@@ -244,6 +248,34 @@ def _row_groups(mesh, data_axes: tuple, b: int) -> list:
     return out
 
 
+def loss_rows(mesh, data_axes: tuple, b: int) -> dict:
+    """{mesh device index: its slice of the batch's ``b`` rows} of every
+    device that runs rows in ``mesh_loss``: under fsdp (``"model"`` in
+    ``data_axes``) b / n on each of the n devices where they divide b,
+    else all b on the first; under tp each running row's slice
+    (``_row_groups``) on every device of the row."""
+    if "model" in data_axes:
+        n = len(mesh.devices)
+        per = b // n if n > 1 and b % n == 0 else b
+        return {k: slice(k * per, (k + 1) * per) for k in range(b // per)}
+    cols = mesh.shape["model"]
+    return {r * cols + m: sl for r, sl in _row_groups(mesh, data_axes, b)
+            for m in range(cols)}
+
+
+def _row_live(row, live) -> bool:
+    """Whether a row (a ``ServingMesh``) runs under ``Runtime.live``: all
+    of its devices or none (a row's shards run together); raises for a
+    row cut in two."""
+    if live is None:
+        return True
+    ids = set(row.ids)
+    if ids & live and not ids <= live:
+        raise ValueError(f"live devices {sorted(ids & live)} cut row "
+                         f"{sorted(ids)}: a row runs whole or not at all")
+    return ids <= live
+
+
 def _group(mesh, r: int, data_axes: tuple) -> int:
     """Row ``r``'s index among the groups of ``data_axes``."""
     sizes, at, g = mesh.shape, mesh.coords(r), 0
@@ -259,15 +291,18 @@ def mesh_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime, *, rows,
     tree each device computes with (``sharding.gathered_view``: whole
     under fsdp, its model shard under tp). ``"model"`` in
     ``rt.data_axes`` (fsdp): every device runs its rows of the batch
-    (``rows(views, batches, cfg, rt)`` -> each device's (ce, z) means and
-    the aux loss or None); else each data group runs its rows (over
-    ``rt.data_axes``, where the batch divides) tensor-parallel over its
-    model shards (``group_loss`` under the group's ``ServingMesh``). ce
+    (``rows(views, batches, cfg, rt, members)`` -> each device's (ce, z)
+    means and the aux loss or None); else each data group runs its rows
+    (over ``rt.data_axes``, where the batch divides) tensor-parallel over
+    its model shards (``group_loss`` under the group's ``ServingMesh``). ce
     and z are means over the global batch. A MoE's aux loss under tp is
     the reference's: each group routes its own tokens, the value reported
     is group 0's (the reference's ``P()`` output, read from device 0) and
-    its gradient is the mean over the groups'."""
-    mesh = rt.mesh
+    its gradient is the mean over the groups'. Under ``rt.live`` only the
+    live devices run their rows (``params`` holds None elsewhere); where
+    none of them runs rows the loss is a stand-in that reaches no
+    weight."""
+    mesh, live = rt.mesh, rt.live
     b = batch["tokens"].shape[0]
     ces, zs, members = [], [], []
     aux = None
@@ -277,36 +312,42 @@ def mesh_loss(params, batch: dict, cfg: ArchConfig, rt: Runtime, *, rows,
 
     if "model" in rt.data_axes:
         devs = mesh.devices
-        n = len(devs)
-        per = b // n if n > 1 and b % n == 0 else b
-        slices = [slice(k * per, (k + 1) * per) for k in range(b // per)]
+        slices = loss_rows(mesh, rt.data_axes, b)
         cols = mesh.shape["model"]
-        views = [params[k // cols][k % cols] for k in range(len(slices))]
-        batches = [{key: t[sl].to(dev) for key, t in batch.items()}
-                   for sl, dev in zip(slices, devs)]
-        parts, aux = rows(views, batches, cfg, rt.replace(mesh=None))
-        for (c, zz), sl in zip(parts, slices):
-            ces.append(weigh(c, sl))
-            zs.append(weigh(zz, sl))
-        members = range(len(slices))
+        members = list(slices)
+        ids = [k for k in members if live is None or k in live]
+        views = [params[k // cols][k % cols] for k in ids]
+        batches = [{key: t[slices[k]].to(devs[k]) for key, t in batch.items()}
+                   for k in ids]
+        parts, aux = (rows(views, batches, cfg, rt.replace(mesh=None),
+                           members) if ids else ([], None))
+        for (c, zz), k in zip(parts, ids):
+            ces.append(weigh(c, slices[k]))
+            zs.append(weigh(zz, slices[k]))
     else:
         auxes = []
         for r, sl in _row_groups(mesh, rt.data_axes, b):
             row = mesh.row(r)
+            members.append(row.first)
+            if not _row_live(row, live):
+                continue
             _, m = group_loss(params[r], {key: t[sl].to(row.devices[0])
                                           for key, t in batch.items()},
                               cfg, rt.replace(mesh=row))
             ces.append(weigh(m["ce"], sl))
             zs.append(weigh(m["z"], sl))
-            members.append(row.first)
             if "aux" in m:
                 auxes.append(m["aux"].to(ces[0].device))
         if auxes:
             mean = sum(auxes) / len(auxes)
             aux = auxes[0].detach() + (mean - mean.detach())
+    if not ces:
+        # a class of the dry run whose devices run no rows
+        loss = torch.zeros((), device="meta", requires_grad=True)
+        return loss, {"ce": loss.detach(), "z": loss.detach()}
     # the loss over the devices that ran rows: an all-reduce of each term
-    ce = collectives.all_reduce(ces, members)
-    z = collectives.all_reduce(zs, members)
+    ce = collectives.all_reduce(ces, members, live=live)
+    z = collectives.all_reduce(zs, members, live=live)
     loss = ce + Z_WEIGHT * z
     metrics = {"ce": ce}
     if aux is not None:
@@ -387,18 +428,23 @@ def mesh_apply(params, tokens, caches, cfg: ArchConfig, rt: Runtime, body,
     whose head slices give the logits; the final norm and the vocabulary
     projection (``head_w(p)``, the tied table or untied head by default)
     follow. Returns the logits (B, V) on the mesh's first device, side by
-    side where the batch split, and the caches."""
+    side where the batch split, and the caches. Under ``rt.live`` only
+    the rows whose devices are live run; a group none of them ran gives
+    stand-in logits."""
     head_w = head_w or (lambda p: _head_w(p, cfg))
     mesh, b = rt.mesh, tokens.shape[0]
     n = 1
     for a in rt.data_axes:
         n *= mesh.shape[a]
     per = b // n
-    outs = {}
+    outs, groups = {}, set()
     for d in range(len(mesh.grid)):
         g = _group(mesh, d, rt.data_axes)
-        rows = slice(g * per, (g + 1) * per)
+        groups.add(g)
         rt_d = rt.replace(mesh=mesh.row(d))
+        if not _row_live(rt_d.mesh, rt.live):
+            continue
+        rows = slice(g * per, (g + 1) * per)
         h, heads = body(params[d], tokens[rows], rows, rt_d, caches[d])
         ps = [whole({k: p[k] for k in ("final_norm", "embed", "head")
                      if k in p}) for p in params[d][heads]]
@@ -406,7 +452,9 @@ def mesh_apply(params, tokens, caches, cfg: ArchConfig, rt: Runtime, body,
         h = norm_apply(cfg.norm, ps[0]["final_norm"], h.to(sub.devices[0]))
         logits = sharded_logits([head_w(p) for p in ps], h[:, 0], sub)
         outs.setdefault(g, logits.to(mesh.devices[0]))
-    return torch.cat([outs[g] for g in sorted(outs)]), caches
+    like = next(iter(outs.values()))
+    return torch.cat([outs[g] if g in outs else collectives.stand_in(like)
+                      for g in sorted(groups)]), caches
 
 
 def mesh_embed(ps: list, tokens, cfg: ArchConfig, rt: Runtime):

@@ -795,7 +795,7 @@ def stack_apply(params, x: torch.Tensor, positions, cfg: ArchConfig,
 
 def stack_apply_rows(stacks: list, xs: list, positions: list,
                      cfg: ArchConfig, rt: Runtime, enc_outs=None,
-                     causal: bool = True):
+                     causal: bool = True, members=None):
     """The train-mode stack over the rows of several devices (the train
     step's ``fsdp``): device k runs its rows ``xs[k]`` through its own
     copy of the weights (``stacks[k]``, ``GatheredLeaf``s that gather
@@ -804,11 +804,19 @@ def stack_apply_rows(stacks: list, xs: list, positions: list,
     the reference takes over every token of the global batch, joins the
     rows of every device in device order on the first, dispatches them
     once and hands each device its rows back. Checkpointed under
-    ``rt.remat`` as ``stack_apply``. Returns (each device's rows, aux) with
-    aux on the first device."""
+    ``rt.remat`` as ``stack_apply``. ``members``: the mesh devices that
+    run rows, one per entry of ``xs`` by default; under ``rt.live`` the
+    entries are the live members' only, the MoE's join takes stand-ins
+    of the others' rows, and the MoE runs where the first member is
+    live. Returns (each device's rows, aux) with aux on the first
+    device."""
+    members = list(range(len(xs)) if members is None else members)
+    ids = [k for k in members if rt.live is None or k in rt.live]
+    first = ids[0] == members[0]
+
     def run(j, i, xs):
         mixer, ffn = _parse_slot(cfg.pattern[j])
-        sps = [_index_slot(s["slots"][j], i, moe=k == 0)
+        sps = [_index_slot(s["slots"][j], i, moe=k == 0 and first)
                for k, s in enumerate(stacks)]
         xs = [_mixer_apply(mixer, sp, x, pos, cfg, rt, mode="train",
                            cache=None, pos=None, causal=causal,
@@ -819,16 +827,26 @@ def stack_apply_rows(stacks: list, xs: list, positions: list,
             outs = [_ffn_apply(ffn, sp, x, cfg, rt) for sp, x in zip(sps, xs)]
             return [o[0] for o in outs], outs[0][1]
         dev0 = xs[0].device
-        h = collectives.all_gather(
-            [norm_apply(cfg.norm, sp["norm2"], x) for sp, x in zip(sps, xs)],
-            0, dev0, range(len(xs)))
-        y, aux = moe_apply(sps[0]["moe"], h, top_k=cfg.top_k,
-                           n_experts=cfg.n_experts,
-                           capacity_factor=cfg.capacity_factor, rt=rt)
-        out, lo = [], 0
-        for x in xs:
-            out.append(x + y[lo:lo + x.shape[0]].to(x.device))
-            lo += x.shape[0]
+        hs = dict(zip(ids, (norm_apply(cfg.norm, sp["norm2"], x)
+                            for sp, x in zip(sps, xs))))
+        like = hs[ids[0]]
+        parts = [hs[k] if k in hs else collectives.stand_in(like)
+                 for k in members]
+        h = collectives.all_gather(parts, 0, dev0, members, rt.live)
+        if first:
+            y, aux = moe_apply(sps[0]["moe"], h, top_k=cfg.top_k,
+                               n_experts=cfg.n_experts,
+                               capacity_factor=cfg.capacity_factor, rt=rt)
+        else:
+            # the first member's MoE: run in its own class
+            y = collectives.StandInOf.apply(h)
+            aux = collectives.stand_in(h.new_empty((), dtype=torch.float32))
+        out, lo, xs_by = [], 0, dict(zip(ids, xs))
+        for k, part in zip(members, parts):
+            if k in xs_by:
+                x = xs_by[k]
+                out.append(x + y[lo:lo + x.shape[0]].to(x.device))
+            lo += part.shape[0]
         return out, aux
     return _train_periods(cfg, rt, run, xs)
 

@@ -27,6 +27,10 @@
              a pattern of more than one) and recomputes it in the
              backward; ``dots`` saves the matmul outputs in the period's
              recompute (the reference's ``dots_with_no_batch_dims``)
+  live       the mesh devices (indices, a frozenset) whose work runs: the
+             dry run's class path (``launch.dryrun``), one symmetric
+             class's representative at a time, on ``meta`` only; None:
+             every device
 The mesh fields are read only under a ``HostMesh``; with ``mesh`` None
 they change nothing.
 """
@@ -64,6 +68,7 @@ class Runtime:
     data_axes: tuple = ("data",)
     attn_cp: bool = False
     remat: str = "none"
+    live: Optional[frozenset] = None
 
     def __post_init__(self):
         if not isinstance(self.data_axes, tuple):

@@ -74,9 +74,9 @@ __all__ = ["ShardingPolicy", "Layout", "make_policy", "kv_seq_axis",
            "GatheredQuantized", "whole", "state_cut_dim", "spec_layout",
            "axis_coords", "SHARDED_REST", "FSDP_ABOVE", "POD_FSDP_ABOVE"]
 
-#: the ROADMAP.md queue a cut the port cannot make names (Queue 1: what
-#: is left of the reference's multi-device modules)
-SHARDED_REST = "multi-device and drivers (the rest)"
+#: where ROADMAP.md lists a cut the port cannot make: a leaf that no cut
+#: rule names (``ShardingPolicy.serving_cut`` raises)
+SHARDED_REST = 'ROADMAP.md Queue 1, "Other knobs that raise"'
 
 #: replicated regardless of size
 _REPLICATED = {"norm1", "norm2", "norm_x", "final_norm", "enc_norm", "router",
@@ -213,7 +213,8 @@ class ShardingPolicy:
         def need(ok: bool, what: str):
             if not ok:
                 raise NotImplementedError(
-                    f"shards={n}: {what} (ROADMAP.md: {SHARDED_REST})")
+                    f"shards={n}: {what}: no cut rule names this leaf, so "
+                    f"its cut is not ported ({SHARDED_REST})")
 
         def even(dim: int, granule: int = 1):
             return dim, split_ranges(shape[dim], n, granule)
@@ -786,33 +787,42 @@ def gathered_view(grid: list, layouts: dict, policy: ShardingPolicy, d: int,
     return tree_map(leaf, grid[0][0])
 
 
-def reduce_copies(grads: list, layouts: dict, mesh) -> list:
+def reduce_copies(grads: list, layouts: dict, mesh, live=None) -> list:
     """The gradients of every device's blocks (``grads[d][m]``, trees with
     None where a block was not read) made equal over the devices holding
     the same block: summed in device order (row-major) and handed to each
     of them (the all-reduce of a replicated leaf, a copy over an axis:
     across pods, the cross-pod all-reduce). Returns the grid of gradient
-    trees."""
+    trees. ``live`` (``Runtime.live``): only those devices' gradients
+    exist (None elsewhere in ``grads`` and in the result), each sum takes
+    theirs and is counted on them, as large as its whole group."""
     sizes = mesh.shape
+    cols = sizes["model"]
     devs = [(d, m, dev) for d, row in enumerate(mesh.grid)
-            for m, dev in enumerate(row)]
+            for m, dev in enumerate(row)
+            if live is None or d * cols + m in live]
     out = [[None] * len(row) for row in mesh.grid]
     paths: list = []
-    tree_map(lambda path, _: paths.append(path), grads[0][0])
+    tree_map(lambda path, _: paths.append(path), grads[devs[0][0]][devs[0][1]])
     sums: dict = {}
-    cols = sizes["model"]
     for path in paths:
         lay = layouts[path]
         groups: dict = {}
-        for d, m, _ in devs:
-            groups.setdefault(lay.block_key(d, m, sizes), []).append((d, m))
+        for d, row in enumerate(mesh.grid):
+            for m in range(len(row)):
+                groups.setdefault(lay.block_key(d, m, sizes), []).append(
+                    (d, m))
         for members in groups.values():
+            ids = [d * cols + m for d, m in members]
+            mine = [(d, m) for d, m in members
+                    if live is None or d * cols + m in live]
+            if not mine:
+                continue
             parts = [g for g in (tree_at(grads[d][m], path)
-                                 for d, m in members) if g is not None]
-            total = (collectives.all_reduce(
-                parts, [d * cols + m for d, m in members]) if parts
-                else None)
-            for d, m in members:
+                                 for d, m in mine) if g is not None]
+            total = (collectives.all_reduce(parts, ids, live=live) if parts
+                     else None)
+            for d, m in mine:
                 sums[d, m, path] = total
     for d, m, dev in devs:
         def leaf(path, x, d=d, m=m, dev=dev):

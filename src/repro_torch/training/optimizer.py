@@ -17,6 +17,7 @@ Python int.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -39,13 +40,14 @@ class Optimizer:
     #: FSDP and tensor-parallel storage): (params, grads, states, where)
     #: -> (params, states), each a list of one tree per device, ``where(path,
     #: k)`` the slices of device k's block of the state leaf at ``path`` in
-    #: the whole leaf and that leaf's shape. Elementwise optimizers update
-    #: each device's blocks alone
+    #: the whole leaf and that leaf's shape; ``fold`` (the dry run's, on
+    #: ``meta``) may run work that repeats once for all its repeats.
+    #: Elementwise optimizers update each device's blocks alone
     update_blocks: Callable | None = None
 
     def __post_init__(self):
         if self.update_blocks is None:
-            def each(params, grads, states, where):
+            def each(params, grads, states, where, fold=None):
                 out = [self.update(p, g, s)
                        for p, g, s in zip(params, grads, states)]
                 return [o[0] for o in out], [o[1] for o in out]
@@ -218,15 +220,22 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             return {key: t[i] for key, t in x.items()}
         return x[i]
 
-    def update_leaf(path, ps, gs, qs, where, c1, c2):
+    def update_leaf(path, ps, gs, qs, where, c1, c2, fold=None):
         """One leaf over its blocks ``ps`` (one per device)."""
         n, dev0 = len(ps), ps[0].device
         cpath = ("mu",) + path + ("codes",)
+        # one block that is the whole leaf: its scale read and written
+        # (one device; the dry run's class path may run one block of
+        # several)
+        alone = n == 1 and all(
+            tuple(qs[name][0]["scale"].shape)
+            == tuple(where((name,) + path + ("scale",), 0)[1])
+            for name in ("mu", "nu"))
         # the scales joined whole: their own layout may cut the rows
         # otherwise than the codes
         old, new = {}, {}
         for name in ("mu", "nu"):
-            if n == 1:      # the whole leaf: its scale read and written
+            if alone:
                 old[name] = new[name] = qs[name][0]["scale"]
                 continue
             spath = (name,) + path + ("scale",)
@@ -249,6 +258,17 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             for i in range(ps[k].shape[0]):
                 yield i, (lo + i,) + rows[1:] + tail
 
+        def each_part(k, work):
+            """``work(i, rows)`` over device k's parts; under ``fold`` the
+            slices of a sliced block (one program on rows of one shape,
+            no flops, no moves, nothing left live) run once for all."""
+            todo = list(parts(k))
+            if fold is None or len(todo) == 1:
+                for i, rows in todo:
+                    work(i, rows)
+            else:
+                fold(len(todo), lambda: work(*todo[0]))
+
         def moments_at(k, i, rows):
             dev = ps[k].device
             return moments(take(ps[k], i), take(gs[k], i),
@@ -260,31 +280,34 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         # first pass that recomputes the moments instead of holding them
         whole_rows = all(x.ndim == 0 or x.shape[-1] == where(cpath, k)[1][-1]
                          for k, x in enumerate(ps))
+        def row_max(k, i, rows):
+            for name, x in zip(("mu", "nu"), moments_at(k, i, rows)):
+                amax = torch.amax(torch.abs(x), dim=-1,
+                                  keepdim=True).to(dev0)
+                new[name][rows] = torch.maximum(new[name][rows], amax)
+
+        def step(k, i, rows):
+            m, v = moments_at(k, i, rows)
+            step_param(take(ps[k], i), m, v, c1, c2)
+            for name, x, levels in (("mu", m, m_levels),
+                                    ("nu", v, v_levels)):
+                if whole_rows:
+                    scale = torch.clamp(torch.amax(
+                        torch.abs(x), dim=-1, keepdim=True), min=1e-20)
+                    new[name][rows] = scale.to(dev0)
+                else:
+                    scale = new[name][rows].to(x.device)
+                take(qs[name][k], i)["codes"].copy_(
+                    spx.quantize_to_codes(x, levels, scale))
+
         if not whole_rows:
             for k in range(n):
-                for i, rows in parts(k):
-                    for name, x in zip(("mu", "nu"), moments_at(k, i, rows)):
-                        amax = torch.amax(torch.abs(x), dim=-1,
-                                          keepdim=True).to(dev0)
-                        new[name][rows] = torch.maximum(new[name][rows],
-                                                        amax)
+                each_part(k, functools.partial(row_max, k))
             for name in ("mu", "nu"):
                 new[name].clamp_(min=1e-20)
         for k in range(n):
-            for i, rows in parts(k):
-                m, v = moments_at(k, i, rows)
-                step_param(take(ps[k], i), m, v, c1, c2)
-                for name, x, levels in (("mu", m, m_levels),
-                                        ("nu", v, v_levels)):
-                    if whole_rows:
-                        scale = torch.clamp(torch.amax(
-                            torch.abs(x), dim=-1, keepdim=True), min=1e-20)
-                        new[name][rows] = scale.to(dev0)
-                    else:
-                        scale = new[name][rows].to(x.device)
-                    take(qs[name][k], i)["codes"].copy_(
-                        spx.quantize_to_codes(x, levels, scale))
-        if n == 1:
+            each_part(k, functools.partial(step, k))
+        if alone:
             return
         for name in ("mu", "nu"):
             spath = (name,) + path + ("scale",)
@@ -292,12 +315,12 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 qs[name][k]["scale"].copy_(new[name][where(spath, k)[0]])
 
     @torch.no_grad()
-    def update_blocks(params, grads, states, where):
+    def update_blocks(params, grads, states, where, fold=None):
         """Each scale is the max of |x| over the whole last dim of its
         row, so the codes and scales of blocks are the one-device update's;
         a large stacked block is taken a leading-axis slice at a time, so
         its f32 moments exist only per slice (the reference's
-        ``lax.map``)."""
+        ``lax.map``; ``fold``: the dry run's, ``update_leaf``)."""
         step = states[0]["step"] + 1
         c1, c2 = _bias_corrections(step, b1, b2)
         paths: list = []
@@ -306,7 +329,7 @@ def _adamw_q8(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             update_leaf(path, [tree_at(t, path) for t in params],
                         [tree_at(t, path) for t in grads],
                         {name: [tree_at(st[name], path) for st in states]
-                         for name in ("mu", "nu")}, where, c1, c2)
+                         for name in ("mu", "nu")}, where, c1, c2, fold)
         return params, [{"step": step, "mu": st["mu"], "nu": st["nu"]}
                         for st in states]
 

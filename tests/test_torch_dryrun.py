@@ -748,9 +748,11 @@ def test_dryrun_cli_writes_the_artifact(monkeypatch, tmp_path, capsys):
     """``main()`` with the production mesh patched to a (2, 2) meta mesh,
     the configs to reduced ones and the shapes to small ones of the same
     names: ``dryrun_gemma-2b_<shape>_single.json`` for each shape, with
-    every field of the report; ``long_500k`` skipped on the full-attention
-    arch with the reference's status; a cell that raises gives ``N
-    FAILURES`` and exit 1."""
+    every field of the report, by the class path, and with
+    ``--all-devices`` by the all-devices run (the same flops and
+    collectives, and the mesh-wide peak); ``long_500k`` skipped on the
+    full-attention arch with the reference's status; a cell that raises
+    gives ``N FAILURES`` and exit 1."""
     monkeypatch.setattr(dryrun, "make_production_mesh",
                         lambda multi_pod=False: make_host_mesh(
                             2, 2, ["meta"] * 4))
@@ -768,10 +770,24 @@ def test_dryrun_cli_writes_the_artifact(monkeypatch, tmp_path, capsys):
                      for s in ("decode_32k", "prefill_32k", "train_4k")]
     rec = json.loads((tmp_path / names[-1]).read_text())
     assert rec["status"] == "ok" and rec["meta"]["kind"] == "train"
-    for key in ("argument_bytes", "output_bytes", "alias_bytes",
-                "temp_bytes", "mesh_peak_bytes", "peak_per_device_bytes"):
-        assert rec["memory"][key] > 0, key
-    assert rec["memory"]["temp_is_mean"] is True
+    # the CLI's default is the class path: no mesh-wide peak, the temp
+    # bytes a representative's, every device in a class
+    assert rec["memory"]["mesh_peak_bytes"] is None
+    assert rec["memory"]["temp_over"] == "representative"
+    assert sum(c["devices"] for c in rec["classes"]) == 4
+    every = tmp_path / "every"
+    dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
+                 "--all-devices", "--artifact-dir", str(every)])
+    full = json.loads((every / names[-1]).read_text())
+    assert full["memory"]["temp_over"] == "mesh" and full["classes"] is None
+    assert full["cost"] == rec["cost"]
+    assert full["collectives"] == rec["collectives"]
+    for r in (rec, full):
+        for key in ("argument_bytes", "output_bytes", "alias_bytes",
+                    "temp_bytes", "peak_per_device_bytes"):
+            assert r["memory"][key] > 0, key
+        assert r["memory"]["temp_is_mean"] is True
+    assert full["memory"]["mesh_peak_bytes"] > 0
     assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes"] is None
     assert rec["collectives"]["busiest"] and rec["collectives"]["mean"]
     for key in ("model_flops_dense", "model_flops_active", "param_count",
@@ -792,3 +808,220 @@ def test_dryrun_cli_writes_the_artifact(monkeypatch, tmp_path, capsys):
                      "--artifact-dir", str(tmp_path)])
     assert exc.value.code == 1
     assert "1 FAILURES" in capsys.readouterr().out
+
+
+# -- the class path: one representative per symmetric class -----------------------
+
+def _class_fields(rep: dict) -> dict:
+    """The fields of a dry report that the class path holds equal to the
+    all-devices run's."""
+    mem = rep["memory"]
+    return {"memory": {k: mem[k] for k in ("argument_bytes",
+                                           "argument_parts", "output_bytes",
+                                           "alias_bytes")},
+            "cost": {k: rep["cost"][k] for k in ("flops", "flops_total")},
+            **{k: rep[k] for k in ("argument_by_device", "collectives",
+                                   "departures", "uneven",
+                                   "argument_leaves", "meta")}}
+
+
+def _whisper(s_enc: int):
+    return dataclasses.replace(reduced(get_config("whisper-small"),
+                                       d_model=64, vocab=512),
+                               enc_seq_len=s_enc)
+
+
+#: (id, arch or config, mesh (pod, data, model), (seq, batch, kind),
+#: knobs, the classes' sizes in units): fsdp (every device its own class
+#: member), tp with the expert-parallel MoE on a (data, model) and a pod
+#: mesh, fsdp's MoE joined on the first device (with mamba, and the
+#: recurrent xLSTM: several slots to a checkpointed period), a model axis
+#: wider than the query heads (4 heads over 6 shards: shared and uneven),
+#: whisper's
+#: context-parallel prefill on both of CP_COUNT_CELLS' branches, the
+#: sequence-sharded decode, and microbatches of one row over two data
+#: groups (the first group runs them)
+CLASS_CELLS = [
+    ("gemma-fsdp-2x2", "gemma-2b", (None, 2, 2), (32, 8, "train"), {}, [4]),
+    ("gemma-fsdp-4x2", "gemma-2b", (None, 4, 2), (32, 16, "train"), {},
+     [8]),
+    ("olmoe-tp-2x2", "olmoe-1b-7b", (None, 2, 2), (32, 2, "train"), {},
+     [2]),
+    ("olmoe-tp-pod", "olmoe-1b-7b", (2, 1, 2), (32, 2, "train"), {}, [2]),
+    ("olmoe-fsdp-moe", "olmoe-1b-7b", (None, 2, 2), (32, 8, "train"),
+     {"accum_steps": 2, "optimizer": "adamw_q8"}, [1, 3]),
+    ("jamba-fsdp-moe-mamba", "jamba-1.5-large-398b", (None, 2, 2),
+     (32, 4, "train"), {}, [1, 3]),
+    ("xlstm-fsdp", "xlstm-350m", (None, 2, 2), (32, 4, "train"), {}, [4]),
+    ("shared-heads-prefill", "gemma-2b", (None, 2, 6), (32, 4, "prefill"),
+     {}, [2]),
+    ("shared-heads-train", "gemma-2b", (None, 2, 6), (32, 2, "train"), {},
+     [2]),
+    ("whisper-cp-enc16", _whisper(16), (None, 2, 4), (64, 8, "prefill"),
+     {"prefill_cp": True, "param_dtype": torch.float32}, [2]),
+    ("whisper-cp-enc18", _whisper(18), (None, 2, 4), (64, 8, "prefill"),
+     {"prefill_cp": True, "param_dtype": torch.float32}, [2]),
+    ("decode-seq-sharded", "gemma-2b", (None, 2, 4), (64, 8, "decode"), {},
+     [2]),
+    ("microbatch-first-group", "gemma-2b", (None, 2, 2), (32, 6, "train"),
+     {"accum_steps": 6}, [1, 1]),
+]
+
+
+@pytest.mark.parametrize("cfg,axes,shape,knobs,sizes",
+                         [c[1:] for c in CLASS_CELLS],
+                         ids=[c[0] for c in CLASS_CELLS])
+def test_dryrun_classes_equal_the_full_run(cfg, axes, shape, knobs, sizes):
+    """The class path (one representative per symmetric class, each run
+    alone, its counts given to every member, the microbatches and the
+    optimizer's slices folded, fsdp's skipped recompute flops given
+    back) against the all-devices ``dry_report`` of
+    the same step on the same meta mesh: equal argument, output and alias
+    bytes, flops, every device's collective counters, departures, uneven
+    leaves and meta; the classes as ``sizes`` says, every device in one."""
+    if isinstance(cfg, str):
+        cfg = reduced(get_config(cfg), d_model=64, vocab=512)
+    pod, data, model = axes
+    mesh = make_host_mesh(data, model, ["meta"] * (data * model * (pod or 1)),
+                          pod=pod)
+    knobs = dict(knobs)
+    if shape[2] == "train":
+        knobs["dtype"] = torch.float32
+    shape = ShapeConfig("t", *shape)
+    full = dryrun.dry_report(cfg, shape, mesh, **knobs)
+    rep = dryrun.dry_report(cfg, shape, mesh, classes=True, **knobs)
+    assert _class_fields(rep) == _class_fields(full)
+    assert full["collectives"]["by_device"]
+    assert [c["units"] for c in rep["classes"]] == sizes
+    assert sum(c["devices"] for c in rep["classes"]) == len(mesh.devices)
+    assert rep["memory"]["mesh_peak_bytes"] is None
+    assert rep["memory"]["temp_over"] == "representative"
+    assert full["memory"]["temp_over"] == "mesh"
+
+
+def test_dryrun_fold_keeps_the_class_path(monkeypatch):
+    """The class path's fold (the microbatches after the first, and the
+    8-bit optimizer's stacked slices, run once for all their repeats)
+    against the same class path unfolded: every field equal, the memory
+    too (each repeat's peak on what the repeats before it left). Every
+    stacked leaf is sliced here (``_SLICE_ABOVE`` 0), under fsdp with the
+    MoE's first-device class and under tp."""
+    from repro_torch.training import optimizer
+    monkeypatch.setattr(optimizer, "_SLICE_ABOVE", 0)
+    cfg = reduced(get_config("olmoe-1b-7b"), d_model=64, vocab=512,
+                  n_layers=3)
+    mesh = make_host_mesh(2, 2, ["meta"] * 4)
+    for b, accum in ((8, 4), (6, 3)):
+        shape = ShapeConfig("t", 32, b, "train")
+        knobs = dict(dtype=torch.float32, accum_steps=accum,
+                     optimizer="adamw_q8", classes=True)
+        folded = dryrun.dry_report(cfg, shape, mesh, **knobs)
+        whole = dryrun.dry_report(cfg, shape, mesh, fold=False, **knobs)
+        assert _class_fields(folded) == _class_fields(whole)
+        assert folded["memory"] == whole["memory"]
+        assert [{k: c[k] for k in ("representative", "units", "flops",
+                                   "peak_bytes", "temp_bytes")}
+                for c in folded["classes"]] == \
+            [{k: c[k] for k in ("representative", "units", "flops",
+                                "peak_bytes", "temp_bytes")}
+             for c in whole["classes"]]
+
+
+#: production cells whose classes ``test_dryrun_class_partition`` checks:
+#: fsdp training, tp training of a giant (FSDP over the pods on the
+#: multi-pod mesh), a serve step with FSDP-stored weights
+PARTITION_CELLS = [("gemma-2b", "train_4k"), ("kimi-k2-1t-a32b", "train_4k"),
+                   ("granite-3-8b", "decode_32k")]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+def test_dryrun_class_partition(multi):
+    """On both production meshes: every device in exactly one class, the
+    units of a class all of one size (a device under fsdp, a row
+    otherwise), and the members of a class holding, place by place,
+    blocks of the representative's shapes of every leaf it holds."""
+    mesh = make_production_mesh(multi_pod=multi)
+    sizes, cols = mesh.shape, mesh.shape["model"]
+    for arch, name in PARTITION_CELLS:
+        shape = next(s for s in LM_SHAPES if s.name == name)
+        classes, held = dryrun.cell_classes(get_config(arch), shape, mesh)
+        devices = [k for units in classes for u in units for k in u]
+        assert sorted(devices) == list(range(len(mesh.devices))), arch
+        for units in classes:
+            assert len({len(u) for u in units}) == 1
+            assert len(units[0]) in (1, cols)
+            for unit in units[1:]:
+                for r, k in zip(units[0], unit):
+                    for lays in held:
+                        for lay in lays.values():
+                            assert lay.block_shape(r // cols, r % cols,
+                                                   sizes) == \
+                                lay.block_shape(k // cols, k % cols, sizes)
+
+
+def test_dryrun_shape_cache_changes_no_output():
+    """``LiveBytes`` with a ``ShapeCache`` on reduced xlstm-350m's train
+    step (fsdp, remat: the forward, its recompute and the backward) and
+    its prefill, both through the sLSTM's per-token loop: every op a mode
+    above it sees returns outputs of the same shapes, strides, dtypes and
+    storage bytes as without the cache, op for op, with the same flops
+    below it and the same peak of live bytes, and the cache answers most
+    ops (a first run warms the port's own caches, a codebook's LUT among
+    them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.ops.append((str(func), [
+                (tuple(t.shape), t.stride(), t.dtype,
+                 t.untyped_storage().nbytes())
+                for t in torch.utils._pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)]))
+            return out
+
+    cfg = reduced(get_config("xlstm-350m"), d_model=64, vocab=512)
+    mesh = make_host_mesh(1, 2, ["meta"] * 2)
+    for shape, knobs in ((ShapeConfig("t", 8, 2, "train"),
+                          dict(dtype=torch.float32)),
+                         (ShapeConfig("t", 8, 2, "prefill"), {})):
+        bundle = steps.build_step(cfg, shape, mesh, **knobs)
+        params = dryrun._init(cfg, torch.float32)
+        if shape.kind == "train":
+            args = (*bundle.place(params), dryrun._batch(cfg, shape))
+        else:
+            args = (*bundle.place(params, *dryrun._serve_inputs(
+                cfg, shape, torch.bfloat16)), bundle.init_caches("meta"))
+        runs, cache = [], dryrun.ShapeCache()
+        for shapes in (None, None, cache):
+            trace, live = Trace(), dryrun.LiveBytes(shapes)
+            live.track_tree(args)
+            with FlopCounterMode(display=False) as flops, live, trace:
+                bundle.fn(*args)
+            runs.append((trace.ops, flops.get_total_flops(), live.peak))
+        assert runs[1] == runs[2]
+        assert cache.hits > cache.misses > 0
+
+
+def test_tp_loss_head_cut_on_d():
+    """A vocabulary that does not divide the model axis cuts an untied
+    head on d (granite-3-8b's 49155 over 16 shards at 2 x 16 x 16): the
+    tp train step joins the head's row blocks for the loss, on real
+    weights within GRAD_RTOL of the one-device loss, and its dry report
+    on meta equals the real run's flops and counters."""
+    cfg = reduced(get_config("granite-3-8b"), d_model=64, vocab=510)
+    assert not cfg.tie_embeddings
+    shape = ShapeConfig("t", 32, 2, "train")
+    real, want = _real_run(cfg, shape, make_host_mesh(2, 4, ["cpu"] * 8),
+                           seed=3)
+    meta = dryrun.dry_report(cfg, shape, make_host_mesh(2, 4, ["meta"] * 8),
+                             dtype=torch.float32)
+    assert real["meta"]["parallelism"] == "tp"
+    assert abs(real["metrics"]["loss"] - want) <= GRAD_RTOL * abs(want)
+    assert meta["cost"] == real["cost"]
+    assert meta["collectives"] == real["collectives"]
