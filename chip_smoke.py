@@ -125,6 +125,19 @@ Phases, each printing JSON lines:
               per request as the path says, and no plain version may run;
               the last three give the paged engine's greedy tokens, or
               differ first where its top-2 logit gap is a near-tie;
+     autotune the planner's knobs (``runtime/planner.py``): gemma-2b on
+              paged f32 and paged bf16 pages, the 8 requests served with
+              the knobs unset and again under ``REPRO_AUTOTUNE=1`` (tokens
+              equal but at a near-tie, E2E_RTOL); the paper MLP at M = 1,
+              64 and 1024 and the Q-network at M = 1 under autotune; each
+              measured key printed (the analytical launch and its device
+              ms, the winner and its, the candidates tried, the seconds)
+              after every candidate it timed was launched once more
+              against its plain version; pinned launches
+              (``REPRO_BLOCKS_MATMUL`` on the small and the decode kernel,
+              ``REPRO_BLOCKS_ATTN`` at dh 256 and 128) against their plain
+              versions, an illegal pin of each kind raising; every knob
+              unset and every plan table empty after;
      serve_families  olmoe-1b-7b, xlstm-350m and qwen2-vl-2b at their
               published widths and depths, and jamba-1.5-large at one
               period (8 layers, d_model 2048; the cuts listed under
@@ -1805,6 +1818,399 @@ def serve_f16_phase(torch, np, params) -> dict:
               "near_tie_tol_rel": F16_E2E_RTOL})
         out[path] = launches
     return out
+
+
+# -- the planner's knobs: measured autotuning and tile pins --------------------
+
+#: the planner's knobs (``runtime/planner.py``)
+KNOBS = ("REPRO_AUTOTUNE", "REPRO_BLOCKS_MATMUL", "REPRO_BLOCKS_ATTN")
+#: the autotune phase's gemma-2b serving paths: ServeConfig knobs
+AUTOTUNE_PATHS = {"paged": {}, "paged-bf16": {"kv_cache_dtype": "bfloat16"}}
+
+
+@contextlib.contextmanager
+def _knobs(**values):
+    """Set the planner's knobs (unset where not given) for the block, with
+    no measured winner or cached launch choice before or after; then
+    every knob is unset again."""
+    from repro_torch.runtime import planner
+    for var in KNOBS:
+        os.environ.pop(var, None)
+    os.environ.update(values)
+    planner.clear_plan_cache()
+    try:
+        yield planner
+    finally:
+        for var in KNOBS:
+            os.environ.pop(var, None)
+        planner.clear_plan_cache()
+
+
+def _spx_inputs(torch, gen, m, k, n, packed, lut_size):
+    """Random inputs of an ``spx_matmul`` launch key: x (m, k), codes of a
+    ``lut_size``-entry codebook (sp2_4, pot4 or sp2_8), scale (1, n)."""
+    from repro_torch.core import spx
+    scheme = {16: "sp2_4", 32: "pot4", 256: "sp2_8"}[lut_size]
+    lut = spx.codebook(spx.scheme_levels(scheme), device="cuda")
+    codes = torch.randint(0, lut_size, (k, n // 2 if packed else n),
+                          generator=gen, device="cuda",
+                          dtype=torch.int32).to(torch.uint8)
+    scale = torch.rand((1, n), generator=gen, device="cuda") * 0.05
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    return x, codes, scale, lut
+
+
+def _paged_inputs(torch, gen, key):
+    """Random inputs of a paged-decode key (``planner.fused_decode_key``):
+    pools of its dtype (codes and scales for a coded pool), a permuted
+    block table, contexts from 0 to the table's end less the window, and
+    full windows. Returns (q4 of rep * w rows, pools, bt, ctx, q_len,
+    lut or None)."""
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    _, b, hkv, rep, w, dh, ps, mp, scheme, dtype = key
+    n_pages = 1 + b * mp
+    kp, vp = (torch.randn((n_pages, hkv, ps, dh), generator=gen,
+                          device="cuda") for _ in range(2))
+    if scheme is not None:
+        pools, lut = (*quantize_kv(kp, scheme), *quantize_kv(vp, scheme)), \
+            kv_lut(scheme, "cuda")
+    else:
+        pools, lut = (kp.to(getattr(torch, dtype)),
+                      vp.to(getattr(torch, dtype))), None
+    bt = torch.randperm(n_pages, generator=gen, device="cuda")[:b * mp] \
+        .reshape(b, mp).to(torch.int32)
+    top = max(mp * ps - w, 1)
+    ctx = torch.linspace(0, top, b, device="cuda").to(torch.int32)
+    q_len = torch.full((b,), w, dtype=torch.int32, device="cuda")
+    q4 = torch.randn((b, hkv, rep * w, dh), generator=gen, device="cuda")
+    return q4, pools, bt, ctx, q_len, lut
+
+
+def _check_candidates(torch, gen, key, report) -> tuple:
+    """Every candidate the tuner timed at ``key`` (``planner.MeasuredKey``)
+    launched once on fresh inputs of the key's shape against its plain
+    version, at the kernel phase's tolerances (spx_matmul: SPX_RTOL of the
+    largest |plain|; f32 and code pools: ATTN_TOL (1 + |plain|); 16-bit
+    pools: the per-slot bound), in both modes at w = 1. Returns (the worst
+    relative error, the count checked, the refused candidates, and for
+    spx_matmul the ms of ``torch.matmul`` on the dequantized weights, timed
+    as the tuner times a launch)."""
+    from repro_torch.core import spx
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spx_matmul import spx_matmul_cuda
+    worst, checked, refused = 0.0, 0, []
+    if key[0] == "spx_matmul":
+        _, m, k, n, _, packed, lut_size, _ = key
+        x, codes, scale, lut = _spx_inputs(torch, gen, m, k, n, packed,
+                                           lut_size)
+        want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
+        peak = want.abs().max().item()
+        w = lut[(spx.unpack_int4(codes) if packed else codes).long()] * scale
+        library_s = autotune.event_runner(lambda _: torch.matmul(x, w))(None)
+        for plan, t in report.tried:
+            if t is None:
+                refused.append(repr(plan))
+                continue
+            got = spx_matmul_cuda(x, codes, scale, lut, packed=packed,
+                                  plan=plan)
+            err = (got - want).abs().max().item() / peak
+            require(err <= SPX_RTOL, f"autotune: {plan} at {key} is "
+                                     f"{err:.3g} of the plain version's peak")
+            worst, checked = max(worst, err), checked + 1
+        return worst, checked, refused, library_s * 1e3
+    q4, pools, bt, ctx, q_len, lut = _paged_inputs(torch, gen, key)
+    w, dtype = key[4], key[-1]
+    quant = lut is not None
+    half = dtype in ("bfloat16", "float16")
+    tol = {"bfloat16": BF16_ATTN_RTOL,
+           "float16": F16_ATTN_RTOL}.get(dtype, ATTN_TOL)
+    modes = [("ragged", q4, (ctx, q_len))]
+    if w == 1:
+        modes.append(("single", q4, (ctx + 1,)))
+    for mode, q, tail in modes:
+        if quant:
+            args = (q, *pools, bt, *tail, lut)
+            fn = (pa.paged_decode_ragged_quant_cuda if mode == "ragged"
+                  else pa.paged_attention_quant_cuda)
+            plain = (ref.paged_decode_ragged_quant_ref if mode == "ragged"
+                     else ref.paged_attention_quant_ref)
+        else:
+            args = (q, *pools, bt, *tail)
+            fn = (pa.paged_decode_ragged_cuda if mode == "ragged"
+                  else pa.paged_attention_cuda)
+            plain = (ref.paged_decode_ragged_ref if mode == "ragged"
+                     else ref.paged_attention_ref)
+        kw = {"w": w} if mode == "ragged" else {}
+        want = plain(*args, **kw)
+        for plan, t in report.tried:
+            if t is None:
+                refused.append(repr(plan))
+                continue
+            got = fn(*args, plan=plan, **kw)
+            if half:
+                err = _slot_rel_err(torch, got, want)
+                ok = err <= tol
+            else:
+                err = ((got - want).abs() / (1 + want.abs())).max().item()
+                ok = err <= tol
+            require(ok, f"autotune: {mode} plan {plan} at {key}: {err:.3g}")
+            worst, checked = max(worst, err), checked + 1
+    return worst, checked, refused, None
+
+
+def _emit_measured(torch, gen, where: str, seen: set) -> list:
+    """One ``autotune`` line per key measured since ``seen`` (which it
+    extends): the analytical plan and its device ms, the winner and its,
+    the candidates tried and refused, the tuning seconds; each timed
+    candidate checked against its plain version first."""
+    from repro_torch.runtime import planner
+    rows = []
+    for key, r in planner.measured_report().items():
+        if key in seen:
+            continue
+        seen.add(key)
+        require(r.best is not None, f"autotune: nothing measured at {key}")
+        worst, checked, refused, library_ms = _check_candidates(
+            torch, gen, key, r)
+        row = {"phase": "autotune", "where": where, "key": list(key),
+               "analytical": repr(r.seed),
+               "analytical_ms": None if r.seed_s is None else r.seed_s * 1e3,
+               "winner": repr(r.best), "winner_ms": r.best_s * 1e3,
+               "winner_is_analytical": r.best == r.seed,
+               "candidates_tried": len(r.tried), "refused": refused,
+               "tried_ms": [None if t is None else t * 1e3
+                            for _, t in r.tried],
+               "candidates_checked": checked,
+               "max_rel_err_vs_plain": worst, "tuning_s": r.seconds}
+        if key[0] == "spx_matmul":
+            m, k = key[1], key[2]
+            row["blocks"] = {"analytical": planner.spx_matmul_block(
+                r.seed, m, k), "winner": planner.spx_matmul_block(
+                    r.best, m, k)}
+            row["library_ms"] = library_ms
+            row["library_call"] = ("torch.matmul on the dequantized f32 "
+                                   "weights, timed as the tuner times")
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def _autotune_serve(torch, np, params, cfg, prompts, path, knobs, seen):
+    """gemma-2b on ``ServeConfig(quantize=None, **knobs)``: once with the
+    knobs unset (top-2 gaps recorded), once under ``REPRO_AUTOTUNE=1``;
+    the tuned tokens equal the unset run's but at a near-tie (E2E_RTOL).
+    Returns (the path's summary, its measured keys' lines)."""
+    from repro_torch.serving import ServeConfig, ServeEngine
+    sc = ServeConfig(quantize=None, **knobs)
+    runs = {}
+    for mode, env in (("unset", {}), ("autotune", {"REPRO_AUTOTUNE": "1"})):
+        with _knobs(**env) as planner:
+            eng = ServeEngine(params, cfg, sc)
+            gaps = _record_gaps(np, eng, E2E_RTOL) if mode == "unset" else None
+            t0 = time.perf_counter()
+            tokens, launches, plain, m = _run_engine(torch, eng, prompts)
+            wall = time.perf_counter() - t0
+            rows = (_emit_measured(torch, torch.Generator(device="cuda")
+                                   .manual_seed(28), f"serve {path}", seen)
+                    if mode == "autotune" else [])
+            require(not plain, f"autotune {path} {mode}: plain versions ran")
+            require(mode == "unset" or planner.measured_report(),
+                    f"autotune {path}: nothing was measured")
+            runs[mode] = {"tokens": tokens, "launches": launches,
+                          "wall_s": wall, "tokens_per_s": m["tokens_per_s"],
+                          "ttft_p50_ms": m["ttft_p50_ms"], "gaps": gaps,
+                          "rows": rows}
+            del eng
+            torch.cuda.empty_cache()
+    check = _near_tie_check(f"autotune {path}", runs["autotune"]["tokens"],
+                            runs["unset"]["tokens"], runs["unset"]["gaps"])
+    summary = {"path": path, "config": f"ServeConfig(quantize=None, "
+               + ", ".join(f"{k}={v!r}" for k, v in knobs.items()) + ")",
+               "tokens_vs_unset": check, "near_tie_tol_rel": E2E_RTOL,
+               **{f"{mode}_{f}": runs[mode][f] for mode in runs
+                  for f in ("wall_s", "tokens_per_s", "ttft_p50_ms",
+                            "launches")},
+               "measured_keys": len(runs["autotune"]["rows"]),
+               "keys_won_by_another_launch": sum(
+                   not r["winner_is_analytical"]
+                   for r in runs["autotune"]["rows"])}
+    return summary, runs["autotune"]["rows"]
+
+
+def _autotune_mlp(torch, np, qparams, seen) -> tuple:
+    """The paper MLP at M = 1, 64 and 1024 and the Q-network (sp2_4,
+    ``min_size=256``) at M = 1, under ``REPRO_AUTOTUNE=1``: outputs within
+    SPX_RTOL of the plain version's peak. Returns (summary, lines)."""
+    from repro_torch.data import make_dataset
+    from repro_torch.examples.rl_qlearning import Q_LAYERS, _q
+    from repro_torch.models.mlp_mnist import mlp_net_init, paper_mlp_apply
+    from repro_torch.nn.layers import quantize_params
+    from repro_torch.runtime import Runtime
+
+    x_np, _ = make_dataset(1024, seed=7)
+    x = torch.as_tensor(x_np, device="cuda")
+    qnet = quantize_params(mlp_net_init(
+        torch.Generator(device="cuda").manual_seed(0), Q_LAYERS,
+        device="cuda"), "sp2_4", min_size=256)
+    s = torch.rand((1, Q_LAYERS[0]), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    runs = {f"paper_mlp M={m}": (lambda rt, m=m: paper_mlp_apply(
+        qparams, x[:m].contiguous(), rt)) for m in (1, 64, 1024)}
+    runs["q_network M=1"] = lambda rt: _q(qnet, s, rt)
+    out = {}
+    with _knobs(REPRO_AUTOTUNE="1"):
+        for name, fn in runs.items():
+            got = fn(Runtime())
+            want = fn(Runtime(impl="ref"))
+            again = fn(Runtime())
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            require(err <= SPX_RTOL and torch.equal(got, again),
+                    f"autotune {name}: {err:.3g} of the plain peak")
+            out[name] = {"max_rel_err": err, "rerun_identical": True}
+        rows = _emit_measured(torch, torch.Generator(device="cuda")
+                              .manual_seed(29), "paper_mlp, q_network", seen)
+    return out, rows
+
+
+def _pinned_checks(torch, card: str) -> dict:
+    """One legal ``REPRO_BLOCKS_MATMUL`` pin on the small kernel (the paper
+    MLP's first layer at M = 64) and one on the decode kernel (gemma-2b's
+    q projection at M = 4), one legal ``REPRO_BLOCKS_ATTN`` pin on the
+    dense layout's 33-token prefill (8 query heads over 1 KV head of 256)
+    and one at dh 128 (130 queries over 97 keys): each against its plain
+    version, timed beside the unpinned launch by CUDA events; then one
+    illegal pin of each kind must raise ``ValueError``."""
+    from repro_torch.core.quantized import QuantizedTensor
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    out = {"card": card, "matmul": [], "attn": []}
+    for (m, k, n), choose in (
+            ((64, 784, 128), lambda p: p.path == "small"
+             and (p.tile_m, p.tile_n, p.warps) == (16, 32, 8)),
+            ((4, 2048, 2048), lambda p: p.path == "skinny"
+             and p.splits == 8)):
+        x, codes, scale, lut = _spx_inputs(torch, gen, m, k, n, True, 16)
+        qt = QuantizedTensor(codes, scale, "sp2_4", True)
+        with _knobs() as planner:
+            analytical = planner.plan_spx_launch(m, k, n, True, 16, 132)
+            block = next(b for b, p in sorted(planner.spx_pin_table(
+                m, k, n, True).items()) if choose(p) and p != analytical)
+            base_ms = _time_ms(torch, lambda: ops.spx_matmul(x, qt), reps=20)
+        want = ref.spx_matmul_ref(x, codes, scale, lut, packed=True)
+        pin = ",".join(map(str, block))
+        with _knobs(REPRO_BLOCKS_MATMUL=pin) as planner:
+            plan = planner.plan_spx_launch(m, k, n, True, 16, 132)
+            ops.reset_op_calls()
+            got = ops.spx_matmul(x, qt)
+            paths = ops.path_calls()
+            ms = _time_ms(torch, lambda: ops.spx_matmul(x, qt), reps=20)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        require(err <= SPX_RTOL and paths == {f"spx_matmul_{plan.path}": 1},
+                f"pinned REPRO_BLOCKS_MATMUL={pin}: {err:.3g}, {paths}")
+        out["matmul"].append({
+            "shape": [m, k, n], "pin": pin, "plan": repr(plan),
+            "analytical": repr(analytical), "max_rel_err": err,
+            "ms": ms, "unpinned_ms": base_ms})
+    with _knobs(REPRO_BLOCKS_MATMUL="100,100,100"):
+        try:
+            ops.spx_matmul(x, qt)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+    require(raised is not None and "legal (bm, bn, bk)" in raised,
+            "an illegal REPRO_BLOCKS_MATMUL did not raise")
+    out["matmul_illegal_raised"] = raised[:200]
+    for b, hq, hkv, sq, skv, dh, pin in ((1, 8, 1, 33, 33, 256, "32,32"),
+                                         (2, 8, 2, 130, 97, 128, "128,64")):
+        q = torch.randn((b, hq, sq, dh), generator=gen, device="cuda")
+        k, v = (torch.randn((b, hkv, skv, dh), generator=gen, device="cuda")
+                for _ in range(2))
+        want = ref.flash_attention_ref(q, k, v, causal=True, q_chunk=sq)
+        with _knobs():
+            base_ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v),
+                               reps=20)
+        with _knobs(REPRO_BLOCKS_ATTN=pin):
+            ops.reset_op_calls()
+            got = ops.flash_attention(q, k, v)
+            launches = ops.op_calls()
+            ms = _time_ms(torch, lambda: ops.flash_attention(q, k, v),
+                          reps=20)
+        err = ((got - want).abs() / (1 + want.abs())).max().item()
+        require(err <= ATTN_TOL and launches == {"flash_attention": 1},
+                f"pinned REPRO_BLOCKS_ATTN={pin} at dh {dh}: {err:.3g}")
+        out["attn"].append({"shape": [b, hq, hkv, sq, skv, dh], "pin": pin,
+                            "max_rel_err": err, "ms": ms,
+                            "unpinned_ms": base_ms})
+    with _knobs(REPRO_BLOCKS_ATTN="128,64"):
+        q = torch.randn((1, 8, 33, 256), device="cuda")
+        k = torch.randn((1, 1, 33, 256), device="cuda")
+        try:
+            ops.flash_attention(q, k, k)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+    require(raised is not None and "[(32, 32), (64, 32)]" in raised,
+            "an illegal REPRO_BLOCKS_ATTN did not raise")
+    out["attn_illegal_raised"] = raised
+    emit({"phase": "autotune", "pinned": out})
+    return out
+
+
+def autotune_phase(torch, np, params, mlp_qparams, card: str) -> dict:
+    """The planner's knobs on the card. gemma-2b at full width on paged
+    f32 and paged bf16 pages (``_autotune_serve``: knobs unset, then
+    ``REPRO_AUTOTUNE=1``), the paper MLP and the Q-network under autotune
+    (``_autotune_mlp``), every timed candidate held against its plain
+    version (``_check_candidates``), one line per measured key; then the
+    pinned launches (``_pinned_checks``). Every knob is unset and every
+    table empty after. Returns what the kernels line carries."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma-2b")
+    _, prompts = _prompts(np, cfg)
+    t0 = time.perf_counter()
+    seen: set = set()
+    serve, rows = {}, []
+    for path, knobs in AUTOTUNE_PATHS.items():
+        serve[path], more = _autotune_serve(torch, np, params, cfg, prompts,
+                                            path, knobs, seen)
+        rows += more
+    mlp, more = _autotune_mlp(torch, np, mlp_qparams, seen)
+    rows += more
+    pinned = _pinned_checks(torch, card)
+    summary = {"phase": "autotune", "card": card, "serve": serve,
+               "paper": mlp, "measured_keys": len(rows),
+               "candidates_checked": sum(r["candidates_checked"]
+                                         for r in rows),
+               "refused": sum(len(r["refused"]) for r in rows),
+               "tuning_s": sum(r["tuning_s"] for r in rows),
+               "seconds": time.perf_counter() - t0}
+    emit(summary)
+
+    # the kernels line's row of each key: spx_matmul's by the analytical
+    # launch's kernel, the paged kernels' by the pool's dtype
+    out = collections.defaultdict(lambda: {"measured_launch_keys": [],
+                                           "pinned_launch_keys": []})
+    for r in rows:
+        if r["key"][0] == "spx_matmul":
+            name = ("spx_matmul_small" if r["analytical"].startswith(
+                "SpxLaunchPlan(path='small'") else "spx_matmul")
+        else:
+            name = "paged_decode_ragged" + {"bfloat16": "_bf16",
+                                            "float16": "_f16"}.get(
+                r["key"][-1], "_quant" if r["key"][-2] else "")
+        out[name]["measured_launch_keys"].append(
+            {k: r.get(k) for k in ("key", "analytical", "analytical_ms",
+                                   "winner", "winner_ms", "library_ms",
+                                   "candidates_tried", "tuning_s")})
+    for pin in pinned["matmul"]:
+        name = ("spx_matmul_small" if "path='small'" in pin["plan"]
+                else "spx_matmul")
+        out[name]["pinned_launch_keys"].append(pin)
+    out["flash_attention"]["pinned_launch_keys"] = pinned["attn"]
+    return dict(out)
 
 
 # -- phase 5: the MoE, recurrent and M-RoPE families ---------------------------
@@ -6385,8 +6791,8 @@ def _emit_splits(torch, cfg, m, eng, layers) -> None:
     for name, qt in layers[0].items():
         k, n = qt.logical_shape
         for rows in (m, 128, 256, 2048):
-            spx_splits[f"{name} {k}x{n} M={rows}"] = spx_mod._splits(
-                rows, k, n, sms)
+            spx_splits[f"{name} {k}x{n} M={rows}"] = \
+                spx_mod.library_splits(rows, k, n, sms)
     emit({"phase": "splits", "sms": sms, "slots": m,
           "paged_decode": paged, "paged_decode_mma_cluster": half,
           "spx_matmul": spx_splits})
@@ -6542,7 +6948,10 @@ def main() -> int:
         new_launches.update(serve_bf16_phase(torch, np, eng.params,
                                              paged_tokens))
         new_launches.update(serve_f16_phase(torch, np, eng.params))
-        clock("serve, its paths and page dtypes")
+        # the planner's knobs: measured autotuning and the tile pins
+        tuned = autotune_phase(torch, np, eng.params, mlp["params"],
+                               info["nvidia_smi"])
+        clock("serve, its paths and page dtypes, autotune")
         # two shards on the one card: launch.hostdev lists it twice, for
         # the sharded runs only
         with _forced_shards():
@@ -6574,6 +6983,8 @@ def main() -> int:
         clock("dryrun, router, serve_cli, e2e, trace")
         rows = timing_phase(torch, np, eng, launches, new_launches, worst,
                             mlp, families, whisper, training, sharded, mesh)
+        for row in rows:
+            row.update(tuned.get(row["name"], {}))
     except Failed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -22,9 +22,10 @@
 // 67 TFLOP/s in f32 FMA, 989 TFLOP/s for one bf16 tensor-core pass.
 //
 // Design:
-//  * GQA rows packed. A block owns one (batch, KV head) and 64 rows of its
-//    group's (query position x query head) rows, row r = pos * rep + head:
-//    with rep = 8, 8 positions of all 8 heads. K and V tiles are loaded
+//  * GQA rows packed. A block owns one (batch, KV head) and BQ rows (64
+//    by default) of its group's (query position x query head) rows, row
+//    r = pos * rep + head: with rep = 8 and BQ = 64, 8 positions of all 8
+//    heads. K and V tiles are loaded
 //    once for the whole group, not once per query head.
 //  * Tensor cores through an exact split. Q, K, V and the probabilities P
 //    are f32; each operand is cut into bf16 hi + lo planes (hi =
@@ -40,7 +41,8 @@
 //    shuffles per row and no shared score tile; at these tile sizes a
 //    warpgroup MMA would add fences and a shared-memory P for little.
 //  * Q is split once per block into bf16 hi and lo planes in shared
-//    memory; K and V tiles of 32 keys stream as f32 through a
+//    memory; K and V tiles of BKV keys (32 by default) stream as f32
+//    through a
 //    shared-memory stage filled by cp.async one tile ahead, and each tile
 //    is split once, by the whole block, into hi and lo planes. The warps
 //    read every operand's fragments from the planes with ldmatrix (V's
@@ -56,6 +58,11 @@
 //    the same function as visiting and masking them.
 //  * dh is a template parameter (32, 64, 80, 128, 256; any multiple of 16
 //    whose planes fit); others are refused.
+//  * The tile is a template parameter too: BQ packed rows a block (32, 64
+//    or 128; 16 a warp) and BKV keys a KV tile (32 or 64). Every pair
+//    whose shared memory (Tile::kBytes) fits a block is built at each dh;
+//    runtime/planner.py (plan_attention) picks one: (64, 32) unless
+//    REPRO_BLOCKS_ATTN pins another. A pair not built is refused.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,19 +70,23 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBq = 16 * kWarps;   // packed rows per block, 16 per warp
-constexpr int kBkv = 32;           // keys per KV tile
+constexpr int kSmemMax = 232448;   // a block's shared memory (opt-in)
 
-template <int DH>
+// The block of (DH, BQ, BKV): BQ packed rows over BQ / 16 warps, KV tiles
+// of BKV keys. The f32 Q tile lands first where K's and V's planes go
+// later, so that region holds the larger of the two.
+template <int DH, int BQ, int BKV>
 struct Tile {
+  static constexpr int kWarps = BQ / 16;
+  static constexpr int kThreads = 32 * kWarps;
   static constexpr int kPl = 2 * DH + 16;    // bytes per bf16 plane row
-  static constexpr int kQPl = 2 * kBq * kPl;         // Q hi and lo planes
-  static constexpr int kKvPl = 2 * 2 * kBkv * kPl;   // K and V, hi and lo
-  static constexpr int kStage = 2 * kBkv * DH * 4;   // f32 K and V tile
-  static constexpr int kBytes = kQPl + kKvPl + kStage;
-  static_assert(kBq * DH * 4 <= kKvPl, "the f32 Q tile lands in K/V planes");
+  static constexpr int kQPl = 2 * BQ * kPl;          // Q hi and lo planes
+  static constexpr int kKvPl = 2 * 2 * BKV * kPl;    // K and V, hi and lo
+  static constexpr int kQF32 = BQ * DH * 4;          // the f32 Q tile
+  static constexpr int kKvRegion = kKvPl > kQF32 ? kKvPl : kQF32;
+  static constexpr int kStage = 2 * BKV * DH * 4;    // f32 K and V tile
+  static constexpr int kBytes = kQPl + kKvRegion + kStage;
+  static_assert(BQ % 16 == 0 && BKV % 16 == 0, "whole MMA tiles");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -155,11 +166,10 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, bool in,
 
 // f32 rows (n_rows x DH, row-major) -> bf16 hi and lo planes (kPl bytes a
 // row, lo plane `lo_off` bytes after hi)
-template <int DH>
+template <class T, int DH>
 __device__ __forceinline__ void split_rows(const float* src, uint8_t* hi,
                                            int lo_off, int n_rows) {
-  using T = Tile<DH>;
-  for (int e = threadIdx.x; e < n_rows * (DH / 4); e += kThreads) {
+  for (int e = threadIdx.x; e < n_rows * (DH / 4); e += T::kThreads) {
     const int r = e / (DH / 4), d = (e % (DH / 4)) * 4;
     const float4 x = *reinterpret_cast<const float4*>(src + r * DH + d);
     uint2 h, l;
@@ -170,20 +180,22 @@ __device__ __forceinline__ void split_rows(const float* src, uint8_t* hi,
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+template <int DH, int BQ, int BKV>
+__global__ void __launch_bounds__(Tile<DH, BQ, BKV>::kThreads)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int hq, int rep, int sq, int skv, int causal,
                        int q_offset, float scale) {
-  using T = Tile<DH>;
+  using T = Tile<DH, BQ, BKV>;
+  constexpr int kBq = BQ, kBkv = BKV, kThreads = T::kThreads;
   constexpr int kNd = DH / 8;            // O fragments (8 columns each)
+  constexpr int kNs = kBkv / 8;          // S fragments (8 keys each)
   constexpr int kPlane = kBkv * T::kPl;  // one K or V plane
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* q_pl = smem;                            // hi, then lo
   uint8_t* kv_pl = smem + T::kQPl;                 // K hi, K lo, V hi, V lo
-  float* stage = reinterpret_cast<float*>(kv_pl + T::kKvPl);  // K, then V
+  float* stage = reinterpret_cast<float*>(kv_pl + T::kKvRegion);  // K, V
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -228,7 +240,7 @@ flash_attention_kernel(const float* __restrict__ q,
   else cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();                // the Q tile landed
-  split_rows<DH>(q_f32, q_pl, kBq * T::kPl, kBq);
+  split_rows<T, DH>(q_f32, q_pl, kBq * T::kPl, kBq);
 
   // this thread's two rows (g and g + 8 of the warp's 16) and their
   // positions under the causal mask (row i of q sits at q_offset + i)
@@ -254,22 +266,22 @@ flash_attention_kernel(const float* __restrict__ q,
     const int c0 = i * kBkv;
     cp_async_wait<0>();
     __syncthreads();              // tile i landed; the planes are free
-    split_rows<DH>(stage, kv_pl, kPlane, kBkv);
-    split_rows<DH>(stage + kBkv * DH, kv_pl + 2 * kPlane, kPlane, kBkv);
+    split_rows<T, DH>(stage, kv_pl, kPlane, kBkv);
+    split_rows<T, DH>(stage + kBkv * DH, kv_pl + 2 * kPlane, kPlane, kBkv);
     __syncthreads();              // the planes are written, the stage read
     if (i + 1 < n_tiles) load_tile(i + 1);
 
-    // S = Q K^T: 16 rows x 32 keys per warp, four 8-key fragments
-    float s[4][4];
+    // S = Q K^T: 16 rows x kBkv keys per warp, kNs 8-key fragments
+    float s[kNs][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < kNs; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll 4
     for (int kc = 0; kc < DH / 16; ++kc) {
       uint32_t ah[4], al[4];
       ldsm4(ah, qa + 32 * kc);
       ldsm4(al, qa + kBq * T::kPl + 32 * kc);
 #pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
+      for (int jp = 0; jp < kNs / 2; ++jp) {
         uint32_t kh[4], kl[4];
         const uint32_t addr = ka + jp * 16 * T::kPl + 32 * kc;
         ldsm4(kh, addr);
@@ -282,7 +294,7 @@ flash_attention_kernel(const float* __restrict__ q,
     // mask, scale and the online-softmax statistics of rows r0 and r0 + 8
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNs; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = c0 + j * 8 + 2 * t4 + (e & 1);
@@ -301,7 +313,7 @@ flash_attention_kernel(const float* __restrict__ q,
       m[h] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNs; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = c0 + j * 8 + 2 * t4 + (e & 1);
@@ -326,7 +338,7 @@ flash_attention_kernel(const float* __restrict__ q,
 
     // O += P V: P's accumulator fragments are its A fragments
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < kNs / 2; ++kk) {
       uint32_t ph[4], pl[4];
       split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
       split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
@@ -358,46 +370,100 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, int BQ, int BKV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int B, int hq, int rep, int sq, int skv, int causal,
                    int q_offset, float scale, cudaStream_t stream) {
-  constexpr int kSmem = Tile<DH>::kBytes;
+  using T = Tile<DH, BQ, BKV>;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      flash_attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+      flash_attention_kernel<DH, BQ, BKV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((sq * rep + kBq - 1) / kBq, B * (hq / rep));
-  flash_attention_kernel<DH><<<grid, kThreads, kSmem, stream>>>(
+  const dim3 grid((sq * rep + BQ - 1) / BQ, B * (hq / rep));
+  flash_attention_kernel<DH, BQ, BKV><<<grid, T::kThreads, T::kBytes,
+                                        stream>>>(
       q, k, v, out, hq, rep, sq, skv, causal, q_offset, scale);
   return cudaGetLastError();
 }
+
+// The built tiles: every (BQ, BKV) whose block fits at head dim DH.
+template <int DH, int BQ, int BKV>
+constexpr bool kBuilt = Tile<DH, BQ, BKV>::kBytes <= kSmemMax;
+
+#define REPRO_FLASH_TILES(X) X(32, 32) X(32, 64) X(64, 32) X(64, 64) \
+  X(128, 32) X(128, 64)
+
+template <int DH, int BQ, int BKV>
+cudaError_t launch_if_built(const float* q, const float* k, const float* v,
+                            float* out, int B, int hq, int rep, int sq,
+                            int skv, int causal, int q_offset, float scale,
+                            cudaStream_t stream) {
+  if constexpr (kBuilt<DH, BQ, BKV>)
+    return launch<DH, BQ, BKV>(q, k, v, out, B, hq, rep, sq, skv, causal,
+                               q_offset, scale, stream);
+  else
+    return cudaErrorInvalidValue;
+}
+
+template <int DH>
+cudaError_t launch_tile(const float* q, const float* k, const float* v,
+                        float* out, int B, int hq, int rep, int sq, int skv,
+                        int causal, int q_offset, int bq, int bkv,
+                        float scale, cudaStream_t stream) {
+#define REPRO_FLASH_LAUNCH(BQ, BKV)                                         \
+  if (bq == BQ && bkv == BKV)                                               \
+    return launch_if_built<DH, BQ, BKV>(q, k, v, out, B, hq, rep, sq, skv,  \
+                                        causal, q_offset, scale, stream);
+  REPRO_FLASH_TILES(REPRO_FLASH_LAUNCH)
+#undef REPRO_FLASH_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+template <int DH>
+int tile_bytes(int bq, int bkv) {
+#define REPRO_FLASH_BYTES(BQ, BKV)                                          \
+  if (bq == BQ && bkv == BKV)                                               \
+    return kBuilt<DH, BQ, BKV> ? Tile<DH, BQ, BKV>::kBytes : 0;
+  REPRO_FLASH_TILES(REPRO_FLASH_BYTES)
+#undef REPRO_FLASH_BYTES
+  return 0;
+}
+
+#undef REPRO_FLASH_TILES
 
 }  // namespace
 
 extern "C" {
 
-// Returns the launch's error; cudaErrorInvalidValue for a head_dim the
-// kernel is not built for.
+// Returns the launch's error; cudaErrorInvalidValue for a head_dim or a
+// tile (bq packed rows, bkv keys) the kernel is not built for.
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* out, int B, int hq, int rep, int sq, int skv,
-                        int dh, int causal, int q_offset, float scale,
-                        cudaStream_t stream) {
-  cudaError_t err;
+                        int dh, int causal, int q_offset, int bq, int bkv,
+                        float scale, cudaStream_t stream) {
+#define REPRO_FLASH_DH(D)                                                   \
+  case D:                                                                   \
+    return (int)launch_tile<D>(q, k, v, out, B, hq, rep, sq, skv, causal,   \
+                               q_offset, bq, bkv, scale, stream);
   switch (dh) {
-    case 32: err = launch<32>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              q_offset, scale, stream); break;
-    case 64: err = launch<64>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              q_offset, scale, stream); break;
-    case 80: err = launch<80>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                              q_offset, scale, stream); break;
-    case 128: err = launch<128>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                                q_offset, scale, stream); break;
-    case 256: err = launch<256>(q, k, v, out, B, hq, rep, sq, skv, causal,
-                                q_offset, scale, stream); break;
-    default: err = cudaErrorInvalidValue;
+    REPRO_FLASH_DH(32) REPRO_FLASH_DH(64) REPRO_FLASH_DH(80)
+    REPRO_FLASH_DH(128) REPRO_FLASH_DH(256)
   }
-  return (int)err;
+#undef REPRO_FLASH_DH
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of a block of the built tile (bq, bkv) at head dim dh; 0
+// where none is built.
+int flash_attention_tile_bytes(int dh, int bq, int bkv) {
+  switch (dh) {
+    case 32: return tile_bytes<32>(bq, bkv);
+    case 64: return tile_bytes<64>(bq, bkv);
+    case 80: return tile_bytes<80>(bq, bkv);
+    case 128: return tile_bytes<128>(bq, bkv);
+    case 256: return tile_bytes<256>(bq, bkv);
+  }
+  return 0;
 }
 
 const char* repro_cuda_error_string(int err) {

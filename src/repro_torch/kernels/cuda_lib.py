@@ -53,7 +53,8 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_f32":
-            ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _P], _I),
+            ([_P] * 4 + [_I] * 10 + [ctypes.c_float, _P], _I),
+        "flash_attention_tile_bytes": ([_I] * 3, _I),
     },
 }
 

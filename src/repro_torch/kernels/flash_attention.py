@@ -6,9 +6,11 @@ The kernel takes the GQA layout as it is: q (B, Hq, Sq, dh), k/v
 (B, Hkv, Skv, dh); a block packs the rows of all ``rep`` query heads of
 one KV head and loads each K/V tile once for them, so the wrapper repeats
 nothing. Every Sq and Skv runs: the kernel masks the tail tiles. The
-wrapper checks what the kernel takes, allocates the output, launches on
-the current stream, raises on a launch error and counts the
-launch. It never falls back to the plain version.
+tile is ``planner.plan_attention``'s: 64 packed rows and 32 keys, or the
+built tile ``REPRO_BLOCKS_ATTN`` pins. The wrapper checks what the kernel
+takes, allocates the output, launches on the current stream, raises on a
+launch error and counts the launch. It never falls back to the plain
+version.
 
 The kernel's output has no ``grad_fn``: it is written through ``ctypes``.
 ``FlashAttentionFn`` makes it differentiable for training: its forward is
@@ -23,6 +25,8 @@ from __future__ import annotations
 import collections
 
 import torch
+
+from repro_torch.runtime import planner
 
 from . import cuda_lib, ref
 
@@ -67,12 +71,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             "kernel takes torch.float32")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    tile = planner.plan_attention(sq, skv, dh)
     lib = cuda_lib.library("flash_attention")
     out = torch.empty_like(q)
     err = lib.flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-        hq // hkv, sq, skv, dh, int(causal), int(q_offset), dh ** -0.5,
-        torch.cuda.current_stream(device).cuda_stream)
+        hq // hkv, sq, skv, dh, int(causal), int(q_offset), tile.bq,
+        tile.bkv, dh ** -0.5, torch.cuda.current_stream(device).cuda_stream)
     cuda_lib.check(lib, err, "flash_attention launch")
     cuda_lib.LAUNCHES["flash_attention"] += 1
     return out

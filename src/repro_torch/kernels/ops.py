@@ -5,6 +5,11 @@ tensor takes the plain PyTorch version (``kernels/ref.py``).
 Shapes and layouts are those of ``repro.kernels.ops``. Eager PyTorch has
 no trace, so ``op_calls()`` counts kernel **launches** (not call sites, as
 in the JAX package); ``ref_calls()`` counts calls of the plain versions.
+
+Under ``REPRO_AUTOTUNE=1`` ``spx_matmul`` and the paged ops take their
+launch from ``autotune`` on CUDA tensors (measured once per shape key);
+the tuner's timed launches count as launches. On CPU tensors no knob is
+read.
 """
 from __future__ import annotations
 
@@ -15,9 +20,9 @@ import torch
 
 from repro_torch.core import spx
 from repro_torch.core.quantized import QuantizedTensor
-from repro_torch.runtime import registry
+from repro_torch.runtime import planner, registry
 
-from . import cuda_lib, ref
+from . import autotune, cuda_lib, ref
 from .flash_attention import flash_attention_autograd, flash_attention_cuda
 from .paged_attention import (paged_attention_cuda,
                               paged_attention_quant_cuda,
@@ -75,13 +80,31 @@ def spx_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
                impl: str = "auto") -> torch.Tensor:
     """x: (..., K) @ dequant(qt: (K, N)) -> (..., N)."""
     k_dim, n_dim = qt.logical_shape
-    _, fn = registry.resolve("spx_matmul", impl, x.device)
+    name, fn = registry.resolve("spx_matmul", impl, x.device)
     scale = qt.scale.reshape(1, n_dim).to(torch.float32)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k_dim).contiguous()
-    out = fn(x2, qt.codes, scale, _lut(qt.scheme, str(x.device)),
-             packed=qt.packed)
+    lut = _lut(qt.scheme, str(x.device))
+    if name == "cuda" and planner.autotune_enabled():
+        out = fn(x2, qt.codes, scale, lut, packed=qt.packed,
+                 plan=autotune.spx_plan(fn, x2, qt.codes, scale, lut,
+                                        packed=qt.packed))
+    else:
+        out = fn(x2, qt.codes, scale, lut, packed=qt.packed)
     return out.reshape(*lead, n_dim)
+
+
+def _paged_plan(name: str, fn, args: tuple, kw: dict, pool, block_table,
+                *, w: int, kv_scheme) -> dict:
+    """A paged op's keywords: ``kw``, and the tuner's ``plan`` under
+    autotune on the card (``fn`` the kernel's wrapper, ``args`` its
+    arguments, q first; ``pool`` the K pool or its codes)."""
+    if name != "cuda" or not planner.autotune_enabled():
+        return kw
+    q4 = args[0]
+    return {**kw, "plan": autotune.paged_plan(
+        lambda plan: fn(*args, plan=plan, **kw), q4, pool, block_table,
+        rep=q4.shape[2] // w, w=w, kv_scheme=kv_scheme)}
 
 
 # -- flash_attention: the dense prefill ---------------------------------------
@@ -152,10 +175,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     hkv = k_pages.shape[1]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
-    _, fn = registry.resolve("paged_attention", impl, q.device)
+    name, fn = registry.resolve("paged_attention", impl, q.device)
     q4 = q.reshape(b, hkv, hq // hkv, dh).contiguous()
-    out = fn(q4, k_pages, v_pages, block_table.to(torch.int32),
-             ctx_len.to(torch.int32))
+    args = (q4, k_pages, v_pages, block_table.to(torch.int32),
+            ctx_len.to(torch.int32))
+    out = fn(*args, **_paged_plan(name, fn, args, {}, k_pages, args[3],
+                                  w=1, kv_scheme=None))
     return out.reshape(b, hq, dh)
 
 
@@ -185,11 +210,14 @@ def paged_attention_quant(q: torch.Tensor, k_pages: dict, v_pages: dict,
     hkv = k_pages["codes"].shape[1]
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} KV heads")
-    _, fn = registry.resolve("paged_attention_quant", impl, q.device)
+    name, fn = registry.resolve("paged_attention_quant", impl, q.device)
     q4 = q.reshape(b, hkv, hq // hkv, dh).contiguous()
-    out = fn(q4, k_pages["codes"], k_pages["scale"], v_pages["codes"],
-             v_pages["scale"], block_table.to(torch.int32),
-             ctx_len.to(torch.int32), _lut(kv_scheme, str(q.device)))
+    bt = block_table.to(torch.int32)
+    args = (q4, k_pages["codes"], k_pages["scale"], v_pages["codes"],
+            v_pages["scale"], bt, ctx_len.to(torch.int32),
+            _lut(kv_scheme, str(q.device)))
+    out = fn(*args, **_paged_plan(name, fn, args, {}, k_pages["codes"], bt,
+                                  w=1, kv_scheme=kv_scheme))
     return out.reshape(b, hq, dh)
 
 
@@ -249,13 +277,17 @@ def paged_decode_ragged(q: torch.Tensor, k_pages, v_pages,
         if kv_scheme is None:
             raise ValueError("quantized KV pools need kv_scheme for the "
                              "in-kernel codebook")
-        _, fn = registry.resolve("paged_decode_ragged_quant", impl, q.device)
-        out = fn(q4, k_pages["codes"], k_pages["scale"], v_pages["codes"],
-                 v_pages["scale"], *tables, _lut(kv_scheme, str(q.device)),
-                 w=w)
+        name, fn = registry.resolve("paged_decode_ragged_quant", impl,
+                                    q.device)
+        pool = k_pages["codes"]
+        args = (q4, pool, k_pages["scale"], v_pages["codes"],
+                v_pages["scale"], *tables, _lut(kv_scheme, str(q.device)))
     else:
-        _, fn = registry.resolve("paged_decode_ragged", impl, q.device)
-        out = fn(q4, k_pages, v_pages, *tables, w=w)
+        name, fn = registry.resolve("paged_decode_ragged", impl, q.device)
+        pool, kv_scheme = k_pages, None
+        args = (q4, k_pages, v_pages, *tables)
+    out = fn(*args, **_paged_plan(name, fn, args, {"w": w}, pool, tables[0],
+                                  w=w, kv_scheme=kv_scheme))
     # inverse of the rep-major packing
     return out.reshape(b, hkv, rep, w, dh).permute(0, 3, 1, 2, 4) \
               .reshape(b, w, hq, dh)

@@ -29,6 +29,12 @@ warps of its ``active_ranks`` blocks and merges them in shared memory,
 in a fixed order; no scratch. Each wrapper keeps its own launch count, and
 counts a launch over bf16 (f16) pools under its own name with ``_bf16``
 (``_f16``) added. None falls back to the plain version.
+
+Each wrapper takes an explicit ``plan``, the tuner's: the split count over
+f32 and code pools, the cluster size asked for over bf16 and f16 pools.
+``launch_candidates`` lists what the tuner times: ``decode_splits``, half
+and twice it; or each cluster size the card gives up to
+``decode_cluster``. For a given choice the merge order is fixed.
 """
 from __future__ import annotations
 
@@ -41,8 +47,10 @@ from . import cuda_lib
 __all__ = ["paged_decode_ragged_cuda", "paged_attention_cuda",
            "paged_decode_ragged_quant_cuda", "paged_attention_quant_cuda",
            "decode_splits", "split_tokens", "decode_cluster", "cluster_used",
-           "active_ranks", "HEAD_DIMS", "ROW_GROUP", "SPLIT_GRANULE",
-           "CHUNK", "MMA_WARPS", "MAX_CLUSTER", "CHUNKS_PER_WARP"]
+           "active_ranks", "split_candidates", "cluster_candidates",
+           "launch_candidates", "HEAD_DIMS", "ROW_GROUP", "SPLIT_GRANULE",
+           "MAX_SPLITS", "CHUNK", "MMA_WARPS", "MAX_CLUSTER",
+           "CHUNKS_PER_WARP"]
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128, 256)
@@ -53,6 +61,8 @@ ROW_GROUP = 8
 SPLIT_GRANULE = 16
 #: blocks per SM the split count aims at
 BLOCKS_PER_SM = 2
+#: the most splits a launch takes (the merge pass's kMaxSplits)
+MAX_SPLITS = 1024
 #: the 16-bit kernel: tokens per chunk (one MMA tile), warps per block, the
 #: largest cluster and the chunks a warp takes before the work spreads
 #: over more of the cluster (its kChunk, kMmaWarps, kMaxCluster and the 2
@@ -124,6 +134,51 @@ def cluster_used(dtype: torch.dtype, dh: int, want: int) -> int:
         dh, int(dtype == torch.float16), want)
 
 
+def split_candidates(batch: int, hkv: int, rows: int, max_pages: int,
+                     page_size: int, sms: int) -> tuple:
+    """The split counts the tuner times over f32 and code pools:
+    ``decode_splits`` first, then half and twice it, each normalised as
+    ``decode_splits`` is, within 1 and the table's 16-token groups."""
+    first = decode_splits(batch, hkv, rows, max_pages, page_size, sms)
+    max_tokens = max_pages * page_size
+    most = min(MAX_SPLITS, max(1, -(-max_tokens // SPLIT_GRANULE)))
+    out = [first]
+    for s in (first // 2, 2 * first):
+        if 1 <= s <= most:
+            s = -(-max_tokens // split_tokens(max_tokens, s))
+            if s not in out:
+                out.append(s)
+    return tuple(out)
+
+
+def cluster_candidates(want: int) -> tuple:
+    """The cluster sizes asked for, from ``want`` (``decode_cluster``'s)
+    down by halves to 1."""
+    out = [want]
+    while out[-1] > 1:
+        out.append(out[-1] // 2)
+    return tuple(out)
+
+
+def launch_candidates(pool_dtype: torch.dtype, batch: int, hkv: int,
+                      rows: int, dh: int, max_pages: int, page_size: int,
+                      sms: int) -> tuple:
+    """What the tuner times at a launch over pools of ``pool_dtype``
+    (uint8 for code pools), the analytical choice first: split counts
+    (``split_candidates``), or over bf16 and f16 pools each cluster size
+    the card gives (``cluster_used``) up to ``decode_cluster``."""
+    if pool_dtype not in _SUFFIXES:
+        return split_candidates(batch, hkv, rows, max_pages, page_size, sms)
+    out = []
+    for want in cluster_candidates(decode_cluster(batch, hkv, rows,
+                                                  max_pages, page_size,
+                                                  sms)):
+        used = cluster_used(pool_dtype, dh, want)
+        if used and used not in out:
+            out.append(used)
+    return tuple(out)
+
+
 #: the kernel's entry for each dtype of unquantized pools
 _ENTRIES = {torch.float32: "paged_decode_ragged_f32",
             torch.bfloat16: "paged_decode_ragged_bf16",
@@ -146,11 +201,13 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
 
 
 def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
-            quant=None):
+            quant=None, plan: int | None = None):
     """``q_len`` None selects the single-token mode (``w`` must be 1).
     ``quant``: None for f32, bf16 or f16 pools, else (k_scale, v_scale,
-    lut) with ``k_pages``/``v_pages`` the uint8 code pools. Returns the
-    output and the pool dtype the kernel ran on."""
+    lut) with ``k_pages``/``v_pages`` the uint8 code pools. ``plan``: the
+    split count (f32 and code pools) or the cluster size asked for (bf16
+    and f16); None takes ``decode_splits`` or ``decode_cluster``. Returns
+    the output and the pool dtype the kernel ran on."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"paged_decode needs CUDA tensors, got {device}")
@@ -210,11 +267,11 @@ def _launch(q, k_pages, v_pages, block_table, ctx_len, q_len, w: int,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), ctx_len.data_ptr(), qn.data_ptr(),
             out.data_ptr(), b, hkv, rows, dh, w, int(single), ps, max_pages,
-            decode_cluster(b, hkv, rows, max_pages, ps, sms), dh ** -0.5,
-            stream)
+            plan or decode_cluster(b, hkv, rows, max_pages, ps, sms),
+            dh ** -0.5, stream)
         cuda_lib.check(lib, err, "paged_decode launch")
         return out, pool_dtype
-    splits = decode_splits(b, hkv, rows, max_pages, ps, sms)
+    splits = plan or decode_splits(b, hkv, rows, max_pages, ps, sms)
     scratch = (torch.empty(splits * b * hkv * rows * (dh + 2),
                            dtype=torch.float32, device=device)
                if splits > 1 else out)
@@ -239,43 +296,47 @@ def _count(name: str, pool_dtype) -> None:
 
 
 def paged_decode_ragged_cuda(q, k_pages, v_pages, block_table, ctx_len,
-                             q_len, *, w: int) -> torch.Tensor:
+                             q_len, *, w: int,
+                             plan: int | None = None) -> torch.Tensor:
     """q (B, Hkv, rep * w, dh) rep-major rows; pools (n_pages, Hkv,
     page_size, dh) f32, bf16 or f16; block_table (B, max_pages), ctx_len
-    (B,), q_len (B,) int32. Returns (B, Hkv, rep * w, dh) f32."""
+    (B,), q_len (B,) int32; ``plan`` as ``_launch``'s. Returns (B, Hkv,
+    rep * w, dh) f32."""
     out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
-                              q_len, w)
+                              q_len, w, plan=plan)
     _count("paged_decode_ragged", pool_dtype)
     return out
 
 
-def paged_attention_cuda(q, k_pages, v_pages, block_table,
-                         ctx_len) -> torch.Tensor:
+def paged_attention_cuda(q, k_pages, v_pages, block_table, ctx_len, *,
+                         plan: int | None = None) -> torch.Tensor:
     """q (B, Hkv, rep, dh); positions < ctx_len attended, ctx_len == 0
     gives zeros; pools f32, bf16 or f16. Returns (B, Hkv, rep, dh) f32."""
     out, pool_dtype = _launch(q, k_pages, v_pages, block_table, ctx_len,
-                              None, 1)
+                              None, 1, plan=plan)
     _count("paged_attention", pool_dtype)
     return out
 
 
 def paged_decode_ragged_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
                                    block_table, ctx_len, q_len, lut, *,
-                                   w: int) -> torch.Tensor:
+                                   w: int,
+                                   plan: int | None = None) -> torch.Tensor:
     """``paged_decode_ragged_cuda`` over quantized pools: k/v codes
     (n_pages, Hkv, page_size, dh) uint8, k/v scales (n_pages, Hkv,
     page_size, 1) f32, lut (<= 256,) f32 codebook."""
     out, _ = _launch(q, k_codes, v_codes, block_table, ctx_len, q_len, w,
-                     quant=(k_scale, v_scale, lut))
+                     quant=(k_scale, v_scale, lut), plan=plan)
     cuda_lib.LAUNCHES["paged_decode_ragged_quant"] += 1
     return out
 
 
 def paged_attention_quant_cuda(q, k_codes, k_scale, v_codes, v_scale,
-                               block_table, ctx_len, lut) -> torch.Tensor:
+                               block_table, ctx_len, lut, *,
+                               plan: int | None = None) -> torch.Tensor:
     """``paged_attention_cuda`` over quantized pools (arguments as
     ``paged_decode_ragged_quant_cuda``)."""
     out, _ = _launch(q, k_codes, v_codes, block_table, ctx_len, None, 1,
-                     quant=(k_scale, v_scale, lut))
+                     quant=(k_scale, v_scale, lut), plan=plan)
     cuda_lib.LAUNCHES["paged_attention_quant"] += 1
     return out

@@ -4,16 +4,19 @@ the Hopper counterpart of ``repro/kernels/spx_matmul.py``.
 The wrapper checks what the kernel takes, allocates the output with
 ``torch.empty``, launches on the current stream, raises on a launch error
 and counts the launch, per op and per kernel (``PATH_LAUNCHES``).
-``planner.plan_spx_launch`` picks the kernel: the small-layer kernel with
-its tile and warps (N <= 128, K <= 1024: the paper's MLP and Q-network),
-else decode (M <= 8) or prefill on the tensor cores (M > 8), which add
-their K splits inside a thread-block cluster of the library's choosing.
-The plan is cached per (M, K, N, packed, LUT size, SMs), and the library
-refuses a plan it cannot run. It never falls back to another kernel or to
-the plain version.
+The launch is the caller's ``plan`` (a ``planner.SpxLaunchPlan``: the
+tuner's), else the one ``REPRO_BLOCKS_MATMUL`` pins, else the analytical
+one (``planner.spx_analytical_launch``): the small-layer kernel with its
+tile and warps (N <= 128, K <= 1024: the paper's MLP and Q-network), else
+decode (M <= 8) or prefill on the tensor cores (M > 8), which add their K
+splits inside a thread-block cluster of the library's choosing. The
+analytical launch is cached per (M, K, N, packed, LUT size, SMs); the pin
+is read at every call. The library refuses a plan it cannot run. It never
+falls back to another kernel or to the plain version.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -22,27 +25,31 @@ from repro_torch.runtime import planner
 
 from . import cuda_lib
 
-__all__ = ["spx_matmul_cuda", "PATH_IDS"]
+__all__ = ["spx_matmul_cuda", "library_splits", "PATH_IDS"]
 
 #: the C entry point's number of each path of ``planner.SpxLaunchPlan``
 PATH_IDS = {"skinny": 0, "mma": 1, "small": 2}
 
 
+#: the launch count's key of each path
+_KERNELS = {path: f"spx_matmul_{path}" for path in PATH_IDS}
+
+
 @functools.lru_cache(maxsize=None)
-def _splits(m: int, k: int, n: int, sms: int) -> int:
+def library_splits(m: int, k: int, n: int, sms: int) -> int:
+    """The cluster splits the library gives the decode (M <= 8) or prefill
+    kernel at this shape; cached."""
     return cuda_lib.library("spx_matmul").spx_matmul_splits(m, k, n, sms)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(m: int, k: int, n: int, packed: bool, lut_size: int,
-          sms: int) -> tuple:
-    """The launch's C arguments (path, cluster splits, tile rows, tile
-    columns, warps) and its kernel's count key: the old kernels' splits
-    as the library chooses them, 1 on the small path."""
-    plan = planner.plan_spx_launch(m, k, n, packed, lut_size, sms)
-    splits = 1 if plan.path == "small" else _splits(m, k, n, sms)
-    return ((PATH_IDS[plan.path], splits, plan.tile_m, plan.tile_n,
-             plan.warps), f"spx_matmul_{plan.path}")
+          sms: int) -> planner.SpxLaunchPlan:
+    """The analytical launch with its splits explicit: the library's on
+    the old kernels, 1 on the small path."""
+    plan = planner.spx_analytical_launch(m, k, n, packed, lut_size, sms)
+    return dataclasses.replace(plan, splits=1 if plan.path == "small"
+                               else library_splits(m, k, n, sms))
 
 
 def _check(name: str, t: torch.Tensor, dtype, device) -> None:
@@ -56,10 +63,13 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
 
 
 def spx_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                    lut: torch.Tensor, *, packed: bool) -> torch.Tensor:
+                    lut: torch.Tensor, *, packed: bool,
+                    plan: planner.SpxLaunchPlan | None = None) -> torch.Tensor:
     """x (M, K) f32 @ (lut[codes] * scale) -> (M, N) f32 on the card.
     codes: (K, N/2) uint8 when ``packed`` (low nibble = even column), else
-    (K, N); scale: (1, N) or (N,) f32; lut: <= 256 f32 entries."""
+    (K, N); scale: (1, N) or (N,) f32; lut: <= 256 f32 entries. ``plan``:
+    the launch (when None the pinned one, else the analytical one; splits
+    0 on the old kernels are the library's)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"spx_matmul_cuda needs CUDA tensors, got {device}")
@@ -80,14 +90,20 @@ def spx_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     _check("scale", scale, torch.float32, device)
     _check("lut", lut, torch.float32, device)
     lib = cuda_lib.library("spx_matmul")
-    plan, kernel = _plan(m, k, n, bool(packed), lut.numel(),
-                         cuda_lib.sm_count(device.index or 0))
+    sms = cuda_lib.sm_count(device.index or 0)
+    if plan is None:
+        plan = (planner.pinned_spx_launch(m, k, n, bool(packed), lut.numel())
+                or _plan(m, k, n, bool(packed), lut.numel(), sms))
+    elif plan.path != "small" and not plan.splits:
+        plan = dataclasses.replace(plan,
+                                   splits=library_splits(m, k, n, sms))
     out = torch.empty((m, n), dtype=torch.float32, device=device)
     err = lib.spx_matmul_f32(
         x.data_ptr(), codes.data_ptr(), scale.data_ptr(), lut.data_ptr(),
-        out.data_ptr(), m, k, n, int(packed), lut.numel(), *plan,
-        torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), m, k, n, int(packed), lut.numel(),
+        PATH_IDS[plan.path], max(plan.splits, 1), plan.tile_m, plan.tile_n,
+        plan.warps, torch.cuda.current_stream(device).cuda_stream)
     cuda_lib.check(lib, err, "spx_matmul launch")
     cuda_lib.LAUNCHES["spx_matmul"] += 1
-    cuda_lib.PATH_LAUNCHES[kernel] += 1
+    cuda_lib.PATH_LAUNCHES[_KERNELS[plan.path]] += 1
     return out

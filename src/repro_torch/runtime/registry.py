@@ -20,7 +20,7 @@ from typing import Callable
 import torch
 
 __all__ = ["KernelUnavailable", "register", "resolve", "registered_ops",
-           "IMPLS"]
+           "available_impls", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -57,6 +57,16 @@ def resolve(op: str, impl: str, device: torch.device) -> tuple[str, Callable]:
             f"no impl {impl!r} registered for op {op!r}; have "
             f"{sorted(i for (o, i) in _REGISTRY if o == op)}")
     return impl, fn
+
+
+def available_impls(op: str, device) -> tuple[str, ...]:
+    """The impls of ``op`` usable on tensors that live on ``device``,
+    sorted: ``"ref"`` on any device, ``"cuda"`` on a CUDA device only.
+    Empty for an op with none registered."""
+    usable = ("cuda", "ref") if torch.device(device).type == "cuda" \
+        else ("ref",)
+    return tuple(sorted(i for (o, i) in _REGISTRY
+                        if o == op and i in usable))
 
 
 def registered_ops() -> tuple[str, ...]:

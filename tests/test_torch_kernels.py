@@ -1374,3 +1374,488 @@ def test_cuda_flash_function_grads_match_plain_autograd(cuda, b, hq, hkv, sq,
     assert _attn_close(got, want)
     for a, w in zip(got_g, want_g):
         assert (a - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The planner's knobs (REPRO_BLOCKS_MATMUL, REPRO_BLOCKS_ATTN) and measured
+# autotuning (REPRO_AUTOTUNE), held against the reference's planner where
+# it has the same function
+# ---------------------------------------------------------------------------
+
+_KNOBS = ("REPRO_BLOCKS_MATMUL", "REPRO_BLOCKS_ATTN", "REPRO_AUTOTUNE")
+
+
+@pytest.fixture
+def port_planner(monkeypatch):
+    """The port's planner with no knob set, and no measured winner or
+    cached launch choice left before or after."""
+    from repro_torch.runtime import planner
+    for var in _KNOBS:
+        monkeypatch.delenv(var, raising=False)
+    planner.clear_plan_cache()
+    yield planner
+    planner.clear_plan_cache()
+
+
+@pytest.fixture
+def knobs_unset(port_planner):
+    """``port_planner`` and the reference's planner, both tables empty
+    before and after."""
+    from repro.runtime import planner as jplanner
+    jplanner.clear_plan_cache()
+    yield types.SimpleNamespace(port=port_planner, ref=jplanner)
+    jplanner.clear_plan_cache()
+
+
+#: seconds per candidate of a fake runner (None: the candidate raises)
+MEASURE_CASES = {
+    "faster_second": (2.0, 1.0, 3.0),
+    "tie_keeps_first": (1.0, 1.0),
+    "raising_first": (None, 3.0, 2.0),
+    "raising_winner_skipped": (5.0, None, 4.0),
+    "all_raise": (None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEASURE_CASES))
+def test_measured_best_matches_reference(knobs_unset, case):
+    """``measured_best`` and ``measured_plan`` of both packages, on the same
+    candidates and the same fake runner: the same winner, the same table
+    after it (a raising candidate skipped, nothing kept where none could
+    be measured, a kept key never measured again). The port also reports
+    each candidate's seconds, None where it raised."""
+    times = MEASURE_CASES[case]
+
+    def runner(i):
+        if times[i] is None:
+            raise RuntimeError("refused")
+        return times[i]
+
+    def never(i):
+        raise AssertionError("a kept key was measured again")
+    seen = {}
+    for name in ("ref", "port"):
+        pkg = getattr(knobs_unset, name)
+        key = ("spx_matmul", "case", case)
+        best = pkg.measured_best(key, list(range(len(times))), runner)
+        kept = pkg.measured_plan(key)
+        again = pkg.measured_best(key, list(range(len(times))),
+                                  runner if kept is None else never)
+        seen[name] = (best, kept, again)
+    assert seen["port"] == seen["ref"], seen
+    report = knobs_unset.port.measured_report()[("spx_matmul", "case", case)]
+    assert [t for _, t in report.tried] == list(times)
+    assert report.seed == 0 and report.seed_s == times[0]
+    assert report.best == seen["port"][1]
+
+
+def test_clear_plan_cache_empties_both_tables(knobs_unset):
+    """``clear_plan_cache`` drops the measured winners of both packages and
+    the port's cached launch choices (``spx_matmul``'s plans, the paged
+    kernels' splits and clusters) and its report."""
+    from repro_torch.kernels import paged_attention, spx_matmul
+    port, jref = knobs_unset.port, knobs_unset.ref
+    for pkg in (port, jref):
+        assert pkg.measured_best("k", [7, 8], lambda p: 1.0 / p) == 8
+        assert pkg.measured_plan("k") == 8
+    spx_matmul._plan(1, 784, 128, True, 16, 132)
+    paged_attention.decode_splits(4, 1, 8, 16, 16, 132)
+    paged_attention.decode_cluster(4, 1, 8, 16, 16, 132)
+    cached = (spx_matmul._plan, paged_attention.decode_splits,
+              paged_attention.decode_cluster)
+    assert all(c.cache_info().currsize for c in cached)
+    port.clear_plan_cache()
+    jref.clear_plan_cache()
+    assert port.measured_plan("k") is None and jref.measured_plan("k") is None
+    assert port.measured_report() == {}
+    assert not any(c.cache_info().currsize for c in cached + (
+        spx_matmul.library_splits, paged_attention.cluster_used))
+
+
+def test_fused_decode_key_separates_scheme_window_and_dtype(knobs_unset):
+    """The port's key is the reference's fields and the pool's dtype: a
+    coded pool, a verify window and a bf16 or f16 pool each key apart, and
+    a winner kept for one is invisible to the others."""
+    port, jref = knobs_unset.port, knobs_unset.ref
+    base = dict(b=4, hkv=2, rep=4, dh=128, page_size=16, max_pages=8)
+    for w, scheme in ((1, None), (5, None), (1, "spx_8_x3"), (1, "uniform8")):
+        assert port.fused_decode_key(w=w, kv_scheme=scheme, **base)[:-1] == \
+            jref.fused_decode_key(w=w, kv_scheme=scheme, **base)
+    keys = [port.fused_decode_key(w=w, kv_scheme=scheme, pool_dtype=dtype,
+                                  **base)
+            for w, scheme, dtype in ((1, None, "float32"),
+                                     (5, None, "float32"),
+                                     (1, "spx_8_x3", torch.uint8),
+                                     (1, "uniform8", torch.uint8),
+                                     (1, None, torch.bfloat16),
+                                     (1, None, torch.float16))]
+    assert len(set(keys)) == len(keys)
+    assert keys[4][-1] == "bfloat16" and keys[2][-1] == "uint8"
+    assert port.measured_best(keys[0], [16, 8], lambda p: p) == 8
+    assert port.measured_plan(keys[0]) == 8
+    assert all(port.measured_plan(k) is None for k in keys[1:])
+
+
+@pytest.mark.parametrize("scheme", [None, "uniform8", "spx_8_x3"],
+                         ids=["f32", "uniform8", "spx_8_x3"])
+def test_plan_fused_decode_matches_reference(knobs_unset, scheme):
+    """On the reference's TPU numbers the port's §3.1 account equals the
+    reference's field for field (its ``smem_bytes`` the reference's
+    ``vmem_bytes``); on the H100 the relations of the reference's test
+    hold: the window's rows, the 8-bit codebook resident, a coded pool's
+    margin above the dense one's, a wider window's above one row's."""
+    from repro.core.pipeline import TPU_V5E
+    from repro_torch.core.pipeline import HwSpec
+    port, jref = knobs_unset.port, knobs_unset.ref
+    tpu = HwSpec(name=TPU_V5E.name, peak_bf16_flops=TPU_V5E.peak_bf16_flops,
+                 hbm_bw=TPU_V5E.hbm_bw, ici_bw=TPU_V5E.ici_bw,
+                 vmem_bytes=TPU_V5E.vmem_bytes)
+    for w, ps, act in ((5, 16, 4), (1, 32, 2)):
+        got = port.plan_fused_decode(128, rep=4, w=w, page_size=ps,
+                                     act_bytes=act, kv_scheme=scheme, hw=tpu)
+        want = jref.plan_fused_decode(128, rep=4, w=w, page_size=ps,
+                                      act_bytes=act, kv_scheme=scheme)
+        assert (got.rows, got.lut_bytes, got.pipelined, got.smem_bytes) == \
+            (want.rows, want.lut_bytes, want.pipelined, want.vmem_bytes)
+        assert got.margin == pytest.approx(want.margin, rel=1e-12)
+    plan = port.plan_fused_decode(128, rep=4, w=5, page_size=16,
+                                  kv_scheme=scheme)
+    dense = port.plan_fused_decode(128, rep=4, w=5, page_size=16)
+    one = port.plan_fused_decode(128, rep=4, w=1, page_size=16,
+                                 kv_scheme=scheme)
+    assert plan.rows == 20 and plan.smem_bytes > 0
+    assert plan.lut_bytes == (0 if scheme is None else 4 * 256)
+    assert plan.margin > one.margin
+    if scheme is not None:
+        assert plan.margin > dense.margin
+
+
+@pytest.mark.parametrize("raw", ["", "64,128,128", " 64, 128 ,128", "64,128",
+                                 "a,b,c", "1,2,3,4"])
+def test_env_override_matches_reference(monkeypatch, knobs_unset, raw):
+    """``_env_override`` parses a pin as the reference does, read at the
+    call: the same ints, None when empty, ``ValueError`` where the
+    reference raises (a wrong count of fields, a field not an int)."""
+    monkeypatch.setenv("REPRO_BLOCKS_MATMUL", raw)
+    seen = []
+    for pkg in (knobs_unset.ref, knobs_unset.port):
+        try:
+            seen.append(pkg._env_override("REPRO_BLOCKS_MATMUL", 3))
+        except ValueError as e:
+            seen.append(type(e))
+    assert seen[0] == seen[1], seen
+
+
+@pytest.mark.parametrize("m,k,n,packed,pin,want", [
+    (64, 784, 128, True, (16, 32, 128), ("small", 16, 32, 8, 0)),
+    (4, 2048, 2048, True, (4, 256, 128), ("skinny", 0, 0, 0, 16)),
+    (128, 2048, 16384, False, (128, 256, 256), ("mma", 0, 0, 0, 8)),
+], ids=["small", "skinny", "mma"])
+def test_matmul_pin_picks_the_launch_or_raises(monkeypatch, port_planner, m,
+                                               k, n, packed, pin, want):
+    """``REPRO_BLOCKS_MATMUL`` maps (bm, bn, bk) onto a launch at the shape:
+    a small tile and 16 K rows a warp, or the decode or prefill kernel's K
+    per cluster split; read at every call, past the analytical plan. A
+    block no launch has raises ``ValueError`` naming the legal ones (the
+    reference falls back to its oracle there; the port has no
+    fallback)."""
+    planner = port_planner
+    analytical = planner.plan_spx_launch(m, k, n, packed, 16, 132)
+    monkeypatch.setenv("REPRO_BLOCKS_MATMUL", ",".join(map(str, pin)))
+    got = planner.plan_spx_launch(m, k, n, packed, 16, 132)
+    assert got == planner.SpxLaunchPlan(*want) and got != analytical
+    assert planner.spx_matmul_block(got, m, k) == pin
+    assert planner.pinned_spx_launch(m, k, n, packed, 16) == got
+    monkeypatch.setenv("REPRO_BLOCKS_MATMUL", "100,100,100")
+    with pytest.raises(ValueError, match=r"legal \(bm, bn, bk\)") as err:
+        planner.plan_spx_launch(m, k, n, packed, 16, 132)
+    assert str(pin) in str(err.value)
+    monkeypatch.delenv("REPRO_BLOCKS_MATMUL")
+    assert planner.plan_spx_launch(m, k, n, packed, 16, 132) == analytical
+
+
+@pytest.mark.parametrize("dh,legal", [
+    (256, ((32, 32), (64, 32))),
+    (128, ((32, 32), (32, 64), (64, 32), (64, 64), (128, 32), (128, 64)))])
+def test_attention_pin_picks_a_built_tile_or_raises(monkeypatch, port_planner,
+                                                    dh, legal):
+    """The flash kernel's tile: (64, 32) unset, whose block is the parent
+    kernel's 200704 bytes at dh 256; ``REPRO_BLOCKS_ATTN`` picks any built
+    tile whose block fits, at lengths no tile divides (the kernel masks
+    the tails, so the reference's divisibility rule does not apply); a
+    tile that does not fit raises naming the legal ones."""
+    planner = port_planner
+    assert planner.flash_legal_tiles(dh) == legal
+    unset = planner.plan_attention(33, 33, dh)
+    assert (unset.bq, unset.bkv) == (64, 32)
+    assert planner.flash_tile_smem_bytes(256, 64, 32) == 200704
+    for bq, bkv in legal:
+        monkeypatch.setenv("REPRO_BLOCKS_ATTN", f"{bq},{bkv}")
+        tile = planner.plan_attention(33, 17, dh)
+        assert (tile.bq, tile.bkv) == (bq, bkv)
+        assert tile.smem_bytes == planner.flash_tile_smem_bytes(dh, bq, bkv) \
+            <= planner.SMEM_MAX
+    for bad in ("128,64", "16,32", "64,128"):
+        if tuple(map(int, bad.split(","))) in legal:
+            continue
+        monkeypatch.setenv("REPRO_BLOCKS_ATTN", bad)
+        with pytest.raises(ValueError, match=str(list(legal)).replace(
+                "(", r"\(").replace(")", r"\)").replace("[", r"\[")
+                .replace("]", r"\]")):
+            planner.plan_attention(33, 33, dh)
+
+
+#: (M values, (K, N) shapes, packed, LUT size, the library splits assumed)
+CANDIDATE_SHAPES = {
+    "gemma_decode": ((1, 4, 8), GEMMA_SPX_SHAPES, True, 16, 16),
+    "gemma_prefill": ((9, 128, 2048), GEMMA_SPX_SHAPES, True, 16, 4),
+    "paper_mlp": ((1, 64, 1024, 2048), ((784, 128), (128, 10)), True, 16, 8),
+    "paper_mlp_8bit": ((1, 64, 1024), ((784, 128), (128, 10)), False, 256,
+                       8),
+    "q_network": ((1, 64), ((4, 64), (64, 64)), False, 256, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CANDIDATE_SHAPES))
+def test_spx_launch_candidates_pass_the_planners_rules(port_planner, case):
+    """What the tuner times at gemma-2b's decode and prefill keys and the
+    paper's layers: the analytical launch first (its splits the
+    library's), at most 12, no two alike, every block within the card's
+    shared memory by the planner's own rule, the small path's warps within
+    what its tile and codes allow, and each a launch a pin may name."""
+    planner = port_planner
+    ms, shapes, packed, lut, splits = CANDIDATE_SHAPES[case]
+    for m in ms:
+        for k, n in shapes:
+            cands = planner.spx_launch_candidates(m, k, n, packed, lut, 132,
+                                                  splits)
+            seed = planner.spx_analytical_launch(m, k, n, packed, lut, 132)
+            if seed.path != "small":
+                seed = planner.SpxLaunchPlan(seed.path, splits=splits)
+            assert cands[0] == seed and len(set(cands)) == len(cands) <= 12
+            assert len(cands) > 1, (m, k, n)
+            table = planner.spx_pin_table(m, k, n, packed)
+            for c in cands:
+                assert planner.spx_path_smem_bytes(c, m, k, packed) \
+                    <= planner.SMEM_MAX, (m, k, n, c)
+                assert planner.spx_matmul_block(c, m, k) in table
+                if c.path == "small":
+                    assert planner.spx_small_min_warps(packed) <= c.warps \
+                        <= planner.spx_small_max_warps(c.tile_m, c.tile_n)
+                else:
+                    assert 1 <= c.splits <= 16
+                    assert c.path == ("skinny" if m <= 8 else "mma")
+
+
+def test_paged_launch_candidates_rule():
+    """The split counts the tuner times over f32 and code pools:
+    ``decode_splits`` first, half and twice it normalised to whole
+    16-token groups and within the table; the cluster sizes asked for
+    over 16-bit pools, down by halves to 1."""
+    from repro_torch.kernels.paged_attention import (cluster_candidates,
+                                                     decode_splits,
+                                                     split_candidates,
+                                                     split_tokens)
+    assert split_candidates(4, 1, 8, 16, 16, 132) == (16, 8)
+    assert split_candidates(4, 1, 8, 128, 16, 132) == (64, 32, 128)
+    assert split_candidates(64, 8, 64, 16, 16, 132) == (1, 2)
+    for args in ((4, 1, 8, 16, 16, 132), (3, 2, 40, 7, 16, 132),
+                 (4, 1, 8, 100, 16, 132), (2, 1, 8, 33, 32, 114)):
+        cands = split_candidates(*args)
+        tokens = args[3] * args[4]
+        assert cands[0] == decode_splits(*args)
+        for s in cands:
+            assert -(-tokens // split_tokens(tokens, s)) == s
+            assert 1 <= s <= -(-tokens // 16)
+    assert cluster_candidates(16) == (16, 8, 4, 2, 1)
+    assert cluster_candidates(1) == (1,)
+
+
+def test_knobs_change_nothing_on_the_cpu(monkeypatch, port_planner):
+    """With all three variables set, the ops on CPU tensors take their
+    plain versions as before: bit-identical outputs, no launch counted,
+    the same plain calls, and no tuning."""
+    gen = torch.Generator().manual_seed(28)
+    w = torch.randn((96, 40), generator=gen)
+    qt = tq.quantize_weight(w, "sp2_4")
+    x = torch.randn((3, 96), generator=gen)
+    q = torch.randn((2, 3, 4, 32), generator=gen)
+    kv = torch.randn((2, 1, 40, 32), generator=gen)
+    pools = torch.randn((2, 9, 1, 8, 32), generator=gen)
+    bt = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    ctx = torch.tensor([5, 20], dtype=torch.int32)
+    ones = torch.ones(2, dtype=torch.int32)
+
+    def run():
+        ops.reset_op_calls()
+        out = (ops.spx_matmul(x, qt),
+               ops.flash_attention(q.repeat(1, 1, 10, 1)[:, :, :33], kv, kv),
+               ops.paged_decode_ragged(q[:, :1].transpose(1, 2)
+                                       .reshape(2, 1, 4, 32), pools[0],
+                                       pools[1], bt, ctx, ones),
+               ops.paged_attention(q[:, 0].reshape(2, 4, 32), pools[0],
+                                   pools[1], bt, ctx))
+        return out, ops.op_calls(), ops.ref_calls()
+    plain = run()
+    monkeypatch.setenv("REPRO_BLOCKS_MATMUL", "8,16,64")
+    monkeypatch.setenv("REPRO_BLOCKS_ATTN", "128,64")
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    knobbed = run()
+    assert all(torch.equal(a, b) for a, b in zip(plain[0], knobbed[0]))
+    assert plain[1] == knobbed[1] == {}
+    assert plain[2] == knobbed[2] and sum(plain[2].values()) == 4
+    assert port_planner.measured_report() == {}
+
+
+def test_available_impls():
+    """The impls of an op usable on a device, sorted: the plain version
+    anywhere, the kernel on a CUDA device; nothing for an unknown op."""
+    assert registry.available_impls("spx_matmul", "cpu") == ("ref",)
+    assert registry.available_impls("spx_matmul", torch.device("cuda")) == \
+        ("cuda", "ref")
+    for op in registry.registered_ops():
+        assert registry.available_impls(op, "cuda") == ("cuda", "ref")
+    assert registry.available_impls("no_such_op", "cuda") == ()
+
+
+@pytest.mark.gpu
+def test_cuda_spx_launch_candidates_match_plain_version(cuda, port_planner):
+    """Every launch the tuner times, at the paper's layers and gemma-2b's
+    decode and prefill keys, against the plain version (1e-4 of its
+    largest |output|), counted under its own path; and a pinned launch."""
+    from repro_torch.core import spx
+    from repro_torch.kernels import spx_matmul as sm
+    planner = port_planner
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for scheme, packed, m, k, n in (
+            ("sp2_4", True, 1, 784, 128), ("sp2_4", True, 64, 784, 128),
+            ("sp2_4", True, 1024, 128, 10), ("sp2_8", False, 1, 784, 128),
+            ("sp2_8", False, 1, 4, 64), ("sp2_4", True, 4, 2048, 2048),
+            ("sp2_4", True, 128, 2048, 256)):
+        lut = spx.codebook(spx.scheme_levels(scheme), device=cuda)
+        codes = torch.randint(0, lut.numel(), (k, n // 2 if packed else n),
+                              generator=gen, device=cuda,
+                              dtype=torch.int32).to(torch.uint8)
+        scale = torch.rand((1, n), generator=gen, device=cuda) * 0.05
+        x = torch.randn((m, k), generator=gen, device=cuda)
+        want = ref.spx_matmul_ref(x, codes, scale, lut, packed=packed)
+        cands = planner.spx_launch_candidates(
+            m, k, n, packed, lut.numel(), sms, sm.library_splits(m, k, n, sms))
+        for plan in cands:
+            ops.reset_op_calls()
+            got = sm.spx_matmul_cuda(x, codes, scale, lut, packed=packed,
+                                     plan=plan)
+            assert (got - want).abs().max() <= 1e-4 * want.abs().max(), plan
+            assert ops.path_calls() == {f"spx_matmul_{plan.path}": 1}
+
+
+@pytest.mark.gpu
+def test_cuda_flash_tiles_match_plain_version(cuda, monkeypatch,
+                                              port_planner):
+    """Each built flash tile, pinned by ``REPRO_BLOCKS_ATTN``, at every
+    head dim: causal and not, GQA 8 and 1, lengths no tile divides;
+    within 1e-4 (1 + |plain|); the library's block bytes equal the
+    planner's."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_cuda)
+    planner = port_planner
+    lib = cuda_lib.library("flash_attention")
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    for dh in HEAD_DIMS:
+        for bq, bkv in planner.FLASH_TILES:
+            built = lib.flash_attention_tile_bytes(dh, bq, bkv)
+            legal = (bq, bkv) in planner.flash_legal_tiles(dh)
+            assert built == (planner.flash_tile_smem_bytes(dh, bq, bkv)
+                             if legal else 0), (dh, bq, bkv)
+        for bq, bkv in planner.flash_legal_tiles(dh):
+            monkeypatch.setenv("REPRO_BLOCKS_ATTN", f"{bq},{bkv}")
+            for s, skv, hkv, rep in ((33, 33, 1, 8), (130, 97, 2, 1)):
+                q = torch.randn((2, hkv * rep, s, dh), generator=gen,
+                                device=cuda)
+                k, v = (torch.randn((2, hkv, skv, dh), generator=gen,
+                                    device=cuda) for _ in range(2))
+                for causal in (True, False):
+                    got = flash_attention_cuda(q, k, v, causal=causal)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   q_chunk=s)
+                    assert ((got - want).abs()
+                            <= 1e-4 * (1 + want.abs())).all(), (dh, bq, bkv)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_launch_candidates_match_plain_version(cuda, port_planner):
+    """Every split count and cluster the tuner times, over f32, code and
+    bf16 pools, in both modes: f32 and code pools within 1e-4 (1 +
+    |plain|), bf16 pools within 1e-2 of each slot's peak."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.nn.attention import kv_lut, quantize_kv
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    sms = cuda_lib.sm_count(0)
+    b, hkv, rep, dh, ps, mp = 4, 1, 8, 256, 16, 32
+    n_pages = 1 + b * mp
+    bt = torch.randperm(n_pages, generator=gen, device=cuda)[:b * mp] \
+        .reshape(b, mp).to(torch.int32)
+    ctx = torch.tensor([0, 48, 300, mp * ps - 1], dtype=torch.int32,
+                       device=cuda)
+    ones = torch.ones(b, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, hkv, rep, dh), generator=gen, device=cuda)
+    kp, vp = (torch.randn((n_pages, hkv, ps, dh), generator=gen, device=cuda)
+              for _ in range(2))
+    want = ref.paged_decode_ragged_ref(q, kp, vp, bt, ctx, ones, w=1)
+    for s in pa.launch_candidates(torch.float32, b, hkv, rep, dh, mp, ps,
+                                  sms):
+        got = pa.paged_decode_ragged_cuda(q, kp, vp, bt, ctx, ones, w=1,
+                                          plan=s)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all(), s
+    lut = kv_lut("spx_8_x3", cuda)
+    kc, ks = quantize_kv(kp, "spx_8_x3")
+    vc, vs = quantize_kv(vp, "spx_8_x3")
+    want = ref.paged_attention_quant_ref(q, kc, ks, vc, vs, bt, ctx + 1, lut)
+    for s in pa.launch_candidates(torch.uint8, b, hkv, rep, dh, mp, ps, sms):
+        got = pa.paged_attention_quant_cuda(q, kc, ks, vc, vs, bt, ctx + 1,
+                                            lut, plan=s)
+        assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all(), s
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    want = ref.paged_decode_ragged_ref(q, kb, vb, bt, ctx, ones, w=1)
+    clusters = pa.launch_candidates(torch.bfloat16, b, hkv, rep, dh, mp, ps,
+                                    sms)
+    assert clusters[0] == pa.cluster_used(
+        torch.bfloat16, dh, pa.decode_cluster(b, hkv, rep, mp, ps, sms))
+    for c in clusters:
+        got = pa.paged_decode_ragged_cuda(q, kb, vb, bt, ctx, ones, w=1,
+                                          plan=c)
+        peak = want.abs().amax(dim=(1, 2, 3), keepdim=True)
+        assert ((got - want).abs() <= 1e-2 * peak).all(), c
+
+
+@pytest.mark.gpu
+def test_cuda_autotune_ops_match_plain_versions(cuda, monkeypatch,
+                                                port_planner):
+    """Under ``REPRO_AUTOTUNE=1`` the ops measure each new key once (the
+    analytical launch first), keep the winner and launch it; the outputs
+    match the plain versions; a second call measures nothing."""
+    from repro_torch.core import spx
+    planner = port_planner
+    monkeypatch.setenv("REPRO_AUTOTUNE", "1")
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    w = torch.randn((784, 128), generator=gen, device=cuda)
+    qt = tq.quantize_weight(w, "sp2_4")
+    x = torch.randn((1, 784), generator=gen, device=cuda)
+    lut = spx.codebook(spx.scheme_levels("sp2_4"), device=cuda)
+    want = ref.spx_matmul_ref(x, qt.codes, qt.scale.reshape(1, -1), lut,
+                              packed=True)
+    got = ops.spx_matmul(x, qt)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    report = planner.measured_report()
+    assert len(report) == 1
+    (key, r), = report.items()
+    assert key[:4] == ("spx_matmul", 1, 784, 128) and r.best is not None
+    assert r.seed == planner.spx_analytical_launch(1, 784, 128, True, 16,
+                                                   key[-1])
+    ops.reset_op_calls()
+    ops.spx_matmul(x, qt)
+    assert ops.op_calls() == {"spx_matmul": 1}
+    assert planner.measured_report() == report

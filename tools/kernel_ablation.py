@@ -107,9 +107,9 @@ FLASH_CUTS = {
     "no_pv_mma": ("        mma3(o[2 * dp], ph, pl, vh[0], vh[1], vl[0], "
                   "vl[1]);\n        mma3(o[2 * dp + 1], ph, pl, vh[2], "
                   "vh[3], vl[2], vl[3]);\n", ""),
-    "no_kv_split": ("    split_rows<DH>(stage, kv_pl, kPlane, kBkv);\n"
-                    "    split_rows<DH>(stage + kBkv * DH, kv_pl + 2 * kPlane, "
-                    "kPlane, kBkv);\n", ""),
+    "no_kv_split": ("    split_rows<T, DH>(stage, kv_pl, kPlane, kBkv);\n"
+                    "    split_rows<T, DH>(stage + kBkv * DH, kv_pl + 2 * "
+                    "kPlane, kPlane, kBkv);\n", ""),
 }
 PAGED_CUTS = {
     "no_loads": ("    cp_async16(ks + t * ROWB + c * 16, kp + src, bytes);\n"
@@ -255,14 +255,15 @@ def main() -> int:
     o = torch.empty((1, hq, s, dh), device="cuda")
 
     def flash_request(lib):
-        lib.flash_attention_f32.argtypes = [P] * 4 + [I] * 7 + [
+        lib.flash_attention_f32.argtypes = [P] * 4 + [I] * 10 + [
             ctypes.c_float, P]
 
         def run():
             for q, k, v in qkv:
                 lib.flash_attention_f32(q.data_ptr(), k.data_ptr(),
                                         v.data_ptr(), o.data_ptr(), 1, hq,
-                                        hq, s, s, dh, 1, dh ** -0.5, stream)
+                                        hq, s, s, dh, 1, 0, 64, 32,
+                                        dh ** -0.5, stream)
         return run
 
     # the 16-bit paged decode kernel: gemma-2b's decode tick on bf16 pages
